@@ -1,0 +1,30 @@
+"""PyTorch and CUDA port of the near-duplicate dedup path, for one NVIDIA H100.
+
+The JAX package ``advanced_scrapper_tpu`` is the reference; this package
+mirrors its module names (``config``, ``core``, ``cpu``, ``ops``,
+``pipeline``) so each counterpart is easy to find, and imports nothing of
+it.  The one hand-written kernel lives in ``csrc/minhash.cu`` and replaces
+the Pallas kernel ``ops/pallas_minhash.py:_minhash_kernel``.
+
+Entry points run on the card: a ``device`` of ``None`` means ``"cuda"``
+and raises when CUDA is not available.  Pass ``device="cpu"`` to run the
+plain PyTorch versions of every kernel, as the tests do.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """``None`` → ``cuda``; a CUDA device without a card raises (the port
+    never drops to the CPU on its own)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: the port runs on the GPU; pass "
+            "device='cpu' to run its plain PyTorch versions"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; use cuda or cpu")
+    return dev

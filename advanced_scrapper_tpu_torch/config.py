@@ -1,0 +1,55 @@
+"""Configuration of the port: a copy of the reference's ``DedupConfig``.
+
+Same fields, same defaults (``advanced_scrapper_tpu/config.py``), so a
+configuration moves between the two packages unchanged.  The port
+implements the estimator-only path (``rerank=False``, and
+``exact_verify_band=0`` for :meth:`NearDupEngine.dedup_reps`); the engine
+raises ``NotImplementedError`` for the fields whose slice is still to come
+rather than approximating them.  ``from_env`` and the other subsystems'
+configs are not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class DedupConfig:
+    """MinHash+LSH near-dup engine (BASELINE.json north star)."""
+
+    shingle_k: int = 5       # k=5 byte shingles
+    num_perm: int = 128      # 128 permutations
+    num_bands: int = 16      # 16 coarse LSH bands
+    block_len: int = 4096    # bytes per device block (bucketed padding)
+    batch_size: int = 1024   # peak device bytes per tile = batch_size × block_len
+    sim_threshold: float = 0.70  # signature-agreement verification threshold
+    cand_subbands: int = 32  # extra fine candidate bands (0 disables)
+    fine_margin: float = 0.0  # extra estimator bar on fine-only edges
+    exact_verify_band: float = 0.72  # one-shot exact-Jaccard band (later slice)
+    exact_verify_cap: int = 8192
+    rerank: bool = True      # rerank precision tier (later slice)
+    rerank_sketch: int = 1024
+    rerank_margin: float = 0.04
+    rerank_precision_target: float = 0.96
+    rerank_recall_floor: float = 0.955
+    rerank_exact_cap: int = 8192
+    rerank_tile_rows: int = 1024
+    rerank_pair_cap: int = 1 << 16
+    seed: int = 1            # datasketch's default seed for oracle parity
+    backend: str = "scan"    # scan | pallas (both: the CUDA kernel) | oph
+    put_workers: int = 0     # pipelined dispatcher (later slice)
+    dispatch_window: int = 0  # pipelined dispatcher (later slice)
+    packed_h2d: bool = True  # one packed buffer per tile (the only transport)
+    prewarm: int = 0         # shape-set warmup (later slice)
+    stream_index: str = "exact"  # stream index (later slice)
+    bloom_bits: int = 1 << 24
+    bloom_hashes: int = 4
+    index_dir: str = ""
+    index_cut_postings: int = 1 << 16
+    index_compact_segments: int = 8
+    index_fleet: str = ""
+    index_fleet_timeout: float = 5.0
+    index_fleet_retries: int = 2
+    index_fleet_health_checks: int = 2
+    ckpt_every_batches: int = 16
