@@ -1,10 +1,14 @@
-"""Vectorised blockwise encoding of byte ranges (numpy only).
+"""Host-side cutting of texts, vectorised in numpy (no loop over rows).
 
-The reference cuts ranges with a C++ routine (``hb_encode_ranges`` in
-``advanced_scrapper_tpu/native/hostbatch.cpp``); this is the same
-function in numpy, with no Python loop over rows: every block's start is
-computed at once and the bytes are gathered through a sliding-window view
-of the blob.  A native loader for the port is a later slice.
+- :func:`segment_ranges` and :func:`chunk_ranges` describe the engine's
+  main path: articles are runs of a flat text, cut into segments of at
+  most ``S`` shingles that the kernel reads where they lie, and grouped
+  into chunks of whole articles up to a byte budget.
+- :func:`encode_blocks_ranges` is the reference's padded blockwise encoder
+  (``hb_encode_ranges`` in ``advanced_scrapper_tpu/native/hostbatch.cpp``)
+  in numpy: every block's start is computed at once and the bytes are
+  gathered through a sliding-window view of the blob.  It feeds the tile
+  path (``NearDupEngine._host_tiles``).
 """
 
 from __future__ import annotations
@@ -69,3 +73,48 @@ def encode_blocks_ranges(
         tokens[short] *= keep.astype(np.uint8)
     out_lens = np.where(lens[owners] == 0, 1, blk_len).astype(np.int32)
     return tokens, out_lens, owners
+
+
+def segment_ranges(
+    doc_off: np.ndarray, doc_len: np.ndarray, owner: np.ndarray, k: int, S: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Cut articles (byte runs ``[doc_off, doc_off + doc_len)`` of a text)
+    into segments of at most ``S`` k-shingles: ``(seg_start int64,
+    seg_shingles int32, seg_owner int32)``.
+
+    An article with ``n = max(len - k + 1, 0)`` shingles gets ``ceil(n /
+    S)`` segments; segment ``j`` starts at byte ``j * S`` of the article
+    and reads its shingles' ``k - 1`` trailing bytes too, so consecutive
+    segments overlap by ``k - 1`` bytes and every shingle lies in exactly
+    one of them.  An article with no shingle gets no segment.
+    """
+    if S < 1 or k < 1:
+        raise ValueError(f"segment size {S} and shingle width {k} must be >= 1")
+    doc_off = np.asarray(doc_off, np.int64)
+    n_valid = np.maximum(np.asarray(doc_len, np.int64) - (k - 1), 0)
+    counts = -(-n_valid // S)
+    doc = np.repeat(np.arange(len(n_valid)), counts)
+    first = np.cumsum(counts) - counts
+    j = np.arange(len(doc), dtype=np.int64) - first[doc]
+    seg_start = doc_off[doc] + j * S
+    seg_shingles = np.minimum(n_valid[doc] - j * S, S).astype(np.int32)
+    seg_owner = np.asarray(owner)[doc].astype(np.int32)
+    return seg_start, seg_shingles, seg_owner
+
+
+def chunk_ranges(doc_len: np.ndarray, budget: int) -> list[tuple[int, int]]:
+    """Cut articles, in order, into chunks ``[lo, hi)`` of whole articles
+    holding at most ``budget`` bytes; an article longer than the budget is
+    a chunk of its own.  Loops over chunks, not articles."""
+    if budget < 1:
+        raise ValueError(f"chunk budget {budget} must be >= 1")
+    ends = np.cumsum(np.asarray(doc_len, np.int64))
+    n = len(ends)
+    chunks = []
+    lo = 0
+    while lo < n:
+        before = int(ends[lo - 1]) if lo else 0
+        hi = max(int(np.searchsorted(ends, before + budget, side="right")), lo + 1)
+        chunks.append((lo, hi))
+        lo = hi
+    return chunks

@@ -2,11 +2,16 @@
 
 Counterpart of the reference's ``ops/minhash.py`` (k=5 byte shingles,
 128 permutations ``a·h + b mod 2³²``).  Every function here is device
-agnostic plain PyTorch except the two entry points that pick by the
-tensor's device: :func:`minhash_signatures` and the step built by
-:func:`make_fused_tile_step` run the plain version for a CPU tensor and
-launch the CUDA kernel (``ops.minhash_cuda``) for a CUDA tensor.  There is
-no fallback from the kernel to the plain version.
+agnostic plain PyTorch except the entry points that pick by the tensor's
+device: :func:`minhash_signatures`, :func:`fold_segments` and the step
+built by :func:`make_fused_tile_step` run the plain version for a CPU
+tensor and launch the CUDA kernel (``ops.minhash_cuda``) for a CUDA
+tensor.  There is no fallback from the kernel to the plain version.
+
+:func:`fold_segments` is the engine's main path: segments of at most
+:data:`SEGMENT_SHINGLES` shingles, read from one flat text, folded into the
+per-article accumulator.  The minimum over an article's segments is the
+minimum over its shingles, so the result does not depend on the cut.
 
 Signatures and the accumulator are ``torch.uint32`` tensors (bit-equal to
 the reference's ``uint32`` arrays); the plain arithmetic runs in ``int64``
@@ -19,6 +24,7 @@ import numpy as np
 import torch
 
 from advanced_scrapper_tpu_torch.core.hashing import MinHashParams
+from advanced_scrapper_tpu_torch.ops.minhash_cuda import check_segments
 from advanced_scrapper_tpu_torch.ops.pack import unpack_tile
 from advanced_scrapper_tpu_torch.ops.shingle import (
     U32_MASK,
@@ -27,6 +33,10 @@ from advanced_scrapper_tpu_torch.ops.shingle import (
     to_u32,
     u32_values,
 )
+
+#: Shingles per segment on the main path (at most the kernel's
+#: ``MAX_SEGMENT_SHINGLES``).
+SEGMENT_SHINGLES = 1024
 
 
 def perm_tensors(
@@ -138,6 +148,65 @@ def combine_block_signatures(
     return accumulate_block_signatures(running, block_sigs, owners)
 
 
+def fold_segments_plain(
+    running: torch.Tensor,
+    text: torch.Tensor,
+    seg_start: torch.Tensor,
+    seg_shingles: torch.Tensor,
+    seg_owner: torch.Tensor,
+    params: MinHashParams,
+    *,
+    batch_bytes: int = 1 << 22,
+) -> torch.Tensor:
+    """Plain version of the kernel's segment fold, in place on ``running``:
+    gather each segment's ``shingles + k - 1`` bytes of ``text uint8[T]``
+    into a row, take the rows' signatures, min them into their owners'
+    rows (owners outside ``[0, N)`` dropped).  Rows go ``batch_bytes`` of
+    gathered text at a time, which bounds the peak intermediate."""
+    k = params.shingle_k
+    check_segments(text.numel(), seg_start, seg_shingles, seg_owner, k)
+    dev = text.device
+    n = seg_shingles.to(dev, torch.int64)
+    keep = torch.nonzero(n > 0).flatten()
+    if not keep.numel():
+        return running
+    start, n, owner = seg_start.to(dev)[keep], n[keep], seg_owner.to(dev)[keep]
+    width = int(n.max()) + k - 1
+    col = torch.arange(width, device=dev)
+    rows = max(1, batch_bytes // width)
+    for r0 in range(0, keep.numel(), rows):
+        st, ns = start[r0 : r0 + rows], n[r0 : r0 + rows]
+        idx = torch.clamp(st[:, None] + col, max=text.numel() - 1)
+        sigs = minhash_signatures_plain(
+            text[idx], (ns + (k - 1)).to(torch.int32), params
+        )
+        accumulate_block_signatures(running, sigs, owner[r0 : r0 + rows])
+    return running
+
+
+def fold_segments(
+    running: torch.Tensor,
+    text: torch.Tensor,
+    seg_start: torch.Tensor,
+    seg_shingles: torch.Tensor,
+    seg_owner: torch.Tensor,
+    params: MinHashParams,
+    perm: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """Fold the segments of ``text`` into ``running`` in place: the CUDA
+    kernel's ``minhash_fold_segments`` for a CUDA text (``perm`` is the
+    ``(a, b)`` pair on the card, made here when not given), the plain
+    version for a CPU text."""
+    if text.device.type == "cuda":
+        from advanced_scrapper_tpu_torch.ops.minhash_cuda import minhash_fold_segments
+
+        a, b = perm if perm is not None else perm_tensors(params, text.device)
+        return minhash_fold_segments(
+            running, text, seg_start, seg_shingles, seg_owner, a, b, params.shingle_k
+        )
+    return fold_segments_plain(running, text, seg_start, seg_shingles, seg_owner, params)
+
+
 def fused_tile_step_plain(
     running: torch.Tensor,
     packed: torch.Tensor,
@@ -154,18 +223,10 @@ def fused_tile_step_plain(
     )
 
 
-def make_fused_tile_step(
-    params: MinHashParams, backend: str, device: str | torch.device
-):
-    """The per-tile step of the packed dedup path, ``step(running, packed,
-    *, rows, width) -> running``: fold one packed tile (``ops.pack``) into
-    the accumulator in place.  For a CUDA tile it launches the kernel's
-    fold entry point; for a CPU tile it runs :func:`fused_tile_step_plain`.
-
-    ``scan`` and ``pallas`` both name the signature function the
-    reference holds bit-identical across its two backends, and both take
-    the kernel here; ``oph`` is a later slice.
-    """
+def check_backend(backend: str) -> None:
+    """``scan`` and ``pallas`` name the signature function the reference
+    holds bit-identical across its two backends, and both take the kernel
+    here; ``oph`` is a later slice."""
     if backend == "oph":
         raise NotImplementedError(
             "backend='oph' (one-permutation hashing) is not ported yet; "
@@ -173,6 +234,18 @@ def make_fused_tile_step(
         )
     if backend not in ("scan", "pallas"):
         raise ValueError(f"unknown signature backend {backend!r}; use scan|pallas|oph")
+
+
+def make_fused_tile_step(
+    params: MinHashParams, backend: str, device: str | torch.device
+):
+    """The per-tile step of the packed dedup path, ``step(running, packed,
+    *, rows, width) -> running``: fold one packed tile (``ops.pack``) into
+    the accumulator in place.  For a CUDA tile it launches the kernel's
+    fold entry point; for a CPU tile it runs :func:`fused_tile_step_plain`.
+    ``backend`` is checked by :func:`check_backend`.
+    """
+    check_backend(backend)
     device = torch.device(device)
     if device.type == "cuda":
         from advanced_scrapper_tpu_torch.ops.minhash_cuda import NUM_PERM, minhash_fold

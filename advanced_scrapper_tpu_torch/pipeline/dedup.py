@@ -3,15 +3,23 @@
 Counterpart of the reference's ``pipeline/dedup.py:NearDupEngine``, its
 estimator-only path::
 
-    encode → pack → CUDA MinHash fold, tile by tile → fused LSH resolve
-    epilogue → representatives
+    chunk → segment → copy → CUDA MinHash segment fold, chunk by chunk →
+    fused LSH resolve epilogue → representatives
 
-Texts are cut into width-bucketed blocks on the host (``_host_tiles``,
-the reference's chunker), each tile is packed into one pinned buffer,
-copied to the card without blocking the host, and folded into the
-``uint32[n_bucket, 128]`` accumulator in place by the kernel; the host
-encodes the next tile meanwhile.  The LSH epilogue then runs in plain
-PyTorch on the accumulator's device.
+Articles are grouped, in order, into chunks of whole articles up to
+``CHUNK_BYTES`` (``cpu.hostbatch.chunk_ranges``).  A chunk's bytes are
+joined into one pinned buffer as they are, with no padding and no width
+buckets, and copied to the card without blocking the host; its articles
+are described as segments of at most ``ops.minhash.SEGMENT_SHINGLES``
+shingles (``cpu.hostbatch.segment_ranges``), owned by the global article
+index, and one kernel launch folds them into the ``uint32[n_bucket, 128]``
+accumulator in place.  Device memory holds one chunk at a time, whatever
+the corpus size.  The result does not depend on ``block_len`` or
+``batch_size``: every cut of an article keeps its shingle set.  The LSH
+epilogue then runs in plain PyTorch on the accumulator's device.
+
+``_host_tiles``, the reference's width-bucketed block chunker, stays for
+the tile path (``ops.minhash.make_fused_tile_step``) and its timing.
 
 What is not ported yet raises ``NotImplementedError`` naming its slice:
 the rerank tier (``cfg.rerank=True``), the one-shot exact-verify stage
@@ -36,14 +44,31 @@ from advanced_scrapper_tpu_torch.core.tokenizer import (
     tile_rows_options,
     to_bytes,
 )
-from advanced_scrapper_tpu_torch.cpu.hostbatch import block_counts, encode_blocks_ranges
+from advanced_scrapper_tpu_torch.cpu.hostbatch import (
+    block_counts,
+    chunk_ranges,
+    encode_blocks_ranges,
+    segment_ranges,
+)
 from advanced_scrapper_tpu_torch.ops.lsh import fused_resolve_epilogue, subband_salt
-from advanced_scrapper_tpu_torch.ops.minhash import make_fused_tile_step
-from advanced_scrapper_tpu_torch.ops.pack import pack_tile, packed_nbytes
+from advanced_scrapper_tpu_torch.ops.minhash import (
+    SEGMENT_SHINGLES,
+    check_backend,
+    fold_segments,
+    perm_tensors,
+)
 
 SLICE_RERANK = "slice 2 (rerank tier and one-shot exact verify)"
 SLICE_DISPATCH = "the pipelined-dispatcher slice (ROADMAP queue 1)"
 SLICE_LATER = "a later slice (ROADMAP queue 1)"
+
+#: Most bytes of text in one chunk (one copy, one kernel launch); an
+#: article longer than this is a chunk of its own.
+CHUNK_BYTES = 64 << 20
+#: Most bytes joined by one ``bytes.join`` while filling a chunk's pinned
+#: buffer: small joins reuse warm heap memory, where one large join takes
+#: fresh pages from the kernel and faults on every one of them.
+JOIN_BYTES = 4 << 20
 
 
 def _not_ported(what: str, where: str) -> NotImplementedError:
@@ -107,9 +132,11 @@ class NearDupEngine:
             shingle_k=self.cfg.shingle_k,
             seed=self.cfg.seed,
         )
-        self._step = make_fused_tile_step(self.params, self.cfg.backend, self.device)
-        #: tiles dispatched and bytes copied to the device by the last corpus
-        self.last_tiles = 0
+        check_backend(self.cfg.backend)
+        self._perm = perm_tensors(self.params, self.device)
+        #: chunks folded (one kernel launch each) and bytes copied to the
+        #: device by the last corpus
+        self.last_chunks = 0
         self.last_h2d_bytes = 0
 
     # -- host encode ---------------------------------------------------------
@@ -184,34 +211,69 @@ class NearDupEngine:
                 yield t, l, o
                 start += rows
 
+    def _host_chunks(self, raw: list):
+        """The main path's host work, lazily: per chunk of whole articles
+        (``chunk_ranges``), ``(text uint8[T], seg_start int64[G],
+        seg_shingles int32[G], seg_owner int32[G])`` CPU tensors, pinned
+        when the engine runs on the card.  The text is the chunk's bytes
+        joined as they are, ``JOIN_BYTES`` at a time; segment owners are
+        global article indices.  Chunks whose articles hold no shingle are
+        skipped."""
+        k = self.params.shingle_k
+        lens = np.fromiter(map(len, raw), np.int64, count=len(raw))
+        pin = self.device.type == "cuda"
+        for lo, hi in chunk_ranges(lens, CHUNK_BYTES):
+            off = np.zeros((hi - lo + 1,), np.int64)
+            np.cumsum(lens[lo:hi], out=off[1:])
+            start, shingles, owner = segment_ranges(
+                off[:-1], lens[lo:hi], np.arange(lo, hi), k, SEGMENT_SHINGLES
+            )
+            g = len(start)
+            if not g:
+                continue
+            text = torch.empty((int(off[-1]),), dtype=torch.uint8, pin_memory=pin)
+            buf = text.numpy()
+            for a, b in chunk_ranges(lens[lo:hi], JOIN_BYTES):
+                buf[off[a] : off[b]] = np.frombuffer(b"".join(raw[lo + a : lo + b]), np.uint8)
+            desc = torch.empty((16 * g,), dtype=torch.uint8, pin_memory=pin)
+            d = desc.numpy()
+            d[: 8 * g].view(np.int64)[:] = start
+            d[8 * g : 12 * g].view(np.int32)[:] = shingles
+            d[12 * g :].view(np.int32)[:] = owner
+            yield (
+                text,
+                desc[: 8 * g].view(torch.int64),
+                desc[8 * g : 12 * g].view(torch.int32),
+                desc[12 * g :].view(torch.int32),
+            )
+
     # -- device accumulation ---------------------------------------------------
 
     def _accumulate_device(self, raw: list) -> tuple[torch.Tensor, int]:
         """``(running, n_bucket)``: the device ``uint32[n_bucket, P]``
-        accumulator after folding every tile of ``raw`` into it.
+        accumulator after folding every chunk of ``raw`` into it.
 
-        Each tile is packed into a pinned host buffer and copied with
-        ``non_blocking=True``; the host returns to encoding the next tile
-        while the copy and the kernel run on the current stream.  PyTorch's
-        pinned-memory cache keeps a buffer out of reuse until its copy has
-        completed.  Rows past ``len(raw)`` stay all-``U32_MAX``.
+        Each chunk's pinned text and descriptors are copied with
+        ``non_blocking=True`` and folded by one kernel launch; the host
+        returns to joining the next chunk while the copy and the kernel
+        run on the current stream.  PyTorch's pinned-memory cache keeps a
+        buffer out of reuse until its copy has completed.  Rows past
+        ``len(raw)`` stay all-``U32_MAX``.
         """
         dev = self.device
         n_bucket = bucket_len(len(raw), min_bucket=64)
         running = torch.full(
             (n_bucket, self.params.num_perm), -1, dtype=torch.int32, device=dev
         ).view(torch.uint32)
-        pin = dev.type == "cuda"
-        tiles = h2d = 0
-        for t, l, o in self._host_tiles(raw):
-            rows, w = t.shape
-            buf = torch.empty(packed_nbytes(rows, w), dtype=torch.uint8, pin_memory=pin)
-            pack_tile(t, l, o, out=buf.numpy())
-            packed = buf.to(dev, non_blocking=True)
-            self._step(running, packed, rows=rows, width=w)
-            tiles += 1
-            h2d += buf.numel()
-        self.last_tiles, self.last_h2d_bytes = tiles, h2d
+        chunks = h2d = 0
+        for text, start, shingles, owner in self._host_chunks(raw):
+            fold_segments(
+                running, text.to(dev, non_blocking=True), start, shingles, owner,
+                self.params, self._perm,
+            )
+            chunks += 1
+            h2d += text.numel() + 16 * start.numel()
+        self.last_chunks, self.last_h2d_bytes = chunks, h2d
         return running, n_bucket
 
     def _fine_salt(self) -> np.ndarray:

@@ -3,13 +3,20 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernel from ``advanced_scrapper_tpu_torch/csrc`` into
-``build/kernels/``, holds it bit-equal against its plain PyTorch version
-at every width bucket, drives the port's main path —
-``NearDupEngine(...).dedup_reps_async`` at the default widths (4096-byte
-blocks, 128 permutations, 16 + 32 bands) over 65,536 ragged articles — and
-checks that every planted duplicate resolves to its source and that the
-kernel ran once per tile.  Last, the card engine and the CPU engine must
-agree on 2,048 articles.  Any failed check exits non-zero.
+``build/kernels/`` and holds its three entry points bit-equal against
+their plain PyTorch versions: ``minhash_sig`` and ``minhash_fold`` at every
+width bucket and tile shape, ``minhash_fold_segments`` on ragged articles
+of edge lengths, at every start residue, with several chunks and dropped
+owners.  Then it drives the port's main path —
+``NearDupEngine(...).dedup_reps_async`` at the default widths (128
+permutations, 16 + 32 bands) over 65,536 ragged articles — checks that
+every planted duplicate resolves to its source and that the segment kernel
+ran once per chunk, and breaks its time down.  It times each entry point
+on the card over the same corpus (the tile path over the reference
+chunker's 129 tiles, the segment path over the resident chunks) beside its
+bound and its plain version, and sweeps the segment size.  Last, the card
+engine and the CPU engine must agree on 2,048 articles.  Any failed check
+exits non-zero.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the card's name and power limit from nvidia-smi,
@@ -82,11 +89,30 @@ def cuda_ms(fn, reps: int = 1) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def timed(fn, kernel: str, reps: int = 5) -> tuple[float, float]:
+    """``(event_ms, kernel_ms)`` per call of ``fn`` after one warm call:
+    CUDA-event time of the calls as made (wrapper work, launches and any
+    other device work included), and the device time of the kernels whose
+    name holds ``kernel``, summed by ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    event_ms = cuda_ms(fn, reps)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernel_us = sum(e.device_time_total for e in prof.key_averages() if kernel in e.key)
+    assert kernel_us > 0, f"the profiler saw no {kernel} kernel"
+    return event_ms, kernel_us / reps / 1e3
+
+
 def check_kernels_vs_plain(params, cfg, dev) -> dict:
-    """Phase 3: both entry points bit-equal to the plain versions at every
-    width bucket, on odd row counts and on every tile shape of the main
-    path; every tile has an empty row, a row below k, a full row and a
-    one-shingle row."""
+    """Phase 3: both tile entry points bit-equal to the plain versions at
+    every width bucket, on odd row counts and on every tile shape of the
+    reference chunker, and at shingle widths 9 and 1; every tile has an
+    empty row, a row below k, a full row and a one-shingle row."""
+    from advanced_scrapper_tpu_torch.core.hashing import make_params
     from advanced_scrapper_tpu_torch.ops import minhash_cuda
     from advanced_scrapper_tpu_torch.ops.minhash import (
         fused_tile_step_plain,
@@ -100,43 +126,140 @@ def check_kernels_vs_plain(params, cfg, dev) -> dict:
         _tile_rows_options,
     )
 
-    k = params.shingle_k
-    a, b = perm_tensors(params, dev)
     rng = np.random.RandomState(0)
     sig0, fold0 = minhash_cuda.minhash_sig.launches, minhash_cuda.minhash_fold.launches
     cases = 0
-    for w in _prewarm_widths(cfg):
-        # odd row counts, then every tile shape the engine's chunker emits
-        for rows in (67, 193, *_tile_rows_options(_tile_bs(cfg, w))):
-            tok = rng.randint(0, 256, size=(rows, w)).astype(np.uint8)
-            lens = rng.randint(0, w + 1, size=rows).astype(np.int32)
-            lens[:4] = [0, k - 1, w, k]  # empty, below k, full width, one shingle
-            tok_d = torch.from_numpy(tok).to(dev)
-            lens_d = torch.from_numpy(lens).to(dev)
-            got = minhash_cuda.minhash_sig(tok_d, lens_d, a, b, k)
-            want = minhash_signatures_plain(tok_d, lens_d, params)
-            torch.cuda.synchronize()
-            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (
-                f"minhash_sig differs from plain at {rows}x{w}"
-            )
-            n_art = max(rows // 3, 1)
-            owners = rng.randint(0, n_art, size=rows).astype(np.int32)
-            packed = torch.from_numpy(pack_tile(tok, lens, owners)).to(dev)
-            start = rng.randint(0, 1 << 32, size=(n_art, 128), dtype=np.uint64)
-            start = torch.from_numpy(start.astype(np.uint32).view(np.int32)).to(dev)
-            run_k = start.clone().view(torch.uint32)
-            run_p = start.clone().view(torch.uint32)
-            minhash_cuda.minhash_fold(run_k, packed, rows=rows, width=w, a=a, b=b, k=k)
-            fused_tile_step_plain(run_p, packed, rows=rows, width=w, params=params)
-            torch.cuda.synchronize()
-            assert torch.equal(run_k.view(torch.int32), run_p.view(torch.int32)), (
-                f"minhash_fold differs from plain at {rows}x{w}"
-            )
-            cases += 1
+    # odd row counts, then every tile shape the engine's chunker emits; the
+    # shingle widths 9 and 1 take the kernel's run-time-width instantiation
+    shapes = [(params, w, rows) for w in _prewarm_widths(cfg)
+              for rows in (67, 193, *_tile_rows_options(_tile_bs(cfg, w)))]
+    shapes += [(make_params(shingle_k=kk), w, 67) for kk in (9, 1) for w in (64, 4096)]
+    for p, w, rows in shapes:
+        k = p.shingle_k
+        a, b = perm_tensors(p, dev)
+        tok = rng.randint(0, 256, size=(rows, w)).astype(np.uint8)
+        lens = rng.randint(0, w + 1, size=rows).astype(np.int32)
+        lens[:4] = [0, k - 1, w, k]  # empty, below k, full width, one shingle
+        tok_d = torch.from_numpy(tok).to(dev)
+        lens_d = torch.from_numpy(lens).to(dev)
+        got = minhash_cuda.minhash_sig(tok_d, lens_d, a, b, k)
+        want = minhash_signatures_plain(tok_d, lens_d, p)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (
+            f"minhash_sig differs from plain at {rows}x{w}, k={k}"
+        )
+        n_art = max(rows // 3, 1)
+        owners = rng.randint(0, n_art, size=rows).astype(np.int32)
+        packed = torch.from_numpy(pack_tile(tok, lens, owners)).to(dev)
+        start = rng.randint(0, 1 << 32, size=(n_art, 128), dtype=np.uint64)
+        start = torch.from_numpy(start.astype(np.uint32).view(np.int32)).to(dev)
+        run_k = start.clone().view(torch.uint32)
+        run_p = start.clone().view(torch.uint32)
+        minhash_cuda.minhash_fold(run_k, packed, rows=rows, width=w, a=a, b=b, k=k)
+        fused_tile_step_plain(run_p, packed, rows=rows, width=w, params=p)
+        torch.cuda.synchronize()
+        assert torch.equal(run_k.view(torch.int32), run_p.view(torch.int32)), (
+            f"minhash_fold differs from plain at {rows}x{w}, k={k}"
+        )
+        cases += 1
     sig_n = minhash_cuda.minhash_sig.launches - sig0
     fold_n = minhash_cuda.minhash_fold.launches - fold0
     assert sig_n == cases and fold_n == cases, (sig_n, fold_n, cases)
     return {"cases": cases, "widths": _prewarm_widths(cfg), "max_abs_err": 0}
+
+
+def flat_text(docs: list[bytes], lead: int = 0) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``(text uint8, doc_off int64, doc_len int64)`` of ``docs`` joined
+    after ``lead`` filler bytes."""
+    lens = np.fromiter(map(len, docs), np.int64, count=len(docs))
+    off = lead + np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    text = np.frombuffer(b"\x7f" * lead + b"".join(docs), np.uint8)
+    return text, off, lens
+
+
+def check_segments_vs_plain(params, dev) -> dict:
+    """Phase 3, segment path: ``minhash_fold_segments`` bit-equal to
+    ``fold_segments_plain`` on articles of length 0, 1, k-1, k, S+k-2,
+    S+k-1, S+k, 3S and 100 kB among random ones, at every start residue
+    mod 16 (and from a text that starts off a 16-byte boundary), for the
+    engine's segment size, the kernel's largest and an odd one; two chunks
+    fold into one accumulator, several articles share an owner, and owners
+    N-1 and N (dropped) occur.  Descriptors go on the card and pinned on
+    the host.  Shingle widths 9 and 1 take the kernel's run-time-width
+    instantiation."""
+    from advanced_scrapper_tpu_torch.core.hashing import make_params
+    from advanced_scrapper_tpu_torch.cpu.hostbatch import segment_ranges
+    from advanced_scrapper_tpu_torch.ops import minhash_cuda
+    from advanced_scrapper_tpu_torch.ops.minhash import (
+        SEGMENT_SHINGLES,
+        fold_segments_plain,
+        perm_tensors,
+    )
+
+    rng = np.random.RandomState(3)
+    cases = 0
+    residues: set[int] = set()
+    before = minhash_cuda.minhash_fold_segments.launches
+    runs = [(params, SEGMENT_SHINGLES), (params, minhash_cuda.MAX_SEGMENT_SHINGLES),
+            (params, 37), (make_params(shingle_k=9), SEGMENT_SHINGLES),
+            (make_params(shingle_k=1), 37)]
+    for p, S in runs:
+        k = p.shingle_k
+        a, b = perm_tensors(p, dev)
+        edge = [0, 1, k - 1, k, S + k - 2, S + k - 1, S + k, 3 * S, 100_000]
+        lens = np.r_[edge, rng.randint(0, 5000, size=300)]
+        rng.shuffle(lens)
+        docs = [rng.randint(0, 256, size=int(n), dtype=np.uint8).tobytes() for n in lens]
+        n_docs = len(docs)
+        owners = rng.randint(0, n_docs + 2, size=n_docs)  # shared and dropped owners
+        owners[:2] = [n_docs - 1, n_docs]
+        start = rng.randint(0, 1 << 32, size=(n_docs, 128), dtype=np.uint64)
+        start = torch.from_numpy(start.astype(np.uint32).view(np.int32)).to(dev)
+        run_k = start.clone().view(torch.uint32)
+        run_p = start.clone().view(torch.uint32)
+        half = n_docs // 2
+        for lead, part in ((3, slice(0, half)), (0, slice(half, n_docs))):  # two chunks
+            text, off, ln = flat_text(docs[part], lead)
+            seg = segment_ranges(off, ln, owners[part], k, S)
+            residues.update((seg[0] % 16).tolist())
+            full = torch.from_numpy(np.r_[np.zeros(5, np.uint8), text]).to(dev)
+            text_d = full[5:]  # starts off a 16-byte boundary
+            host = [torch.from_numpy(x).pin_memory() for x in seg]
+            card = [x.to(dev) for x in host]
+            minhash_cuda.minhash_fold_segments(run_k, text_d, *(card if lead else host), a, b, k)
+            fold_segments_plain(run_p, text_d, *card, p)
+        torch.cuda.synchronize()
+        assert torch.equal(run_k.view(torch.int32), run_p.view(torch.int32)), (
+            f"minhash_fold_segments differs from plain at S={S}, k={k}"
+        )
+        cases += 1
+    assert residues == set(range(16)), sorted(residues)
+    launches = minhash_cuda.minhash_fold_segments.launches - before
+    assert launches == 2 * cases, (launches, cases)
+    return {"cases": cases, "residues_mod_16": len(residues), "max_abs_err": 0}
+
+
+def bound_ms(int_ops: int, moved: int, clock_mhz: float) -> tuple[float, float]:
+    """(operations bound, bytes bound) in ms on one H100."""
+    ops_ms = int_ops / (INT32_OPS_PER_SM * CARD_SMS * clock_mhz * 1e6) * 1e3
+    return ops_ms, moved / HBM_BYTES_PER_S * 1e3
+
+
+def kernel_entry(name: str, launches: int, ms: float, plain_ms: float,
+                 ops_ms: float, bytes_ms: float) -> dict:
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "advanced_scrapper_tpu_torch/csrc/minhash.cu",
+        "replaces": "advanced_scrapper_tpu/ops/pallas_minhash.py:71",
+        "launches": launches,
+        "max_abs_err": 0,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": None,
+    }
 
 
 def main() -> int:
@@ -146,10 +269,21 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from advanced_scrapper_tpu_torch.config import DedupConfig
+    from advanced_scrapper_tpu_torch.core.tokenizer import to_bytes
+    from advanced_scrapper_tpu_torch.cpu.hostbatch import chunk_ranges, segment_ranges
     from advanced_scrapper_tpu_torch.ops import _build, minhash_cuda
     from advanced_scrapper_tpu_torch.ops.lsh import fused_resolve_epilogue
-    from advanced_scrapper_tpu_torch.ops.minhash import fused_tile_step_plain, perm_tensors
+    from advanced_scrapper_tpu_torch.ops.minhash import (
+        SEGMENT_SHINGLES,
+        fold_segments_plain,
+        fused_tile_step_plain,
+        make_fused_tile_step,
+        minhash_signatures,
+        minhash_signatures_plain,
+        perm_tensors,
+    )
     from advanced_scrapper_tpu_torch.ops.pack import pack_tile
+    from advanced_scrapper_tpu_torch.pipeline import dedup
     from advanced_scrapper_tpu_torch.pipeline.dedup import NearDupEngine, _jump_rounds
 
     dev = torch.device("cuda")
@@ -165,101 +299,192 @@ def main() -> int:
     cfg = DedupConfig(rerank=False, exact_verify_band=0.0)
     engine = NearDupEngine(cfg, device=dev)
     params = engine.params
+    k = params.shingle_k
     log("kernel_vs_plain", **check_kernels_vs_plain(params, cfg, dev))
+    log("segments_vs_plain", **check_segments_vs_plain(params, dev))
 
     # -- phase 4: the main path at full width ------------------------------
     docs, planted = ragged_corpus(np.random.RandomState(7), MAIN_ARTICLES)
     warm, _ = ragged_corpus(np.random.RandomState(8), WARM_ARTICLES)
     torch.cuda.synchronize()
     engine.dedup_reps_async(warm)[:WARM_ARTICLES].cpu()
+    minhash_cuda.minhash_fold_segments.launches = 0
     minhash_cuda.minhash_fold.launches = 0
     minhash_cuda.minhash_sig.launches = 0
     t0 = time.perf_counter()
     reps = engine.dedup_reps_async(docs)[:MAIN_ARTICLES].cpu().numpy()
     seconds = time.perf_counter() - t0
-    launches = minhash_cuda.minhash_fold.launches
-    tiles, h2d = engine.last_tiles, engine.last_h2d_bytes
-    assert launches == tiles > 0, f"{launches} kernel launches for {tiles} tiles"
+    seg_launches = minhash_cuda.minhash_fold_segments.launches
+    chunks, h2d = engine.last_chunks, engine.last_h2d_bytes
+    assert seg_launches == chunks > 0, f"{seg_launches} kernel launches for {chunks} chunks"
+    assert minhash_cuda.minhash_fold.launches == minhash_cuda.minhash_sig.launches == 0
     assert reps.shape == (MAIN_ARTICLES,)
     idx = np.arange(MAIN_ARTICLES)
     assert (reps <= idx).all() and (reps >= 0).all(), "a representative after its row"
     assert (reps[reps] == reps).all(), "representatives are not roots"
     missed = [i for i, s in planted.items() if reps[i] != reps[s]]
     assert not missed, f"{len(missed)} planted dups unresolved, first {missed[:5]}"
-    text_bytes = sum(map(len, docs))
+    lens = np.fromiter(map(len, docs), np.int64, count=len(docs))
+    text_bytes = int(lens.sum())
     log("main_path", articles=MAIN_ARTICLES, text_bytes=text_bytes, seconds=seconds,
-        articles_per_s=MAIN_ARTICLES / seconds, tiles=tiles, h2d_bytes=h2d,
-        fold_launches=launches, planted=len(planted),
+        articles_per_s=MAIN_ARTICLES / seconds, chunks=chunks,
+        chunk_bytes=dedup.CHUNK_BYTES, segment_shingles=SEGMENT_SHINGLES,
+        h2d_bytes=h2d, fold_segments_launches=seg_launches, planted=len(planted),
         dups=int((reps != idx).sum()), card=card)
 
-    # where the main path's time goes: host encode alone, the whole tile
-    # loop (encode, pack, copy, kernel) to a synchronise, the resolve epilogue
+    # where the main path's time goes: host prep alone (to_bytes, join into
+    # pinned buffers, descriptors), the copy of every chunk, the kernel over
+    # the resident chunks, the resolve epilogue
     t0 = time.perf_counter()
-    raw_tiles = list(engine._host_tiles(docs))
-    encode_s = time.perf_counter() - t0
+    raw = [to_bytes(d) for d in docs]
+    to_bytes_s = time.perf_counter() - t0
+    for _chunk in engine._host_chunks(raw):
+        pass  # each buffer returns to the pinned cache before the next chunk
+    host_prep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for lo, hi in chunk_ranges(lens, dedup.CHUNK_BYTES):
+        off = np.concatenate([[0], np.cumsum(lens[lo:hi - 1])]).astype(np.int64)
+        segment_ranges(off, lens[lo:hi], np.arange(lo, hi), k, SEGMENT_SHINGLES)
+    descriptors_s = time.perf_counter() - t0
+    host_chunks = list(engine._host_chunks(raw))
+    resident: list = []
+    copy_ms = cuda_ms(lambda: resident.extend(
+        [x.to(dev, non_blocking=True) for x in c] for c in host_chunks))
+    del host_chunks
     t0 = time.perf_counter()
     running, n_bucket = engine._accumulate_device(docs)
     torch.cuda.synchronize()
-    tile_loop_s = time.perf_counter() - t0
+    chunk_loop_s = time.perf_counter() - t0
     valid = engine._valid_device(docs, n_bucket)
     epilogue_ms = cuda_ms(lambda: fused_resolve_epilogue(
         running, valid, params.band_salt, engine._fine_salt(), cfg.sim_threshold,
         cfg.fine_margin, num_coarse=params.num_bands, jump_rounds=_jump_rounds(n_bucket),
         use_fine_margin=False,
     ))
-    log("main_path_breakdown", host_encode_s=encode_s, tile_loop_s=tile_loop_s,
-        epilogue_ms=epilogue_ms, card=card)
-    del running, valid
+    seg_running = running
+    del valid
 
-    # the same tiles again, resident on the card: kernel vs plain, timed
-    packed = [torch.from_numpy(pack_tile(t, l, o)).to(dev) for t, l, o in raw_tiles]
-    shapes = [t.shape for t, _l, _o in raw_tiles]
-    shingles = sum(int(np.maximum(l.astype(np.int64) - (params.shingle_k - 1), 0).sum())
-                   for _t, l, _o in raw_tiles)
     a, b = perm_tensors(params, dev)
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
 
     def fresh():
         return torch.full((n_bucket, 128), -1, dtype=torch.int32, device=dev).view(torch.uint32)
 
+    def same(x, y) -> bool:
+        return torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+    # the segment kernel over the resident chunks, timed
+    shingles = int(np.maximum(lens - (k - 1), 0).sum())
+    int_ops = 2 * 128 * shingles  # multiply-add + min per (shingle, permutation)
     run_k, run_p = fresh(), fresh()
 
-    def kernel_pass():
-        for p, (rows, w) in zip(packed, shapes):
-            minhash_cuda.minhash_fold(run_k, p, rows=rows, width=w, a=a, b=b, k=params.shingle_k)
+    def seg_pass():
+        for text, st, ns, ow in resident:
+            minhash_cuda.minhash_fold_segments(run_k, text, st, ns, ow, a, b, k)
 
-    def plain_pass():
+    def seg_plain():
+        for text, st, ns, ow in resident:
+            fold_segments_plain(run_p, text, st, ns, ow, params)
+
+    seg_event_ms, seg_ms = timed(seg_pass, "SegmentUnits")
+    seg_plain_ms = cuda_ms(seg_plain)
+    assert same(run_k, run_p) and same(run_k, seg_running), "segment accumulators differ"
+    n_seg = sum(c[1].numel() for c in resident)
+    seg_moved = text_bytes + 16 * n_seg + n_bucket * 128 * 4
+    seg_ops_ms, seg_bytes_ms = bound_ms(int_ops, seg_moved, clock_mhz)
+    log("main_path_breakdown", host_prep_s=host_prep_s, to_bytes_s=to_bytes_s,
+        descriptors_s=descriptors_s, copy_ms=copy_ms, kernel_ms=seg_ms,
+        epilogue_ms=epilogue_ms, chunk_loop_s=chunk_loop_s, chunks=len(resident),
+        segments=n_seg, card=card)
+    log("kernel_timing", name="minhash_fold_segments", launches_per_pass=len(resident),
+        shingles=shingles, int_ops=int_ops, bytes=seg_moved, clock_max_sm_mhz=clock_mhz,
+        ops_bound_ms=seg_ops_ms, bytes_bound_ms=seg_bytes_ms, ms=seg_ms,
+        event_ms=seg_event_ms, share_of_bound=max(seg_ops_ms, seg_bytes_ms) / seg_ms,
+        plain_ms=seg_plain_ms, card=card)
+    del run_k, run_p
+
+    # segment size, and chunks vs one launch: the whole corpus as one text
+    text_all = torch.frombuffer(bytearray(b"".join(docs)), dtype=torch.uint8).to(dev)
+    off_all = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    sweep = []
+    for S in (256, 512, 1024, 2048):
+        seg = [torch.from_numpy(x).to(dev) for x in segment_ranges(
+            off_all, lens, np.arange(len(docs)), k, S)]
+        run = fresh()
+        _ev, ms_s = timed(lambda: minhash_cuda.minhash_fold_segments(
+            run, text_all, *seg, a, b, k), "SegmentUnits")
+        assert same(run, seg_running), f"segment size {S} changes the accumulator"
+        ops_s, bytes_s = bound_ms(int_ops, text_bytes + 16 * len(seg[0]) + n_bucket * 512,
+                                  clock_mhz)
+        sweep.append({"segment_shingles": S, "segments": len(seg[0]), "ms": ms_s,
+                      "share_of_bound": max(ops_s, bytes_s) / ms_s})
+    log("segment_sweep", one_launch=sweep, card=card)
+    del text_all, resident, running
+
+    # the tile path, like for like with the first port: the reference
+    # chunker's tiles resident on the card, through make_fused_tile_step
+    # (minhash_fold) and minhash_signatures (minhash_sig)
+    raw_tiles = list(engine._host_tiles(docs))
+    packed = [torch.from_numpy(pack_tile(t, l, o)).to(dev) for t, l, o in raw_tiles]
+    tok_d = [(torch.from_numpy(t).to(dev), torch.from_numpy(l).to(dev)) for t, l, _o in raw_tiles]
+    shapes = [t.shape for t, _l, _o in raw_tiles]
+    tile_shingles = sum(int(np.maximum(l.astype(np.int64) - (k - 1), 0).sum())
+                        for _t, l, _o in raw_tiles)
+    assert tile_shingles == shingles, (tile_shingles, shingles)
+    step = make_fused_tile_step(params, "scan", dev)
+    run_k, run_p = fresh(), fresh()
+
+    def fold_pass():
+        for p, (rows, w) in zip(packed, shapes):
+            step(run_k, p, rows=rows, width=w)
+
+    def fold_plain():
         for p, (rows, w) in zip(packed, shapes):
             fused_tile_step_plain(run_p, p, rows=rows, width=w, params=params)
 
-    kernel_pass()  # warm
+    minhash_cuda.minhash_fold.launches = 0
+    fold_pass()  # the tile path's run: counted, and its warm-up
+    fold_launches = minhash_cuda.minhash_fold.launches
+    assert fold_launches == len(packed), (fold_launches, len(packed))
+    assert same(run_k, seg_running), "tile and segment accumulators differ"
     run_k = fresh()
-    ms = cuda_ms(kernel_pass, reps=5)
-    plain_ms = cuda_ms(plain_pass)
-    assert torch.equal(run_k.view(torch.int32), run_p.view(torch.int32)), (
-        "kernel and plain accumulators differ"
-    )
-    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
-    int_ops = 2 * 128 * shingles  # multiply-add + min per (shingle, permutation)
-    moved = sum(p.numel() for p in packed) + n_bucket * 128 * 4
-    ops_ms = int_ops / (INT32_OPS_PER_SM * CARD_SMS * clock_mhz * 1e6) * 1e3
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    kernels = [{
-        "name": "minhash_fold",
-        "route": "cuda",
-        "source": "advanced_scrapper_tpu_torch/csrc/minhash.cu",
-        "replaces": "advanced_scrapper_tpu/ops/pallas_minhash.py:71",
-        "launches": launches,
-        "max_abs_err": 0,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None,
-    }]
-    log("kernel_timing", tiles=len(packed), shingles=shingles, int_ops=int_ops,
-        bytes=moved, clock_max_sm_mhz=clock_mhz, ops_bound_ms=ops_ms,
-        bytes_bound_ms=bytes_ms, ms=ms, plain_ms=plain_ms, card=card)
-    del packed, raw_tiles, run_k, run_p
+    fold_event_ms, fold_ms = timed(fold_pass, "TileUnits")
+    fold_plain_ms = cuda_ms(fold_plain)
+    assert same(run_k, run_p), "kernel and plain tile accumulators differ"
+    fold_ops_ms, fold_bytes_ms = bound_ms(
+        int_ops, sum(p.numel() for p in packed) + n_bucket * 512, clock_mhz)
+    log("kernel_timing", name="minhash_fold", tiles=len(packed), shingles=shingles,
+        ops_bound_ms=fold_ops_ms, bytes_bound_ms=fold_bytes_ms, ms=fold_ms,
+        event_ms=fold_event_ms, share_of_bound=max(fold_ops_ms, fold_bytes_ms) / fold_ms, plain_ms=fold_plain_ms,
+        card=card)
+    del packed, run_k, run_p
+
+    minhash_cuda.minhash_sig.launches = 0
+    sigs = [minhash_signatures(t, l, params) for t, l in tok_d]  # counted, and warm-up
+    sig_launches = minhash_cuda.minhash_sig.launches
+    assert sig_launches == len(tok_d), (sig_launches, len(tok_d))
+    sig_event_ms, sig_ms = timed(
+        lambda: [minhash_cuda.minhash_sig(t, l, a, b, k) for t, l in tok_d], "TileUnits")
+    plain_sigs: list = []
+    sig_plain_ms = cuda_ms(lambda: plain_sigs.extend(
+        minhash_signatures_plain(t, l, params) for t, l in tok_d))
+    assert all(same(x, y) for x, y in zip(sigs, plain_sigs)), "minhash_sig differs from plain"
+    sig_ops_ms, sig_bytes_ms = bound_ms(
+        int_ops, sum(t.numel() + 4 * l.numel() + 512 * l.numel() for t, l in tok_d), clock_mhz)
+    log("kernel_timing", name="minhash_sig", tiles=len(tok_d), shingles=shingles,
+        ops_bound_ms=sig_ops_ms, bytes_bound_ms=sig_bytes_ms, ms=sig_ms,
+        event_ms=sig_event_ms, share_of_bound=max(sig_ops_ms, sig_bytes_ms) / sig_ms, plain_ms=sig_plain_ms,
+        card=card)
+    del tok_d, sigs, plain_sigs, raw_tiles, seg_running
+
+    kernels = [
+        kernel_entry("minhash_fold_segments", seg_launches, seg_ms, seg_plain_ms,
+                     seg_ops_ms, seg_bytes_ms),
+        kernel_entry("minhash_fold", fold_launches, fold_ms, fold_plain_ms,
+                     fold_ops_ms, fold_bytes_ms),
+        kernel_entry("minhash_sig", sig_launches, sig_ms, sig_plain_ms,
+                     sig_ops_ms, sig_bytes_ms),
+    ]
 
     # -- phase 5: card engine vs CPU engine ----------------------------------
     small, _ = ragged_corpus(np.random.RandomState(11), PARITY_ARTICLES)

@@ -1,7 +1,8 @@
 """The port's ``NearDupEngine`` on the CPU (plain versions of the kernel)
 against the JAX package's engine on the estimator-only path
-(``rerank=False``, ``exact_verify_band=0``), and the configurations the
-slice does not implement."""
+(``rerank=False``, ``exact_verify_band=0``), with the chunked segment
+path at its defaults and at budgets small enough to force many chunks, and
+the configurations the slice does not implement."""
 
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ import torch
 from advanced_scrapper_tpu.config import DedupConfig as RefConfig
 from advanced_scrapper_tpu.pipeline.dedup import NearDupEngine as RefEngine
 from advanced_scrapper_tpu_torch.config import DedupConfig
+from advanced_scrapper_tpu_torch.cpu.hostbatch import chunk_ranges
+from advanced_scrapper_tpu_torch.pipeline import dedup
 from advanced_scrapper_tpu_torch.pipeline.dedup import NearDupEngine
 from test_torch_hashing import adversarial_corpus
 
@@ -52,7 +55,37 @@ def test_engine_matches_reference(corpus, overrides):
     assert np.array_equal(reps, ref.dedup_reps(corpus))
     assert (reps != np.arange(len(corpus))).sum() > 10  # the planted dups merged
     assert np.array_equal(eng.keep(corpus), reps == np.arange(len(corpus)))
-    assert eng.last_tiles > 0 and eng.last_h2d_bytes > 0
+    assert eng.last_chunks > 0 and eng.last_h2d_bytes > 0
+
+
+@pytest.mark.parametrize(
+    "chunk_bytes,segment_shingles,join_bytes",
+    [(4096, 1024, 4 << 20), (1000, 8, 4 << 20), (64 << 20, 2048, 3000)],
+    ids=["4k-chunks", "1k-chunks-8-shingle-segments", "one-chunk-joined-in-pieces"],
+)
+def test_engine_small_chunks_match_reference(
+    corpus, monkeypatch, chunk_bytes, segment_shingles, join_bytes
+):
+    """Articles longer than a chunk, many chunks, many segments per
+    article, a chunk joined in many pieces: still bit-equal to the JAX
+    engine, one fold per chunk that holds a shingle."""
+    monkeypatch.setattr(dedup, "CHUNK_BYTES", chunk_bytes)
+    monkeypatch.setattr(dedup, "SEGMENT_SHINGLES", segment_shingles)
+    monkeypatch.setattr(dedup, "JOIN_BYTES", join_bytes)
+    ref = RefEngine(RefConfig(**BASE))
+    eng = NearDupEngine(DedupConfig(**BASE), device="cpu")
+    assert np.array_equal(eng.signatures(corpus), ref.signatures(corpus))
+    lens = np.fromiter(map(len, corpus), np.int64, count=len(corpus))
+    chunks = [(lo, hi) for lo, hi in chunk_ranges(lens, chunk_bytes)
+              if (lens[lo:hi] >= eng.params.shingle_k).any()]
+    assert eng.last_chunks == len(chunks)
+    text_bytes = sum(int(lens[lo:hi].sum()) for lo, hi in chunks)
+    assert text_bytes < eng.last_h2d_bytes < text_bytes + 16 * int(lens.sum())
+    got = eng.dedup_reps_async(corpus)
+    assert np.array_equal(got.numpy(), np.asarray(ref.dedup_reps_async(corpus)))
+    assert np.array_equal(eng.dedup_reps(corpus), ref.dedup_reps(corpus))
+    if chunk_bytes == 4096:
+        assert eng.last_chunks > 20 and (lens > chunk_bytes).any()
 
 
 def test_empty_corpus():

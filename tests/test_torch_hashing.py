@@ -1,6 +1,7 @@
 """Host-side copies in the PyTorch port against the JAX package: hash
 parameters, width buckets, the blockwise encoder and the parameter
-conversion.  Every comparison is exact."""
+conversion; and the port's own segmenter and chunker.  Every comparison is
+exact."""
 
 from __future__ import annotations
 
@@ -129,3 +130,52 @@ def test_params_from_reference_round_trip():
             128, 16, 5, 1, ref.a32.astype(np.int64), ref.b32, ref.band_salt,
             ref.a61, ref.b61,
         )
+
+
+@pytest.mark.parametrize("k,S", [(5, 8), (5, 64), (5, 1000), (1, 3), (9, 1)])
+def test_segment_ranges_cover_every_shingle_once(k, S):
+    """Every shingle position of every article lies in exactly one segment
+    of its owner; consecutive segments of an article overlap by k-1
+    bytes; articles below k bytes get none."""
+    rng = np.random.RandomState(k * 100 + S)
+    lens = np.r_[0, 1, k - 1, k, k + 1, S, S + k - 1, S + k, 3 * S + k - 1,
+                 rng.randint(0, 3000, size=60)].astype(np.int64)
+    gaps = rng.randint(0, 7, size=len(lens))  # articles need not abut
+    off = np.cumsum(np.r_[0, (lens + gaps)[:-1]]).astype(np.int64)
+    owner = rng.permutation(len(lens)) + 10
+    start, shingles, seg_owner = hostbatch.segment_ranges(off, lens, owner, k, S)
+    assert start.dtype == np.int64 and shingles.dtype == seg_owner.dtype == np.int32
+    assert (shingles >= 1).all() and (shingles <= S).all()
+    n_valid = np.maximum(lens - k + 1, 0)
+    for d in range(len(lens)):
+        mine = np.flatnonzero(seg_owner == owner[d])
+        if n_valid[d] == 0:
+            assert mine.size == 0
+            continue
+        covered = np.concatenate([np.arange(start[g], start[g] + shingles[g]) for g in mine])
+        assert np.array_equal(covered, off[d] + np.arange(n_valid[d]))  # once, in order
+        ends = start[mine] + shingles[mine] + (k - 1)  # last byte read, exclusive
+        assert ends[-1] == off[d] + lens[d]
+        assert np.array_equal(ends[:-1] - start[mine][1:], np.full(mine.size - 1, k - 1))
+
+
+def test_segment_ranges_empty_and_bad_args():
+    got = hostbatch.segment_ranges(np.zeros(0), np.zeros(0), np.zeros(0), 5, 64)
+    assert all(x.size == 0 for x in got)
+    with pytest.raises(ValueError):
+        hostbatch.segment_ranges([0], [10], [0], 5, 0)
+
+
+@pytest.mark.parametrize("budget", [1, 100, 4096, 1 << 20])
+def test_chunk_ranges_are_greedy_runs_of_whole_articles(budget):
+    rng = np.random.RandomState(budget % 97)
+    lens = np.r_[0, rng.randint(0, 9000, size=200), 0, 0, 50000].astype(np.int64)
+    chunks = hostbatch.chunk_ranges(lens, budget)
+    assert chunks[0][0] == 0 and chunks[-1][1] == len(lens)
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    for lo, hi in chunks:
+        size = int(lens[lo:hi].sum())
+        assert hi > lo and (size <= budget or hi == lo + 1)
+        if hi < len(lens):  # greedy: the next article would not have fit
+            assert size + lens[hi] > budget
+    assert hostbatch.chunk_ranges(np.zeros(0, np.int64), budget) == []

@@ -1,6 +1,7 @@
 """The port's plain MinHash versions against the JAX package: shingle
 hashes, signatures (the XLA scan path and the Pallas kernel in interpret
-mode), the packed tile step and the block combine.  All exact."""
+mode), the packed tile step, the block combine and the segment fold.  All
+exact."""
 
 from __future__ import annotations
 
@@ -9,16 +10,22 @@ import numpy as np
 import pytest
 import torch
 
+from advanced_scrapper_tpu.config import DedupConfig as RefConfig
 from advanced_scrapper_tpu.core.hashing import make_params as ref_make_params
 from advanced_scrapper_tpu.ops import minhash as ref_minhash
 from advanced_scrapper_tpu.ops import pack as ref_pack
 from advanced_scrapper_tpu.ops.pallas_minhash import minhash_signatures_pallas
 from advanced_scrapper_tpu.ops.shingle import shingle_hash as ref_shingle_hash
+from advanced_scrapper_tpu.pipeline.dedup import NearDupEngine as RefEngine
 from advanced_scrapper_tpu_torch.convert import accumulator_from_numpy
 from advanced_scrapper_tpu_torch.core.hashing import fmix32_np, make_params
-from advanced_scrapper_tpu_torch.ops import minhash, minhash_cuda
+from advanced_scrapper_tpu_torch.cpu.hostbatch import segment_ranges
+from advanced_scrapper_tpu_torch.ops import minhash, minhash_cuda, minhash_probe
 from advanced_scrapper_tpu_torch.ops.pack import pack_tile, unpack_tile
 from advanced_scrapper_tpu_torch.ops.shingle import fmix32, shingle_hash, to_u32, u32_values
+from test_torch_hashing import adversarial_corpus
+
+EDGE_LENGTHS = [0, 1, 4, 5, 6, 4095, 4096, 4097, 8191, 8192, 8193, 30000]
 
 
 @pytest.fixture(scope="module")
@@ -179,3 +186,105 @@ def test_kernel_wrappers_reject_what_the_kernel_does_not_take(params):
         minhash.make_fused_tile_step(params, "oph", "cpu")
     with pytest.raises(ValueError, match="unknown signature backend"):
         minhash.make_fused_tile_step(params, "bogus", "cpu")
+
+
+@pytest.fixture(scope="module")
+def segment_corpus():
+    """The adversarial corpus plus the segment and block edge lengths, and
+    the JAX engine's signatures of it."""
+    rng = np.random.RandomState(21)
+    docs = adversarial_corpus(rng, 64) + [
+        rng.randint(32, 127, size=n, dtype=np.uint8).tobytes() for n in EDGE_LENGTHS
+    ]
+    ref = RefEngine(RefConfig(rerank=False, exact_verify_band=0.0))
+    return docs, np.asarray(ref.signatures(docs))
+
+
+def _segments(docs, k, S, owner=None, lead=0):
+    lens = np.fromiter(map(len, docs), np.int64, count=len(docs))
+    off = lead + np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    text = torch.from_numpy(np.frombuffer(bytes(lead) + b"".join(docs), np.uint8).copy())
+    owner = np.arange(len(docs)) if owner is None else owner
+    seg = [torch.from_numpy(x) for x in segment_ranges(off, lens, owner, k, S)]
+    return text, seg
+
+
+def _fresh(n):
+    return to_u32(torch.full((n, 128), 0xFFFFFFFF, dtype=torch.int64))
+
+
+@pytest.mark.parametrize("S", [8, 64, 1000])
+def test_fold_segments_plain_matches_reference_engine(params, segment_corpus, S):
+    docs, want = segment_corpus
+    text, seg = _segments(docs, params.shingle_k, S, lead=3)
+    running = _fresh(len(docs))
+    out = minhash.fold_segments_plain(running, text, *seg, params)
+    assert out.data_ptr() == running.data_ptr()  # folded in place
+    assert np.array_equal(_u32(running), want)
+    running = _fresh(len(docs))
+    minhash.fold_segments(running, text, *seg, params)  # the CPU dispatch
+    assert np.array_equal(_u32(running), want)
+
+
+def test_fold_segments_plain_shared_dropped_owners_and_chunks(params, segment_corpus):
+    """Several articles and two separate texts fold into shared owners of
+    a random accumulator; owners N and N+1 are dropped."""
+    docs, sigs = segment_corpus
+    rng = np.random.RandomState(5)
+    n = 40
+    owner = rng.randint(0, n + 2, size=len(docs))
+    owner[:2] = [n - 1, n]
+    start = rng.randint(0, 1 << 32, size=(n, 128), dtype=np.uint64).astype(np.uint32)
+    want = start.copy()
+    for d, o in enumerate(owner):
+        if o < n:
+            want[o] = np.minimum(want[o], sigs[d])
+    running = accumulator_from_numpy(start, "cpu")
+    half = len(docs) // 2
+    for part in (slice(0, half), slice(half, len(docs))):
+        text, seg = _segments(docs[part], params.shingle_k, 64, owner[part])
+        minhash.fold_segments_plain(running, text, *seg, params, batch_bytes=4096)
+    assert np.array_equal(_u32(running), want)
+
+
+def test_segment_wrapper_rejects_what_the_kernel_does_not_take(params):
+    k = params.shingle_k
+    a, b = minhash.perm_tensors(params, "cpu")
+    text = torch.zeros(100, dtype=torch.uint8)
+    running = torch.zeros((4, 128), dtype=torch.uint32)
+    good = [torch.tensor([0, 50], dtype=torch.int64), torch.tensor([10, 46], dtype=torch.int32),
+            torch.tensor([0, 3], dtype=torch.int32)]
+
+    def call(*seg, a=a, b=b):
+        return minhash_cuda.minhash_fold_segments(running, text, *seg, a, b, k)
+
+    with pytest.raises(ValueError, match="CUDA tensors"):  # no fallback to plain
+        call(*good)
+    a64 = torch.zeros(64, dtype=torch.uint32)
+    with pytest.raises(ValueError, match="128 perms"):
+        call(*good, a=a64, b=a64)
+    with pytest.raises(TypeError, match="seg_start"):
+        call(good[0].to(torch.int32), *good[1:])
+    with pytest.raises(TypeError, match="seg_owner"):
+        call(*good[:2], good[2].to(torch.int64))
+    with pytest.raises(ValueError, match="one length"):
+        call(*good[:2], good[2][:1])
+    with pytest.raises(ValueError, match="past the text"):
+        call(torch.tensor([0, 51], dtype=torch.int64), *good[1:])
+    with pytest.raises(ValueError, match=">= 0"):
+        call(torch.tensor([-1, 0], dtype=torch.int64), *good[1:])
+    with pytest.raises(ValueError, match="shingle counts"):
+        call(good[0], torch.tensor([0, minhash_cuda.MAX_SEGMENT_SHINGLES + 1], dtype=torch.int32),
+             good[2])
+    with pytest.raises(ValueError, match="past the text"):  # the plain version checks too
+        minhash.fold_segments_plain(_fresh(4), text, torch.tensor([0, 51]), *good[1:], params)
+
+
+@pytest.mark.parametrize("name", sorted(minhash_probe.VARIANTS))
+def test_probe_variants_apply_to_the_kernel_source(name):
+    """Every variant of the card-side tuning probe still finds the text it
+    swaps in ``csrc/minhash.cu``."""
+    edits, _exact = minhash_probe.VARIANTS[name]
+    src = minhash_probe._variant_source(edits)
+    assert "minhash_fold_kernel" in src
+    assert (src != minhash_probe._variant_source([])) == bool(edits)
