@@ -1,12 +1,14 @@
 """Configuration of the port: a copy of the reference's ``DedupConfig``.
 
 Same fields, same defaults (``advanced_scrapper_tpu/config.py``), so a
-configuration moves between the two packages unchanged.  The port
-implements the estimator-only path (``rerank=False``, and
-``exact_verify_band=0`` for :meth:`NearDupEngine.dedup_reps`); the engine
-raises ``NotImplementedError`` for the fields whose slice is still to come
-rather than approximating them.  ``from_env`` and the other subsystems'
-configs are not ported yet.
+configuration moves between the two packages unchanged.  The defaults run:
+the rerank tier (``rerank=True``), the one-shot exact verify
+(``exact_verify_band``) and the estimator-only path (``rerank=False,
+exact_verify_band=0``).  The engine raises ``NotImplementedError`` for the
+fields whose slice is still to come (``backend="oph"``,
+``packed_h2d=False``, ``prewarm``) rather than approximating them; the
+dispatcher and stream-index fields are read by nothing yet.
+``from_env`` and the other subsystems' configs are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,15 +28,15 @@ class DedupConfig:
     sim_threshold: float = 0.70  # signature-agreement verification threshold
     cand_subbands: int = 32  # extra fine candidate bands (0 disables)
     fine_margin: float = 0.0  # extra estimator bar on fine-only edges
-    exact_verify_band: float = 0.72  # one-shot exact-Jaccard band (later slice)
+    exact_verify_band: float = 0.72  # one-shot exact-Jaccard band
     exact_verify_cap: int = 8192
-    rerank: bool = True      # rerank precision tier (later slice)
+    rerank: bool = True      # rerank precision tier
     rerank_sketch: int = 1024
     rerank_margin: float = 0.04
     rerank_precision_target: float = 0.96
     rerank_recall_floor: float = 0.955
     rerank_exact_cap: int = 8192
-    rerank_tile_rows: int = 1024
+    rerank_tile_rows: int = 1024  # the reference's pair tiles (unused: no tiles here)
     rerank_pair_cap: int = 1 << 16
     seed: int = 1            # datasketch's default seed for oracle parity
     backend: str = "scan"    # scan | pallas (both: the CUDA kernel) | oph

@@ -205,6 +205,58 @@ def resolve_rep_bands(
     return _label_components(rep_bands, ok, valid, jump_rounds)
 
 
+def resolve_rep_bands_from_ok(
+    rep_bands: torch.Tensor, ok: torch.Tensor, valid: torch.Tensor, *, jump_rounds: int
+) -> torch.Tensor:
+    """:func:`resolve_rep_bands` with the verified-edge matrix ``ok
+    bool[B, nc]`` supplied (edited on the host by exact verify, or the
+    rerank tier's rewritten cells): ``int32[B]`` component labels."""
+    return _label_components(rep_bands, ok, valid, jump_rounds)
+
+
+def borderline_edge_mask(
+    rep_bands: torch.Tensor,
+    sig: torch.Tensor,
+    keys: torch.Tensor,
+    valid: torch.Tensor,
+    base: float,
+    band: float,
+    *,
+    num_coarse: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(need bool[B, nc], ok bool[B, nc])``: ``ok`` is every candidate
+    edge whose agreement clears ``base`` (both endpoints valid); ``need``
+    the real edges among them (not self) that exact Jaccard must confirm:
+    fine-only ones (no coarse band shared) at any agreement, and the rest
+    below ``band``.  Agreement, ``base`` and ``band`` compare in float32,
+    as the reference does."""
+    B = rep_bands.shape[0]
+    P = sig.shape[1]
+    dev = sig.device
+    s32 = sig.view(torch.int32)
+    idx = torch.arange(B, device=dev)
+    base_t = torch.tensor(base, dtype=torch.float32, device=dev)
+    band_t = torch.tensor(band, dtype=torch.float32, device=dev)
+    need_parts, ok_parts = [], []
+    for _c0, cand, fine_only in _fine_only_chunks(rep_bands, keys, num_coarse):
+        agree = (s32[:, None, :] == s32[cand]).sum(dim=2).to(torch.float32) / P
+        ok = (agree >= base_t) & valid[:, None] & valid[cand]
+        need_parts.append(ok & (cand != idx[:, None]) & (fine_only | (agree < band_t)))
+        ok_parts.append(ok)
+    return torch.cat(need_parts, dim=1), torch.cat(ok_parts, dim=1)
+
+
+def fused_candidate_epilogue(
+    sig_acc: torch.Tensor, valid: torch.Tensor, band_salt, fine_salt
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(sigs, keys, rep_bands)`` from the signature accumulator: the
+    front half of :func:`fused_resolve_epilogue`, for callers that edit
+    the candidates between candidacy and resolution (the rerank tier,
+    exact verify).  ``sigs`` is the accumulator itself."""
+    keys = _coarse_fine_keys(sig_acc, band_salt, fine_salt)
+    return sig_acc, keys, duplicate_rep_bands(keys, valid)
+
+
 def fused_resolve_epilogue(
     sig_acc: torch.Tensor,
     valid: torch.Tensor,
@@ -220,8 +272,7 @@ def fused_resolve_epilogue(
     """The whole estimator-only resolution from the signature accumulator:
     coarse+fine keys → per-band candidates → (optional) per-edge fine bars
     → verification and component labels.  Returns ``int32[B]``."""
-    keys = _coarse_fine_keys(sig_acc, band_salt, fine_salt)
-    rep_bands = duplicate_rep_bands(keys, valid)
+    _sig, keys, rep_bands = fused_candidate_epilogue(sig_acc, valid, band_salt, fine_salt)
     thr = (
         fine_edge_thresholds(rep_bands, keys, base, fine_margin, num_coarse=num_coarse)
         if use_fine_margin

@@ -1,10 +1,10 @@
 """Near-duplicate dedup engine on the card.
 
-Counterpart of the reference's ``pipeline/dedup.py:NearDupEngine``, its
-estimator-only path::
+Counterpart of the reference's ``pipeline/dedup.py:NearDupEngine``::
 
     chunk → segment → copy → CUDA MinHash segment fold, chunk by chunk →
-    fused LSH resolve epilogue → representatives
+    LSH candidate epilogue → [rerank tier | exact verify] → resolve →
+    representatives
 
 Articles are grouped, in order, into chunks of whole articles up to
 ``CHUNK_BYTES`` (``cpu.hostbatch.chunk_ranges``).  A chunk's bytes are
@@ -15,17 +15,24 @@ shingles (``cpu.hostbatch.segment_ranges``), owned by the global article
 index, and one kernel launch folds them into the ``uint32[n_bucket, 128]``
 accumulator in place.  Device memory holds one chunk at a time, whatever
 the corpus size.  The result does not depend on ``block_len`` or
-``batch_size``: every cut of an article keeps its shingle set.  The LSH
-epilogue then runs in plain PyTorch on the accumulator's device.
+``batch_size``: every cut of an article keeps its shingle set.
+
+With no ``rerank_hook``, :meth:`NearDupEngine.dedup_reps_async` resolves
+in one plain-PyTorch epilogue on the accumulator's device.  The default
+configuration installs the rerank tier (``pipeline.rerank.RerankTier``)
+as the hook: the candidate matrix and the signatures cross to the host,
+the tier settles the pairs (its Jaccard on the card) and rewrites the
+matrix, which goes back to the card to be resolved.  Without the tier,
+:meth:`NearDupEngine.dedup_reps` confirms borderline edges by exact
+Jaccard (``exact_verify_band``) before resolving.
 
 ``_host_tiles``, the reference's width-bucketed block chunker, stays for
 the tile path (``ops.minhash.make_fused_tile_step``) and its timing.
 
 What is not ported yet raises ``NotImplementedError`` naming its slice:
-the rerank tier (``cfg.rerank=True``), the one-shot exact-verify stage
-(``dedup_reps`` with ``exact_verify_band > 0``), the ``oph`` backend, the
-legacy unpacked transport (``packed_h2d=False``), ``prewarm`` and the
-sharded, stream-index and fleet methods.
+the ``oph`` backend, the legacy unpacked transport (``packed_h2d=False``),
+``prewarm``, the rerank tier's index re-probe, and the sharded,
+stream-index and fleet methods.
 """
 
 from __future__ import annotations
@@ -50,16 +57,25 @@ from advanced_scrapper_tpu_torch.cpu.hostbatch import (
     encode_blocks_ranges,
     segment_ranges,
 )
-from advanced_scrapper_tpu_torch.ops.lsh import fused_resolve_epilogue, subband_salt
+from advanced_scrapper_tpu_torch.cpu.oracle import jaccard, shingle_set
+from advanced_scrapper_tpu_torch.ops.lsh import (
+    borderline_edge_mask,
+    fine_edge_thresholds,
+    fused_candidate_epilogue,
+    fused_resolve_epilogue,
+    resolve_rep_bands,
+    resolve_rep_bands_from_ok,
+    subband_salt,
+)
 from advanced_scrapper_tpu_torch.ops.minhash import (
     SEGMENT_SHINGLES,
     check_backend,
     fold_segments,
     perm_tensors,
 )
+from advanced_scrapper_tpu_torch.pipeline.clock import StageClock
+from advanced_scrapper_tpu_torch.pipeline.rerank import SLICE_DISPATCH, RerankTier
 
-SLICE_RERANK = "slice 2 (rerank tier and one-shot exact verify)"
-SLICE_DISPATCH = "the pipelined-dispatcher slice (ROADMAP queue 1)"
 SLICE_LATER = "a later slice (ROADMAP queue 1)"
 
 #: Most bytes of text in one chunk (one copy, one kernel launch); an
@@ -120,8 +136,6 @@ class NearDupEngine:
     ):
         self.cfg = cfg or DedupConfig()
         self.device = resolve_device(device)
-        if self.cfg.rerank:
-            raise _not_ported("the rerank precision tier (cfg.rerank=True)", SLICE_RERANK)
         if not self.cfg.packed_h2d:
             raise _not_ported("the unpacked tile transport (packed_h2d=False)", SLICE_LATER)
         if self.cfg.prewarm:
@@ -138,6 +152,23 @@ class NearDupEngine:
         #: device by the last corpus
         self.last_chunks = 0
         self.last_h2d_bytes = 0
+        #: the hook on the candidates → resolve edge: every resolution path
+        #: passes the candidate matrix through it (None = pass-through).
+        #: ``cfg.rerank`` installs the precision tier, kept as
+        #: ``rerank_tier`` for its per-corpus stats
+        self.rerank_hook = None
+        self.rerank_tier = None
+        if self.cfg.rerank:
+            self.rerank_tier = RerankTier(self.cfg, self.params, device=self.device)
+            self.rerank_hook = self.rerank_tier
+        #: whether the last corpus's candidates passed through an
+        #: authoritative hook, whose rewritten cells are resolved as they are
+        self._rerank_applied = False
+        #: host-clock seconds and device times of the last hooked or
+        #: verified corpus's stages, and the exact checks of the last
+        #: exact verify
+        self.last_clock = StageClock(self.device)
+        self.last_exact_checks = 0
 
     # -- host encode ---------------------------------------------------------
 
@@ -288,12 +319,105 @@ class NearDupEngine:
             )
         return subband_salt(cs)
 
-    def _valid_device(self, raw: list, n_bucket: int) -> torch.Tensor:
-        """Device ``bool[n_bucket]``: rows with at least one k-shingle."""
+    def _valid_host(self, raw: list, n_bucket: int) -> np.ndarray:
+        """``bool[n_bucket]``: rows with at least one k-shingle."""
         lens = np.fromiter(map(len, raw), np.int64, count=len(raw))
         valid = np.zeros((n_bucket,), bool)
         valid[: len(raw)] = lens >= self.params.shingle_k
-        return torch.from_numpy(valid).to(self.device)
+        return valid
+
+    def _valid_device(self, raw: list, n_bucket: int) -> torch.Tensor:
+        """Device ``bool[n_bucket]``: rows with at least one k-shingle."""
+        return torch.from_numpy(self._valid_host(raw, n_bucket)).to(self.device)
+
+    def _prepare(self, texts: Sequence[str | bytes]):
+        """Front half of the hooked and verified paths: encode → device
+        accumulator → candidate epilogue → the hook, if any.  With a hook,
+        ``sigs``, ``rep_bands`` and ``valid`` cross to the host (the
+        signatures as their ``int32`` view, read as ``uint32``), the hook
+        rewrites the matrix, and the rewritten matrix goes back to the
+        device.  Returns ``(raw, sigs, keys, valid, rep_bands, n_bucket)``
+        on the device.  A new ``last_clock`` laps ``fold`` (encode, copy,
+        fold), ``candidate_epilogue`` and, with a hook, ``readback``,
+        ``hook`` and ``writeback``; the caller laps ``resolve``."""
+        clock = self.last_clock = StageClock(self.device)
+        raw = [to_bytes(t) for t in texts]
+        running, n_bucket = self._accumulate_device(raw)
+        clock.lap("fold")
+        valid_host = self._valid_host(raw, n_bucket)
+        valid = torch.from_numpy(valid_host).to(self.device)
+        sigs, keys, rep_bands = fused_candidate_epilogue(
+            running, valid, self.params.band_salt, self._fine_salt()
+        )
+        clock.lap("candidate_epilogue")
+        self._rerank_applied = False
+        if self.rerank_hook is None:
+            return raw, sigs, keys, valid, rep_bands, n_bucket
+        sigs_host = sigs.view(torch.int32).cpu().numpy().view(np.uint32)
+        rb_host = rep_bands.cpu().numpy()
+        clock.lap("readback")
+        rb_host = np.asarray(self.rerank_hook(raw, sigs_host, rb_host, valid_host))
+        clock.lap("hook")
+        rep_bands = torch.from_numpy(rb_host).to(self.device)
+        clock.lap("writeback")
+        self._rerank_applied = bool(getattr(self.rerank_hook, "authoritative", False))
+        return raw, sigs, keys, valid, rep_bands, n_bucket
+
+    def _resolve_authoritative(self, rep_bands, valid, n_bucket) -> torch.Tensor:
+        """An authoritative hook's rewritten cells are settled edges: every
+        non-self cell is resolved as it is (no ``valid`` mask on ``ok``)."""
+        idx = torch.arange(rep_bands.shape[0], dtype=rep_bands.dtype, device=rep_bands.device)
+        ok = rep_bands != idx[:, None]
+        return resolve_rep_bands_from_ok(
+            rep_bands, ok, valid, jump_rounds=_jump_rounds(n_bucket)
+        )
+
+    def _exact_verified_ok(self, raw, sigs, keys, valid, rep_bands):
+        """The verified-edge matrix with its fragile edges confirmed or
+        refuted by exact shingle-set Jaccard (``cpu.oracle``).
+
+        ``borderline_edge_mask`` flags the edges that clear
+        ``sim_threshold`` but are fine-only or below ``exact_verify_band``;
+        they are walked in row-major order, each undirected pair settled
+        once.  Past ``exact_verify_cap`` exact checks a pair keeps the
+        estimator's verdict at the strict bar ``sim_threshold +
+        fine_margin``.  Returns ``ok`` (on the device when nothing was
+        flagged, else on the host) and the number of exact checks."""
+        cfg = self.cfg
+        need_dev, ok_dev = borderline_edge_mask(
+            rep_bands, sigs, keys, valid, cfg.sim_threshold, cfg.exact_verify_band,
+            num_coarse=self.params.num_bands,
+        )
+        need = need_dev.cpu().numpy()
+        if not need.any():
+            return ok_dev, 0
+        rb = rep_bands.cpu().numpy()
+        ok = ok_dev.cpu().numpy().copy()
+        pairs: dict[tuple[int, int], bool] = {}  # an edge is undirected
+        shingles: dict[int, set] = {}
+
+        def sset(i: int) -> set:
+            if i not in shingles:
+                shingles[i] = shingle_set(raw[i], self.params.shingle_k)
+            return shingles[i]
+
+        checked = 0
+        sigs_np = None
+        for r, c in zip(*(x.tolist() for x in np.nonzero(need))):
+            j = int(rb[r, c])
+            key = (min(r, j), max(r, j))
+            if key not in pairs:
+                if checked >= cfg.exact_verify_cap:
+                    if sigs_np is None:
+                        sigs_np = sigs.view(torch.int32).cpu().numpy()
+                    agree = float((sigs_np[key[0]] == sigs_np[key[1]]).mean())
+                    pairs[key] = agree >= cfg.sim_threshold + cfg.fine_margin
+                else:
+                    checked += 1
+                    pairs[key] = jaccard(sset(key[0]), sset(key[1])) >= cfg.sim_threshold
+            if not pairs[key]:
+                ok[r, c] = False  # exact Jaccard (or the strict bar) refuted it
+        return ok, checked
 
     # -- public API ------------------------------------------------------------
 
@@ -305,9 +429,33 @@ class NearDupEngine:
         return running[: len(texts)].view(torch.int32).cpu().numpy().view(np.uint32)
 
     def dedup_reps_async(self, texts: Sequence[str | bytes]) -> torch.Tensor:
-        """The device ``int32[bucket_len(N)]`` representatives, without
-        waiting for the device: encode → tiles → one resolve epilogue.
-        Rows past ``len(texts)`` are padding (invalid, self-assigned)."""
+        """The device ``int32[bucket_len(N)]`` representatives.  Rows past
+        ``len(texts)`` are padding (invalid, self-assigned).
+
+        Without a hook it does not wait for the device: encode → chunks →
+        one resolve epilogue.  A hook needs the candidate matrix on the
+        host, so the hooked path syncs there; it resolves an authoritative
+        hook's cells as they are, others by signature agreement (with the
+        fine-only bars when ``fine_margin`` is set)."""
+        if self.rerank_hook is not None:
+            _raw, sigs, keys, valid, rep_bands, n_bucket = self._prepare(texts)
+            if self._rerank_applied:
+                rep = self._resolve_authoritative(rep_bands, valid, n_bucket)
+            else:
+                cfg = self.cfg
+                thr = (
+                    fine_edge_thresholds(
+                        rep_bands, keys, cfg.sim_threshold, cfg.fine_margin,
+                        num_coarse=self.params.num_bands,
+                    )
+                    if cfg.cand_subbands and cfg.fine_margin
+                    else cfg.sim_threshold
+                )
+                rep = resolve_rep_bands(
+                    rep_bands, sigs, valid, thr, jump_rounds=_jump_rounds(n_bucket)
+                )
+            self.last_clock.lap("resolve")
+            return rep
         raw = [to_bytes(t) for t in texts]
         running, n_bucket = self._accumulate_device(raw)
         cfg = self.cfg
@@ -324,17 +472,30 @@ class NearDupEngine:
         )
 
     def dedup_reps(self, texts: Sequence[str | bytes]) -> np.ndarray:
-        """``int32[N]`` first-seen-wins representative per text
-        (estimator-only: ``exact_verify_band`` must be 0 in this slice)."""
-        if self.cfg.exact_verify_band:
-            raise _not_ported(
-                "dedup_reps with exact_verify_band > 0 (one-shot exact verify)",
-                SLICE_RERANK,
-            )
+        """``int32[N]`` first-seen-wins representative per text, the
+        certified one-shot path: with ``exact_verify_band`` set, edges are
+        resolved as an authoritative hook rewrote them, else after exact
+        verify (:meth:`_exact_verified_ok`); without it, as
+        :meth:`dedup_reps_async` resolves them."""
         n = len(texts)
         if n == 0:
             return np.zeros((0,), np.int32)
-        return self.dedup_reps_async(texts)[:n].cpu().numpy()
+        if not self.cfg.exact_verify_band:
+            return self.dedup_reps_async(texts)[:n].cpu().numpy()
+        raw, sigs, keys, valid, rep_bands, n_bucket = self._prepare(texts)
+        if self._rerank_applied:
+            rep = self._resolve_authoritative(rep_bands, valid, n_bucket)
+        else:
+            ok, self.last_exact_checks = self._exact_verified_ok(
+                raw, sigs, keys, valid, rep_bands
+            )
+            rep = resolve_rep_bands_from_ok(
+                rep_bands, torch.as_tensor(ok, device=self.device), valid,
+                jump_rounds=_jump_rounds(n_bucket),
+            )
+        out = rep[:n].cpu().numpy()
+        self.last_clock.lap("resolve")
+        return out
 
     def keep(self, texts: Sequence[str | bytes]) -> np.ndarray:
         reps = self.dedup_reps(texts)

@@ -2,21 +2,38 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernel from ``advanced_scrapper_tpu_torch/csrc`` into
-``build/kernels/`` and holds its three entry points bit-equal against
-their plain PyTorch versions: ``minhash_sig`` and ``minhash_fold`` at every
-width bucket and tile shape, ``minhash_fold_segments`` on ragged articles
-of edge lengths, at every start residue, with several chunks and dropped
-owners.  Then it drives the port's main path —
-``NearDupEngine(...).dedup_reps_async`` at the default widths (128
-permutations, 16 + 32 bands) over 65,536 ragged articles — checks that
-every planted duplicate resolves to its source and that the segment kernel
-ran once per chunk, and breaks its time down.  It times each entry point
-on the card over the same corpus (the tile path over the reference
-chunker's 129 tiles, the segment path over the resident chunks) beside its
-bound and its plain version, and sweeps the segment size.  Last, the card
-engine and the CPU engine must agree on 2,048 articles.  Any failed check
-exits non-zero.
+Builds the CUDA kernels from ``advanced_scrapper_tpu_torch/csrc`` into
+``build/kernels/`` (one ``nvcc`` per source, all at once) and holds every
+entry point bit-equal against its plain PyTorch version: ``minhash_sig``
+and ``minhash_fold`` at every width bucket and tile shape,
+``minhash_fold_segments`` on ragged articles of edge lengths, at every
+start residue, with several chunks and dropped owners, and the rerank
+settle ``rerank_settle`` at sketch widths 1,024, 256 and 37 on up to
+65,536 pairs with its edge cases.  Then it drives the port's paths, each
+with the launch counters set to 0 just before and read just after:
+
+- the estimator-only path, ``NearDupEngine(DedupConfig(rerank=False,
+  exact_verify_band=0)).dedup_reps_async`` at the default widths (128
+  permutations, 16 + 32 bands) over 65,536 ragged articles, timed on
+  its second call (the first call's time beside it, and what a fresh
+  64 MiB pinned buffer costs): every planted duplicate resolves to its
+  source, the segment kernel ran once per chunk; its time broken down,
+  each MinHash entry point timed on the same corpus beside its bound and
+  plain version, the segment size swept;
+- the default engine, ``NearDupEngine().dedup_reps`` (the rerank tier,
+  exact verify at 0.72), over 3 corpora of 4,096 near-dup-heavy articles
+  after a warm one: ``rerank_settle`` ran once per corpus; articles/s, the
+  tier's stats and the engine's and tier's own per-stage host seconds and
+  device times (``last_clock``); the settle kernel timed on the tier's
+  last inputs beside its bound and plain version;
+- the certified path without the tier, ``DedupConfig(rerank=False)``, on
+  the same corpora;
+- the default engine once over the 65,536 ragged articles: every planted
+  duplicate resolves to its source.
+
+Last, the card engines and the CPU engines (estimator-only, default,
+``rerank=False``) must agree on 2,048 articles.  Any failed check exits
+non-zero.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the card's name and power limit from nvidia-smi,
@@ -31,6 +48,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -38,6 +56,8 @@ import torch
 MAIN_ARTICLES = 65536
 WARM_ARTICLES = 4096
 PARITY_ARTICLES = 2048
+RERANK_ARTICLES = 4096  # bench.py's rerank regime: 4,096 articles x 3 corpora
+RERANK_CORPORA = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # INT32 lane-operations per SM per clock on Hopper: IMAD issues on the FMA
 # pipe at 64 lanes and IMNMX on the ALU pipe at another 64, side by side
@@ -54,6 +74,16 @@ def nvidia_smi(query: str) -> str:
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def host_cpu() -> str:
+    """The host's CPU model, from ``/proc/cpuinfo``: the tier's host half
+    runs there."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            return next((ln.split(":", 1)[1].strip() for ln in f if ln.startswith("model name")), "")
+    except OSError:
+        return ""
 
 
 def ragged_corpus(rng: np.random.RandomState, n: int) -> tuple[list[bytes], dict[int, int]]:
@@ -76,6 +106,23 @@ def ragged_corpus(rng: np.random.RandomState, n: int) -> tuple[list[bytes], dict
         else:
             docs.append(rng.randint(32, 127, size=int(lens[i]), dtype=np.uint8).tobytes())
     return docs, planted
+
+
+def rerank_corpus(rng: np.random.RandomState, n: int) -> list[bytes]:
+    """``bench.py``'s rerank recipe: ~35% mutated copies of earlier
+    articles at ~1% byte edits (pairs across the Jaccard knee), the rest
+    random with the ragged length mix capped at 8 kB."""
+    docs: list[bytes] = []
+    for i in range(n):
+        if i >= 8 and rng.rand() < 0.35:
+            src = bytearray(docs[rng.randint(0, i)])
+            for _ in range(max(1, len(src) // 100)):
+                src[rng.randint(0, len(src))] = rng.randint(32, 127)
+            docs.append(bytes(src))
+        else:
+            ln = int(np.clip(rng.lognormal(6.55, 0.8), 100, 8000))
+            docs.append(rng.randint(32, 127, size=ln, dtype=np.uint8).tobytes())
+    return docs
 
 
 def cuda_ms(fn, reps: int = 1) -> float:
@@ -239,19 +286,180 @@ def check_segments_vs_plain(params, dev) -> dict:
     return {"cases": cases, "residues_mod_16": len(residues), "max_abs_err": 0}
 
 
+def check_rerank_vs_plain(dev) -> dict:
+    """Phase 3, the settle: ``rerank_settle`` bit-equal to
+    ``pair_jq_plain`` (and their finalize verdicts equal) at sketch widths
+    1,024, 256 and 37 on 1, 7, 1,000 and 65,536 pairs.  The sketches are
+    ``bottom_sketches`` of mutated texts longer than the sketch and
+    shorter, and of two texts below a shingle (empty sketches); every pair
+    set starts with the edge cases: empty ∪ empty, ``i == j``, a short
+    sketch beside a full one, and a sketch row named twice.  Indices go on
+    the card and pinned on the host; no pairs launch nothing."""
+    from advanced_scrapper_tpu_torch.ops import rerank_cuda
+    from advanced_scrapper_tpu_torch.ops.rerank import (
+        bottom_sketches,
+        pair_jq_plain,
+        rerank_finalize,
+    )
+
+    rng = np.random.RandomState(5)
+    texts = []
+    for length in (6000, 3000, 700, 120, 30):
+        for _ in range(40):
+            base = bytearray(rng.randint(32, 127, size=length, dtype=np.uint8))
+            texts.append(bytes(base))
+            for _ in range(rng.randint(1, max(2, length // 20))):
+                base[rng.randint(0, length)] = rng.randint(32, 127)
+            texts.append(bytes(base))
+    texts += [b"xy", b"ab"]
+    n = len(texts)
+    # empty ∪ empty, i == j, short beside full (both ways), one row twice
+    edge_i = np.array([n - 2, n - 1, 0, 5, 0, 395, 396, 7, 7], np.int32)
+    edge_j = np.array([n - 1, n - 1, 0, 5, 396, 0, 0, 7, 8], np.int32)
+    before = rerank_cuda.rerank_settle.launches
+    cases = 0
+    for size in (1024, 256, 37):
+        sk = torch.from_numpy(bottom_sketches(texts, 5, size).view(np.int32)).to(dev)
+        sk = sk.view(torch.uint32)
+        for m in (1, 7, 1000, 65536):
+            ii = np.r_[edge_i, rng.randint(0, n, m)][:m].astype(np.int32)
+            jj = np.r_[edge_j, rng.randint(0, n, m)][:m].astype(np.int32)
+            host = m == 1000  # pinned host indices, copied by the wrapper
+            ia, ib = (torch.from_numpy(x).pin_memory() if host else torch.from_numpy(x).to(dev)
+                      for x in (ii, jj))
+            got = rerank_cuda.rerank_settle(sk, ia, ib, size)
+            want = pair_jq_plain(sk, ia.to(dev), ib.to(dev))
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"rerank_settle differs from plain at S={size}, m={m}"
+            assert torch.equal(rerank_finalize(got, 6600, 7400), rerank_finalize(want, 6600, 7400))
+            cases += 1
+        empty = torch.zeros((0,), dtype=torch.int32, device=dev)
+        assert rerank_cuda.rerank_settle(sk, empty, empty, size).shape == (0,)
+    launches = rerank_cuda.rerank_settle.launches - before
+    assert launches == cases, (launches, cases)
+    return {"cases": cases, "sketch_sizes": [1024, 256, 37], "max_abs_err": 0}
+
+
 def bound_ms(int_ops: int, moved: int, clock_mhz: float) -> tuple[float, float]:
     """(operations bound, bytes bound) in ms on one H100."""
     ops_ms = int_ops / (INT32_OPS_PER_SM * CARD_SMS * clock_mhz * 1e6) * 1e3
     return ops_ms, moved / HBM_BYTES_PER_S * 1e3
 
 
+#: tier stats that do not depend on the device (``launches`` and
+#: ``h2d_bytes`` count the card's work)
+TIER_KEYS = (
+    "pairs", "borderline", "exact_checks", "reprobes", "evicted", "clusters",
+    "dropped_cells", "predicted_precision", "capped_buckets", "overflow_pairs",
+)
+
+
+def launch_counters() -> dict:
+    from advanced_scrapper_tpu_torch.ops import minhash_cuda, rerank_cuda
+
+    return {f.__name__: f for f in (
+        minhash_cuda.minhash_fold_segments, minhash_cuda.minhash_fold,
+        minhash_cuda.minhash_sig, rerank_cuda.rerank_settle)}
+
+
+def reset_launches() -> None:
+    for f in launch_counters().values():
+        f.launches = 0
+
+
+def read_launches() -> dict[str, int]:
+    return {name: f.launches for name, f in launch_counters().items()}
+
+
+def check_roots(reps: np.ndarray, n: int) -> None:
+    idx = np.arange(n)
+    assert reps.shape == (n,)
+    assert (reps <= idx).all() and (reps >= 0).all(), "a representative after its row"
+    assert (reps[reps] == reps).all(), "representatives are not roots"
+
+
+def run_corpora(engine, warm: list[bytes], corpora: list[list[bytes]], settles: int) -> dict:
+    """``engine.dedup_reps`` over ``corpora`` after ``warm``, the launch
+    counters set to 0 just before each corpus and read just after: the
+    segment kernel once per chunk, ``rerank_settle`` ``settles`` times per
+    corpus, no tile-path launch.  Returns the host-clock seconds, the
+    launches summed over the corpora and each corpus's own record, with
+    the engine's and the tier's per-stage host seconds and device times
+    (``last_clock``), read after the corpus."""
+    engine.dedup_reps(warm)
+    seconds = 0.0
+    launches = dict.fromkeys(launch_counters(), 0)
+    per = []
+    for docs in corpora:
+        reset_launches()
+        t0 = time.perf_counter()
+        reps = engine.dedup_reps(docs)
+        s = time.perf_counter() - t0
+        got = read_launches()
+        check_roots(reps, len(docs))
+        assert got["minhash_fold_segments"] == engine.last_chunks > 0, got
+        assert got["rerank_settle"] == settles, got
+        assert got["minhash_fold"] == got["minhash_sig"] == 0, got
+        seconds += s
+        launches = {k: launches[k] + v for k, v in got.items()}
+        rec = {"seconds": s, "dups": int((reps != np.arange(len(docs))).sum()),
+               "engine_seconds": dict(engine.last_clock.seconds),
+               "engine_device_ms": engine.last_clock.device_ms()}
+        if engine.rerank_tier is not None:
+            tier = engine.rerank_tier
+            rec.update(stats=dict(tier.stats), tier_seconds=dict(tier.last_clock.seconds),
+                       tier_device_ms=tier.last_clock.device_ms())
+        else:
+            rec["exact_checks"] = engine.last_exact_checks
+        per.append(rec)
+    return {"seconds": seconds, "launches": launches, "corpora": per}
+
+
+def settle_timing(engine, docs: list[bytes], clock_mhz: float) -> dict:
+    """The settle kernel on the inputs the tier gave it in its last corpus,
+    ``docs``: the sketches of its pairs' (``last_pairs``) articles rebuilt
+    by ``bottom_sketches``, the kernel timed with the profiler and with
+    events beside its plain version.  Its bound counts what this data
+    needs: each sketch's live values and its first ``PAD`` read once, 12 B
+    of indices and output per pair, and ``|a| + |b|`` comparison steps per
+    pair (a merge of the live values)."""
+    from advanced_scrapper_tpu_torch.ops.rerank import PAD, bottom_sketches, pair_jq_plain
+    from advanced_scrapper_tpu_torch.ops.rerank_cuda import rerank_settle
+
+    size = engine.cfg.rerank_sketch
+    pairs = engine.rerank_tier.last_pairs
+    part = np.unique(pairs)
+    sk_np = bottom_sketches([docs[i] for i in part.tolist()], engine.params.shingle_k, size)
+    idx = np.searchsorted(part, pairs.T).astype(np.int32)
+    live = (sk_np != PAD).sum(axis=1)
+    m = len(pairs)
+    moved = 4 * int(live.sum() + part.size) + 12 * m
+    steps = int(live[idx[0]].sum() + live[idx[1]].sum())
+    dev = torch.device("cuda")
+    sk = torch.from_numpy(sk_np.view(np.int32)).to(dev).view(torch.uint32)
+    ia, ib = torch.from_numpy(idx).to(dev)
+    event_ms, kernel_ms = timed(lambda: rerank_settle(sk, ia, ib, size), "settle_kernel")
+    plain_ms = cuda_ms(lambda: pair_jq_plain(sk, ia, ib))
+    assert torch.equal(rerank_settle(sk, ia, ib, size), pair_jq_plain(sk, ia, ib)), (
+        "rerank_settle differs from plain"
+    )
+    ops_ms, bytes_ms = bound_ms(steps, moved, clock_mhz)
+    return dict(pairs=m, sketches=int(part.size), sketch=size, live_values=int(live.sum()),
+                bytes=moved, compare_steps=steps, clock_max_sm_mhz=clock_mhz,
+                ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms, ms=kernel_ms,
+                event_ms=event_ms, share_of_bound=max(ops_ms, bytes_ms) / kernel_ms,
+                plain_ms=plain_ms)
+
+
 def kernel_entry(name: str, launches: int, ms: float, plain_ms: float,
-                 ops_ms: float, bytes_ms: float) -> dict:
+                 ops_ms: float, bytes_ms: float,
+                 source: str = "advanced_scrapper_tpu_torch/csrc/minhash.cu",
+                 replaces: str = "advanced_scrapper_tpu/ops/pallas_minhash.py:71") -> dict:
     return {
         "name": name,
         "route": "cuda",
-        "source": "advanced_scrapper_tpu_torch/csrc/minhash.cu",
-        "replaces": "advanced_scrapper_tpu/ops/pallas_minhash.py:71",
+        "source": source,
+        "replaces": replaces,
         "launches": launches,
         "max_abs_err": 0,
         "ms": ms,
@@ -289,12 +497,16 @@ def main() -> int:
     dev = torch.device("cuda")
     card = nvidia_smi("name,power.limit")
     log("device", card=card, kind=torch.cuda.get_device_name(0),
-        count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda)
+        count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda,
+        numpy=np.__version__, host_cpu=host_cpu(), host_cores=os.cpu_count())
 
     t0 = time.perf_counter()
-    out = _build.build("minhash")
-    log("build", seconds=time.perf_counter() - t0, built=bool(out),
-        ptxas=[ln.strip() for ln in out.splitlines() if "registers" in ln or "smem" in ln])
+    sources = ("minhash", "rerank")
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
+        outs = dict(zip(sources, pool.map(_build.build, sources)))
+    log("build", seconds=time.perf_counter() - t0, built=[k for k, v in outs.items() if v],
+        ptxas=[ln.strip() for out in outs.values() for ln in out.splitlines()
+               if "registers" in ln or "smem" in ln])
 
     cfg = DedupConfig(rerank=False, exact_verify_band=0.0)
     engine = NearDupEngine(cfg, device=dev)
@@ -302,15 +514,19 @@ def main() -> int:
     k = params.shingle_k
     log("kernel_vs_plain", **check_kernels_vs_plain(params, cfg, dev))
     log("segments_vs_plain", **check_segments_vs_plain(params, dev))
+    log("rerank_kernel_vs_plain", **check_rerank_vs_plain(dev))
 
     # -- phase 4: the main path at full width ------------------------------
     docs, planted = ragged_corpus(np.random.RandomState(7), MAIN_ARTICLES)
     warm, _ = ragged_corpus(np.random.RandomState(8), WARM_ARTICLES)
     torch.cuda.synchronize()
     engine.dedup_reps_async(warm)[:WARM_ARTICLES].cpu()
-    minhash_cuda.minhash_fold_segments.launches = 0
-    minhash_cuda.minhash_fold.launches = 0
-    minhash_cuda.minhash_sig.launches = 0
+    # the first call at this size allocates its 64 MiB pinned chunk buffers
+    # (the warm corpus fills less than one chunk); the second is counted
+    t0 = time.perf_counter()
+    engine.dedup_reps_async(docs)[:MAIN_ARTICLES].cpu()
+    first_call_seconds = time.perf_counter() - t0
+    reset_launches()
     t0 = time.perf_counter()
     reps = engine.dedup_reps_async(docs)[:MAIN_ARTICLES].cpu().numpy()
     seconds = time.perf_counter() - t0
@@ -326,8 +542,17 @@ def main() -> int:
     assert not missed, f"{len(missed)} planted dups unresolved, first {missed[:5]}"
     lens = np.fromiter(map(len, docs), np.int64, count=len(docs))
     text_bytes = int(lens.sum())
+    # what a pinned chunk buffer costs on this host: more buffers held than
+    # the chunk loop left in PyTorch's pinned cache, each allocation timed
+    held, pinned_alloc_ms = [], []
+    for _ in range(2 * chunks):
+        t0 = time.perf_counter()
+        held.append(torch.empty((dedup.CHUNK_BYTES,), dtype=torch.uint8, pin_memory=True))
+        pinned_alloc_ms.append(1e3 * (time.perf_counter() - t0))
+    del held
     log("main_path", articles=MAIN_ARTICLES, text_bytes=text_bytes, seconds=seconds,
-        articles_per_s=MAIN_ARTICLES / seconds, chunks=chunks,
+        articles_per_s=MAIN_ARTICLES / seconds, first_call_seconds=first_call_seconds,
+        pinned_alloc_ms=pinned_alloc_ms, chunks=chunks,
         chunk_bytes=dedup.CHUNK_BYTES, segment_shingles=SEGMENT_SHINGLES,
         h2d_bytes=h2d, fold_segments_launches=seg_launches, planted=len(planted),
         dups=int((reps != idx).sum()), card=card)
@@ -486,15 +711,82 @@ def main() -> int:
                      sig_ops_ms, sig_bytes_ms),
     ]
 
-    # -- phase 5: card engine vs CPU engine ----------------------------------
+    # -- the default engine: the rerank tier, exact verify at 0.72 ----------
+    default = NearDupEngine(DedupConfig(), device=dev)
+    rng = np.random.RandomState(11)
+    rwarm = rerank_corpus(rng, RERANK_ARTICLES)
+    rcorpora = [rerank_corpus(rng, RERANK_ARTICLES) for _ in range(RERANK_CORPORA)]
+    run = run_corpora(default, rwarm, rcorpora, settles=1)
+    n_rerank = RERANK_ARTICLES * RERANK_CORPORA
+    log("rerank_path", articles=n_rerank, corpora=RERANK_CORPORA, seconds=run["seconds"],
+        articles_per_s=n_rerank / run["seconds"], launches=run["launches"],
+        per_corpus=run["corpora"], card=card)
+    rerank_launches = run["launches"]["rerank_settle"]
+    last = run["corpora"][-1]
+    log("rerank_breakdown", corpus=RERANK_CORPORA - 1,
+        host_s={**last["engine_seconds"], **last["tier_seconds"]},
+        device_ms={**last["engine_device_ms"], **last["tier_device_ms"]}, card=card)
+    st = settle_timing(default, rcorpora[-1], clock_mhz)
+    log("kernel_timing", name="rerank_settle", launches=rerank_launches, **st, card=card)
+    kernels.append(kernel_entry(
+        "rerank_settle", rerank_launches, st["ms"], st["plain_ms"], st["ops_bound_ms"],
+        st["bytes_bound_ms"], source="advanced_scrapper_tpu_torch/csrc/rerank.cu",
+        replaces="advanced_scrapper_tpu/ops/rerank.py:163 (_pair_jq, jnp)"))
+
+    certified = NearDupEngine(DedupConfig(rerank=False), device=dev)
+    run = run_corpora(certified, rwarm, rcorpora, settles=0)
+    log("exact_verify_path", articles=n_rerank, corpora=RERANK_CORPORA,
+        seconds=run["seconds"], articles_per_s=n_rerank / run["seconds"],
+        launches=run["launches"], per_corpus=run["corpora"], card=card)
+    del certified, rwarm
+
+    # the default engine once over the estimator-only path's corpus
+    reset_launches()
+    t0 = time.perf_counter()
+    reps = default.dedup_reps(docs)
+    seconds = time.perf_counter() - t0
+    got = read_launches()
+    assert got["rerank_settle"] == 1 and got["minhash_fold_segments"] == default.last_chunks, got
+    check_roots(reps, MAIN_ARTICLES)
+    missed = [i for i, s in planted.items() if reps[i] != reps[s]]
+    assert not missed, f"{len(missed)} planted dups unresolved, first {missed[:5]}"
+    stats = default.rerank_tier.stats
+    log("default_engine_main_corpus", articles=MAIN_ARTICLES, seconds=seconds,
+        articles_per_s=MAIN_ARTICLES / seconds, pairs=stats["pairs"],
+        overflow_pairs=stats["overflow_pairs"], launches=got, stats=stats,
+        engine_seconds=default.last_clock.seconds,
+        tier_seconds=default.rerank_tier.last_clock.seconds,
+        engine_device_ms=default.last_clock.device_ms(),
+        tier_device_ms=default.rerank_tier.last_clock.device_ms(),
+        planted=len(planted), dups=int((reps != np.arange(MAIN_ARTICLES)).sum()), card=card)
+    del docs, reps
+
+    # -- phase 5: card engines vs CPU engines --------------------------------
     small, _ = ragged_corpus(np.random.RandomState(11), PARITY_ARTICLES)
     cpu = NearDupEngine(cfg, device="cpu")
     t0 = time.perf_counter()
     sig_equal = bool((engine.signatures(small) == cpu.signatures(small)).all())
     reps_equal = bool((engine.dedup_reps(small) == cpu.dedup_reps(small)).all())
+    rsmall = rerank_corpus(np.random.RandomState(12), PARITY_ARTICLES)
+    cpu_default = NearDupEngine(DedupConfig(), device="cpu")
+    default_equal = bool((default.dedup_reps(rsmall) == cpu_default.dedup_reps(rsmall)).all())
+    card_stats, cpu_stats = default.rerank_tier.stats, cpu_default.rerank_tier.stats
+    stats_equal = all(card_stats[k] == cpu_stats[k] for k in TIER_KEYS)
+    async_equal = bool((default.dedup_reps_async(rsmall).cpu()
+                        == cpu_default.dedup_reps_async(rsmall)).all())
+    card_cert = NearDupEngine(DedupConfig(rerank=False), device=dev)
+    cpu_cert = NearDupEngine(DedupConfig(rerank=False), device="cpu")
+    cert_equal = bool((card_cert.dedup_reps(rsmall) == cpu_cert.dedup_reps(rsmall)).all())
+    checks_equal = card_cert.last_exact_checks == cpu_cert.last_exact_checks
     log("card_vs_cpu", articles=PARITY_ARTICLES, signatures_equal=sig_equal,
-        reps_equal=reps_equal, seconds=time.perf_counter() - t0)
+        reps_equal=reps_equal, default_reps_equal=default_equal,
+        default_async_equal=async_equal, tier_stats_equal=stats_equal,
+        tier_stats=card_stats, rerank_off_reps_equal=cert_equal,
+        exact_checks_equal=checks_equal, exact_checks=card_cert.last_exact_checks,
+        seconds=time.perf_counter() - t0)
     assert sig_equal and reps_equal, "card and CPU engines disagree"
+    assert default_equal and async_equal and stats_equal, "card and CPU default engines disagree"
+    assert cert_equal and checks_equal, "card and CPU exact-verify engines disagree"
 
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi("name,power.limit"))

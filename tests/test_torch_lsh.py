@@ -128,3 +128,54 @@ def test_fused_resolve_epilogue(data, fine_margin):
         ref_lsh.subband_salt(32), 0.7, fine_margin, densify_oph=False, **kw,
     )
     assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("cand_subbands", [32, 0])
+def test_fused_candidate_epilogue(data, cand_subbands):
+    sig, valid = data
+    fine = lsh.subband_salt(cand_subbands) if cand_subbands else np.zeros((0,), np.uint32)
+    got_sig, got_keys, got_rb = lsh.fused_candidate_epilogue(
+        _t(sig), torch.from_numpy(valid), make_params().band_salt, fine
+    )
+    want_sig, want_keys, want_rb = ref_lsh.fused_candidate_epilogue(
+        jnp.asarray(sig), jnp.asarray(valid), np.asarray(ref_make_params().band_salt),
+        fine, densify_oph=False,
+    )
+    assert np.array_equal(got_sig.view(torch.int32).numpy().view(np.uint32), np.asarray(want_sig))
+    assert np.array_equal(got_keys.numpy(), np.asarray(want_keys).astype(np.int64))
+    assert got_rb.dtype == torch.int32
+    assert np.array_equal(got_rb.numpy(), np.asarray(want_rb))
+
+
+@pytest.mark.parametrize("cand_subbands", [32, 0])
+def test_borderline_edge_mask_and_resolve_from_ok(data, cand_subbands):
+    """Exact verify's device half at band 0.72: the flagged and verified
+    edge matrices, then resolution of an ``ok`` matrix edited on the host
+    (every third flagged edge refuted)."""
+    sig, valid = data
+    fine = lsh.subband_salt(cand_subbands) if cand_subbands else np.zeros((0,), np.uint32)
+    keys = lsh._coarse_fine_keys(_t(sig), make_params().band_salt, fine)
+    rb = lsh.duplicate_rep_bands(keys, torch.from_numpy(valid))
+    need, ok = lsh.borderline_edge_mask(
+        rb, _t(sig), keys, torch.from_numpy(valid), 0.7, 0.72, num_coarse=NUM_COARSE
+    )
+    ref_args = (
+        jnp.asarray(rb.numpy()), jnp.asarray(sig),
+        jnp.asarray(keys.numpy().astype(np.uint32)), jnp.asarray(valid), 0.7, 0.72,
+    )
+    want_need, want_ok = ref_lsh.borderline_edge_mask(*ref_args, num_coarse=NUM_COARSE)
+    assert need.dtype == ok.dtype == torch.bool
+    assert np.array_equal(need.numpy(), np.asarray(want_need))
+    assert np.array_equal(ok.numpy(), np.asarray(want_ok))
+    assert need.any() and (ok & ~need).any()
+    edited = ok.numpy().copy()
+    r, c = np.nonzero(need.numpy())
+    edited[r[::3], c[::3]] = False
+    got = lsh.resolve_rep_bands_from_ok(
+        rb, torch.from_numpy(edited), torch.from_numpy(valid), jump_rounds=8
+    )
+    want = ref_lsh.resolve_rep_bands_from_ok(
+        jnp.asarray(rb.numpy()), jnp.asarray(edited), jnp.asarray(valid), jump_rounds=8
+    )
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), np.asarray(want))
