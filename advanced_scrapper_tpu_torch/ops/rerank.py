@@ -11,12 +11,14 @@ Counterpart of the reference's ``ops/rerank.py``, in two halves:
   (:func:`evict_for_precision`) and the candidate-matrix rewrite;
 - the **settle**, ``jq int32[m]``: the quantized bottom-sketch Jaccard of
   each pair ``(sk[ia], sk[ib])``, bit-equal to the reference's ``_pair_jq``
-  under ``vmap``.  The CUDA kernel ``rerank_settle`` (``csrc/rerank.cu``,
-  ``ops/rerank_cuda.py``) computes it on the card; :func:`pair_jq_plain`
-  is its plain PyTorch version; :func:`settle_pairs` picks one by the
-  tensor's device.  The reference packs and copies both sketches of every
-  pair; here each participating document's sketch is one row of ``sk``,
-  and pairs address rows by index.
+  under ``vmap`` (:func:`pair_jq_plain`), and its verdict against the
+  margin band (:func:`rerank_finalize`, the reference's
+  ``make_rerank_finalize``).  The CUDA kernel ``rerank_settle``
+  (``csrc/rerank.cu``, ``ops/rerank_cuda.py``) computes both in one launch
+  on the card; :func:`settle_plain` is its plain PyTorch version.  The
+  reference packs and copies both sketches of every pair; here each
+  participating document's sketch is one row of ``sk``, and pairs address
+  rows by index.
 
 Jaccard crosses as ``round(J · SCALE)`` in integers (round half up, and
 empty ∪ empty ⇒ ``SCALE``), so every verdict is exact.
@@ -29,7 +31,7 @@ import math
 import numpy as np
 import torch
 
-from advanced_scrapper_tpu_torch.ops.rerank_cuda import check_pairs
+from advanced_scrapper_tpu_torch.ops.rerank_cuda import check_band, check_pairs
 from advanced_scrapper_tpu_torch.ops.shingle import U32_MASK
 
 #: sketch padding sentinel: sorts after every real 32-bit hash, and real
@@ -166,23 +168,22 @@ def pair_jq_plain(sk: torch.Tensor, ia: torch.Tensor, ib: torch.Tensor) -> torch
     return out
 
 
-def settle_pairs(sk: torch.Tensor, ia: torch.Tensor, ib: torch.Tensor) -> torch.Tensor:
-    """``int32[m]`` settle of the pairs ``(sk[ia], sk[ib])``: the CUDA
-    kernel ``rerank_settle`` for sketches on the card (``ia``/``ib`` on the
-    card or pinned on the host), the plain version for sketches on the
-    CPU."""
-    if sk.device.type == "cuda":
-        from advanced_scrapper_tpu_torch.ops.rerank_cuda import rerank_settle
-
-        return rerank_settle(sk, ia, ib, sk.shape[-1])
-    return pair_jq_plain(sk, ia, ib)
-
-
 def rerank_finalize(jq: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
     """``int8`` verdict per pair: 1 keep (``jq ≥ hi``), 0 kill
     (``jq < lo``), -1 borderline, re-settled on the host."""
     border = (jq >= lo) & (jq < hi)
     return torch.where(border, -1, (jq >= hi).to(torch.int8))
+
+
+def settle_plain(
+    sk: torch.Tensor, ia: torch.Tensor, ib: torch.Tensor, lo: int, hi: int
+) -> torch.Tensor:
+    """Plain version of the settle kernel ``rerank_settle``: ``int32[2, m]``,
+    :func:`pair_jq_plain` of the pairs over their :func:`rerank_finalize`
+    verdicts against the margin band ``[lo, hi)``."""
+    check_band(lo, hi)
+    jq = pair_jq_plain(sk, ia, ib)
+    return torch.stack([jq, rerank_finalize(jq, lo, hi).to(torch.int32)])
 
 
 # -- host candidacy / clustering / eviction policy -------------------------

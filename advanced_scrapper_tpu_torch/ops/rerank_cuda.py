@@ -1,13 +1,14 @@
 """Wrapper of the hand-written CUDA settle kernel (``csrc/rerank.cu``).
 
-:func:`rerank_settle` computes the rerank tier's quantized bottom-sketch
-Jaccard of row pairs of a sketch matrix on the card; it replaces the
-reference's jnp settle step (``ops/rerank.py:_pair_jq`` under ``vmap``).
-It checks device, dtype, shape, contiguity and the index range, launches
-on PyTorch's current stream, raises if the launch returns a CUDA error,
-and counts its launches in a plain integer attribute
-(``rerank_settle.launches``).  The plain version is
-``ops.rerank.pair_jq_plain``; this wrapper never falls back to it.
+:func:`rerank_settle` computes, in one launch, the rerank tier's
+quantized bottom-sketch Jaccard of row pairs of a sketch matrix on the
+card and its verdict against the margin band; it replaces the reference's
+jnp settle step (``ops/rerank.py:_pair_jq`` under ``vmap``) and finalize
+(``make_rerank_finalize``).  It checks device, dtype, shape, contiguity,
+the index range and the band, launches on PyTorch's current stream,
+raises if the launch returns a CUDA error, and counts its launches in a
+plain integer attribute (``rerank_settle.launches``).  The plain version
+is ``ops.rerank.settle_plain``; this wrapper never falls back to it.
 """
 
 from __future__ import annotations
@@ -28,13 +29,19 @@ def _lib() -> ctypes.CDLL:
     ``c_void_p``, so ctypes never cuts them to 32 bits)."""
     lib = _build.load("rerank")
     lib.astt_rerank_settle.argtypes = [
-        _ptr, ctypes.c_int, _ptr, _ptr, _ptr, ctypes.c_longlong, _ptr
+        _ptr, ctypes.c_int, _ptr, _ptr, ctypes.c_int, ctypes.c_int, _ptr, ctypes.c_longlong,
+        _ptr,
     ]
     lib.astt_rerank_settle.restype = ctypes.c_int
     lib.astt_rerank_max_sketch.restype = ctypes.c_int
     lib.astt_rerank_error_string.argtypes = [ctypes.c_int]
     lib.astt_rerank_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def max_sketch() -> int:
+    """The widest sketch the kernel takes (builds the library if needed)."""
+    return _lib().astt_rerank_max_sketch()
 
 
 def check_pairs(sk: torch.Tensor, ia: torch.Tensor, ib: torch.Tensor) -> None:
@@ -66,26 +73,64 @@ def check_pairs(sk: torch.Tensor, ia: torch.Tensor, ib: torch.Tensor) -> None:
         )
 
 
+def check_band(lo: int, hi: int) -> None:
+    """Raise unless ``lo`` and ``hi`` are ints in the int32 range with
+    ``lo <= hi``: the margin band ``[lo, hi)`` of quantized Jaccard."""
+    for v, name in ((lo, "lo"), (hi, "hi")):
+        if isinstance(v, bool) or not isinstance(v, int):
+            raise TypeError(f"{name} must be an int, got {type(v).__name__}")
+        if not -(1 << 31) <= v < 1 << 31:
+            raise ValueError(f"{name} must fit int32, got {v}")
+    if lo > hi:
+        raise ValueError(f"the margin band [lo, hi) needs lo <= hi, got [{lo}, {hi})")
+
+
+def check_settle(sk, ia, ib, lo, hi, out=None) -> None:
+    """:func:`check_band` and :func:`check_pairs`, and raise unless
+    ``out``, where given, is a contiguous ``int32[2, m]`` on ``sk``'s
+    device.  Reads the indices where they lie (see :func:`check_pairs`)."""
+    check_band(lo, hi)
+    if out is not None:
+        if out.dtype != torch.int32:
+            raise TypeError(f"out must be torch.int32, got {out.dtype}")
+        if out.shape != (2, ia.numel()) or not out.is_contiguous():
+            raise ValueError(
+                f"out must be a contiguous [2, {ia.numel()}], got {tuple(out.shape)}"
+            )
+        if out.device != sk.device:
+            raise ValueError(f"out is on {out.device}, the sketches on {sk.device}")
+    check_pairs(sk, ia, ib)
+
+
 def rerank_settle(
-    sk: torch.Tensor, ia: torch.Tensor, ib: torch.Tensor, size: int
+    sk: torch.Tensor,
+    ia: torch.Tensor,
+    ib: torch.Tensor,
+    size: int,
+    lo: int,
+    hi: int,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """``int32[m]`` quantized bottom-sketch Jaccard of the pairs
-    ``(sk[ia], sk[ib])``: ``sk uint32[n_sk, size]`` on the card, each row
-    ascending with unique live hashes and then ``PAD``; ``ia``/``ib``
-    ``int32[m]`` on the card, or on the host (pinned, for an asynchronous
-    copy), checked where they lie.  Launches nothing for ``m = 0``."""
+    """``int32[2, m]``: row 0 the quantized bottom-sketch Jaccard ``jq`` of
+    the pairs ``(sk[ia], sk[ib])``, row 1 its verdict (1 keep, ``jq >=
+    hi``; 0 kill, ``jq < lo``; -1 borderline), in one launch.  ``sk
+    uint32[n_sk, size]`` on the card, each row ascending with unique live
+    hashes and then ``PAD``; ``ia``/``ib`` ``int32[m]`` on the card, or on
+    the host (pinned, for an asynchronous copy), checked where they lie;
+    ``out``, where given, receives the result.  Launches nothing for
+    ``m = 0``."""
     if sk.device.type != "cuda":
         raise ValueError(
             f"the CUDA kernel takes CUDA tensors, got {sk.device}; the plain "
-            "version ops.rerank.pair_jq_plain runs on the CPU"
+            "version ops.rerank.settle_plain runs on the CPU"
         )
-    check_pairs(sk, ia, ib)
+    check_settle(sk, ia, ib, lo, hi, out)
     dev = sk.device
     if not sk.is_contiguous():
         raise ValueError("sk must be contiguous")
     if sk.shape[1] != size:
         raise ValueError(f"sketch width {sk.shape[1]} must equal size {size}")
-    widest = _lib().astt_rerank_max_sketch()
+    widest = max_sketch()
     if not 1 <= size <= widest:
         raise ValueError(f"sketch width {size} must lie in [1, {widest}]")
     if ia.device not in (dev, torch.device("cpu")):
@@ -93,11 +138,12 @@ def rerank_settle(
     if not (ia.is_contiguous() and ib.is_contiguous()):
         raise ValueError("ia and ib must be contiguous")
     m = ia.numel()
-    out = torch.empty((m,), dtype=torch.int32, device=dev)
+    if out is None:
+        out = torch.empty((2, m), dtype=torch.int32, device=dev)
     if m:
         ia_d, ib_d = (t.to(dev, non_blocking=True) for t in (ia, ib))
         err = _lib().astt_rerank_settle(
-            sk.data_ptr(), size, ia_d.data_ptr(), ib_d.data_ptr(), out.data_ptr(),
+            sk.data_ptr(), size, ia_d.data_ptr(), ib_d.data_ptr(), lo, hi, out.data_ptr(),
             m, torch.cuda.current_stream(dev).cuda_stream,
         )
         if err:

@@ -12,8 +12,8 @@ Per corpus::
     sketches bottom-S sketch of each participating document,
              compacted into one pinned uint32[n_sk, S]             (host)
     settle   the sketches and the int32 pair indices copied to the
-             card once, rerank_settle launched once, the finalize,
-             one readback of (jq, verdict)                         (card)
+             card once, rerank_settle launched once (the finalize
+             fused), one readback of (jq, verdict)                 (card)
     margin   borderline verdicts re-settled by exact Jaccard, up to
              rerank_exact_cap                                      (host)
     clusters union-find over kept pairs; every within-cluster pair the
@@ -57,7 +57,11 @@ class RerankTier:
     arrays (``sigs`` ``uint32[B, P]``, ``rep_bands`` ``int32[B, nc]``,
     ``valid`` ``bool[B]``).  ``stats`` holds the last corpus's settlement
     ledger; ``last_clock`` the host-clock seconds and device times of its
-    stages; ``last_pairs`` its settled ``(i < j)`` pairs."""
+    stages; ``last_pairs`` its settled ``(i < j)`` pairs;
+    ``last_settle_inputs`` what its settle took, ``(sk, idx)``: the
+    sketches ``uint32[n_sk, S]`` on the tier's device and the pairs' row
+    indices ``int32[2, m]`` on the host (``None`` without pairs), kept
+    until the next corpus so the settle can be re-run alone."""
 
     authoritative = True
 
@@ -82,6 +86,7 @@ class RerankTier:
         self.last_evicted: set[int] = set()
         self.last_participants: set[int] = set()
         self.last_pairs = np.zeros((0, 2), np.int64)
+        self.last_settle_inputs: tuple[torch.Tensor, torch.Tensor] | None = None
         self.last_clock = StageClock(self.device)
 
     def prewarm(self) -> int:
@@ -116,20 +121,28 @@ class RerankTier:
         self, sketch_rows: torch.Tensor, idx: torch.Tensor, clock: StageClock
     ):
         """``(jq int32[m], verdict int8[m], h2d_bytes)``: the sketches
-        (``int32[n_sk, S]``) copied to the device, the pairs' row indices
-        ``int32[2, m]`` beside them, one settle, the finalize, one
-        readback, each a stage of ``clock``."""
+        (``int32[n_sk, S]``) copied to the device, the settle and its
+        finalize over the pairs' row indices (``int32[2, m]``, pinned on
+        the host: the wrapper checks them there and copies them), one
+        readback, each a stage of ``clock``.  On the card one launch of
+        ``rerank_settle`` writes both, and ``finalize`` is an empty stage;
+        on the CPU the plain versions run one after the other."""
         cfg = self.cfg
         dev = self.device
         lo = oprr.quantize(cfg.sim_threshold - cfg.rerank_margin)
         hi = oprr.quantize(cfg.sim_threshold + cfg.rerank_margin)
         sk = sketch_rows.to(dev, non_blocking=True).view(torch.uint32)
+        self.last_settle_inputs = (sk, idx)
         clock.lap("sketch_copy")
-        jq = oprr.settle_pairs(sk, idx[0], idx[1])
-        clock.lap("settle")
-        verdict = oprr.rerank_finalize(jq, lo, hi)
+        if dev.type == "cuda":
+            out = rerank_settle(sk, idx[0], idx[1], sk.shape[1], lo, hi)
+            clock.lap("settle")
+        else:
+            jq = oprr.pair_jq_plain(sk, idx[0], idx[1])
+            clock.lap("settle")
+            out = torch.stack([jq, oprr.rerank_finalize(jq, lo, hi).to(torch.int32)])
         clock.lap("finalize")
-        out = torch.stack([jq, verdict.to(torch.int32)]).cpu().numpy()
+        out = out.cpu().numpy()
         clock.lap("settle_readback")
         h2d = sketch_rows.nbytes + idx.nbytes if dev.type == "cuda" else 0
         return out[0], out[1].astype(np.int8), h2d
@@ -160,6 +173,7 @@ class RerankTier:
         self.last_provenance = prov
         self.last_evicted = set()
         self.last_pairs = pair_arr
+        self.last_settle_inputs = None
         if m == 0:
             self.last_participants = set()
             out, _ = oprr.rewrite_rep_bands(n_bucket, nc, [])

@@ -8,9 +8,10 @@ entry point bit-equal against its plain PyTorch version: ``minhash_sig``
 and ``minhash_fold`` at every width bucket and tile shape,
 ``minhash_fold_segments`` on ragged articles of edge lengths, at every
 start residue, with several chunks and dropped owners, and the rerank
-settle ``rerank_settle`` at sketch widths 1,024, 256 and 37 on up to
-65,536 pairs with its edge cases.  Then it drives the port's paths, each
-with the launch counters set to 0 just before and read just after:
+settle ``rerank_settle`` (its verdicts fused) at sketch widths 1,024, 256,
+37, 6,140 and its widest on up to 65,536 pairs with its edge cases.  Then
+it drives the port's paths, each with the launch counters set to 0 just
+before and read just after:
 
 - the estimator-only path, ``NearDupEngine(DedupConfig(rerank=False,
   exact_verify_band=0)).dedup_reps_async`` at the default widths (128
@@ -25,11 +26,14 @@ with the launch counters set to 0 just before and read just after:
   after a warm one: ``rerank_settle`` ran once per corpus; articles/s, the
   tier's stats and the engine's and tier's own per-stage host seconds and
   device times (``last_clock``); the settle kernel timed on the tier's
-  last inputs beside its bound and plain version;
+  last inputs (``last_settle_inputs``) beside its bound, its plain
+  version and a one-element fill kernel (the launch floor);
 - the certified path without the tier, ``DedupConfig(rerank=False)``, on
   the same corpora;
 - the default engine once over the 65,536 ragged articles: every planted
-  duplicate resolves to its source.
+  duplicate resolves to its source; the settle kernel timed on the tier's
+  inputs there as well (the ``rerank_settle`` row's
+  ``default_engine_main_corpus`` fields).
 
 Last, the card engines and the CPU engines (estimator-only, default,
 ``rerank=False``) must agree on 2,048 articles.  Any failed check exits
@@ -136,22 +140,34 @@ def cuda_ms(fn, reps: int = 1) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def profiled_ms(fn, *kernels: str, reps: int = 5) -> list[float]:
+    """Device ms per call of ``fn``, after one warm call, of the kernels
+    whose name holds each of ``kernels``: ``torch.profiler``'s device time
+    summed over ``reps`` calls in one window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    out = []
+    for kernel in kernels:
+        kernel_us = sum(e.device_time_total for e in rows if kernel in e.key)
+        assert kernel_us > 0, f"the profiler saw no {kernel} kernel"
+        out.append(kernel_us / reps / 1e3)
+    return out
+
+
 def timed(fn, kernel: str, reps: int = 5) -> tuple[float, float]:
     """``(event_ms, kernel_ms)`` per call of ``fn`` after one warm call:
     CUDA-event time of the calls as made (wrapper work, launches and any
     other device work included), and the device time of the kernels whose
     name holds ``kernel``, summed by ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     event_ms = cuda_ms(fn, reps)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernel_us = sum(e.device_time_total for e in prof.key_averages() if kernel in e.key)
-    assert kernel_us > 0, f"the profiler saw no {kernel} kernel"
-    return event_ms, kernel_us / reps / 1e3
+    return event_ms, profiled_ms(fn, kernel, reps=reps)[0]
 
 
 def check_kernels_vs_plain(params, cfg, dev) -> dict:
@@ -287,25 +303,25 @@ def check_segments_vs_plain(params, dev) -> dict:
 
 
 def check_rerank_vs_plain(dev) -> dict:
-    """Phase 3, the settle: ``rerank_settle`` bit-equal to
-    ``pair_jq_plain`` (and their finalize verdicts equal) at sketch widths
-    1,024, 256 and 37 on 1, 7, 1,000 and 65,536 pairs.  The sketches are
-    ``bottom_sketches`` of mutated texts longer than the sketch and
+    """Phase 3, the settle: ``rerank_settle`` (jq and verdict in one
+    launch) bit-equal to ``settle_plain`` (``pair_jq_plain``, then
+    ``rerank_finalize``) at sketch widths 1,024, 256, 37 and 6,140 on 1, 7,
+    1,000 and 65,536 pairs, at the kernel's widest sketch on 1 and 1,000,
+    and at 1,024 from a base 4 bytes off a 16-byte boundary.  The sketches
+    are ``bottom_sketches`` of mutated texts longer than the sketch and
     shorter, and of two texts below a shingle (empty sketches); every pair
-    set starts with the edge cases: empty ∪ empty, ``i == j``, a short
-    sketch beside a full one, and a sketch row named twice.  Indices go on
-    the card and pinned on the host; no pairs launch nothing."""
+    set starts with the edge cases (empty ∪ empty, ``i == j``, short beside
+    full both ways, empty beside full, one row named twice), then half its
+    pairs in runs that share ``ia`` (sorted, as the tier's list), half
+    random.  Margin bands vary; indices go on the card and pinned on the
+    host; no pairs launch nothing."""
     from advanced_scrapper_tpu_torch.ops import rerank_cuda
-    from advanced_scrapper_tpu_torch.ops.rerank import (
-        bottom_sketches,
-        pair_jq_plain,
-        rerank_finalize,
-    )
+    from advanced_scrapper_tpu_torch.ops.rerank import bottom_sketches, settle_plain
 
     rng = np.random.RandomState(5)
     texts = []
-    for length in (6000, 3000, 700, 120, 30):
-        for _ in range(40):
+    for length in (40000, 6000, 3000, 700, 120, 30):
+        for _ in range(4 if length == 40000 else 40):
             base = bytearray(rng.randint(32, 127, size=length, dtype=np.uint8))
             texts.append(bytes(base))
             for _ in range(rng.randint(1, max(2, length // 20))):
@@ -313,31 +329,53 @@ def check_rerank_vs_plain(dev) -> dict:
             texts.append(bytes(base))
     texts += [b"xy", b"ab"]
     n = len(texts)
-    # empty ∪ empty, i == j, short beside full (both ways), one row twice
-    edge_i = np.array([n - 2, n - 1, 0, 5, 0, 395, 396, 7, 7], np.int32)
-    edge_j = np.array([n - 1, n - 1, 0, 5, 396, 0, 0, 7, 8], np.int32)
+    # empty ∪ empty, i == j, short beside full (both ways), empty beside
+    # full (both ways), one row twice
+    edge_i = np.array([n - 2, n - 1, 0, 9, 0, n - 3, n - 2, 0, 11, 11], np.int32)
+    edge_j = np.array([n - 1, n - 1, 0, 9, n - 3, 0, 0, n - 2, 11, 12], np.int32)
+    bands = [(6600, 7400), (0, 0), (5000, 10001), (-3, 20000)]
+    widest = rerank_cuda.max_sketch()
+    runs = [(1024, (1, 7, 1000, 65536)), (256, (1, 7, 1000, 65536)),
+            (37, (1, 7, 1000, 65536)), (6140, (1, 7, 1000, 65536)), (widest, (1, 1000)),
+            (1024, (1000,))]
     before = rerank_cuda.rerank_settle.launches
     cases = 0
-    for size in (1024, 256, 37):
-        sk = torch.from_numpy(bottom_sketches(texts, 5, size).view(np.int32)).to(dev)
+    for r, (size, ms) in enumerate(runs):
+        sk_np = bottom_sketches(texts, 5, size).view(np.int32)
+        if r == len(runs) - 1:  # rows from a base 4 bytes past a 16-byte boundary
+            flat = torch.empty((sk_np.size + 1,), dtype=torch.int32, device=dev)
+            flat[1:] = torch.from_numpy(sk_np.ravel()).to(dev)
+            sk = flat[1:].view(n, size)
+            assert sk.data_ptr() % 16 == 4
+        else:
+            sk = torch.from_numpy(sk_np).to(dev)
         sk = sk.view(torch.uint32)
-        for m in (1, 7, 1000, 65536):
-            ii = np.r_[edge_i, rng.randint(0, n, m)][:m].astype(np.int32)
-            jj = np.r_[edge_j, rng.randint(0, n, m)][:m].astype(np.int32)
+        for m in ms:
+            half = m // 2
+            ii = np.r_[edge_i, np.sort(rng.randint(0, n, half)), rng.randint(0, n, m)][:m]
+            jj = np.r_[edge_j, rng.randint(0, n, half), rng.randint(0, n, m)][:m]
+            lo, hi = bands[cases % len(bands)]
             host = m == 1000  # pinned host indices, copied by the wrapper
-            ia, ib = (torch.from_numpy(x).pin_memory() if host else torch.from_numpy(x).to(dev)
-                      for x in (ii, jj))
-            got = rerank_cuda.rerank_settle(sk, ia, ib, size)
-            want = pair_jq_plain(sk, ia.to(dev), ib.to(dev))
+            ia, ib = (torch.from_numpy(x.astype(np.int32)) for x in (ii, jj))
+            ia, ib = (t.pin_memory() if host else t.to(dev) for t in (ia, ib))
+            got = rerank_cuda.rerank_settle(sk, ia, ib, size, lo, hi)
+            want = settle_plain(sk, ia.to(dev), ib.to(dev), lo, hi)
             torch.cuda.synchronize()
-            assert torch.equal(got, want), f"rerank_settle differs from plain at S={size}, m={m}"
-            assert torch.equal(rerank_finalize(got, 6600, 7400), rerank_finalize(want, 6600, 7400))
+            assert got.shape == (2, m) and torch.equal(got, want), (
+                f"rerank_settle differs from plain at S={size}, m={m}, band=[{lo}, {hi})")
             cases += 1
         empty = torch.zeros((0,), dtype=torch.int32, device=dev)
-        assert rerank_cuda.rerank_settle(sk, empty, empty, size).shape == (0,)
+        assert rerank_cuda.rerank_settle(sk, empty, empty, size, 0, 1).shape == (2, 0)
+    # into a given output
+    out = torch.full((2, 7), 99, dtype=torch.int32, device=dev)
+    ia = torch.from_numpy(edge_i[:7]).to(dev)
+    ib = torch.from_numpy(edge_j[:7]).to(dev)
+    assert rerank_cuda.rerank_settle(sk, ia, ib, 1024, 6600, 7400, out=out) is out
+    assert torch.equal(out, settle_plain(sk, ia, ib, 6600, 7400))
+    cases += 1
     launches = rerank_cuda.rerank_settle.launches - before
     assert launches == cases, (launches, cases)
-    return {"cases": cases, "sketch_sizes": [1024, 256, 37], "max_abs_err": 0}
+    return {"cases": cases, "sketch_sizes": [size for size, _ in runs], "max_abs_err": 0}
 
 
 def bound_ms(int_ops: int, moved: int, clock_mhz: float) -> tuple[float, float]:
@@ -415,46 +453,59 @@ def run_corpora(engine, warm: list[bytes], corpora: list[list[bytes]], settles: 
     return {"seconds": seconds, "launches": launches, "corpora": per}
 
 
-def settle_timing(engine, docs: list[bytes], clock_mhz: float) -> dict:
-    """The settle kernel on the inputs the tier gave it in its last corpus,
-    ``docs``: the sketches of its pairs' (``last_pairs``) articles rebuilt
-    by ``bottom_sketches``, the kernel timed with the profiler and with
-    events beside its plain version.  Its bound counts what this data
-    needs: each sketch's live values and its first ``PAD`` read once, 12 B
-    of indices and output per pair, and ``|a| + |b|`` comparison steps per
-    pair (a merge of the live values)."""
-    from advanced_scrapper_tpu_torch.ops.rerank import PAD, bottom_sketches, pair_jq_plain
+def settle_timing(tier, clock_mhz: float) -> dict:
+    """The settle kernel on the inputs the tier gave it in its last corpus
+    (``last_settle_inputs``: its sketches on the card, its pair indices,
+    copied there), timed with the profiler beside a one-element fill kernel
+    in the same window (the launch floor) and with events beside its plain
+    version, and held bit-equal to the plain version.  Its bound counts
+    what this data needs: each sketch's live values and the ``PAD`` that
+    ends them read once, 8 B of indices and 8 B of output per pair, and
+    ``|a| + |b|`` comparison steps per pair (a merge of the live values)."""
+    from advanced_scrapper_tpu_torch.ops.rerank import quantize, settle_plain
     from advanced_scrapper_tpu_torch.ops.rerank_cuda import rerank_settle
 
-    size = engine.cfg.rerank_sketch
-    pairs = engine.rerank_tier.last_pairs
-    part = np.unique(pairs)
-    sk_np = bottom_sketches([docs[i] for i in part.tolist()], engine.params.shingle_k, size)
-    idx = np.searchsorted(part, pairs.T).astype(np.int32)
-    live = (sk_np != PAD).sum(axis=1)
-    m = len(pairs)
-    moved = 4 * int(live.sum() + part.size) + 12 * m
-    steps = int(live[idx[0]].sum() + live[idx[1]].sum())
-    dev = torch.device("cuda")
-    sk = torch.from_numpy(sk_np.view(np.int32)).to(dev).view(torch.uint32)
-    ia, ib = torch.from_numpy(idx).to(dev)
-    event_ms, kernel_ms = timed(lambda: rerank_settle(sk, ia, ib, size), "settle_kernel")
-    plain_ms = cuda_ms(lambda: pair_jq_plain(sk, ia, ib))
-    assert torch.equal(rerank_settle(sk, ia, ib, size), pair_jq_plain(sk, ia, ib)), (
-        "rerank_settle differs from plain"
-    )
+    cfg = tier.cfg
+    lo = quantize(cfg.sim_threshold - cfg.rerank_margin)
+    hi = quantize(cfg.sim_threshold + cfg.rerank_margin)
+    sk, idx = tier.last_settle_inputs
+    n_sk, size = sk.shape
+    ia, ib = idx.to(sk.device)
+    m = ia.numel()
+    live = (sk.view(torch.int32) != -1).sum(dim=1)
+    read = torch.clamp(live + 1, max=size)  # the live values and the PAD after them
+    steps = int((live[ia.long()] + live[ib.long()]).sum())
+    out = torch.empty((2, m), dtype=torch.int32, device=sk.device)
+    moved = 4 * int(read.sum()) + 8 * m + out.nbytes
+    one = torch.empty((1,), dtype=torch.int32, device=sk.device)
+
+    def both():
+        rerank_settle(sk, ia, ib, size, lo, hi, out=out)
+        one.fill_(0)
+
+    kernel_ms, floor_ms = profiled_ms(both, "settle_kernel", "FillFunctor")
+    event_ms = cuda_ms(lambda: rerank_settle(sk, ia, ib, size, lo, hi, out=out), 5)
+    plain_ms = cuda_ms(lambda: settle_plain(sk, ia, ib, lo, hi))
+    assert torch.equal(out, settle_plain(sk, ia, ib, lo, hi)), "rerank_settle differs from plain"
     ops_ms, bytes_ms = bound_ms(steps, moved, clock_mhz)
-    return dict(pairs=m, sketches=int(part.size), sketch=size, live_values=int(live.sum()),
+    return dict(pairs=m, sketches=n_sk, sketch=size, live_values=int(live.sum()),
                 bytes=moved, compare_steps=steps, clock_max_sm_mhz=clock_mhz,
                 ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms, ms=kernel_ms,
-                event_ms=event_ms, share_of_bound=max(ops_ms, bytes_ms) / kernel_ms,
-                plain_ms=plain_ms)
+                launch_floor_ms=floor_ms, event_ms=event_ms,
+                share_of_bound=max(ops_ms, bytes_ms) / kernel_ms, plain_ms=plain_ms)
+
+
+def bound_by(ops_ms: float, bytes_ms: float) -> str:
+    return "operations" if ops_ms >= bytes_ms else "bytes"
 
 
 def kernel_entry(name: str, launches: int, ms: float, plain_ms: float,
                  ops_ms: float, bytes_ms: float,
                  source: str = "advanced_scrapper_tpu_torch/csrc/minhash.cu",
-                 replaces: str = "advanced_scrapper_tpu/ops/pallas_minhash.py:71") -> dict:
+                 replaces: str = "advanced_scrapper_tpu/ops/pallas_minhash.py:71",
+                 **extra) -> dict:
+    """One row of the ``kernels`` line; ``extra`` fields follow the
+    contract's keys."""
     return {
         "name": name,
         "route": "cuda",
@@ -465,8 +516,9 @@ def kernel_entry(name: str, launches: int, ms: float, plain_ms: float,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bound_by": bound_by(ops_ms, bytes_ms),
         "library_ms": None,
+        **extra,
     }
 
 
@@ -726,12 +778,9 @@ def main() -> int:
     log("rerank_breakdown", corpus=RERANK_CORPORA - 1,
         host_s={**last["engine_seconds"], **last["tier_seconds"]},
         device_ms={**last["engine_device_ms"], **last["tier_device_ms"]}, card=card)
-    st = settle_timing(default, rcorpora[-1], clock_mhz)
-    log("kernel_timing", name="rerank_settle", launches=rerank_launches, **st, card=card)
-    kernels.append(kernel_entry(
-        "rerank_settle", rerank_launches, st["ms"], st["plain_ms"], st["ops_bound_ms"],
-        st["bytes_bound_ms"], source="advanced_scrapper_tpu_torch/csrc/rerank.cu",
-        replaces="advanced_scrapper_tpu/ops/rerank.py:163 (_pair_jq, jnp)"))
+    st = settle_timing(default.rerank_tier, clock_mhz)
+    log("kernel_timing", name="rerank_settle", shape="rerank_path", launches=rerank_launches,
+        **st, card=card)
 
     certified = NearDupEngine(DedupConfig(rerank=False), device=dev)
     run = run_corpora(certified, rwarm, rcorpora, settles=0)
@@ -760,6 +809,20 @@ def main() -> int:
         tier_device_ms=default.rerank_tier.last_clock.device_ms(),
         planted=len(planted), dups=int((reps != np.arange(MAIN_ARTICLES)).sum()), card=card)
     del docs, reps
+    st_main = settle_timing(default.rerank_tier, clock_mhz)
+    log("kernel_timing", name="rerank_settle", shape="default_engine_main_corpus",
+        launches=got["rerank_settle"], **st_main, card=card)
+    main_shape = {k: st_main[k] for k in ("pairs", "sketches", "ms", "plain_ms",
+                                          "launch_floor_ms", "share_of_bound")}
+    main_shape.update(launches=got["rerank_settle"],
+                      bound_ms=max(st_main["ops_bound_ms"], st_main["bytes_bound_ms"]),
+                      bound_by=bound_by(st_main["ops_bound_ms"], st_main["bytes_bound_ms"]))
+    kernels.append(kernel_entry(
+        "rerank_settle", rerank_launches, st["ms"], st["plain_ms"], st["ops_bound_ms"],
+        st["bytes_bound_ms"], source="advanced_scrapper_tpu_torch/csrc/rerank.cu",
+        replaces="advanced_scrapper_tpu/ops/rerank.py:163 (_pair_jq, jnp)",
+        pairs=st["pairs"], launch_floor_ms=st["launch_floor_ms"],
+        default_engine_main_corpus=main_shape))
 
     # -- phase 5: card engines vs CPU engines --------------------------------
     small, _ = ragged_corpus(np.random.RandomState(11), PARITY_ARTICLES)

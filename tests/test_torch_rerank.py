@@ -1,8 +1,8 @@
 """The port's rerank tier against the JAX package's ``ops.rerank``: the
 numpy host half (sketches, candidacy, union-find, recall weight, eviction,
-rewrite), the settle's plain version against the reference's jnp settle
-step, the finalize, and the settle wrapper's dispatch and checks.  Every
-comparison is exact."""
+rewrite), the settle's plain versions against the reference's jnp settle
+step and finalize, the tier's settle on the CPU, and the settle wrapper's
+checks.  Every comparison is exact."""
 
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from advanced_scrapper_tpu_torch.config import DedupConfig
 from advanced_scrapper_tpu_torch.core.hashing import make_params
 from advanced_scrapper_tpu_torch.cpu import oracle
 from advanced_scrapper_tpu_torch.ops import rerank, rerank_cuda
+from advanced_scrapper_tpu_torch.pipeline.clock import StageClock
 from advanced_scrapper_tpu_torch.pipeline.rerank import RerankTier
 
 
@@ -50,6 +51,28 @@ def _ref_settle(sk: np.ndarray, ii: np.ndarray, jj: np.ndarray) -> np.ndarray:
     packed = pack_pair_tile(sk[ii], sk[jj], np.arange(rows, dtype=np.int32))
     fold = jax.device_put(np.full(rows, -7, np.int32))
     return np.asarray(ref.make_rerank_tile_step(rows, size)(fold, jax.device_put(packed)))
+
+
+def _ref_settle_finalize(sk: np.ndarray, ii, jj, lo: int, hi: int) -> np.ndarray:
+    """``int32[2, m]``: the reference's settle step, then its finalize."""
+    fold, verdict = ref.make_rerank_finalize()(
+        jax.device_put(_ref_settle(sk, ii, jj)), np.int32(lo), np.int32(hi)
+    )
+    return np.stack([np.asarray(fold), np.asarray(verdict).astype(np.int32)])
+
+
+def _edge_pairs(rng: np.random.RandomState, n: int, m: int):
+    """``(ii, jj)``: the settle's edge cases over ``mutated_texts`` rows
+    (long texts first, the two all-PAD rows last) — empty ∪ empty,
+    ``i == j``, short beside full both ways, empty beside full both ways,
+    one row named twice — then ``m`` pairs, half in runs that share ``ia``
+    (sorted, as the tier's list), half random."""
+    ii = [n - 2, n - 1, 0, 5, 0, n - 3, n - 2, 0, 7, 7]
+    jj = [n - 1, n - 1, 0, 5, n - 3, 0, 0, n - 2, 7, 8]
+    half = m // 2
+    ii = np.r_[ii, np.sort(rng.randint(0, n, half)), rng.randint(0, n, m - half)]
+    jj = np.r_[jj, rng.randint(0, n, half), rng.randint(0, n, m - half)]
+    return ii, jj
 
 
 # -- host half ---------------------------------------------------------------
@@ -215,23 +238,70 @@ def test_rerank_finalize():
     assert got.tolist() == [0, 0, -1, -1, 1, 1]
 
 
+@pytest.mark.parametrize("size", [37, 1024])
+def test_settle_plain_matches_reference_settle_and_finalize(size):
+    """The plain version of the fused kernel, ``pair_jq_plain`` then
+    ``rerank_finalize``, against the reference's ``make_rerank_tile_step``
+    then ``make_rerank_finalize``, on the edge cases and runs sharing
+    ``ia``, at several margin bands."""
+    rng = np.random.RandomState(size + 1)
+    texts = mutated_texts(rng, 8, 2000) + mutated_texts(rng, 8, 30)
+    texts = texts[:-2] + [texts[-3], b"xy", b"ab"]  # short row at n - 3
+    sk = rerank.bottom_sketches(texts, 5, size)
+    n = len(sk)
+    ii, jj = _edge_pairs(rng, n, 60)
+    for lo, hi in ((6600, 7400), (0, 0), (5000, 10001)):
+        got = rerank.settle_plain(_u32(sk), _i32(ii), _i32(jj), lo, hi)
+        assert got.dtype == torch.int32 and got.shape == (2, len(ii))
+        assert np.array_equal(got.numpy(), _ref_settle_finalize(sk, ii, jj, lo, hi)), (lo, hi)
+    assert (got[0, :4] == rerank.SCALE).all()  # empty ∪ empty and i == j
+    assert rerank.settle_plain(_u32(sk), _i32([]), _i32([]), 0, 1).shape == (2, 0)
+
+
 def test_settle_pairs_takes_the_plain_version_on_the_cpu():
+    """On the CPU the tier settles with the plain versions, launches
+    nothing and laps its settle stages; the kernel's wrapper refuses CPU
+    tensors."""
     sk = rerank.bottom_sketches(mutated_texts(np.random.RandomState(1), 5), 5, 64)
-    ii, jj = _i32([0, 1, 2]), _i32([1, 1, 11])
+    idx = _i32([[0, 1, 2, 10], [1, 1, 11, 11]])
+    tier = RerankTier(DedupConfig(rerank_sketch=64), make_params(), device="cpu")
+    clock = StageClock(torch.device("cpu"))
     before = rerank_cuda.rerank_settle.launches
-    got = rerank.settle_pairs(_u32(sk), ii, jj)
-    assert rerank_cuda.rerank_settle.launches == before
-    assert torch.equal(got, rerank.pair_jq_plain(_u32(sk), ii, jj))
-    assert rerank.settle_pairs(_u32(sk), _i32([]), _i32([])).shape == (0,)
+    jq, verdict, h2d = tier._settle_device(torch.from_numpy(sk.view(np.int32)), idx, clock)
+    assert rerank_cuda.rerank_settle.launches == before and h2d == 0
+    want = rerank.settle_plain(_u32(sk), idx[0], idx[1], 6600, 7400)
+    assert np.array_equal(jq, want[0].numpy()) and np.array_equal(verdict, want[1].numpy())
+    assert verdict.dtype == np.int8
+    assert list(clock.seconds) == ["sketch_copy", "settle", "finalize", "settle_readback"]
+    got_sk, got_idx = tier.last_settle_inputs
+    assert torch.equal(got_sk, _u32(sk)) and got_idx is idx
     with pytest.raises(ValueError, match="CUDA tensors"):
-        rerank_cuda.rerank_settle(_u32(sk), ii, jj, 64)
+        rerank_cuda.rerank_settle(_u32(sk), idx[0], idx[1], 64, 6600, 7400)
 
 
-@pytest.mark.parametrize("case", ["dtype-sk", "dtype-idx", "shape-sk", "lengths", "range-hi", "range-lo"])
+@pytest.mark.parametrize("case", [
+    "dtype-sk", "dtype-idx", "shape-sk", "lengths", "range-hi", "range-lo",
+    "band-order", "band-type", "band-int32", "out-dtype", "out-shape", "out-device",
+])
 def test_settle_rejects_bad_inputs(case):
+    """Each check raises before any launch: on the plain version and in
+    the wrapper's own check (``check_settle``), which the CPU reaches."""
     sk = _u32(rerank.bottom_sketches([b"abcdefgh", b"abcdefgx"], 5, 16))
     ii, jj = _i32([0, 1]), _i32([1, 0])
-    if case == "dtype-sk":
+    lo, hi, out = 6600, 7400, None
+    if case == "band-order":
+        lo, err = 7401, ValueError
+    elif case == "band-type":
+        hi, err = 7400.0, TypeError
+    elif case == "band-int32":
+        hi, err = 1 << 31, ValueError
+    elif case == "out-dtype":
+        out, err = torch.zeros((2, 2), dtype=torch.int64), TypeError
+    elif case == "out-shape":
+        out, err = torch.zeros((2, 3), dtype=torch.int32), ValueError
+    elif case == "out-device":
+        out, err = torch.zeros((2, 2), dtype=torch.int32, device="meta"), ValueError
+    elif case == "dtype-sk":
         sk, err = sk.view(torch.int32).to(torch.int64), TypeError
     elif case == "dtype-idx":
         ii, err = ii.to(torch.int64), TypeError
@@ -243,10 +313,14 @@ def test_settle_rejects_bad_inputs(case):
         jj, err = _i32([1, 2]), ValueError
     else:
         ii, err = _i32([-1, 0]), ValueError
+    if out is None:
+        with pytest.raises(err):
+            rerank.settle_plain(sk, ii, jj, lo, hi)
     with pytest.raises(err):
-        rerank.settle_pairs(sk, ii, jj)
-    with pytest.raises(err):
-        rerank_cuda.check_pairs(sk, ii, jj)
+        rerank_cuda.check_settle(sk, ii, jj, lo, hi, out)
+    if not case.startswith(("band", "out")):
+        with pytest.raises(err):
+            rerank_cuda.check_pairs(sk, ii, jj)
 
 
 def test_tier_index_and_prewarm_are_not_ported():
