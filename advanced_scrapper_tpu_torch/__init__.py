@@ -13,12 +13,17 @@ plain PyTorch versions of every kernel, as the tests do.
 
 from __future__ import annotations
 
-import torch
+from typing import TYPE_CHECKING
+
+if TYPE_CHECKING:
+    import torch
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """``None`` → ``cuda``; a CUDA device without a card raises (the port
     never drops to the CPU on its own)."""
+    import torch  # here, not at the top: the matcher's verify workers never load it
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

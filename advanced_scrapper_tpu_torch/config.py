@@ -1,4 +1,5 @@
-"""Configuration of the port: a copy of the reference's ``DedupConfig``.
+"""Configuration of the port: copies of the reference's ``DedupConfig`` and
+``MatchConfig``.
 
 Same fields, same defaults (``advanced_scrapper_tpu/config.py``), so a
 configuration moves between the two packages unchanged.  The defaults run:
@@ -8,7 +9,8 @@ exact_verify_band=0``).  The engine raises ``NotImplementedError`` for the
 fields whose slice is still to come (``backend="oph"``,
 ``packed_h2d=False``, ``prewarm``) rather than approximating them; the
 dispatcher and stream-index fields are read by nothing yet.
-``from_env`` and the other subsystems' configs are not ported yet.
+``from_env`` (the ``ASTPU_*`` environment knobs) and the other subsystems'
+configs are not ported yet.
 """
 
 from __future__ import annotations
@@ -55,3 +57,30 @@ class DedupConfig:
     index_fleet_retries: int = 2
     index_fleet_health_checks: int = 2
     ckpt_every_batches: int = 16
+
+
+@dataclass(frozen=True)
+class MatchConfig:
+    """Entity→article matching (ref match_keywords.py).
+
+    Same fields and defaults as the reference's.  The port screens a chunk
+    as one ragged buffer on the card (``pipeline/matcher.py``), so it has
+    no tile plane: ``packed=False`` (the reference's legacy per-batch
+    loop) and ``prewarm`` raise ``NotImplementedError``, and
+    ``dispatch_window``, ``put_workers`` and ``screen_tile_bytes`` are
+    read by nothing.
+    """
+
+    source_name: str = "yahoo"          # ref :222
+    info_dir: str = "info/Icahn_filter"  # ref :223
+    articles_csv: str = "datasets/yahoo_articles_all.csv"
+    chunk_size: int = 20000             # ref :227
+    fuzzy_threshold: float = 95.0       # ref :175 (partial_ratio > 95)
+    use_tpu: bool = True     # screen on the device (the card here)
+    out_dir_suffix: str = "_ticker_matched_articles"  # ref :129
+    verify_workers: int = 0  # exact-verify processes; 0 = cpu_count, 1 = inline
+    packed: bool = True      # one ragged buffer per chunk (False: later slice)
+    dispatch_window: int = 0  # read by nothing (no tile plane)
+    put_workers: int = 0     # read by nothing (no tile plane)
+    screen_tile_bytes: int = 1 << 21  # read by nothing (no tile plane)
+    prewarm: int = 0         # screen shape-set warmup (later slice)

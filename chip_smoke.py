@@ -35,9 +35,23 @@ before and read just after:
   inputs there as well (the ``rerank_settle`` row's
   ``default_engine_main_corpus`` fields).
 
-Last, the card engines and the CPU engines (estimator-only, default,
-``rerank=False``) must agree on 2,048 articles.  Any failed check exits
-non-zero.
+Then the card engines and the CPU engines (estimator-only, default,
+``rerank=False``) must agree on 2,048 articles.
+
+Last, the matcher (``pipeline/matcher.py``) at S&P scale, from a seed: 500
+tickers, ~4,500 names, one chunk of 20,000 articles with planted mentions,
+decoys, non-ASCII and overlong articles.  Its kernels ``match_screen`` and
+``myers_bound`` are first held bit-equal to their plain versions on edge
+cases (row lengths 0-65,536, a misaligned base, gram-less and truncated
+names, thresholds 95, 90, 80, 97.5 and 50, patterns of 1 and 32 bytes and
+``ok`` False, two chunks into one set of tables); then ``match_chunk``
+runs screen-only and with the bound forced (timed on a later call: one
+launch of each kernel per chunk, every planted mention found, both modes'
+matches equal), ``run_matcher`` runs end to end (the "auto" race, the
+verify pool, the per-ticker CSVs), the kernels are timed on the chunk
+beside their bounds and plain versions, and card and CPU must agree on a
+256-article subset (64 with the bound forced) and write byte-equal CSV
+trees.  Any failed check exits non-zero.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the card's name and power limit from nvidia-smi,
@@ -140,23 +154,38 @@ def cuda_ms(fn, reps: int = 1) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def profiled_ms(fn, *kernels: str, reps: int = 5) -> list[float]:
-    """Device ms per call of ``fn``, after one warm call, of the kernels
-    whose name holds each of ``kernels``: ``torch.profiler``'s device time
-    summed over ``reps`` calls in one window."""
+def profiler_device_ms(fn, want: tuple[str, ...], reps: int = 5,
+                       windows: int = 3) -> dict[str, float]:
+    """Device ms per call of ``fn``, after one warm call, of every event
+    ``torch.profiler`` gave device time, by name, over ``reps`` calls in
+    one window.  A window that lacks a kernel whose name holds one of
+    ``want`` is taken again, up to ``windows`` times: on the card's
+    machine the profiler now and then hands back a window with no device
+    event at all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = prof.key_averages()
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = {e.key: e.device_time_total / reps / 1e3 for e in prof.key_averages()
+                if e.device_time_total > 0}
+        if all(any(w in k for k in seen) for w in want):
+            break
+    return seen
+
+
+def profiled_ms(fn, *kernels: str, reps: int = 5) -> list[float]:
+    """Device ms per call of ``fn`` of the kernels whose name holds each of
+    ``kernels`` (:func:`profiler_device_ms`)."""
+    seen = profiler_device_ms(fn, kernels, reps)
     out = []
     for kernel in kernels:
-        kernel_us = sum(e.device_time_total for e in rows if kernel in e.key)
-        assert kernel_us > 0, f"the profiler saw no {kernel} kernel"
-        out.append(kernel_us / reps / 1e3)
+        ms = sum(v for k, v in seen.items() if kernel in k)
+        assert ms > 0, f"the profiler saw no {kernel} kernel, only {sorted(seen)}"
+        out.append(ms)
     return out
 
 
@@ -378,6 +407,539 @@ def check_rerank_vs_plain(dev) -> dict:
     return {"cases": cases, "sketch_sizes": [size for size, _ in runs], "max_abs_err": 0}
 
 
+def edit_bytes(rng: np.random.RandomState, raw: bytes, edits: int) -> bytes:
+    """``raw`` with ``edits`` random byte substitutions, insertions or
+    deletions (letters only)."""
+    b = bytearray(raw)
+    for _ in range(edits):
+        op, at = rng.randint(3), rng.randint(0, max(len(b), 1))
+        c = int(rng.randint(97, 123))
+        if op == 0 and b:
+            b[at] = c
+        elif op == 1:
+            b.insert(at, c)
+        elif b:
+            del b[at]
+    return bytes(b)
+
+
+def match_edge_case(rng: np.random.RandomState, n_rows: int):
+    """Names and rows for the screen and bound checks.  Names: random
+    words of 1-40 bytes, empty and 2-byte names (no gram), names over 98
+    bytes (truncated at 96 grams), ALL-CAPS exact names, a non-ASCII name;
+    patterns of length 1 and 32, an empty and a 40-byte one (``ok``
+    False).  Rows (``title\\ntext``): lengths 0, 1, 2, 3, 4, 511, 512, 513,
+    543, 1024 and 65,536 first, then random, with names planted exact and
+    with 1-2 edits; text lengths of exactly ``m`` and ``m + 1`` for a short
+    pattern; some texts non-ASCII (flag off), some titles non-ASCII (bytes
+    over 127 inside flagged rows)."""
+    from advanced_scrapper_tpu_torch.ops.match import FLAG_REFINE_OK
+
+    def word(lo, hi, upper=False):
+        base = 65 if upper else 97
+        return bytes(rng.randint(base, base + 26, size=rng.randint(lo, hi + 1), dtype=np.uint8))
+
+    names = [word(3, 40) for _ in range(120)] + [word(2, 5, upper=True) for _ in range(40)]
+    names += [b"", b"ab", word(99, 140), word(120, 200), "Société Générale".encode(),
+              b"q", word(32, 32), b"Tim Cook", b"International Business Machines Corporation"]
+    fuzzy = np.array([not n.isupper() for n in names])
+    pats = [n for n in names if 0 < len(n) <= 32][:100] + [b"", word(40, 40), b"x", word(32, 32)]
+    cols = list(range(len(pats) - 4)) + [len(names) - 8, len(names) - 7, len(names) - 4,
+                                          len(names) - 3]
+    pat_cols = [names.index(p) if p in names else c for p, c in zip(pats, cols)]
+    pat_cols = list(dict.fromkeys(pat_cols))  # distinct columns
+    while len(pat_cols) < len(pats):
+        pat_cols.append(next(c for c in range(len(names)) if c not in pat_cols))
+    edge = [0, 1, 2, 3, 4, 511, 512, 513, 543, 1024, 65536]
+    rows, text_len, title_len, flags = [], [], [], []
+    for i in range(n_rows):
+        total = edge[i] if i < len(edge) else int(rng.choice([40, 300, 900, 2100, 3000]))
+        title = word(0, min(60, max(total - 1, 0)) if total else 0) if total else b""
+        title = title[: max(total - 1, 0)]
+        body_len = max(total - len(title) - 1, 0)
+        body = bytearray(rng.randint(97, 123, size=body_len, dtype=np.uint8))
+        if body_len > 60 and i % 3:
+            for _ in range(rng.randint(1, 4)):
+                nm = names[rng.randint(len(names))]
+                nm = edit_bytes(rng, nm, rng.randint(0, 3)) if i % 2 else nm
+                at = rng.randint(0, body_len - len(nm)) if body_len > len(nm) else 0
+                body[at:at + len(nm)] = nm
+        if i == len(edge):       # a text of exactly m, then m + 1, for a short pattern
+            body = bytearray(pats[0])
+        if i == len(edge) + 1:
+            body = bytearray(pats[0] + b"z")
+        if i % 17 == 5:          # non-ASCII text: flag off
+            body[:2] = "é".encode()
+        if i % 13 == 7:          # non-ASCII title inside a flagged row
+            title = "Zürich ".encode() + title
+        raw = bytes(title) + b"\n" + bytes(body) if total else b""
+        if i < len(edge):
+            raw = (raw + bytes(rng.randint(97, 123, size=total, dtype=np.uint8)))[:total]
+        rows.append(raw)
+        tl = len(raw) - len(title) - 1 if raw[len(title):len(title) + 1] == b"\n" else len(raw)
+        text_len.append(max(tl, 0))
+        title_len.append(len(title) if tl != len(raw) else 0)
+        ascii_text = raw[len(raw) - text_len[-1]:].isascii() if text_len[-1] else False
+        flags.append(FLAG_REFINE_OK if ascii_text else 0)
+    return (names, fuzzy, pats, np.array(pat_cols, np.int64), rows,
+            np.array(text_len, np.int32), np.array(title_len, np.int32),
+            np.array(flags, np.int32))
+
+
+def check_match_vs_plain(dev) -> dict:
+    """Phase 3, the matcher: ``match_screen`` bit-equal to ``screen_plain``
+    and ``myers_bound`` bit-equal to ``myers_bound_plain`` (the mask bits)
+    and to ``semiglobal_dist_shared_plain`` (every pair's distance) on the
+    rows and names of :func:`match_edge_case`, at thresholds 95, 90, 80,
+    97.5 and 50, over two chunks into one set of name tables, from a text
+    that starts off a 16-byte boundary."""
+    from advanced_scrapper_tpu_torch.ops import editdist_cuda, match_cuda
+    from advanced_scrapper_tpu_torch.ops.editdist import (
+        build_pattern_masks,
+        myers_bound_plain,
+        semiglobal_dist_shared_plain,
+    )
+    from advanced_scrapper_tpu_torch.ops.match import (
+        prepare_names,
+        screen_frac,
+        screen_plain,
+        screen_tensors,
+    )
+
+    rng = np.random.RandomState(21)
+    names, fuzzy, pats, cols, *_ = match_edge_case(rng, 0)
+    tables = screen_tensors(prepare_names(names, fuzzy=fuzzy), dev)
+    masks, plens, ok = build_pattern_masks(pats)
+    pm = (torch.from_numpy(masks.view(np.int32)).to(dev).view(torch.uint32),
+          torch.from_numpy(plens).to(dev), torch.from_numpy(ok).to(dev),
+          torch.from_numpy(cols).to(dev))
+    before = (match_cuda.match_screen.launches, editdist_cuda.myers_bound.launches)
+    cases = survivors = pruned = 0
+    for chunk, n_rows in enumerate((300, 257)):
+        _n, _f, _p, _c, rows, tl, ttl, fl = match_edge_case(rng, n_rows)
+        text, off, lens = flat_text(rows, lead=3)
+        full = torch.from_numpy(np.r_[np.zeros(5, np.uint8), text]).to(dev)
+        text_d = full[5:]  # starts off a 16-byte boundary
+        assert text_d.data_ptr() % 16 != 0
+        ra = [torch.from_numpy(x).to(dev) for x in
+              (off, lens.astype(np.int32), tl, ttl, fl)]
+        off_d, len_d, tl_d, ttl_d, fl_d = ra
+        for t in (95.0, 90.0, 80.0, 97.5, 50.0):
+            got = match_cuda.match_screen(text_d, off_d, len_d, tl_d, ttl_d, tables,
+                                          screen_frac(t))
+            want = screen_plain(text_d, off_d, len_d, tl_d, ttl_d, tables, t).to(torch.uint8)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"match_screen differs from plain at t={t}"
+            plain_mask = want.clone()
+            editdist_cuda.myers_bound(text_d, off_d, len_d, tl_d, fl_d, *pm, t, got)
+            myers_bound_plain(text_d, off_d, len_d, tl_d, fl_d, *pm, t, plain_mask)
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain_mask), f"myers_bound differs from plain at t={t}"
+            survivors += int((got & 1).sum())
+            pruned += int((got >> 1).sum())
+            cases += 1
+        dist = torch.empty((len(rows), len(pats)), dtype=torch.int32, device=dev)
+        scratch = torch.zeros((len(rows), len(names)), dtype=torch.uint8, device=dev)
+        editdist_cuda.myers_bound(text_d, off_d, len_d, tl_d, fl_d, *pm, 95.0, scratch,
+                                  dist=dist)
+        width = int(lens.max())
+        padded = np.zeros((len(rows), width), np.uint8)
+        for i, r in enumerate(rows):
+            padded[i, :len(r)] = np.frombuffer(r, np.uint8)
+        want_d = torch.cat([semiglobal_dist_shared_plain(
+            pm[0], pm[1], torch.from_numpy(padded[r0:r0 + 32]).to(dev), len_d[r0:r0 + 32])
+            for r0 in range(0, len(rows), 32)])
+        torch.cuda.synchronize()
+        assert torch.equal(dist, want_d), "myers_bound distances differ from plain"
+        cases += 1
+    launches = (match_cuda.match_screen.launches - before[0],
+                editdist_cuda.myers_bound.launches - before[1])
+    assert launches == (10, 12), launches
+    assert survivors and pruned, (survivors, pruned)
+    return {"cases": cases, "names": len(names), "patterns": len(pats),
+            "survivor_bits": survivors, "prune_bits": pruned, "max_abs_err": 0}
+
+
+MATCH_TICKERS = 500      # S&P 500 (DESIGN.md: 500 tickers, ~4,700 names)
+MATCH_ARTICLES = 20000   # one chunk at MatchConfig.chunk_size
+MATCH_SUBSET = 256       # card vs CPU
+MATCH_REFINE_SUBSET = 64  # card vs CPU with the bound forced (the CPU's plain bound is slow)
+
+
+def letters(rng: np.random.RandomState, lo: int, hi: int) -> str:
+    """A word of ``lo``-``hi`` random lowercase letters (as the matcher's
+    tests make filler: diverse grams, so the screen has work to do)."""
+    return "".join(chr(97 + c) for c in rng.randint(0, 26, size=rng.randint(lo, hi + 1)))
+
+
+def sp500_entities(rng: np.random.RandomState) -> list[dict]:
+    """500 US companies in the info-JSON schema, ~9.4 names each: an
+    ALL-CAPS ticker of 2-5 letters (exact path), a label, aliases,
+    products (some pure lowercase: skipped), subsidiaries (some over 98
+    bytes: truncated grams; some over 32: no bound), CEOs and board
+    members; ~2% of names non-ASCII; CEO windows ``(Start:)`` /
+    ``(End:)`` that some article dates fall outside."""
+    tickers: set[str] = set()
+    while len(tickers) < MATCH_TICKERS:
+        tickers.add("".join(chr(65 + c) for c in rng.randint(0, 26, size=rng.randint(2, 6))))
+
+    def word() -> str:
+        w = letters(rng, 3, 9).capitalize()
+        return w.replace("e", "é", 1) if rng.rand() < 0.02 else w
+
+    def person() -> str:
+        return f"{word()} {word()}"
+
+    out = []
+    for t in sorted(tickers):
+        name = f"{word()} {word()}"
+        subs = []
+        for _ in range(rng.randint(0, 3)):
+            if rng.rand() < 0.1:
+                subs.append(" ".join(word() for _ in range(16)) + " Holdings Limited")
+            elif rng.rand() < 0.3:
+                subs.append(f"{word()} {word()} {word()} International (Start: 2012-03-01T00:00:00Z)")
+            else:
+                subs.append(f"{word()} {word()}")
+        products = [f"{word()} {rng.choice(['Pro', 'Max', 'One', 'Cloud'])} {rng.randint(2, 9)}"
+                    for _ in range(rng.randint(1, 3))]
+        if rng.rand() < 0.2:
+            products.append(letters(rng, 5, 9))  # pure lowercase: never a name
+        ceos = [f"{person()} (Start: 2{rng.randint(10, 20):03d}-0{rng.randint(1, 9)}-15T00:00:00Z)"]
+        if rng.rand() < 0.5:
+            ceos.append(f"{person()} (Start: 1998-01-01T00:00:00Z) (End: 2009-06-30T00:00:00Z)")
+        out.append({
+            "id_label": f"{name} {rng.choice(['Inc.', 'Corp.', 'Group', 'Co.', 'Holdings'])}",
+            "ticker": t,
+            "country": ["United States"],
+            "industry": ["technology"],
+            "aliases": [name] + ([t.lower().capitalize() + " Co"] if rng.rand() < 0.5 else []),
+            "products": products,
+            "subsidiaries": subs,
+            "owned_entities": [],
+            "ceos": ceos,
+            "board_members": [person() for _ in range(rng.randint(1, 3))],
+        })
+    return out
+
+
+def sp500_articles(rng: np.random.RandomState, entities: list[dict], n: int):
+    """``(records, planted)``: ``n`` articles (text 1-3 kB of word-like
+    filler, titles of 40-120 bytes, dates in 2021-2023) with 15% planted
+    mentions (exact, or with 1-2 byte edits), 10% decoys (a fuzzy name's
+    two halves apart: every gram present, no close substring), ~3%
+    non-ASCII texts and 4 articles over 65,536 bytes.  ``planted`` maps an
+    article to the tickers of its exact mentions that must match (names
+    whose window holds the article's date)."""
+    vocab = [letters(rng, 2, 9) for _ in range(3000)]
+    from advanced_scrapper_tpu_torch.pipeline.matcher import extract_time_periods
+
+    names = []  # (ticker, name, must-match in 2021-2023)
+    for e in entities:
+        for attr in ("ticker", "id_label", "aliases", "products", "subsidiaries", "ceos",
+                     "board_members"):
+            for nm, (start, end) in extract_time_periods(e[attr]).items():
+                if nm and not (nm.islower() and nm.replace(" ", "").isalpha()):
+                    names.append((e["ticker"], nm, end is None))
+    fuzzy = [x for x in names if not x[1].isupper() and len(x[1]) >= 8]
+    records, planted = [], {}
+    for i in range(n):
+        overlong = i in (n // 8, 3 * n // 8, 5 * n // 8, 7 * n // 8)  # apart: one per slice
+        size = rng.randint(66000, 70000) if overlong else rng.randint(1000, 3000)
+        words = [vocab[w] for w in rng.randint(0, len(vocab), size=size // 6)]
+        title = " ".join(vocab[w] for w in rng.randint(0, len(vocab), size=20))
+        title = title[: rng.randint(40, 121)].capitalize()
+        u = rng.rand()
+        if u < 0.15 or overlong:
+            for _ in range(rng.randint(1, 4)):
+                ticker, nm, must = names[rng.randint(len(names))]
+                if rng.rand() < 0.3 and not nm.isupper():
+                    nm = edit_bytes(rng, nm.encode(), rng.randint(1, 3)).decode("utf-8", "replace")
+                elif must:
+                    planted.setdefault(i, set()).add(ticker)
+                words.insert(rng.randint(len(words)), nm)
+        elif u < 0.25:
+            _ticker, nm, _must = fuzzy[rng.randint(len(fuzzy))]
+            h = len(nm) // 2
+            words.insert(rng.randint(len(words)), nm[: h + 2])
+            words.insert(0, nm[h - 1:])
+        text = " ".join(words)
+        if rng.rand() < 0.03:  # a word of its own: inside a planted name it would break it
+            text = "café “Zürich” " + text
+        day = f"202{rng.randint(1, 4)}-{rng.randint(1, 13):02d}-{rng.randint(1, 29):02d}"
+        records.append({
+            "article_text": text, "title": title,
+            "date_time": f"{day}T{rng.randint(0, 24):02d}:{rng.randint(0, 60):02d}:00Z"
+            if i % 50 else day,
+            "url": f"https://news.example/{i}.html", "source": "yahoo",
+            "source_url": "https://news.example",
+        })
+    return records, planted
+
+
+def write_matcher_inputs(root: str, entities: list[dict], records: list[dict]) -> tuple[str, str]:
+    """An info directory (10 companies per JSON file) and an articles CSV
+    under ``root``; returns their paths."""
+    import csv
+
+    info = os.path.join(root, "info")
+    os.makedirs(info, exist_ok=True)
+    for k in range(0, len(entities), 10):
+        with open(os.path.join(info, f"part{k // 10:03d}.json"), "w", encoding="utf-8") as f:
+            json.dump(entities[k : k + 10], f, ensure_ascii=False)
+    path = os.path.join(root, "articles.csv")
+    with open(path, "w", newline="", encoding="utf-8") as f:
+        w = csv.writer(f)
+        w.writerow(list(records[0]))
+        w.writerows([list(r.values()) for r in records])
+    return info, path
+
+
+def norm_matches(res) -> list:
+    """``tests/test_match_dispatch.py``'s ``_norm``: sorted (ticker,
+    matches as sorted JSON, url)."""
+    return sorted((t, json.dumps(m, sort_keys=True), r["url"]) for t, m, r in res)
+
+
+def tree_bytes(path: str) -> dict[str, bytes]:
+    out = {}
+    for f in sorted(os.listdir(path)):
+        with open(os.path.join(path, f), "rb") as fh:
+            out[f] = fh.read()
+    return out
+
+
+def timed_chunk(records, index, pool, **kw) -> tuple[list, dict]:
+    """``match_chunk`` on the card with the launch counters set to 0 just
+    before and read just after: ``(results, record)`` with the screen's
+    and the verify's host seconds, the screen's stage times and the
+    launches."""
+    from advanced_scrapper_tpu_torch.pipeline.matcher import match_chunk_async
+
+    reset_launches()
+    t0 = time.perf_counter()
+    collect = match_chunk_async(records, index, pool=pool, **kw)
+    t1 = time.perf_counter()
+    res = collect()
+    t2 = time.perf_counter()
+    clock = index.last_screen_clock
+    return res, {"seconds": t2 - t0, "screen_s": t1 - t0, "verify_s": t2 - t1,
+                 "articles_per_s": len(records) / (t2 - t0), "matches": len(res),
+                 "launches": read_launches(), "screen_host_s": dict(clock.seconds),
+                 "screen_device_ms": clock.device_ms()}
+
+
+def matcher_kernel_timing(index, records, clock_mhz: float) -> list[dict]:
+    """Kernels E and F on the chunk's own buffer (``join_rows``), timed with
+    CUDA events over 5 calls after a warm one (each call is one launch of
+    5 ms or more) and by the profiler where it sees them, beside their
+    plain versions on the card (one call), and held bit-equal to them.
+    F ORs into one mask call after call (the same bits).  Bounds from this
+    data: E moves the text and row arrays once, the name tables once and
+    one mask byte per pair, and does ~16 operations per window, ~4 per
+    (row, kept gram) probe and ~16 per pair; F does ~15 operations per
+    live byte of each tile for each computed pair (ok, text longer than
+    the pattern, ASCII text) and moves the text, row arrays, pattern masks
+    and one mask byte per (row, pattern)."""
+    from advanced_scrapper_tpu_torch.ops import editdist_cuda, match_cuda
+    from advanced_scrapper_tpu_torch.ops.editdist import myers_bound_plain
+    from advanced_scrapper_tpu_torch.ops.match import screen_frac, screen_plain
+    from advanced_scrapper_tpu_torch.pipeline.matcher import join_rows
+
+    dev = torch.device("cuda")
+    rows = [(r["article_text"], r["title"], None, r) for r in records]
+    eligible, text, off, ln, tl, ttl, fl = join_rows(rows, 1 << 16, dev)
+    screen_t, (masks, plens, ok, cols) = index.device_tables(dev)
+    R, N, K = eligible.size, screen_t["kept"].numel(), plens.numel()
+    frac = screen_frac(95.0)
+    out: dict = {}
+
+    def run_e():
+        out["e"] = match_cuda.match_screen(text, off, ln, tl, ttl, screen_t, frac)
+
+    def run_f():
+        editdist_cuda.myers_bound(text, off, ln, tl, fl, masks, plens, ok, cols, 95.0, out["f"])
+
+    run_e()
+    out["f"] = out["e"].clone()
+    run_f()
+    e_ms, f_ms = cuda_ms(run_e, 5), cuda_ms(run_f, 5)
+    seen = profiler_device_ms(lambda: (run_e(), run_f()), ("screen_kernel", "bound_kernel"))
+    prof = {name: sum(v for k, v in seen.items() if kernel in k) or None
+            for name, kernel in (("e", "screen_kernel"), ("f", "bound_kernel"))}
+    saw = None if all(prof.values()) else sorted(seen)
+    plain = {}
+    e_plain_ms = cuda_ms(lambda: plain.update(e=screen_plain(text, off, ln, tl, ttl, screen_t,
+                                                             95.0).to(torch.uint8)))
+    f_plain_ms = cuda_ms(lambda: plain.update(f=myers_bound_plain(
+        text, off, ln, tl, fl, masks, plens, ok, cols, 95.0, plain["e"].clone(),
+        rows_per_batch=2048)))
+    torch.cuda.synchronize()
+    assert torch.equal(out["e"], plain["e"]), "match_screen differs from plain on the chunk"
+    assert torch.equal(out["f"], plain["f"]), "myers_bound differs from plain on the chunk"
+
+    lens = ln.cpu().numpy().astype(np.int64)
+    kept = screen_t["kept"].cpu().numpy().astype(np.int64)
+    windows = int(np.maximum(lens - 2, 0).sum())
+    e_ops = 16 * windows + 4 * R * int(kept.sum()) + 16 * R * N
+    table_bytes = sum(t.numel() * t.element_size() for t in screen_t.values())
+    e_bytes = int(lens.sum()) + 20 * R + table_bytes + R * N
+    e_ops_ms, e_bytes_ms = bound_ms(e_ops, e_bytes, clock_mhz)
+    # F: live bytes of each row's tiles, over the pairs the gates keep
+    steps = np.zeros(R, np.int64)
+    for start in range(0, int(lens.max()) if R else 0, 512):
+        steps += np.clip(lens - start, 0, 543)
+    flags = fl.cpu().numpy() & 1
+    pl = plens.cpu().numpy()
+    okk = ok.cpu().numpy()
+    text_len = tl.cpu().numpy()
+    pairs_per_row = ((text_len[:, None] > pl[None, :]) & okk[None, :]).sum(axis=1) * flags
+    f_steps = int((steps * pairs_per_row).sum())
+    f_ops = 15 * f_steps
+    f_bytes = int(lens.sum()) + 20 * R + K * 1024 + 16 * K + R * K
+    f_ops_ms, f_bytes_ms = bound_ms(f_ops, f_bytes, clock_mhz)
+    survivors = int((out["e"] & 1).sum())
+    pruned = int((out["f"] == 3).sum())
+    return [
+        dict(name="match_screen", rows=R, names=N, windows=windows, probes=R * int(kept.sum()),
+             int_ops=e_ops, bytes=e_bytes, ops_bound_ms=e_ops_ms, bytes_bound_ms=e_bytes_ms,
+             ms=e_ms, plain_ms=e_plain_ms, share_of_bound=max(e_ops_ms, e_bytes_ms) / e_ms,
+             survivor_pairs=survivors, profiler_ms=prof["e"], profiler_saw=saw),
+        dict(name="myers_bound", rows=R, patterns=K, pair_steps=f_steps,
+             pairs=int(pairs_per_row.sum()), int_ops=f_ops, bytes=f_bytes,
+             ops_bound_ms=f_ops_ms, bytes_bound_ms=f_bytes_ms, ms=f_ms, plain_ms=f_plain_ms,
+             share_of_bound=max(f_ops_ms, f_bytes_ms) / f_ms, pruned_survivors=pruned,
+             profiler_ms=prof["f"], profiler_saw=saw),
+    ]
+
+
+def matcher_path(clock_mhz: float, card: str) -> tuple[list, dict]:
+    """The matcher at S&P scale on the card (see the module docstring);
+    returns the kernel-line rows of ``match_screen`` and ``myers_bound``
+    and the launches counted on the path."""
+    import tempfile
+
+    from advanced_scrapper_tpu_torch.config import MatchConfig
+    from advanced_scrapper_tpu_torch.cpu.csvframe import read_csv_records
+    from advanced_scrapper_tpu_torch.pipeline.matcher import (
+        EntityIndex,
+        append_match,
+        make_verify_pool,
+        match_chunk,
+        run_matcher,
+        sort_matched_csv,
+    )
+
+    rng = np.random.RandomState(17)
+    t0 = time.perf_counter()
+    entities = sp500_entities(rng)
+    records, planted = sp500_articles(rng, entities, MATCH_ARTICLES)
+    tmp = tempfile.TemporaryDirectory()
+    info, articles = write_matcher_inputs(tmp.name, entities, records)
+    index = EntityIndex.from_info_dir(info)
+    n_names = len(index.entries)
+    gen_s = time.perf_counter() - t0
+    # the kernels alone first, before the verify pool and the run's threads
+    timing = matcher_kernel_timing(index, records, clock_mhz)
+    for t in timing:
+        log("kernel_timing", **t, clock_max_sm_mhz=clock_mhz, card=card)
+    t0 = time.perf_counter()
+    pool = make_verify_pool(index, 0)
+    pool_s = time.perf_counter() - t0
+    try:
+        match_chunk(records[:512], index, pool=pool, use_refine=True)  # warm: tables, libraries
+        _res, first = timed_chunk(records, index, pool, use_refine=False)  # first full-size call
+        modes = {}
+        for mode, refine in (("screen_only", False), ("forced_refine", True)):
+            res, rec = timed_chunk(records, index, pool, use_refine=refine)
+            assert rec["launches"]["match_screen"] == 1, rec["launches"]
+            assert rec["launches"]["myers_bound"] == (1 if refine else 0), rec["launches"]
+            found = {(t, int(r["url"].rsplit("/", 1)[1].split(".")[0])) for t, _m, r in res}
+            missed = [(i, t) for i, ts in planted.items() for t in ts if (t, i) not in found]
+            assert not missed, f"{len(missed)} planted mentions not found, first {missed[:5]}"
+            modes[mode] = (norm_matches(res), rec, res)
+        assert modes["screen_only"][0] == modes["forced_refine"][0], "refine changed the matches"
+        matches = modes["screen_only"][0]
+        for mode, (_n, rec, _res) in modes.items():
+            log("matcher_path", mode=mode, articles=MATCH_ARTICLES, tickers=MATCH_TICKERS,
+                names=n_names, planted_articles=len(planted), **rec,
+                first_call_seconds=first["seconds"], pool_workers=os.cpu_count(),
+                pool_start_s=pool_s, card=card)
+        # CSV write and sort alone: the screen-only matches appended and sorted
+        res = modes["screen_only"][2]
+        out_dir = os.path.join(tmp.name, "write_only")
+        os.makedirs(out_dir)
+        t1 = time.perf_counter()
+        written = sum(append_match(out_dir, t, m, r) for t, m, r in res)
+        t2 = time.perf_counter()
+        for f in os.listdir(out_dir):
+            sort_matched_csv(os.path.join(out_dir, f))
+        t3 = time.perf_counter()
+        n_read = sum(len(c) for c in read_csv_records(articles, MATCH_ARTICLES))
+        read_s = time.perf_counter() - t3
+        assert n_read == MATCH_ARTICLES and written == len(res)
+    finally:
+        if pool is not None:
+            pool.shutdown()
+
+    # run_matcher end to end: the "auto" race, the verify pool, the CSVs
+    cfg = MatchConfig(source_name=os.path.join(tmp.name, "yahoo"), info_dir=info)
+    reset_launches()
+    t0 = time.perf_counter()
+    assert run_matcher(cfg, articles_csv=articles) == 0
+    run_s = time.perf_counter() - t0
+    run_launches = read_launches()
+    assert run_launches["match_screen"] == 1, run_launches
+    trees = tree_bytes(cfg.source_name + cfg.out_dir_suffix)
+    n_csv_rows = sum(len(read_csv_records_all(os.path.join(cfg.source_name + cfg.out_dir_suffix, f)))
+                     for f in trees)
+    assert n_csv_rows == len(matches), (n_csv_rows, len(matches))
+    log("matcher_run", articles=MATCH_ARTICLES, seconds=run_s, articles_per_s=MATCH_ARTICLES / run_s,
+        files=len(trees), csv_rows=n_csv_rows, launches=run_launches, csv_read_s=read_s,
+        csv_write_s=t2 - t1, csv_sort_s=t3 - t2, generate_s=gen_s, card=card)
+
+    # where the screen-only chunk's time goes, from the timed call's clock
+    rec = modes["screen_only"][1]
+    log("matcher_breakdown", mode="screen_only", host_s=rec["screen_host_s"],
+        device_ms=rec["screen_device_ms"], verify_s=rec["verify_s"],
+        refine_device_ms=modes["forced_refine"][1]["screen_device_ms"],
+        refine_verify_s=modes["forced_refine"][1]["verify_s"], csv_write_s=t2 - t1,
+        csv_sort_s=t3 - t2, card=card)
+
+    # card vs CPU on a subset at the full entity set
+    sub = records[:MATCH_SUBSET]
+    cpu_index = EntityIndex.from_info_dir(info)
+    t0 = time.perf_counter()
+    same_screen = norm_matches(match_chunk(sub, index, use_refine=False)) == norm_matches(
+        match_chunk(sub, cpu_index, use_refine=False, device="cpu"))
+    few = records[:MATCH_REFINE_SUBSET]
+    same_refine = norm_matches(match_chunk(few, index, use_refine=True)) == norm_matches(
+        match_chunk(few, cpu_index, use_refine=True, device="cpu"))
+    sub_dir = os.path.join(tmp.name, "subset")
+    _info, sub_csv = write_matcher_inputs(sub_dir, entities, sub)
+    trees = []
+    for dev_name in ("cuda", "cpu"):
+        c = MatchConfig(source_name=os.path.join(sub_dir, dev_name), info_dir=info,
+                        verify_workers=1)
+        assert run_matcher(c, articles_csv=sub_csv, device=dev_name) == 0
+        trees.append(tree_bytes(c.source_name + c.out_dir_suffix))
+    same_trees = trees[0] == trees[1] and len(trees[0]) > 0
+    log("matcher_card_vs_cpu", articles=MATCH_SUBSET, refine_articles=MATCH_REFINE_SUBSET,
+        screen_only_equal=same_screen, forced_refine_equal=same_refine,
+        csv_trees_equal=same_trees, files=len(trees[0]), seconds=time.perf_counter() - t0)
+    assert same_screen and same_refine and same_trees, "card and CPU matchers disagree"
+    tmp.cleanup()
+    launches = {"match_screen": modes["forced_refine"][1]["launches"]["match_screen"],
+                "myers_bound": modes["forced_refine"][1]["launches"]["myers_bound"]}
+    return timing, launches
+
+
+def read_csv_records_all(path: str) -> list[dict]:
+    from advanced_scrapper_tpu_torch.cpu.csvframe import read_csv_records
+
+    return [r for chunk in read_csv_records(path, 1 << 30) for r in chunk]
+
+
 def bound_ms(int_ops: int, moved: int, clock_mhz: float) -> tuple[float, float]:
     """(operations bound, bytes bound) in ms on one H100."""
     ops_ms = int_ops / (INT32_OPS_PER_SM * CARD_SMS * clock_mhz * 1e6) * 1e3
@@ -393,11 +955,12 @@ TIER_KEYS = (
 
 
 def launch_counters() -> dict:
-    from advanced_scrapper_tpu_torch.ops import minhash_cuda, rerank_cuda
+    from advanced_scrapper_tpu_torch.ops import editdist_cuda, match_cuda, minhash_cuda, rerank_cuda
 
     return {f.__name__: f for f in (
         minhash_cuda.minhash_fold_segments, minhash_cuda.minhash_fold,
-        minhash_cuda.minhash_sig, rerank_cuda.rerank_settle)}
+        minhash_cuda.minhash_sig, rerank_cuda.rerank_settle, match_cuda.match_screen,
+        editdist_cuda.myers_bound)}
 
 
 def reset_launches() -> None:
@@ -553,7 +1116,7 @@ def main() -> int:
         numpy=np.__version__, host_cpu=host_cpu(), host_cores=os.cpu_count())
 
     t0 = time.perf_counter()
-    sources = ("minhash", "rerank")
+    sources = ("minhash", "rerank", "match", "editdist")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
         outs = dict(zip(sources, pool.map(_build.build, sources)))
     log("build", seconds=time.perf_counter() - t0, built=[k for k, v in outs.items() if v],
@@ -567,6 +1130,7 @@ def main() -> int:
     log("kernel_vs_plain", **check_kernels_vs_plain(params, cfg, dev))
     log("segments_vs_plain", **check_segments_vs_plain(params, dev))
     log("rerank_kernel_vs_plain", **check_rerank_vs_plain(dev))
+    log("match_kernel_vs_plain", **check_match_vs_plain(dev))
 
     # -- phase 4: the main path at full width ------------------------------
     docs, planted = ragged_corpus(np.random.RandomState(7), MAIN_ARTICLES)
@@ -850,6 +1414,17 @@ def main() -> int:
     assert sig_equal and reps_equal, "card and CPU engines disagree"
     assert default_equal and async_equal and stats_equal, "card and CPU default engines disagree"
     assert cert_equal and checks_equal, "card and CPU exact-verify engines disagree"
+
+    # -- the matcher at S&P scale -------------------------------------------
+    timing, match_launches = matcher_path(clock_mhz, card)
+    for t, source, replaces in zip(
+        timing, ("advanced_scrapper_tpu_torch/csrc/match.cu",
+                 "advanced_scrapper_tpu_torch/csrc/editdist.cu"),
+        ("advanced_scrapper_tpu/ops/match.py:93 (_screen_core, jnp)",
+         "advanced_scrapper_tpu/ops/editdist.py:144 (semiglobal_dist_shared, jnp)")):
+        kernels.append(kernel_entry(
+            t["name"], match_launches[t["name"]], t["ms"], t["plain_ms"], t["ops_bound_ms"],
+            t["bytes_bound_ms"], source=source, replaces=replaces, rows=t["rows"]))
 
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi("name,power.limit"))

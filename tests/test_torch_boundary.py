@@ -1,10 +1,13 @@
 """The PyTorch port stands alone: no module of ``advanced_scrapper_tpu_torch``
-and not ``chip_smoke.py`` imports ``jax`` or the JAX package."""
+and not ``chip_smoke.py`` imports ``jax``, the JAX package, ``pandas`` or
+``dateutil`` (the card's host has neither), or names a path into the JAX
+package from which a native source or library could be loaded."""
 
 from __future__ import annotations
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -16,7 +19,10 @@ PORT = ROOT / "advanced_scrapper_tpu_torch"
 FILES = sorted(
     str(p.relative_to(ROOT)) for p in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]
 )
-FORBIDDEN = ("jax", "jaxlib", "advanced_scrapper_tpu")
+FORBIDDEN = ("jax", "jaxlib", "advanced_scrapper_tpu", "pandas", "dateutil")
+#: a path into the JAX package that names native code
+LOADABLE = re.compile(
+    r"advanced_scrapper_tpu(?!_torch)[/\\](?:native\b|.*\.(?:cpp|cc|h|so|cu)\b)")
 
 
 def _imported_modules(tree: ast.AST):
@@ -43,6 +49,11 @@ def test_port_files_found():
     assert "chip_smoke.py" in FILES
     assert "advanced_scrapper_tpu_torch/pipeline/dedup.py" in FILES
     assert "advanced_scrapper_tpu_torch/ops/minhash_cuda.py" in FILES
+    for rel in ("config.py", "core/dates.py", "cpu/fuzz.py", "cpu/native.py",
+                "cpu/csvframe.py", "ops/match.py", "ops/match_cuda.py", "ops/editdist.py",
+                "ops/editdist_cuda.py", "pipeline/matcher.py"):
+        assert f"advanced_scrapper_tpu_torch/{rel}" in FILES, rel
+    assert (PORT / "native" / "fastmatch.cpp").exists()
 
 
 @pytest.mark.parametrize("rel", FILES)
@@ -50,6 +61,32 @@ def test_no_jax_or_reference_import(rel):
     tree = ast.parse((ROOT / rel).read_text(), filename=rel)
     bad = [m for m in _imported_modules(tree) if _forbidden(m)]
     assert not bad, f"{rel} imports {bad}"
+
+
+@pytest.mark.parametrize("rel", FILES)
+def test_no_path_into_the_reference_package(rel):
+    """No string in a port file's code (docstrings aside) is the JAX
+    package's directory as a path component or a path to its native
+    sources and libraries."""
+    tree = ast.parse((ROOT / rel).read_text(), filename=rel)
+    docs = {
+        id(n.body[0].value) for n in ast.walk(tree)
+        if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef))
+        and n.body and isinstance(n.body[0], ast.Expr) and isinstance(n.body[0].value, ast.Constant)
+    }
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in docs:
+            assert node.value != "advanced_scrapper_tpu", f"{rel}: a path component"
+            assert not LOADABLE.search(node.value), f"{rel}: {node.value!r}"
+
+
+def test_host_library_is_the_ports_own():
+    from advanced_scrapper_tpu_torch.cpu import native
+
+    ref = ROOT / "advanced_scrapper_tpu"
+    for p in (native.SOURCE, native.library_path(), native.BUILD_DIR):
+        assert ref not in Path(p).resolve().parents, p
+    assert native.SOURCE.resolve().is_relative_to(PORT)
 
 
 def test_importing_the_port_loads_no_jax():
@@ -64,7 +101,7 @@ def test_importing_the_port_loads_no_jax():
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'advanced_scrapper_tpu')]\n"
+        "('jax', 'jaxlib', 'advanced_scrapper_tpu', 'pandas', 'dateutil')]\n"
         "assert not bad, bad\n"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
