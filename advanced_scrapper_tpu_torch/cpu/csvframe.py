@@ -182,9 +182,16 @@ def _header(names: list[str]) -> list[str]:
 def _rows(path: str) -> Iterator[list[str]]:
     csv.field_size_limit(sys.maxsize)  # articles can pass csv's 128 KiB default
     with open(path, encoding="utf-8-sig", newline="") as f:
-        for row in csv.reader(f):
-            if not row or (len(row) == 1 and not row[0].strip(_SPACE) and row[0] != ""):
-                continue  # blank and whitespace-only lines, as skip_blank_lines
+        last = [""]  # the raw line that ended the record being read
+
+        def lines():
+            for line in f:
+                last[0] = line
+                yield line
+
+        for row in csv.reader(lines()):
+            if not row or (len(row) == 1 and not row[0].strip(_SPACE) and '"' not in last[0]):
+                continue  # blank and unquoted whitespace-only lines, as skip_blank_lines
             yield row
 
 

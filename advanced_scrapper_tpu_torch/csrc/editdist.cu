@@ -27,116 +27,362 @@
 // could find a smaller d where the best substring is longer than 32
 // bytes.  A tile that is not live gives max(m, 1), so the result does not
 // depend on any padding.  With dist given, every (row, pattern) pair is
-// computed and d written to dist int32[rows, K]; without it, pairs the
-// gates exclude are skipped (the bit is the same either way).
+// computed and d written to dist int32[rows, K]; without it, rows the
+// gates exclude for every pattern of a block are skipped (the bit is the
+// same either way).
 //
-// Bound: operations.  Each live byte of each tile costs ~15 INT32
-// operations per pattern (the mask lookup, xv, the carry add and its
-// three logic ops, ph, mh, two high-bit tests and the score update, two
-// shifts, pv, mv, the min); at S&P scale, 20,000 rows of ~2 kB against
-// ~3,500 refine patterns, that is ~1.5e11 steps, ~2e12 operations, tens of
-// ms at the card's INT32 rate.  The bytes (the text once, the masks, the
-// mask bytes) are small beside it.
+// Bound: operations.  Each live byte of each tile costs 14 INT32
+// operations per pattern: the table address, xv, the carry add and the
+// three logic ops around it, ph, mh, the two sign bits into the score, the
+// two shifts, pv, mv and the min (the two shared loads, the byte and its
+// mask, are not INT32 work).  At S&P scale, 20,000 rows of ~2 kB against
+// ~3,900 refine patterns, that is ~1.8e11 steps, ~2.5e12 operations,
+// ~74 ms at the card's INT32 rate (IMAD and the ALU pipe side by side).
+// The bytes (the text once, the masks, the mask bytes) are small beside
+// it.
 //
-// Design (the simple one): a block of 128 threads holds 128 patterns, one
-// per thread, with their masks for the ASCII bytes in shared memory laid
-// out [byte][pattern] (64 KiB), so the 32 lanes of a warp read 32
-// consecutive words for one text byte, without bank conflicts; a byte of
-// 128 or more reads the pattern's mask from global memory (rare: refine
-// names are ASCII, and rows are gated on ASCII text).  The grid is one
-// wave: blockIdx.y picks the pattern group, blockIdx.x strides over rows.
-// The block stages each tile's bytes in shared memory; each thread runs
-// the Myers recurrence of its pattern over the tile, the text read four
-// bytes to a load, and keeps the min over the row's tiles in a register.
-// Rows that no pattern of the group needs (gated mode) are skipped by the
-// whole block.  More patterns per thread or tiles interleaved per thread
-// (more independent chains for the ALU pipes) are work for a later PR.
+// Design: kChains tiles a thread, run as independent Myers chains.
+// - A block of 128 threads holds 128 patterns, one per thread, with their
+//   masks for the printable bytes 32..126 in shared memory laid out
+//   [byte][pattern] (so the 32 lanes of a warp, which all read the same
+//   text byte, read 32 consecutive words, without bank conflicts), plus a
+//   row of zeros: 48 KiB, so 4 blocks fit in an SM.  blockIdx.y picks the
+//   pattern group; the blocks of a group take its rows in turn (row
+//   blockIdx.x, then + gridDim.x, ...), whole rows.
+// - Each thread runs kChains chains.  Every chain works through rows of
+//   its own: it takes the block's next row, runs the row's tiles in order
+//   (state reset per tile, best kept over the row), writes the row's bit
+//   and distance, and takes the next row.  Rows no pattern of the group
+//   needs (gated mode: flag bit 0 clear, or text no longer than any ok
+//   pattern) are never taken; a row of no bytes is written at once.  The
+//   choice of rows is the same for every thread, so control stays uniform.
+//   A warp with no pattern (the last group's tail) walks the rows with
+//   the block but runs no steps.
+// - The loop runs in rounds: each round steps every chain as far as the
+//   nearest end of a live tile, without a guard, one step of each chain in
+//   turn, so the ALU sees kChains independent chains at every step.  A
+//   chain whose tile ended then takes its next tile, and the block stages
+//   the new tiles (one slot of 576 bytes a chain, 16-byte loads from the
+//   aligned word below the tile's start, byte loads only for the words
+//   that straddle the tile's ends) between two barriers.
+// - Other bytes (the "\n" between title and text, bytes of 128 and
+//   above): where no pattern of the block has a mask bit for such a byte
+//   (the matcher's refine names are printable ASCII), staging maps it to
+//   the row of zeros and the step needs no branch.  Otherwise the block
+//   runs a second instance of the loop that reads the pattern's mask for
+//   such a byte from global memory.
+// - The pattern sits in the top m bits of its lane (masks shifted up by
+//   32 - m when the table is filled), so the two high-bit tests are the
+//   sign bits, added by two shifts; bits below the pattern stay pv = 1,
+//   mv = ph = mh = 0, so nothing carries or shifts into it and every
+//   distance is the same.  The carry add, the two shifts and the table
+//   address are multiply-adds by values ptxas cannot see (1, 2, the row
+//   stride), so they issue as IMAD on the FMA pipe beside the logic ops
+//   on the ALU pipe.  In the SASS a step is 7 LOP3, 2 LEA and 1 VIMNMX
+//   on the ALU pipe, 4 IMAD on the FMA pipe and 2 LDS: the ALU pipe sets
+//   the floor.  myers_probe.py (at the repo's root) times other values of
+//   kChains and kUnroll on the card.
 
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <climits>
 #include <cstdint>
 
 namespace {
 
 constexpr int kPatterns = 128;               // threads per block, one pattern each
+constexpr int kChains = 4;                   // tiles in flight per thread
+constexpr int kUnroll = 8;                   // steps a chain per loop pass
 constexpr int kBlock = 512;                  // tile stride
 constexpr int kTile = kBlock + 31;           // live bytes of a tile at most
-constexpr int kTileBytes = (kTile + 3) / 4 * 4;
-constexpr int kAscii = 128;                  // mask rows held in shared memory
-constexpr int kSmem = kAscii * kPatterns * 4 + kTileBytes;
+constexpr int kSlot = 576;                   // staged bytes of a tile: 15 of lead + kTile
+constexpr int kSlotWords = kSlot / 16;
+// the table holds the masks of the printable bytes kLo .. kLo + kRows - 1
+// (32 .. 126), then a row of zeros
+constexpr int kLo = 32;
+constexpr int kRows = 95;
+constexpr int kTableBytes = (kRows + 1) * kPatterns * 4;
+constexpr int kSmem = kTableBytes + kChains * kSlot;
+constexpr int kMinBlocks = 4;  // 48 KiB of table and 2.3 KiB of slots a block
 
-__global__ void __launch_bounds__(kPatterns) bound_kernel(
-    const uint8_t* __restrict__ text, const int64_t* __restrict__ row_off,
-    const int32_t* __restrict__ row_len, const int32_t* __restrict__ text_len,
-    const int32_t* __restrict__ flags, int rows, const uint32_t* __restrict__ masks,
-    const int32_t* __restrict__ plens, const uint8_t* __restrict__ ok,
-    const int64_t* __restrict__ cols, int n_pat, float hundred_minus_t,
-    uint8_t* __restrict__ mask, int n_names, int32_t* __restrict__ dist) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* eqs = smem;  // [kAscii][kPatterns]
-  uint8_t* tile = reinterpret_cast<uint8_t*>(smem + kAscii * kPatterns);
-  const int k = blockIdx.y * kPatterns + threadIdx.x;
-  const bool has_pattern = k < n_pat;
-  for (int i = threadIdx.x; i < kAscii * kPatterns; i += kPatterns) {
-    const int p = i / kAscii;
-    const int c = i % kAscii;  // consecutive threads read consecutive bytes' words
-    const int kk = blockIdx.y * kPatterns + p;
-    eqs[c * kPatterns + p] = kk < n_pat ? masks[static_cast<int64_t>(kk) * 256 + c] : 0u;
+// How far a pattern's masks are shifted up: its last byte sits at bit 31
+// for every length m.
+__device__ __forceinline__ int top_shift(int m) { return 32 - m; }
+
+static_assert(kSlot >= 15 + kTile && kSlot % 16 == 0, "a slot holds a tile and its lead");
+static_assert(kChains >= 1 && kChains <= 16, "chains per thread");
+
+struct Args {
+  const uint8_t* text;
+  const int64_t* row_off;
+  const int32_t* row_len;
+  const int32_t* text_len;
+  const int32_t* flags;
+  int rows;
+  const uint32_t* masks;
+  const int32_t* plens;
+  const uint8_t* ok;
+  const int64_t* cols;
+  int n_pat;
+  float hundred_minus_t;
+  uint8_t* mask;
+  int n_names;
+  int32_t* dist;
+  uint32_t one;     // 1, 2 and the table's row stride in bytes, as values
+  uint32_t two;     // ptxas cannot fold, so that the arithmetic on them
+  uint32_t stride;  // issues as IMAD on the FMA pipe
+};
+
+// One step of the search variant of Myers' recurrence.
+__device__ __forceinline__ void myers_step(uint32_t eq, uint32_t& pv, uint32_t& mv,
+                                           int& score, int& best, uint32_t one, uint32_t two) {
+  const uint32_t xv = eq | mv;
+  const uint32_t xh = (((eq & pv) * one + pv) ^ pv) | eq;
+  uint32_t ph = mv | ~(xh | pv);
+  uint32_t mh = pv & xh;
+  // the high-bit tests are the sign bits: +1 where ph's is set, -1 where mh's is
+  score += static_cast<int>(ph >> 31) + (static_cast<int>(mh) >> 31);
+  ph *= two;  // the shifts by one
+  mh *= two;
+  pv = mh | ~(xv | ph);
+  mv = ph & xv;
+  best = min(best, score);
+}
+
+// The mask of text byte c (as staged) for this thread's pattern.
+template <bool kGlobal>
+__device__ __forceinline__ uint32_t eq_of(const char* eq_col, const uint32_t* gmask,
+                                          uint32_t c, uint32_t stride, int shift) {
+  if (kGlobal) {  // raw bytes
+    const uint32_t d = c - kLo;
+    if (d >= static_cast<uint32_t>(kRows)) return __ldg(gmask + c) << shift;
+    c = d;
   }
-  const int plen = has_pattern ? plens[k] : 0;
-  const int m = max(plen, 1);
-  const uint32_t high = 1u << (m - 1);
-  const bool pat_ok = has_pattern && ok[k] != 0;
-  const int64_t col = has_pattern ? cols[k] : 0;
-  const uint32_t* gmask = masks + static_cast<int64_t>(has_pattern ? k : 0) * 256;
-  const float rhs = __fmul_rn(2.0f * static_cast<float>(plen), hundred_minus_t);
-  const bool every_pair = dist != nullptr;
+  return *reinterpret_cast<const uint32_t*>(eq_col + c * stride);
+}
 
-  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
-    const bool pair = pat_ok && text_len[row] > plen && (flags[row] & 1) != 0;
-    if (!__syncthreads_or(every_pair || pair)) continue;  // uniform: nobody needs it
-    const bool run = has_pattern && (every_pair || pair);
-    const int len = row_len[row];
-    const uint8_t* r = text + row_off[row];
-    int best = m;
-    for (int start = 0; start < len; start += kBlock) {
-      const int eff = min(len - start, kTile);
-      __syncthreads();  // the previous tile's readers are done
-      for (int i = threadIdx.x; i < kTileBytes; i += kPatterns) {
-        tile[i] = i < eff ? r[start + i] : 0;
+// Each byte to its table row: byte - kLo where the table holds it, else
+// kRows (the row of zeros); four at once.
+__device__ __forceinline__ uint32_t table_rows(uint32_t x) {
+  uint32_t out = 0u;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const uint32_t d = ((x >> (8 * b)) & 0xFFu) - kLo;
+    out |= (d < static_cast<uint32_t>(kRows) ? d : static_cast<uint32_t>(kRows)) << (8 * b);
+  }
+  return out;
+}
+
+// Copy the live bytes [src, src + n) of a tile into a slot, as 16-byte
+// words from the aligned word at or below src; thread `w` of the block
+// copies word w.  Returns the lead (src's offset in its word).
+template <bool kGlobal>
+__device__ __forceinline__ int stage_tile(uint8_t* slot, const uint8_t* src, int n, int w) {
+  const uintptr_t s = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t base = s & ~static_cast<uintptr_t>(15);
+  const int lead = static_cast<int>(s - base);
+  const int words = (lead + n + 15) >> 4;
+  if (w < words) {
+    const uintptr_t p = base + 16 * static_cast<uintptr_t>(w);
+    uint4 v;
+    if (p >= s && p + 16 <= s + n) {
+      v = __ldg(reinterpret_cast<const uint4*>(p));
+    } else {  // a word that straddles an end of the tile
+      uint32_t wv[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        if (p + j >= s && p + j < s + n) {
+          wv[j >> 2] |= static_cast<uint32_t>(*reinterpret_cast<const uint8_t*>(p + j))
+                        << (8 * (j & 3));
+        }
+      }
+      v = make_uint4(wv[0], wv[1], wv[2], wv[3]);
+    }
+    if (!kGlobal) {
+      v = make_uint4(table_rows(v.x), table_rows(v.y), table_rows(v.z), table_rows(v.w));
+    }
+    reinterpret_cast<uint4*>(slot)[w] = v;
+  }
+  return lead;
+}
+
+template <bool kGlobal>
+__device__ __forceinline__ void run_chains(const Args& a, uint8_t* slots, const char* eq_col,
+                                           int min_plen) {
+  const int k = blockIdx.y * kPatterns + threadIdx.x;
+  const bool has_pattern = k < a.n_pat;
+  const int plen = has_pattern ? a.plens[k] : 0;
+  const int m = max(plen, 1);
+  const int shift = top_shift(m);
+  // a warp with no pattern (the last group's tail) walks the rows but
+  // runs no steps
+  const bool warp_steps = __any_sync(0xFFFFFFFFu, has_pattern);
+  const bool pat_ok = has_pattern && a.ok[k] != 0;
+  const int64_t col = has_pattern ? a.cols[k] : 0;
+  const uint32_t* gmask = a.masks + static_cast<int64_t>(has_pattern ? k : 0) * 256;
+  const float rhs = __fmul_rn(2.0f * static_cast<float>(plen), a.hundred_minus_t);
+  const bool every_pair = a.dist != nullptr;
+  const uint32_t one = a.one, two = a.two, stride = a.stride;
+
+  auto finish_row = [&](int row, int best) {
+    if (!has_pattern) return;
+    if (every_pair) a.dist[static_cast<int64_t>(row) * a.n_pat + k] = best;
+    if (pat_ok && a.text_len[row] > plen && (a.flags[row] & 1) != 0 &&
+        __fmul_rn(static_cast<float>(best), 100.0f) >= rhs) {
+      uint8_t* cell = a.mask + static_cast<int64_t>(row) * a.n_names + col;
+      *cell = static_cast<uint8_t>(*cell | 2u);  // one thread per cell: no race
+    }
+  };
+  // the block's next row with at least one byte that some pattern needs
+  // (rows of no bytes are finished on the way); -1 when none is left
+  int next = blockIdx.x;
+  auto take_row = [&]() -> int {
+    for (; next < a.rows; next += gridDim.x) {
+      const int r = next;
+      if (!every_pair && ((a.flags[r] & 1) == 0 || a.text_len[r] <= min_plen)) continue;
+      if (a.row_len[r] > 0) {
+        next += gridDim.x;
+        return r;
+      }
+      finish_row(r, m);
+    }
+    return -1;
+  };
+
+  int row[kChains], len[kChains], start[kChains], rem[kChains], pos[kChains];
+  const uint8_t* src[kChains];
+  uint32_t pv[kChains], mv[kChains];
+  int score[kChains], best[kChains];
+  unsigned need = 0;  // chains whose next tile is to be staged
+#pragma unroll
+  for (int i = 0; i < kChains; ++i) {
+    row[i] = take_row();
+    len[i] = row[i] >= 0 ? a.row_len[row[i]] : 0;
+    src[i] = row[i] >= 0 ? a.text + a.row_off[row[i]] : a.text;
+    start[i] = 0;
+    rem[i] = min(len[i], kTile);
+    pos[i] = i * kSlot;
+    pv[i] = ~0u;
+    mv[i] = 0u;
+    score[i] = best[i] = m;
+    if (row[i] >= 0) need |= 1u << i;
+  }
+
+  for (;;) {
+    if (need) {  // stage the chains' new tiles
+      __syncthreads();  // every reader of the old tiles is done
+#pragma unroll
+      for (int i = 0; i < kChains; ++i) {
+        if (need & (1u << i)) {
+          const int w = (static_cast<int>(threadIdx.x) - i * kSlotWords) & (kPatterns - 1);
+          pos[i] = i * kSlot +
+                   stage_tile<kGlobal>(slots + i * kSlot, src[i] + start[i], rem[i], w);
+        }
       }
       __syncthreads();
-      if (!run) continue;
-      uint32_t pv = ~0u;
-      uint32_t mv = 0u;
-      int score = m;
-      for (int j0 = 0; j0 < eff; j0 += 4) {
-        const uint32_t word = *reinterpret_cast<const uint32_t*>(tile + j0);
+      need = 0;
+    }
+    int steps = INT_MAX;
 #pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          if (j0 + b < eff) {  // uniform over the block
-            const uint32_t c = (word >> (8 * b)) & 0xFFu;
-            const uint32_t eq = c < kAscii ? eqs[c * kPatterns + threadIdx.x] : __ldg(gmask + c);
-            const uint32_t xv = eq | mv;
-            const uint32_t xh = (((eq & pv) + pv) ^ pv) | eq;
-            uint32_t ph = mv | ~(xh | pv);
-            uint32_t mh = pv & xh;
-            score += ((ph & high) != 0u) - ((mh & high) != 0u);
-            ph <<= 1;
-            mh <<= 1;
-            pv = mh | ~(xv | ph);
-            mv = ph & xv;
-            best = min(best, score);
-          }
+    for (int i = 0; i < kChains; ++i) {
+      if (row[i] >= 0) steps = min(steps, rem[i]);
+    }
+    if (steps == INT_MAX) break;
+
+    // every chain steps to the nearest end of a live tile; an idle chain
+    // steps over its stale slot and its result is never read
+    int j = warp_steps ? 0 : steps;
+    for (; j + kUnroll <= steps; j += kUnroll) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+        for (int i = 0; i < kChains; ++i) {
+          const uint32_t c = slots[pos[i] + j + u];
+          myers_step(eq_of<kGlobal>(eq_col, gmask, c, stride, shift), pv[i], mv[i], score[i],
+                     best[i], one, two);
         }
       }
     }
-    if (run && every_pair) dist[static_cast<int64_t>(row) * n_pat + k] = best;
-    if (run && pair && __fmul_rn(static_cast<float>(best), 100.0f) >= rhs) {
-      uint8_t* cell = mask + static_cast<int64_t>(row) * n_names + col;
-      *cell = static_cast<uint8_t>(*cell | 2u);  // one thread per cell: no race
+    for (; j < steps; ++j) {
+#pragma unroll
+      for (int i = 0; i < kChains; ++i) {
+        const uint32_t c = slots[pos[i] + j];
+        myers_step(eq_of<kGlobal>(eq_col, gmask, c, stride, shift), pv[i], mv[i], score[i],
+                   best[i], one, two);
+      }
     }
+
+#pragma unroll
+    for (int i = 0; i < kChains; ++i) {
+      if (row[i] < 0) continue;
+      pos[i] += steps;
+      rem[i] -= steps;
+      if (rem[i] > 0) continue;
+      start[i] += kBlock;
+      if (start[i] >= len[i]) {  // the row is done: its min over tiles is best
+        finish_row(row[i], best[i]);
+        best[i] = m;
+        start[i] = 0;
+        row[i] = take_row();
+        if (row[i] < 0) {
+          pos[i] = i * kSlot;
+          continue;
+        }
+        len[i] = a.row_len[row[i]];
+        src[i] = a.text + a.row_off[row[i]];
+      }
+      rem[i] = min(len[i] - start[i], kTile);
+      pv[i] = ~0u;
+      mv[i] = 0u;
+      score[i] = m;
+      need |= 1u << i;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kPatterns, kMinBlocks)
+    bound_kernel(const Args a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int warp_min[kPatterns / 32];
+  uint32_t* eqs = reinterpret_cast<uint32_t*>(smem);  // [kRows + 1][kPatterns]
+  uint8_t* slots = smem + kTableBytes;                // [kChains][kSlot]
+  const int k = blockIdx.y * kPatterns + threadIdx.x;
+  const bool has_pattern = k < a.n_pat;
+  for (int i = threadIdx.x; i < kRows * kPatterns; i += kPatterns) {
+    const int p = i / kRows;
+    const int c = i % kRows;  // consecutive threads read consecutive bytes' words
+    const int kk = blockIdx.y * kPatterns + p;
+    eqs[c * kPatterns + p] =
+        kk < a.n_pat
+            ? a.masks[static_cast<int64_t>(kk) * 256 + kLo + c] << top_shift(max(a.plens[kk], 1))
+            : 0u;
+  }
+  eqs[kRows * kPatterns + threadIdx.x] = 0u;
+  for (int i = threadIdx.x; i < kChains * kSlot / 4; i += kPatterns) {
+    reinterpret_cast<uint32_t*>(slots)[i] = 0u;  // idle chains read these
+  }
+  // does a pattern of the block match a byte outside the table; the least
+  // length of its ok patterns (the gated mode skips rows no longer)
+  bool outside = false;
+  if (has_pattern) {
+    const uint32_t* g = a.masks + static_cast<int64_t>(k) * 256;
+    for (int c = 0; c < 256; ++c) {
+      if (c - kLo < 0 || c - kLo >= kRows) outside |= __ldg(g + c) != 0u;
+    }
+  }
+  const int own = has_pattern && a.ok[k] != 0 ? a.plens[k] : INT_MAX;
+  const int wmin = __reduce_min_sync(0xFFFFFFFFu, own);
+  if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x >> 5] = wmin;
+  outside = __syncthreads_or(outside);
+  int min_plen = INT_MAX;
+#pragma unroll
+  for (int w = 0; w < kPatterns / 32; ++w) min_plen = min(min_plen, warp_min[w]);
+  const char* eq_col = reinterpret_cast<const char*>(eqs + threadIdx.x);
+  if (outside) {
+    run_chains<true>(a, slots, eq_col, min_plen);
+  } else {
+    run_chains<false>(a, slots, eq_col, min_plen);
   }
 }
 
@@ -169,15 +415,31 @@ int astt_myers_bound(const void* text, const void* row_off, const void* row_len,
   const int row_blocks = static_cast<int>(
       std::min<long long>(rows, std::max(1, resident / groups)));
   const dim3 grid(row_blocks, groups);
-  bound_kernel<<<grid, kPatterns, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(text), static_cast<const int64_t*>(row_off),
-      static_cast<const int32_t*>(row_len), static_cast<const int32_t*>(text_len),
-      static_cast<const int32_t*>(flags), static_cast<int>(rows),
-      static_cast<const uint32_t*>(masks), static_cast<const int32_t*>(plens),
-      static_cast<const uint8_t*>(ok), static_cast<const int64_t*>(cols), n_pat,
-      hundred_minus_t, static_cast<uint8_t*>(mask), n_names, static_cast<int32_t*>(dist));
+  Args a;
+  a.text = static_cast<const uint8_t*>(text);
+  a.row_off = static_cast<const int64_t*>(row_off);
+  a.row_len = static_cast<const int32_t*>(row_len);
+  a.text_len = static_cast<const int32_t*>(text_len);
+  a.flags = static_cast<const int32_t*>(flags);
+  a.rows = static_cast<int>(rows);
+  a.masks = static_cast<const uint32_t*>(masks);
+  a.plens = static_cast<const int32_t*>(plens);
+  a.ok = static_cast<const uint8_t*>(ok);
+  a.cols = static_cast<const int64_t*>(cols);
+  a.n_pat = n_pat;
+  a.hundred_minus_t = hundred_minus_t;
+  a.mask = static_cast<uint8_t*>(mask);
+  a.n_names = n_names;
+  a.dist = static_cast<int32_t*>(dist);
+  a.one = 1u;
+  a.two = 2u;
+  a.stride = kPatterns * 4u;
+  bound_kernel<<<grid, kPatterns, kSmem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The chains each thread runs.
+int astt_myers_chains(void) { return kChains; }
 
 const char* astt_myers_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -36,6 +36,8 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_float, _ptr, ctypes.c_int, _ptr, _ptr,
     ]
     lib.astt_myers_bound.restype = ctypes.c_int
+    lib.astt_myers_chains.argtypes = []
+    lib.astt_myers_chains.restype = ctypes.c_int
     lib.astt_myers_error_string.argtypes = [ctypes.c_int]
     lib.astt_myers_error_string.restype = ctypes.c_char_p
     return lib
@@ -100,3 +102,9 @@ def myers_bound(
 
 
 myers_bound.launches = 0
+
+
+def myers_chains() -> int:
+    """The Myers chains each thread of the built kernel runs (tiles in
+    flight per thread)."""
+    return _lib().astt_myers_chains()

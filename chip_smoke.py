@@ -44,14 +44,18 @@ decoys, non-ASCII and overlong articles.  Its kernels ``match_screen`` and
 ``myers_bound`` are first held bit-equal to their plain versions on edge
 cases (row lengths 0-65,536, a misaligned base, gram-less and truncated
 names, thresholds 95, 90, 80, 97.5 and 50, patterns of 1 and 32 bytes and
-``ok`` False, two chunks into one set of tables); then ``match_chunk``
-runs screen-only and with the bound forced (timed on a later call: one
-launch of each kernel per chunk, every planted mention found, both modes'
-matches equal), ``run_matcher`` runs end to end (the "auto" race, the
-verify pool, the per-ticker CSVs), the kernels are timed on the chunk
-beside their bounds and plain versions, and card and CPU must agree on a
-256-article subset (64 with the bound forced) and write byte-equal CSV
-trees.  Any failed check exits non-zero.
+``ok`` False, two chunks into one set of tables; ``myers_bound`` also on
+300 patterns in three groups, one with a non-ASCII pattern, over rows of
+0 to 2T + 1 tiles with every tail class and gated-out rows between); then
+``match_chunk`` runs screen-only and with the bound forced (timed on a
+later call: one launch of each kernel per chunk, every planted mention
+found, both modes' matches equal), ``run_matcher`` runs end to end (the
+"auto" race, the verify pool, the per-ticker CSVs), the kernels are timed
+on the chunk beside their bounds and plain versions (``myers_bound`` with
+its chains a thread, the SM clock before and after and its SASS
+instructions per step, by pipe with the floor each pipe sets), and card and CPU must agree on a 256-article
+subset (64 with the bound forced) and write byte-equal CSV trees.  Any
+failed check exits non-zero.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the card's name and power limit from nvidia-smi,
@@ -486,6 +490,105 @@ def match_edge_case(rng: np.random.RandomState, n_rows: int):
             np.array(flags, np.int32))
 
 
+MYERS_PATTERNS = 300  # three groups of 128 patterns, the last one partial
+MYERS_TAILS = (1, 3, 4, 31, 32, 512, 542, 543)
+
+
+def myers_edge_case(rng: np.random.RandomState, chains: int):
+    """Patterns and rows the chain walk of ``myers_bound`` meets at its
+    edges, for ``chains`` tiles a thread: 300 patterns of 1-32 bytes (an
+    empty and a 40-byte one, ``ok`` False; one non-ASCII pattern in the
+    middle group, whose block then reads such bytes' masks from global
+    memory), in a mask of 320 columns; rows of ``(n - 1) * 512 + tail``
+    bytes for n of 1, chains - 1, chains, chains + 1 and 2 * chains + 1
+    tiles and every tail class of :data:`MYERS_TAILS` (a tail over 512 adds
+    a tile), rows of no bytes, and rows with flag bit 0 clear between the
+    rows that are gated in; patterns planted exact and with 1-2 edits,
+    non-ASCII titles in some flagged rows.  Returns ``(patterns, cols,
+    n_names, rows, text_len, flags)``."""
+    from advanced_scrapper_tpu_torch.ops.match import FLAG_REFINE_OK
+
+    pats = [bytes(rng.randint(97, 123, size=rng.randint(1, 33), dtype=np.uint8))
+            for _ in range(MYERS_PATTERNS - 3)]
+    pats[150] = "Zürich AG".encode()
+    pats += [b"", b"y" * 40, b"q"]
+    n_names = 320
+    cols = rng.permutation(n_names)[:len(pats)].astype(np.int64)
+    lens = [0]
+    for n_tiles in sorted({1, max(chains - 1, 1), chains, chains + 1, 2 * chains + 1}):
+        lens += [(n_tiles - 1) * 512 + tail for tail in MYERS_TAILS]
+    lens = list(np.array(lens)[rng.permutation(len(lens))]) + [0]
+    rows, text_len, flags = [], [], []
+    for n in lens:
+        for gated_in in ((True, False) if rng.rand() < 0.3 else (True,)):
+            n_row = int(n) if gated_in else int(rng.choice([0, 40, 700, 1100]))
+            title = bytes(rng.randint(65, 91, size=min(rng.randint(0, 30), max(n_row - 1, 0)),
+                                      dtype=np.uint8))
+            if n_row > 40 and rng.rand() < 0.2:
+                title = ("É" + title.decode()).encode()[: max(n_row - 1, 0)]
+                title = title.decode("utf-8", "ignore").encode()
+            body = bytearray(rng.randint(97, 123, size=max(n_row - len(title) - 1, 0),
+                                         dtype=np.uint8))
+            for _ in range(rng.randint(0, 4) if len(body) > 40 else 0):
+                nm = pats[rng.randint(len(pats))]
+                nm = edit_bytes(rng, nm, rng.randint(0, 3)) if rng.rand() < 0.5 else nm
+                at = rng.randint(0, max(len(body) - len(nm), 1))
+                body[at:at + len(nm)] = nm
+            raw = (title + b"\n" + bytes(body))[:n_row] if n_row > 1 else bytes(body)[:n_row]
+            raw = raw.ljust(n_row, b"a")
+            rows.append(raw)
+            tl = n_row - len(title) - 1 if n_row > 1 else n_row
+            text_len.append(tl)
+            flags.append(FLAG_REFINE_OK if gated_in and tl > 0 and raw[n_row - tl:].isascii()
+                         else 0)
+    return pats, cols, n_names, rows, np.array(text_len, np.int32), np.array(flags, np.int32)
+
+
+def check_myers_edges(dev) -> int:
+    """``myers_bound`` at the edges of its chain walk (:func:`myers_edge_case`):
+    bit-equal to ``myers_bound_plain`` in the gated mode at thresholds 95,
+    90, 80, 97.5 and 50, over a mask whose bit-0 bits are random, and its
+    ``dist=`` output equal to ``semiglobal_dist_shared_plain``.  Returns
+    its launches (6)."""
+    from advanced_scrapper_tpu_torch.ops import editdist_cuda
+    from advanced_scrapper_tpu_torch.ops.editdist import (
+        build_pattern_masks,
+        myers_bound_plain,
+        semiglobal_dist_shared_plain,
+    )
+
+    rng = np.random.RandomState(29)
+    pats, cols, n_names, rows, tl, fl = myers_edge_case(rng, editdist_cuda.myers_chains())
+    masks, plens, ok = build_pattern_masks(pats)
+    assert (masks[:, 128:] != 0).any(axis=1)[128:256].any() and not (masks[:128, 128:]).any()
+    pm = (torch.from_numpy(masks.view(np.int32)).to(dev).view(torch.uint32),
+          torch.from_numpy(plens).to(dev), torch.from_numpy(ok).to(dev),
+          torch.from_numpy(cols).to(dev))
+    text, off, lens = flat_text(rows, lead=7)
+    text_d = torch.from_numpy(text).to(dev)
+    ra = [torch.from_numpy(x).to(dev) for x in (off, lens.astype(np.int32), tl, fl)]
+    base = torch.from_numpy(rng.randint(0, 2, size=(len(rows), n_names)).astype(np.uint8)).to(dev)
+    for t in (95.0, 90.0, 80.0, 97.5, 50.0):
+        got, want = base.clone(), base.clone()
+        editdist_cuda.myers_bound(text_d, *ra, *pm, t, got)
+        myers_bound_plain(text_d, *ra, *pm, t, want)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"myers_bound differs from plain at t={t} (300 patterns)"
+        assert (got >> 1).any(), t
+    dist = torch.empty((len(rows), len(pats)), dtype=torch.int32, device=dev)
+    editdist_cuda.myers_bound(text_d, *ra, *pm, 95.0, base.clone(), dist=dist)
+    width = int(lens.max())
+    padded = np.zeros((len(rows), width), np.uint8)
+    for i, r in enumerate(rows):
+        padded[i, :len(r)] = np.frombuffer(r, np.uint8)
+    want_d = torch.cat([semiglobal_dist_shared_plain(
+        pm[0], pm[1], torch.from_numpy(padded[r0:r0 + 32]).to(dev), ra[1][r0:r0 + 32])
+        for r0 in range(0, len(rows), 32)])
+    torch.cuda.synchronize()
+    assert torch.equal(dist, want_d), "myers_bound distances differ from plain (300 patterns)"
+    return 6
+
+
 def check_match_vs_plain(dev) -> dict:
     """Phase 3, the matcher: ``match_screen`` bit-equal to ``screen_plain``
     and ``myers_bound`` bit-equal to ``myers_bound_plain`` (the mask bits)
@@ -552,9 +655,10 @@ def check_match_vs_plain(dev) -> dict:
         torch.cuda.synchronize()
         assert torch.equal(dist, want_d), "myers_bound distances differ from plain"
         cases += 1
+    cases += check_myers_edges(dev)
     launches = (match_cuda.match_screen.launches - before[0],
                 editdist_cuda.myers_bound.launches - before[1])
-    assert launches == (10, 12), launches
+    assert launches == (10, 18), launches
     assert survivors and pruned, (survivors, pruned)
     return {"cases": cases, "names": len(names), "patterns": len(pats),
             "survivor_bits": survivors, "prune_bits": pruned, "max_abs_err": 0}
@@ -737,10 +841,13 @@ def matcher_kernel_timing(index, records, clock_mhz: float) -> list[dict]:
     F ORs into one mask call after call (the same bits).  Bounds from this
     data: E moves the text and row arrays once, the name tables once and
     one mask byte per pair, and does ~16 operations per window, ~4 per
-    (row, kept gram) probe and ~16 per pair; F does ~15 operations per
-    live byte of each tile for each computed pair (ok, text longer than
-    the pattern, ASCII text) and moves the text, row arrays, pattern masks
-    and one mask byte per (row, pattern)."""
+    (row, kept gram) probe and ~16 per pair; F does 14 INT32 operations
+    per live byte of each tile for each computed pair (ok, text longer
+    than the pattern, ASCII text; the operations are listed in
+    ``csrc/editdist.cu``'s header) and moves the text, row arrays, pattern
+    masks and one mask byte per (row, pattern).  F's row also gives the
+    SASS instructions of one step by pipe and the floor each pipe sets
+    (:func:`myers_sass`)."""
     from advanced_scrapper_tpu_torch.ops import editdist_cuda, match_cuda
     from advanced_scrapper_tpu_torch.ops.editdist import myers_bound_plain
     from advanced_scrapper_tpu_torch.ops.match import screen_frac, screen_plain
@@ -763,7 +870,10 @@ def matcher_kernel_timing(index, records, clock_mhz: float) -> list[dict]:
     run_e()
     out["f"] = out["e"].clone()
     run_f()
-    e_ms, f_ms = cuda_ms(run_e, 5), cuda_ms(run_f, 5)
+    e_ms = cuda_ms(run_e, 5)
+    f_clock_before = nvidia_smi("clocks.sm")
+    f_ms = cuda_ms(run_f, 5)
+    f_clock_after = nvidia_smi("clocks.sm")
     seen = profiler_device_ms(lambda: (run_e(), run_f()), ("screen_kernel", "bound_kernel"))
     prof = {name: sum(v for k, v in seen.items() if kernel in k) or None
             for name, kernel in (("e", "screen_kernel"), ("f", "bound_kernel"))}
@@ -795,7 +905,7 @@ def matcher_kernel_timing(index, records, clock_mhz: float) -> list[dict]:
     text_len = tl.cpu().numpy()
     pairs_per_row = ((text_len[:, None] > pl[None, :]) & okk[None, :]).sum(axis=1) * flags
     f_steps = int((steps * pairs_per_row).sum())
-    f_ops = 15 * f_steps
+    f_ops = 14 * f_steps
     f_bytes = int(lens.sum()) + 20 * R + K * 1024 + 16 * K + R * K
     f_ops_ms, f_bytes_ms = bound_ms(f_ops, f_bytes, clock_mhz)
     survivors = int((out["e"] & 1).sum())
@@ -809,8 +919,35 @@ def matcher_kernel_timing(index, records, clock_mhz: float) -> list[dict]:
              pairs=int(pairs_per_row.sum()), int_ops=f_ops, bytes=f_bytes,
              ops_bound_ms=f_ops_ms, bytes_bound_ms=f_bytes_ms, ms=f_ms, plain_ms=f_plain_ms,
              share_of_bound=max(f_ops_ms, f_bytes_ms) / f_ms, pruned_survivors=pruned,
-             profiler_ms=prof["f"], profiler_saw=saw),
+             profiler_ms=prof["f"], profiler_saw=saw, chains=editdist_cuda.myers_chains(),
+             clock_sm_before=f_clock_before, clock_sm_after=f_clock_after,
+             sass=myers_sass(f_steps, clock_mhz)),
     ]
+
+
+#: lane-operations per SM per clock of each Hopper pipe: the ALU and the FMA
+#: pipe 64 each (4 partitions of 16 lanes), MIO's shared loads 32 (128 B of
+#: shared memory a clock)
+PIPE_LANES_PER_SM = {"alu": 64, "fma": 64, "mio": 32}
+
+
+def myers_sass(pair_steps: int, clock_mhz: float) -> dict:
+    """Instructions per Myers step in the built ``myers_bound``'s step loop
+    (``ops/sass.py:sass_step_counts``), by opcode and by pipe, with the
+    floor in ms each pipe sets for ``pair_steps`` steps at ``clock_mhz``;
+    or the reason there are none."""
+    from advanced_scrapper_tpu_torch.ops import _build
+    from advanced_scrapper_tpu_torch.ops.sass import sass_step_counts
+
+    try:
+        sass = sass_step_counts(_build.library_path("editdist"))
+    except (RuntimeError, subprocess.SubprocessError, OSError) as e:
+        return {"error": str(e)[:300]}
+    sass["pipe_floor_ms"] = {
+        pipe: pair_steps * sass["by_pipe_per_step"].get(pipe, 0.0)
+        / (lanes * CARD_SMS * clock_mhz * 1e6) * 1e3
+        for pipe, lanes in PIPE_LANES_PER_SM.items()}
+    return sass
 
 
 def matcher_path(clock_mhz: float, card: str) -> tuple[list, dict]:

@@ -4,9 +4,13 @@ with lengths on tile edges, empty text and patterns of 1 and 32 bytes, and
 the fused bound (bit 1 of the mask) together with the plain screen (bit 0)
 against the reference's fused screen step, ``make_screen_step``, with
 ``ok = False`` patterns and texts of exactly ``m`` and ``m + 1`` bytes.
-Every comparison is exact.  Last, the kernel wrapper's checks."""
+Every comparison is exact.  Then the kernel wrapper's checks, a model of
+the kernel's chain walk, the SASS reader and the tuning probe's
+variants."""
 
 from __future__ import annotations
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +21,8 @@ from advanced_scrapper_tpu.core.tokenizer import encode_batch
 from advanced_scrapper_tpu.ops import editdist as ref
 from advanced_scrapper_tpu.ops import match as ref_match
 from advanced_scrapper_tpu.ops.pack import pack_tile_planes
-from advanced_scrapper_tpu_torch.ops import editdist, editdist_cuda, match
+import myers_probe
+from advanced_scrapper_tpu_torch.ops import editdist, editdist_cuda, match, sass
 from test_torch_match import ragged
 
 
@@ -154,3 +159,210 @@ def test_wrapper_and_checks_refuse_bad_input():
     long_lens = args[:1] + [torch.full((len(pats),), 33, dtype=torch.int32)] + args[2:]
     with pytest.raises(ValueError, match="pattern lengths"):
         editdist.myers_bound_plain(text, off, ln, tl_t, fl_t, *long_lens, 95.0, mask)
+
+
+# -- the CUDA kernel's chain walk, modelled on the CPU --------------------------
+
+
+def chain_walk(text, off, lens, text_len, flags, masks, plens, ok, *, chains, block, grid,
+               every_pair):
+    """A Python model of ``csrc/editdist.cu``'s walk for one pattern group:
+    ``grid`` blocks take rows ``bx, bx + grid, ...``; each of a thread's
+    ``chains`` chains takes the block's next needed row (gated mode: flag
+    bit 0 set and text longer than the least ok pattern; rows of no bytes
+    are finished at once), runs its tiles in order, live ``min(len -
+    start, block + 31)`` bytes from ``start = 0, block, ...``, state reset
+    per tile and best kept over the row, in rounds that step every live
+    chain to the nearest end of a tile; each pattern sits in the top ``m``
+    bits of its lane and the high-bit tests are the sign bits, as in the
+    kernel.  Returns ``(dist int64[R, K]``,
+    -1 for rows never finished, ``tiles`` as ``(row, start, live)`` in
+    staging order, ``finished`` rows in order)."""
+    R, K = len(lens), len(plens)
+    m = np.maximum(plens.astype(np.int64), 1)
+    mask32 = np.int64(0xFFFFFFFF)
+    masks = ((masks.astype(np.int64) & mask32) << (32 - m)[:, None]) & mask32
+    live_max = block + 31
+    min_plen = int(plens[ok].min()) if ok.any() else np.iinfo(np.int32).max
+    dist = np.full((R, K), -1, np.int64)
+    tiles, finished = [], []
+
+    def finish(r, best):
+        assert dist[r, 0] == -1, f"row {r} finished twice"
+        dist[r] = best
+        finished.append(r)
+
+    for bx in range(grid):
+        nxt = [bx]
+
+        def take():
+            while nxt[0] < R:
+                r = nxt[0]
+                nxt[0] += grid
+                if not every_pair and (not flags[r] & 1 or text_len[r] <= min_plen):
+                    continue
+                if lens[r] > 0:
+                    return r
+                finish(r, m.copy())
+            return -1
+
+        row = [take() for _ in range(chains)]
+        start = [0] * chains
+        rem = [min(int(lens[r]), live_max) if r >= 0 else 0 for r in row]
+        pos = [0] * chains
+        pv = [np.full(K, mask32) for _ in range(chains)]
+        mv = [np.zeros(K, np.int64) for _ in range(chains)]
+        score = [m.copy() for _ in range(chains)]
+        best = [m.copy() for _ in range(chains)]
+        tiles += [(r, 0, n) for r, n in zip(row, rem) if r >= 0]
+        while True:
+            active = [i for i in range(chains) if row[i] >= 0]
+            if not active:
+                break
+            steps = min(rem[i] for i in active)
+            for j in range(steps):
+                for i in active:
+                    c = int(text[off[row[i]] + start[i] + pos[i] + j])
+                    eq = masks[:, c]
+                    xv = eq | mv[i]
+                    xh = ((((eq & pv[i]) + pv[i]) & mask32) ^ pv[i]) | eq
+                    ph = mv[i] | (~(xh | pv[i]) & mask32)
+                    mh = pv[i] & xh
+                    score[i] = score[i] + (ph >> 31) - (mh >> 31)
+                    ph = (ph << 1) & mask32
+                    mh = (mh << 1) & mask32
+                    pv[i] = mh | (~(xv | ph) & mask32)
+                    mv[i] = ph & xv
+                    best[i] = np.minimum(best[i], score[i])
+            for i in active:
+                pos[i] += steps
+                rem[i] -= steps
+                if rem[i] > 0:
+                    continue
+                start[i] += block
+                if start[i] >= lens[row[i]]:
+                    finish(row[i], best[i])
+                    best[i] = m.copy()
+                    start[i] = 0
+                    row[i] = take()
+                    if row[i] < 0:
+                        continue
+                rem[i] = min(int(lens[row[i]]) - start[i], live_max)
+                pos[i] = 0
+                pv[i] = np.full(K, mask32)
+                mv[i] = np.zeros(K, np.int64)
+                score[i] = m.copy()
+                tiles.append((row[i], start[i], rem[i]))
+    return dist, tiles, finished
+
+
+def walk_case(rng: np.random.RandomState, chains: int, block: int):
+    """Rows of ``(n - 1) * block + tail`` bytes for n of 1, chains - 1,
+    chains, chains + 1 and 2 * chains + 1 and every tail class (1, 3, 4, 31,
+    32, block, block + 30, block + 31: a tail over ``block`` adds a tile),
+    rows of no bytes, some rows' flag bit 0 clear between rows that are
+    gated in, and texts no longer than the shortest pattern."""
+    live = block + 31
+    tails = sorted({1, 3, 4, 31, 32, block, live - 1, live})
+    lens = [0]
+    for n_tiles in sorted({1, max(chains - 1, 1), chains, chains + 1, 2 * chains + 1}):
+        lens += [(n_tiles - 1) * block + tail for tail in tails]
+    lens += [0, 0]
+    order = rng.permutation(len(lens))
+    lens = np.array(lens, np.int64)[order]
+    rows = [bytes(rng.randint(97, 101, size=n, dtype=np.uint8)) for n in lens]
+    text, off, ln = ragged(rows)
+    flags = np.where(rng.rand(len(rows)) < 0.7, match.FLAG_REFINE_OK, 0).astype(np.int32)
+    text_len = lens.astype(np.int32)
+    text_len[rng.rand(len(rows)) < 0.1] = 2  # no longer than the shortest pattern
+    pats = [b"ab", b"abcabcd", bytes(rng.randint(97, 101, 32, dtype=np.uint8)), b"dd"]
+    masks, plens, ok = editdist.build_pattern_masks(pats)
+    ok[3] = False
+    return text.numpy(), off.numpy(), lens, text_len, flags, masks, plens, ok
+
+
+@pytest.mark.parametrize("every_pair", [False, True])
+def test_chain_walk_covers_the_plain_tiles(every_pair):
+    """The model of the kernel's walk (4 chains, tiles of 7 bytes to keep
+    it small) stages exactly the live tiles the plain version scans (for
+    the rows it needs), finishes every needed row once, and its distances
+    equal ``semiglobal_dist_shared_plain``.  The kernel itself is held to
+    the plain version on the card (``chip_smoke.check_myers_edges``)."""
+    chains, block = 4, 7
+    rng = np.random.RandomState(chains * 10 + block)
+    text, off, lens, text_len, flags, masks, plens, ok = walk_case(rng, chains, block)
+    dist, tiles, finished = chain_walk(text, off, lens, text_len, flags, masks, plens, ok,
+                                       chains=chains, block=block, grid=3,
+                                       every_pair=every_pair)
+    need = np.ones(len(lens), bool) if every_pair else (
+        (flags & 1).astype(bool) & (text_len > plens[ok].min()))
+    assert sorted(finished) == list(np.flatnonzero(need))
+    want_tiles = sorted((r, s, min(int(lens[r]) - s, block + 31))
+                        for r in np.flatnonzero(need) for s in range(0, int(lens[r]), block))
+    assert sorted(tiles) == want_tiles
+    width = int(lens.max())
+    padded = np.zeros((len(lens), width), np.uint8)
+    for r in range(len(lens)):
+        padded[r, :lens[r]] = text[off[r]:off[r] + lens[r]]
+    want = editdist.semiglobal_dist_shared_plain(
+        u32(masks), torch.from_numpy(plens), torch.from_numpy(padded),
+        torch.from_numpy(lens.astype(np.int32)), block=block).numpy()
+    assert np.array_equal(dist[need], want[need])
+    assert (dist[~need] == -1).all()
+
+
+SASS = """
+        Function : _ZN12_GLOBAL__N_112bound_kernelENS_4ArgsE
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                 /* 0x00000a00ff017b82 */
+                                                                          /* 0x000fe40000000800 */
+.L_x_1:
+        /*0010*/                   LDS.U8 R2, [R3] ;
+        /*0020*/                   IMAD R4, R2, R5, R6 ;
+        /*0030*/                   LDS R7, [R4] ;
+        /*0040*/                   LOP3.LUT R8, R7, R9, RZ, 0xfc, !PT ;
+        /*0050*/                   LDS.U8 R2, [R3+0x1] ;
+        /*0060*/                   IMAD R4, R2, R5, R6 ;
+        /*0070*/                   LDS R7, [R4] ;
+        /*0080*/                   VIMNMX R8, R7, R9, PT ;
+        /*0090*/               @P0 BRA `(.L_x_1) ;
+        /*00a0*/                   NOP ;
+        /*00b0*/              @!P1 BRA `(.L_x_1) ;
+.L_x_2:
+        /*00c0*/                   LDS.U8 R2, [R3] ;
+        /*00d0*/                   LDS.U8 R2, [R3+0x1] ;
+        /*00e0*/                   LDS.U8 R2, [R3+0x2] ;
+        /*00f0*/                   LDG.E R7, desc[UR4][R4.64] ;
+        /*0100*/                   BRA 0xc0 ;
+        /*0110*/                   EXIT ;
+"""
+
+
+def test_sass_step_loop_counts():
+    """The SASS reader finds the branch-free innermost step loop (not the
+    loop around it, not the one with a global load) and counts its
+    instructions per byte load, by opcode and by pipe."""
+    instrs = sass.parse_sass(SASS)
+    assert [op for _a, op, _r in instrs][:2] == ["LDC", "LDS.U8"]
+    assert instrs[9][2] == "0x10" and instrs[16][2].strip() == "0xc0"
+    got = sass.step_loop(instrs)
+    assert got["steps_in_loop"] == 2 and got["instructions_in_loop"] == 9
+    assert got["per_step"] == 4.5
+    assert got["by_opcode_per_step"] == {"BRA": 0.5, "IMAD": 1.0, "LDS": 2.0, "LOP3": 0.5,
+                                         "VIMNMX": 0.5}
+    assert got["by_pipe_per_step"] == {"alu": 1.0, "fma": 1.0, "mio": 2.0, "other": 0.5}
+    with pytest.raises(RuntimeError, match="no step loop"):
+        sass.step_loop(instrs[:1])
+
+
+def test_probe_variants_cover_the_chain_counts():
+    """The tuning probe's variants apply to the kernel's source and set 2,
+    5 and 8 chains a thread; an edit whose text is gone raises."""
+    src = (myers_probe._build.CSRC_DIR / "editdist.cu").read_text()
+    chains = set()
+    for edits in myers_probe.VARIANTS.values():
+        out = myers_probe.patched(src, edits)
+        assert (out == src) == (not edits)
+        chains |= set(re.findall(r"constexpr int kChains = (\d+);", out))
+    assert chains == {"2", "4", "5", "8"}
+    with pytest.raises(ValueError, match="not once"):
+        myers_probe.patched(src, [("kChains = 3;", "kChains = 2;")])
