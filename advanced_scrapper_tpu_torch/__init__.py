@@ -1,10 +1,15 @@
-"""PyTorch and CUDA port of the near-duplicate dedup path, for one NVIDIA H100.
+"""PyTorch and CUDA port of the near-duplicate dedup path and the
+ticker→article matcher, for one NVIDIA H100.
 
 The JAX package ``advanced_scrapper_tpu`` is the reference; this package
 mirrors its module names (``config``, ``core``, ``cpu``, ``ops``,
 ``pipeline``) so each counterpart is easy to find, and imports nothing of
-it.  The one hand-written kernel lives in ``csrc/minhash.cu`` and replaces
-the Pallas kernel ``ops/pallas_minhash.py:_minhash_kernel``.
+it.  Four hand-written CUDA sources live in ``csrc/``: ``minhash.cu``
+(the MinHash fold, in place of the Pallas kernel
+``ops/pallas_minhash.py:_minhash_kernel``), ``rerank.cu`` (the rerank
+tier's sketch-Jaccard settle), ``match.cu`` (the matcher's q-gram screen)
+and ``editdist.cu`` (the matcher's Myers bound); the last three replace
+jnp device code of the reference.
 
 Entry points run on the card: a ``device`` of ``None`` means ``"cuda"``
 and raises when CUDA is not available.  Pass ``device="cpu"`` to run the

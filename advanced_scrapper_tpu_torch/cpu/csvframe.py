@@ -7,7 +7,9 @@ pandas, so this module reproduces what those calls do to the bytes and to
 the values the matcher reads:
 
 - **reading**: fields from ``csv.reader`` (utf-8, a leading BOM dropped,
-  blank lines skipped); header names as pandas makes them (``Unnamed: i``
+  blank lines skipped; ``\n``, ``\r\n`` and a lone ``\r`` end a line; a
+  quoted field still open at the end of the file raises ``ValueError``,
+  as pandas' ``ParserError`` does); header names as pandas makes them (``Unnamed: i``
   for an empty one, ``name.1`` for a repeat); missing trailing fields are
   NA; each column of each chunk typed as pandas' C parser types it:
   pandas' default NA tokens (:data:`NA_VALUES`) are NA; then int64 (digits
@@ -183,13 +185,17 @@ def _rows(path: str) -> Iterator[list[str]]:
     csv.field_size_limit(sys.maxsize)  # articles can pass csv's 128 KiB default
     with open(path, encoding="utf-8-sig", newline="") as f:
         last = [""]  # the raw line that ended the record being read
+        ended = [False]
 
         def lines():
             for line in f:
                 last[0] = line
                 yield line
+            ended[0] = True
 
         for row in csv.reader(lines()):
+            if ended[0]:  # csv hands back a quoted field still open at the end
+                raise ValueError(f"Error tokenizing data: EOF inside a quoted field in {path}")
             if not row or (len(row) == 1 and not row[0].strip(_SPACE) and '"' not in last[0]):
                 continue  # blank and unquoted whitespace-only lines, as skip_blank_lines
             yield row

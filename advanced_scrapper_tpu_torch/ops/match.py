@@ -20,7 +20,8 @@ computes it on the CPU (:func:`screen_frac`).
 The rows arrive ragged, as the port's matcher holds them: one flat
 ``uint8`` text with ``int64`` row offsets and ``int32`` lengths, no padding.
 The names arrive as a CSR table of their kept grams (:func:`names_csr`,
-:func:`screen_tensors`).  :func:`screen_plain` is the math of the
+:func:`screen_tensors`), and for the kernel also sorted by gram count and
+interleaved a warp's names at a time (:func:`screen_layout`).  :func:`screen_plain` is the math of the
 reference's ``_screen_core``; :func:`match_screen` launches the CUDA kernel
 (``csrc/match.cu``, ``ops/match_cuda.py``) for tensors on the card and the
 plain version for tensors on the CPU.
@@ -53,6 +54,18 @@ MASK_TEXT_PRUNED = 2
 
 #: rows the plain screen holds in one bitmap batch (4 KiB of bits each)
 PLAIN_ROWS = 512
+
+#: columns of one tile of the kernel's layout (:func:`screen_layout`): the
+#: kernel sorts names by gram count within a tile and stages a tile's keep
+#: masks in shared memory (4 B a column)
+SCREEN_TILE_COLS = 8192
+#: names a group of the layout holds: a warp's lanes
+GROUP = 32
+#: the gram of a padding slot: the kernel's bitmap never sets that entry
+PAD_GRAM = NBITS
+#: the kernel counts a name's grams in bytes and compares them in SWAR
+#: below the byte's top bit
+MAX_KERNEL_GRAMS = 127
 
 
 def prepare_names(
@@ -105,14 +118,60 @@ def names_csr(tables: dict) -> tuple[np.ndarray, np.ndarray]:
     return off.astype(np.int32), flat.astype(np.int16)
 
 
+def screen_layout(off: np.ndarray, grams: np.ndarray,
+                  tile_cols: int = SCREEN_TILE_COLS) -> dict[str, np.ndarray]:
+    """The names' grams as the CUDA screen reads them (``csrc/match.cu``),
+    from the CSR of :func:`names_csr`.  Within each tile of ``tile_cols``
+    columns the names are sorted by kept-gram count, most first (stably),
+    and dealt to groups of :data:`GROUP` (a warp's lanes), the tile's last
+    group padded with slots of column -1:
+
+    - ``slot_col int32[G*32]``: each slot's column;
+    - ``group_off int32[G+1]``: each group's first gram step;
+    - ``grams_il int16[group_off[G]*32]``: gram ``j`` of the group's names
+      side by side at ``(group_off[g] + j) * 32 + lane``, as ``uint16``
+      bits; a slot past its name's grams holds :data:`PAD_GRAM`;
+    - ``tile_groups int32[T+1]``: the groups of each tile."""
+    kept = np.diff(np.asarray(off, np.int64))
+    if kept.size and kept.max() > MAX_KERNEL_GRAMS:
+        raise ValueError(f"a name keeps {kept.max()} grams; the kernel counts up to "
+                         f"{MAX_KERNEL_GRAMS}")
+    cols, tile_groups = [], [0]
+    for c0 in range(0, kept.size, tile_cols):
+        order = c0 + np.argsort(-kept[c0:c0 + tile_cols], kind="stable")
+        cols += [order, np.full(-order.size % GROUP, -1)]
+        tile_groups.append(tile_groups[-1] + -(-order.size // GROUP))
+    slot_col = np.concatenate(cols).astype(np.int64) if cols else np.zeros(0, np.int64)
+    by_group = slot_col.reshape(-1, GROUP)
+    slot_kept = np.where(by_group >= 0, kept[np.maximum(by_group, 0)] if kept.size else 0, 0)
+    lens = slot_kept.max(axis=1) if by_group.size else np.zeros(0, np.int64)
+    group_off = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=group_off[1:])
+    step_group = np.repeat(np.arange(len(lens)), lens)
+    j = np.arange(step_group.size) - group_off[step_group]
+    step_cols = by_group[step_group]                                   # [steps, 32]
+    live = j[:, None] < slot_kept[step_group]
+    src = np.where(live, np.asarray(off, np.int64)[np.maximum(step_cols, 0)] + j[:, None], 0)
+    grams_u16 = np.where(live, np.asarray(grams).view(np.uint16)[src] if grams.size else 0,
+                         PAD_GRAM).astype(np.uint16)
+    return {
+        "slot_col": slot_col.astype(np.int32),
+        "group_off": group_off.astype(np.int32),
+        "grams_il": grams_u16.reshape(-1).view(np.int16),
+        "tile_groups": np.asarray(tile_groups, np.int32),
+    }
+
+
 def screen_tensors(tables: dict, device: torch.device | str) -> dict:
     """The name tables as tensors on ``device``, in the form the screen
-    (kernel and plain version) takes: the CSR of :func:`names_csr` and
-    ``kept/total/name_len int32[N]``, ``fuzzy uint8[N]``."""
+    takes: the CSR of :func:`names_csr` (the plain version's),
+    ``kept/total/name_len int32[N]``, ``fuzzy uint8[N]``, and the kernel's
+    layout of :func:`screen_layout`."""
     off, grams = names_csr(tables)
     out = {
         "gram_off": torch.from_numpy(off),
         "grams": torch.from_numpy(grams),
+        **{k: torch.from_numpy(v) for k, v in screen_layout(off, grams).items()},
         "kept": torch.from_numpy(np.asarray(tables["kept"], np.int32)),
         "total": torch.from_numpy(np.asarray(tables["total"], np.int32)),
         "name_len": torch.from_numpy(np.asarray(tables["name_len"], np.int32)),

@@ -1,13 +1,15 @@
 """A reader of a built kernel's SASS (``cuobjdump -sass``): the
 instructions one step of its innermost loop issues, by opcode and by pipe.
 
-Used by ``chip_smoke.py`` (the ``myers_bound`` row of ``kernel_timing``)
-and ``myers_probe.py``; needs ``cuobjdump`` beside ``nvcc``, so on the card's
+Used by ``chip_smoke.py`` (the ``myers_bound`` and ``match_screen`` rows of
+``kernel_timing``) and ``myers_probe.py``; :func:`sass_step_counts` and
+:func:`screen_sass` need ``cuobjdump`` beside ``nvcc``, so on the card's
 machine only.
 """
 
 from __future__ import annotations
 
+import ctypes
 import re
 import subprocess
 from collections import Counter
@@ -16,10 +18,12 @@ from pathlib import Path
 from advanced_scrapper_tpu_torch.ops import _build
 
 #: opcode -> the Hopper pipe it issues on, for the opcodes of the Myers step
-#: (the 32-bit logic, shift-add and min ops on the ALU pipe, integer
-#: multiply-adds on the FMA pipe, shared loads on MIO); other opcodes, such
-#: as the loop's counters and branch, are "other"
-PIPES = {"LOP3": "alu", "LEA": "alu", "VIMNMX": "alu", "IMAD": "fma", "LDS": "mio"}
+#: and the screen's probe (the 32-bit logic, shift, add and min ops on the
+#: ALU pipe, integer multiply-adds on the FMA pipe, shared and global loads
+#: on MIO); other opcodes, such as the loop's compares and branch, are
+#: "other"
+PIPES = {"LOP3": "alu", "LEA": "alu", "VIMNMX": "alu", "SHF": "alu", "IADD3": "alu",
+         "IMAD": "fma", "LDS": "mio", "LDG": "mio"}
 
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
@@ -53,12 +57,16 @@ def parse_sass(text: str) -> list[tuple[int, str, str]]:
     return out
 
 
-def step_loop(instrs: list[tuple[int, str, str]]) -> dict:
+def step_loop(instrs: list[tuple[int, str, str]], step: str = "LDS.U8",
+              global_loads: bool = False) -> dict:
     """The kernel's main step loop in parsed SASS: of the innermost loops
     (a backward branch with no other backward branch inside), the one with
-    the most byte loads from shared memory (``LDS.U8``, one a step) and no
-    global load (the branch-free instance).  Its instructions per step, in
-    all, by opcode and by pipe (:data:`PIPES`)."""
+    the most ``step`` instructions (one a step: ``LDS.U8``, the Myers
+    step's byte load from shared memory, by default; ``LDS``, the screen's
+    bitmap load) and with global loads or none, as ``global_loads`` says
+    (the Myers step's branch-free instance has none; the screen's probe
+    loads its gram).  Its instructions per step, in all, by opcode and by
+    pipe (:data:`PIPES`)."""
     loops = []
     for i, (addr, op, rest) in enumerate(instrs):
         if op.startswith("BRA") and rest.strip().startswith("0x"):
@@ -71,8 +79,8 @@ def step_loop(instrs: list[tuple[int, str, str]]) -> dict:
     best = None
     for a, b in inner:
         ops = [op for _addr, op, _r in instrs[a:b + 1]]
-        steps = sum(op.startswith("LDS.U8") for op in ops)
-        if steps and not any(op.startswith("LDG") for op in ops):
+        steps = sum(op == step or op.startswith(step + ".") for op in ops)
+        if steps and any(op.startswith("LDG") for op in ops) == global_loads:
             if best is None or steps > best[0]:
                 best = (steps, ops)
     if best is None:
@@ -88,9 +96,45 @@ def step_loop(instrs: list[tuple[int, str, str]]) -> dict:
             "by_pipe_per_step": {k: v / steps for k, v in sorted(pipes.items())}}
 
 
-def sass_step_counts(lib: Path) -> dict:
-    """:func:`step_loop` of a built library's SASS."""
+def work_per_step(loop: dict) -> float:
+    """The ALU and FMA pipes' instructions per step of a :func:`step_loop`:
+    the arithmetic, without the loads, the compares and the branch."""
+    pipes = loop["by_pipe_per_step"]
+    return pipes.get("alu", 0.0) + pipes.get("fma", 0.0)
+
+
+def screen_loops(instrs: list[tuple[int, str, str]], rows: int) -> dict:
+    """The q-gram screen's two per-item loops in parsed SASS: the probe
+    loop (one bitmap load from shared memory and one gram load a probe,
+    which answers the ``rows`` rows of a block), by opcode and by pipe, with
+    its instructions and its ALU and FMA instructions per (row, gram); and
+    the mask's write-out loop (one byte store a (row, name) pair), with its
+    ALU and FMA instructions per pair."""
+    probe = step_loop(instrs, step="LDS", global_loads=True)
+    write = step_loop(instrs, step="STG", global_loads=False)
+    return {**probe, "rows_per_block": rows, "per_row_gram": probe["per_step"] / rows,
+            "work_per_row_gram": work_per_step(probe) / rows,
+            "write_per_pair": write["per_step"], "write_work_per_pair": work_per_step(write),
+            "write_by_opcode_per_pair": write["by_opcode_per_step"]}
+
+
+def dump_sass(lib: Path) -> str:
+    """``cuobjdump -sass`` of a built library."""
     cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
-    out = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
-                         check=True, timeout=120).stdout
-    return step_loop(parse_sass(out))
+    return subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+
+
+def sass_step_counts(lib: Path, step: str = "LDS.U8", global_loads: bool = False) -> dict:
+    """:func:`step_loop` of a built library's SASS."""
+    return step_loop(parse_sass(dump_sass(lib)), step, global_loads)
+
+
+def screen_sass(lib: Path) -> dict:
+    """:func:`screen_loops` of a built ``match.cu`` (its rows a block from
+    the library); or the reason there are none."""
+    try:
+        rows = ctypes.CDLL(str(lib)).astt_match_rows_per_block()
+        return screen_loops(parse_sass(dump_sass(lib)), rows)
+    except (RuntimeError, subprocess.SubprocessError, OSError) as e:
+        return {"error": str(e)[:300]}

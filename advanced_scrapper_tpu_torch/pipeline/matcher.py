@@ -783,11 +783,15 @@ def append_match(out_dir: str, ticker: str, matches: dict, row) -> bool:
     reference's one-row ``to_csv(mode="a")`` does (header on a new file)."""
     raw_date = _get_col(row, "date_time", "datetime")
     parsed = parse_date(raw_date)
-    if parsed is None:
+    try:
+        ts = None if parsed is None else int(parsed.timestamp())
+    except (ValueError, OverflowError):  # an offset of 24 h or more
+        ts = None
+    if ts is None:
         print(f"skipping row with unparseable date_time: {raw_date!r}")
         return False
     record = [
-        int(parsed.timestamp()),
+        ts,
         raw_date,
         json.dumps(matches["text"]),
         json.dumps(matches["title"]),

@@ -1,23 +1,29 @@
-"""Variants of the Myers-bound kernel on the card: a tuning probe.
+"""Variants of the matcher's two kernels on the card: a tuning probe.
 
     python3 myers_probe.py [--parent DIR]
 
-Builds copies of ``advanced_scrapper_tpu_torch/csrc/editdist.cu`` with
-other values of its constants (chains a thread, unroll, blocks an SM;
-:data:`VARIANTS`, applied by text substitution) into
-``build/kernels/probe/``, and, with ``--parent``, the ``editdist.cu`` of
-another checkout (an earlier design with the same C interface, e.g. the
-parent commit unpacked with ``git archive``), all at once, one nvcc each.
-Then, on the matcher cell's chunk of ``chip_smoke.py`` (S&P scale: 500
-tickers, 20,000 articles), it holds the shipped kernel bit-equal to
-``myers_bound_plain`` on the chunk's first rows and on the edge cases of
-``chip_smoke.check_match_vs_plain``, holds every variant's mask bits and
-distances equal to the shipped kernel's, and times each (gated mode, as
-the matcher launches it) with CUDA events over 5 launches after a warm
-one, twice (every variant in order, then in reverse), the SM clock read
-before and after each.  One JSON line per variant, with its SASS
-instructions per Myers step (``ops/sass.py``).  Needs one card and
-``nvcc``; run it from the repo's root.
+Builds copies of ``advanced_scrapper_tpu_torch/csrc/editdist.cu`` (the
+Myers bound) with other values of its constants (chains a thread, unroll,
+blocks an SM; :data:`VARIANTS`) and of ``csrc/match.cu`` (the q-gram
+screen) with other row-slice widths and block sizes
+(:data:`SCREEN_VARIANTS`), applied by text substitution, into
+``build/kernels/probe/``, and, with ``--parent``, both sources of another
+checkout (an earlier design, e.g. the parent commit unpacked with ``git
+archive``), all at once, one nvcc each.  Then, on the matcher cell's chunk
+of ``chip_smoke.py`` (S&P scale: 500 tickers, 20,000 articles), it holds
+the shipped kernels bit-equal to their plain versions on the edge cases of
+``chip_smoke.check_match_vs_plain`` and on the chunk (the bound on its
+first rows), holds every variant's output equal to the shipped kernel's
+(the bound's mask bits and distances, the screen's mask; not the screen's
+phase cuts, :data:`SCREEN_PHASE_CUTS`, which skip a phase to show what
+it costs), and times each with CUDA events over 5 launches after a warm
+one, queued behind a spin of the card so that they run back to back,
+twice (every variant in order, then in reverse), the SM clock read before
+and after each; the screens also by the profiler (ms per recorded launch
+of 5).  One JSON line per variant, with its SASS instructions per step of
+its inner loop (``ops/sass.py``): a Myers step, or a screen probe, per
+(row, gram) and per written pair.  Needs one card and ``nvcc``; run it
+from the repo's root.
 """
 
 from __future__ import annotations
@@ -34,12 +40,14 @@ import numpy as np
 import torch
 
 from advanced_scrapper_tpu_torch.ops import _build
+from advanced_scrapper_tpu_torch.ops.sass import screen_sass
 
 CHAINS = "constexpr int kChains = 4;"
 UNROLL = "constexpr int kUnroll = 8;"
 MIN_BLOCKS = "constexpr int kMinBlocks = 4;"
 
-#: name -> [(text in the source, its replacement)]; "shipped" is the source
+#: editdist.cu variants: name -> [(text in the source, its replacement)];
+#: "shipped" is the source
 VARIANTS = {
     "shipped": [],
     "t2": [(CHAINS, "constexpr int kChains = 2;")],
@@ -48,43 +56,88 @@ VARIANTS = {
     "unroll_4": [(UNROLL, "constexpr int kUnroll = 4;")],
 }
 
+ENTRY = "using Entry = uint32_t;"
+THREADS = "constexpr int kThreads = 1024;"
+SCREEN_MIN_BLOCKS = "constexpr int kMinBlocks = 1;"
+
+#: match.cu variants: 32 rows a block at 512 threads; 16 rows (2 blocks of
+#: 512 an SM) and 8 rows (4 blocks of 256) over smaller bitmaps
+SCREEN_VARIANTS = {
+    "shipped": [],
+    "t512": [(THREADS, "constexpr int kThreads = 512;")],
+    "r16": [(ENTRY, "using Entry = uint16_t;"), (THREADS, "constexpr int kThreads = 512;"),
+            (SCREEN_MIN_BLOCKS, "constexpr int kMinBlocks = 2;")],
+    "r8": [(ENTRY, "using Entry = uint8_t;"), (THREADS, "constexpr int kThreads = 256;"),
+           (SCREEN_MIN_BLOCKS, "constexpr int kMinBlocks = 4;")],
+}
+
+#: match.cu with one phase cut out (or, ``plain_or``, the bitmap's atomic
+#: ORs made plain read-modify-writes that race): timed beside the others to
+#: show where the shipped kernel's time goes; their masks are not the
+#: screen's and are not checked
+SCREEN_PHASE_CUTS = {
+    "cut_windows": [("q < chunks; q += kThreads", "q < 0; q += kThreads")],
+    "cut_probes": [("a < len; a += kFlush", "a < 0; a += kFlush")],
+    "cut_writes": [("rr < nrows; ++rr) o[", "rr < 0; ++rr) o[")],
+    "plain_or": [("atomicOr(&words[bit / kPerWord], row_bit << ((bit % kPerWord) * kRows));",
+                  "words[bit / kPerWord] |= row_bit << ((bit % kPerWord) * kRows);")],
+}
+
+#: source -> its variants
+SOURCES = {"editdist": VARIANTS, "match": {**SCREEN_VARIANTS, **SCREEN_PHASE_CUTS}}
+
 
 def patched(source: str, edits: list[tuple[str, str]]) -> str:
     """``source`` with each edit applied; raises if a text is not there
     exactly once."""
     for old, new in edits:
         if source.count(old) != 1:
-            raise ValueError(f"not once in editdist.cu: {old!r}")
+            raise ValueError(f"not once in the source: {old!r}")
         source = source.replace(old, new)
     return source
 
 
-def build_variants(parent: Path | None) -> dict[str, Path]:
-    """Every variant (and the parent's source) compiled at once, one nvcc
-    each; name -> library."""
+def build_sources(srcs: dict[tuple[str, str], Path]) -> dict[tuple[str, str], Path]:
+    """Each ``(source, variant) -> .cu`` compiled into
+    ``build/kernels/probe/`` at once, one nvcc each; the same keys -> their
+    libraries.  Prints each one's registers."""
     outdir = _build.BUILD_DIR / "probe"
     outdir.mkdir(parents=True, exist_ok=True)
-    source = (_build.CSRC_DIR / "editdist.cu").read_text()
-    srcs = {}
-    for name, edits in VARIANTS.items():
-        srcs[name] = outdir / f"editdist-{name}.cu"
-        srcs[name].write_text(patched(source, edits))
-    if parent is not None:
-        srcs["parent"] = parent / "advanced_scrapper_tpu_torch" / "csrc" / "editdist.cu"
     procs, libs = {}, {}
-    for name, src in srcs.items():
-        libs[name] = outdir / f"libeditdist-{name}.so"
-        procs[name] = subprocess.Popen(
-            [_build.nvcc_path(), *_build.ARCH_FLAGS, *_build.NVCC_FLAGS, "-o", str(libs[name]),
+    for key, src in srcs.items():
+        libs[key] = outdir / f"lib{key[0]}-{key[1]}.so"
+        procs[key] = subprocess.Popen(
+            [_build.nvcc_path(), *_build.ARCH_FLAGS, *_build.NVCC_FLAGS, "-o", str(libs[key]),
              str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    for name, proc in procs.items():
+    for key, proc in procs.items():
         out = proc.communicate()[0]
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {name}:\n{out[-2000:]}")
+            raise RuntimeError(f"nvcc failed on {key}:\n{out[-2000:]}")
         regs = re.findall(r"Used (\d+) registers", out)
-        print(json.dumps({"variant": name, "registers": [int(r) for r in regs]}), flush=True)
+        print(json.dumps({"source": key[0], "variant": key[1],
+                          "registers": [int(r) for r in regs]}), flush=True)
     return libs
+
+
+def build_variants(parent: Path | None) -> dict[tuple[str, str], Path]:
+    """Every variant of both sources (and the parent's sources) compiled
+    at once; ``(source, variant) -> library``."""
+    outdir = _build.BUILD_DIR / "probe"
+    outdir.mkdir(parents=True, exist_ok=True)
+    srcs = {}
+    for source, variants in SOURCES.items():
+        text = (_build.CSRC_DIR / f"{source}.cu").read_text()
+        for name, edits in variants.items():
+            srcs[source, name] = outdir / f"{source}-{name}.cu"
+            srcs[source, name].write_text(patched(text, edits))
+        if parent is not None:
+            srcs[source, "parent"] = parent_source(parent, source)
+    return build_sources(srcs)
+
+
+def parent_source(parent: Path, source: str) -> Path:
+    return parent / "advanced_scrapper_tpu_torch" / "csrc" / f"{source}.cu"
 
 
 def load(path: Path) -> ctypes.CDLL:
@@ -97,8 +150,8 @@ def load(path: Path) -> ctypes.CDLL:
 
 
 def launch(lib: ctypes.CDLL, t: dict, mask: torch.Tensor, dist: torch.Tensor | None) -> None:
-    """One launch of a variant on the tensors ``t`` (checked once by the
-    shipped wrapper on the same tensors)."""
+    """One launch of a bound variant on the tensors ``t`` (checked once by
+    the shipped wrapper on the same tensors)."""
     hmt = np.float32(100.0) - np.float32(t["threshold"])
     err = lib.astt_myers_bound(
         t["text"].data_ptr(), t["off"].data_ptr(), t["len"].data_ptr(), t["tl"].data_ptr(),
@@ -110,18 +163,79 @@ def launch(lib: ctypes.CDLL, t: dict, mask: torch.Tensor, dist: torch.Tensor | N
         raise RuntimeError(f"variant launch failed: CUDA error {err}")
 
 
+def load_screen(path: Path, source: Path) -> tuple[ctypes.CDLL, bool]:
+    """A built ``match.cu`` and whether it takes the CSR of the names
+    (the earlier block-per-row design) rather than the sorted layout of
+    ``ops/match.py:screen_layout``, as its ``source`` says."""
+    lib = ctypes.CDLL(str(path))
+    csr = "slot_col" not in source.read_text()
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.astt_match_screen.argtypes = (
+        [p, p, p, p, p, ctypes.c_longlong, p, p, p, p, p, p, i, ctypes.c_float, p, p] if csr
+        else [p, p, p, p, p, ctypes.c_longlong, p, p, p, p, i, p, p, p, p, i, ctypes.c_float,
+              p, p])
+    lib.astt_match_screen.restype = i
+    return lib, csr
+
+
+def launch_screen(lib: ctypes.CDLL, csr: bool, t: dict, out: torch.Tensor) -> None:
+    """One launch of a screen variant on the rows of ``t``, its name
+    tables ``t["screen"]`` and ``t["frac"]`` (``ops.match.screen_frac``;
+    all checked once by the shipped wrapper)."""
+    from advanced_scrapper_tpu_torch.ops.match import SCREEN_TILE_COLS
+
+    s = t["screen"]
+    rows = [t[k].data_ptr() for k in ("text", "off", "len", "tl", "ttl")]
+    names = [s[k].data_ptr() for k in ("kept", "total", "name_len", "fuzzy")]
+    frac, stream = float(t["frac"]), torch.cuda.current_stream().cuda_stream
+    n = s["kept"].numel()
+    if csr:
+        err = lib.astt_match_screen(*rows, t["off"].numel(), s["gram_off"].data_ptr(),
+                                    s["grams"].data_ptr(), *names, n, frac, out.data_ptr(),
+                                    stream)
+    else:
+        err = lib.astt_match_screen(
+            *rows, t["off"].numel(),
+            *[s[k].data_ptr() for k in ("slot_col", "group_off", "grams_il", "tile_groups")],
+            SCREEN_TILE_COLS, *names, n, frac, out.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"screen variant launch failed: CUDA error {err}")
+
+
+def timed_twice(cs, runs: dict) -> dict[str, list]:
+    """Each ``name -> fn`` timed by CUDA events over 5 calls queued behind
+    a spin of the card (``chip_smoke.cuda_ms``), in order and then in
+    reverse, so that a drift of the card's speed over the call shows as a
+    spread; ``name -> [(ms, clock before, clock after), ...]``."""
+    times = {name: [] for name in runs}
+    for name in [*runs, *reversed(runs)]:
+        clock_before = cs.nvidia_smi("clocks.sm")
+        ms = cs.cuda_ms(runs[name], 5, queued=True)
+        times[name].append((ms, clock_before, cs.nvidia_smi("clocks.sm")))
+    return times
+
+
+def sass_of(path: Path) -> dict:
+    from advanced_scrapper_tpu_torch.ops.sass import sass_step_counts
+
+    try:
+        return sass_step_counts(path)
+    except (RuntimeError, subprocess.SubprocessError, OSError) as e:
+        return {"error": str(e)[:200]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--parent", type=Path, help="a checkout whose editdist.cu to time beside")
+    ap.add_argument("--parent", type=Path, help="a checkout whose kernels to time beside")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("myers_probe runs on the card", file=sys.stderr)
         return 2
     import chip_smoke as cs  # the chunk, the edge cases and the timers of the smoke run
 
-    from advanced_scrapper_tpu_torch.ops import editdist_cuda
+    from advanced_scrapper_tpu_torch.ops import editdist_cuda, match_cuda
     from advanced_scrapper_tpu_torch.ops.editdist import myers_bound_plain
-    from advanced_scrapper_tpu_torch.ops.sass import sass_step_counts
+    from advanced_scrapper_tpu_torch.ops.match import screen_frac, screen_plain
     from advanced_scrapper_tpu_torch.pipeline.matcher import (
         EntityIndex,
         join_rows,
@@ -140,14 +254,14 @@ def main() -> int:
     records, _planted = cs.sp500_articles(rng, entities, cs.MATCH_ARTICLES)
     index = EntityIndex(process_json_data(entities))
     rows = [(r["article_text"], r["title"], None, r) for r in records]
-    eligible, text, off, ln, tl, _ttl, fl = join_rows(rows, 1 << 16, dev)
+    eligible, text, off, ln, tl, ttl, fl = join_rows(rows, 1 << 16, dev)
     screen, (masks, plens, ok, cols) = index.device_tables(dev)
     n_names = screen["kept"].numel()
-    t = dict(text=text, off=off, len=ln, tl=tl, fl=fl, masks=masks, plens=plens, ok=ok,
-             cols=cols, threshold=95.0)
+    t = dict(text=text, off=off, len=ln, tl=tl, ttl=ttl, fl=fl, masks=masks, plens=plens,
+             ok=ok, cols=cols, screen=screen, threshold=95.0, frac=screen_frac(95.0))
     base = (torch.rand((eligible.size, n_names), device=dev) < 0.05).to(torch.uint8)
 
-    # the shipped kernel against the plain version on the chunk's first rows
+    # the shipped bound against the plain version on the chunk's first rows
     few = 256
     sub = [x[:few].contiguous() for x in (off, ln, tl, fl)]
     got, want = base[:few].clone(), base[:few].clone()
@@ -155,38 +269,55 @@ def main() -> int:
     myers_bound_plain(text, *sub, masks, plens, ok, cols, 95.0, want, rows_per_batch=256)
     torch.cuda.synchronize()
     assert torch.equal(got, want), "myers_bound differs from plain on the chunk's first rows"
+    # the shipped screen against the plain version on the whole chunk
+    shipped_e = match_cuda.match_screen(text, off, ln, tl, ttl, screen, screen_frac(95.0))
+    plain_e = screen_plain(text, off, ln, tl, ttl, screen, 95.0).to(torch.uint8)
+    torch.cuda.synchronize()
+    assert torch.equal(shipped_e, plain_e), "match_screen differs from plain on the chunk"
 
     shipped = base.clone()
     editdist_cuda.myers_bound(text, off, ln, tl, fl, masks, plens, ok, cols, 95.0, shipped)
     want_dist = torch.empty((eligible.size, plens.numel()), dtype=torch.int32, device=dev)
-    launch(load(libs["shipped"]), t, base.clone(), want_dist)
+    launch(load(libs["editdist", "shipped"]), t, base.clone(), want_dist)
     torch.cuda.synchronize()
-    loaded, times = {}, {name: [] for name in libs}
-    for name, path in libs.items():
-        lib = loaded[name] = load(path)
-        mask = base.clone()
-        dist = torch.empty_like(want_dist)
-        launch(lib, t, mask, dist)
-        torch.cuda.synchronize()
-        equal = bool(torch.equal(mask, shipped)) and bool(torch.equal(dist, want_dist))
-        assert equal, f"variant {name} differs from the shipped kernel"
-    # each variant timed twice, in order and then in reverse, so that a drift
-    # of the card's speed over the call shows as a spread
-    for name in [*libs, *reversed(libs)]:
-        clock_before = cs.nvidia_smi("clocks.sm")
-        ms = cs.cuda_ms(lambda lib=loaded[name]: launch(lib, t, base, None), 5)
-        times[name].append((ms, clock_before, cs.nvidia_smi("clocks.sm")))
-    for name, path in libs.items():
-        try:
-            sass = sass_step_counts(path)
-        except (RuntimeError, subprocess.SubprocessError, OSError) as e:
-            sass = {"error": str(e)[:200]}
-        ms = [x[0] for x in times[name]]
-        print(json.dumps({"variant": name, "ms": ms, "ms_mean": sum(ms) / len(ms),
-                          "equal_to_shipped": True,
-                          "clock_sm": [c for x in times[name] for c in x[1:]], "sass": sass,
-                          "rows": int(eligible.size), "patterns": int(plens.numel()),
-                          "card": card}), flush=True)
+    runs, screen_out = {}, torch.empty_like(shipped_e)
+    for (source, name), path in libs.items():
+        if source == "editdist":
+            lib = load(path)
+            mask, dist = base.clone(), torch.empty_like(want_dist)
+            launch(lib, t, mask, dist)
+            torch.cuda.synchronize()
+            equal = bool(torch.equal(mask, shipped)) and bool(torch.equal(dist, want_dist))
+            runs[source, name] = lambda lib=lib: launch(lib, t, base, None)
+        else:
+            src = (parent_source(args.parent, source) if name == "parent"
+                   else path.parent / f"{source}-{name}.cu")
+            lib, csr = load_screen(path, src)
+            out = torch.zeros_like(shipped_e)
+            launch_screen(lib, csr, t, out)
+            torch.cuda.synchronize()
+            equal = bool(torch.equal(out, shipped_e)) or name in SCREEN_PHASE_CUTS
+            runs[source, name] = lambda lib=lib, csr=csr: launch_screen(lib, csr, t, screen_out)
+        assert equal, f"{source} variant {name} differs from the shipped kernel"
+    times = timed_twice(cs, runs)
+    windows = int(np.maximum(ln.cpu().numpy().astype(np.int64) - 2, 0).sum())
+    probes = int(eligible.size) * int(screen["kept"].sum())
+    for (source, name), path in libs.items():
+        ms = [x[0] for x in times[source, name]]
+        rec = {"source": source, "variant": name, "ms": ms, "ms_mean": sum(ms) / len(ms),
+               "equal_to_shipped": name not in SCREEN_PHASE_CUTS,
+               "clock_sm": [c for x in times[source, name] for c in x[1:]],
+               "rows": int(eligible.size), "card": card}
+        if source == "editdist":
+            rec.update(patterns=int(plens.numel()), sass=sass_of(path))
+        else:
+            seen = cs.profiler_device_ms(runs[source, name], ("screen_kernel",))
+            prof_ms, prof_n = cs.per_launch_ms(seen, "screen_kernel")
+            rec.update(names=n_names, windows=windows, probes=probes,
+                       profiler_ms=prof_ms or None, profiler_launches=prof_n)
+            if name != "parent" and name not in SCREEN_PHASE_CUTS:
+                rec["sass"] = screen_sass(path)
+        print(json.dumps(rec), flush=True)
     return 0
 
 

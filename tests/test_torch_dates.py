@@ -4,7 +4,11 @@ output row for each date form held against the reference's."""
 
 from __future__ import annotations
 
+import itertools
+import pickle
+import time
 import warnings
+from datetime import date, datetime, timedelta, timezone
 
 import pytest
 from dateutil import parser as dateparser
@@ -38,36 +42,77 @@ READ = [
     "6/1/2020 3:45 PM", "June 1, 2020 3:45 PM", "2020-06-01 12:00:00 am",
     # ISO 8601 beside them
     "2020-06-01T3:45", "2020-06-01 3", "2020-06-01 03", "20200601",
+    # a field missing: filled from today at midnight
+    "June 2020", "June 1", "1/6", "Sept. 2020", "1st June", "6/2020", "45/1", "June 45",
+    "Monday, June 2020",
+    # a named zone other than UTC/GMT: naive
+    "Mon, 01 Jun 2020 12:00:00 EST", "June 1, 2020 3:45 PM CEST",
+    # dateutil's inverted NAME+h
+    "Mon, 01 Jun 2020 12:00:00 GMT+2", "Mon, 01 Jun 2020 12:00:00 GMT-2",
+    "Mon, 01 Jun 2020 12:00:00 UTC+02:00", "Mon, 01 Jun 2020 12:00:00 EST+2",
+    "2020-06-01 12:00 GMT+0", "2020-06-01 3:45 P.M+05:30",
+    # an offset of 24 h or more: a datetime whose offset datetime refuses
+    "Mon, 01 Jun 2020 12:00:00 +2400", "Mon, 01 Jun 2020 12:00:00 -2400",
+    # ordinals, a month abbreviation with a dot, A.M./P.M. with dots
+    "June 1st, 2020", "Jun. 1, 2020", "2020-06-01 3:45 P.M.", "JUNE 3RD 2020", "Jun.1,2020",
+    "June 22nd", "2020-06-01 3:45 a.m.", "2020-06-01 3:45 p", "2020-06-01 3:45 P.M. +0200",
+    "2020-06-01 3:45 a.M. GMT", "2020-06-01 3:45 p.m. GMT",
+    # a zone needs a time
+    "2020-06-01 Z", "June 1, 2020 GMT",
 ]
 
+#: forms whose fields dateutil fills from today: the day past the month's
+#: end falls back to its last day
+MONTH_END = [("Feb 2021", datetime(2026, 1, 31)), ("6/2020", datetime(2024, 3, 31)),
+             ("Sept. 2020", datetime(2023, 12, 31)), ("June 2020", datetime(2024, 5, 31)),
+             ("Feb 2024", datetime(2023, 1, 30)), ("Monday, Feb 2021", datetime(2026, 1, 30))]
+
 #: forms dateutil reads and the port does not (logged in ROADMAP.md, queue 3)
-UNREAD = [
-    "June 2020", "June 1", "1/6",                      # a field missing: filled from today
-    "Mon, 01 Jun 2020 12:00:00 EST",                   # a named zone other than UTC/GMT
-    "Mon, 01 Jun 2020 12:00:00 GMT+2",                 # dateutil's inverted GMT+h
-    "Mon, 01 Jun 2020 12:00:00 +2400",                 # an offset of 24 h
-    "June 1st, 2020", "Jun. 1, 2020", "2020-06-01 3:45 P.M.",
-]
+UNREAD = ["1st June 2020 03", "06/01/2020 03", "2020-06-01 12:00 GMT +2"]
+
+
+def offset(d):
+    """The zone's offset as the zone gives it (``datetime.utcoffset``
+    refuses one of 24 h or more)."""
+    return None if d.tzinfo is None else d.tzinfo.utcoffset(d)
 
 
 def same_date(a, b) -> bool:
     if a is None or b is None:
         return a is None and b is None
-    return a.replace(tzinfo=None) == b.replace(tzinfo=None) and a.utcoffset() == b.utcoffset()
+    return a.replace(tzinfo=None) == b.replace(tzinfo=None) and offset(a) == offset(b)
 
 
-def dateutil_parse(raw):
+def dateutil_parse(raw, default=None):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # UnknownTimezoneWarning
         try:
-            return dateparser.parse(raw)
+            return dateparser.parse(raw, default=default)
         except (ValueError, OverflowError):
             return None
 
 
+def on_one_day(fn):
+    """``fn()``, taken again if midnight passed while it ran (the forms
+    without a year or a day take them from today)."""
+    while True:
+        day = date.today()
+        out = fn()
+        if date.today() == day:
+            return out
+
+
 @pytest.mark.parametrize("raw", READ)
 def test_parse_date_reads_as_dateutil(raw):
-    assert same_date(parse_date(raw), dateutil_parse(raw))
+    got, want = on_one_day(lambda: (parse_date(raw), dateutil_parse(raw)))
+    assert same_date(got, want)
+
+
+@pytest.mark.parametrize("raw,default", MONTH_END)
+def test_parse_date_month_end_as_dateutil(raw, default):
+    want = dateutil_parse(raw, default)
+    assert want is not None and want.day != default.day
+    assert same_date(parse_date(raw, default), want)
 
 
 @pytest.mark.parametrize("raw", UNREAD)
@@ -76,16 +121,97 @@ def test_parse_date_unread_forms_give_none(raw):
     assert parse_date(raw) is None
 
 
+def test_zone_names_of_the_local_zone(monkeypatch):
+    """A zone name in ``time.tzname`` is the local zone, as dateutil reads
+    it: EST in June is EDT's offset; EST+5 ignores its offset."""
+    forms = ["Mon, 01 Jun 2020 12:00:00 EST", "Mon, 07 Dec 2020 12:00:00 EST",
+             "Mon, 01 Jun 2020 12:00:00 EDT", "Mon, 01 Jun 2020 12:00:00 EST+5",
+             "Mon, 01 Jun 2020 12:00:00 GMT", "Mon, 01 Jun 2020 12:00:00 PST"]
+    monkeypatch.setenv("TZ", "EST5EDT,M3.2.0,M11.1.0")
+    time.tzset()
+    try:
+        assert time.tzname == ("EST", "EDT")
+        for raw in forms:
+            assert same_date(parse_date(raw), dateutil_parse(raw)), raw
+        assert offset(parse_date(forms[0])) == timedelta(hours=-4)
+    finally:
+        monkeypatch.undo()
+        time.tzset()
+
+
+def test_far_offset_fails_where_dateutils_fails():
+    """``+2400``: dateutil's ``tzoffset`` of 24 h. ``.timestamp()`` and a
+    comparison with another zone raise ``ValueError``; two such dates of
+    one process compare; a pickled copy is another zone."""
+    raw, later = "Mon, 01 Jun 2020 12:00:00 +2400", "Tue, 02 Jun 2020 12:00:00 +2400"
+    for parse in (parse_date, dateutil_parse):
+        a, b = parse(raw), parse(later)
+        with pytest.raises(ValueError):
+            a.timestamp()
+        with pytest.raises(ValueError):
+            _ = a < datetime(2020, 1, 1, tzinfo=timezone.utc)
+        assert a < b
+        with pytest.raises(ValueError):
+            _ = pickle.loads(pickle.dumps(a)) < b
+
+
+def test_date_windows_as_the_reference():
+    """``is_within_period`` over the parsed forms gives the reference's
+    answer, or raises where the reference raises (an article dated
+    ``+2400`` beside a window in another zone)."""
+    forms = [None, "June 2020", "June 1", "Mon, 01 Jun 2020 12:00:00 EST",
+             "Mon, 01 Jun 2020 12:00:00 GMT+2", "Mon, 01 Jun 2020 12:00:00 +2400",
+             "Tue, 02 Jun 2020 12:00:00 +2400", "June 1st, 2020", "2020-06-01 3:45 P.M."]
+
+    def outcome(within, parse, a, s, e):
+        try:
+            return within(*(None if x is None else parse(x) for x in (a, s, e)))
+        except ValueError:
+            return ValueError
+
+    def run():
+        return [[outcome(within, parse, a, s, e)
+                 for a, s, e in itertools.product(forms[1:], forms, forms)]
+                for within, parse in ((matcher.is_within_period, parse_date),
+                                      (ref.is_within_period, dateutil_parse))]
+
+    got, want = on_one_day(run)
+    assert got == want
+    assert ValueError in want and True in want and False in want
+    names = ["Tim Cook (Start: June 2011)", "A (Start: Jun. 1st, 2011) (End: 2011-06-01 3 P.M.)",
+             "B (End: Mon, 01 Jun 2020 12:00:00 GMT+2)"]
+    got, want = on_one_day(lambda: (matcher.extract_time_periods(names),
+                                    ref.extract_time_periods(names)))
+    assert list(got) == list(want)
+    for k in want:
+        assert all(same_date(g, w) for g, w in zip(got[k], want[k])), k
+
+
 def test_append_match_writes_the_reference_row(tmp_path):
     """The matcher writes the row the reference writes (date forms the
     port once skipped), and skips the rows the reference skips."""
     (tmp_path / "ref").mkdir()
     (tmp_path / "port").mkdir()
     matches = {"text": ["Apple"], "title": []}
-    for raw in ["June 1, 2020", "Mon, 01 Jun 2020 12:00:00 GMT", "06/01/2020", "1/6/20",
-                "2020-06-01 3:45 PM", "not a date"]:
-        row = {"date_time": raw, "title": "t", "url": "u", "article_text": "Apple x"}
-        assert matcher.append_match(str(tmp_path / "port"), "AAPL", matches, row) == \
-            ref.append_match(str(tmp_path / "ref"), "AAPL", matches, row)
+    forms = ["June 1, 2020", "Mon, 01 Jun 2020 12:00:00 GMT", "06/01/2020", "1/6/20",
+             "2020-06-01 3:45 PM", "not a date", "June 2020", "June 1", "1/6",
+             "Mon, 01 Jun 2020 12:00:00 EST", "Mon, 01 Jun 2020 12:00:00 GMT+2",
+             "Mon, 01 Jun 2020 12:00:00 +2400", "June 1st, 2020", "Jun. 1, 2020",
+             "2020-06-01 3:45 P.M."]
+
+    def write():
+        for side in ("port", "ref"):
+            (tmp_path / side / "AAPL_match.csv").unlink(missing_ok=True)
+        wrote = []
+        for raw in forms:
+            row = {"date_time": raw, "title": "t", "url": "u", "article_text": "Apple x"}
+            wrote.append((matcher.append_match(str(tmp_path / "port"), "AAPL", matches, row),
+                          ref.append_match(str(tmp_path / "ref"), "AAPL", matches, row)))
+        return wrote
+
+    wrote = on_one_day(write)
+    assert all(p == r for p, r in wrote)
+    skipped = [raw for raw, (p, _r) in zip(forms, wrote) if not p]
+    assert skipped == ["not a date", "Mon, 01 Jun 2020 12:00:00 +2400"]
     assert (tmp_path / "port" / "AAPL_match.csv").read_bytes() == \
         (tmp_path / "ref" / "AAPL_match.csv").read_bytes()
