@@ -25,7 +25,8 @@ midnight as dateutil takes it; where only the day is missing and
 default's day is past the month's end, the month's last day.
 
 The date may be followed (after ``T``/``t`` for ISO, or whitespace) by a
-time: ``HH`` (ISO only), ``H:MM`` or ``H:MM:SS`` with an optional
+time: ``HH`` or ``HHMM`` (after a whole date: year, month and day all
+written), ``H:MM`` or ``H:MM:SS`` with an optional
 fraction (cut to microseconds, as dateutil does), with an optional
 ``AM``/``PM`` (also ``A.M.``, ``p.m`` and a bare ``a``/``p``; ``H AM``
 also; 12 AM is hour 0, and an hour above 12 with either is refused, as
@@ -38,7 +39,10 @@ dateutil refuses it).  After a time may come a zone:
 - a ``±H``, ``±HH``, ``±HHMM`` or ``±H:MM`` offset: that offset;
 - a name directly followed by an offset (``GMT+2``): dateutil reads it as
   "this time plus 2 hours is GMT", an offset of -2 hours, and drops a UTC
-  name; another name in ``time.tzname`` still gives the local zone.
+  name; another name in ``time.tzname`` still gives the local zone;
+- a name, whitespace, then an offset (``GMT +2``, ``EST +2``): the offset
+  as written, except after a UTC name, which keeps UTC (dateutil's
+  ``parserinfo.validate``); a name in ``time.tzname`` gives the local zone.
 
 An aware result has dateutil's UTC offset, as a ``datetime.timezone``; an
 offset of 24 hours or more, which ``datetime.timezone`` cannot hold, as a
@@ -48,8 +52,9 @@ dateutil's result.  The ``M`` of ``A.M``/``P.M`` written in capitals
 after a dot is a zone name to dateutil (so no other name may follow).
 What it cannot read (or an impossible date) gives ``None``, where
 dateutil raises or reads more: a zone without a time, a weekday with
-neither a day nor a month, a name and an offset apart (``GMT +2``), and
-free text.
+neither a day nor a month, a number after a date that lacks its day or
+year (dateutil makes it the day or the year: ``June 2020 03``, ``1/6
+03``), and free text.
 """
 
 from __future__ import annotations
@@ -87,13 +92,15 @@ _AMPM = r"[AaPp](?:\.?[Mm])?\.?(?![A-Za-z])"
 _TIME = (
     r"(?:(?P<H>\d{1,2}):(?P<M>\d{2})(?::(?P<S>\d{2})(?:\.(?P<f>\d+))?)?"
     r"(?:\s*(?P<ampm>" + _AMPM + r"))?"
-    r"|(?P<Ha>\d{1,2})\s*(?P<ampm2>" + _AMPM + r"))"
+    r"|(?P<Ha>\d{1,2})\s*(?P<ampm2>" + _AMPM + r")"
+    r"|(?P<Hb>\d{2})(?P<Mb>\d{2})?(?![\d:])(?:\s*(?P<ampm3>" + _AMPM + r"))?)"
 )
 _OFFSET = r"\d{4}|\d{1,2}(?::\d{2})?"
 # a zone only after a time; a, p, am and pm are never zone names
 _ZONE = (
     r"(?:\s*(?:(?P<zname>(?![AP]M?(?![A-Z]))[A-Z]{1,5}(?![A-Za-z])|z(?![A-Za-z]))"
-    r"(?:(?P<isign>[+-])(?P<ioff>" + _OFFSET + r"))?"
+    r"(?:(?P<isign>[+-])(?P<ioff>" + _OFFSET + r")"
+    r"|\s+(?P<nsign>[+-])(?P<noff>" + _OFFSET + r"))?"
     r"|(?P<sign>[+-])(?P<off>" + _OFFSET + r")))?"
 )
 
@@ -167,15 +174,15 @@ def _ymd(m: re.Match) -> tuple[int | None, int | None, int | None]:
 
 
 def _hms(g: dict) -> tuple[int, int, int, int] | None:
-    hour = g["H"] or g["Ha"] or g.get("H2")
-    ampm = (g["ampm"] or g["ampm2"] or "")[:1].lower()
+    hour = g["H"] or g["Ha"] or g.get("H2") or g["Hb"]
+    ampm = (g["ampm"] or g["ampm2"] or g["ampm3"] or "")[:1].lower()
     h = int(hour or 0)
     if ampm:
         if h > 12:
             return None
         h = h % 12 + (12 if ampm == "p" else 0)
     frac = (g["f"] or "")[:6].ljust(6, "0")
-    return h, int(g["M"] or 0), int(g["S"] or 0), int(frac)
+    return h, int(g["M"] or g["Mb"] or 0), int(g["S"] or 0), int(frac)
 
 
 class _FarOffset(tzinfo):
@@ -249,6 +256,8 @@ def _aware(naive: datetime, g: dict, dotted_m: bool, m_then_sign: bool) -> datet
         off = -_offset(g["ioff"], g["isign"])
         if name in _UTC_NAMES:
             name = None
+    elif g.get("nsign"):  # NAME +h: the offset as written, none for a UTC name
+        off = timedelta(0) if name in _UTC_NAMES else _offset(g["noff"], g["nsign"])
     elif g.get("sign"):
         off = _offset(g["off"], g["sign"])
         if m_then_sign:  # P.M+2 reads as the zone name M with an inverted offset
@@ -281,6 +290,8 @@ def parse_date(raw: str, default: datetime | None = None) -> datetime | None:
         return None
     try:
         year, month, day = _ymd(m)
+        if g["Hb"] and None in (year, month, day):  # a bare hour needs a whole date
+            return None
         if default is None and None in (year, month, day):
             default = datetime.now().replace(hour=0, minute=0, second=0, microsecond=0)
         year = default.year if year is None else year
@@ -291,7 +302,7 @@ def parse_date(raw: str, default: datetime | None = None) -> datetime | None:
         naive = datetime(year, month, day, *hms)
         if weekday and (g.get("d") or g.get("d2")) is None:  # to the weekday, on or after
             naive += timedelta(days=(_WEEKDAYS[weekday.lower()] - naive.weekday()) % 7)
-        ampm = "ampm" if g.get("ampm") else "ampm2"
+        ampm = next((a for a in ("ampm", "ampm2", "ampm3") if g[a]), "ampm")
         text = g.get(ampm) or ""
         dotted_m = ".M" in text
         return _aware(naive, g, dotted_m, text.endswith(".M") and g.get("sign") is not None

@@ -9,9 +9,16 @@
   in numpy: every block's start is computed at once and the bytes are
   gathered through a sliding-window view of the blob.  It feeds the tile
   path (``NearDupEngine._host_tiles``).
+- :func:`exact_keep_first_native` is ``ExactDedup``'s blob tier: the
+  items joined into one blob with an offset table, first-seen membership
+  decided by ``hb_exact_keep_first`` (``native/hostbatch.cpp``, built by
+  ``cpu/native.py``).
 """
 
 from __future__ import annotations
+
+import ctypes
+import threading
 
 import numpy as np
 
@@ -118,3 +125,62 @@ def chunk_ranges(doc_len: np.ndarray, budget: int) -> list[tuple[int, int]]:
         chunks.append((lo, hi))
         lo = hi
     return chunks
+
+
+_exact_lock = threading.Lock()
+_exact_lib: ctypes.CDLL | None = None
+
+
+def _exact_load() -> ctypes.CDLL:
+    global _exact_lib
+    if _exact_lib is not None:
+        return _exact_lib
+    from advanced_scrapper_tpu_torch.cpu import native
+
+    with _exact_lock:
+        if _exact_lib is None:
+            lib = ctypes.CDLL(str(native.build(native.PACKAGE_DIR / "native" / "hostbatch.cpp")))
+            lib.hb_exact_keep_first.restype = ctypes.c_long
+            lib.hb_exact_keep_first.argtypes = [
+                ctypes.c_char_p, ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p,
+            ]
+            _exact_lib = lib
+    return _exact_lib
+
+
+def exact_keep_first_native(items) -> np.ndarray | None:
+    """``uint8[n]`` first-seen keep mask over ``items`` by the native hash
+    table (every hash-equal probe confirmed by ``memcmp``), or ``None``
+    for mixed str/bytes items, which have no lossless single join.
+
+    Strings are joined once and encoded with ``surrogatepass``, injective
+    on every str, so byte equality is string equality; byte lengths come
+    from the character lengths when the blob is ASCII, else from one
+    encode per item."""
+    lib = _exact_load()
+    n = len(items)
+    if n == 0:
+        return np.zeros((0,), np.uint8)
+    try:
+        blob_s = "".join(items)
+    except TypeError:
+        try:
+            blob = b"".join(items)
+        except TypeError:
+            return None  # mixed str/bytes
+        lens = np.fromiter(map(len, items), np.int64, count=n)
+    else:
+        if blob_s.isascii():
+            blob = blob_s.encode("utf-8")
+            lens = np.fromiter(map(len, items), np.int64, count=n)
+        else:
+            raw = [s.encode("utf-8", "surrogatepass") for s in items]
+            blob = b"".join(raw)
+            lens = np.fromiter(map(len, raw), np.int64, count=n)
+    offsets = np.zeros((n + 1,), dtype=np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    keep = np.zeros((n,), dtype=np.uint8)
+    rc = lib.hb_exact_keep_first(blob, offsets.ctypes.data, n, keep.ctypes.data)
+    if rc < 0:
+        return None  # allocation failure: the caller's next tier serves it
+    return keep

@@ -1,15 +1,18 @@
-"""ctypes loader for the host verify library (``native/fastmatch.cpp``).
+"""The port's host C++ builder, and the ctypes loader for the host verify
+library (``native/fastmatch.cpp``).
 
-The port's counterpart of the reference's ``cpu/native.py``, over its own
-copy of the C++ source.  The library is built with ``g++ -O3 -shared
--fPIC`` at first use into ``build/host/`` at the root of the checkout (never
-next to the source); its file name carries a hash of the source and the
-flags, so an edited source is rebuilt and a stale library never loads.  The
-build writes a temporary file and renames it into place, so processes that
-build at the same moment (test workers, verify-pool workers) never load a
+:func:`build` compiles a named source of ``native/`` (the verify library
+here, the exact-dedup tiers in ``cpu/exactdedup.py`` and
+``cpu/hostbatch.py``) with ``g++ -O3 -shared -fPIC`` and the source's own
+extra flags, at first use, into ``build/host/`` at the root of the
+checkout (never next to the source); the file name carries a hash of the
+source, the headers it includes with ``#include "..."`` and the flags, so
+an edited source is rebuilt and a stale library never loads.  The build
+writes a temporary file and renames it into place, so processes that build
+at the same moment (test workers, verify-pool workers) never load a
 half-written library.  A failed build raises with the compiler's output:
 there is no pure-Python route here (``cpu/fuzz.py`` is the plain version
-the tests hold this against).
+the tests hold the verify library against).
 
 Routing, as in the reference: ``bytes`` and ASCII ``str`` go to the byte
 entry points; a non-ASCII ``str`` pair goes to the ``_u32`` entry points
@@ -22,9 +25,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 from pathlib import Path
+from typing import Sequence
 
 import numpy as np
 
@@ -37,33 +42,51 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
-def library_path() -> Path:
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _hashed_bytes(source: Path) -> bytes:
+    """The source's bytes, then those of each header it includes with
+    quotes (from its own directory)."""
+    text = source.read_bytes()
+    parts = [text]
+    for name in _LOCAL_INCLUDE.findall(text):
+        parts.append((source.parent / name.decode()).read_bytes())
+    return b"".join(parts)
+
+
+def library_path(source: Path = SOURCE, flags: Sequence[str] = CXX_FLAGS) -> Path:
+    """``build/host/lib<stem>-<hash>.so`` for ``source`` built with
+    ``flags``."""
+    source = Path(source)
     digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode()
+        _hashed_bytes(source) + " ".join(flags).encode()
     ).hexdigest()[:16]
-    return BUILD_DIR / f"libfastmatch-{digest}.so"
+    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
 
 
-def build() -> Path:
-    """Compile the library unless its current build exists; returns its
-    path.  Raises ``RuntimeError`` when g++ fails or is missing."""
-    lib = library_path()
+def build(source: Path = SOURCE, flags: Sequence[str] = CXX_FLAGS) -> Path:
+    """Compile ``source`` with ``flags`` unless its current build exists;
+    returns the library's path.  Raises ``RuntimeError`` when g++ fails or
+    is missing."""
+    source = Path(source)
+    lib = library_path(source, flags)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = ["g++", *CXX_FLAGS, str(SOURCE), "-o", str(tmp)]
+    cmd = ["g++", *flags, str(source), "-o", str(tmp)]
     try:
         proc = subprocess.run(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             timeout=300,
         )
     except FileNotFoundError as e:
-        raise RuntimeError("g++ not found: the host verify library needs it") from e
+        raise RuntimeError(f"g++ not found: {source.name} needs it") from e
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"g++ failed on {SOURCE.name} (exit {proc.returncode}):\n{proc.stdout}"
+            f"g++ failed on {source.name} (exit {proc.returncode}):\n{proc.stdout}"
         )
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     return lib

@@ -1,0 +1,454 @@
+"""The streaming batch backend on the card.
+
+Counterpart of the reference's ``extractors/tpu_batch.py:TpuBatchBackend``:
+a **streaming** dedup stage.  Extracted article records are submitted one
+by one, buffered into batches of ``cfg.batch_size``, hashed on the card
+(``NearDupEngine.signatures_and_keys``: one ``minhash_fold_segments``
+launch per batch, then the keys epilogue) and joined on the host against
+a stream index that lives across batches.  Decisions are annotated onto
+the records (``dup_of``/``near_dup_of``), never destructive.
+
+Two stream indexes run, as in the reference:
+
+- ``exact`` (the default): the seen keys, and every kept record's
+  signature and coarse + fine band keys in a host dict; a band-key hit
+  is confirmed by signature agreement (float64 ``np.mean`` against
+  ``sim_threshold``, plus ``fine_margin`` for a fine-only hit), and dup
+  marks name the kept record's key;
+- ``bloom``: one Bloom filter per band over 64-bit wide band keys
+  (``utils.bloom``), and a one-band filter over a 64-bit url hash: fixed
+  memory, dup marks are ``BLOOM_SENTINEL``.
+
+The state of either index checkpoints to an npz that the reference
+package reads, and that this one reads from it (same member names, dtypes
+and config fingerprint).
+
+Not ported yet, and raising ``NotImplementedError``: the ``persist``
+stream index (ROADMAP item 9b) and the remote index fleet
+(``index_fleet``, item 9c).  The reference's telemetry gauges, decision
+counts and quarantine counter come with item 14 and are left out here.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+from dataclasses import dataclass
+from typing import Callable
+
+import numpy as np
+import torch
+
+from advanced_scrapper_tpu_torch.config import DedupConfig
+from advanced_scrapper_tpu_torch.core.hashing import make_params
+from advanced_scrapper_tpu_torch.ops.lsh import candidate_keys
+from advanced_scrapper_tpu_torch.pipeline.clock import StageClock
+from advanced_scrapper_tpu_torch.pipeline.dedup import SLICE_PERSIST, NearDupEngine
+from advanced_scrapper_tpu_torch.utils.bloom import BloomBandIndex, hash_key64, pack_keys64
+
+#: dup marks in bloom mode: membership is known, the target is not
+BLOOM_SENTINEL = "(bloom)"
+
+SLICE_FLEET = "the slice of ROADMAP item 9c (the index fleet)"
+
+
+class IndexFingerprintError(ValueError):
+    """Stream-index checkpoint written under a different dedup config.
+
+    Its own type so that the resume path tells it apart from numpy's
+    ValueErrors on a corrupted archive: a mismatched config is an operator
+    error and stays loud, a corrupted file is quarantined."""
+
+
+def _key_of(rec: dict, field: str) -> str:
+    """The one key normalisation: missing, None and empty all mean keyless."""
+    return str(rec.get(field) or "")
+
+
+@dataclass
+class BatchStats:
+    submitted: int = 0
+    batches: int = 0
+    exact_dups: int = 0
+    near_dups: int = 0
+    kept: int = 0
+
+
+class TpuBatchBackend:
+    """Streaming exact + near-dup annotator over fixed-size batches.
+
+    ``device=None`` means ``"cuda"`` and raises without a card; pass
+    ``device="cpu"`` for the plain PyTorch versions.  ``exact_stage=False``
+    skips the exact-key filter, the keys still serving as near-dup
+    targets (for keys unique by construction)."""
+
+    def __init__(
+        self,
+        cfg: DedupConfig | None = None,
+        *,
+        text_field: str = "article",
+        key_field: str = "url",
+        sink: Callable[[dict], None] | None = None,
+        exact_stage: bool = True,
+        device: str | torch.device | None = None,
+    ):
+        self.cfg = cfg or DedupConfig()
+        if self.cfg.stream_index == "persist":
+            raise NotImplementedError(
+                f"stream_index='persist' is not ported yet; it comes in {SLICE_PERSIST}"
+            )
+        if self.cfg.index_fleet:
+            raise NotImplementedError(
+                f"index_fleet is not ported yet; it comes in {SLICE_FLEET}"
+            )
+        if self.cfg.stream_index not in ("exact", "bloom"):
+            raise ValueError(
+                f"unknown stream_index {self.cfg.stream_index!r}; "
+                "use exact|bloom|persist"
+            )
+        self.params = make_params(
+            num_perm=self.cfg.num_perm,
+            num_bands=self.cfg.num_bands,
+            shingle_k=self.cfg.shingle_k,
+            seed=self.cfg.seed,
+        )
+        self.engine = NearDupEngine(self.cfg, self.params, device=device)
+        self.device = self.engine.device
+        self.text_field = text_field
+        self.key_field = key_field
+        self.sink = sink
+        self.exact_stage = exact_stage
+        self._buffer: list[dict] = []
+        self._bloom_mode = self.cfg.stream_index == "bloom"
+        #: host seconds (and on the card, device times) of the last batch's
+        #: stages: ``exact_stage``, ``signatures_and_keys`` and ``join``
+        #: (``bloom`` in bloom mode); the engine's ``last_clock`` breaks the
+        #: middle one down
+        self.last_clock = StageClock(self.device)
+        self._reset_stream_state()
+
+    def _reset_stream_state(self) -> None:
+        """(Re)initialise all cross-batch state: at construction, and on
+        the quarantine path, which must drop a partly loaded checkpoint."""
+        if self._bloom_mode:
+            self._bloom = BloomBandIndex(
+                self.cfg.num_bands,
+                bits=self.cfg.bloom_bits,
+                num_hashes=self.cfg.bloom_hashes,
+                seed=self.cfg.seed,
+            )
+            # the exact-url stage as a 1-band filter over a url hash
+            self._bloom_urls = BloomBandIndex(
+                1, bits=self.cfg.bloom_bits, num_hashes=self.cfg.bloom_hashes,
+                seed=self.cfg.seed + 1,
+            )
+            self._bloom_fill_warned = False
+        self.stats = BatchStats()
+        self._seen_keys: set[str] = set()
+        self._buckets: dict[tuple[int, int], int] = {}  # (band, key) -> sig idx
+        self._kept_sigs: list[np.ndarray] = []
+        self._kept_keys: list[str] = []
+        self._kept_coarse: list[np.ndarray] = []  # uint32[nb] coarse keys
+
+    # -- checkpoint/resume -------------------------------------------------
+
+    def _config_fingerprint(self) -> np.ndarray:
+        cfg = self.cfg
+        return np.array(
+            [cfg.num_perm, cfg.num_bands, cfg.shingle_k, cfg.seed,
+             cfg.cand_subbands, 1 if self._bloom_mode else 0,
+             # num_hashes moves the bit positions without changing a shape
+             cfg.bloom_bits, cfg.bloom_hashes],
+            dtype=np.int64,
+        )
+
+    def save_index(self, path: str, fs=None) -> None:
+        """Write the stream index to an npz at ``path``, atomically
+        (``storage.fsio.atomic_write``: a crash leaves the previous file).
+        Exact mode stores the keys and kept signatures (the buckets are
+        rebuilt from them on load); bloom mode the filters' bit-planes."""
+        if self._buffer:
+            raise ValueError(
+                "flush() before save_index(): buffered records would be lost"
+            )
+        state: dict = {
+            "fingerprint": self._config_fingerprint(),
+            "stats": np.array(
+                [self.stats.submitted, self.stats.batches, self.stats.exact_dups,
+                 self.stats.near_dups, self.stats.kept], dtype=np.int64,
+            ),
+        }
+        if self._bloom_mode:
+            for name, idx in (("bloom", self._bloom), ("bloom_urls", self._bloom_urls)):
+                for k, v in idx.state().items():
+                    state[f"{name}_{k}"] = v
+        else:
+            state["seen_keys"] = np.array(sorted(self._seen_keys), dtype="U")
+            state["kept_keys"] = np.array(self._kept_keys, dtype="U")
+            state["kept_sigs"] = (
+                np.stack(self._kept_sigs)
+                if self._kept_sigs
+                else np.zeros((0, self.params.num_perm), np.uint32)
+            )
+        from advanced_scrapper_tpu_torch.storage.fsio import atomic_write
+
+        def write_npz(fh):
+            # np.savez_compressed's own steps, so that a failed write can
+            # drop the archive rather than have its __del__ finalise it
+            # against the closed tmp handle
+            import zipfile
+
+            from numpy.lib import format as npformat
+
+            zf = zipfile.ZipFile(fh, "w", zipfile.ZIP_DEFLATED, allowZip64=True)
+            try:
+                for name, arr in state.items():
+                    with zf.open(name + ".npy", "w", force_zip64=True) as m:
+                        npformat.write_array(m, np.asanyarray(arr))
+                zf.close()
+            except BaseException:
+                zf.fp = None
+                raise
+
+        atomic_write(path, write_npz, fs=fs)
+
+    def load_index_if_valid(self, path: str, fs=None) -> bool:
+        """:meth:`load_index` for a resume: a torn or unreadable checkpoint
+        is quarantined to ``<path>.quarantine-<pid>`` and ``False`` returned
+        (the stream goes on from an empty index); a config mismatch still
+        raises :class:`IndexFingerprintError`."""
+        from advanced_scrapper_tpu_torch.storage.fsio import default_fs
+
+        fs = fs or default_fs()
+        if not fs.exists(path):
+            return False
+        try:
+            self.load_index(path)
+            return True
+        except IndexFingerprintError:
+            raise
+        except Exception as e:
+            # load_index fills the state as it reads: drop the half that
+            # made it in before the damage was hit
+            self._reset_stream_state()
+            self._quarantine_ckpt(path, fs, e, "resuming with an empty index")
+            return False
+
+    def _quarantine_ckpt(self, path: str, fs, e: Exception, tail: str) -> None:
+        """Rename an unreadable checkpoint aside and say so on stderr."""
+        quarantine = f"{path}.quarantine-{os.getpid()}"
+        try:
+            fs.replace(path, quarantine)
+        except OSError:
+            quarantine = "<unmovable>"
+        print(
+            f"tpu_batch: stream-index checkpoint {path} is unreadable "
+            f"({e}); quarantined to {quarantine}, {tail}",
+            file=sys.stderr,
+        )
+
+    def close(self) -> None:
+        """Nothing to release in the exact and bloom modes."""
+
+    def load_index(self, path: str) -> None:
+        """Inverse of :meth:`save_index`, under the same config (checked by
+        the fingerprint)."""
+        with np.load(path) as data:
+            if not np.array_equal(data["fingerprint"], self._config_fingerprint()):
+                raise IndexFingerprintError(
+                    f"stream-index checkpoint {path} was written under a "
+                    "different dedup config (num_perm/bands/k/seed/subbands/"
+                    "stream_index/bloom geometry); refusing to resume against it"
+                )
+            s = data["stats"]
+            self.stats = BatchStats(*(int(x) for x in s))
+            if self._bloom_mode:
+                for name, idx in (
+                    ("bloom", self._bloom), ("bloom_urls", self._bloom_urls)
+                ):
+                    idx.restore(
+                        data[f"{name}_words"],
+                        int(data[f"{name}_inserted"]),
+                        int(data[f"{name}_key_bits"]),
+                    )
+                return
+            self._seen_keys = set(data["seen_keys"].tolist())
+            self._kept_keys = [str(k) for k in data["kept_keys"].tolist()]
+            sigs = data["kept_sigs"]
+            self._kept_sigs = [sigs[i].copy() for i in range(sigs.shape[0])]
+        # the buckets and coarse rows are a function of the kept signatures:
+        # the insertion path's candidate keys, first seen wins
+        self._buckets = {}
+        self._kept_coarse = []
+        if sigs.shape[0]:
+            sig_t = torch.from_numpy(
+                np.ascontiguousarray(sigs, np.uint32).view(np.int32)
+            ).to(self.device)
+            keys = (
+                candidate_keys(sig_t, self.params.band_salt, self.cfg.cand_subbands)
+                .cpu().numpy().astype(np.uint32)
+            )
+            nb = self.params.num_bands
+            for i in range(keys.shape[0]):
+                self._kept_coarse.append(keys[i, :nb].copy())
+                for b in range(keys.shape[1]):
+                    self._buckets.setdefault((b, int(keys[i, b])), i)
+
+    def checkpoint(self, path: str, fs=None) -> None:
+        """Persist the stream index (``DedupConfig.ckpt_every_batches`` is
+        the caller's cadence): the npz, rewritten atomically."""
+        self.save_index(path, fs=fs)
+
+    # -- submission --------------------------------------------------------
+
+    def submit(self, record: dict) -> list[dict]:
+        """Queue one record; returns the processed records when a full
+        batch was flushed (else an empty list)."""
+        self.stats.submitted += 1
+        self._buffer.append(record)
+        if len(self._buffer) >= self.cfg.batch_size:
+            return self._process()
+        return []
+
+    def flush(self) -> list[dict]:
+        """Process whatever is buffered."""
+        return self._process() if self._buffer else []
+
+    # -- internals ---------------------------------------------------------
+
+    def _process(self) -> list[dict]:
+        records, self._buffer = self._buffer, []
+        self.stats.batches += 1
+        clock = self.last_clock = StageClock(self.device)
+
+        # exact stage: the seen keys, or in bloom mode a 1-band filter over
+        # a 64-bit url hash
+        if not self.exact_stage:
+            for rec in records:
+                rec["dup_of"] = None
+        elif self._bloom_mode:
+            url_hash = np.array(
+                [[hash_key64(_key_of(rec, self.key_field))] for rec in records],
+                dtype=np.uint64,
+            )
+            keyed = np.array([bool(_key_of(rec, self.key_field)) for rec in records])
+            url_dup = np.zeros(len(records), dtype=bool)
+            if keyed.any():
+                # across batches by the filter, within the batch by equality
+                url_dup[keyed] = self._bloom_urls.check_and_add_batch(url_hash[keyed])
+            for i, rec in enumerate(records):
+                if url_dup[i]:
+                    rec["dup_of"] = BLOOM_SENTINEL
+                    self.stats.exact_dups += 1
+                else:
+                    rec["dup_of"] = None
+        else:
+            for rec in records:
+                key = _key_of(rec, self.key_field)
+                if key and key in self._seen_keys:
+                    rec["dup_of"] = key
+                    self.stats.exact_dups += 1
+                else:
+                    rec["dup_of"] = None
+                    if key:
+                        self._seen_keys.add(key)
+        clock.lap("exact_stage")
+
+        # near-dup stage: signatures and band keys from one fold and one
+        # keys epilogue on the device, joined on the host
+        texts = [str(r.get(self.text_field, "") or "") for r in records]
+        thresh = self.cfg.sim_threshold
+        if self._bloom_mode:
+            # wide keys: the filter cannot verify, so key width is the
+            # false-drop floor; no signature is read back
+            _sigs, keys_wide = self.engine.signatures_and_keys(
+                texts, wide=True, sync_sigs=False
+            )
+            clock.lap("signatures_and_keys")
+            return self._near_dup_bloom(records, texts, pack_keys64(keys_wide))
+        sigs, keys = self.engine.signatures_and_keys(texts)
+        clock.lap("signatures_and_keys")
+        nb = self.params.num_bands
+        for i, rec in enumerate(records):
+            rec["near_dup_of"] = None
+            if rec["dup_of"] is not None:
+                continue  # already an exact dup
+            if not _key_of(rec, self.key_field):
+                continue  # keyless records cannot be dup targets
+            if len(texts[i].encode("utf-8", "replace")) < self.params.shingle_k:
+                continue  # no shingles: never bucketed
+            candidate = None
+            for b in range(keys.shape[1]):
+                idx = self._buckets.get((b, int(keys[i, b])))
+                if idx is None:
+                    continue
+                # a fine-band hit sharing no coarse band must clear
+                # sim_threshold + fine_margin (the batch engine's rule);
+                # agreement is a float64 mean against a Python float
+                bar = thresh
+                if b >= nb and not (keys[i, :nb] == self._kept_coarse[idx]).any():
+                    bar = thresh + self.cfg.fine_margin
+                agree = float(np.mean(self._kept_sigs[idx] == sigs[i]))
+                if agree >= bar:
+                    candidate = self._kept_keys[idx]
+                    break
+            if candidate is not None:
+                rec["near_dup_of"] = candidate
+                self.stats.near_dups += 1
+            else:
+                sig_idx = len(self._kept_sigs)
+                # copies: a row view would keep the whole batch array alive
+                self._kept_sigs.append(sigs[i].copy())
+                self._kept_coarse.append(keys[i, :nb].copy())
+                self._kept_keys.append(_key_of(rec, self.key_field))
+                for b in range(keys.shape[1]):
+                    self._buckets.setdefault((b, int(keys[i, b])), sig_idx)
+                self.stats.kept += 1
+        clock.lap("join")
+
+        if self.sink is not None:
+            for rec in records:
+                self.sink(rec)
+        return records
+
+    def _near_dup_bloom(self, records, texts, keys) -> list[dict]:
+        """Bounded-memory near-dup stage: Bloom membership per band.
+
+        Rows that cannot be bucketed (exact dups, keyless, texts without a
+        shingle) are neither probed nor inserted.  Within the batch a row
+        is a dup of any earlier row sharing a band key, dup or not
+        (``BloomBandIndex.check_and_add_batch``)."""
+        eligible = np.array(
+            [
+                rec["dup_of"] is None
+                and bool(_key_of(rec, self.key_field))
+                and len(texts[i].encode("utf-8", "replace")) >= self.params.shingle_k
+                for i, rec in enumerate(records)
+            ]
+        )
+        dup = np.zeros(len(records), dtype=bool)
+        if eligible.any():
+            dup[eligible] = self._bloom.check_and_add_batch(keys[eligible])
+            # O(1) saturation check from the insert count, keyed on the
+            # predicted row false-drop rate
+            if not self._bloom_fill_warned and self._bloom.predicted_row_fp() > 0.01:
+                self._bloom_fill_warned = True
+                print(
+                    f"tpu_batch: bloom stream index predicted false-drop "
+                    f"rate {self._bloom.predicted_row_fp():.2%} after "
+                    f"{self._bloom.inserted} docs — rows are being "
+                    f"silently dropped as dups; size bloom_bits for the "
+                    f"stream (BloomBandIndex.for_capacity)",
+                    file=sys.stderr,
+                )
+        for i, rec in enumerate(records):
+            rec["near_dup_of"] = BLOOM_SENTINEL if dup[i] else None
+            if dup[i]:
+                self.stats.near_dups += 1
+            elif eligible[i]:
+                self.stats.kept += 1
+        self.last_clock.lap("bloom")
+        if self.sink is not None:
+            for rec in records:
+                self.sink(rec)
+        return records

@@ -6,6 +6,8 @@ are plain PyTorch on the accumulator's device.
 
 - band keys: an FNV-1a fold of each band's signature rows, XOR a salt,
   then ``fmix32`` — ``int64`` values in ``[0, 2³²)`` (``ops.shingle``);
+  the wide keys add a second lane of other constants (the stream
+  backend's bloom mode packs the two into 64 bits);
 - candidates: each band's rows sorted by (key, row) — a stable sort over
   rows in ascending order — give every row its run head, predecessor and
   predecessor² as candidate representatives;
@@ -54,6 +56,30 @@ def band_keys(sig: torch.Tensor, band_salt) -> torch.Tensor:
     return fmix32(k ^ salt[None, :])
 
 
+#: second-lane constants of the wide keys: an FNV-style offset/prime pair
+#: distinct from lane 0's, so the two lanes are independent hashes
+WIDE_OFFSET = 0xCBF29CE4
+WIDE_PRIME = 0x01000197
+
+#: the queue item that ports the OPH backend and its densify
+SLICE_OPH = "the slice of ROADMAP item 12 (the OPH backend)"
+
+
+def band_keys_wide(sig: torch.Tensor, band_salt) -> torch.Tensor:
+    """Two independent keys per band: ``uint32[B, P]`` signatures →
+    ``int64[B, num_bands, 2]`` in ``[0, 2³²)``.  Lane 0 is
+    :func:`band_keys`; lane 1 folds the same rows with
+    ``WIDE_OFFSET``/``WIDE_PRIME`` and the salt rotated left by 13 bits.
+    ``utils.bloom.pack_keys64`` packs lane 1 as the high word."""
+    salt = _salt_tensor(band_salt, sig.device)
+    nb = salt.shape[0]
+    sig64 = u32_values(sig)
+    lo = _fold_bands(sig64, nb, FNV_OFFSET, FNV_PRIME)
+    hi = _fold_bands(sig64, nb, WIDE_OFFSET, WIDE_PRIME)
+    rot = ((salt << 13) & U32_MASK) | (salt >> 19)
+    return torch.stack([fmix32(lo ^ salt[None, :]), fmix32(hi ^ rot[None, :])], dim=-1)
+
+
 def subband_salt(num: int, seed: int = 0x5B5C9A02) -> np.ndarray:
     """Deterministic ``uint32[num]`` salts for the fine sub-band keys."""
     x = (np.arange(num, dtype=np.uint64) * np.uint64(0x9E3779B97F4A7C15)
@@ -68,6 +94,20 @@ def _coarse_fine_keys(sig: torch.Tensor, band_salt, fine_salt) -> torch.Tensor:
     if len(fine_salt):
         keys = torch.cat([keys, band_keys(sig, fine_salt)], dim=1)
     return keys
+
+
+def candidate_keys(sig: torch.Tensor, band_salt, cand_subbands: int) -> torch.Tensor:
+    """Coarse + fine candidate band keys ``int64[B, nb + cand_subbands]``
+    (in ``[0, 2³²)``); ``cand_subbands=0`` gives the coarse keys alone."""
+    if not cand_subbands:
+        return band_keys(sig, band_salt)
+    num_perm = sig.shape[-1]
+    if num_perm % cand_subbands:
+        raise ValueError(
+            f"cand_subbands {cand_subbands} must divide num_perm {num_perm} "
+            "(each sub-band folds num_perm/cand_subbands signature rows)"
+        )
+    return _coarse_fine_keys(sig, band_salt, subband_salt(cand_subbands))
 
 
 def _run_head_per_band(kt: torch.Tensor):
@@ -279,6 +319,23 @@ def fused_resolve_epilogue(
         else base
     )
     return resolve_rep_bands(rep_bands, sig_acc, valid, thr, jump_rounds=jump_rounds)
+
+
+def fused_keys_epilogue(
+    sig_acc: torch.Tensor, band_salt, fine_salt, *, densify_oph: bool, wide: bool
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(sigs, keys)`` from the signature accumulator, for callers that
+    join on the host (the stream backend): ``wide=False`` gives the
+    :func:`candidate_keys` coarse + fine keys (``fine_salt`` may be
+    empty), ``wide=True`` the :func:`band_keys_wide` lanes (``fine_salt``
+    unused).  ``sigs`` is the accumulator itself."""
+    if densify_oph:
+        raise NotImplementedError(
+            f"the OPH densify is not ported yet; it comes in {SLICE_OPH}"
+        )
+    if wide:
+        return sig_acc, band_keys_wide(sig_acc, band_salt)
+    return sig_acc, _coarse_fine_keys(sig_acc, band_salt, fine_salt)
 
 
 def keep_mask(rep: torch.Tensor) -> torch.Tensor:

@@ -29,10 +29,15 @@ Jaccard (``exact_verify_band``) before resolving.
 ``_host_tiles``, the reference's width-bucketed block chunker, stays for
 the tile path (``ops.minhash.make_fused_tile_step``) and its timing.
 
+:meth:`NearDupEngine.signatures_and_keys` serves the stream backend
+(``extractors/tpu_batch.py``): one fold per chunk, then the keys epilogue,
+and the keys (and, if asked, the signatures) read back.  :class:`ExactDedup`
+is the first-seen exact dedup with its native tiers and hashed grouping.
+
 What is not ported yet raises ``NotImplementedError`` naming its slice:
 the ``oph`` backend, the legacy unpacked transport (``packed_h2d=False``),
-``prewarm``, the rerank tier's index re-probe, and the sharded,
-stream-index and fleet methods.
+``prewarm``, the rerank tier's index re-probe, and the sharded, persistent
+index and fleet methods.
 """
 
 from __future__ import annotations
@@ -51,17 +56,21 @@ from advanced_scrapper_tpu_torch.core.tokenizer import (
     tile_rows_options,
     to_bytes,
 )
+from advanced_scrapper_tpu_torch.cpu.exactdedup import keep_first_list
 from advanced_scrapper_tpu_torch.cpu.hostbatch import (
     block_counts,
     chunk_ranges,
     encode_blocks_ranges,
+    exact_keep_first_native,
     segment_ranges,
 )
 from advanced_scrapper_tpu_torch.cpu.oracle import jaccard, shingle_set
+from advanced_scrapper_tpu_torch.ops.exact import ExactHasher
 from advanced_scrapper_tpu_torch.ops.lsh import (
     borderline_edge_mask,
     fine_edge_thresholds,
     fused_candidate_epilogue,
+    fused_keys_epilogue,
     fused_resolve_epilogue,
     resolve_rep_bands,
     resolve_rep_bands_from_ok,
@@ -73,10 +82,12 @@ from advanced_scrapper_tpu_torch.ops.minhash import (
     fold_segments,
     perm_tensors,
 )
+from advanced_scrapper_tpu_torch.ops.shingle import to_u32
 from advanced_scrapper_tpu_torch.pipeline.clock import StageClock
 from advanced_scrapper_tpu_torch.pipeline.rerank import SLICE_DISPATCH, RerankTier
 
 SLICE_LATER = "a later slice (ROADMAP queue 1)"
+SLICE_PERSIST = "the slice of ROADMAP item 9b (the persist stream index)"
 
 #: Most bytes of text in one chunk (one copy, one kernel launch); an
 #: article longer than this is a chunk of its own.
@@ -280,9 +291,13 @@ class NearDupEngine:
 
     # -- device accumulation ---------------------------------------------------
 
-    def _accumulate_device(self, raw: list) -> tuple[torch.Tensor, int]:
+    def _accumulate_device(
+        self, raw: list, clock: StageClock | None = None
+    ) -> tuple[torch.Tensor, int]:
         """``(running, n_bucket)``: the device ``uint32[n_bucket, P]``
-        accumulator after folding every chunk of ``raw`` into it.
+        accumulator after folding every chunk of ``raw`` into it.  With a
+        ``clock``, each chunk laps ``encode`` (the host join), ``copy`` and
+        ``fold``.
 
         Each chunk's pinned text and descriptors are copied with
         ``non_blocking=True`` and folded by one kernel launch; the host
@@ -298,10 +313,16 @@ class NearDupEngine:
         ).view(torch.uint32)
         chunks = h2d = 0
         for text, start, shingles, owner in self._host_chunks(raw):
+            if clock is not None:
+                clock.lap("encode")
+            text_dev = text.to(dev, non_blocking=True)
+            if clock is not None:
+                clock.lap("copy")
             fold_segments(
-                running, text.to(dev, non_blocking=True), start, shingles, owner,
-                self.params, self._perm,
+                running, text_dev, start, shingles, owner, self.params, self._perm
             )
+            if clock is not None:
+                clock.lap("fold")
             chunks += 1
             h2d += text.numel() + 16 * start.numel()
         self.last_chunks, self.last_h2d_bytes = chunks, h2d
@@ -504,17 +525,146 @@ class NearDupEngine:
     def prewarm(self, n_articles: int | None = None) -> int:
         raise _not_ported("prewarm", SLICE_DISPATCH)
 
-    def signatures_and_keys(self, texts, *, wide=False, sync_sigs=True):
-        raise _not_ported("signatures_and_keys (stream index)", SLICE_LATER)
+    def signatures_and_keys(
+        self,
+        texts: Sequence[str | bytes],
+        *,
+        wide: bool = False,
+        sync_sigs: bool = True,
+    ) -> tuple[np.ndarray | None, np.ndarray]:
+        """Host ``(sigs uint32[N, P], keys)``, the keys computed on the
+        accumulator's device by :func:`fused_keys_epilogue`.
+
+        ``wide=False`` gives the coarse + fine candidate keys
+        ``uint32[N, nb + cand_subbands]``; ``wide=True`` the two-lane wide
+        keys ``uint32[N, nb, 2]`` (``utils.bloom.pack_keys64`` packs them).
+        ``sync_sigs=False`` returns ``(None, keys)`` and reads only the keys
+        back.  A new ``last_clock`` laps ``encode``, ``copy`` and ``fold``
+        per chunk, then ``keys_epilogue`` and ``readback``."""
+        n = len(texts)
+        if n == 0:
+            nb = self.params.num_bands
+            shape = (0, nb, 2) if wide else (0, nb + self.cfg.cand_subbands)
+            sigs0 = np.zeros((0, self.params.num_perm), np.uint32)
+            return (sigs0 if sync_sigs else None), np.zeros(shape, np.uint32)
+        clock = self.last_clock = StageClock(self.device)
+        raw = [to_bytes(t) for t in texts]
+        running, _n_bucket = self._accumulate_device(raw, clock)
+        sig_dev, keys_dev = fused_keys_epilogue(
+            running, self.params.band_salt, self._fine_salt(),
+            densify_oph=False, wide=wide,
+        )
+        keys_dev = to_u32(keys_dev[:n]).view(torch.int32)
+        clock.lap("keys_epilogue")
+        keys = keys_dev.cpu().numpy().view(np.uint32)
+        sigs = (
+            sig_dev[:n].view(torch.int32).cpu().numpy().view(np.uint32)
+            if sync_sigs
+            else None
+        )
+        clock.lap("readback")
+        return sigs, keys
 
     def open_stream_index(self, index_dir: str):
-        raise _not_ported("the stream index", SLICE_LATER)
+        raise _not_ported("the persistent stream index", SLICE_PERSIST)
 
     def dedup_against_index(self, texts, index, *args, **kwargs):
-        raise _not_ported("dedup_against_index (stream index and fleet)", SLICE_LATER)
+        raise _not_ported("dedup_against_index (persistent index and fleet)", SLICE_PERSIST)
 
     def prewarm_sharded(self, mesh, n_articles: int | None = None) -> int:
         raise _not_ported("the sharded path", SLICE_LATER)
 
     def dedup_reps_sharded(self, texts, mesh) -> np.ndarray:
         raise _not_ported("the sharded path", SLICE_LATER)
+
+
+class ExactDedup:
+    """First-seen exact dedup, byte-identical to pandas
+    ``drop_duplicates(keep='first')``.
+
+    Three tiers, as in the reference; ``last_path`` names the one that
+    served the last :meth:`keep_indices` call:
+
+    - ``"zero-copy"``: ``cpu.exactdedup.keep_first_list`` reads each str or
+      bytes item in place (``native/exactdedup.cpp``; off where the CPython
+      headers are missing);
+    - ``"blob"``: ``cpu.hostbatch.exact_keep_first_native`` over the items
+      joined into one blob (``native/hostbatch.cpp``);
+    - ``"grouping"``: the items' 128-bit hashes (``ops.exact.ExactHasher``
+      on ``device``) group them, and each group with more than one member
+      is settled by comparing the strings themselves.
+
+    Both native tiers confirm every hash-equal probe with ``memcmp``.  An
+    input a tier does not serve (mixed str and bytes, a str UTF-8 cannot
+    view) goes on to the next; a caller-supplied ``hasher`` pins the
+    grouping path.  ``device=None`` means the card for the default hasher
+    and raises without one."""
+
+    def __init__(
+        self,
+        hasher: ExactHasher | None = None,
+        max_len: int = 4096,
+        device: str | torch.device | None = None,
+    ):
+        self._custom_hasher = hasher is not None
+        self.hasher = hasher or ExactHasher(device=device)
+        #: the block width of the grouping path's hash (no cap on length)
+        self.max_len = max_len
+        self.last_path: str = ""
+
+    def keep_indices(self, items: Sequence[str]) -> list[int]:
+        if not items:
+            return []
+        if not self._custom_hasher:
+            keep = keep_first_list(items)
+            self.last_path = "zero-copy"
+            if keep is None:
+                keep = exact_keep_first_native(items)
+                self.last_path = "blob"
+            if keep is not None:
+                return np.flatnonzero(keep).tolist()
+        self.last_path = "grouping"
+        n = len(items)
+        raw = [to_bytes(s) for s in items]
+        block = bucket_len(max(1, min(max(len(r) for r in raw), self.max_len)))
+        h = self.hasher.hash_docs(raw, block_len=block)  # uint32[N, 4]
+        # group rows by their 128-bit hash with one lexsort: a row whose
+        # hash is unique is kept outright, and only groups of several rows
+        # reach the string compare below
+        hi = (h[:, 0].astype(np.uint64) << 32) | h[:, 1]
+        lo = (h[:, 2].astype(np.uint64) << 32) | h[:, 3]
+        order = np.lexsort((lo, hi))  # stable: ties stay in original order
+        shi, slo = hi[order], lo[order]
+        new_group = np.empty(n, bool)
+        new_group[0] = True
+        new_group[1:] = (shi[1:] != shi[:-1]) | (slo[1:] != slo[:-1])
+        gid = np.empty(n, np.int64)
+        gid[order] = np.cumsum(new_group) - 1
+        leader_of = order[np.flatnonzero(new_group)]  # smallest index per group
+        counts = np.bincount(gid)
+        keep = counts[gid] == 1
+        multi_rows = np.flatnonzero(~keep)  # ascending: original order
+        if len(multi_rows):
+            # most groups are true duplicates, every member equal to its
+            # leader: one object compare settles them; a group holding a
+            # member that differs (a hash collision) takes the walk
+            obj = np.array(items, dtype=object)
+            leaders = leader_of[gid[multi_rows]]
+            eq_leader = obj[multi_rows] == obj[leaders]
+            keep[leader_of] = True
+            rare = np.unique(gid[multi_rows[~eq_leader]])
+            for g in rare.tolist():
+                members = multi_rows[gid[multi_rows] == g]
+                kept_distinct: list[int] = []
+                for i in members.tolist():
+                    if not any(items[j] == items[i] for j in kept_distinct):
+                        kept_distinct.append(i)
+                        keep[i] = True
+                    else:
+                        keep[i] = False
+        return np.flatnonzero(keep).tolist()
+
+    def keep_mask(self, items: Sequence[str]) -> np.ndarray:
+        mask = np.zeros(len(items), dtype=bool)
+        mask[self.keep_indices(items)] = True
+        return mask

@@ -35,6 +35,20 @@ before and read just after:
   inputs there as well (the ``rerank_settle`` row's
   ``default_engine_main_corpus`` fields).
 
+Then the stream backend (``extractors/tpu_batch.py:TpuBatchBackend``) at
+its defaults (batches of 1,024, ``bloom_bits`` 2²⁴, 4 hashes) over the
+65,536 ragged articles as records with urls (10% repeating an earlier
+url, 1% without), submitted one by one, in the exact and the bloom mode,
+each timed after a warm batch (``stream_path``): one segment-kernel
+launch per batch and no other launch, every planted copy with a fresh url
+and an eligible source marked near-dup, the backend's and the engine's
+stage times; card and CPU backends equal on 2,048 ``rerank_corpus``
+records in batches of 512, and a checkpoint saved after batch 2 resumed
+by a fresh card backend to the same annotations.  And ``ExactDedup`` over
+``bench.py``'s 262,144 urls (``exact_path``): the default tier (which
+one served), the blob tier and the grouping path with its hash on the
+card, best of 5, each equal to a first-seen dict.
+
 Then the card engines and the CPU engines (estimator-only, default,
 ``rerank=False``) must agree on 2,048 articles.
 
@@ -1265,6 +1279,215 @@ def settle_timing(tier, clock_mhz: float) -> dict:
                 share_of_bound=max(ops_ms, bytes_ms) / kernel_ms, plain_ms=plain_ms)
 
 
+STREAM_WARM = 1024  # one batch of the default batch_size
+STREAM_PARITY = 2048
+STREAM_PARITY_BATCH = 512
+EXACT_URLS = 262144  # bench.py's exact regime
+
+
+def stream_records(docs: list[bytes], rng: np.random.RandomState) -> list[dict]:
+    """Records for the stream backend: each doc as its ``article``, with
+    ``url = https://news.example/<id>/article-<i>.html``; 10% of the
+    records repeat an earlier record's url, 1% have none."""
+    recs: list[dict] = []
+    urls: list[str] = []
+    for i, d in enumerate(docs):
+        u = rng.rand()
+        if u < 0.01:
+            url = None
+        elif u < 0.11 and urls:
+            url = urls[rng.randint(len(urls))]
+        else:
+            url = f"https://news.example/{rng.randint(1 << 30)}/article-{i}.html"
+            urls.append(url)
+        recs.append({"url": url, "article": d.decode("ascii"), "i": i})
+    return recs
+
+
+def run_stream(backend, records: list[dict]) -> tuple[list[tuple], dict]:
+    """Submit ``records`` one by one (copies of the dicts) and flush;
+    returns the annotations ``(i, dup_of, near_dup_of)`` and the host
+    seconds of the stream, of the backend's stages and of the engine's
+    stages, the engine's device ms by stage, all summed over the batches,
+    and the launches counted over the stream (counters set to 0 first)."""
+    host: dict[str, float] = {}
+    engine_host: dict[str, float] = {}
+    device: dict[str, float] = {}
+    process = backend._process
+
+    def counted():
+        out = process()
+        for tgt, src in ((host, backend.last_clock.seconds),
+                         (engine_host, backend.engine.last_clock.seconds),
+                         (device, backend.engine.last_clock.device_ms())):
+            for k, v in src.items():
+                tgt[k] = tgt.get(k, 0.0) + v
+        return out
+
+    backend._process = counted
+    out: list[dict] = []
+    reset_launches()
+    t0 = time.perf_counter()
+    for rec in records:
+        out += backend.submit(dict(rec))
+    out += backend.flush()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    backend._process = process
+    return [(r["i"], r["dup_of"], r["near_dup_of"]) for r in out], {
+        "seconds": seconds, "host_s": host, "engine_host_s": engine_host,
+        "engine_device_ms": device, "launches": launches}
+
+
+def stream_path(docs: list[bytes], planted: dict[int, int], card: str) -> int:
+    """The stream backend (``extractors/tpu_batch.py``) at its defaults
+    over the ragged corpus as 64 batches of 1,024 records, in the exact
+    and the bloom mode, timed after one warm batch; then card and CPU
+    backends on ``rerank_corpus`` records, and a checkpoint resume on the
+    card.  Returns the segment kernel's launches over the exact-mode
+    stream (one per batch) and the batches."""
+    from advanced_scrapper_tpu_torch.config import DedupConfig
+    from advanced_scrapper_tpu_torch.extractors.tpu_batch import TpuBatchBackend
+
+    dev = torch.device("cuda")
+    records = stream_records(docs, np.random.RandomState(17))
+    warm = stream_records(ragged_corpus(np.random.RandomState(18), STREAM_WARM)[0],
+                          np.random.RandomState(19))
+    batches = -(-len(records) // DedupConfig().batch_size)
+    modes = {}
+    for mode in ("exact", "bloom"):
+        cfg = DedupConfig(stream_index=mode)
+        run_stream(TpuBatchBackend(cfg, device=dev), warm)
+        backend = TpuBatchBackend(cfg, device=dev)
+        ann, rec = run_stream(backend, records)
+        got = rec["launches"]
+        assert got["minhash_fold_segments"] == batches == backend.stats.batches, got
+        assert sum(got.values()) == batches, got  # no other kernel on this path
+        by_i = {a[0]: a for a in ann}
+        checked = missed = 0
+        for i, src in planted.items():
+            r, s = records[i], records[src]
+            if r["url"] and by_i[i][1] is None and s["url"] and by_i[src][1] is None:
+                checked += 1
+                missed += by_i[i][2] is None
+        assert checked > 0 and not missed, f"{mode}: {missed} of {checked} planted copies missed"
+        stats = backend.stats
+        modes[mode] = dict(records_per_s=len(records) / rec["seconds"], **rec,
+                           planted_checked=checked, exact_dups=stats.exact_dups,
+                           near_dups=stats.near_dups, kept=stats.kept)
+    seg_launches = modes["exact"]["launches"]["minhash_fold_segments"]
+
+    # card vs CPU on mutated near-dups (the fine bar), and a checkpoint
+    # saved after batch 2 resumed by a fresh card backend
+    import tempfile
+
+    rdocs = rerank_corpus(np.random.RandomState(13), STREAM_PARITY)
+    rrecs = stream_records(rdocs, np.random.RandomState(14))
+    split = 2 * STREAM_PARITY_BATCH
+    parity = {}
+    t0 = time.perf_counter()
+    for mode in ("exact", "bloom"):
+        cfg = DedupConfig(stream_index=mode, batch_size=STREAM_PARITY_BATCH)
+        card_b = TpuBatchBackend(cfg, device=dev)
+        cpu_b = TpuBatchBackend(cfg, device="cpu")
+        card_ann, _ = run_stream(card_b, rrecs)
+        cpu_ann, _ = run_stream(cpu_b, rrecs)
+        equal = card_ann == cpu_ann and card_b.stats == cpu_b.stats
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "stream_index.npz")
+            first = TpuBatchBackend(cfg, device=dev)
+            head, _ = run_stream(first, rrecs[:split])
+            first.save_index(path)
+            resumed = TpuBatchBackend(cfg, device=dev)
+            loaded = resumed.load_index_if_valid(path)
+            tail, _ = run_stream(resumed, rrecs[split:])
+        resume_equal = loaded and head + tail == card_ann and resumed.stats == card_b.stats
+        parity[mode] = dict(card_equals_cpu=equal, resume_equal=resume_equal,
+                            near_dups=card_b.stats.near_dups, exact_dups=card_b.stats.exact_dups)
+        assert equal, f"{mode}: card and CPU stream backends disagree"
+        assert resume_equal, f"{mode}: the resumed stream differs"
+    log("stream_path", records=len(records), batches=batches,
+        text_bytes=int(sum(map(len, docs))), modes=modes, parity_records=STREAM_PARITY,
+        parity_batch=STREAM_PARITY_BATCH, parity=parity,
+        parity_seconds=time.perf_counter() - t0, card=card)
+    return seg_launches, batches
+
+
+def exact_urls(seed: int, n: int = EXACT_URLS) -> list[str]:
+    """``bench.py``'s exact recipe: 80% unique urls, the rest repeats of
+    them, shuffled."""
+    r = np.random.RandomState(seed)
+    base = [f"https://news.example/{r.randint(1 << 30)}/article-{i}.html"
+            for i in range(int(n * 0.8))]
+    urls = base + [base[r.randint(len(base))] for _ in range(n - len(base))]
+    r.shuffle(urls)
+    return urls
+
+
+def best_of(fn, reps: int = 5) -> tuple[float, object]:
+    best, out = float("inf"), None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        best = min(best, time.perf_counter() - t0)
+    return best, out
+
+
+def exact_path(card: str) -> None:
+    """``ExactDedup`` over 262,144 urls (warmed on seed 1, timed on seed
+    2, best of 5): the default tier, the blob tier alone and the grouping
+    path with its hash on the card; every tier's kept indices equal a
+    first-seen dict."""
+    import sysconfig
+
+    from advanced_scrapper_tpu_torch.core.tokenizer import bucket_len, to_bytes
+    from advanced_scrapper_tpu_torch.cpu import exactdedup
+    from advanced_scrapper_tpu_torch.cpu.hostbatch import exact_keep_first_native
+    from advanced_scrapper_tpu_torch.ops.exact import ExactHasher
+    from advanced_scrapper_tpu_torch.pipeline.dedup import ExactDedup
+
+    dev = torch.device("cuda")
+    warm, urls = exact_urls(1), exact_urls(2)
+    seen: set = set()
+    want = [i for i, u in enumerate(urls) if u not in seen and not seen.add(u)]
+    tiers = {}
+    default = ExactDedup(device=dev)
+    default.keep_indices(warm)
+    s, kept = best_of(lambda: default.keep_indices(urls))
+    assert kept == want, "the default tier differs from first-seen"
+    tiers["default"] = dict(served_by=default.last_path, seconds=s, urls_per_s=len(urls) / s)
+    exact_keep_first_native(warm)
+    s, keep = best_of(lambda: exact_keep_first_native(urls))
+    assert np.flatnonzero(keep).tolist() == want, "the blob tier differs from first-seen"
+    tiers["blob"] = dict(seconds=s, urls_per_s=len(urls) / s)
+    grouping = ExactDedup(hasher=ExactHasher(device=dev))
+    grouping.keep_indices(warm)
+    s, kept = best_of(lambda: grouping.keep_indices(urls))
+    assert kept == want and grouping.last_path == "grouping", "the grouping path differs"
+    raw = [to_bytes(u) for u in urls]
+    block = bucket_len(max(len(r) for r in raw))
+    hasher = grouping.hasher
+    hash_s, _ = best_of(lambda: hasher.hash_docs(raw, block_len=block), reps=3)
+    hash_ms = cuda_ms(lambda: hasher.hash_docs(raw, block_len=block))
+    # the device's own events (kernels and copies), not the aten:: ops that
+    # hold them, which would count each one again
+    seen = {k: v for k, v in profiler_device_ms(
+        lambda: hasher.hash_docs(raw, block_len=block), (), reps=3).items()
+        if not k.startswith("aten::")}
+    tiers["grouping"] = dict(
+        seconds=s, urls_per_s=len(urls) / s, block_len=block, hash_docs_s=hash_s,
+        hash_docs_event_ms=hash_ms,
+        hash_docs_device_ms=sum(v[0] for v in seen.values()) / 3,
+        hash_docs_device_top={k: v for k, v in sorted(
+            seen.items(), key=lambda kv: -kv[1][0])[:6]})
+    include = sysconfig.get_paths().get("include")
+    log("exact_path", urls=len(urls), kept=len(want), tiers=tiers,
+        zero_copy_backend=exactdedup.exactdedup_backend(),
+        zero_copy_reason=exactdedup.backend_reason(), python_include=include,
+        python_h=bool(include and os.path.exists(os.path.join(include, "Python.h"))),
+        card=card)
+
+
 def bound_by(ops_ms: float, bytes_ms: float) -> str:
     return "operations" if ops_ms >= bytes_ms else "bytes"
 
@@ -1580,7 +1803,12 @@ def main() -> int:
         engine_device_ms=default.last_clock.device_ms(),
         tier_device_ms=default.rerank_tier.last_clock.device_ms(),
         planted=len(planted), dups=int((reps != np.arange(MAIN_ARTICLES)).sum()), card=card)
-    del docs, reps
+    del reps
+    # -- the stream backend and the exact dedup ---------------------------------
+    stream_launches, stream_batches = stream_path(docs, planted, card)
+    del docs
+    exact_path(card)
+    kernels[0]["stream_path"] = {"launches": stream_launches, "batches": stream_batches}
     st_main = settle_timing(default.rerank_tier, clock_mhz)
     log("kernel_timing", name="rerank_settle", shape="default_engine_main_corpus",
         launches=got["rerank_settle"], **st_main, card=card)

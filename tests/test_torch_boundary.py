@@ -25,6 +25,10 @@ LOADABLE = re.compile(
     r"advanced_scrapper_tpu(?!_torch)[/\\](?:native\b|.*\.(?:cpp|cc|h|so|cu)\b)")
 
 
+#: the port's host C++ sources and headers
+NATIVE = ("fastmatch.cpp", "exactdedup.cpp", "hostbatch.cpp", "bytehash.h")
+
+
 def _imported_modules(tree: ast.AST):
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -51,9 +55,11 @@ def test_port_files_found():
     assert "advanced_scrapper_tpu_torch/ops/minhash_cuda.py" in FILES
     for rel in ("config.py", "core/dates.py", "cpu/fuzz.py", "cpu/native.py",
                 "cpu/csvframe.py", "ops/match.py", "ops/match_cuda.py", "ops/editdist.py",
-                "ops/editdist_cuda.py", "pipeline/matcher.py"):
+                "ops/editdist_cuda.py", "pipeline/matcher.py", "extractors/tpu_batch.py",
+                "utils/bloom.py", "storage/fsio.py", "ops/exact.py", "cpu/exactdedup.py"):
         assert f"advanced_scrapper_tpu_torch/{rel}" in FILES, rel
-    assert (PORT / "native" / "fastmatch.cpp").exists()
+    for name in NATIVE:
+        assert (PORT / "native" / name).exists(), name
 
 
 @pytest.mark.parametrize("rel", FILES)
@@ -81,12 +87,25 @@ def test_no_path_into_the_reference_package(rel):
 
 
 def test_host_library_is_the_ports_own():
-    from advanced_scrapper_tpu_torch.cpu import native
+    from advanced_scrapper_tpu_torch.cpu import exactdedup, native
 
     ref = ROOT / "advanced_scrapper_tpu"
-    for p in (native.SOURCE, native.library_path(), native.BUILD_DIR):
+    for p in (native.SOURCE, native.library_path(), native.BUILD_DIR, exactdedup.SOURCE,
+              native.library_path(exactdedup.SOURCE)):
         assert ref not in Path(p).resolve().parents, p
     assert native.SOURCE.resolve().is_relative_to(PORT)
+    assert exactdedup.SOURCE.resolve().is_relative_to(PORT)
+
+
+@pytest.mark.parametrize("name", NATIVE)
+def test_native_sources_include_only_the_ports_headers(name):
+    """A quoted ``#include`` of a port native source names a header beside
+    it in the port's ``native/``, never one of the JAX package's."""
+    text = (PORT / "native" / name).read_text()
+    for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"', text, re.M):
+        assert "/" not in inc and "\\" not in inc, inc
+        assert (PORT / "native" / inc).exists(), inc
+    assert not LOADABLE.search(text.replace("advanced_scrapper_tpu_torch", ""))
 
 
 def test_importing_the_port_loads_no_jax():

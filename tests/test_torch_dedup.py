@@ -116,7 +116,6 @@ def test_unported_methods_raise(corpus):
         lambda: eng.prewarm_sharded(None),
         lambda: eng.dedup_against_index(corpus, None),
         lambda: eng.open_stream_index("x"),
-        lambda: eng.signatures_and_keys(corpus),
         lambda: eng.prewarm(),
     ):
         with pytest.raises(NotImplementedError, match="slice"):
