@@ -1,9 +1,11 @@
-"""PyTorch and CUDA port of the near-duplicate dedup path and the
+"""PyTorch and CUDA port of the near-duplicate dedup path, the streaming
+dedup backend with its persistent index, cross-source dedup and the
 ticker→article matcher, for one NVIDIA H100.
 
 The JAX package ``advanced_scrapper_tpu`` is the reference; this package
 mirrors its module names (``config``, ``core``, ``cpu``, ``ops``,
-``pipeline``) so each counterpart is easy to find, and imports nothing of
+``pipeline``, ``extractors``, ``index``, ``storage``) so each counterpart
+is easy to find, and imports nothing of
 it.  Four hand-written CUDA sources live in ``csrc/``: ``minhash.cu``
 (the MinHash fold, in place of the Pallas kernel
 ``ops/pallas_minhash.py:_minhash_kernel``), ``rerank.cu`` (the rerank

@@ -7,8 +7,9 @@ the rerank tier (``rerank=True``), the one-shot exact verify
 (``exact_verify_band``) and the estimator-only path (``rerank=False,
 exact_verify_band=0``).  The engine raises ``NotImplementedError`` for the
 fields whose slice is still to come (``backend="oph"``,
-``packed_h2d=False``, ``prewarm``) rather than approximating them; the
-dispatcher and stream-index fields are read by nothing yet.
+``packed_h2d=False``, ``prewarm``, ``index_fleet``) rather than
+approximating them; the dispatcher fields and the fleet's timeouts are
+read by nothing yet.
 ``from_env`` (the ``ASTPU_*`` environment knobs) and the other subsystems'
 configs are not ported yet.
 """

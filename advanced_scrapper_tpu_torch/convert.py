@@ -3,9 +3,11 @@
 The system has no weights: its parameters are the hash-family arrays of
 ``MinHashParams``, and its resumable state is the per-article signature
 accumulator.  Both cross as numpy arrays, so a corpus begun under the JAX
-package can be finished here.  The stream backend's npz checkpoint needs
-no converter: both packages write and read the same members, dtypes and
-fingerprint (``extractors/tpu_batch.py``).
+package can be finished here.  The stream backend's npz checkpoint and the
+persistent index's directory need no converter: both packages write and
+read the same npz members, dtypes and fingerprint
+(``extractors/tpu_batch.py``), and the same manifest, WAL, segment and
+docmap bytes (``index/``).
 """
 
 from __future__ import annotations

@@ -50,11 +50,19 @@ tzinfo of this module that reports it, so that ``.timestamp()`` and a
 comparison with another zone raise ``ValueError`` as they do on
 dateutil's result.  The ``M`` of ``A.M``/``P.M`` written in capitals
 after a dot is a zone name to dateutil (so no other name may follow).
+A number after whitespace (and an optional ``-``) where no time follows
+the date is what dateutil makes of it: after a date that lacks its day or
+its year, that field (``June 2020 03`` is June 3, ``June 1 03`` and ``1/6
+03`` are in 2003, ``1/6 0330`` in the year 330), by dateutil's rules for
+three date values; after a whole date, an ``HH`` or ``HHMM`` time
+(``2020-06-01 -0430`` is 04:30).  One more ``-HH`` or ``-HHMM`` after the
+field is the time, after the time a negative offset.  After a date that
+lacks its day or year, ``H AM``/``H PM`` keeps an hour above 12 (``June 1
+15 P.M.`` is 15:00), as dateutil does there.
+
 What it cannot read (or an impossible date) gives ``None``, where
 dateutil raises or reads more: a zone without a time, a weekday with
-neither a day nor a month, a number after a date that lacks its day or
-year (dateutil makes it the day or the year: ``June 2020 03``, ``1/6
-03``), and free text.
+neither a day nor a month, and free text.
 """
 
 from __future__ import annotations
@@ -103,16 +111,19 @@ _ZONE = (
     r"|\s+(?P<nsign>[+-])(?P<noff>" + _OFFSET + r"))?"
     r"|(?P<sign>[+-])(?P<off>" + _OFFSET + r")))?"
 )
+# or, in place of a time, a number after a jump (whitespace and an optional
+# ``-``), then at most one more after a ``-``: a date field or the time
+_NUMBER = r"|\s+-?(?P<n>\d{1,4})(?:\s+-(?P<n2>\d{2}|\d{4}))?"
 
 _ISO = re.compile(
     r"(?P<y>\d{4})(?:-(?P<m>\d{1,2})-(?P<d>\d{1,2})|(?P<m8>\d{2})(?P<d8>\d{2}))"
-    r"(?:[Tt ](?:(?P<H2>\d{2})(?![\d:])|" + _TIME + r")" + _ZONE + r")?"
+    r"(?:[Tt ](?:(?P<H2>\d{2})(?![\d:])|" + _TIME + r")" + _ZONE + _NUMBER + r")?"
 )
 _SLASH = re.compile(
     r"(?:(?P<a>\d{1,2})/(?P<b>\d{1,2})/(?P<c>\d{4}|\d{2})"
     r"|(?P<y>\d{4})/(?P<m>\d{1,2})/(?P<d>\d{1,2})"
     r"|(?P<p>\d{4}|\d{1,2})/(?P<q>\d{4}|\d{1,2}))"
-    r"(?:\s+" + _TIME + _ZONE + r")?"
+    r"(?:\s+" + _TIME + _ZONE + _NUMBER + r")?"
 )
 # month and weekday names and ordinals in any case; the zone names only as
 # dateutil takes them (upper case, or z)
@@ -124,7 +135,7 @@ _NAMED = re.compile(
     r"|(?P<d2>\d{1,2})" + _ORD + r"\s+(?P<mon2>(?i:" + _MONTH + r"))\.?"
     r"(?:(?:,\s*|\s+)(?P<y2>\d{4}))?"
     r"|(?P<mon3>(?i:" + _MONTH + r"))\.?,?\s+(?P<y3>\d{4}))"
-    r"(?:\s+" + _TIME + _ZONE + r")?"
+    r"(?:\s+" + _TIME + _ZONE + _NUMBER + r")?"
 )
 
 
@@ -173,14 +184,62 @@ def _ymd(m: re.Match) -> tuple[int | None, int | None, int | None]:
     return int(g["y"]), int(g["m"] or g.get("m8")), int(g["d"] or g.get("d8"))
 
 
-def _hms(g: dict) -> tuple[int, int, int, int] | None:
+def _fields(m: re.Match) -> list[tuple[int, str | None]]:
+    """A date that lacks its day or its year as dateutil's list of date
+    values holds it: each number with ``"M"`` for a month name and ``"Y"``
+    for a number it takes as a year (more than two digits between slashes,
+    above 100 elsewhere)."""
+    g = m.groupdict()
+    if g.get("p"):
+        return [(int(x), "Y" if len(x) > 2 else None) for x in (g["p"], g["q"])]
+    month = (_MONTHS[(g.get("mon") or g.get("mon2") or g["mon3"]).lower()], "M")
+    if g.get("mon2"):
+        return [(int(g["d2"]), None), month]
+    value = int(g.get("d") or g["y3"])
+    return [month, (value, "Y" if value > 100 else None)]
+
+
+def _three(fields: list[tuple[int, str | None]]) -> tuple[int, int, int] | None:
+    """(year, month, day) of three date values as dateutil 2.9 resolves
+    them (``_ymd.resolve_ymd``, neither day nor year first), the year of
+    two digits moved as ``convertyear`` moves it; ``None`` where it
+    refuses (two years)."""
+    labels = [lab for _v, lab in fields]
+    if labels.count("Y") > 1:
+        return None
+    (a, _), (b, _), (c, _) = fields
+    at = {lab: i for i, lab in enumerate(labels) if lab}
+    if len(at) == 2:  # the third field is the one not named
+        vals = dict.fromkeys("YMD")
+        for lab in "YMD":
+            i = at[lab] if lab in at else ({0, 1, 2} - set(at.values())).pop()
+            vals[lab] = fields[i][0]
+        year, month, day = vals["Y"], vals["M"], vals["D"]
+    elif at.get("M") == 0:
+        year, month, day = (b, a, c) if b > 31 else (c, a, b)
+    elif at.get("M") == 1:
+        year, month, day = (a, b, c) if a > 31 else (c, b, a)
+    elif a > 31 or at.get("Y") == 0:
+        year, month, day = a, b, c
+    else:
+        year, month, day = (c, b, a) if a > 12 else (c, a, b)
+    if year < 100 and "Y" not in labels:
+        year = convert_year(year)
+    return year, month, day
+
+
+def _hms(g: dict, partial: bool = False) -> tuple[int, int, int, int] | None:
+    """The time's fields; ``partial``: the date lacks its day or year, and
+    then ``H AM``/``H PM`` keeps an hour above 12 (dateutil adjusts that
+    hour without the check it makes after a whole date)."""
     hour = g["H"] or g["Ha"] or g.get("H2") or g["Hb"]
     ampm = (g["ampm"] or g["ampm2"] or g["ampm3"] or "")[:1].lower()
     h = int(hour or 0)
     if ampm:
-        if h > 12:
+        if h > 12 and not (partial and g["Ha"]):
             return None
-        h = h % 12 + (12 if ampm == "p" else 0)
+        if h <= 12:
+            h = h % 12 + (12 if ampm == "p" else 0)
     frac = (g["f"] or "")[:6].ljust(6, "0")
     return h, int(g["M"] or g["Mb"] or 0), int(g["S"] or 0), int(frac)
 
@@ -276,6 +335,20 @@ def _aware(naive: datetime, g: dict, dotted_m: bool, m_then_sign: bool) -> datet
     return naive  # no zone, or a name dateutil does not know
 
 
+def _numbers(g: dict, partial: bool) -> tuple[str, str | None] | None:
+    """The numbers that dateutil takes for date fields or the time rather
+    than a time and a zone: ``(n, n2)`` of the number group, or a bare
+    ``HH``/``HHMM`` after a date that lacks its day or year, with a
+    ``-HH``/``-HHMM`` after it (any other zone there: ``None``)."""
+    if g.get("n"):
+        return g["n"], g["n2"]
+    if not (partial and g["Hb"]) or g["ampm3"]:
+        return "", None
+    if g["zname"] or (g["sign"] and (g["sign"] != "-" or len(g["off"]) not in (2, 4))):
+        return None
+    return g["Hb"] + (g["Mb"] or ""), g["off"]
+
+
 def parse_date(raw: str, default: datetime | None = None) -> datetime | None:
     """The datetime that ``dateutil.parser.parse(raw, default=default)``
     gives on the forms above, or ``None``; ``default`` is today at midnight
@@ -285,24 +358,43 @@ def parse_date(raw: str, default: datetime | None = None) -> datetime | None:
     if m is None:
         return None
     g = m.groupdict()
-    hms = _hms(g)
-    if hms is None:
-        return None
     try:
         year, month, day = _ymd(m)
-        if g["Hb"] and None in (year, month, day):  # a bare hour needs a whole date
+        partial = None in (year, month, day)
+        numbers = _numbers(g, partial)
+        if numbers is None:
             return None
-        if default is None and None in (year, month, day):
+        n, n2 = numbers
+        hms = None
+        if n and partial:  # a third date field, then the time
+            ymd = _three(_fields(m) + [(int(n), "Y" if int(n) > 100 else None)])
+            if ymd is None:
+                return None
+            (year, month, day), partial, n, n2 = ymd, False, n2, None
+            g, hms = dict.fromkeys(g), (0, 0, 0, 0)
+        if n:  # HH or HHMM after a whole date, then an offset
+            if len(n) not in (2, 4):
+                return None
+            hms = int(n[:2]), int(n[2:] or 0), 0, 0
+            g = dict.fromkeys(g) | {"sign": "-" if n2 else None, "off": n2}
+        elif hms is None:
+            hms = _hms(g, partial)
+        if hms is None:
+            return None
+        if g["Hb"] and partial:  # a bare hour needs a whole date
+            return None
+        if default is None and partial:
             default = datetime.now().replace(hour=0, minute=0, second=0, microsecond=0)
         year = default.year if year is None else year
         month = default.month if month is None else month
         weekday = g.get("wd")
+        written_day = day is not None
         if day is None:
             day = min(default.day, monthrange(year, month)[1])
         naive = datetime(year, month, day, *hms)
-        if weekday and (g.get("d") or g.get("d2")) is None:  # to the weekday, on or after
+        if weekday and not written_day:  # to the weekday, on or after
             naive += timedelta(days=(_WEEKDAYS[weekday.lower()] - naive.weekday()) % 7)
-        ampm = next((a for a in ("ampm", "ampm2", "ampm3") if g[a]), "ampm")
+        ampm = next((a for a in ("ampm", "ampm2", "ampm3") if g.get(a)), "ampm")
         text = g.get(ampm) or ""
         dotted_m = ".M" in text
         return _aware(naive, g, dotted_m, text.endswith(".M") and g.get("sign") is not None

@@ -8,7 +8,9 @@ Counterpart of the reference's ``ops/rerank.py``, in two halves:
   (:func:`bottom_sketch`), the host sketch estimator, coarse band-bucket
   candidacy (:func:`coarse_pairs`), union-find, the recall weight
   (:func:`op_weight`), the precision-targeted eviction walk
-  (:func:`evict_for_precision`) and the candidate-matrix rewrite;
+  (:func:`evict_for_precision`), the candidate-matrix rewrite and
+  :func:`band_keys_wide_host`, the wide band keys of the tier's index
+  re-probe;
 - the **settle**, ``jq int32[m]``: the quantized bottom-sketch Jaccard of
   each pair ``(sk[ia], sk[ib])``, bit-equal to the reference's ``_pair_jq``
   under ``vmap`` (:func:`pair_jq_plain`), and its verdict against the
@@ -32,7 +34,9 @@ import numpy as np
 import torch
 
 from advanced_scrapper_tpu_torch.ops.rerank_cuda import check_band, check_pairs
-from advanced_scrapper_tpu_torch.ops.shingle import U32_MASK
+from advanced_scrapper_tpu_torch.core.hashing import fmix32_np
+from advanced_scrapper_tpu_torch.ops.lsh import WIDE_OFFSET, WIDE_PRIME
+from advanced_scrapper_tpu_torch.ops.shingle import FNV_OFFSET, FNV_PRIME, U32_MASK
 
 #: sketch padding sentinel: sorts after every real 32-bit hash, and real
 #: hashes equal to it are dropped at build time so it is unambiguous
@@ -371,3 +375,29 @@ def rewrite_rep_bands(n_bucket: int, nc: int, edges) -> tuple[np.ndarray, int]:
         rb[a, c] = b
         fill[a] = c + 1
     return rb, dropped
+
+
+# -- host twin of the wide band keys (the index re-probe key space) --------
+
+
+def band_keys_wide_host(sigs: np.ndarray, band_salt: np.ndarray) -> np.ndarray:
+    """``uint32[B, nb, 2]``: the numpy twin of ``ops.lsh.band_keys_wide``
+    (the same FNV-1a fold, wide-lane constants and rotated salt), so the
+    tier's borderline re-probe addresses the persistent index's posting
+    keys without a device step."""
+    sig = np.asarray(sigs, np.uint32)
+    salt = np.asarray(band_salt, np.uint32)
+    nb = salt.shape[0]
+    B, P = sig.shape
+    r = P // nb
+    rows = sig.reshape(B, nb, r)
+    lo = np.full((B, nb), FNV_OFFSET, np.uint32)
+    hi = np.full((B, nb), WIDE_OFFSET, np.uint32)
+    with np.errstate(over="ignore"):
+        for j in range(r):
+            lo = (lo ^ rows[:, :, j]) * np.uint32(FNV_PRIME)
+            hi = (hi ^ rows[:, :, j]) * np.uint32(WIDE_PRIME)
+    rot = (salt << np.uint32(13)) | (salt >> np.uint32(19))
+    return np.stack(
+        [fmix32_np(lo ^ salt[None, :]), fmix32_np(hi ^ rot[None, :])], axis=-1
+    )

@@ -34,10 +34,14 @@ the tile path (``ops.minhash.make_fused_tile_step``) and its timing.
 and the keys (and, if asked, the signatures) read back.  :class:`ExactDedup`
 is the first-seen exact dedup with its native tiers and hashed grouping.
 
+Against a persistent index (``index.store.PersistentIndex``),
+:meth:`NearDupEngine.dedup_against_index` attributes a corpus through the
+same wide keys: ``open_stream_index`` opens one under a directory.
+
 What is not ported yet raises ``NotImplementedError`` naming its slice:
 the ``oph`` backend, the legacy unpacked transport (``packed_h2d=False``),
-``prewarm``, the rerank tier's index re-probe, and the sharded, persistent
-index and fleet methods.
+``prewarm``, the sharded methods and ``mesh=``, and the index fleet
+(``index_fleet``).
 """
 
 from __future__ import annotations
@@ -85,9 +89,11 @@ from advanced_scrapper_tpu_torch.ops.minhash import (
 from advanced_scrapper_tpu_torch.ops.shingle import to_u32
 from advanced_scrapper_tpu_torch.pipeline.clock import StageClock
 from advanced_scrapper_tpu_torch.pipeline.rerank import SLICE_DISPATCH, RerankTier
+from advanced_scrapper_tpu_torch.utils.bloom import pack_keys64
 
 SLICE_LATER = "a later slice (ROADMAP queue 1)"
-SLICE_PERSIST = "the slice of ROADMAP item 9b (the persist stream index)"
+SLICE_FLEET = "the slice of ROADMAP item 9c (the index fleet)"
+SLICE_MESH = "the slice of ROADMAP item 15 (parallel/* on torch.distributed)"
 
 #: Most bytes of text in one chunk (one copy, one kernel launch); an
 #: article longer than this is a chunk of its own.
@@ -566,10 +572,48 @@ class NearDupEngine:
         return sigs, keys
 
     def open_stream_index(self, index_dir: str):
-        raise _not_ported("the persistent stream index", SLICE_PERSIST)
+        """A local :class:`~advanced_scrapper_tpu_torch.index.store.PersistentIndex`
+        under ``index_dir``, at the config's cut and compaction cadence: a
+        valid ``index`` for :meth:`dedup_against_index`.  ``cfg.index_fleet``
+        raises (the fleet is not ported)."""
+        if self.cfg.index_fleet:
+            raise _not_ported("the index fleet (index_fleet)", SLICE_FLEET)
+        from advanced_scrapper_tpu_torch.index import PersistentIndex
 
-    def dedup_against_index(self, texts, index, *args, **kwargs):
-        raise _not_ported("dedup_against_index (persistent index and fleet)", SLICE_PERSIST)
+        return PersistentIndex(
+            index_dir,
+            cut_postings=self.cfg.index_cut_postings,
+            compact_segments=self.cfg.index_compact_segments,
+        )
+
+    def dedup_against_index(
+        self, texts: Sequence[str | bytes], index, doc_ids=None, *, mesh=None
+    ) -> np.ndarray:
+        """``int64[N]`` attribution of a corpus against a persistent index:
+        wide keys from :meth:`signatures_and_keys` (one fold launch per
+        chunk, no signature read back), packed to ``uint64`` on the host,
+        then ``index.check_and_add_batch``.  A row ``>= 0`` is a near-dup
+        of that doc id; fresh rows post their keys under ``doc_ids``
+        (allocated from the index when not given) and give -1.  Rows with
+        fewer bytes than a shingle are neither probed nor posted (-1).
+        ``mesh=`` raises (the sharded path is not ported)."""
+        if mesh is not None:
+            raise _not_ported("dedup_against_index(mesh=...)", SLICE_MESH)
+        n = len(texts)
+        out = np.full((n,), -1, np.int64)
+        if n == 0:
+            return out
+        raw = [to_bytes(t) for t in texts]
+        _sigs, keys_wide = self.signatures_and_keys(raw, wide=True, sync_sigs=False)
+        keys64 = pack_keys64(keys_wide)
+        eligible = np.fromiter((len(r) >= self.params.shingle_k for r in raw), bool, n)
+        if not eligible.any():
+            return out
+        if doc_ids is None:
+            doc_ids = index.allocate_doc_ids(n)
+        doc_ids = np.asarray(doc_ids, dtype=np.uint64)
+        out[eligible] = index.check_and_add_batch(keys64[eligible], doc_ids[eligible])
+        return out
 
     def prewarm_sharded(self, mesh, n_articles: int | None = None) -> int:
         raise _not_ported("the sharded path", SLICE_LATER)

@@ -15,7 +15,7 @@ Per corpus::
              card once, rerank_settle launched once (the finalize
              fused), one readback of (jq, verdict)                 (card)
     margin   borderline verdicts re-settled by exact Jaccard, up to
-             rerank_exact_cap                                      (host)
+             rerank_exact_cap, then (with an index) by the re-probe (host)
     clusters union-find over kept pairs; every within-cluster pair the
              candidacy never proposed settled by the host sketch
              estimator (margin → exact)                            (host)
@@ -27,9 +27,12 @@ The tier is *authoritative*: its cells are settled truth, so the engine
 resolves them as they are instead of re-screening them by signature
 agreement or exact verify.  Where the reference packs and copies both
 sketches of every pair in tiles, the port copies each participating
-document's sketch once and addresses pairs by row.  Not ported yet: the
-borderline ANN re-probe over a persistent index (``index=``) and the
-shape-set ``prewarm``.
+document's sketch once and addresses pairs by row.  With a persistent
+index (``index=``, ``index.store.PersistentIndex``), a borderline pair
+past ``rerank_exact_cap`` is re-probed: both documents' wide band keys
+(``ops.rerank.band_keys_wide_host``) are probed, and the pair survives
+when the index attributes both to the same earliest posted doc.  Not
+ported yet: the shape-set ``prewarm``.
 """
 
 from __future__ import annotations
@@ -47,8 +50,8 @@ from advanced_scrapper_tpu_torch.cpu.oracle import jaccard, shingle_set
 from advanced_scrapper_tpu_torch.ops import rerank as oprr
 from advanced_scrapper_tpu_torch.ops.rerank_cuda import rerank_settle
 from advanced_scrapper_tpu_torch.pipeline.clock import StageClock
+from advanced_scrapper_tpu_torch.utils.bloom import pack_keys64
 
-SLICE_INDEX = "the stream-index slice (ROADMAP queue 1, item 9)"
 SLICE_DISPATCH = "the pipelined-dispatcher slice (ROADMAP queue 1, item 7)"
 
 
@@ -61,7 +64,8 @@ class RerankTier:
     ``last_settle_inputs`` what its settle took, ``(sk, idx)``: the
     sketches ``uint32[n_sk, S]`` on the tier's device and the pairs' row
     indices ``int32[2, m]`` on the host (``None`` without pairs), kept
-    until the next corpus so the settle can be re-run alone."""
+    until the next corpus so the settle can be re-run alone.  ``index``:
+    an optional persistent index for the borderline re-probe."""
 
     authoritative = True
 
@@ -73,12 +77,8 @@ class RerankTier:
         index=None,
         device: str | torch.device | None = None,
     ):
-        if index is not None:
-            raise NotImplementedError(
-                "the rerank tier's ANN re-probe over a persistent index (index=) "
-                f"is not ported yet; it comes in {SLICE_INDEX}"
-            )
         self.cfg = cfg
+        self.index = index
         self.params = params
         self.device = resolve_device(device)
         self.stats: dict = {}
@@ -147,6 +147,18 @@ class RerankTier:
         h2d = sketch_rows.nbytes + idx.nbytes if dev.type == "cuda" else 0
         return out[0], out[1].astype(np.int8), h2d
 
+    def _reprobe(self, i: int, j: int, keys64) -> bool | None:
+        """Borderline re-probe over the persistent index: both documents'
+        wide band keys are probed; the pair survives when the index
+        attributes both to the same earliest posted doc.  ``None``: no
+        index, or no evidence either way."""
+        if self.index is None or keys64 is None:
+            return None
+        attr = np.asarray(self.index.probe_batch(keys64[[i, j]]))
+        if attr[0] < 0 or attr[1] < 0:
+            return None
+        return bool(attr[0] == attr[1])
+
     def __call__(self, raw: Sequence[bytes], sigs, rep_bands, valid):
         cfg = self.cfg
         thr = cfg.sim_threshold
@@ -201,7 +213,7 @@ class RerankTier:
         stats["h2d_bytes"] = h2d
 
         # host re-settle of the margin band: exact Jaccard up to the cap,
-        # else the sketch verdict stands
+        # then the index re-probe, else the sketch verdict stands
         shingles: dict[int, set] = {}
 
         def sset(i: int) -> set:
@@ -215,6 +227,11 @@ class RerankTier:
         keep = verdict == 1
         border = np.flatnonzero(verdict == -1)
         stats["borderline"] = int(border.size)
+        keys64 = None
+        if self.index is not None and border.size:
+            keys64 = pack_keys64(
+                oprr.band_keys_wide_host(sigs_np[:n], self.params.band_salt)
+            )
 
         def settle_exact(i: int, j: int, jq_ij: int) -> bool:
             nonlocal exact_used
@@ -223,6 +240,11 @@ class RerankTier:
                 exact_used += 1
                 prov[key] = "margin"
                 return jaccard(sset(i), sset(j)) >= thr
+            rp = self._reprobe(i, j, keys64)
+            if rp is not None:
+                stats["reprobes"] += 1
+                prov[key] = "reprobe"
+                return rp
             prov[key] = "rerank"  # cap overflow: the sketch verdict stands
             return jq_ij >= thr_q
 

@@ -1,1 +1,3 @@
-"""Host persistence: the torn-write-safe file commit (stdlib only)."""
+"""Host persistence (stdlib only): the fs seam and torn-write-safe commit
+(``fsio``), the torn-tail-safe append CSV (``csvio``), and the link and
+article stores over sqlite or Postgres (``stores``, ``backends``)."""

@@ -44,10 +44,25 @@ launch per batch and no other launch, every planted copy with a fresh url
 and an eligible source marked near-dup, the backend's and the engine's
 stage times; card and CPU backends equal on 2,048 ``rerank_corpus``
 records in batches of 512, and a checkpoint saved after batch 2 resumed
-by a fresh card backend to the same annotations.  And ``ExactDedup`` over
-``bench.py``'s 262,144 urls (``exact_path``): the default tier (which
-one served), the blob tier and the grouping path with its hash on the
-card, best of 5, each equal to a first-seen dict.
+by a fresh card backend to the same annotations.  The persist mode over
+the same records in two sessions (``persist_path``: half, ``checkpoint``
+and ``close``, then a fresh backend on the same directory; cuts at 65,536
+postings, compaction at 8 segments): one segment-kernel launch per batch
+and no other, every planted copy with a fresh url and an eligible source
+marked ``doc:<id>`` (across the restart too), every mark resolved by the
+docmap; records/s, reopen seconds, segments, compactions, postings, disk
+and resident bytes; card and CPU backends equal on 2,048 records over two
+sessions (annotations, stats, postings, docmap), and
+``dedup_against_index`` over 4,096 ragged articles equal on the card and
+the CPU.  And ``ExactDedup`` over ``bench.py``'s 262,144 urls
+(``exact_path``): the default tier (which one served), the blob tier and
+the grouping path with its hash on the card, best of 5, each equal to a
+first-seen dict.  Then ``cross_source_dedup`` (``cross_source_path``)
+over three sources made from the ragged corpus: a success CSV of 32,768
+articles, a second CSV and a sqlite store of 16,384 each, 10% of the last
+two copies of first-source articles under other urls: every planted copy
+of an eligible source is a dup in the manifest, one launch per batch;
+card and CPU manifests byte-equal on a 2,048-article cut.
 
 Then the card engines and the CPU engines (estimator-only, default,
 ``rerank=False``) must agree on 2,048 articles.
@@ -1488,6 +1503,303 @@ def exact_path(card: str) -> None:
         card=card)
 
 
+PERSIST_SPLIT = 32768  # session 1 takes the first half of the stream
+PERSIST_PARITY_SPLIT = 1024  # the 2,048 parity records: two sessions
+AGAINST_INDEX_ARTICLES = 4096
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _dirs, files in os.walk(path) for f in files)
+
+
+def persist_path(docs: list[bytes], planted: dict[int, int], card: str) -> tuple[int, int]:
+    """The stream backend's persist mode at its defaults (batches of 1,024,
+    cuts at 65,536 postings, compaction at 8 segments, on its thread) over
+    the ragged records of ``stream_path`` in two sessions: the first half,
+    then ``checkpoint`` and ``close``, then a fresh backend that reopens the
+    directory and takes the second half; each timed after a warm batch
+    into another directory.  One segment-kernel launch per batch and no
+    other; every planted copy with a fresh url and an eligible source
+    marked ``doc:<id>``, those whose source came in session 1 counted
+    apart; every mark resolved by the docmap.  Then card and CPU backends
+    on 2,048 ``rerank_corpus`` records in batches of 512 over two sessions
+    (annotations, stats and both sub-indexes' postings equal), and
+    ``dedup_against_index`` over 4,096 ragged articles on the card and on
+    the CPU (equal attributions, across a reopen).  Returns the segment
+    kernel's launches over the two sessions and the batches."""
+    import shutil
+    import tempfile
+
+    from advanced_scrapper_tpu_torch.config import DedupConfig
+    from advanced_scrapper_tpu_torch.extractors.tpu_batch import TpuBatchBackend
+    from advanced_scrapper_tpu_torch.index import PersistentIndex
+    from advanced_scrapper_tpu_torch.pipeline.dedup import NearDupEngine
+
+    dev = torch.device("cuda")
+    records = stream_records(docs, np.random.RandomState(17))
+    warm = stream_records(ragged_corpus(np.random.RandomState(18), STREAM_WARM)[0],
+                          np.random.RandomState(19))
+    cfg = DedupConfig(stream_index="persist")
+    tmp = tempfile.mkdtemp(prefix="persist-")
+    try:
+        warm_b = TpuBatchBackend(cfg, index_dir=os.path.join(tmp, "warm"), device=dev)
+        run_stream(warm_b, warm)
+        warm_b.close()
+        index_dir = os.path.join(tmp, "index")
+        sessions, ann = [], []
+        launches = batches = 0
+        for part in (records[:PERSIST_SPLIT], records[PERSIST_SPLIT:]):
+            t0 = time.perf_counter()
+            backend = TpuBatchBackend(cfg, index_dir=index_dir, device=dev)
+            open_s = time.perf_counter() - t0
+            got, rec = run_stream(backend, part)
+            ann += got
+            n = backend.stats.batches
+            assert rec["launches"]["minhash_fold_segments"] == n == -(-len(part) // cfg.batch_size)
+            assert sum(rec["launches"].values()) == n, rec["launches"]
+            launches += n
+            batches += n
+            bands, urls = backend._pindex, backend._pindex_urls
+            t0 = time.perf_counter()
+            backend.checkpoint()
+            checkpoint_s = time.perf_counter() - t0
+            state = dict(
+                segments=bands.stats()["segments"], urls_segments=urls.stats()["segments"],
+                postings=bands.posting_count(), urls_postings=urls.posting_count(),
+                resident_bytes=bands.resident_bytes() + urls.resident_bytes(),
+                segment_cuts=bands.segment_cuts + urls.segment_cuts,
+                observed_bloom_fp=bands.observed_fp_ratio(), probe_rows=bands.probe_rows,
+                probe_hits=bands.probe_hits)
+            t0 = time.perf_counter()
+            backend.close()  # joins a compaction still running
+            close_s = time.perf_counter() - t0
+            stats = backend.stats
+            sessions.append(dict(
+                records=len(part), records_per_s=len(part) / rec["seconds"], **rec,
+                open_seconds=open_s, reopen_seconds={"bands": bands.reopen_seconds,
+                                                     "urls": urls.reopen_seconds},
+                checkpoint_seconds=checkpoint_s, close_seconds=close_s,
+                compactions=bands.compactions + urls.compactions,
+                tombstoned=bands.tombstoned + urls.tombstoned, **state,
+                disk_bytes=dir_bytes(index_dir), exact_dups=stats.exact_dups,
+                near_dups=stats.near_dups, kept=stats.kept))
+        assert sum(s["compactions"] for s in sessions) >= 1, "no compaction ran"
+        by_i = {a[0]: a for a in ann}
+        checked = across = missed = 0
+        for i, src in planted.items():
+            r, s = records[i], records[src]
+            if r["url"] and by_i[i][1] is None and s["url"] and by_i[src][1] is None:
+                checked += 1
+                across += src < PERSIST_SPLIT <= i
+                mark = by_i[i][2]
+                missed += not (mark and mark.startswith("doc:"))
+        assert checked and not missed, f"{missed} of {checked} planted copies missed"
+        assert across > 0, "no planted copy whose source came in session 1"
+        ids = {int(m[4:]) for a in ann for m in a[1:] if m}
+        reader = PersistentIndex(os.path.join(index_dir, "bands"), read_only=True)
+        names = reader.lookup_names(ids)
+        reader.close()
+        assert ids and set(names) == ids, f"{len(ids - set(names))} doc marks unresolved"
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # card vs CPU over two sessions each, and dedup_against_index
+    rrecs = stream_records(rerank_corpus(np.random.RandomState(13), STREAM_PARITY),
+                           np.random.RandomState(14))
+    pcfg = DedupConfig(stream_index="persist", batch_size=STREAM_PARITY_BATCH)
+    adocs = ragged_corpus(np.random.RandomState(20), AGAINST_INDEX_ARTICLES)[0]
+    half = AGAINST_INDEX_ARTICLES // 2
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="persist-parity-")
+    try:
+        runs = {}
+        for name, device in (("card", dev), ("cpu", "cpu")):
+            d = os.path.join(tmp, name)
+            out, per_session = [], []
+            for part in (rrecs[:PERSIST_PARITY_SPLIT], rrecs[PERSIST_PARITY_SPLIT:]):
+                b = TpuBatchBackend(pcfg, index_dir=d, device=device)
+                out += run_stream(b, part)[0]
+                per_session.append(b.stats)
+                dumps = [tuple(a.tolist() for a in index.dump_postings())
+                         for index in (b._pindex, b._pindex_urls)]
+                b.close()
+            engine = NearDupEngine(DedupConfig(rerank=False), device=device)
+            against = []
+            for docs_part in (adocs[:half], adocs[half:]):  # the index reopened between
+                index = engine.open_stream_index(os.path.join(tmp, name + "-against"))
+                against += engine.dedup_against_index(docs_part, index).tolist()
+                index.close()
+            runs[name] = (out, per_session, dumps,
+                          open(os.path.join(d, "bands", "docmap.log"), "rb").read(), against)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    card_run, cpu_run = runs["card"], runs["cpu"]
+    parity = dict(annotations_equal=card_run[0] == cpu_run[0],
+                  stats_equal=card_run[1] == cpu_run[1], postings_equal=card_run[2] == cpu_run[2],
+                  docmap_equal=card_run[3] == cpu_run[3],
+                  against_index_equal=card_run[4] == cpu_run[4],
+                  near_dups=sum(s.near_dups for s in card_run[1]),
+                  against_index_hits=sum(a >= 0 for a in card_run[4]),
+                  seconds=time.perf_counter() - t0)
+    assert all(parity[k] for k in ("annotations_equal", "stats_equal", "postings_equal",
+                                   "docmap_equal", "against_index_equal")), parity
+    assert parity["near_dups"] and parity["against_index_hits"], parity
+    log("persist_path", records=len(records), batches=batches, split=PERSIST_SPLIT,
+        sessions=sessions, planted_checked=checked, planted_across_sessions=across,
+        doc_marks=len(ids), parity_records=STREAM_PARITY, parity_batch=STREAM_PARITY_BATCH,
+        against_index_articles=AGAINST_INDEX_ARTICLES, parity=parity,
+        cut_postings=cfg.index_cut_postings, compact_segments=cfg.index_compact_segments,
+        card=card)
+    return launches, batches
+
+
+CROSS_A, CROSS_B, CROSS_STORE = 32768, 16384, 16384  # articles per source
+CROSS_COPIES = 0.10  # syndicated copies of the first source in the others
+CROSS_PARITY = (1024, 512, 512)  # the card-vs-CPU cut of the sources
+
+
+def bulk_sqlite(path: str):
+    """The port's sqlite backend without an fsync or a journal file a
+    commit: the store is set-up data, written anew on every run, one
+    commit an article."""
+    from advanced_scrapper_tpu_torch.storage.backends import SqliteBackend
+
+    class Bulk(SqliteBackend):
+        def connect(self):
+            conn = super().connect()
+            conn.execute("PRAGMA synchronous=OFF")
+            conn.execute("PRAGMA journal_mode=MEMORY")
+            return conn
+
+    return Bulk(path)
+
+
+def write_sources(root: str, parts: list[list[tuple[str, str]]]) -> list[str]:
+    """Two success CSVs (``url,title,article``) and a sqlite store written
+    through the port's ``ArticleStore.store``."""
+    import csv
+
+    from advanced_scrapper_tpu_torch.storage.stores import ArticleStore
+
+    paths = []
+    for name, rows in (("success_a.csv", parts[0]), ("success_b.csv", parts[1])):
+        p = os.path.join(root, name)
+        with open(p, "w", newline="", encoding="utf-8") as f:
+            w = csv.writer(f)
+            w.writerow(["url", "title", "article"])
+            w.writerows((url, "t", text) for url, text in rows)
+        paths.append(p)
+    db = os.path.join(root, "store.db")
+    store = ArticleStore(bulk_sqlite(db))
+    for url, text in parts[2]:
+        store.store(url, {"article": text, "title": "t", "datetime": "2020-06-01 12:00:00"})
+    return paths + [db]
+
+
+def cross_source_path(card: str) -> tuple[int, int]:
+    """``cross_source_dedup`` at the defaults (the exact stream index) over
+    three sources made from the ragged corpus (seed 23): a success CSV of
+    32,768 articles, a second CSV and a sqlite store of 16,384 each, 10%
+    of each of the last two verbatim or mutated (0.5% of bytes) copies of
+    first-source articles under other urls.  Every planted copy whose
+    source is eligible (a url, kept or a near-dup, at least a shingle of
+    text) is ``near_dup`` or ``exact_dup`` in the manifest; one segment-
+    kernel launch per batch and no other.  Then a 2,048-article cut of the
+    sources on the card and on the CPU: byte-equal manifests.  Returns the
+    launches and the batches."""
+    import csv
+    import shutil
+    import tempfile
+
+    from advanced_scrapper_tpu_torch.config import DedupConfig
+    from advanced_scrapper_tpu_torch.pipeline.cross_source import cross_source_dedup, load_source
+    from advanced_scrapper_tpu_torch.storage.csvio import AppendCsv
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(23)
+    docs = [d.decode("ascii") for d in ragged_corpus(rng, CROSS_A + CROSS_B + CROSS_STORE)[0]]
+    parts: list[list[tuple[str, str]]] = [[], [], []]
+    copies: dict[str, str] = {}  # copy url → source url
+    for i, text in enumerate(docs):
+        if i < CROSS_A:
+            parts[0].append((f"https://a.example/{i}/article.html", text))
+            continue
+        p = 1 if i < CROSS_A + CROSS_B else 2
+        url = f"https://{'bc'[p - 1]}.example/{i}/article.html"
+        if rng.rand() < CROSS_COPIES:
+            j = rng.randint(CROSS_A)
+            src_url, text = parts[0][j]
+            if rng.rand() < 0.5:
+                raw = bytearray(text.encode("ascii"))
+                for _ in range(max(1, len(raw) // 200)):
+                    raw[rng.randint(len(raw))] = rng.randint(32, 127)
+                text = raw.decode("ascii")
+            copies[url] = src_url
+        parts[p].append((url, text))
+    n = sum(map(len, parts))
+    tmp = tempfile.mkdtemp(prefix="cross-source-")
+    try:
+        t0 = time.perf_counter()
+        sources = write_sources(tmp, parts)
+        write_sources_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_read = sum(1 for s in sources for _ in load_source(s))
+        read_s = time.perf_counter() - t0
+        assert n_read == n, (n_read, n)
+        manifest = os.path.join(tmp, "manifest.csv")
+        warm_dir = os.path.join(tmp, "warm")
+        os.makedirs(warm_dir)
+        cross_source_dedup(write_sources(warm_dir, [parts[0][:STREAM_WARM], [], []]),
+                           os.path.join(warm_dir, "manifest.csv"), device=dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        stats = cross_source_dedup(sources, manifest, cfg=DedupConfig(), device=dev)
+        seconds = time.perf_counter() - t0
+        got = read_launches()
+        batches = -(-n // DedupConfig().batch_size)
+        assert got["minhash_fold_segments"] == batches and sum(got.values()) == batches, got
+        with open(manifest, newline="", encoding="utf-8") as f:
+            rows = list(csv.DictReader(f))
+        t0 = time.perf_counter()
+        with AppendCsv(os.path.join(tmp, "rewrite.csv"), ["url", "source", "status",
+                                                          "dup_of"]) as out:
+            for row in rows:
+                out.write_row(row)
+        write_manifest_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    status = {r["url"]: r["status"] for r in rows}
+    assert len(rows) == n == stats["total"]
+    checked = [u for u, s in copies.items() if status[s] != "exact_dup"]
+    missed = [u for u in checked if status[u] not in ("near_dup", "exact_dup")]
+    assert checked and not missed, f"{len(missed)} of {len(checked)} planted copies missed"
+
+    # a cut of the sources on the card and on the CPU: byte-equal manifests
+    cut = [p[:k] for p, k in zip(parts, CROSS_PARITY)]
+    outs = []
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="cross-parity-")
+    try:
+        cut_sources = write_sources(tmp, cut)
+        for device in (dev, "cpu"):
+            out = os.path.join(tmp, f"manifest-{device}.csv")
+            st = cross_source_dedup(cut_sources, out, cfg=DedupConfig(), device=device)
+            outs.append((open(out, "rb").read(), st))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    parity_equal = outs[0] == outs[1]
+    assert parity_equal, "card and CPU manifests differ"
+    log("cross_source_path", articles=n, sources={"success_a.csv": CROSS_A,
+        "success_b.csv": CROSS_B, "store.db": CROSS_STORE}, planted_copies=len(copies),
+        planted_checked=len(checked), seconds=seconds, articles_per_s=n / seconds,
+        stats=stats, write_sources_seconds=write_sources_s, read_sources_seconds=read_s,
+        write_manifest_seconds=write_manifest_s, launches=got, batches=batches,
+        parity_articles=sum(CROSS_PARITY), parity_manifests_equal=parity_equal,
+        parity_stats=outs[0][1], parity_seconds=time.perf_counter() - t0, card=card)
+    return got["minhash_fold_segments"], batches
+
+
 def bound_by(ops_ms: float, bytes_ms: float) -> str:
     return "operations" if ops_ms >= bytes_ms else "bytes"
 
@@ -1806,9 +2118,13 @@ def main() -> int:
     del reps
     # -- the stream backend and the exact dedup ---------------------------------
     stream_launches, stream_batches = stream_path(docs, planted, card)
+    persist_launches, persist_batches = persist_path(docs, planted, card)
     del docs
     exact_path(card)
+    cross_launches, cross_batches = cross_source_path(card)
     kernels[0]["stream_path"] = {"launches": stream_launches, "batches": stream_batches}
+    kernels[0]["persist_path"] = {"launches": persist_launches, "batches": persist_batches}
+    kernels[0]["cross_source_path"] = {"launches": cross_launches, "batches": cross_batches}
     st_main = settle_timing(default.rerank_tier, clock_mhz)
     log("kernel_timing", name="rerank_settle", shape="default_engine_main_corpus",
         launches=got["rerank_settle"], **st_main, card=card)

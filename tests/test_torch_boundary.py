@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of ``advanced_scrapper_tpu_torch``
 and not ``chip_smoke.py`` imports ``jax``, the JAX package, ``pandas`` or
-``dateutil`` (the card's host has neither), or names a path into the JAX
-package from which a native source or library could be loaded."""
+``dateutil`` (the card's host has neither), or ``psycopg2`` at module level
+(the Postgres backend imports it when it is opened), or names a path into
+the JAX package from which a native source or library could be loaded."""
 
 from __future__ import annotations
 
@@ -56,7 +57,10 @@ def test_port_files_found():
     for rel in ("config.py", "core/dates.py", "cpu/fuzz.py", "cpu/native.py",
                 "cpu/csvframe.py", "ops/match.py", "ops/match_cuda.py", "ops/editdist.py",
                 "ops/editdist_cuda.py", "pipeline/matcher.py", "extractors/tpu_batch.py",
-                "utils/bloom.py", "storage/fsio.py", "ops/exact.py", "cpu/exactdedup.py"):
+                "utils/bloom.py", "storage/fsio.py", "ops/exact.py", "cpu/exactdedup.py",
+                "index/__init__.py", "index/wal.py", "index/segment.py", "index/store.py",
+                "index/repair.py", "storage/backends.py", "storage/stores.py",
+                "storage/csvio.py", "pipeline/cross_source.py"):
         assert f"advanced_scrapper_tpu_torch/{rel}" in FILES, rel
     for name in NATIVE:
         assert (PORT / "native" / name).exists(), name
@@ -67,6 +71,23 @@ def test_no_jax_or_reference_import(rel):
     tree = ast.parse((ROOT / rel).read_text(), filename=rel)
     bad = [m for m in _imported_modules(tree) if _forbidden(m)]
     assert not bad, f"{rel} imports {bad}"
+
+
+#: drivers a module may import only inside the function that needs them
+LAZY = ("psycopg2",)
+
+
+@pytest.mark.parametrize("rel", FILES)
+def test_no_module_level_driver_import(rel):
+    """A database driver is imported where a store opens it, never when a
+    port module is imported (the card's host has none)."""
+    tree = ast.parse((ROOT / rel).read_text(), filename=rel)
+    top = [n for n in tree.body if not isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                                      ast.ClassDef))]
+    for cls in (n for n in tree.body if isinstance(n, ast.ClassDef)):
+        top += [n for n in cls.body if not isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))]
+    names = [m for n in top for m in _imported_modules(n)]
+    assert not [m for m in names if m.split(".")[0] in LAZY], f"{rel} imports {names}"
 
 
 @pytest.mark.parametrize("rel", FILES)
@@ -120,7 +141,7 @@ def test_importing_the_port_loads_no_jax():
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'advanced_scrapper_tpu', 'pandas', 'dateutil')]\n"
+        "('jax', 'jaxlib', 'advanced_scrapper_tpu', 'pandas', 'dateutil', 'psycopg2')]\n"
         "assert not bad, bad\n"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT)}

@@ -129,6 +129,39 @@ def test_parse_date_unread_forms_give_none(raw):
     assert same_date(parse_date(raw), want)
 
 
+#: the sweep: each date form with every time and every zone (or none),
+#: 12 × 19 = 228 strings a form, under TZ=UTC
+SWEEP_DATES = [
+    "2020-06-01", "06/01/2020", "June 1, 2020", "1 Jun 2020", "Mon, 01 Jun 2020",
+    "1st June 2020", "2020/06/01", "1/6/20", "June 2020", "June 1", "1/6", "Jun. 1 2020",
+    "20200601", "6/2020", "Sept. 2020", "13/06/2020",
+]
+SWEEP_TIMES = ["", "03", "15", "0330", "3:45", "15:45:10", "3 PM", "3:45 P.M.", "12:00 AM",
+               "03:30:00.5", "15 P.M.", "0330 PM"]
+SWEEP_ZONES = ["", "Z", "UTC", "GMT", "EST", "CEST", "+0200", "-0430", "+05:30", "+2",
+               "GMT+2", "GMT-2", "UTC+02:00", "EST+2", "GMT +2", "EST +2", "+2400", "PST", "z"]
+
+
+@pytest.mark.parametrize("form", SWEEP_DATES)
+def test_parse_date_sweep_as_dateutil(form, monkeypatch):
+    """Every time and zone after one date form reads as dateutil reads
+    it, a number after a date that lacks its day or year included
+    (``June 2020 03``, ``1/6 0330``, ``June 1 15 P.M.``)."""
+    monkeypatch.setenv("TZ", "UTC")
+    time.tzset()
+    try:
+        raws = [" ".join(x for x in (form, t, z) if x)
+                for t, z in itertools.product(SWEEP_TIMES, SWEEP_ZONES)]
+        got, want = on_one_day(lambda: ([parse_date(r) for r in raws],
+                                        [dateutil_parse(r) for r in raws]))
+        wrong = [(r, g, w) for r, g, w in zip(raws, got, want) if not same_date(g, w)]
+        assert not wrong, wrong[:5]
+        assert len(raws) == 228 and any(w is not None for w in want)
+    finally:
+        monkeypatch.undo()
+        time.tzset()
+
+
 def test_zone_names_of_the_local_zone(monkeypatch):
     """A zone name in ``time.tzname`` is the local zone, as dateutil reads
     it: EST in June is EDT's offset; EST+5 ignores its offset."""

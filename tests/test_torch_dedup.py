@@ -114,8 +114,10 @@ def test_unported_methods_raise(corpus):
     for call in (
         lambda: eng.dedup_reps_sharded(corpus, None),
         lambda: eng.prewarm_sharded(None),
-        lambda: eng.dedup_against_index(corpus, None),
-        lambda: eng.open_stream_index("x"),
+        lambda: eng.dedup_against_index(corpus, None, mesh=object()),
+        lambda: NearDupEngine(
+            DedupConfig(rerank=False, index_fleet="h:1"), device="cpu"
+        ).open_stream_index("x"),
         lambda: eng.prewarm(),
     ):
         with pytest.raises(NotImplementedError, match="slice"):

@@ -324,8 +324,10 @@ def test_settle_rejects_bad_inputs(case):
 
 
 def test_tier_index_and_prewarm_are_not_ported():
+    """``index=`` is ported (its re-probe: ``tests/test_torch_persist.py``);
+    ``prewarm`` still raises."""
     cfg, params = DedupConfig(), make_params()
-    with pytest.raises(NotImplementedError, match="stream-index slice"):
-        RerankTier(cfg, params, index=object(), device="cpu")
+    marker = object()
+    assert RerankTier(cfg, params, index=marker, device="cpu").index is marker
     with pytest.raises(NotImplementedError, match="slice"):
         RerankTier(cfg, params, device="cpu").prewarm()

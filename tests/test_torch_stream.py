@@ -325,14 +325,18 @@ def test_bloom_fill_warning_once(records, capsys):
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="9b"):
-        tpu_batch.TpuBatchBackend(DedupConfig(stream_index="persist", index_dir="x"), device="cpu")
-    with pytest.raises(NotImplementedError, match="9c"):
-        tpu_batch.TpuBatchBackend(DedupConfig(index_fleet="h:1"), device="cpu")
+    """The index fleet raises, in every mode and in the engine; the
+    persist mode itself is ported (``tests/test_torch_persist.py``)."""
+    fleet = dict(index_fleet="h:1", index_dir="x")
+    for mode in ("exact", "bloom", "persist"):
+        with pytest.raises(NotImplementedError, match="9c"):
+            tpu_batch.TpuBatchBackend(DedupConfig(stream_index=mode, **fleet), device="cpu")
     with pytest.raises(ValueError, match="unknown stream_index"):
         tpu_batch.TpuBatchBackend(DedupConfig(stream_index="lsm"), device="cpu")
-    eng = NearDupEngine(DedupConfig(rerank=False), device="cpu")
-    with pytest.raises(NotImplementedError, match="9b"):
+    with pytest.raises(ValueError, match="index directory"):
+        tpu_batch.TpuBatchBackend(DedupConfig(stream_index="persist"), device="cpu")
+    eng = NearDupEngine(DedupConfig(rerank=False, **fleet), device="cpu")
+    with pytest.raises(NotImplementedError, match="9c"):
         eng.open_stream_index("x")
 
 
