@@ -1,6 +1,7 @@
 """PyTorch and CUDA port of the near-duplicate dedup path, the streaming
 dedup backend with its persistent index, cross-source dedup and the
-ticker→article matcher, for one NVIDIA H100.
+ticker→article matcher, for one NVIDIA H100, with the reference's entry
+points: ``entry.py:entry()`` and the CLI ``cli.py`` (``astpu-torch``).
 
 The JAX package ``advanced_scrapper_tpu`` is the reference; this package
 mirrors its module names (``config``, ``core``, ``cpu``, ``ops``,
@@ -10,8 +11,9 @@ it.  Four hand-written CUDA sources live in ``csrc/``: ``minhash.cu``
 (the MinHash fold, in place of the Pallas kernel
 ``ops/pallas_minhash.py:_minhash_kernel``), ``rerank.cu`` (the rerank
 tier's sketch-Jaccard settle), ``match.cu`` (the matcher's q-gram screen)
-and ``editdist.cu`` (the matcher's Myers bound); the last three replace
-jnp device code of the reference.
+and ``editdist.cu`` (the matcher's Myers bound over every pattern, and
+per pair for the legacy screen); the last three replace jnp device code
+of the reference.
 
 Entry points run on the card: a ``device`` of ``None`` means ``"cuda"``
 and raises when CUDA is not available.  Pass ``device="cpu"`` to run the
@@ -21,6 +23,8 @@ plain PyTorch versions of every kernel, as the tests do.
 from __future__ import annotations
 
 from typing import TYPE_CHECKING
+
+__version__ = "0.5.0"
 
 if TYPE_CHECKING:
     import torch

@@ -1,78 +1,54 @@
 """Date parsing on the standard library, in place of
 ``dateutil.parser.parse`` (which the card's host does not have).
 
-:func:`parse_date` agrees with ``dateutil.parser.parse`` (2.9) on these
-forms, surrounding whitespace ignored:
+:func:`parse_date` follows dateutil 2.9's parser step by step, with its
+default ``parserinfo`` (English month and weekday names, neither day nor
+year first, not fuzzy):
 
-- ISO 8601: ``YYYY-MM-DD`` (also ``YYYY-M-D`` and ``YYYYMMDD``);
-- slashes, month first or year first: ``M/D/YYYY``, ``YYYY/M/D``, and
-  ``D/M/YYYY`` where the first number cannot be a month (``13/06/2020``),
-  as dateutil resolves them with ``dayfirst=False``; two numbers, ``M/D``,
-  or a month and a year where one number is above 31 (``6/2020``,
-  ``45/1``);
-- a two-digit year, put within 50 years of the current year as dateutil's
-  ``parserinfo.convertyear`` does;
-- month names, full or three-letter, with or without a dot, in either
-  order, the day with or without an ordinal (``st``, ``nd``, ``rd``,
-  ``th``): ``June 1, 2020``, ``Jun. 1 2020``, ``1st June 2020``, and
-  without the year (``June 1``) or the day (``June 2020``);
-- an optional leading weekday name (``Mon, 01 Jun 2020 ...``, as RFC 2822
-  writes it), which dateutil ignores where the day is given and otherwise
-  moves the date to (on or after the default day).
+- the same lexer: runs of letters and runs of digits are tokens, every
+  other character is one, whitespace is ``" "``, and a dot or comma joins
+  a number or a word as dateutil's lexer decides (``4:30:21.447``,
+  ``Sep.20.2009``);
+- the same walk over the tokens: numbers by their length and their
+  neighbours (a time ``H:MM[:SS[.f]]``, ``HH``/``HHMM`` after a whole date,
+  ``YYMMDD``/``HHMMSS``, ``YYYYMMDD[HHMM[SS]]``, ``N h``/``m``/``s``, date
+  values joined by ``-``, ``/`` or ``.``, an hour before ``AM``/``PM``, a
+  day where it can be one), month names (``June``, ``Jun``, ``Sept``, also
+  ``June of 2020``), weekday names, ``AM``/``PM``, zone names of up to five
+  capitals after a time (``GMT+2`` read as dateutil reads it, "this time
+  plus 2 hours is GMT"), ``±H[H][MM]`` and ``±H:MM`` offsets after a time;
+  the jump tokens (whitespace, ``. , ; - / '``, ``at``, ``on``, ``and``,
+  ``ad``, ``m``, ``t``, ``of``, ``st``, ``nd``, ``rd``, ``th``) are
+  skipped, and any other token refuses the string;
+- the same resolution of up to three date values into year, month and day
+  (``_ymd.resolve_ymd``), two-digit years put within 50 years of the
+  current year (``parserinfo.convertyear``), and the same zone rules
+  (``parserinfo.validate``, ``_build_tzaware``);
+- the same fill of what is not written from ``default``, today at
+  midnight when not given: a day past the month's end becomes its last
+  day, and a weekday without a day moves the date to that weekday, on or
+  after it.
 
-A field that is not written comes from ``default``, which is today at
-midnight as dateutil takes it; where only the day is missing and
-default's day is past the month's end, the month's last day.
-
-The date may be followed (after ``T``/``t`` for ISO, or whitespace) by a
-time: ``HH`` or ``HHMM`` (after a whole date: year, month and day all
-written), ``H:MM`` or ``H:MM:SS`` with an optional
-fraction (cut to microseconds, as dateutil does), with an optional
-``AM``/``PM`` (also ``A.M.``, ``p.m`` and a bare ``a``/``p``; ``H AM``
-also; 12 AM is hour 0, and an hour above 12 with either is refused, as
-dateutil refuses it).  After a time may come a zone:
-
-- ``Z``, ``z``, ``UTC`` or ``GMT``: UTC;
-- another name of 1-5 upper-case letters: naive, as dateutil leaves a name
-  it does not know, unless the name is in ``time.tzname``: then the local
-  zone's offset at that time;
-- a ``±H``, ``±HH``, ``±HHMM`` or ``±H:MM`` offset: that offset;
-- a name directly followed by an offset (``GMT+2``): dateutil reads it as
-  "this time plus 2 hours is GMT", an offset of -2 hours, and drops a UTC
-  name; another name in ``time.tzname`` still gives the local zone;
-- a name, whitespace, then an offset (``GMT +2``, ``EST +2``): the offset
-  as written, except after a UTC name, which keeps UTC (dateutil's
-  ``parserinfo.validate``); a name in ``time.tzname`` gives the local zone.
-
-An aware result has dateutil's UTC offset, as a ``datetime.timezone``; an
-offset of 24 hours or more, which ``datetime.timezone`` cannot hold, as a
-tzinfo of this module that reports it, so that ``.timestamp()`` and a
-comparison with another zone raise ``ValueError`` as they do on
-dateutil's result.  The ``M`` of ``A.M``/``P.M`` written in capitals
-after a dot is a zone name to dateutil (so no other name may follow).
-A number after whitespace (and an optional ``-``) where no time follows
-the date is what dateutil makes of it: after a date that lacks its day or
-its year, that field (``June 2020 03`` is June 3, ``June 1 03`` and ``1/6
-03`` are in 2003, ``1/6 0330`` in the year 330), by dateutil's rules for
-three date values; after a whole date, an ``HH`` or ``HHMM`` time
-(``2020-06-01 -0430`` is 04:30).  One more ``-HH`` or ``-HHMM`` after the
-field is the time, after the time a negative offset.  After a date that
-lacks its day or year, ``H AM``/``H PM`` keeps an hour above 12 (``June 1
-15 P.M.`` is 15:00), as dateutil does there.
-
-What it cannot read (or an impossible date) gives ``None``, where
-dateutil raises or reads more: a zone without a time, a weekday with
-neither a day nor a month, and free text.
+Where dateutil raises, :func:`parse_date` gives ``None``.  An aware result
+has dateutil's UTC offset, as a ``datetime.timezone``; a zone name in
+``time.tzname`` gives the local zone's offset at that time, as dateutil's
+``tzlocal`` does; an offset of 24 hours or more, which
+``datetime.timezone`` cannot hold, a tzinfo of this module that reports
+it, so that ``.timestamp()`` and a comparison with another zone raise
+``ValueError`` as they do on dateutil's result.
 """
 
 from __future__ import annotations
 
 import functools
-import re
+import string
 import time
 from calendar import monthrange
 from datetime import datetime, timedelta, timezone, tzinfo
+from decimal import Decimal
 
+_JUMP = frozenset((" ", ".", ",", ";", "-", "/", "'", "at", "on", "and", "ad", "m", "t",
+                   "of", "st", "nd", "rd", "th"))
 _MONTHS = {
     name: i + 1
     for i, names in enumerate((
@@ -83,165 +59,444 @@ _MONTHS = {
     ))
     for name in names
 }
-_MONTH = "|".join(sorted(_MONTHS, key=len, reverse=True))
 _WEEKDAYS = {
     name: i
     for i, names in enumerate((
-        ("mon", "monday"), ("tue", "tues", "tuesday"), ("wed", "wednesday"),
-        ("thu", "thurs", "thursday"), ("fri", "friday"), ("sat", "saturday"),
-        ("sun", "sunday"),
+        ("mon", "monday"), ("tue", "tuesday"), ("wed", "wednesday"), ("thu", "thursday"),
+        ("fri", "friday"), ("sat", "saturday"), ("sun", "sunday"),
     ))
     for name in names
 }
-_WEEKDAY = "|".join(sorted(_WEEKDAYS, key=len, reverse=True))
+_HMS = {"h": 0, "hour": 0, "hours": 0, "m": 1, "minute": 1, "minutes": 1,
+        "s": 2, "second": 2, "seconds": 2}
+_AMPM = {"am": 0, "a": 0, "pm": 1, "p": 1}
+_UTC_LOWER = frozenset(("utc", "gmt", "z"))
 _UTC_NAMES = ("UTC", "GMT", "Z", "z")
 
-_AMPM = r"[AaPp](?:\.?[Mm])?\.?(?![A-Za-z])"
-_TIME = (
-    r"(?:(?P<H>\d{1,2}):(?P<M>\d{2})(?::(?P<S>\d{2})(?:\.(?P<f>\d+))?)?"
-    r"(?:\s*(?P<ampm>" + _AMPM + r"))?"
-    r"|(?P<Ha>\d{1,2})\s*(?P<ampm2>" + _AMPM + r")"
-    r"|(?P<Hb>\d{2})(?P<Mb>\d{2})?(?![\d:])(?:\s*(?P<ampm3>" + _AMPM + r"))?)"
-)
-_OFFSET = r"\d{4}|\d{1,2}(?::\d{2})?"
-# a zone only after a time; a, p, am and pm are never zone names
-_ZONE = (
-    r"(?:\s*(?:(?P<zname>(?![AP]M?(?![A-Z]))[A-Z]{1,5}(?![A-Za-z])|z(?![A-Za-z]))"
-    r"(?:(?P<isign>[+-])(?P<ioff>" + _OFFSET + r")"
-    r"|\s+(?P<nsign>[+-])(?P<noff>" + _OFFSET + r"))?"
-    r"|(?P<sign>[+-])(?P<off>" + _OFFSET + r")))?"
-)
-# or, in place of a time, a number after a jump (whitespace and an optional
-# ``-``), then at most one more after a ``-``: a date field or the time
-_NUMBER = r"|\s+-?(?P<n>\d{1,4})(?:\s+-(?P<n2>\d{2}|\d{4}))?"
 
-_ISO = re.compile(
-    r"(?P<y>\d{4})(?:-(?P<m>\d{1,2})-(?P<d>\d{1,2})|(?P<m8>\d{2})(?P<d8>\d{2}))"
-    r"(?:[Tt ](?:(?P<H2>\d{2})(?![\d:])|" + _TIME + r")" + _ZONE + _NUMBER + r")?"
-)
-_SLASH = re.compile(
-    r"(?:(?P<a>\d{1,2})/(?P<b>\d{1,2})/(?P<c>\d{4}|\d{2})"
-    r"|(?P<y>\d{4})/(?P<m>\d{1,2})/(?P<d>\d{1,2})"
-    r"|(?P<p>\d{4}|\d{1,2})/(?P<q>\d{4}|\d{1,2}))"
-    r"(?:\s+" + _TIME + _ZONE + _NUMBER + r")?"
-)
-# month and weekday names and ordinals in any case; the zone names only as
-# dateutil takes them (upper case, or z)
-_ORD = r"(?i:st|nd|rd|th)?"
-_NAMED = re.compile(
-    r"(?:(?P<wd>(?i:" + _WEEKDAY + r"))(?:,\s*|\s+))?"
-    r"(?:(?P<mon>(?i:" + _MONTH + r"))\.?\s*(?P<d>\d{1,2})" + _ORD
-    + r"(?:(?:,\s*|\s+)(?P<y>\d{4}))?"
-    r"|(?P<d2>\d{1,2})" + _ORD + r"\s+(?P<mon2>(?i:" + _MONTH + r"))\.?"
-    r"(?:(?:,\s*|\s+)(?P<y2>\d{4}))?"
-    r"|(?P<mon3>(?i:" + _MONTH + r"))\.?,?\s+(?P<y3>\d{4}))"
-    r"(?:\s+" + _TIME + _ZONE + _NUMBER + r")?"
-)
+def _jump(tok: str) -> bool:
+    return tok.lower() in _JUMP
 
 
-def convert_year(year: int) -> int:
-    """dateutil's ``parserinfo.convertyear`` for a year written with two
-    digits: the current century, moved by 100 years to lie within 50 years
-    of the current year."""
-    now = time.localtime().tm_year
-    year += now // 100 * 100
-    if year >= now + 50:
-        year -= 100
-    elif year < now - 50:
-        year += 100
+def _month(tok: str) -> int | None:
+    return _MONTHS.get(tok.lower())
+
+
+def _hms(tok: str) -> int | None:
+    return _HMS.get(tok.lower())
+
+
+def _ampm(tok: str) -> int | None:
+    return _AMPM.get(tok.lower())
+
+
+def convert_year(year: int, century_specified: bool = False) -> int:
+    """dateutil's ``parserinfo.convertyear``: a year below 100 written
+    without its century goes to the current century, moved by 100 years to
+    lie within 50 years of the current year."""
+    if year < 0:
+        raise ValueError(year)
+    if year < 100 and not century_specified:
+        now = time.localtime().tm_year
+        year += now // 100 * 100
+        if year >= now + 50:
+            year -= 100
+        elif year < now - 50:
+            year += 100
     return year
 
 
-def _year(digits: str) -> int:
-    return int(digits) if len(digits) > 2 else convert_year(int(digits))
+def _tokens(s: str) -> list[str]:
+    """dateutil's ``_timelex.split``: letters and digits in runs, a dot
+    (or a comma after two digits) kept inside a number or a word where it
+    may be a decimal point or a separator, then split again where it was
+    not one; whitespace as ``" "``, every other character alone; NUL
+    skipped."""
+    chars = [c for c in s if c != "\x00"]
+    out: list[str] = []
+    i, n = 0, len(chars)
+    while i < n:
+        token = chars[i]
+        i += 1
+        if token.isalpha():
+            state = "a"
+        elif token.isdigit():
+            state = "0"
+        else:
+            out.append(" " if token.isspace() else token)
+            continue
+        seen_letters = False
+        while i < n:
+            c = chars[i]
+            if state == "a":
+                seen_letters = True
+                if c.isalpha():
+                    token += c
+                elif c == ".":
+                    token += c
+                    state = "a."
+                else:
+                    break
+            elif state == "0":
+                if c.isdigit():
+                    token += c
+                elif c == "." or (c == "," and len(token) >= 2):
+                    token += c
+                    state = "0."
+                else:
+                    break
+            elif state == "a.":
+                seen_letters = True
+                if c == "." or c.isalpha():
+                    token += c
+                elif c.isdigit() and token[-1] == ".":
+                    token += c
+                    state = "0."
+                else:
+                    break
+            else:  # "0."
+                if c == "." or c.isdigit():
+                    token += c
+                elif c.isalpha() and token[-1] == ".":
+                    token += c
+                    state = "a."
+                else:
+                    break
+            i += 1
+        rest: list[str] = []
+        if state in ("a.", "0.") and (seen_letters or token.count(".") > 1
+                                      or token[-1] in ".,"):
+            parts = _split_decimal(token)
+            token, rest = parts[0], [p for p in parts[1:] if p]
+        if state == "0." and "." not in token:
+            token = token.replace(",", ".")
+        out.append(token)
+        out.extend(rest)
+    return out
 
 
-def _ymd(m: re.Match) -> tuple[int | None, int | None, int | None]:
-    """(year, month, day) as written, ``None`` where a field is missing."""
-    g = m.groupdict()
-    mon = g.get("mon") or g.get("mon2") or g.get("mon3")
-    if mon:
-        year = g["y"] or g["y2"] or g["y3"]
-        day = g["d"] or g["d2"]
-        if year is None and day is not None and int(day) > 31:  # June 45: a year
-            return convert_year(int(day)), _MONTHS[mon.lower()], None
-        return (None if year is None else int(year), _MONTHS[mon.lower()],
-                None if day is None else int(day))
-    if g.get("a"):  # dateutil's three-number resolution, dayfirst=False
-        a, b, c = int(g["a"]), int(g["b"]), int(g["c"])
-        if a > 31:  # a two-digit year first
-            return convert_year(a), b, c
-        if len(g["c"]) == 2:
-            c = convert_year(c)
-        return (c, b, a) if a > 12 else (c, a, b)
-    if g.get("p"):  # two numbers: a year where one is above 31, else M/D
-        p, q = int(g["p"]), int(g["q"])
-        if p > 31:
-            return _year(g["p"]), q, None
-        if q > 31:
-            return _year(g["q"]), p, None
-        return None, p, q
-    return int(g["y"]), int(g["m"] or g.get("m8")), int(g["d"] or g.get("d8"))
+def _split_decimal(token: str) -> list[str]:
+    """``re.split("([.,])", token)``."""
+    parts, cur = [], ""
+    for c in token:
+        if c in ".,":
+            parts += [cur, c]
+            cur = ""
+        else:
+            cur += c
+    return parts + [cur]
 
 
-def _fields(m: re.Match) -> list[tuple[int, str | None]]:
-    """A date that lacks its day or its year as dateutil's list of date
-    values holds it: each number with ``"M"`` for a month name and ``"Y"``
-    for a number it takes as a year (more than two digits between slashes,
-    above 100 elsewhere)."""
-    g = m.groupdict()
-    if g.get("p"):
-        return [(int(x), "Y" if len(x) > 2 else None) for x in (g["p"], g["q"])]
-    month = (_MONTHS[(g.get("mon") or g.get("mon2") or g["mon3"]).lower()], "M")
-    if g.get("mon2"):
-        return [(int(g["d2"]), None), month]
-    value = int(g.get("d") or g["y3"])
-    return [month, (value, "Y" if value > 100 else None)]
+def _decimal(tok: str) -> Decimal:
+    try:
+        d = Decimal(tok)
+    except Exception as e:
+        raise ValueError(tok) from e
+    if not d.is_finite():
+        raise ValueError(tok)
+    return d
 
 
-def _three(fields: list[tuple[int, str | None]]) -> tuple[int, int, int] | None:
-    """(year, month, day) of three date values as dateutil 2.9 resolves
-    them (``_ymd.resolve_ymd``, neither day nor year first), the year of
-    two digits moved as ``convertyear`` moves it; ``None`` where it
-    refuses (two years)."""
-    labels = [lab for _v, lab in fields]
-    if labels.count("Y") > 1:
-        return None
-    (a, _), (b, _), (c, _) = fields
-    at = {lab: i for i, lab in enumerate(labels) if lab}
-    if len(at) == 2:  # the third field is the one not named
-        vals = dict.fromkeys("YMD")
-        for lab in "YMD":
-            i = at[lab] if lab in at else ({0, 1, 2} - set(at.values())).pop()
-            vals[lab] = fields[i][0]
-        year, month, day = vals["Y"], vals["M"], vals["D"]
-    elif at.get("M") == 0:
-        year, month, day = (b, a, c) if b > 31 else (c, a, b)
-    elif at.get("M") == 1:
-        year, month, day = (a, b, c) if a > 31 else (c, b, a)
-    elif a > 31 or at.get("Y") == 0:
-        year, month, day = a, b, c
+def _parsems(value: str) -> tuple[int, int]:
+    """``I[.F]`` seconds → (seconds, microseconds), the fraction cut to 6
+    digits."""
+    if "." not in value:
+        return int(value), 0
+    i, f = value.split(".")
+    return int(i), int(f.ljust(6, "0")[:6])
+
+
+def _min_sec(value: Decimal) -> tuple[int, int | None]:
+    rem = value % 1
+    return int(value), (int(60 * rem) if rem else None)
+
+
+def _adjust_ampm(hour: int, ampm: int) -> int:
+    if hour < 12 and ampm == 1:
+        return hour + 12
+    if hour == 12 and ampm == 0:
+        return 0
+    return hour
+
+
+class _Ymd(list):
+    """dateutil's ``_ymd``: up to three date values, each maybe labelled
+    year (``Y``), month (``M``) or day (``D``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.century_specified = False
+        self.at: dict[str, int] = {}
+
+    def could_be_day(self, value) -> bool:
+        if "D" in self.at:
+            return False
+        if "M" not in self.at:
+            return 1 <= value <= 31
+        month = self[self.at["M"]]
+        year = self[self.at["Y"]] if "Y" in self.at else 2000
+        return 1 <= value <= monthrange(year, month)[1]
+
+    def append(self, val, label: str | None = None) -> None:
+        if isinstance(val, str):
+            if val.isdigit() and len(val) > 2:
+                self.century_specified = True
+                label = "Y"
+        elif val > 100:
+            self.century_specified = True
+            label = "Y"
+        super().append(int(val))
+        if label is not None:
+            if label in self.at:
+                raise ValueError(f"{label} is already set")
+            self.at[label] = len(self) - 1
+
+    def resolve(self) -> tuple[int | None, int | None, int | None]:
+        """(year, month, day) as ``resolve_ymd(yearfirst=False,
+        dayfirst=False)`` gives them."""
+        n, at = len(self), dict(self.at)
+        if n == len(at) > 0 or (n == 3 and len(at) == 2):
+            if n == 3 and len(at) == 2:
+                (missing,) = {0, 1, 2} - set(at.values())
+                (key,) = set("YMD") - set(at)
+                at[key] = missing
+            return tuple(self[at[k]] if k in at else None for k in "YMD")
+        year = month = day = None
+        mi = at.get("M")
+        if n > 3:
+            raise ValueError("More than three YMD values")
+        if n == 1 or (mi is not None and n == 2):
+            if mi is not None:
+                month, other = self[mi], self[mi - 1]
+            else:
+                other = self[0]
+            if n > 1 or mi is None:
+                if other > 31:
+                    year = other
+                else:
+                    day = other
+        elif n == 2:
+            a, b = self
+            if a > 31:
+                year, month = a, b
+            elif b > 31:
+                month, year = a, b
+            else:
+                month, day = a, b
+        elif n == 3:
+            a, b, c = self
+            if mi == 0:
+                month, year, day = (a, b, c) if b > 31 else (a, c, b)
+            elif mi == 1:
+                year, month, day = (a, b, c) if a > 31 else (c, b, a)
+            elif mi == 2:
+                day, year, month = (a, b, c) if b > 31 else (b, a, c)
+            elif a > 31 or at.get("Y") == 0:
+                year, month, day = a, b, c
+            elif a > 12:
+                day, month, year = a, b, c
+            else:
+                month, day, year = a, b, c
+        return year, month, day
+
+
+class _Result:
+    __slots__ = ("year", "month", "day", "weekday", "hour", "minute", "second",
+                 "microsecond", "tzname", "tzoffset", "ampm", "century_specified")
+
+    def __init__(self):
+        for name in self.__slots__:
+            setattr(self, name, None)
+
+    def empty(self) -> bool:
+        return all(getattr(self, n) is None for n in self.__slots__[:-1])
+
+
+def _could_be_tzname(res: _Result, tzoffset, tok: str) -> bool:
+    return (res.hour is not None and res.tzname is None and tzoffset is None
+            and len(tok) <= 5
+            and (all(x in string.ascii_uppercase for x in tok) or tok in _UTC_NAMES))
+
+
+def _find_hms_idx(i: int, tokens: list[str]) -> int | None:
+    n = len(tokens)
+    if i + 1 < n and _hms(tokens[i + 1]) is not None:
+        return i + 1
+    if i + 2 < n and tokens[i + 1] == " " and _hms(tokens[i + 2]) is not None:
+        return i + 2
+    if i > 0 and _hms(tokens[i - 1]) is not None:
+        return i - 1
+    if 1 < i == n - 1 and tokens[i - 1] == " " and _hms(tokens[i - 2]) is not None:
+        return i - 2
+    return None
+
+
+def _numeric(tokens: list[str], i: int, ymd: _Ymd, res: _Result) -> int:
+    """dateutil's ``_parse_numeric_token``: the index of the last token
+    taken."""
+    s = tokens[i]
+    value = _decimal(s)
+    n, count = len(s), len(tokens)
+    if (len(ymd) == 3 and n in (2, 4) and res.hour is None
+            and (i + 1 >= count or (tokens[i + 1] != ":" and _hms(tokens[i + 1]) is None))):
+        res.hour = int(s[:2])  # HH or HHMM after a whole date
+        if n == 4:
+            res.minute = int(s[2:])
+    elif n == 6 or (n > 6 and s.find(".") == 6):
+        if not ymd and "." not in s:  # YYMMDD
+            ymd.append(s[:2])
+            ymd.append(s[2:4])
+            ymd.append(s[4:])
+        else:  # HHMMSS[.f]
+            res.hour = int(s[:2])
+            res.minute = int(s[2:4])
+            res.second, res.microsecond = _parsems(s[4:])
+    elif n in (8, 12, 14):  # YYYYMMDD[HHMM[SS]]
+        ymd.append(s[:4], "Y")
+        ymd.append(s[4:6])
+        ymd.append(s[6:8])
+        if n > 8:
+            res.hour = int(s[8:10])
+            res.minute = int(s[10:12])
+            if n > 12:
+                res.second = int(s[12:])
+    elif (h := _find_hms_idx(i, tokens)) is not None:  # N h, N m, N s
+        hms = _hms(tokens[h])
+        if h > i:
+            i = h
+        else:
+            hms += 1
+        if hms == 0:
+            res.hour = int(value)
+            if value % 1:
+                res.minute = int(60 * (value % 1))
+        elif hms == 1:
+            res.minute, res.second = _min_sec(value)
+        elif hms == 2:  # 3 (a number after "s") assigns nothing, as in dateutil
+            res.second, res.microsecond = _parsems(s)
+    elif i + 2 < count and tokens[i + 1] == ":":  # H:MM[:SS[.f]]
+        res.hour = int(value)
+        res.minute, res.second = _min_sec(_decimal(tokens[i + 2]))
+        if i + 4 < count and tokens[i + 3] == ":":
+            res.second, res.microsecond = _parsems(tokens[i + 4])
+            i += 2
+        i += 2
+    elif i + 1 < count and tokens[i + 1] in ("-", "/", "."):  # date values
+        sep = tokens[i + 1]
+        ymd.append(s)
+        if i + 2 < count and not _jump(tokens[i + 2]):
+            if tokens[i + 2].isdigit():
+                ymd.append(tokens[i + 2])
+            else:
+                month = _month(tokens[i + 2])
+                if month is None:
+                    raise ValueError(tokens[i + 2])
+                ymd.append(month, "M")
+            if i + 3 < count and tokens[i + 3] == sep:
+                month = _month(tokens[i + 4])
+                if month is not None:
+                    ymd.append(month, "M")
+                else:
+                    ymd.append(tokens[i + 4])
+                i += 2
+            i += 1
+        i += 1
+    elif i + 1 >= count or _jump(tokens[i + 1]):
+        if i + 2 < count and _ampm(tokens[i + 2]) is not None:  # H AM
+            res.hour = _adjust_ampm(int(value), _ampm(tokens[i + 2]))
+            i += 1
+        else:
+            ymd.append(value)
+        i += 1
+    elif _ampm(tokens[i + 1]) is not None and 0 <= value < 24:  # HAM
+        res.hour = _adjust_ampm(int(value), _ampm(tokens[i + 1]))
+        i += 1
+    elif ymd.could_be_day(value):
+        ymd.append(value)
     else:
-        year, month, day = (c, b, a) if a > 12 else (c, a, b)
-    if year < 100 and "Y" not in labels:
-        year = convert_year(year)
-    return year, month, day
+        raise ValueError(s)
+    return i
 
 
-def _hms(g: dict, partial: bool = False) -> tuple[int, int, int, int] | None:
-    """The time's fields; ``partial``: the date lacks its day or year, and
-    then ``H AM``/``H PM`` keeps an hour above 12 (dateutil adjusts that
-    hour without the check it makes after a whole date)."""
-    hour = g["H"] or g["Ha"] or g.get("H2") or g["Hb"]
-    ampm = (g["ampm"] or g["ampm2"] or g["ampm3"] or "")[:1].lower()
-    h = int(hour or 0)
-    if ampm:
-        if h > 12 and not (partial and g["Ha"]):
-            return None
-        if h <= 12:
-            h = h % 12 + (12 if ampm == "p" else 0)
-    frac = (g["f"] or "")[:6].ljust(6, "0")
-    return h, int(g["M"] or g["Mb"] or 0), int(g["S"] or 0), int(frac)
+def _parse(s: str) -> _Result | None:
+    """dateutil's ``parser._parse`` and ``parserinfo.validate``: the fields
+    written, or None where dateutil refuses the string."""
+    tokens = _tokens(s)
+    res, ymd = _Result(), _Ymd()
+    count, i = len(tokens), 0
+    try:
+        while i < count:
+            tok = tokens[i]
+            try:
+                number = float(tok)
+            except ValueError:
+                number = None
+            if number is not None:
+                i = _numeric(tokens, i, ymd, res)
+            elif tok.lower() in _WEEKDAYS:
+                res.weekday = _WEEKDAYS[tok.lower()]
+            elif (month := _month(tok)) is not None:
+                ymd.append(month, "M")
+                if i + 1 < count:
+                    if tokens[i + 1] in ("-", "/"):  # Jun-01[-2020]
+                        sep = tokens[i + 1]
+                        ymd.append(tokens[i + 2])
+                        if i + 3 < count and tokens[i + 3] == sep:
+                            ymd.append(tokens[i + 4])
+                            i += 2
+                        i += 2
+                    elif (i + 4 < count and tokens[i + 1] == tokens[i + 3] == " "
+                          and tokens[i + 2].lower() == "of"):  # June of 2020
+                        if tokens[i + 4].isdigit():
+                            ymd.append(str(convert_year(int(tokens[i + 4]))), "Y")
+                        i += 4
+            elif (ampm := _ampm(tok)) is not None:
+                if res.hour is None or not 0 <= res.hour <= 12:
+                    raise ValueError(tok)
+                res.hour = _adjust_ampm(res.hour, ampm)
+                res.ampm = ampm
+            elif _could_be_tzname(res, res.tzoffset, tok):
+                res.tzname = tok
+                res.tzoffset = 0 if tok in _UTC_LOWER else None
+                if i + 1 < count and tokens[i + 1] in ("+", "-"):
+                    # NAME+h: "this time plus h is NAME", the sign inverted
+                    tokens[i + 1] = "-" if tokens[i + 1] == "+" else "+"
+                    res.tzoffset = None
+                    if tok.lower() in _UTC_LOWER:
+                        res.tzname = None
+            elif res.hour is not None and tok in ("+", "-"):
+                sign = 1 if tok == "+" else -1
+                off = tokens[i + 1]
+                if len(off) == 4:
+                    hours, minutes = int(off[:2]), int(off[2:])
+                elif i + 2 < count and tokens[i + 2] == ":":
+                    hours, minutes = int(off), int(tokens[i + 3])
+                    i += 2
+                elif len(off) <= 2:
+                    hours, minutes = int(off[:2]), 0
+                else:
+                    raise ValueError(off)
+                res.tzoffset = sign * (hours * 3600 + minutes * 60)
+                if (i + 5 < count and _jump(tokens[i + 2]) and tokens[i + 3] == "("
+                        and tokens[i + 5] == ")" and 3 <= len(tokens[i + 4])
+                        and _could_be_tzname(res, None, tokens[i + 4])):
+                    res.tzname = tokens[i + 4]  # -0300 (BRST)
+                    i += 4
+                i += 1
+            elif not _jump(tok):
+                raise ValueError(tok)
+            i += 1
+        res.year, res.month, res.day = ymd.resolve()
+        res.century_specified = ymd.century_specified
+    except (IndexError, ValueError):
+        return None
+    if res.year is not None:
+        res.year = convert_year(res.year, res.century_specified)
+    if (res.tzoffset == 0 and not res.tzname) or res.tzname in ("Z", "z"):
+        res.tzname, res.tzoffset = "UTC", 0
+    elif res.tzoffset != 0 and res.tzname and res.tzname.lower() in _UTC_LOWER:
+        res.tzoffset = 0
+    return res
 
 
 class _FarOffset(tzinfo):
@@ -273,18 +528,6 @@ def _far_offset(offset: timedelta) -> _FarOffset:
     return _FarOffset(offset)
 
 
-def _offset(text: str, sign: str) -> timedelta:
-    """``±H``, ``±HH``, ``±HHMM`` or ``±H:MM`` as dateutil reads it."""
-    if ":" in text:
-        h, mm = text.split(":")
-    elif len(text) == 4:
-        h, mm = text[:2], text[2:]
-    else:
-        h, mm = text, "0"
-    off = timedelta(hours=int(h), minutes=int(mm))
-    return -off if sign == "-" else off
-
-
 def _local(naive: datetime, name: str) -> datetime:
     """dateutil's result for a zone name in ``time.tzname``: the local
     zone's offset at that time (the later of an ambiguous hour where that
@@ -300,104 +543,42 @@ def _local(naive: datetime, name: str) -> datetime:
     return naive.replace(tzinfo=aware.tzinfo)
 
 
-def _aware(naive: datetime, g: dict, dotted_m: bool, m_then_sign: bool) -> datetime | None:
-    """dateutil's zone for the match's zone fields (``_parse``,
-    ``parserinfo.validate``, ``_build_tzaware``); None where it refuses.
-    ``dotted_m``: the time's ``A.M``/``P.M`` made ``M`` a zone name;
-    ``m_then_sign``: an offset's sign follows that ``M`` directly."""
-    name = "M" if dotted_m else None
-    if g.get("zname"):
-        if name is not None:  # a second zone name
-            return None
-        name = g["zname"]
-    off = None
-    if g.get("isign"):  # NAME+h: "my time +h is NAME"
-        off = -_offset(g["ioff"], g["isign"])
-        if name in _UTC_NAMES:
-            name = None
-    elif g.get("nsign"):  # NAME +h: the offset as written, none for a UTC name
-        off = timedelta(0) if name in _UTC_NAMES else _offset(g["noff"], g["nsign"])
-    elif g.get("sign"):
-        off = _offset(g["off"], g["sign"])
-        if m_then_sign:  # P.M+2 reads as the zone name M with an inverted offset
-            off = -off
-    elif name in _UTC_NAMES:
-        off = timedelta(0)
-    if (off == timedelta(0) and name is None) or name in ("Z", "z"):
-        name = "UTC"
-    if name is not None and name in time.tzname:
-        return _local(naive, name)
-    if off == timedelta(0):
+def _build(res: _Result, default: datetime) -> datetime:
+    """dateutil's ``_build_naive`` then ``_build_tzaware`` (no
+    ``tzinfos``)."""
+    repl = {name: getattr(res, name)
+            for name in ("year", "month", "day", "hour", "minute", "second", "microsecond")
+            if getattr(res, name) is not None}
+    if "day" not in repl:
+        year = default.year if res.year is None else res.year
+        month = default.month if res.month is None else res.month
+        last = monthrange(year, month)[1]
+        if default.day > last:
+            repl["day"] = last
+    naive = default.replace(**repl)
+    if res.weekday is not None and not res.day:  # to the weekday, on or after
+        naive += timedelta(days=(res.weekday - naive.weekday()) % 7)
+    if res.tzname and res.tzname in time.tzname:
+        return _local(naive, res.tzname)
+    if res.tzoffset == 0:
         return naive.replace(tzinfo=timezone.utc)
-    if off:
-        tz = _far_offset(off) if abs(off) >= timedelta(hours=24) else timezone(off)
-        return naive.replace(tzinfo=tz)
+    if res.tzoffset:
+        off = timedelta(seconds=res.tzoffset)
+        return naive.replace(
+            tzinfo=_far_offset(off) if abs(off) >= timedelta(hours=24) else timezone(off))
     return naive  # no zone, or a name dateutil does not know
-
-
-def _numbers(g: dict, partial: bool) -> tuple[str, str | None] | None:
-    """The numbers that dateutil takes for date fields or the time rather
-    than a time and a zone: ``(n, n2)`` of the number group, or a bare
-    ``HH``/``HHMM`` after a date that lacks its day or year, with a
-    ``-HH``/``-HHMM`` after it (any other zone there: ``None``)."""
-    if g.get("n"):
-        return g["n"], g["n2"]
-    if not (partial and g["Hb"]) or g["ampm3"]:
-        return "", None
-    if g["zname"] or (g["sign"] and (g["sign"] != "-" or len(g["off"]) not in (2, 4))):
-        return None
-    return g["Hb"] + (g["Mb"] or ""), g["off"]
 
 
 def parse_date(raw: str, default: datetime | None = None) -> datetime | None:
     """The datetime that ``dateutil.parser.parse(raw, default=default)``
-    gives on the forms above, or ``None``; ``default`` is today at midnight
+    gives, or ``None`` where it raises; ``default`` is today at midnight
     when not given."""
-    s = raw.strip()
-    m = _ISO.fullmatch(s) or _SLASH.fullmatch(s) or _NAMED.fullmatch(s)
-    if m is None:
+    if default is None:
+        default = datetime.now().replace(hour=0, minute=0, second=0, microsecond=0)
+    res = _parse(raw)
+    if res is None or res.empty():
         return None
-    g = m.groupdict()
     try:
-        year, month, day = _ymd(m)
-        partial = None in (year, month, day)
-        numbers = _numbers(g, partial)
-        if numbers is None:
-            return None
-        n, n2 = numbers
-        hms = None
-        if n and partial:  # a third date field, then the time
-            ymd = _three(_fields(m) + [(int(n), "Y" if int(n) > 100 else None)])
-            if ymd is None:
-                return None
-            (year, month, day), partial, n, n2 = ymd, False, n2, None
-            g, hms = dict.fromkeys(g), (0, 0, 0, 0)
-        if n:  # HH or HHMM after a whole date, then an offset
-            if len(n) not in (2, 4):
-                return None
-            hms = int(n[:2]), int(n[2:] or 0), 0, 0
-            g = dict.fromkeys(g) | {"sign": "-" if n2 else None, "off": n2}
-        elif hms is None:
-            hms = _hms(g, partial)
-        if hms is None:
-            return None
-        if g["Hb"] and partial:  # a bare hour needs a whole date
-            return None
-        if default is None and partial:
-            default = datetime.now().replace(hour=0, minute=0, second=0, microsecond=0)
-        year = default.year if year is None else year
-        month = default.month if month is None else month
-        weekday = g.get("wd")
-        written_day = day is not None
-        if day is None:
-            day = min(default.day, monthrange(year, month)[1])
-        naive = datetime(year, month, day, *hms)
-        if weekday and not written_day:  # to the weekday, on or after
-            naive += timedelta(days=(_WEEKDAYS[weekday.lower()] - naive.weekday()) % 7)
-        ampm = next((a for a in ("ampm", "ampm2", "ampm3") if g.get(a)), "ampm")
-        text = g.get(ampm) or ""
-        dotted_m = ".M" in text
-        return _aware(naive, g, dotted_m, text.endswith(".M") and g.get("sign") is not None
-                      and m.start("sign") == m.end(ampm))
+        return _build(res, default)
     except (ValueError, OverflowError, OSError):
         return None

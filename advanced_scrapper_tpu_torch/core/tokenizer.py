@@ -59,6 +59,27 @@ def to_bytes(text: str | bytes) -> bytes:
     return text.encode("utf-8", errors="replace")
 
 
+def encode_batch(
+    texts: Sequence[str | bytes],
+    block_len: int | None = None,
+    *,
+    min_bucket: int = MIN_BUCKET,
+) -> tuple[np.ndarray, np.ndarray]:
+    """``(tokens uint8[B, L], lengths int32[B])`` of a batch of texts.
+    ``block_len`` None: ``L`` is the bucket of the longest text, so nothing
+    is cut; a text longer than a given ``block_len`` is cut to it."""
+    raw = [to_bytes(t) for t in texts]
+    longest = max((len(r) for r in raw), default=1)
+    L = block_len if block_len is not None else bucket_len(max(longest, 1), min_bucket)
+    tokens = np.zeros((len(raw), L), dtype=np.uint8)
+    lengths = np.zeros((len(raw),), dtype=np.int32)
+    for i, r in enumerate(raw):
+        n = min(len(r), L)
+        tokens[i, :n] = np.frombuffer(r[:n], dtype=np.uint8)
+        lengths[i] = n
+    return tokens, lengths
+
+
 def encode_blocks(
     texts: Sequence[str | bytes],
     block_len: int,

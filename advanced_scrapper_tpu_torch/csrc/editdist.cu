@@ -1,5 +1,7 @@
-// The matcher's Myers alignment bound with its prune compare fused in, by
-// hand for Hopper (sm_90a): Kernel F.
+// The matcher's Myers alignment bound, by hand for Hopper (sm_90a): two
+// kernels.  myers_bound (Kernel F, below first) takes every refine pattern
+// against every row with the prune compare fused in; myers_pairs (at the
+// end) takes one pattern per pair, for the legacy screen's refine.
 //
 // Replaces the reference's jnp semiglobal_dist_shared
 // (advanced_scrapper_tpu/ops/editdist.py:144) together with the compare
@@ -386,6 +388,119 @@ __global__ void __launch_bounds__(kPatterns, kMinBlocks)
   }
 }
 
+// ---------------------------------------------------------------------------
+// myers_pairs: one pattern per pair.
+//
+// Replaces the reference's jnp semiglobal_dist (advanced_scrapper_tpu/ops/
+// editdist.py:66 _semiglobal_core, :120), which prune_mask_tables (:222)
+// and the legacy screen's _refine_batch launch on the pairs that survived
+// the screen.  Input: the batch's texts joined in one buffer (text i:
+// tlens[i] bytes at row_off[i]), the index's masks uint32[K, 256] and
+// plens int32[K], and per pair its text pair_text[p] and pattern
+// pair_pat[p]; output out[p] = the same blocked distance as myers_bound's
+// (tiles at multiples of 512, live for min(len - start, 543) bytes, state
+// reset per tile, min over tiles, max(m, 1) for an empty text), or -1
+// where the pair's indices, its text's bounds or its pattern's length lie
+// out of range.  The prune compare (float64, as the reference's) runs on
+// the host.
+//
+// Bound: operations, 14 INT32 operations per live byte of each tile, as
+// for myers_bound.
+//
+// Design (simple): a thread per (pair, group of kPairChains tiles).  The
+// groups of a pair are dealt to kPairGroups threads (blockIdx.y, then
+// + kPairGroups, ...), so a long text runs on several threads; each thread
+// runs its tiles as independent Myers chains, one step of each in turn,
+// so the ALU sees kPairChains chains at every step; a chain past its
+// tile's end is predicated off.  The threads of a pair fold their minima
+// into out[p] by atomicMin, out[p] set to 0x7F7F7F7F first (a memset in the
+// same stream); the thread of group 0 always folds, so an empty text gives
+// max(m, 1) and a pair out of range -1.  The text byte and its mask word
+// come from global memory through the read-only cache (a pattern's 1 KiB
+// of masks is read by every step of its pairs); the pattern sits in the
+// low m bits and the high-bit tests read bit m - 1, as the reference
+// writes the recurrence.
+
+constexpr int kPairThreads = 128;  // threads (pairs) a block
+constexpr int kPairChains = 4;     // tiles of a pair in flight on a thread
+constexpr int kPairGroups = 16;    // threads that share a pair's tile groups
+
+struct PairArgs {
+  const uint8_t* text;
+  long long n_text;
+  const int64_t* row_off;
+  const int32_t* tlens;
+  int n_texts;
+  const uint32_t* masks;
+  const int32_t* plens;
+  int n_pat;
+  const int32_t* pair_text;
+  const int32_t* pair_pat;
+  int n_pairs;
+  int32_t* out;
+};
+
+__global__ void __launch_bounds__(kPairThreads) pairs_kernel(const PairArgs a) {
+  const int p = blockIdx.x * kPairThreads + threadIdx.x;
+  if (p >= a.n_pairs) return;
+  const bool first = blockIdx.y == 0;  // the thread of group 0 always folds
+  const int ti = a.pair_text[p];
+  const int pk = a.pair_pat[p];
+  if (ti < 0 || ti >= a.n_texts || pk < 0 || pk >= a.n_pat) {
+    if (first) atomicMin(a.out + p, -1);
+    return;
+  }
+  const int64_t off = a.row_off[ti];
+  const int len = a.tlens[ti];
+  const int plen = a.plens[pk];
+  if (off < 0 || len < 0 || off + len > a.n_text || plen < 0 || plen > 32) {
+    if (first) atomicMin(a.out + p, -1);
+    return;
+  }
+  constexpr int kGroupBytes = kPairChains * kBlock;
+  int g = blockIdx.y;
+  if (!first && g * kGroupBytes >= len) return;  // no tile of this thread's
+  const int m = max(plen, 1);
+  const uint32_t high = 1u << (m - 1);
+  const uint32_t* pm = a.masks + static_cast<int64_t>(pk) * 256;
+  const uint8_t* src = a.text + off;
+  int best = m;
+  for (; g * kGroupBytes < len; g += gridDim.y) {
+    const int t0 = g * kGroupBytes;
+    uint32_t pv[kPairChains], mv[kPairChains];
+    int score[kPairChains], eff[kPairChains];
+    int steps = 0;
+#pragma unroll
+    for (int c = 0; c < kPairChains; ++c) {
+      eff[c] = min(max(len - (t0 + c * kBlock), 0), kTile);
+      steps = max(steps, eff[c]);
+      pv[c] = ~0u;
+      mv[c] = 0u;
+      score[c] = m;
+    }
+    for (int j = 0; j < steps; ++j) {
+#pragma unroll
+      for (int c = 0; c < kPairChains; ++c) {
+        if (j < eff[c]) {
+          const uint32_t eq = __ldg(pm + __ldg(src + t0 + c * kBlock + j));
+          const uint32_t xv = eq | mv[c];
+          const uint32_t xh = (((eq & pv[c]) + pv[c]) ^ pv[c]) | eq;
+          uint32_t ph = mv[c] | ~(xh | pv[c]);
+          uint32_t mh = pv[c] & xh;
+          score[c] += ((ph & high) != 0u) - ((mh & high) != 0u);
+          // search variant: row 0 is free, so shift without OR-ing in bit 0
+          ph <<= 1;
+          mh <<= 1;
+          pv[c] = mh | ~(xv | ph);
+          mv[c] = ph & xv;
+          best = min(best, score[c]);
+        }
+      }
+    }
+  }
+  atomicMin(a.out + p, best);
+}
+
 }  // namespace
 
 extern "C" {
@@ -440,6 +555,34 @@ int astt_myers_bound(const void* text, const void* row_off, const void* row_len,
 
 // The chains each thread runs.
 int astt_myers_chains(void) { return kChains; }
+
+// See myers_pairs above.  Launches nothing for n_pairs 0.
+int astt_myers_pairs(const void* text, long long n_text, const void* row_off, const void* tlens,
+                     int n_texts, const void* masks, const void* plens, int n_pat,
+                     const void* pair_text, const void* pair_pat, int n_pairs, void* out,
+                     void* stream) {
+  if (n_pairs <= 0) return 0;
+  PairArgs a;
+  a.text = static_cast<const uint8_t*>(text);
+  a.n_text = n_text;
+  a.row_off = static_cast<const int64_t*>(row_off);
+  a.tlens = static_cast<const int32_t*>(tlens);
+  a.n_texts = n_texts;
+  a.masks = static_cast<const uint32_t*>(masks);
+  a.plens = static_cast<const int32_t*>(plens);
+  a.n_pat = n_pat;
+  a.pair_text = static_cast<const int32_t*>(pair_text);
+  a.pair_pat = static_cast<const int32_t*>(pair_pat);
+  a.n_pairs = n_pairs;
+  a.out = static_cast<int32_t*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // INT_MAX less a little in every word (0x7F7F7F7F): above any distance
+  cudaError_t err = cudaMemsetAsync(out, 0x7F, sizeof(int32_t) * n_pairs, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n_pairs + kPairThreads - 1) / kPairThreads, kPairGroups);
+  pairs_kernel<<<grid, kPairThreads, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
 
 const char* astt_myers_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

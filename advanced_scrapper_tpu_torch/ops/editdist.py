@@ -16,9 +16,20 @@ best = max(m, 1)``; the result is the min over tiles.  Dead tiles give
 
 PyTorch on the CPU has no ``uint32`` add, shift or min, so the plain
 version carries the 32-bit lanes in ``int64`` masked to 32 bits.
-:func:`myers_bound` launches the CUDA kernel (``csrc/editdist.cu``,
-``ops/editdist_cuda.py``) for tensors on the card and
-:func:`myers_bound_plain` for tensors on the CPU.
+Two forms, each with a CUDA kernel in ``csrc/editdist.cu`` (wrappers in
+``ops/editdist_cuda.py``) for tensors on the card and a plain version for
+tensors on the CPU:
+
+- :func:`myers_bound` (the fused screen's bound, every refine pattern
+  against every row, the reference's ``semiglobal_dist_shared``; kernel
+  ``myers_bound``, plain :func:`myers_bound_plain`);
+- :func:`semiglobal_dist` (one pattern per pair, the reference's
+  ``semiglobal_dist``, launched by the legacy screen's refine and by
+  :func:`prune_mask_tables`; kernel ``myers_pairs``, plain
+  :func:`semiglobal_dist_plain`).  Its prune compare is the reference's
+  float64 ``partial_ratio_bound(d, m) <= threshold``, on the host: it
+  differs from the fused step's float32 compare at a few points (``m =
+  10, d = 9, t = 55``).
 """
 
 from __future__ import annotations
@@ -35,6 +46,8 @@ BLOCK = 512       # the fused screen step's tile (the reference's refine_block)
 
 #: rows the plain bound holds in one batch of its [K, rows, tiles] state
 PLAIN_ROWS = 64
+#: pairs the plain per-pair distance holds in one batch of its [pairs, tiles] state
+PLAIN_PAIRS = 4096
 
 
 def build_pattern_masks(patterns: list[bytes]) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -217,3 +230,172 @@ def myers_bound(
                       threshold, mask)
     return myers_bound_plain(text, row_off, row_len, text_len, flags, masks, plens, ok,
                              cols, threshold, mask)
+
+
+# -- one pattern per pair: the reference's semiglobal_dist ---------------------
+
+
+def check_pairs(masks, plens, text, row_off, tlens, pair_text, pair_pat) -> None:
+    """Raise unless ``masks`` is ``uint32/int32[K, 256]``, ``plens
+    int32[K]``, ``text`` 1-D ``uint8``, ``row_off int64[T]``, ``tlens
+    int32[T]`` and ``pair_text``/``pair_pat`` ``int32[P]``, all on one
+    device.  Values are not read: a pair whose indices, text bounds or
+    pattern length lie out of range gets the distance -1."""
+    K = masks.shape[0] if masks.ndim == 2 else -1
+    if masks.dtype not in (torch.uint32, torch.int32) or masks.shape != (K, 256):
+        raise TypeError(f"masks must be uint32[K, 256], got {masks.dtype} {tuple(masks.shape)}")
+    if text.dtype != torch.uint8 or text.ndim != 1:
+        raise TypeError(f"text must be 1-D torch.uint8, got {text.dtype} {tuple(text.shape)}")
+    T, P = row_off.numel(), pair_text.numel()
+    for t, name, dt, n in ((plens, "plens", torch.int32, K), (row_off, "row_off", torch.int64, T),
+                           (tlens, "tlens", torch.int32, T),
+                           (pair_text, "pair_text", torch.int32, P),
+                           (pair_pat, "pair_pat", torch.int32, P)):
+        if t.dtype != dt or t.shape != (n,):
+            raise TypeError(f"{name} must be {dt}[{n}], got {t.dtype} {tuple(t.shape)}")
+        if t.device != text.device:
+            raise ValueError(f"{name} is on {t.device}, the text on {text.device}")
+    if masks.device != text.device:
+        raise ValueError(f"masks are on {masks.device}, the text on {text.device}")
+
+
+def semiglobal_dist_plain(
+    masks: torch.Tensor,      # uint32/int32[K, 256] pattern masks
+    plens: torch.Tensor,      # int32[K] pattern lengths (0..32)
+    text: torch.Tensor,       # uint8[N] the texts, joined
+    row_off: torch.Tensor,    # int64[T] each text's first byte in ``text``
+    tlens: torch.Tensor,      # int32[T] text lengths
+    pair_text: torch.Tensor,  # int32[P] each pair's text
+    pair_pat: torch.Tensor,   # int32[P] each pair's pattern
+    *,
+    block: int = BLOCK,
+    pairs_per_batch: int = PLAIN_PAIRS,
+) -> torch.Tensor:
+    """``int32[P]``: the reference's ``semiglobal_dist`` of each pair, in
+    plain PyTorch: pattern ``pair_pat[p]`` against text ``pair_text[p]``,
+    tiles at multiples of ``block`` reading ``block + 31`` bytes, the state
+    reset per tile, the min over tiles; an empty text gives ``max(m, 1)``.
+    A pair whose indices, text bounds or pattern length lie out of range
+    gives -1, as the kernel does."""
+    check_pairs(masks, plens, text, row_off, tlens, pair_text, pair_pat)
+    P, dev = pair_text.numel(), text.device
+    out = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    K, T, N = masks.shape[0], row_off.numel(), text.numel()
+    W = block + MAX_PATTERN - 1
+    masks64 = u32_values(masks).to(torch.int64)
+    for p0 in range(0, P, pairs_per_batch):
+        pt = pair_text[p0:p0 + pairs_per_batch].to(torch.int64)
+        pp = pair_pat[p0:p0 + pairs_per_batch].to(torch.int64)
+        good = (pt >= 0) & (pt < T) & (pp >= 0) & (pp < K)
+        pt, pp = torch.where(good, pt, 0), torch.where(good, pp, 0)
+        if T:
+            off, ln = row_off[pt], tlens[pt].to(torch.int64)
+            good &= (off >= 0) & (ln >= 0) & (off + ln <= N)
+        if K:
+            m = plens[pp].to(torch.int64)
+            good &= (m >= 0) & (m <= MAX_PATTERN)
+        sel = torch.nonzero(good).flatten()
+        if sel.numel() == 0:
+            continue
+        off, ln, pat = row_off[pt[sel]], tlens[pt[sel]].to(torch.int64), pp[sel]
+        nb = max(1, -(-int(ln.max()) // block))
+        starts = torch.arange(nb, device=dev, dtype=torch.int64) * block
+        eff = torch.clamp(ln[:, None] - starts[None, :], 0, W)          # [n, nb]
+        p = torch.clamp_min(plens[pat].to(torch.int64), 1)
+        high = (torch.ones_like(p) << (p - 1))[:, None]                 # [n, 1]
+        pm = masks64[pat]                                               # [n, 256]
+        score = p[:, None].expand(-1, nb).clone()
+        best = score.clone()
+        pv = torch.full_like(score, U32_MASK)
+        mv = torch.zeros_like(score)
+        base = off[:, None] + starts[None, :]
+        for j in range(int(eff.max())):
+            live = j < eff
+            pos = torch.where(live, base + j, 0)
+            eq = torch.gather(pm, 1, text[pos].to(torch.int64))
+            xv = eq | mv
+            xh = ((((eq & pv) + pv) & U32_MASK) ^ pv) | eq
+            ph = mv | (~(xh | pv) & U32_MASK)
+            mh = pv & xh
+            score2 = score + ((ph & high) != 0).to(torch.int64) - ((mh & high) != 0).to(torch.int64)
+            # search variant: row 0 is free, so shift without OR-ing in bit 0
+            ph = (ph << 1) & U32_MASK
+            mh = (mh << 1) & U32_MASK
+            pv = torch.where(live, mh | (~(xv | ph) & U32_MASK), pv)
+            mv = torch.where(live, ph & xv, mv)
+            score = torch.where(live, score2, score)
+            best = torch.where(live, torch.minimum(best, score), best)
+        out[p0 + sel] = best.amin(dim=1).to(torch.int32)
+    return out
+
+
+def semiglobal_dist(masks, plens, text, row_off, tlens, pair_text, pair_pat) -> torch.Tensor:
+    """``int32[P]`` per-pair distances (see :func:`semiglobal_dist_plain`):
+    the CUDA kernel ``myers_pairs`` for tensors on the card, the plain
+    version for tensors on the CPU."""
+    if text.device.type == "cuda":
+        from advanced_scrapper_tpu_torch.ops.editdist_cuda import myers_pairs
+
+        return myers_pairs(masks, plens, text, row_off, tlens, pair_text, pair_pat)
+    return semiglobal_dist_plain(masks, plens, text, row_off, tlens, pair_text, pair_pat)
+
+
+def bound_at_most(dist: np.ndarray, plens: np.ndarray, threshold: float) -> np.ndarray:
+    """``partial_ratio_bound(d, m) <= threshold`` in float64, the
+    reference's per-pair prune compare."""
+    return partial_ratio_bound(dist, plens) <= threshold
+
+
+def prune_mask_tables(
+    tables: tuple[np.ndarray, np.ndarray, np.ndarray],  # (masks, lens, ok)
+    texts_tok: np.ndarray,   # uint8[P, L] text per pair
+    text_lens: np.ndarray,   # int32[P], each at most L
+    pattern_ix: np.ndarray,  # int32[P] index into the patterns per pair
+    threshold: float,
+    *,
+    device=None,
+) -> np.ndarray:
+    """``bool[P]``: True where the pair can be pruned (bound ≤
+    ``threshold``).  Pairs whose pattern is empty or overlong, or whose
+    text is not strictly longer than the pattern, are never pruned, as in
+    the reference (rapidfuzz scores equal lengths both ways, which the
+    one-way bound does not cover); the others go to :func:`semiglobal_dist`
+    on ``device`` (None: the card) in one launch."""
+    from advanced_scrapper_tpu_torch import resolve_device
+
+    masks, lens, ok = tables
+    pattern_ix = np.asarray(pattern_ix, dtype=np.int32)
+    text_lens = np.asarray(text_lens, dtype=np.int32)
+    applicable = ok[pattern_ix] & (text_lens > lens[pattern_ix])
+    out = np.zeros(len(pattern_ix), dtype=bool)
+    if not applicable.any():
+        return out
+    P, L = texts_tok.shape
+    if int(text_lens.max()) > L:
+        raise ValueError(f"a text length exceeds the row width {L}")
+    dev = resolve_device(device)
+    sel = np.flatnonzero(applicable)
+    n = sel.size
+    text = torch.from_numpy(np.ascontiguousarray(texts_tok[sel], dtype=np.uint8).reshape(-1))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    d = semiglobal_dist(
+        t(masks.view(np.int32)).view(torch.uint32), t(lens.astype(np.int32)), text.to(dev),
+        t(np.arange(n, dtype=np.int64) * L), t(text_lens[sel]),
+        t(np.arange(n, dtype=np.int32)), t(pattern_ix[sel]))
+    out[sel] = bound_at_most(d.cpu().numpy(), lens[pattern_ix[sel]], threshold)
+    return out
+
+
+def prune_mask(
+    patterns: list[bytes],
+    texts_tok: np.ndarray,
+    text_lens: np.ndarray,
+    pattern_ix: np.ndarray,
+    threshold: float,
+    *,
+    device=None,
+) -> np.ndarray:
+    """:func:`prune_mask_tables` with the mask tables built on every call
+    (use the tables form in loops)."""
+    return prune_mask_tables(build_pattern_masks(patterns), texts_tok, text_lens, pattern_ix,
+                             threshold, device=device)

@@ -1,4 +1,4 @@
-"""Wrapper of the hand-written CUDA Myers bound (``csrc/editdist.cu``).
+"""Wrappers of the hand-written CUDA Myers kernels (``csrc/editdist.cu``).
 
 :func:`myers_bound` runs, in one launch, the matcher's alignment bound over
 the ragged rows of a chunk on the card and ORs the prune bit (bit 1) into
@@ -9,6 +9,12 @@ launches on PyTorch's current stream, raises if the launch returns a CUDA
 error, and counts its launches in a plain integer attribute
 (``myers_bound.launches``).  The plain version is
 ``ops.editdist.myers_bound_plain``; this wrapper never falls back to it.
+
+:func:`myers_pairs` runs, in one launch, the per-pair distance of the
+legacy screen's refine (one pattern per pair, the reference's jnp
+``ops/editdist.py:semiglobal_dist``) over texts joined in one buffer on
+the card; its plain version is ``ops.editdist.semiglobal_dist_plain``, and
+it counts its launches in ``myers_pairs.launches``.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ import numpy as np
 import torch
 
 from advanced_scrapper_tpu_torch.ops import _build
-from advanced_scrapper_tpu_torch.ops.editdist import check_patterns
+from advanced_scrapper_tpu_torch.ops.editdist import check_pairs, check_patterns
 from advanced_scrapper_tpu_torch.ops.match import check_rows
 
 _ptr = ctypes.c_void_p
@@ -36,6 +42,11 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_float, _ptr, ctypes.c_int, _ptr, _ptr,
     ]
     lib.astt_myers_bound.restype = ctypes.c_int
+    lib.astt_myers_pairs.argtypes = [
+        _ptr, ctypes.c_longlong, _ptr, _ptr, ctypes.c_int, _ptr, _ptr, ctypes.c_int, _ptr, _ptr,
+        ctypes.c_int, _ptr, _ptr,
+    ]
+    lib.astt_myers_pairs.restype = ctypes.c_int
     lib.astt_myers_chains.argtypes = []
     lib.astt_myers_chains.restype = ctypes.c_int
     lib.astt_myers_error_string.argtypes = [ctypes.c_int]
@@ -108,3 +119,48 @@ def myers_chains() -> int:
     """The Myers chains each thread of the built kernel runs (tiles in
     flight per thread)."""
     return _lib().astt_myers_chains()
+
+
+def myers_pairs(
+    masks: torch.Tensor,
+    plens: torch.Tensor,
+    text: torch.Tensor,
+    row_off: torch.Tensor,
+    tlens: torch.Tensor,
+    pair_text: torch.Tensor,
+    pair_pat: torch.Tensor,
+) -> torch.Tensor:
+    """``int32[P]``: the Myers distance of pattern ``pair_pat[p]``
+    (``masks uint32[K, 256]``, ``plens int32[K]``) against text
+    ``pair_text[p]`` (``tlens[i]`` bytes of ``text uint8[N]`` at
+    ``row_off[i]``), blocked as the reference's ``semiglobal_dist``; -1
+    where the pair's indices, its text's bounds or its pattern's length lie
+    out of range.  Every tensor on one card."""
+    if text.device.type != "cuda":
+        raise ValueError(
+            f"the CUDA kernel takes CUDA tensors, got {text.device}; the plain "
+            "version ops.editdist.semiglobal_dist_plain runs on the CPU"
+        )
+    check_pairs(masks, plens, text, row_off, tlens, pair_text, pair_pat)
+    for t in (masks, plens, text, row_off, tlens, pair_text, pair_pat):
+        if not t.is_contiguous():
+            raise ValueError("every tensor must be contiguous")
+    n = pair_text.numel()
+    out = torch.empty((n,), dtype=torch.int32, device=text.device)
+    if n:
+        if max(n, row_off.numel(), masks.shape[0]) > 0x7FFFFFFF:
+            raise ValueError("pairs, texts and patterns must each number below 2**31")
+        err = _lib().astt_myers_pairs(
+            text.data_ptr(), text.numel(), row_off.data_ptr(), tlens.data_ptr(),
+            row_off.numel(), masks.data_ptr(), plens.data_ptr(), masks.shape[0],
+            pair_text.data_ptr(), pair_pat.data_ptr(), n, out.data_ptr(),
+            torch.cuda.current_stream(text.device).cuda_stream,
+        )
+        if err:
+            msg = _lib().astt_myers_error_string(err).decode()
+            raise RuntimeError(f"myers_pairs launch failed: CUDA error {err} ({msg})")
+        myers_pairs.launches += 1
+    return out
+
+
+myers_pairs.launches = 0

@@ -25,17 +25,28 @@ from advanced_scrapper_tpu_torch.ops import _build
 PIPES = {"LOP3": "alu", "LEA": "alu", "VIMNMX": "alu", "SHF": "alu", "IADD3": "alu",
          "IMAD": "fma", "LDS": "mio", "LDG": "mio"}
 
+_FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)")
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 _TARGET = re.compile(r"`\((\.L_x_\d+)\)|\b(0x[0-9a-f]+)\b")
 
 
-def parse_sass(text: str) -> list[tuple[int, str, str]]:
+def parse_sass(text: str, function: str | None = None) -> list[tuple[int, str, str]]:
     """``(address, opcode, operands)`` of every instruction in ``cuobjdump
     -sass`` output, with branch targets given as labels turned into
-    addresses (``BRA `(.L_x_3)``` or ``BRA 0x1a0``)."""
+    addresses (``BRA `(.L_x_3)``` or ``BRA 0x1a0``).  ``function``: only
+    the functions whose (mangled) name holds it; addresses restart in each
+    function, so a library of several kernels is read one kernel at a
+    time."""
     instrs, labels, pending = [], {}, []
+    keep = function is None
     for line in text.splitlines():
+        head = _FUNCTION.match(line)
+        if head and function is not None:
+            keep = function in head.group(1)
+            continue
+        if not keep:
+            continue
         lab = _LABEL.match(line)
         if lab:
             pending.append(lab.group(1))
@@ -125,9 +136,12 @@ def dump_sass(lib: Path) -> str:
                           check=True, timeout=120).stdout
 
 
-def sass_step_counts(lib: Path, step: str = "LDS.U8", global_loads: bool = False) -> dict:
-    """:func:`step_loop` of a built library's SASS."""
-    return step_loop(parse_sass(dump_sass(lib)), step, global_loads)
+def sass_step_counts(lib: Path, step: str = "LDS.U8", global_loads: bool = False,
+                     function: str | None = "bound_kernel") -> dict:
+    """:func:`step_loop` of a built library's SASS, of the functions whose
+    name holds ``function`` (the Myers bound's kernel by default:
+    ``editdist.cu`` also holds ``myers_pairs``)."""
+    return step_loop(parse_sass(dump_sass(lib), function), step, global_loads)
 
 
 def screen_sass(lib: Path) -> dict:

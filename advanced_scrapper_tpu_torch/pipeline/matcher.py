@@ -22,13 +22,21 @@ What differs is below the entry points:
   ``.to_dict("records")`` or lists of record dicts; the articles CSV is
   read and the outputs written by ``cpu/csvframe.py``, which reproduces
   pandas' parsing and writing; dates are read by ``core/dates.py``;
+- **the legacy screen** (``packed=False``, ``ASTPU_MATCH_PACKED=0``,
+  :func:`_legacy_screen`): ``screen_batch`` rows at a time, one
+  ``match_screen`` launch a batch over the batch's joined rows, then, with
+  ``use_refine``, the reference's per-pair refine (:func:`_refine_batch`):
+  the screen's fuzzy survivors among the refine names, one ``myers_pairs``
+  launch (``csrc/editdist.cu``) a batch that has pairs, over the batch's
+  texts joined in one buffer, and the reference's float64 prune compare
+  on the host;
 - **the streaming run** (:func:`run_matcher`): one screening thread feeds
   a queue of capacity 1; the caller's thread drains it, so CSV appends
-  stay single-writer and in chunk order.
+  stay single-writer and in chunk order.  ``MatchConfig.prewarm`` makes a
+  warm launch of each kernel first (:func:`prewarm_screen`).
 
-Not ported yet (they raise or are absent): the legacy per-batch loop
-(``packed=False``), ``prewarm_screen``, ``dispatch_probe``, the per-pair
-refine path (``_refine_batch``), and the ``obs`` counters and spans.
+Not ported yet (they are absent): ``EntityIndex.dispatch_probe`` (ROADMAP
+item 14, with the ``obs`` counters and spans).
 """
 
 from __future__ import annotations
@@ -516,6 +524,18 @@ def join_rows(rows: list, screen_block: int, device, clock=None):
             *ints)
 
 
+def _read_mask(mask) -> np.ndarray:
+    """The screen's ``uint8[rows, names]`` mask on the host: from the card
+    through pinned memory (synchronous: it waits for the kernels)."""
+    import torch
+
+    if mask.device.type != "cuda":
+        return mask.numpy()
+    back = torch.empty(mask.shape, dtype=torch.uint8, pin_memory=True)
+    back.copy_(mask)
+    return back.numpy()
+
+
 def screen_chunk(
     rows: list,
     index: EntityIndex,
@@ -533,8 +553,6 @@ def screen_chunk(
     ``prunes[a]`` holds the names whose screen and prune bits are both set
     (None where there is none).  The stage times land in
     ``index.last_screen_clock``."""
-    import torch
-
     from advanced_scrapper_tpu_torch.ops.editdist import myers_bound
     from advanced_scrapper_tpu_torch.ops.match import (
         MASK_SCREEN_KEEP,
@@ -558,12 +576,7 @@ def screen_chunk(
     if use_refine and refine_t is not None:
         myers_bound(text, row_off, row_len, text_len, flags, *refine_t, threshold, mask)
         clock.lap("bound")
-    if device.type == "cuda":
-        back = torch.empty(mask.shape, dtype=torch.uint8, pin_memory=True)
-        back.copy_(mask)  # synchronous: waits for the kernels
-    else:
-        back = mask
-    m = back.numpy()
+    m = _read_mask(mask)
     clock.lap("readback")
     keep = (m & MASK_SCREEN_KEEP).view(np.bool_)
     for local, a in enumerate(eligible.tolist()):
@@ -577,6 +590,174 @@ def screen_chunk(
                 prunes[int(eligible[local])] = set(cc[bounds[local]:bounds[local + 1]].tolist())
     clock.lap("scatter")
     return masks, prunes
+
+
+def _refine_pairs(batch, got, index: EntityIndex):
+    """The per-pair refine's work for one legacy batch, on the host: the
+    screen's survivors (``got[i]``, None for a row that was not screened)
+    among the refine names that are shorter than the row's text, for rows
+    whose text is non-empty ASCII.  ``(pair_row, pair_text, pair_k, tok,
+    lens)``: each pair's row, its text's index in ``tok``/``lens`` (the
+    rows' texts, ``text`` only, by ``encode_batch``: no text is cut) and
+    its refine name (a row of the index's refine masks); None without a
+    pair."""
+    from advanced_scrapper_tpu_torch.core.tokenizer import encode_batch
+
+    fuzzy_ix, _names, (_masks, name_lens, _ok) = _refine_candidates(index)  # ASCII names
+    pair_row: list[int] = []
+    pair_k: list[np.ndarray] = []
+    for i, (text, _title, _d, _r) in enumerate(batch):
+        if got[i] is None or not text or not text.isascii():
+            continue
+        # strictly longer only: equal lengths are never prunable
+        sel = np.flatnonzero(got[i][fuzzy_ix] & (len(text) > name_lens))
+        pair_row.extend([i] * sel.size)
+        pair_k.append(sel)
+    if not pair_row:
+        return None
+    row_ids = sorted(set(pair_row))
+    pos = dict(zip(row_ids, range(len(row_ids))))
+    tok, lens = encode_batch([batch[r][0] for r in row_ids])
+    pair_text = np.array([pos[r] for r in pair_row], dtype=np.int32)
+    return np.asarray(pair_row), pair_text, np.concatenate(pair_k), tok, lens
+
+
+def _refine_batch(batch, got, index: EntityIndex, threshold: float, device) -> list[set | None]:
+    """The reference's per-pair refine of one legacy batch: per row, the
+    set of entry indices whose text-side score is proven ≤ ``threshold``
+    (None where none is).  The pairs (:func:`_refine_pairs`) go to
+    ``device`` with the rows' texts in one buffer; one
+    :func:`semiglobal_dist` launch gives each pair's distance, read back
+    once; the prune compare is the reference's float64
+    ``partial_ratio_bound(d, m) <= threshold``.  No pair: no launch."""
+    import torch
+
+    from advanced_scrapper_tpu_torch.ops.editdist import bound_at_most, semiglobal_dist
+
+    out: list[set | None] = [None] * len(batch)
+    pairs = _refine_pairs(batch, got, index)
+    if pairs is None:
+        return out
+    pair_row, pair_text, ks, tok, lens = pairs
+    R, L, P = tok.shape[0], tok.shape[1], pair_row.size
+    head = -(-(R * L) // 8) * 8
+    buf = torch.empty((head + 12 * R + 8 * P,), dtype=torch.uint8,
+                      pin_memory=device.type == "cuda")
+    host = buf.numpy()
+    host[:R * L] = tok.reshape(-1)
+    host[head:head + 8 * R].view(np.int64)[:] = np.arange(R, dtype=np.int64) * L
+    ints = host[head + 8 * R:].view(np.int32)
+    ints[:R] = lens
+    ints[R:R + P] = pair_text
+    ints[R + P:] = ks
+    dev_buf = buf.to(device, non_blocking=True)
+    dev_ints = dev_buf[head + 8 * R:].view(torch.int32)
+    _screen_t, refine_t = index.device_tables(device)
+    d = semiglobal_dist(refine_t[0], refine_t[1], dev_buf[:R * L],
+                        dev_buf[head:head + 8 * R].view(torch.int64), dev_ints[:R],
+                        dev_ints[R:R + P], dev_ints[R + P:])
+    fuzzy_ix, _names, (_masks, name_lens, _ok) = _refine_candidates(index)
+    pruned = bound_at_most(d.cpu().numpy(), name_lens[ks], threshold)
+    for r, k in zip(pair_row[pruned].tolist(), fuzzy_ix[ks[pruned]].tolist()):
+        if out[r] is None:
+            out[r] = set()
+        out[r].add(k)
+    return out
+
+
+def _legacy_screen(
+    rows: list,
+    index: EntityIndex,
+    *,
+    use_refine: bool,
+    threshold: float,
+    screen_batch: int,
+    screen_block: int,
+    device,
+) -> tuple[list, list]:
+    """The reference's legacy screen loop (``packed=False``): ``(masks,
+    prunes)`` of a chunk's rows, ``screen_batch`` rows at a time.  Each
+    batch's rows of at most ``screen_block`` bytes are joined and copied
+    once (:func:`join_rows`), screened by one ``match_screen`` launch and
+    read back; with ``use_refine`` and refine names, :func:`_refine_batch`
+    then launches ``myers_pairs`` once where the batch has pairs.  Longer
+    rows get mask None (the full host scan) and no prunes."""
+    from advanced_scrapper_tpu_torch.ops.match import MASK_SCREEN_KEEP, match_screen
+
+    masks: list[np.ndarray | None] = [None] * len(rows)
+    prunes: list[set | None] = [None] * len(rows)
+    screen_t, refine_t = index.device_tables(device)
+    refine = use_refine and refine_t is not None
+    for start in range(0, len(rows), screen_batch):
+        batch = rows[start:start + screen_batch]
+        eligible, text, row_off, row_len, text_len, title_len, _flags = join_rows(
+            batch, screen_block, device)
+        if eligible.size == 0:
+            continue
+        mask = match_screen(text, row_off, row_len, text_len, title_len, screen_t,
+                            threshold=threshold)
+        keep = (_read_mask(mask) & MASK_SCREEN_KEEP).view(np.bool_)
+        got: list[np.ndarray | None] = [None] * len(batch)
+        for local, i in enumerate(eligible.tolist()):
+            got[i] = masks[start + i] = keep[local]
+        if refine:
+            prunes[start:start + len(batch)] = _refine_batch(batch, got, index, threshold,
+                                                             device)
+    return masks, prunes
+
+
+def prewarm_screen(
+    index: EntityIndex,
+    *,
+    use_refine: bool | None = None,
+    threshold: float = 95.0,
+    screen_block: int = 1 << 16,
+    packed: bool | None = None,
+    device=None,
+) -> int:
+    """One warm launch of each kernel the screen's modes use, ahead of the
+    first chunk: ``match_screen``; with refine (``use_refine`` True or
+    None, and refine names), ``myers_bound`` for the packed screen or
+    ``myers_pairs`` for the legacy one (``packed`` None:
+    ``ASTPU_MATCH_PACKED``).  Each builds its kernel at first use, and the
+    index's tables go to the card.  Returns the number of launches made,
+    where the reference returns the number of tile shapes it compiled:
+    the port has no shape set."""
+    import torch
+
+    from advanced_scrapper_tpu_torch import resolve_device
+    from advanced_scrapper_tpu_torch.ops.editdist import myers_bound, semiglobal_dist
+    from advanced_scrapper_tpu_torch.ops.match import match_screen
+
+    if not index.entries:
+        return 0
+    dev = resolve_device(device)
+    if packed is None:
+        packed = _match_cfg().packed
+    screen_t, refine_t = index.device_tables(dev)
+    _e, text, row_off, row_len, text_len, title_len, flags = join_rows(
+        [("warm up the screen", "warm", None, None)], screen_block, dev)
+    mask = match_screen(text, row_off, row_len, text_len, title_len, screen_t,
+                        threshold=threshold)
+    launches = 1
+    if use_refine is not False and refine_t is not None:
+        if packed:
+            myers_bound(text, row_off, row_len, text_len, flags, *refine_t, threshold, mask)
+        else:
+            zero = torch.zeros((1,), dtype=torch.int32, device=dev)
+            semiglobal_dist(refine_t[0], refine_t[1], text, row_off, row_len, zero, zero)
+        launches += 1
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return launches
+
+
+def _match_cfg() -> MatchConfig:
+    """The ``ASTPU_MATCH_*`` knobs, read on every call, for callers of
+    ``match_chunk*`` that pass no explicit value."""
+    from advanced_scrapper_tpu_torch.config import from_env
+
+    return from_env(MatchConfig, "match")
 
 
 def _records(chunk) -> list[dict]:
@@ -601,18 +782,18 @@ def match_chunk_async(
 ):
     """Screen + submit a chunk NOW; return a zero-arg ``collect()`` whose
     call yields :func:`match_chunk`'s result.  With a pool the verify
-    slices are already in flight when this returns.  ``screen_batch``,
+    slices are already in flight when this returns.  ``packed`` (None:
+    ``ASTPU_MATCH_PACKED``) picks the one-buffer screen
+    (:func:`screen_chunk`) or the legacy per-batch loop
+    (:func:`_legacy_screen`, ``screen_batch`` rows a batch);
     ``screen_tile_bytes``, ``dispatch_window`` and ``screen_put_workers``
-    are the reference's tile-plane knobs and are read by nothing here;
-    ``packed=False`` (the legacy loop) raises.  ``device`` is where the
-    screen runs: None means ``cuda``; ``"cpu"`` runs the plain versions."""
+    are the reference's tile-plane knobs and are read by nothing here.
+    ``device`` is where the screen runs: None means ``cuda``; ``"cpu"``
+    runs the plain versions."""
     if not (use_refine is True or use_refine is False or use_refine == "auto"):
         raise ValueError(f"use_refine must be True/False/'auto', got {use_refine!r}")
     if use_refine is True and not use_screen:
         raise ValueError("use_refine requires use_screen (see DESIGN.md §4)")
-    if packed is False:
-        raise NotImplementedError(
-            "packed=False (the reference's legacy per-batch screen loop) is a later slice")
     if use_refine == "auto":
         ctrl = getattr(index, "refine_controller", None)
         use_refine = ctrl.verdict() if ctrl is not None else False
@@ -629,10 +810,19 @@ def match_chunk_async(
     if use_screen and index.entries and rows:
         from advanced_scrapper_tpu_torch import resolve_device
 
-        masks, text_prunes = screen_chunk(
-            rows, index, use_refine=bool(use_refine), threshold=threshold,
-            screen_block=screen_block, device=resolve_device(device),
-        )
+        if packed is None:
+            packed = _match_cfg().packed
+        if packed:
+            masks, text_prunes = screen_chunk(
+                rows, index, use_refine=bool(use_refine), threshold=threshold,
+                screen_block=screen_block, device=resolve_device(device),
+            )
+        else:
+            masks, text_prunes = _legacy_screen(
+                rows, index, use_refine=bool(use_refine), threshold=threshold,
+                screen_batch=screen_batch, screen_block=screen_block,
+                device=resolve_device(device),
+            )
 
     if pool is not None and len(rows) > 1:
         # ship (text, title, date, row-INDEX); the record stays here
@@ -845,17 +1035,14 @@ def run_matcher(
     ``cfg.verify_workers``; 0 = ``os.cpu_count()``), created before the
     screen touches the card.  One screening thread reads and screens
     chunk i+1 while this thread drains chunk i (a queue of capacity 1);
-    CSV appends stay here: single writer, chunk order.  ``device`` is
-    where the screen runs (None: ``cuda``)."""
+    CSV appends stay here: single writer, chunk order.  ``cfg.packed``
+    picks the screen (False: the legacy per-batch loop); ``cfg.prewarm``
+    makes a warm launch of each of its kernels first.  ``device`` is where
+    the screen runs (None: ``cuda``)."""
     articles_csv = articles_csv or cfg.articles_csv
     if not os.path.exists(articles_csv):
         print(f"Articles CSV '{articles_csv}' not found.")
         return 1
-    if not cfg.packed:
-        raise NotImplementedError(
-            "packed=False (the reference's legacy per-batch screen loop) is a later slice")
-    if cfg.prewarm:
-        raise NotImplementedError("prewarm (the screen's shape-set warmup) is a later slice")
     index = EntityIndex.from_info_dir(cfg.info_dir)
     out_dir = f"{cfg.source_name}{cfg.out_dir_suffix}"
     os.makedirs(out_dir, exist_ok=True)
@@ -864,6 +1051,10 @@ def run_matcher(
         raise ValueError("use_refine requires use_screen (see DESIGN.md §4)")
     if workers is None:
         workers = cfg.verify_workers
+    if cfg.prewarm and use_screen and index.entries:
+        # a forced mode warms only what it can launch; "auto" warms both
+        prewarm_screen(index, use_refine=None if use_refine == "auto" else bool(use_refine),
+                       threshold=cfg.fuzzy_threshold, packed=cfg.packed, device=device)
     pool = make_verify_pool(index, workers)
     n_matches = 0
     controller = RefineController() if use_refine == "auto" and use_screen else None
@@ -885,7 +1076,7 @@ def run_matcher(
         t0 = time.perf_counter()
         collect = match_chunk_async(
             chunk, index, use_screen=use_screen, use_refine=mode,
-            threshold=cfg.fuzzy_threshold, pool=pool, device=device,
+            threshold=cfg.fuzzy_threshold, pool=pool, packed=cfg.packed, device=device,
         )
         return (collect, mode, time.perf_counter() - t0, len(chunk))
 

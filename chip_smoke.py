@@ -67,6 +67,14 @@ card and CPU manifests byte-equal on a 2,048-article cut.
 Then the card engines and the CPU engines (estimator-only, default,
 ``rerank=False``) must agree on 2,048 articles.
 
+The port's entry points: ``entry()`` (``entry_path``: its dedup step on
+the card equal to the CPU's, one ``minhash_sig`` launch, the planted row
+resolved) and the CLI through ``cli.main`` (``cli_path``): ``dedup`` over
+2,048 lines, whole and ``--stream``, ``xdedup`` over three 1,024-row
+sources and ``match --workers 1`` over 256 S&P articles, each on the card
+and with ``--device cpu``, outputs byte-equal, each card command's
+kernels launched.
+
 Last, the matcher (``pipeline/matcher.py``) at S&P scale, from a seed: 500
 tickers, ~4,500 names, one chunk of 20,000 articles with planted mentions,
 decoys, non-ASCII and overlong articles.  Its kernels ``match_screen`` and
@@ -75,7 +83,9 @@ cases (row lengths 0-65,536, a misaligned base, gram-less and truncated
 names, thresholds 95, 90, 80, 97.5 and 50, patterns of 1 and 32 bytes and
 ``ok`` False, two chunks into one set of tables; ``myers_bound`` also on
 300 patterns in three groups, one with a non-ASCII pattern, over rows of
-0 to 2T + 1 tiles with every tail class and gated-out rows between); then
+0 to 2T + 1 tiles with every tail class and gated-out rows between;
+``myers_pairs``, one pattern per pair, on texts of 0 to 65,536 bytes and
+pairs out of range); then
 ``match_chunk`` runs screen-only and with the bound forced (timed on a
 later call: one launch of each kernel per chunk, every planted mention
 found, both modes' matches equal), ``run_matcher`` runs end to end (the
@@ -86,7 +96,12 @@ instructions per step, by pipe with the floor each pipe sets;
 ``match_screen`` with its rows a block and SASS instructions per (row,
 gram) and per written pair), and card and CPU must agree on a
 256-article subset (64 with the bound forced) and write byte-equal CSV
-trees.  Any failed check exits non-zero.
+trees.  The legacy screen (``packed=False``, ``matcher_legacy``) takes
+the same chunk in both modes: its matches equal the packed screen's, one
+``match_screen`` launch a batch of 128 and one ``myers_pairs`` launch a
+batch with pairs, card and CPU trees equal on 256 (64 forced), and
+``myers_pairs`` timed on the chunk's batches.  Any failed check exits
+non-zero.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the card's name and power limit from nvidia-smi,
@@ -645,6 +660,307 @@ def check_myers_edges(dev) -> int:
     return 6
 
 
+def check_myers_pairs_vs_plain(dev) -> dict:
+    """``myers_pairs`` (one pattern per pair) bit-equal to
+    ``semiglobal_dist_plain`` on the CPU: patterns of 1 to 32 bytes, of
+    non-ASCII bytes, empty and of a length out of range; texts of 0, 1,
+    T - 1, T, T + 1, 543, 544, 2T + 1, 3T + 31 and 65,536 bytes and of every
+    byte value, a pattern planted across a tile edge, the buffer 3 bytes
+    off its alignment; every (text, pattern) pair, 20,000 random ones, and
+    pairs whose indices or text lie out of range (-1)."""
+    from advanced_scrapper_tpu_torch.ops import editdist_cuda
+    from advanced_scrapper_tpu_torch.ops.editdist import build_pattern_masks, semiglobal_dist_plain
+
+    rng = np.random.RandomState(41)
+    T = 512
+    pats = [bytes(rng.randint(97, 101, size=m, dtype=np.uint8)) for m in range(1, 33)]
+    pats += [bytes(rng.randint(0, 256, size=rng.randint(1, 33), dtype=np.uint8))
+             for _ in range(8)] + [b"", b"z" * 32]
+    masks, plens, _ok = build_pattern_masks(pats)
+    plens[-1] = 33  # a length out of range
+    lengths = (0, 1, 7, 31, 32, T - 1, T, T + 1, 543, 544, 2 * T + 1, 3 * T + 31, 4096, 65536)
+    texts = [bytes(rng.randint(97, 101, size=n, dtype=np.uint8)) for n in lengths]
+    texts.append(bytes(rng.randint(0, 256, size=3000, dtype=np.uint8)))
+    texts[10] = texts[10][:T - 5] + pats[20] + texts[10][T - 5 + len(pats[20]):]
+    lead = 3
+    blob = b"abc" + b"".join(texts)
+    tl = np.array([len(t) for t in texts] + [10], np.int32)
+    off = np.zeros(len(tl), np.int64)
+    off[1:len(texts)] = np.cumsum(tl[:len(texts) - 1])
+    off[:len(texts)] += lead
+    off[-1] = len(blob) - 2  # a text past the buffer's end
+    n, K = len(tl), len(pats)
+    pt = [np.repeat(np.arange(n), K), rng.randint(0, n, 20000), [-1, n, 0, 0]]
+    pp = [np.tile(np.arange(K), n), rng.randint(0, K, 20000), [0, 0, -1, K]]
+    pt, pp = (np.concatenate(x).astype(np.int32) for x in (pt, pp))
+    host = [torch.from_numpy(masks.view(np.int32)).view(torch.uint32), torch.from_numpy(plens),
+            torch.frombuffer(bytearray(blob), dtype=torch.uint8), torch.from_numpy(off),
+            torch.from_numpy(tl), torch.from_numpy(pt), torch.from_numpy(pp)]
+    card_args = [t.to(dev) for t in host]
+    want = semiglobal_dist_plain(*card_args).cpu()
+    got = editdist_cuda.myers_pairs(*card_args).cpu()
+    assert torch.equal(got, want), "myers_pairs differs from semiglobal_dist_plain"
+    empty = editdist_cuda.myers_pairs(*card_args[:5], *(t[:0] for t in card_args[5:]))
+    assert empty.shape == (0,)
+    return {"myers_pairs_pairs": int(pt.size), "myers_pairs_minus_one": int((want == -1).sum()),
+            "myers_pairs_zero": int((want == 0).sum()), "myers_pairs_equal": True}
+
+
+def entry_path(card: str) -> None:
+    """The port's ``entry()`` (``advanced_scrapper_tpu_torch/entry.py``):
+    its dedup step on the card against the same step on the CPU, with the
+    launch counters set to 0 just before the card's call: one
+    ``minhash_sig`` launch and no other; the planted copy (row 128)
+    resolved to row 0."""
+    from advanced_scrapper_tpu_torch.entry import entry
+
+    fn, args = entry()
+    fn(*args)  # warm: the kernel's library
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn(*args).cpu()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    cpu_fn, cpu_args = entry(device="cpu")
+    want = cpu_fn(*cpu_args)
+    equal = torch.equal(out, want)
+    log("entry_path", rows=int(args[0].shape[0]), width=int(args[0].shape[1]), seconds=seconds,
+        launches=launches, reps_equal=equal, planted_rep=int(out[128]),
+        merged_rows=int((out != torch.arange(out.numel(), dtype=out.dtype)).sum()), card=card)
+    assert equal, "entry() differs between the card and the CPU"
+    assert int(out[128]) == 0, "entry(): the planted copy is not resolved"
+    assert launches["minhash_sig"] == 1 and sum(launches.values()) == 1, launches
+
+
+def cli_run(argv: list[str]) -> dict:
+    """``cli.main(argv)`` with its standard output kept, the launch
+    counters set to 0 just before and read just after."""
+    import contextlib
+    import io
+
+    from advanced_scrapper_tpu_torch import cli
+
+    reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return {"rc": rc, "seconds": time.perf_counter() - t0, "launches": read_launches(),
+            "stdout": buf.getvalue()}
+
+
+def cli_path(card: str) -> None:
+    """The port's CLI through ``cli.main`` on the card and with ``--device
+    cpu``: ``dedup`` over 2,048 near-dup-heavy lines (the whole corpus,
+    and ``--stream``), ``xdedup`` over two CSVs and a sqlite store of
+    1,024 rows each, and ``match --workers 1`` over 256 articles of the
+    S&P entity set (its knobs from ``ASTPU_MATCH_*``).  Each output equal,
+    byte for byte; each card run launched its kernels."""
+    import tempfile
+
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    rng = np.random.RandomState(31)
+    lines = [d.replace(b"\n", b" ").replace(b"\r", b" ").decode("utf-8", "replace")
+             for d in rerank_corpus(rng, CLI_LINES)]
+    corpus = os.path.join(root, "corpus.txt")
+    with open(corpus, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    report: dict = {}
+    for mode, extra, kernel in (("dedup", [], "minhash_fold_segments"),
+                                ("dedup_stream", ["--stream"], "minhash_fold_segments")):
+        runs, outs = {}, {}
+        for device in ("cuda", "cpu"):
+            path = os.path.join(root, f"{mode}_{device}.txt")
+            runs[device] = cli_run(["--device", device, "dedup", corpus, *extra, "-o", path])
+            with open(path, "rb") as fh:
+                outs[device] = fh.read()
+        report[mode] = {"rc": [r["rc"] for r in runs.values()],
+                        "seconds": {d: r["seconds"] for d, r in runs.items()},
+                        "launches": runs["cuda"]["launches"], "kept": outs["cuda"].count(b"\n"),
+                        "equal": outs["cuda"] == outs["cpu"]}
+        assert report[mode]["rc"] == [0, 0] and report[mode]["equal"], (mode, report[mode])
+        assert runs["cuda"]["launches"][kernel] > 0, (mode, runs["cuda"]["launches"])
+        assert 0 < report[mode]["kept"] < CLI_LINES
+
+    docs = rerank_corpus(rng, 3 * CLI_SOURCE_ROWS)
+    parts = [[(f"https://x/{k}/{i}", d.decode("utf-8", "replace"))
+              for i, d in enumerate(docs[k * CLI_SOURCE_ROWS:(k + 1) * CLI_SOURCE_ROWS])]
+             for k in range(3)]
+    sources = write_sources(root, parts)
+    runs, outs = {}, {}
+    for device in ("cuda", "cpu"):
+        path = os.path.join(root, f"xdedup_{device}.csv")
+        runs[device] = cli_run(["--device", device, "xdedup", *sources, "-o", path])
+        with open(path, "rb") as fh:
+            outs[device] = fh.read()
+    report["xdedup"] = {"rc": [r["rc"] for r in runs.values()],
+                        "seconds": {d: r["seconds"] for d, r in runs.items()},
+                        "launches": runs["cuda"]["launches"],
+                        "stats": json.loads(runs["cuda"]["stdout"]),
+                        "equal": outs["cuda"] == outs["cpu"]
+                        and runs["cuda"]["stdout"] == runs["cpu"]["stdout"]}
+    assert report["xdedup"]["rc"] == [0, 0] and report["xdedup"]["equal"], report["xdedup"]
+    assert runs["cuda"]["launches"]["minhash_fold_segments"] > 0, runs["cuda"]["launches"]
+
+    entities = sp500_entities(np.random.RandomState(17))
+    records, _planted = sp500_articles(rng, entities, MATCH_SUBSET)
+    info, articles = write_matcher_inputs(os.path.join(root, "match"), entities, records)
+    knobs = {"ASTPU_MATCH_INFO_DIR": info, "ASTPU_MATCH_ARTICLES_CSV": articles}
+    saved = {k: os.environ.get(k) for k in (*knobs, "ASTPU_MATCH_SOURCE_NAME")}
+    runs, trees = {}, {}
+    try:
+        os.environ.update(knobs)
+        for device in ("cuda", "cpu"):
+            source = os.path.join(root, f"match_{device}")
+            os.environ["ASTPU_MATCH_SOURCE_NAME"] = source
+            runs[device] = cli_run(["--device", device, "match", "--workers", "1"])
+            trees[device] = tree_bytes(source + "_ticker_matched_articles")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    report["match"] = {"rc": [r["rc"] for r in runs.values()],
+                       "seconds": {d: r["seconds"] for d, r in runs.items()},
+                       "launches": runs["cuda"]["launches"], "files": len(trees["cuda"]),
+                       "equal": trees["cuda"] == trees["cpu"]}
+    assert report["match"]["rc"] == [0, 0] and report["match"]["equal"], report["match"]
+    assert trees["cuda"] and runs["cuda"]["launches"]["match_screen"] > 0, report["match"]
+    log("cli_path", lines=CLI_LINES, source_rows=CLI_SOURCE_ROWS, articles=MATCH_SUBSET,
+        **report, card=card)
+    tmp.cleanup()
+
+
+def matcher_legacy(records, index, pool, packed_matches, info, entities, tmp: str,
+                   clock_mhz: float, card: str) -> dict:
+    """The legacy screen (``packed=False``) over the S&P chunk, screen-only
+    and with the refine forced, on the card with the verify pool: its
+    matches equal the packed screen's; one ``match_screen`` launch a
+    batch of 128 rows and, forced, one ``myers_pairs`` launch a batch that
+    has pairs (the pairs found independently from the packed screen's
+    masks, by ``_refine_pairs``); card and CPU write byte-equal CSV trees
+    on 256 articles (64 with the refine forced).  Then ``myers_pairs`` on
+    the chunk's batches, timed by the profiler (device ms per recorded
+    launch), beside its plain version on the card (every batch's pairs in
+    one call, per launch) and its bound (14 INT32 operations a live
+    pair-step, the text, indices and masks moved once), all per launch:
+    the mean over the chunk's batches; returns the ``kernels`` line's
+    row."""
+    from advanced_scrapper_tpu_torch.config import MatchConfig
+    from advanced_scrapper_tpu_torch.ops import editdist_cuda
+    from advanced_scrapper_tpu_torch.ops.editdist import semiglobal_dist_plain
+    from advanced_scrapper_tpu_torch.pipeline.matcher import (
+        _get_col,
+        _refine_pairs,
+        match_chunk_async,
+        run_matcher,
+        screen_chunk,
+    )
+
+    dev = torch.device("cuda")
+    rows = [(_get_col(r, "article_text", "article"), _get_col(r, "title"), None, r)
+            for r in records]
+    masks, _p = screen_chunk(rows, index, use_refine=False, threshold=95.0,
+                             screen_block=1 << 16, device=dev)
+    want_e = want_f = 0
+    batches = []
+    for start in range(0, len(rows), MATCH_SCREEN_BATCH):
+        got = masks[start:start + MATCH_SCREEN_BATCH]
+        want_e += any(m is not None for m in got)
+        pairs = _refine_pairs(rows[start:start + MATCH_SCREEN_BATCH], got, index)
+        if pairs is not None:
+            want_f += 1
+            batches.append(pairs)
+
+    modes = {}
+    for mode, refine in (("screen_only", False), ("forced_refine", True)):
+        reset_launches()
+        t0 = time.perf_counter()
+        collect = match_chunk_async(records, index, pool=pool, use_refine=refine, packed=False,
+                                    screen_batch=MATCH_SCREEN_BATCH)
+        t1 = time.perf_counter()
+        res = collect()
+        t2 = time.perf_counter()
+        launches = read_launches()
+        equal = norm_matches(res) == packed_matches
+        modes[mode] = {"seconds": t2 - t0, "screen_s": t1 - t0, "verify_s": t2 - t1,
+                       "articles_per_s": len(records) / (t2 - t0), "matches": len(res),
+                       "launches": launches, "equal_to_packed": equal}
+        assert equal, f"the legacy screen ({mode}) changed the matches"
+        assert launches["match_screen"] == want_e and launches["myers_bound"] == 0, launches
+        assert launches["myers_pairs"] == (want_f if refine else 0), (launches, want_f)
+    assert want_f > 0, "no batch of the chunk has a refine pair"
+
+    # card vs CPU: CSV trees on 256 articles, 64 with the refine forced
+    sub_dir = os.path.join(tmp, "legacy_subset")
+    same = []
+    for n, refine in ((MATCH_SUBSET, "auto"), (MATCH_REFINE_SUBSET, True)):
+        _info, sub_csv = write_matcher_inputs(os.path.join(sub_dir, str(n)), entities,
+                                              records[:n])
+        trees = []
+        for dev_name in ("cuda", "cpu"):
+            c = MatchConfig(source_name=os.path.join(sub_dir, str(n), dev_name), info_dir=info,
+                            verify_workers=1, packed=False)
+            assert run_matcher(c, articles_csv=sub_csv, use_refine=refine, device=dev_name) == 0
+            trees.append(tree_bytes(c.source_name + c.out_dir_suffix))
+        same.append(trees[0] == trees[1] and len(trees[0]) > 0)
+    assert all(same), "card and CPU legacy matchers disagree"
+
+    # myers_pairs on the chunk's batches
+    _screen_t, (pmasks, plens, _ok, _cols) = index.device_tables(dev)
+    inputs, steps, moved, n_pairs = [], 0, 0, 0
+    for _row, pair_text, ks, tok, lens in batches:
+        L = tok.shape[1]
+        inputs.append((torch.from_numpy(tok.reshape(-1)).to(dev),
+                       torch.arange(tok.shape[0], dtype=torch.int64, device=dev) * L,
+                       torch.from_numpy(lens).to(dev), torch.from_numpy(pair_text).to(dev),
+                       torch.from_numpy(ks.astype(np.int32)).to(dev)))
+        tl = lens.astype(np.int64)[pair_text]
+        for start in range(0, int(tl.max()), 512):
+            steps += int(np.clip(tl - start, 0, 543).sum())
+        moved += int(lens.sum()) + 12 * tok.shape[0] + 8 * ks.size + 1028 * np.unique(ks).size
+        moved += 4 * ks.size  # the distances written
+        n_pairs += ks.size
+    outs: list = []
+
+    def run_pairs():
+        outs[:] = [editdist_cuda.myers_pairs(pmasks, plens, *b) for b in inputs]
+
+    run_pairs()
+    event_ms = cuda_ms(run_pairs, 3) / len(inputs)
+    seen = profiler_device_ms(run_pairs, ("pairs_kernel",))
+    ms, recorded = per_launch_ms(seen, "pairs_kernel")
+    ms_from = "profiler" if recorded else "events"
+    ms = ms or event_ms
+    # the plain version on every batch's pairs at once: the same work
+    texts = torch.cat([b[0] for b in inputs])
+    base = np.cumsum([0] + [b[0].numel() for b in inputs[:-1]])
+    first = np.cumsum([0] + [b[2].numel() for b in inputs[:-1]])
+    joined = (texts, torch.cat([b[1] + int(o) for b, o in zip(inputs, base)]),
+              torch.cat([b[2] for b in inputs]),
+              torch.cat([b[3] + int(f) for b, f in zip(inputs, first)]),
+              torch.cat([b[4] for b in inputs]))
+    plain: list = []
+    plain_ms = cuda_ms(lambda: plain.append(
+        semiglobal_dist_plain(pmasks, plens, *joined, pairs_per_batch=1 << 16))) / len(inputs)
+    assert torch.equal(torch.cat(outs), plain[0]), "myers_pairs differs from plain on the chunk"
+    ops_ms, bytes_ms = bound_ms(14 * steps, moved, clock_mhz)
+    ops_ms, bytes_ms = ops_ms / len(inputs), bytes_ms / len(inputs)
+    row = dict(name="myers_pairs", batches=len(inputs), pairs=n_pairs, pair_steps=steps,
+               int_ops=14 * steps, bytes=moved, ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms,
+               ms=ms, ms_from=ms_from, event_ms=event_ms, plain_ms=plain_ms,
+               share_of_bound=max(ops_ms, bytes_ms) / ms, profiler_launches=recorded,
+               per="launch (the mean over the chunk's batches)")
+    log("kernel_timing", **row, clock_max_sm_mhz=clock_mhz, card=card)
+    log("matcher_legacy", articles=len(records), screen_batch=MATCH_SCREEN_BATCH,
+        batches_screened=want_e, batches_with_pairs=want_f, modes=modes,
+        card_vs_cpu_trees_equal=same, card=card)
+    return dict(row, launches=modes["forced_refine"]["launches"]["myers_pairs"])
+
+
 def check_match_vs_plain(dev) -> dict:
     """Phase 3, the matcher: ``match_screen`` bit-equal to ``screen_plain``
     and ``myers_bound`` bit-equal to ``myers_bound_plain`` (the mask bits)
@@ -733,6 +1049,9 @@ MATCH_TICKERS = 500      # S&P 500 (DESIGN.md: 500 tickers, ~4,700 names)
 MATCH_ARTICLES = 20000   # one chunk at MatchConfig.chunk_size
 MATCH_SUBSET = 256       # card vs CPU
 MATCH_REFINE_SUBSET = 64  # card vs CPU with the bound forced (the CPU's plain bound is slow)
+MATCH_SCREEN_BATCH = 128  # the legacy screen's rows a batch (match_chunk's default)
+CLI_LINES = 2048          # the CLI's dedup corpus, lines
+CLI_SOURCE_ROWS = 1024    # the CLI's xdedup sources, rows each
 
 
 def letters(rng: np.random.RandomState, lo: int, hi: int) -> str:
@@ -1049,10 +1368,11 @@ def myers_sass(pair_steps: int, clock_mhz: float) -> dict:
     return sass
 
 
-def matcher_path(clock_mhz: float, card: str) -> tuple[list, dict]:
+def matcher_path(clock_mhz: float, card: str) -> tuple[list, dict, dict]:
     """The matcher at S&P scale on the card (see the module docstring);
-    returns the kernel-line rows of ``match_screen`` and ``myers_bound``
-    and the launches counted on the path."""
+    returns the kernel-line rows of ``match_screen`` and ``myers_bound``,
+    the launches counted on the path, and the legacy screen's
+    ``myers_pairs`` row (:func:`matcher_legacy`)."""
     import tempfile
 
     from advanced_scrapper_tpu_torch.config import MatchConfig
@@ -1114,6 +1434,8 @@ def matcher_path(clock_mhz: float, card: str) -> tuple[list, dict]:
         n_read = sum(len(c) for c in read_csv_records(articles, MATCH_ARTICLES))
         read_s = time.perf_counter() - t3
         assert n_read == MATCH_ARTICLES and written == len(res)
+        legacy = matcher_legacy(records, index, pool, modes["screen_only"][0], info, entities,
+                                tmp.name, clock_mhz, card)
     finally:
         if pool is not None:
             pool.shutdown()
@@ -1167,7 +1489,7 @@ def matcher_path(clock_mhz: float, card: str) -> tuple[list, dict]:
     tmp.cleanup()
     launches = {"match_screen": modes["forced_refine"][1]["launches"]["match_screen"],
                 "myers_bound": modes["forced_refine"][1]["launches"]["myers_bound"]}
-    return timing, launches
+    return timing, launches, legacy
 
 
 def read_csv_records_all(path: str) -> list[dict]:
@@ -1196,7 +1518,7 @@ def launch_counters() -> dict:
     return {f.__name__: f for f in (
         minhash_cuda.minhash_fold_segments, minhash_cuda.minhash_fold,
         minhash_cuda.minhash_sig, rerank_cuda.rerank_settle, match_cuda.match_screen,
-        editdist_cuda.myers_bound)}
+        editdist_cuda.myers_bound, editdist_cuda.myers_pairs)}
 
 
 def reset_launches() -> None:
@@ -1872,7 +2194,8 @@ def main() -> int:
     log("kernel_vs_plain", **check_kernels_vs_plain(params, cfg, dev))
     log("segments_vs_plain", **check_segments_vs_plain(params, dev))
     log("rerank_kernel_vs_plain", **check_rerank_vs_plain(dev))
-    log("match_kernel_vs_plain", **check_match_vs_plain(dev))
+    log("match_kernel_vs_plain", **check_match_vs_plain(dev), **check_myers_pairs_vs_plain(dev))
+    entry_path(card)
 
     # -- phase 4: the main path at full width ------------------------------
     docs, planted = ragged_corpus(np.random.RandomState(7), MAIN_ARTICLES)
@@ -2167,8 +2490,10 @@ def main() -> int:
     assert default_equal and async_equal and stats_equal, "card and CPU default engines disagree"
     assert cert_equal and checks_equal, "card and CPU exact-verify engines disagree"
 
+    cli_path(card)
+
     # -- the matcher at S&P scale -------------------------------------------
-    timing, match_launches = matcher_path(clock_mhz, card)
+    timing, match_launches, legacy = matcher_path(clock_mhz, card)
     for t, source, replaces in zip(
         timing, ("advanced_scrapper_tpu_torch/csrc/match.cu",
                  "advanced_scrapper_tpu_torch/csrc/editdist.cu"),
@@ -2179,6 +2504,14 @@ def main() -> int:
         kernels.append(kernel_entry(
             t["name"], match_launches[t["name"]], t["ms"], t["plain_ms"], ops_ms,
             t["bytes_bound_ms"], source=source, replaces=replaces, rows=t["rows"]))
+    kernels.append(kernel_entry(
+        "myers_pairs", legacy["launches"], legacy["ms"], legacy["plain_ms"],
+        legacy["ops_bound_ms"], legacy["bytes_bound_ms"],
+        source="advanced_scrapper_tpu_torch/csrc/editdist.cu",
+        replaces="advanced_scrapper_tpu/ops/editdist.py:66 (_semiglobal_core under "
+        "semiglobal_dist :120, jnp)", pairs=legacy["pairs"], batches=legacy["batches"],
+        per=legacy["per"]))
+    assert len(kernels) == 7, [k["name"] for k in kernels]
 
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi("name,power.limit"))

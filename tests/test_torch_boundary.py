@@ -60,7 +60,8 @@ def test_port_files_found():
                 "utils/bloom.py", "storage/fsio.py", "ops/exact.py", "cpu/exactdedup.py",
                 "index/__init__.py", "index/wal.py", "index/segment.py", "index/store.py",
                 "index/repair.py", "storage/backends.py", "storage/stores.py",
-                "storage/csvio.py", "pipeline/cross_source.py"):
+                "storage/csvio.py", "pipeline/cross_source.py", "entry.py", "cli.py",
+                "__main__.py"):
         assert f"advanced_scrapper_tpu_torch/{rel}" in FILES, rel
     for name in NATIVE:
         assert (PORT / "native" / name).exists(), name

@@ -63,6 +63,10 @@ READ = [
     "06/01/2020 0330", "2020-06-01T0330", "1st June 2020 0330 P.M.", "06/01/2020 03 GMT",
     "06/01/2020 24", "2020-06-01 12:00 EST +2", "2020-06-01 12:00 GMT +0200",
     "2020-06-01 12:00 Z +2", "2020-06-01 12:00 GMT + 2",
+    # jump words, a comma after the year, a time before the date, a bare
+    # year, -HH:MM after a number that completes a partial date
+    "June 1 03 -04:30", "Jun 1, 2020, 3:04 PM", "June 1, 2020 at 3:04 PM", "on June 1 2020",
+    "1st of June 2020", "June 1 2020 and 3pm", "3:04 PM June 1 2020", "2020",
 ]
 
 #: forms whose fields dateutil fills from today: the day past the month's
@@ -135,6 +139,10 @@ SWEEP_DATES = [
     "2020-06-01", "06/01/2020", "June 1, 2020", "1 Jun 2020", "Mon, 01 Jun 2020",
     "1st June 2020", "2020/06/01", "1/6/20", "June 2020", "June 1", "1/6", "Jun. 1 2020",
     "20200601", "6/2020", "Sept. 2020", "13/06/2020",
+    # jump words, a comma after the year, a bare year, a number that
+    # completes a partial date with -HH:MM after it
+    "on June 1 2020", "1st of June 2020", "June 1, 2020 at", "June 1 2020 and",
+    "Jun 1, 2020,", "2020", "June 1 03 -04:30",
 ]
 SWEEP_TIMES = ["", "03", "15", "0330", "3:45", "15:45:10", "3 PM", "3:45 P.M.", "12:00 AM",
                "03:30:00.5", "15 P.M.", "0330 PM"]
@@ -151,6 +159,29 @@ def test_parse_date_sweep_as_dateutil(form, monkeypatch):
     time.tzset()
     try:
         raws = [" ".join(x for x in (form, t, z) if x)
+                for t, z in itertools.product(SWEEP_TIMES, SWEEP_ZONES)]
+        got, want = on_one_day(lambda: ([parse_date(r) for r in raws],
+                                        [dateutil_parse(r) for r in raws]))
+        wrong = [(r, g, w) for r, g, w in zip(raws, got, want) if not same_date(g, w)]
+        assert not wrong, wrong[:5]
+        assert len(raws) == 228 and any(w is not None for w in want)
+    finally:
+        monkeypatch.undo()
+        time.tzset()
+
+
+#: date forms the sweep also writes after the time and zone
+SWEEP_TIME_FIRST = ["June 1 2020", "on June 1, 2020", "2020-06-01", "06/01/2020", "2020"]
+
+
+@pytest.mark.parametrize("form", SWEEP_TIME_FIRST)
+def test_parse_date_sweep_time_first_as_dateutil(form, monkeypatch):
+    """Every time and zone written before a date form (``3:04 PM June 1
+    2020``) reads as dateutil reads it."""
+    monkeypatch.setenv("TZ", "UTC")
+    time.tzset()
+    try:
+        raws = [" ".join(x for x in (t, z, form) if x)
                 for t, z in itertools.product(SWEEP_TIMES, SWEEP_ZONES)]
         got, want = on_one_day(lambda: ([parse_date(r) for r in raws],
                                         [dateutil_parse(r) for r in raws]))

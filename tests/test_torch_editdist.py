@@ -366,3 +366,131 @@ def test_probe_variants_cover_the_chain_counts():
     assert chains == {"2", "4", "5", "8"}
     with pytest.raises(ValueError, match="not once"):
         myers_probe.patched(src, [("kChains = 3;", "kChains = 2;")])
+
+
+def test_sass_reads_one_function_of_several():
+    """A library of two kernels: addresses restart in each function, so
+    the reader takes the named one alone."""
+    other = SASS.replace("bound_kernel", "pairs_kernel").replace("LDS.U8", "LDG.E.U8")
+    both = sass.parse_sass(SASS + other)
+    assert len(both) == 2 * len(sass.parse_sass(SASS))
+    assert sass.parse_sass(SASS + other, "bound_kernel") == sass.parse_sass(SASS)
+    assert sass.step_loop(sass.parse_sass(other + SASS, "bound_kernel"))["steps_in_loop"] == 2
+
+
+# -- one pattern per pair: semiglobal_dist, prune_mask_tables ------------------
+
+T = editdist.BLOCK
+
+
+def joined(texts: list[bytes]) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(text, row_off, tlens)`` of texts joined in one buffer."""
+    lens = np.array([len(t) for t in texts], np.int64)
+    off = np.zeros(len(texts), np.int64)
+    np.cumsum(lens[:-1], out=off[1:])
+    return (torch.frombuffer(bytearray(b"".join(texts) or b"\0"), dtype=torch.uint8)
+            [:int(lens.sum())], torch.from_numpy(off), torch.from_numpy(lens.astype(np.int32)))
+
+
+def padded(texts: list[bytes]) -> np.ndarray:
+    out = np.zeros((len(texts), max(1, max(map(len, texts)))), np.uint8)
+    for i, t in enumerate(texts):
+        out[i, :len(t)] = np.frombuffer(t, np.uint8)
+    return out
+
+
+def pair_case(rng: np.random.RandomState):
+    """Patterns over a small alphabet (distances spread from 0 to m), an
+    empty and a 40-byte one, and texts of 0, 1, T−1, T, T+1, 2T+1 and
+    3T+31 bytes and around a tile's 543 live bytes, with a pattern planted
+    across a tile edge."""
+    pats = [bytes(rng.randint(97, 101, size=rng.randint(1, 33), dtype=np.uint8))
+            for _ in range(14)] + [b"a", b"abcd" * 8, b"", b"y" * 40]
+    texts = [bytes(rng.randint(97, 101, size=n, dtype=np.uint8))
+             for n in (0, 1, T - 1, T, T + 1, 2 * T + 1, 3 * T + 31, 40, 543, 544)]
+    texts[5] = texts[5][:T - 3] + pats[1] + texts[5][T - 3 + len(pats[1]):]
+    return pats, texts
+
+
+def test_semiglobal_dist_plain_equals_reference():
+    rng = np.random.RandomState(21)
+    pats, texts = pair_case(rng)
+    masks, lens, _ok = ref.build_pattern_masks(pats)
+    pt = np.repeat(np.arange(len(texts)), len(pats)).astype(np.int32)
+    pp = np.tile(np.arange(len(pats)), len(texts)).astype(np.int32)
+    tl = np.array([len(t) for t in texts], np.int32)
+    want = np.asarray(ref.semiglobal_dist(
+        jnp.asarray(masks[pp]), jnp.asarray(lens[pp]), jnp.asarray(padded(texts)[pt]),
+        jnp.asarray(tl[pt])))
+    text, off, tlens = joined(texts)
+    args = (u32(masks), torch.from_numpy(lens), text, off, tlens, torch.from_numpy(pt),
+            torch.from_numpy(pp))
+    got = editdist.semiglobal_dist_plain(*args)
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    assert np.array_equal(editdist.semiglobal_dist_plain(*args, pairs_per_batch=7).numpy(), want)
+    assert np.array_equal(editdist.semiglobal_dist(*args).numpy(), want)
+    assert (want[pt == 0] == np.maximum(lens, 1)).all()  # empty text gives max(m, 1)
+    assert (want == 0).any() and (want > 2).any()
+
+
+def test_semiglobal_dist_gives_minus_one_out_of_range():
+    rng = np.random.RandomState(2)
+    pats, texts = pair_case(rng)
+    masks, lens, _ok = ref.build_pattern_masks(pats)
+    lens = lens.copy()
+    lens[-1] = 40  # a pattern longer than 32 bytes
+    text, off, tlens = joined(texts)
+    off[3] = text.numel() - 2  # a text past the buffer's end
+    K, n = len(pats), len(texts)
+    pt = torch.tensor([-1, n, 0, 0, 3, 1, 1], dtype=torch.int32)
+    pp = torch.tensor([0, 0, -1, K, 0, K - 1, 0], dtype=torch.int32)
+    got = editdist.semiglobal_dist_plain(u32(masks), torch.from_numpy(lens), text, off, tlens,
+                                         pt, pp)
+    assert got.tolist()[:6] == [-1] * 6 and int(got[6]) >= 0
+    with pytest.raises(TypeError, match="pair_pat"):
+        editdist.semiglobal_dist_plain(u32(masks), torch.from_numpy(lens), text, off, tlens,
+                                       pt, pp.to(torch.int64))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        editdist_cuda.myers_pairs(u32(masks), torch.from_numpy(lens), text, off, tlens, pt, pp)
+
+
+@pytest.mark.parametrize("threshold", [80.0, 90.0, 95.0])
+def test_prune_mask_tables_equals_reference(threshold):
+    """Every pair's verdict, with patterns that are not ok (empty, 40
+    bytes) and texts exactly as long as the pattern, which are never
+    pruned."""
+    rng = np.random.RandomState(int(threshold))
+    pats, texts = pair_case(rng)
+    texts += [pats[0], pats[0] + b"a"]
+    tables = ref.build_pattern_masks(pats)
+    pt = rng.randint(0, len(texts), 400).astype(np.int32)
+    pp = rng.randint(0, len(pats), 400).astype(np.int32)
+    pt[:2], pp[:2] = [len(texts) - 2, len(texts) - 1], 0
+    tok, tl = padded(texts)[pt], np.array([len(t) for t in texts], np.int32)[pt]
+    want = ref.prune_mask_tables(tables, tok, tl, pp, threshold)
+    got = editdist.prune_mask_tables(editdist.build_pattern_masks(pats), tok, tl, pp, threshold,
+                                     device="cpu")
+    assert got.dtype == bool and np.array_equal(got, want)
+    assert not got[0] and got.any() and not got.all()
+    assert np.array_equal(editdist.prune_mask(pats, tok, tl, pp, threshold, device="cpu"), want)
+
+
+@pytest.mark.parametrize("m,d,t", [(10, 9, 55.0), (20, 18, 55.0), (25, 21, 58.0),
+                                   (25, 22, 56.0), (30, 27, 55.0)])
+def test_prune_compare_is_float64_where_float32_differs(m, d, t):
+    """At these points the reference's float64 ``bound <= t`` keeps the
+    pair and the fused step's float32 compare would prune it: the per-pair
+    prune follows the reference."""
+    pattern = bytes(range(33, 33 + m))
+    text = b"#" * (m + 3) + pattern[:m - d]  # the best substring: m - d bytes
+    tables = ref.build_pattern_masks([pattern])
+    tok, tl = padded([text]), np.array([len(text)], np.int32)
+    want = ref.prune_mask_tables(tables, tok, tl, np.zeros(1, np.int32), t)
+    got = editdist.prune_mask_tables(tables, tok, tl, np.zeros(1, np.int32), t, device="cpu")
+    assert not want[0] and not got[0]
+    text_t, off, tlens = joined([text])
+    dist = editdist.semiglobal_dist(u32(tables[0]), torch.from_numpy(tables[1]), text_t, off,
+                                    tlens, torch.zeros(1, dtype=torch.int32),
+                                    torch.zeros(1, dtype=torch.int32))
+    assert int(dist[0]) == d
+    assert bool(editdist.bound_pruned(dist[None, :], torch.tensor([m], dtype=torch.int32), t))

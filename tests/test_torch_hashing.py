@@ -78,6 +78,18 @@ def test_buckets_match_reference():
         )
 
 
+@pytest.mark.parametrize("block_len", [None, 64, 7, 4096])
+def test_encode_batch_matches_reference(block_len):
+    """Padded rows of a bucketed width, or cut to ``block_len``."""
+    docs = adversarial_corpus(np.random.RandomState(5), 40) + ["", "é" * 40, b"raw bytes"]
+    got = tokenizer.encode_batch(docs, block_len)
+    want = ref_tok.encode_batch(docs, block_len)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    for g, w in zip(tokenizer.encode_batch([], block_len), ref_tok.encode_batch([], block_len)):
+        assert g.shape == w.shape
+
+
 @pytest.mark.parametrize("width,overlap", [(64, 4), (256, 4), (1024, 0), (4096, 4)])
 def test_encode_blocks_matches_reference(width, overlap):
     docs = adversarial_corpus(np.random.RandomState(3), 64)

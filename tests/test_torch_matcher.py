@@ -29,6 +29,7 @@ from advanced_scrapper_tpu.pipeline import matcher as ref
 from advanced_scrapper_tpu_torch.config import MatchConfig
 from advanced_scrapper_tpu_torch.core.dates import parse_date
 from advanced_scrapper_tpu_torch.cpu import csvframe, fuzz, native
+from advanced_scrapper_tpu_torch.ops import editdist
 from advanced_scrapper_tpu_torch.pipeline import matcher
 from test_match_dispatch import _chunk, _entities, _norm, _overlong_frame
 
@@ -52,10 +53,12 @@ def same_date(a, b) -> bool:
 
 
 def test_config_copy_and_unported_fields():
+    """The copy's fields and defaults are the reference's; ``packed=False``,
+    once unported, now runs (the legacy screen)."""
     want = {f.name: f.default for f in dataclasses.fields(RefConfig)}
     assert {f.name: f.default for f in dataclasses.fields(MatchConfig)} == want
-    with pytest.raises(NotImplementedError):
-        matcher.match_chunk([{"article_text": "x"}], matcher.EntityIndex({}), packed=False)
+    assert matcher.match_chunk([{"article_text": "x"}], matcher.EntityIndex({}), packed=False,
+                               device="cpu") == []
 
 
 DATES = [
@@ -235,6 +238,104 @@ def test_screening_on_a_card_that_is_absent_raises(indexes):
         matcher.match_chunk(_chunk(4), indexes[1])
 
 
+# -- the legacy screen (packed=False) ------------------------------------------
+
+
+def same_masks(got, want) -> bool:
+    return [g is None for g in got] == [w is None for w in want] and all(
+        g is None or np.array_equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("use_refine", [False, True])
+def test_legacy_screen_equals_reference(indexes, use_refine):
+    """Batches of 32 rows: the screen's masks (None for the rows over a
+    2,048-byte ``screen_block``) and the refine's prune sets, exactly."""
+    ref_ix, ix = indexes
+    df = _chunk(80, seed=5, pad_every=9)
+    rows = [(r["article_text"], r["title"], None, r) for r in df.to_dict("records")]
+    kw = dict(use_refine=use_refine, threshold=95.0, screen_batch=32, screen_block=2048)
+    want_m, want_p = ref._legacy_screen(rows, ref_ix, **kw)
+    got_m, got_p = matcher._legacy_screen(rows, ix, device=CPU, **kw)
+    assert same_masks(got_m, want_m) and any(m is None for m in got_m)
+    assert got_p == want_p
+    assert any(got_p) == use_refine
+
+
+@pytest.mark.parametrize("mode", ["screen_only", "forced_refine", "overlong", "pooled"])
+def test_legacy_match_chunk_equals_reference(indexes, mode):
+    ref_ix, ix = indexes
+    df = _chunk(64, seed=11, pad_every=13)
+    kw = dict(packed=False, screen_batch=32, screen_block=2048)
+    if mode == "forced_refine":
+        kw["use_refine"] = True
+    elif mode == "overlong":
+        df, kw = _overlong_frame(), dict(kw, screen_block=4096, use_refine=True)
+    want = _norm(ref.match_chunk(df, ref_ix, **kw))
+    pool = None
+    if mode == "pooled":
+        pool = matcher.make_verify_pool(ix, workers=2)
+        if pool is None:
+            pytest.skip("host refuses worker processes")
+    try:
+        got = _norm(matcher.match_chunk(df, ix, device="cpu", pool=pool,
+                                        **dict(kw, use_refine=True) if pool else kw))
+    finally:
+        if pool is not None:
+            pool.shutdown()
+    assert got == want and len(want) >= 3
+
+
+def test_legacy_refine_compares_in_float64():
+    """A 10-character name and a text whose best substring is one of its
+    characters (d = 9): at threshold 55 the reference's float64 compare
+    keeps the pair, where the fused step's float32 compare would prune it;
+    the legacy refine follows the reference."""
+    ent = {"id_label": "Qwertyuiop", "ticker": "QQ", "country": ["United States"],
+           "aliases": ["Qwertyuiop"], "products": [], "subsidiaries": [],
+           "owned_entities": [], "ceos": [], "board_members": []}
+    ref_ix = ref.EntityIndex(ref.process_json_data([ent]))
+    ix = matcher.EntityIndex(matcher.process_json_data([ent]))
+    texts = ["#############Q", "zzz Qwert zzz", "abc Qwertyuiop"]
+    rows = [(t, "x", None, {"article_text": t}) for t in texts]
+    for threshold in (55.0, 95.0):
+        kw = dict(use_refine=True, threshold=threshold, screen_batch=32, screen_block=2048)
+        want = ref._legacy_screen(rows, ref_ix, **kw)
+        got = matcher._legacy_screen(rows, ix, device=CPU, **kw)
+        assert same_masks(got[0], want[0]) and got[1] == want[1]
+        assert (got[1][0] is None) == (threshold == 55.0)
+    d = torch.tensor([[9]], dtype=torch.int32)
+    assert bool(editdist.bound_pruned(d, torch.tensor([10], dtype=torch.int32), 55.0))
+
+
+def test_match_cfg_follows_the_environment(indexes, monkeypatch):
+    """``packed=None`` reads ``ASTPU_MATCH_PACKED`` on every call."""
+    ref_ix, ix = indexes
+    calls = []
+    legacy = matcher._legacy_screen
+    monkeypatch.setattr(matcher, "_legacy_screen",
+                        lambda *a, **k: calls.append(k["screen_batch"]) or legacy(*a, **k))
+    df = _chunk(24, seed=3)
+    monkeypatch.setenv("ASTPU_MATCH_PACKED", "0")
+    assert matcher._match_cfg().packed is False
+    got = _norm(matcher.match_chunk(df, ix, device="cpu", screen_batch=8))
+    assert calls == [8] and got == _norm(ref.match_chunk(df, ref_ix, screen_batch=8))
+    monkeypatch.setenv("ASTPU_MATCH_PACKED", "1")
+    matcher.match_chunk(df, ix, device="cpu")
+    assert calls == [8]
+
+
+def test_prewarm_launches_each_kernel_of_the_mode(indexes):
+    _ref_ix, ix = indexes
+    for packed in (True, False):
+        assert matcher.prewarm_screen(ix, packed=packed, device="cpu") == 2
+        assert matcher.prewarm_screen(ix, use_refine=True, packed=packed, device="cpu") == 2
+        assert matcher.prewarm_screen(ix, use_refine=False, packed=packed, device="cpu") == 1
+    assert matcher.prewarm_screen(matcher.EntityIndex({}), device="cpu") == 0
+    no_refine = matcher.EntityIndex(matcher.process_json_data(
+        [dict(_entities(1)[0], aliases=["TK00"], id_label="TK00", products=[], ceos=[])]))
+    assert matcher.prewarm_screen(no_refine, device="cpu") == 1
+
+
 # -- run_matcher: byte-equal CSV trees -----------------------------------------
 
 TITLES = ["NA", "null", "None", "nan", "", "123", "007", "1.50", "-3", " 7", "True", "false",
@@ -270,6 +371,37 @@ def adversarial_csv(path: str, rng: np.random.RandomState, n: int = 70) -> None:
 
 def tree(path: str) -> dict[str, bytes]:
     return {f: open(os.path.join(path, f), "rb").read() for f in sorted(os.listdir(path))}
+
+
+@pytest.mark.parametrize("use_refine,prewarm", [(True, 0), ("auto", 1)])
+def test_run_matcher_legacy_trees_byte_equal(tmp_path, monkeypatch, use_refine, prewarm):
+    """``ASTPU_MATCH_PACKED=0`` (the legacy screen, read through
+    ``from_env``) gives the reference's CSV trees, byte for byte; with
+    ``prewarm`` too."""
+    from advanced_scrapper_tpu.config import from_env as ref_from_env
+    from advanced_scrapper_tpu_torch.config import from_env
+
+    info = tmp_path / "info"
+    info.mkdir()
+    ents = _entities(6)
+    ents[0]["aliases"].append("Zürich Bank")
+    (info / "a.json").write_text(json.dumps(ents))
+    adversarial_csv(str(tmp_path / "articles.csv"), np.random.RandomState(7))
+    monkeypatch.setenv("ASTPU_MATCH_PACKED", "0")
+    monkeypatch.setenv("ASTPU_MATCH_CHUNK_SIZE", "16")
+    monkeypatch.setenv("ASTPU_MATCH_PREWARM", str(prewarm))
+    for name, read, mod, kw in (("ref", ref_from_env, ref, {}),
+                                ("port", from_env, matcher, {"device": "cpu"})):
+        cfg = read(RefConfig if name == "ref" else MatchConfig, "match",
+                   source_name=str(tmp_path / name), info_dir=str(info), verify_workers=1)
+        assert cfg.packed is False and cfg.chunk_size == 16 and cfg.prewarm == prewarm
+        assert mod.run_matcher(cfg, articles_csv=str(tmp_path / "articles.csv"),
+                               use_refine=use_refine, **kw) == 0
+    want = tree(str(tmp_path / "ref_ticker_matched_articles"))
+    got = tree(str(tmp_path / "port_ticker_matched_articles"))
+    assert list(got) == list(want) and len(want) == 6
+    for f in want:
+        assert got[f] == want[f], f
 
 
 @pytest.mark.parametrize("chunk_size,workers,use_refine", [(5, 1, "auto"), (16, 2, True)])

@@ -415,6 +415,26 @@ def test_article_and_link_stores_write_the_reference_rows(tmp_path, utc):
     assert rows["u3"][3] is None and rows["u4"][3] is not None and rows["u4"][4] is None
 
 
+#: free-text dates the port's parser once left unread (NULL in the store)
+FREE_TEXT_DATES = ["June 1 03 -04:30", "Jun 1, 2020, 3:04 PM", "June 1, 2020 at 3:04 PM",
+                   "on June 1 2020", "1st of June 2020", "June 1 2020 and 3pm",
+                   "3:04 PM June 1 2020"]
+
+
+def test_article_store_keeps_free_text_dates(tmp_path, utc):
+    """``ArticleStore.store`` writes the datetime the reference's
+    ``dateparser.parse`` reads from jump words, a comma after the year and
+    a time before the date, never NULL."""
+    for name, mod in (("jax", ref_stores), ("port", stores)):
+        arts = mod.ArticleStore(str(tmp_path / f"{name}.db"))
+        for i, raw in enumerate(FREE_TEXT_DATES):
+            arts.store(f"u{i}", {"title": "t", "article": f"b{i}", "datetime": raw})
+    got = _rows(str(tmp_path / "port.db"), "articles")
+    assert got == _rows(str(tmp_path / "jax.db"), "articles")
+    assert len(got) == len(FREE_TEXT_DATES)
+    assert all(r[3] is not None and r[4] is not None for r in got)  # datetime_utc, _unix
+
+
 def test_postgres_backend_through_an_injected_driver(utc):
     """The stores over ``PostgresBackend`` with the JAX package's
     psycopg2-compatible fake server as the driver: the reference's
