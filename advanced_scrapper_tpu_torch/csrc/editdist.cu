@@ -402,28 +402,65 @@ __global__ void __launch_bounds__(kPatterns, kMinBlocks)
 // reset per tile, min over tiles, max(m, 1) for an empty text), or -1
 // where the pair's indices, its text's bounds or its pattern's length lie
 // out of range.  The prune compare (float64, as the reference's) runs on
-// the host.
+// the host.  The pattern sits in the low m bits and the high-bit tests
+// read bit m - 1, as the reference writes the recurrence.
 //
-// Bound: operations, 14 INT32 operations per live byte of each tile, as
-// for myers_bound.
+// Bounds.  Operations: 14 INT32 operations per live byte of each tile, as
+// for myers_bound; bytes: the texts, indices and masks read once and the
+// distances written.  On the S&P chunk's legacy batches (~186 pairs a
+// launch) they come to ~0.0002 and ~0.0001 ms a launch on one H100, and
+// neither binds: each tile is a chain of up to 543 dependent steps, so a
+// launch takes at least its longest live tile times the time of one step
+// of a lone chain, plus the launch itself.  chip_smoke.py's kernel_timing row gives that
+// chain floor beside both bounds; the design aims at it.
 //
-// Design (simple): a thread per (pair, group of kPairChains tiles).  The
-// groups of a pair are dealt to kPairGroups threads (blockIdx.y, then
-// + kPairGroups, ...), so a long text runs on several threads; each thread
-// runs its tiles as independent Myers chains, one step of each in turn,
-// so the ALU sees kPairChains chains at every step; a chain past its
-// tile's end is predicated off.  The threads of a pair fold their minima
-// into out[p] by atomicMin, out[p] set to 0x7F7F7F7F first (a memset in the
-// same stream); the thread of group 0 always folds, so an empty text gives
-// max(m, 1) and a pair out of range -1.  The text byte and its mask word
-// come from global memory through the read-only cache (a pattern's 1 KiB
-// of masks is read by every step of its pairs); the pattern sits in the
-// low m bits and the high-bit tests read bit m - 1, as the reference
-// writes the recurrence.
+// Design: a block per pair, the block's lanes over the pair's tiles.
+// - Tile t runs on thread t mod kPairLanes as one chain, in round
+//   t / kPairLanes.  A pair of up to 32 tiles (16 KiB) is one warp's work,
+//   and the block's other warps go straight to the fold; a pair of up to
+//   kPairLanes tiles (64 KiB, the legacy screen's screen_block) takes one
+//   round, a longer one more rounds.  The earlier design (a thread per
+//   pair and 4 tiles) left most of the card idle with ~186 pairs a launch,
+//   and its 32 lanes held 32 pairs and ran as long as the longest.
+// - The pattern's 256 mask words are staged in shared memory once a block:
+//   a step reads its mask with one LDS, where the earlier design made two
+//   dependent global loads a step, the byte and then its mask.
+// - The bytes are read ahead, a window of kWindow steps at a time.  A
+//   thread loads the 16-byte-aligned words that hold its tile's next
+//   window into registers while it runs the current one, and then stores
+//   them into its own buffer in shared memory (two, used in turn; 84 bytes
+//   each, an odd count of words, so that the 32 lanes' bytes fall in 32
+//   banks).  Every tile of a pair starts at the same offset in its word
+//   (tiles start at multiples of 512), so a step reads its byte with one
+//   LDS.U8 at a fixed offset past that lead.  A word that holds no live
+//   byte of a tile is never read, so nothing outside the texts is.
+// - Each step's mask is read kAhead steps before it (a ring of registers),
+//   so the step waits on neither shared load: what is left is the
+//   recurrence's own path, 7 dependent instructions a step as ptxas
+//   emits it.
+// - The steps past a tile's end run on stale bytes without touching the
+//   minimum (one compare a step); a warp runs whole windows of its longest
+//   tile.
+// - Fold: each warp's minimum by __reduce_min_sync, the warps' through
+//   shared memory, one plain store of out[p]: no memset and no atomics.
+//   Thread 0 writes -1 for a pair out of range and max(m, 1) for an empty
+//   text.
+// myers_probe.py --pairs (at the repo's root) times other values of the
+// constants below, and an earlier checkout's kernel, on the card.
 
-constexpr int kPairThreads = 128;  // threads (pairs) a block
-constexpr int kPairChains = 4;     // tiles of a pair in flight on a thread
-constexpr int kPairGroups = 16;    // threads that share a pair's tile groups
+constexpr int kPairWarps = 4;                       // warps a block (one pair)
+constexpr int kPairLanes = 32 * kPairWarps;         // threads a block: the tiles of a round
+constexpr int kWindow = 64;                         // steps between two refills of a buffer
+constexpr int kAhead = 8;                           // steps a mask is loaded before its step
+constexpr int kWindowWords = kWindow / 16 + 1;      // aligned 16-byte words a window spans
+constexpr int kWindowStride = 16 * kWindowWords + 4;  // bytes a buffer: an odd count of words
+constexpr int kHalfBytes = kPairLanes * kWindowStride;  // one buffer of every thread
+constexpr int kPairSmem = 256 * 4 + 2 * kHalfBytes;
+
+static_assert(kWindow % 16 == 0 && (kWindowStride / 4) % 2 == 1, "conflict-free buffers");
+static_assert(15 + kWindow <= 16 * kWindowWords, "a window's steps lie in its words at any lead");
+static_assert(kWindow % kAhead == 0 && 2 * kAhead <= kWindow, "masks ahead within a window");
+static_assert(kPairSmem <= 48 * 1024, "above 48 KiB the launch needs cudaFuncSetAttribute");
 
 struct PairArgs {
   const uint8_t* text;
@@ -440,65 +477,176 @@ struct PairArgs {
   int32_t* out;
 };
 
-__global__ void __launch_bounds__(kPairThreads) pairs_kernel(const PairArgs a) {
-  const int p = blockIdx.x * kPairThreads + threadIdx.x;
-  if (p >= a.n_pairs) return;
-  const bool first = blockIdx.y == 0;  // the thread of group 0 always folds
+// The block's shared memory: the pattern's masks (256 words), then the
+// threads' buffers.  Named here so that every function reads it as shared
+// memory (LDS), not through a generic pointer.
+extern __shared__ __align__(16) uint8_t pair_smem[];
+
+__device__ __forceinline__ const uint32_t* pair_masks() {
+  return reinterpret_cast<const uint32_t*>(pair_smem);
+}
+
+// This thread's buffer in the first half.
+__device__ __forceinline__ uint8_t* own_buffer() {
+  return pair_smem + 256 * 4 + threadIdx.x * kWindowStride;
+}
+
+// What every thread of a block knows of its pair.
+struct Pair {
+  const uint8_t* base;  // the aligned word at or below the text's first byte
+  int lead;             // the text's first byte in that word; every tile's, too
+  int len;              // the text's bytes
+  int m;                // max(plen, 1)
+  uint32_t high;        // bit m - 1
+};
+
+// The aligned words of window k of the thread's tile: word i of the tile
+// is the 16 bytes at src + 16 i; those at or past `words` (no live byte)
+// are left zero, never read.
+__device__ __forceinline__ void load_window(uint4 (&w)[kWindowWords], const uint8_t* src,
+                                            int words, int k) {
+#pragma unroll
+  for (int i = 0; i < kWindowWords; ++i) {
+    const int word = k * (kWindow / 16) + i;
+    w[i] = word < words ? __ldg(reinterpret_cast<const uint4*>(src) + word)
+                        : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// Store a window's words into one of this thread's buffers.
+__device__ __forceinline__ void store_window(uint8_t* buf, const uint4 (&w)[kWindowWords]) {
+  uint32_t* b = reinterpret_cast<uint32_t*>(buf);
+#pragma unroll
+  for (int i = 0; i < kWindowWords; ++i) {
+    b[4 * i] = w[i].x;
+    b[4 * i + 1] = w[i].y;
+    b[4 * i + 2] = w[i].z;
+    b[4 * i + 3] = w[i].w;
+  }
+}
+
+// The chain's state: the Myers vectors, the score, and the least score
+// over the tile's live steps.
+struct Chain {
+  uint32_t pv, mv;
+  int score, best;
+};
+
+// Step j of the chain, whose mask is eqs[r]; the mask kAhead steps on is
+// read from *ahead into its place.  The minimum takes the score only
+// while j < eff, the tile's live bytes.
+__device__ __forceinline__ void step(int r, const uint8_t* ahead, int j, int eff,
+                                     uint32_t (&eqs)[kAhead], Chain& c, uint32_t high) {
+  const uint32_t eq = eqs[r];
+  eqs[r] = pair_masks()[*ahead];
+  const uint32_t xv = eq | c.mv;
+  const uint32_t xh = (((eq & c.pv) + c.pv) ^ c.pv) | eq;
+  uint32_t ph = c.mv | ~(xh | c.pv);
+  uint32_t mh = c.pv & xh;
+  c.score += ((ph & high) != 0u) - ((mh & high) != 0u);
+  // search variant: row 0 is free, so shift without OR-ing in bit 0
+  ph <<= 1;
+  mh <<= 1;
+  c.pv = mh | ~(xv | ph);
+  c.mv = ph & xv;
+  if (j < eff) c.best = min(c.best, c.score);
+}
+
+// The steps j0 .. j0 + kWindow - 1, step j0 + u reading the byte at cur[u]
+// of the thread's buffer, unrolled whole (kept a loop of kAhead-step
+// passes, ~8x less code, it runs slower: myers_probe.py's pairs_passes).
+// Each step's mask was read kAhead steps before (eqs, a ring), so neither
+// shared load waits in the step; for the last kAhead steps the masks
+// ahead are the next window's, whose words (w) are stored into `next`
+// first where `more`.
+__device__ __forceinline__ void run_window(const uint8_t* cur, uint8_t* next, bool more,
+                                           const uint4 (&w)[kWindowWords], int j0, int eff,
+                                           uint32_t (&eqs)[kAhead], Chain& c, const Pair& q) {
+#pragma unroll
+  for (int u0 = 0; u0 < kWindow - kAhead; u0 += kAhead) {
+#pragma unroll
+    for (int r = 0; r < kAhead; ++r) {
+      step(r, cur + u0 + kAhead + r, j0 + u0 + r, eff, eqs, c, q.high);
+    }
+  }
+  if (more) store_window(next, w);
+#pragma unroll
+  for (int r = 0; r < kAhead; ++r) {
+    step(r, next + q.lead + r, j0 + kWindow - kAhead + r, eff, eqs, c, q.high);
+  }
+}
+
+// The thread's tile in the round from tile t0: tile t0 + threadIdx.x.
+// Returns its least score (m if it has none).
+__device__ int run_round(int t0, const Pair& q) {
+  const long long start =
+      static_cast<long long>(t0 + static_cast<int>(threadIdx.x)) * kBlock;
+  const int eff = static_cast<int>(min(max(q.len - start, 0LL), static_cast<long long>(kTile)));
+  const int words = eff > 0 ? (q.lead + eff + 15) >> 4 : 0;
+  const uint8_t* src = q.base + (eff > 0 ? start : 0);
+  Chain c{~0u, 0u, q.m, q.m};
+  const int steps = __reduce_max_sync(0xFFFFFFFFu, eff);  // the warp walks its longest tile
+  uint8_t* own = own_buffer();
+  uint4 w[kWindowWords];
+  uint32_t eqs[kAhead];
+  load_window(w, src, words, 0);
+  store_window(own, w);
+#pragma unroll
+  for (int r = 0; r < kAhead; ++r) eqs[r] = pair_masks()[own[q.lead + r]];
+  for (int k = 0; k * kWindow < steps; ++k) {
+    const bool more = (k + 1) * kWindow < steps;
+    if (more) load_window(w, src, words, k + 1);  // in flight over the window
+    run_window(own + (k & 1) * kHalfBytes + q.lead, own + ((k + 1) & 1) * kHalfBytes, more, w,
+               k * kWindow, eff, eqs, c, q);
+  }
+  return c.best;
+}
+
+__global__ void __launch_bounds__(kPairLanes) pairs_kernel(const PairArgs a) {
+  __shared__ int warp_min[kPairWarps];
+  const int p = blockIdx.x;
   const int ti = a.pair_text[p];
   const int pk = a.pair_pat[p];
-  if (ti < 0 || ti >= a.n_texts || pk < 0 || pk >= a.n_pat) {
-    if (first) atomicMin(a.out + p, -1);
-    return;
+  long long off = -1;
+  int len = -1, plen = -1;
+  if (ti >= 0 && ti < a.n_texts && pk >= 0 && pk < a.n_pat) {
+    off = a.row_off[ti];
+    len = a.tlens[ti];
+    plen = a.plens[pk];
   }
-  const int64_t off = a.row_off[ti];
-  const int len = a.tlens[ti];
-  const int plen = a.plens[pk];
   if (off < 0 || len < 0 || off + len > a.n_text || plen < 0 || plen > 32) {
-    if (first) atomicMin(a.out + p, -1);
+    if (threadIdx.x == 0) a.out[p] = -1;
     return;
   }
-  constexpr int kGroupBytes = kPairChains * kBlock;
-  int g = blockIdx.y;
-  if (!first && g * kGroupBytes >= len) return;  // no tile of this thread's
   const int m = max(plen, 1);
-  const uint32_t high = 1u << (m - 1);
-  const uint32_t* pm = a.masks + static_cast<int64_t>(pk) * 256;
-  const uint8_t* src = a.text + off;
-  int best = m;
-  for (; g * kGroupBytes < len; g += gridDim.y) {
-    const int t0 = g * kGroupBytes;
-    uint32_t pv[kPairChains], mv[kPairChains];
-    int score[kPairChains], eff[kPairChains];
-    int steps = 0;
-#pragma unroll
-    for (int c = 0; c < kPairChains; ++c) {
-      eff[c] = min(max(len - (t0 + c * kBlock), 0), kTile);
-      steps = max(steps, eff[c]);
-      pv[c] = ~0u;
-      mv[c] = 0u;
-      score[c] = m;
-    }
-    for (int j = 0; j < steps; ++j) {
-#pragma unroll
-      for (int c = 0; c < kPairChains; ++c) {
-        if (j < eff[c]) {
-          const uint32_t eq = __ldg(pm + __ldg(src + t0 + c * kBlock + j));
-          const uint32_t xv = eq | mv[c];
-          const uint32_t xh = (((eq & pv[c]) + pv[c]) ^ pv[c]) | eq;
-          uint32_t ph = mv[c] | ~(xh | pv[c]);
-          uint32_t mh = pv[c] & xh;
-          score[c] += ((ph & high) != 0u) - ((mh & high) != 0u);
-          // search variant: row 0 is free, so shift without OR-ing in bit 0
-          ph <<= 1;
-          mh <<= 1;
-          pv[c] = mh | ~(xv | ph);
-          mv[c] = ph & xv;
-          best = min(best, score[c]);
-        }
-      }
-    }
+  if (len == 0) {
+    if (threadIdx.x == 0) a.out[p] = m;
+    return;
   }
-  atomicMin(a.out + p, best);
+  uint32_t* pm = reinterpret_cast<uint32_t*>(pair_smem);
+  for (int i = threadIdx.x; i < 256; i += kPairLanes) {
+    pm[i] = __ldg(a.masks + static_cast<int64_t>(pk) * 256 + i);
+  }
+  __syncthreads();
+  Pair q;
+  const uint8_t* first = a.text + off;
+  q.lead = static_cast<int>(reinterpret_cast<uintptr_t>(first) & 15);
+  q.base = first - q.lead;
+  q.len = len;
+  q.m = m;
+  q.high = 1u << (m - 1);
+  const int tiles = (len - 1) / kBlock + 1;
+  const int warp_first = static_cast<int>(threadIdx.x) & ~31;  // the warp's first tile
+  int best = m;
+  for (int t0 = 0; t0 + warp_first < tiles; t0 += kPairLanes) best = min(best, run_round(t0, q));
+  best = __reduce_min_sync(0xFFFFFFFFu, best);
+  if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x >> 5] = best;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int w = 1; w < kPairWarps; ++w) best = min(best, warp_min[w]);
+    a.out[p] = best;
+  }
 }
 
 }  // namespace
@@ -556,7 +704,7 @@ int astt_myers_bound(const void* text, const void* row_off, const void* row_len,
 // The chains each thread runs.
 int astt_myers_chains(void) { return kChains; }
 
-// See myers_pairs above.  Launches nothing for n_pairs 0.
+// See myers_pairs above: a block a pair.  Launches nothing for n_pairs 0.
 int astt_myers_pairs(const void* text, long long n_text, const void* row_off, const void* tlens,
                      int n_texts, const void* masks, const void* plens, int n_pat,
                      const void* pair_text, const void* pair_pat, int n_pairs, void* out,
@@ -575,12 +723,7 @@ int astt_myers_pairs(const void* text, long long n_text, const void* row_off, co
   a.pair_pat = static_cast<const int32_t*>(pair_pat);
   a.n_pairs = n_pairs;
   a.out = static_cast<int32_t*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // INT_MAX less a little in every word (0x7F7F7F7F): above any distance
-  cudaError_t err = cudaMemsetAsync(out, 0x7F, sizeof(int32_t) * n_pairs, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n_pairs + kPairThreads - 1) / kPairThreads, kPairGroups);
-  pairs_kernel<<<grid, kPairThreads, 0, s>>>(a);
+  pairs_kernel<<<n_pairs, kPairLanes, kPairSmem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,8 +13,9 @@ error, and counts its launches in a plain integer attribute
 :func:`myers_pairs` runs, in one launch, the per-pair distance of the
 legacy screen's refine (one pattern per pair, the reference's jnp
 ``ops/editdist.py:semiglobal_dist``) over texts joined in one buffer on
-the card; its plain version is ``ops.editdist.semiglobal_dist_plain``, and
-it counts its launches in ``myers_pairs.launches``.
+the card, a block a pair with the block's lanes over the pair's tiles;
+its plain version is ``ops.editdist.semiglobal_dist_plain``, and it counts
+its launches in ``myers_pairs.launches``.
 """
 
 from __future__ import annotations

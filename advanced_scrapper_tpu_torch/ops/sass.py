@@ -1,10 +1,10 @@
 """A reader of a built kernel's SASS (``cuobjdump -sass``): the
 instructions one step of its innermost loop issues, by opcode and by pipe.
 
-Used by ``chip_smoke.py`` (the ``myers_bound`` and ``match_screen`` rows of
-``kernel_timing``) and ``myers_probe.py``; :func:`sass_step_counts` and
-:func:`screen_sass` need ``cuobjdump`` beside ``nvcc``, so on the card's
-machine only.
+Used by ``chip_smoke.py`` (the ``myers_bound``, ``match_screen`` and
+``myers_pairs`` rows of ``kernel_timing``) and ``myers_probe.py``;
+:func:`sass_step_counts`, :func:`pairs_sass` and :func:`screen_sass` need
+``cuobjdump`` beside ``nvcc``, so on the card's machine only.
 """
 
 from __future__ import annotations
@@ -142,6 +142,25 @@ def sass_step_counts(lib: Path, step: str = "LDS.U8", global_loads: bool = False
     name holds ``function`` (the Myers bound's kernel by default:
     ``editdist.cu`` also holds ``myers_pairs``)."""
     return step_loop(parse_sass(dump_sass(lib), function), step, global_loads)
+
+
+def pairs_loop(instrs: list[tuple[int, str, str]]) -> dict:
+    """``myers_pairs``' step loop in parsed SASS (one LDS.U8 a step): the
+    window unrolled whole, which holds the next window's global loads, or,
+    where a variant keeps a window a loop of passes, that loop."""
+    try:
+        return step_loop(instrs, global_loads=True)
+    except RuntimeError:
+        return step_loop(instrs)
+
+
+def pairs_sass(lib: Path) -> dict:
+    """:func:`pairs_loop` of a built ``editdist.cu``'s ``myers_pairs``
+    kernel; or the reason there is none."""
+    try:
+        return pairs_loop(parse_sass(dump_sass(lib), "pairs_kernel"))
+    except (RuntimeError, subprocess.SubprocessError, OSError) as e:
+        return {"error": str(e)[:300]}
 
 
 def screen_sass(lib: Path) -> dict:

@@ -84,9 +84,11 @@ names, thresholds 95, 90, 80, 97.5 and 50, patterns of 1 and 32 bytes and
 ``ok`` False, two chunks into one set of tables; ``myers_bound`` also on
 300 patterns in three groups, one with a non-ASCII pattern, over rows of
 0 to 2T + 1 tiles with every tail class and gated-out rows between;
-``myers_pairs``, one pattern per pair, on texts of 0 to 65,536 bytes and
-pairs out of range); then
-``match_chunk`` runs screen-only and with the bound forced (timed on a
+``myers_pairs``, one pattern per pair, on texts of 0 to 200,000 bytes,
+at the edges of its geometry (a block's second warp, a second and a third
+round), on launches that share one text or one pattern, with the buffer
+1 to 3 bytes off its alignment, and pairs out of range);
+then ``match_chunk`` runs screen-only and with the bound forced (timed on a
 later call: one launch of each kernel per chunk, every planted mention
 found, both modes' matches equal), ``run_matcher`` runs end to end (the
 "auto" race, the verify pool, the per-ticker CSVs), the kernels are timed
@@ -100,8 +102,9 @@ trees.  The legacy screen (``packed=False``, ``matcher_legacy``) takes
 the same chunk in both modes: its matches equal the packed screen's, one
 ``match_screen`` launch a batch of 128 and one ``myers_pairs`` launch a
 batch with pairs, card and CPU trees equal on 256 (64 forced), and
-``myers_pairs`` timed on the chunk's batches.  Any failed check exits
-non-zero.
+``myers_pairs`` timed on the chunk's batches beside its bounds, its
+launch floor and its chain floor (a lone pair on a 543-byte and on a
+1-byte text).  Any failed check exits non-zero.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the card's name and power limit from nvidia-smi,
@@ -113,6 +116,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -197,16 +201,16 @@ def rerank_corpus(rng: np.random.RandomState, n: int) -> list[bytes]:
 QUEUE_AHEAD_CYCLES = 20_000_000
 
 
-def cuda_ms(fn, reps: int = 1, queued: bool = False) -> float:
+def cuda_ms(fn, reps: int = 1, queued: bool = False, ahead: int = QUEUE_AHEAD_CYCLES) -> float:
     """Device time of ``fn()`` per call, from CUDA events.  With
-    ``queued``, the card first spins ~10 ms (``torch.cuda._sleep``) while
-    the host enqueues the events and the ``reps`` calls, so the calls run
-    back to back and the host's time per call (which, for a kernel of a
-    fraction of a millisecond, can be longer than the kernel) does not
-    count."""
+    ``queued``, the card first spins ``ahead`` clocks (~10 ms by default,
+    ``torch.cuda._sleep``) while the host enqueues the events and the
+    ``reps`` calls, so the calls run back to back and the host's time per
+    call (which, for a kernel of a fraction of a millisecond, can be longer
+    than the kernel) does not count."""
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     if queued:
-        torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
+        torch.cuda._sleep(ahead)
     start.record()
     for _ in range(reps):
         fn()
@@ -660,14 +664,37 @@ def check_myers_edges(dev) -> int:
     return 6
 
 
+def pairs_constant(name: str) -> int:
+    """A constant of ``myers_pairs`` (``constexpr int name = ...;``), read
+    from ``csrc/editdist.cu``, the source the kernel is built from."""
+    from advanced_scrapper_tpu_torch.ops import _build
+
+    text = (_build.CSRC_DIR / "editdist.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def pair_edge_lengths(block: int = 512) -> list[int]:
+    """Text lengths at the edges of ``myers_pairs``' geometry (a pair a
+    block of ``kPairWarps`` warps, a tile a thread): one byte short of, at
+    and one past 32 tiles (a block's second warp), 32 * warps tiles (a
+    second round) and twice that (a third)."""
+    lanes = 32 * pairs_constant("kPairWarps")
+    return [n * block + d for n in (32, lanes, 2 * lanes) for d in (-1, 0, 1)]
+
+
 def check_myers_pairs_vs_plain(dev) -> dict:
     """``myers_pairs`` (one pattern per pair) bit-equal to
-    ``semiglobal_dist_plain`` on the CPU: patterns of 1 to 32 bytes, of
-    non-ASCII bytes, empty and of a length out of range; texts of 0, 1,
-    T - 1, T, T + 1, 543, 544, 2T + 1, 3T + 31 and 65,536 bytes and of every
-    byte value, a pattern planted across a tile edge, the buffer 3 bytes
-    off its alignment; every (text, pattern) pair, 20,000 random ones, and
-    pairs whose indices or text lie out of range (-1)."""
+    ``semiglobal_dist_plain``: patterns of 1 to 32 bytes, of non-ASCII
+    bytes, of zero bytes, empty and of a length out of range, and masks in
+    which every byte's mask has bits set; texts of 0, 1, T - 1, T, T + 1,
+    543, 544, 2T + 1, 3T + 31, 65,536 and 200,000 bytes, of every byte
+    value, and at the edges of the kernel's geometry
+    (:func:`pair_edge_lengths`), a pattern planted across a tile edge;
+    every (text, pattern) pair, 20,000 random ones and pairs whose indices
+    or text lie out of range (-1), the buffer 3 bytes off its alignment;
+    every (text, pattern) pair again with the buffer 1 and 2 bytes off;
+    then launches in which every pair shares one text, every pair shares
+    one pattern, and pairs of 0 and 65,536 bytes alternate."""
     from advanced_scrapper_tpu_torch.ops import editdist_cuda
     from advanced_scrapper_tpu_torch.ops.editdist import build_pattern_masks, semiglobal_dist_plain
 
@@ -675,35 +702,58 @@ def check_myers_pairs_vs_plain(dev) -> dict:
     T = 512
     pats = [bytes(rng.randint(97, 101, size=m, dtype=np.uint8)) for m in range(1, 33)]
     pats += [bytes(rng.randint(0, 256, size=rng.randint(1, 33), dtype=np.uint8))
-             for _ in range(8)] + [b"", b"z" * 32]
+             for _ in range(8)] + [b"\0" * 4, b"\0\1" * 16, b"", b"z" * 32]
     masks, plens, _ok = build_pattern_masks(pats)
     plens[-1] = 33  # a length out of range
+    # masks in which every byte's mask has bits set, as no pattern's has
+    masks = np.concatenate([masks[:-1], rng.randint(1, 1 << 31, size=(2, 256)).astype(np.uint32)
+                            | 1, masks[-1:]])
+    plens = np.concatenate([plens[:-1], np.array([7, 32], np.int32), plens[-1:]])
     lengths = (0, 1, 7, 31, 32, T - 1, T, T + 1, 543, 544, 2 * T + 1, 3 * T + 31, 4096, 65536)
     texts = [bytes(rng.randint(97, 101, size=n, dtype=np.uint8)) for n in lengths]
     texts.append(bytes(rng.randint(0, 256, size=3000, dtype=np.uint8)))
     texts[10] = texts[10][:T - 5] + pats[20] + texts[10][T - 5 + len(pats[20]):]
-    lead = 3
-    blob = b"abc" + b"".join(texts)
-    tl = np.array([len(t) for t in texts] + [10], np.int32)
-    off = np.zeros(len(tl), np.int64)
-    off[1:len(texts)] = np.cumsum(tl[:len(texts) - 1])
-    off[:len(texts)] += lead
-    off[-1] = len(blob) - 2  # a text past the buffer's end
-    n, K = len(tl), len(pats)
-    pt = [np.repeat(np.arange(n), K), rng.randint(0, n, 20000), [-1, n, 0, 0]]
-    pp = [np.tile(np.arange(K), n), rng.randint(0, K, 20000), [0, 0, -1, K]]
-    pt, pp = (np.concatenate(x).astype(np.int32) for x in (pt, pp))
-    host = [torch.from_numpy(masks.view(np.int32)).view(torch.uint32), torch.from_numpy(plens),
-            torch.frombuffer(bytearray(blob), dtype=torch.uint8), torch.from_numpy(off),
-            torch.from_numpy(tl), torch.from_numpy(pt), torch.from_numpy(pp)]
-    card_args = [t.to(dev) for t in host]
-    want = semiglobal_dist_plain(*card_args).cpu()
-    got = editdist_cuda.myers_pairs(*card_args).cpu()
-    assert torch.equal(got, want), "myers_pairs differs from semiglobal_dist_plain"
-    empty = editdist_cuda.myers_pairs(*card_args[:5], *(t[:0] for t in card_args[5:]))
-    assert empty.shape == (0,)
+    texts += [bytes(rng.randint(97, 101, size=n, dtype=np.uint8))
+              for n in (*pair_edge_lengths(), 200_000)]
+    n, K = len(texts) + 1, len(plens)
+    every = (np.repeat(np.arange(n), K), np.tile(np.arange(K), n))
+    pm = [torch.from_numpy(masks.view(np.int32)).view(torch.uint32).to(dev),
+          torch.from_numpy(plens).to(dev)]
+
+    def held(lead: int, pt, pp) -> torch.Tensor:
+        """The kernel against the plain version on the pairs ``(pt, pp)``,
+        the texts ``lead`` bytes into the buffer and a last one past its
+        end; returns the distances."""
+        blob = bytes(rng.randint(97, 123, size=lead, dtype=np.uint8)) + b"".join(texts)
+        tl = np.array([len(t) for t in texts] + [10], np.int32)
+        off = np.zeros(len(tl), np.int64)
+        off[1:len(texts)] = np.cumsum(tl[:len(texts) - 1])
+        off[:len(texts)] += lead
+        off[-1] = len(blob) - 2
+        args = [*pm, torch.frombuffer(bytearray(blob), dtype=torch.uint8).to(dev),
+                torch.from_numpy(off).to(dev), torch.from_numpy(tl).to(dev),
+                torch.from_numpy(np.asarray(pt, np.int32)).to(dev),
+                torch.from_numpy(np.asarray(pp, np.int32)).to(dev)]
+        want = semiglobal_dist_plain(*args).cpu()
+        got = editdist_cuda.myers_pairs(*args).cpu()
+        assert torch.equal(got, want), f"myers_pairs differs from semiglobal_dist_plain ({lead=})"
+        return want
+
+    pt = np.concatenate([every[0], rng.randint(0, n, 20000), [-1, n, 0, 0]])
+    pp = np.concatenate([every[1], rng.randint(0, K, 20000), [0, 0, -1, K]])
+    want = held(3, pt, pp)
+    for lead in (1, 2):
+        held(lead, *every)
+    long_text = lengths.index(65536)
+    held(3, np.full(500, long_text), rng.randint(0, K, 500))           # one text
+    held(3, rng.randint(0, n - 1, 500), np.full(500, 20))               # one pattern
+    held(3, np.tile([0, long_text], 64), rng.randint(0, K - 1, 128))   # 0 and 65,536 bytes
+    one_text = [torch.zeros(1, dtype=d, device=dev) for d in (torch.uint8, torch.int64, torch.int32)]
+    no_pairs = torch.zeros(0, dtype=torch.int32, device=dev)
+    assert editdist_cuda.myers_pairs(*pm, *one_text, no_pairs, no_pairs).shape == (0,)
     return {"myers_pairs_pairs": int(pt.size), "myers_pairs_minus_one": int((want == -1).sum()),
-            "myers_pairs_zero": int((want == 0).sum()), "myers_pairs_equal": True}
+            "myers_pairs_zero": int((want == 0).sum()), "myers_pairs_texts": len(texts),
+            "myers_pairs_longest": max(map(len, texts)), "myers_pairs_equal": True}
 
 
 def entry_path(card: str) -> None:
@@ -834,6 +884,62 @@ def cli_path(card: str) -> None:
     tmp.cleanup()
 
 
+def legacy_batches(records, index, dev) -> tuple[int, list]:
+    """The legacy screen's batches of ``MATCH_SCREEN_BATCH`` rows over the
+    chunk, found from the packed screen's masks: how many hold a mask, and
+    the refine pairs (``_refine_pairs``) of each one that has some."""
+    from advanced_scrapper_tpu_torch.pipeline.matcher import _get_col, _refine_pairs, screen_chunk
+
+    rows = [(_get_col(r, "article_text", "article"), _get_col(r, "title"), None, r)
+            for r in records]
+    masks, _p = screen_chunk(rows, index, use_refine=False, threshold=95.0,
+                             screen_block=1 << 16, device=dev)
+    screened, batches = 0, []
+    for start in range(0, len(rows), MATCH_SCREEN_BATCH):
+        got = masks[start:start + MATCH_SCREEN_BATCH]
+        screened += any(m is not None for m in got)
+        pairs = _refine_pairs(rows[start:start + MATCH_SCREEN_BATCH], got, index)
+        if pairs is not None:
+            batches.append(pairs)
+    return screened, batches
+
+
+def pair_inputs(batches, dev) -> tuple[list[tuple], dict]:
+    """Each legacy batch's ``myers_pairs`` arguments on the card after the
+    masks (texts, offsets, lengths, each pair's text and pattern), and
+    what they hold: ``steps`` (live bytes over every tile of every pair),
+    ``bytes`` (texts, indices and masks read once, distances written),
+    ``pairs``, and each launch's longest live tile (``longest``)."""
+    inputs, steps, moved, n_pairs, longest = [], 0, 0, 0, []
+    for _row, pair_text, ks, tok, lens in batches:
+        L = tok.shape[1]
+        inputs.append((torch.from_numpy(tok.reshape(-1)).to(dev),
+                       torch.arange(tok.shape[0], dtype=torch.int64, device=dev) * L,
+                       torch.from_numpy(lens).to(dev), torch.from_numpy(pair_text).to(dev),
+                       torch.from_numpy(ks.astype(np.int32)).to(dev)))
+        tl = lens.astype(np.int64)[pair_text]
+        for start in range(0, int(tl.max()), 512):
+            steps += int(np.clip(tl - start, 0, 543).sum())
+        longest.append(min(int(tl.max()), 543))
+        moved += int(lens.sum()) + 12 * tok.shape[0] + 8 * ks.size + 1028 * np.unique(ks).size
+        moved += 4 * ks.size  # the distances written
+        n_pairs += ks.size
+    return inputs, {"steps": steps, "bytes": moved, "pairs": n_pairs, "longest": longest}
+
+
+def joined_pairs(inputs: list[tuple]) -> tuple:
+    """The batches' ``myers_pairs`` arguments (:func:`pair_inputs`, after
+    the masks) joined into one call's: the same pairs over the texts laid
+    one after another."""
+    base = np.cumsum([0] + [b[0].numel() for b in inputs[:-1]])
+    first = np.cumsum([0] + [b[2].numel() for b in inputs[:-1]])
+    return (torch.cat([b[0] for b in inputs]),
+            torch.cat([b[1] + int(o) for b, o in zip(inputs, base)]),
+            torch.cat([b[2] for b in inputs]),
+            torch.cat([b[3] + int(f) for b, f in zip(inputs, first)]),
+            torch.cat([b[4] for b in inputs]))
+
+
 def matcher_legacy(records, index, pool, packed_matches, info, entities, tmp: str,
                    clock_mhz: float, card: str) -> dict:
     """The legacy screen (``packed=False``) over the S&P chunk, screen-only
@@ -845,35 +951,22 @@ def matcher_legacy(records, index, pool, packed_matches, info, entities, tmp: st
     on 256 articles (64 with the refine forced).  Then ``myers_pairs`` on
     the chunk's batches, timed by the profiler (device ms per recorded
     launch), beside its plain version on the card (every batch's pairs in
-    one call, per launch) and its bound (14 INT32 operations a live
-    pair-step, the text, indices and masks moved once), all per launch:
-    the mean over the chunk's batches; returns the ``kernels`` line's
-    row."""
+    one call, per launch), its bounds (14 INT32 operations a live
+    pair-step; the text, indices and masks moved once), the launch floor
+    (a one-element fill in the same profiler window) and the chain floor
+    (:func:`chain_floor_ms`, the step of a lone chain from one pair on a
+    543-byte and on a 1-byte text timed in the same call), all per launch:
+    the mean over the chunk's batches; with the SASS instructions a step
+    of its window loop.  Returns the ``kernels`` line's row."""
     from advanced_scrapper_tpu_torch.config import MatchConfig
-    from advanced_scrapper_tpu_torch.ops import editdist_cuda
+    from advanced_scrapper_tpu_torch.ops import _build, editdist_cuda
     from advanced_scrapper_tpu_torch.ops.editdist import semiglobal_dist_plain
-    from advanced_scrapper_tpu_torch.pipeline.matcher import (
-        _get_col,
-        _refine_pairs,
-        match_chunk_async,
-        run_matcher,
-        screen_chunk,
-    )
+    from advanced_scrapper_tpu_torch.ops.sass import pairs_sass
+    from advanced_scrapper_tpu_torch.pipeline.matcher import match_chunk_async, run_matcher
 
     dev = torch.device("cuda")
-    rows = [(_get_col(r, "article_text", "article"), _get_col(r, "title"), None, r)
-            for r in records]
-    masks, _p = screen_chunk(rows, index, use_refine=False, threshold=95.0,
-                             screen_block=1 << 16, device=dev)
-    want_e = want_f = 0
-    batches = []
-    for start in range(0, len(rows), MATCH_SCREEN_BATCH):
-        got = masks[start:start + MATCH_SCREEN_BATCH]
-        want_e += any(m is not None for m in got)
-        pairs = _refine_pairs(rows[start:start + MATCH_SCREEN_BATCH], got, index)
-        if pairs is not None:
-            want_f += 1
-            batches.append(pairs)
+    want_e, batches = legacy_batches(records, index, dev)
+    want_f = len(batches)
 
     modes = {}
     for mode, refine in (("screen_only", False), ("forced_refine", True)):
@@ -911,38 +1004,41 @@ def matcher_legacy(records, index, pool, packed_matches, info, entities, tmp: st
 
     # myers_pairs on the chunk's batches
     _screen_t, (pmasks, plens, _ok, _cols) = index.device_tables(dev)
-    inputs, steps, moved, n_pairs = [], 0, 0, 0
-    for _row, pair_text, ks, tok, lens in batches:
-        L = tok.shape[1]
-        inputs.append((torch.from_numpy(tok.reshape(-1)).to(dev),
-                       torch.arange(tok.shape[0], dtype=torch.int64, device=dev) * L,
-                       torch.from_numpy(lens).to(dev), torch.from_numpy(pair_text).to(dev),
-                       torch.from_numpy(ks.astype(np.int32)).to(dev)))
-        tl = lens.astype(np.int64)[pair_text]
-        for start in range(0, int(tl.max()), 512):
-            steps += int(np.clip(tl - start, 0, 543).sum())
-        moved += int(lens.sum()) + 12 * tok.shape[0] + 8 * ks.size + 1028 * np.unique(ks).size
-        moved += 4 * ks.size  # the distances written
-        n_pairs += ks.size
+    inputs, work = pair_inputs(batches, dev)
+    steps, moved, n_pairs, longest = (work[k] for k in ("steps", "bytes", "pairs", "longest"))
     outs: list = []
 
     def run_pairs():
         outs[:] = [editdist_cuda.myers_pairs(pmasks, plens, *b) for b in inputs]
 
+    one = torch.empty((1,), dtype=torch.int32, device=dev)
+
+    def with_fill():
+        run_pairs()
+        one.fill_(0)
+
     run_pairs()
     event_ms = cuda_ms(run_pairs, 3) / len(inputs)
-    seen = profiler_device_ms(run_pairs, ("pairs_kernel",))
+    seen = profiler_device_ms(with_fill, ("pairs_kernel", "FillFunctor"))
     ms, recorded = per_launch_ms(seen, "pairs_kernel")
+    floor_ms, _n = per_launch_ms(seen, "FillFunctor")
+    assert floor_ms > 0, f"the profiler saw no fill, only {sorted(seen)}"
     ms_from = "profiler" if recorded else "events"
     ms = ms or event_ms
+    # a lone chain: one pair on a 543-byte and on a 1-byte text, in the same call
+    lone = {}
+    for n in (LONE_STEPS, 1):
+        args = (torch.randint(97, 123, (n,), dtype=torch.uint8, device=dev),
+                torch.zeros(1, dtype=torch.int64, device=dev),
+                torch.full((1,), n, dtype=torch.int32, device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev))
+        lone[n], = profiled_ms(lambda: editdist_cuda.myers_pairs(pmasks, plens, *args),
+                               "pairs_kernel", reps=20)
+    step_ms = lone_step_ms(lone[LONE_STEPS], lone[1], pairs_constant("kWindow"))
+    chain_ms = chain_floor_ms(longest, step_ms, floor_ms)
     # the plain version on every batch's pairs at once: the same work
-    texts = torch.cat([b[0] for b in inputs])
-    base = np.cumsum([0] + [b[0].numel() for b in inputs[:-1]])
-    first = np.cumsum([0] + [b[2].numel() for b in inputs[:-1]])
-    joined = (texts, torch.cat([b[1] + int(o) for b, o in zip(inputs, base)]),
-              torch.cat([b[2] for b in inputs]),
-              torch.cat([b[3] + int(f) for b, f in zip(inputs, first)]),
-              torch.cat([b[4] for b in inputs]))
+    joined = joined_pairs(inputs)
     plain: list = []
     plain_ms = cuda_ms(lambda: plain.append(
         semiglobal_dist_plain(pmasks, plens, *joined, pairs_per_batch=1 << 16))) / len(inputs)
@@ -953,6 +1049,10 @@ def matcher_legacy(records, index, pool, packed_matches, info, entities, tmp: st
                int_ops=14 * steps, bytes=moved, ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms,
                ms=ms, ms_from=ms_from, event_ms=event_ms, plain_ms=plain_ms,
                share_of_bound=max(ops_ms, bytes_ms) / ms, profiler_launches=recorded,
+               launch_floor_ms=floor_ms, lone_ms=lone[LONE_STEPS], lone_1_byte_ms=lone[1],
+               lone_step_ns=step_ms * 1e6, longest_steps_mean=float(np.mean(longest)),
+               chain_floor_ms=chain_ms, share_of_floor=max(ops_ms, bytes_ms, chain_ms) / ms,
+               sass=pairs_sass(_build.library_path("editdist")),
                per="launch (the mean over the chunk's batches)")
     log("kernel_timing", **row, clock_max_sm_mhz=clock_mhz, card=card)
     log("matcher_legacy", articles=len(records), screen_batch=MATCH_SCREEN_BATCH,
@@ -1502,6 +1602,28 @@ def bound_ms(int_ops: int, moved: int, clock_mhz: float) -> tuple[float, float]:
     """(operations bound, bytes bound) in ms on one H100."""
     ops_ms = int_ops / (INT32_OPS_PER_SM * CARD_SMS * clock_mhz * 1e6) * 1e3
     return ops_ms, moved / HBM_BYTES_PER_S * 1e3
+
+
+LONE_STEPS = 543  # the lone chain's text: one whole live tile
+
+
+def lone_step_ms(lone_ms: float, lone_1_ms: float, window: int) -> float:
+    """The time of one step of a lone ``myers_pairs`` chain: the slope
+    between a launch of one pair on a ``LONE_STEPS``-byte text
+    (``lone_ms``) and one on a 1-byte text (``lone_1_ms``), over the steps
+    the first runs past the second.  A warp runs whole windows of
+    ``window`` steps, so those are ``window * (ceil(LONE_STEPS / window) -
+    1)``; what both launches share (the launch, the masks staged, the
+    first window loaded) drops out."""
+    return (lone_ms - lone_1_ms) / (window * (-(-LONE_STEPS // window) - 1))
+
+
+def chain_floor_ms(longest: list[int], step_ms: float, launch_floor_ms: float) -> float:
+    """``myers_pairs``' chain floor in ms a launch, the mean over launches:
+    a launch's longest live tile (``longest``, steps) times ``step_ms``, the
+    time of one step of a lone chain (:func:`lone_step_ms`), plus the
+    launch floor."""
+    return launch_floor_ms + step_ms * sum(longest) / len(longest)
 
 
 #: tier stats that do not depend on the device (``launches`` and
@@ -2510,7 +2632,8 @@ def main() -> int:
         source="advanced_scrapper_tpu_torch/csrc/editdist.cu",
         replaces="advanced_scrapper_tpu/ops/editdist.py:66 (_semiglobal_core under "
         "semiglobal_dist :120, jnp)", pairs=legacy["pairs"], batches=legacy["batches"],
-        per=legacy["per"]))
+        launch_floor_ms=legacy["launch_floor_ms"], chain_floor_ms=legacy["chain_floor_ms"],
+        share_of_floor=legacy["share_of_floor"], per=legacy["per"]))
     assert len(kernels) == 7, [k["name"] for k in kernels]
 
     print(json.dumps({"kernels": kernels}))

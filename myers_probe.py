@@ -1,6 +1,7 @@
-"""Variants of the matcher's two kernels on the card: a tuning probe.
+"""Variants of the matcher's kernels on the card: a tuning probe.
 
     python3 myers_probe.py [--parent DIR]
+    python3 myers_probe.py --pairs [--parent DIR]
 
 Builds copies of ``advanced_scrapper_tpu_torch/csrc/editdist.cu`` (the
 Myers bound) with other values of its constants (chains a thread, unroll,
@@ -22,8 +23,21 @@ twice (every variant in order, then in reverse), the SM clock read before
 and after each; the screens also by the profiler (ms per recorded launch
 of 5).  One JSON line per variant, with its SASS instructions per step of
 its inner loop (``ops/sass.py``): a Myers step, or a screen probe, per
-(row, gram) and per written pair.  Needs one card and ``nvcc``; run it
-from the repo's root.
+(row, gram) and per written pair.
+
+With ``--pairs`` it takes the per-pair kernel ``myers_pairs`` alone: the
+shipped source and its variants (:data:`PAIRS_VARIANTS`: steps a mask is
+read ahead, warps a block, steps a window, a window's steps as a loop)
+and, with ``--parent``, the other checkout's ``editdist.cu``, each held bit-equal to ``semiglobal_dist_plain`` on the
+S&P chunk's legacy batches (``chip_smoke.legacy_batches``: 157 launches
+of a few hundred pairs) and timed over them by CUDA events, 5 passes
+queued behind a ~100 ms spin of the card, in turns (parent, shipped, the
+variants, then the same in reverse), the SM clock read before and after
+each, then by the profiler (ms per recorded launch) beside a lone pair on
+a 543-byte and on a 1-byte text (their slope: the time of a step of a
+lone chain, ``chip_smoke.lone_step_ms``), with the SASS instructions a
+step of its step loop (``ops/sass.py:pairs_sass``).  Needs one card and ``nvcc``; run it from
+the repo's root.
 """
 
 from __future__ import annotations
@@ -55,6 +69,29 @@ VARIANTS = {
     "t8": [(CHAINS, "constexpr int kChains = 8;"), (MIN_BLOCKS, "constexpr int kMinBlocks = 3;")],
     "unroll_4": [(UNROLL, "constexpr int kUnroll = 4;")],
 }
+
+PAIR_WARPS = "constexpr int kPairWarps = 4;"
+WINDOW = "constexpr int kWindow = 64;"
+AHEAD = "constexpr int kAhead = 8;"
+
+UNROLL_PASS = "#pragma unroll\n  for (int u0 = 0;"
+
+#: editdist.cu variants of myers_pairs: masks read 4 and 16 steps ahead
+#: (passes of as many steps); 2 warps a block (a pair of 65,536 bytes then
+#: takes 2 rounds); windows of 32 steps (a refill twice as often,
+#: less shared memory); a window's steps a loop of kAhead-step passes
+#: (~8x less code than the window unrolled whole)
+PAIRS_VARIANTS = {
+    "shipped": [],
+    "pairs_ahead4": [(AHEAD, "constexpr int kAhead = 4;")],
+    "pairs_ahead16": [(AHEAD, "constexpr int kAhead = 16;")],
+    "pairs_w2": [(PAIR_WARPS, "constexpr int kPairWarps = 2;")],
+    "pairs_window32": [(WINDOW, "constexpr int kWindow = 32;")],
+    "pairs_passes": [(UNROLL_PASS, "#pragma unroll 1\n  for (int u0 = 0;")],
+}
+#: GPU clocks the card spins before a queued pass of the chunk's launches
+#: (~100 ms at 1980 MHz: the host makes 785 launches meanwhile)
+PAIRS_AHEAD_CYCLES = 200_000_000
 
 ENTRY = "using Entry = uint32_t;"
 THREADS = "constexpr int kThreads = 1024;"
@@ -120,13 +157,13 @@ def build_sources(srcs: dict[tuple[str, str], Path]) -> dict[tuple[str, str], Pa
     return libs
 
 
-def build_variants(parent: Path | None) -> dict[tuple[str, str], Path]:
-    """Every variant of both sources (and the parent's sources) compiled
-    at once; ``(source, variant) -> library``."""
+def build_variants(parent: Path | None, sources: dict = SOURCES) -> dict[tuple[str, str], Path]:
+    """Every variant of ``sources`` (and the parent's sources) compiled at
+    once; ``(source, variant) -> library``."""
     outdir = _build.BUILD_DIR / "probe"
     outdir.mkdir(parents=True, exist_ok=True)
     srcs = {}
-    for source, variants in SOURCES.items():
+    for source, variants in sources.items():
         text = (_build.CSRC_DIR / f"{source}.cu").read_text()
         for name, edits in variants.items():
             srcs[source, name] = outdir / f"{source}-{name}.cu"
@@ -202,24 +239,130 @@ def launch_screen(lib: ctypes.CDLL, csr: bool, t: dict, out: torch.Tensor) -> No
         raise RuntimeError(f"screen variant launch failed: CUDA error {err}")
 
 
-def timed_twice(cs, runs: dict) -> dict[str, list]:
+def load_pairs(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.astt_myers_pairs.argtypes = [p, ctypes.c_longlong, p, p, i, p, p, i, p, p, i, p, p]
+    lib.astt_myers_pairs.restype = i
+    return lib
+
+
+def launch_pairs(lib: ctypes.CDLL, pmasks: torch.Tensor, plens: torch.Tensor, batch: tuple,
+                 out: torch.Tensor) -> None:
+    """One ``myers_pairs`` launch of a built library on one legacy batch
+    (``chip_smoke.pair_inputs``; checked once by the shipped wrapper)."""
+    text, off, tl, pt, pp = batch
+    err = lib.astt_myers_pairs(
+        text.data_ptr(), text.numel(), off.data_ptr(), tl.data_ptr(), off.numel(),
+        pmasks.data_ptr(), plens.data_ptr(), plens.numel(), pt.data_ptr(), pp.data_ptr(),
+        pt.numel(), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"myers_pairs variant launch failed: CUDA error {err}")
+
+
+def pairs_main(parent: Path | None, card: str) -> int:
+    """``--pairs``: see the module's docstring."""
+    import chip_smoke as cs
+
+    from advanced_scrapper_tpu_torch.ops import editdist_cuda
+    from advanced_scrapper_tpu_torch.ops.editdist import semiglobal_dist_plain
+    from advanced_scrapper_tpu_torch.ops.sass import pairs_sass
+    from advanced_scrapper_tpu_torch.pipeline.matcher import EntityIndex, process_json_data
+
+    libs = build_variants(parent, {"editdist": PAIRS_VARIANTS})
+    text = (_build.CSRC_DIR / "editdist.cu").read_text()
+    texts = {name: patched(text, edits) for name, edits in PAIRS_VARIANTS.items()}
+    if parent is not None:
+        texts["parent"] = parent_source(parent, "editdist").read_text()
+    libs = {name: path for (_s, name), path in sorted(libs.items(),
+                                                      key=lambda x: x[0][1] != "parent")}
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(17)
+    entities = cs.sp500_entities(rng)
+    records, _planted = cs.sp500_articles(rng, entities, cs.MATCH_ARTICLES)
+    index = EntityIndex(process_json_data(entities))
+    _screened, batches = cs.legacy_batches(records, index, dev)
+    inputs, work = cs.pair_inputs(batches, dev)
+    _screen, (pmasks, plens, _ok, _cols) = index.device_tables(dev)
+    want = semiglobal_dist_plain(pmasks, plens, *cs.joined_pairs(inputs), pairs_per_batch=1 << 16)
+    shipped = torch.cat([editdist_cuda.myers_pairs(pmasks, plens, *b) for b in inputs])
+    torch.cuda.synchronize()
+    assert torch.equal(shipped, want), "myers_pairs differs from semiglobal_dist_plain on the chunk"
+    outs = [torch.empty(b[3].numel(), dtype=torch.int32, device=dev) for b in inputs]
+    lone_out = torch.empty(1, dtype=torch.int32, device=dev)
+
+    def lone(n: int) -> tuple:
+        """One pair on a text of n bytes (one tile)."""
+        return (torch.randint(97, 123, (n,), dtype=torch.uint8, device=dev),
+                torch.zeros(1, dtype=torch.int64, device=dev),
+                torch.full((1,), n, dtype=torch.int32, device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev))
+
+    lones = {n: lone(n) for n in (1, cs.LONE_STEPS)}
+    runs, lone_runs = {}, {}
+    for name, path in libs.items():
+        lib = load_pairs(path)
+        for o in outs:
+            o.fill_(-7)
+        runs[name] = lambda lib=lib: [launch_pairs(lib, pmasks, plens, b, o)
+                                      for b, o in zip(inputs, outs)]
+        lone_runs[name] = {n: lambda lib=lib, x=x: launch_pairs(lib, pmasks, plens, x, lone_out)
+                           for n, x in lones.items()}
+        runs[name]()
+        torch.cuda.synchronize()
+        assert torch.equal(torch.cat(outs), want), f"myers_pairs {name} differs from plain"
+    times = timed_twice(cs, runs, ahead=PAIRS_AHEAD_CYCLES)
+    n = len(inputs)
+    for name, path in libs.items():
+        ms = [x[0] / n for x in times[name]]
+        prof_ms, prof_n = cs.per_launch_ms(cs.profiler_device_ms(runs[name], ("pairs_kernel",)),
+                                           "pairs_kernel")
+        lone_ms = {size: cs.profiled_ms(fn, "pairs_kernel", reps=20)[0]
+                   for size, fn in lone_runs[name].items()}
+        step_ms = cs.lone_step_ms(lone_ms[cs.LONE_STEPS], lone_ms[1], window_of(texts[name]))
+        print(json.dumps({
+            "kernel": "myers_pairs", "variant": name, "ms": ms, "ms_mean": sum(ms) / len(ms),
+            "profiler_ms": prof_ms or None, "profiler_launches": prof_n,
+            "lone_ms": lone_ms[cs.LONE_STEPS], "lone_1_byte_ms": lone_ms[1],
+            "lone_step_ns": step_ms * 1e6, "equal_to_plain": True,
+            "clock_sm": [c for x in times[name] for c in x[1:]], "launches": n,
+            "pairs": work["pairs"], "pair_steps": work["steps"],
+            "longest_steps_mean": sum(work["longest"]) / n, "card": card,
+            "sass": pairs_sass(path) if name != "parent" else sass_of(
+                path, step="LDG.E.U8", global_loads=True, function="pairs_kernel")}),
+            flush=True)
+    return 0
+
+
+def window_of(text: str) -> int:
+    """The steps a warp of an ``editdist.cu``'s ``myers_pairs`` runs at a
+    time (``kWindow``); 1 for a design without windows, whose chains step
+    their live bytes only."""
+    m = re.search(r"constexpr int kWindow = (\d+);", text)
+    return int(m.group(1)) if m else 1
+
+
+def timed_twice(cs, runs: dict, ahead: int | None = None) -> dict[str, list]:
     """Each ``name -> fn`` timed by CUDA events over 5 calls queued behind
-    a spin of the card (``chip_smoke.cuda_ms``), in order and then in
-    reverse, so that a drift of the card's speed over the call shows as a
-    spread; ``name -> [(ms, clock before, clock after), ...]``."""
+    a spin of the card (``chip_smoke.cuda_ms``, ``ahead`` clocks if given),
+    in order and then in reverse, so that a drift of the card's speed over
+    the call shows as a spread; ``name -> [(ms, clock before, clock
+    after), ...]``."""
     times = {name: [] for name in runs}
+    spin = {} if ahead is None else {"ahead": ahead}
     for name in [*runs, *reversed(runs)]:
         clock_before = cs.nvidia_smi("clocks.sm")
-        ms = cs.cuda_ms(runs[name], 5, queued=True)
+        ms = cs.cuda_ms(runs[name], 5, queued=True, **spin)
         times[name].append((ms, clock_before, cs.nvidia_smi("clocks.sm")))
     return times
 
 
-def sass_of(path: Path) -> dict:
+def sass_of(path: Path, **kw) -> dict:
     from advanced_scrapper_tpu_torch.ops.sass import sass_step_counts
 
     try:
-        return sass_step_counts(path)
+        return sass_step_counts(path, **kw)
     except (RuntimeError, subprocess.SubprocessError, OSError) as e:
         return {"error": str(e)[:200]}
 
@@ -227,11 +370,17 @@ def sass_of(path: Path) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path, help="a checkout whose kernels to time beside")
+    ap.add_argument("--pairs", action="store_true", help="the per-pair kernel myers_pairs only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("myers_probe runs on the card", file=sys.stderr)
         return 2
     import chip_smoke as cs  # the chunk, the edge cases and the timers of the smoke run
+
+    if args.pairs:
+        card = cs.nvidia_smi("name,power.limit")
+        print(json.dumps({"card": card}), flush=True)
+        return pairs_main(args.parent, card)
 
     from advanced_scrapper_tpu_torch.ops import editdist_cuda, match_cuda
     from advanced_scrapper_tpu_torch.ops.editdist import myers_bound_plain

@@ -6,7 +6,9 @@ against the reference's fused screen step, ``make_screen_step``, with
 ``ok = False`` patterns and texts of exactly ``m`` and ``m + 1`` bytes.
 Every comparison is exact.  Then the kernel wrapper's checks, a model of
 the kernel's chain walk, the SASS reader and the tuning probe's
-variants."""
+variants; for the per-pair kernel ``myers_pairs``, the plain distance at
+the edges of its geometry, its step loop in SASS, and the step time and
+chain floor its timing row reports."""
 
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from advanced_scrapper_tpu.core.tokenizer import encode_batch
 from advanced_scrapper_tpu.ops import editdist as ref
 from advanced_scrapper_tpu.ops import match as ref_match
 from advanced_scrapper_tpu.ops.pack import pack_tile_planes
+import chip_smoke
 import myers_probe
 from advanced_scrapper_tpu_torch.ops import editdist, editdist_cuda, match, sass
 from test_torch_match import ragged
@@ -366,6 +369,18 @@ def test_probe_variants_cover_the_chain_counts():
     assert chains == {"2", "4", "5", "8"}
     with pytest.raises(ValueError, match="not once"):
         myers_probe.patched(src, [("kChains = 3;", "kChains = 2;")])
+    # myers_pairs: masks 4, 8 and 16 steps ahead, 2 and 4 warps a block,
+    # windows of 32 and 64 steps, a window unrolled whole or a loop of passes
+    seen = {"ahead": set(), "warps": set(), "window": set(), "unrolled": set()}
+    for edits in myers_probe.PAIRS_VARIANTS.values():
+        out = myers_probe.patched(src, edits)
+        assert (out == src) == (not edits)
+        seen["ahead"] |= set(re.findall(r"constexpr int kAhead = (\d+);", out))
+        seen["warps"] |= set(re.findall(r"constexpr int kPairWarps = (\d+);", out))
+        seen["window"] |= set(re.findall(r"constexpr int kWindow = (\d+);", out))
+        seen["unrolled"].add(myers_probe.UNROLL_PASS in out)
+    assert seen == {"ahead": {"4", "8", "16"}, "warps": {"2", "4"}, "window": {"32", "64"},
+                    "unrolled": {False, True}}
 
 
 def test_sass_reads_one_function_of_several():
@@ -376,6 +391,17 @@ def test_sass_reads_one_function_of_several():
     assert len(both) == 2 * len(sass.parse_sass(SASS))
     assert sass.parse_sass(SASS + other, "bound_kernel") == sass.parse_sass(SASS)
     assert sass.step_loop(sass.parse_sass(other + SASS, "bound_kernel"))["steps_in_loop"] == 2
+
+
+def test_sass_reads_the_pairs_step_loop():
+    """``myers_pairs``' step loop is the one that holds the next window's
+    global loads (here the three-step loop), or, in a variant that keeps a
+    window a loop of passes without them, that loop (the two-step one)."""
+    instrs = sass.parse_sass(SASS)
+    assert sass.pairs_loop(instrs)["steps_in_loop"] == 3
+    assert sass.pairs_loop(instrs[:12])["steps_in_loop"] == 2
+    with pytest.raises(RuntimeError, match="no step loop"):
+        sass.pairs_loop(instrs[:1])
 
 
 # -- one pattern per pair: semiglobal_dist, prune_mask_tables ------------------
@@ -494,3 +520,70 @@ def test_prune_compare_is_float64_where_float32_differs(m, d, t):
                                     torch.zeros(1, dtype=torch.int32))
     assert int(dist[0]) == d
     assert bool(editdist.bound_pruned(dist[None, :], torch.tensor([m], dtype=torch.int32), t))
+
+
+# -- myers_pairs: its geometry's edges, its chain floor --------------------------
+
+
+def test_pair_edge_lengths():
+    """The text lengths at the edges of ``myers_pairs``' geometry that
+    ``chip_smoke.check_myers_pairs_vs_plain`` feeds the kernel, from the
+    source's 4 warps a block: a second warp, a second and a third round."""
+    assert chip_smoke.pairs_constant("kPairWarps") == 4
+    assert chip_smoke.pair_edge_lengths() == [
+        16383, 16384, 16385, 65535, 65536, 65537, 131071, 131072, 131073]
+    assert chip_smoke.pair_edge_lengths(block=7)[:3] == [223, 224, 225]
+
+
+@pytest.mark.parametrize("window, steps", [(64, 512), (32, 512), (1, 542), (100, 500)])
+def test_lone_step_on_fixed_numbers(window, steps):
+    """A lone chain's step is the slope between the 543-byte and the 1-byte
+    lone launch over the steps the first runs past the second: whole
+    windows of ``window`` steps (9 and 1 of 64, 17 and 1 of 32, 6 and 1 of
+    100), or the live bytes where there are no windows."""
+    assert chip_smoke.lone_step_ms(0.0131, 0.0029, window) == pytest.approx(0.0102 / steps)
+
+
+def test_chain_floor_on_fixed_numbers():
+    """A launch whose longest live tile is n steps has the floor launch
+    floor + n steps of a lone chain; the row gives the mean over launches.
+    With a step of 19.98 ns and a launch floor of 0.00102 ms, a launch of
+    543-step tiles has the floor 0.0118691 ms, below the lone 543-byte
+    launch itself, which also stages the masks and runs whole windows."""
+    step = 19.98e-6
+    assert chip_smoke.chain_floor_ms([543], step, 0.00102) == pytest.approx(0.01186914)
+    assert chip_smoke.chain_floor_ms([543, 100, 1], step, 0.001) == pytest.approx(
+        0.001 + step * 644 / 3)
+    assert chip_smoke.chain_floor_ms([0, 0], step, 0.002) == pytest.approx(0.002)
+
+
+@pytest.mark.parametrize("n", [*chip_smoke.pair_edge_lengths(), 200_000])
+def test_semiglobal_dist_plain_equals_reference_at_the_kernel_edges(n):
+    """Texts one byte short of, at and one past the tile counts where
+    ``myers_pairs`` takes a second warp, a second round or a third
+    (``chip_smoke.pair_edge_lengths``), and one of 200,000 bytes: the plain
+    distance (the kernel's reference on the card) equals the JAX package's
+    ``semiglobal_dist``, patterns of 1, 7 and 32 bytes, one planted exact
+    across the last tile edge and one with an edit across the edge before,
+    exactly."""
+    rng = np.random.RandomState(n % 1000)
+    pats = [b"a", bytes(rng.randint(97, 101, 7, dtype=np.uint8)),
+            bytes(rng.randint(97, 101, 32, dtype=np.uint8))]
+    text = bytearray(rng.randint(97, 101, size=n, dtype=np.uint8))
+    last = (n - 1) // T * T
+    at = min(last - 3, n - 7)
+    text[at:at + 7] = pats[1]                                   # across the last edge
+    text[last - T - 5:last - T + 27] = pats[2][:20] + b"z" + pats[2][21:]
+    assert len(text) == n
+    masks, lens, _ok = ref.build_pattern_masks(pats)
+    pp = np.arange(len(pats), dtype=np.int32)
+    want = np.asarray(ref.semiglobal_dist(
+        jnp.asarray(masks[pp]), jnp.asarray(lens[pp]),
+        jnp.asarray(np.frombuffer(bytes(text), np.uint8)[None].repeat(len(pats), 0)),
+        jnp.asarray(np.full(len(pats), n, np.int32))))
+    text_t, off, tlens = joined([bytes(text)])
+    got = editdist.semiglobal_dist_plain(u32(masks), torch.from_numpy(lens), text_t, off, tlens,
+                                         torch.zeros(len(pats), dtype=torch.int32),
+                                         torch.from_numpy(pp))
+    assert np.array_equal(got.numpy(), want)
+    assert want[1] == 0 and want[2] <= 1
