@@ -213,7 +213,8 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("-o", "--output", default=None)
     d.add_argument("--backend", default=None, choices=["scan", "oph", "pallas"],
                    help="signature backend (default: config; scan and pallas both run the "
-                   "CUDA kernel; oph is not ported)")
+                   "dense CUDA MinHash kernel; oph runs the CUDA one-permutation "
+                   "fold and densify kernels)")
     d.add_argument("--stream", action="store_true",
                    help="bounded-memory streaming dedup (corpus never read whole; "
                    "first-seen-wins across batches via the stream index)")

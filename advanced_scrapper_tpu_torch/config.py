@@ -10,10 +10,10 @@ config`` prints the same JSON from either; :func:`from_env` reads the
 The dedup engine runs its defaults: the rerank tier, the one-shot exact
 verify and the estimator-only path, through the pipelined dispatcher
 (``put_workers``, ``dispatch_window``), with ``packed_h2d=False`` (the
-reference's legacy tile transport) and ``prewarm`` too.  It raises
-``NotImplementedError`` for the fields whose slice is still to come
-(``backend="oph"``, ``index_fleet``) rather than approximating them; the
-fleet's timeouts are read by nothing yet.  The matcher runs every
+reference's legacy tile transport), ``prewarm`` and ``backend="oph"``
+(the one-permutation kernels) too.  It raises ``NotImplementedError`` for
+``index_fleet``, whose slice is still to come, rather than approximating
+it; the fleet's timeouts are read by nothing yet.  The matcher runs every
 ``MatchConfig`` field it reads, ``packed=False`` and ``prewarm`` included.  The acquisition,
 enrichment, mesh and feed sections are here for ``Config`` and the CLI:
 their planes are not ported.
@@ -133,7 +133,7 @@ class DedupConfig:
     rerank_tile_rows: int = 1024  # the reference's pair tiles (unused: no tiles here)
     rerank_pair_cap: int = 1 << 16
     seed: int = 1            # datasketch's default seed for oracle parity
-    backend: str = "scan"    # scan | pallas (both: the CUDA kernel) | oph
+    backend: str = "scan"    # scan | pallas (both: the dense CUDA kernel) | oph (the OPH kernels)
     put_workers: int = 0     # the dispatcher's copy threads; 0 = the transport default (1)
     dispatch_window: int = 0  # chunks staged on the card ahead of the fold; 0 = max(2, put_workers)
     packed_h2d: bool = True  # one chunk buffer a copy; False: the legacy transport, 3 copies a tile

@@ -28,10 +28,13 @@ import os
 import re
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Sequence
 
 import numpy as np
+
+from advanced_scrapper_tpu_torch.obs import devprof
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SOURCE = PACKAGE_DIR / "native" / "fastmatch.cpp"
@@ -68,8 +71,17 @@ def library_path(source: Path = SOURCE, flags: Sequence[str] = CXX_FLAGS) -> Pat
 def build(source: Path = SOURCE, flags: Sequence[str] = CXX_FLAGS) -> Path:
     """Compile ``source`` with ``flags`` unless its current build exists;
     returns the library's path.  Raises ``RuntimeError`` when g++ fails or
-    is missing."""
+    is missing.  Each call is counted by the kernel-build sentinel
+    (``obs.devprof.count_build``; the callers load a library once a
+    process)."""
     source = Path(source)
+    t0 = time.perf_counter()
+    lib = _compile(source, flags)
+    devprof.count_build(source.stem, time.perf_counter() - t0)
+    return lib
+
+
+def _compile(source: Path, flags: Sequence[str]) -> Path:
     lib = library_path(source, flags)
     if lib.exists():
         return lib

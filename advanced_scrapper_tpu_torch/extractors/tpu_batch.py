@@ -31,16 +31,19 @@ package reads, and that this one reads from it (same member names, dtypes
 and config fingerprint); the persist index is durable as it goes, its
 directory shared with the reference, and imports an exact-mode npz once.
 
-Not ported yet, and raising ``NotImplementedError``: the remote index
-fleet (``index_fleet``, ROADMAP item 9c).  The reference's telemetry
-gauges, decision counts and journal and quarantine counter come with item
-14 and are left out here.
+The reference's telemetry comes along: scrape-time gauges of the stream's
+stats (``astpu_stream_*``, per ``stream`` label) and the quarantine
+counter ``astpu_quarantine_total{kind="stream_index"}`` with its trace
+event.  Not ported yet, and raising ``NotImplementedError``: the remote
+index fleet (``index_fleet``, ROADMAP item 9c); the reference's decision
+counts and journal come with ROADMAP item 14b.
 """
 
 from __future__ import annotations
 
 import os
 import sys
+import threading
 from dataclasses import dataclass
 from typing import Callable
 
@@ -49,6 +52,7 @@ import torch
 
 from advanced_scrapper_tpu_torch.config import DedupConfig
 from advanced_scrapper_tpu_torch.core.hashing import make_params
+from advanced_scrapper_tpu_torch.obs import telemetry, trace
 from advanced_scrapper_tpu_torch.ops.lsh import candidate_keys
 from advanced_scrapper_tpu_torch.pipeline.clock import StageClock
 from advanced_scrapper_tpu_torch.ops.rerank import band_keys_wide_host
@@ -147,6 +151,46 @@ class TpuBatchBackend:
         #: engine's ``last_clock`` breaks the middle one down
         self.last_clock = StageClock(self.device)
         self._reset_stream_state()
+        self._bridge_stats()
+
+    _seq_lock = threading.Lock()
+    _seq = 0
+
+    def _bridge_stats(self) -> None:
+        """:class:`BatchStats` and the index's size as scrape-time
+        callback gauges, per ``stream`` label (two live backends never
+        replace each other's series)."""
+        with TpuBatchBackend._seq_lock:
+            sid = str(TpuBatchBackend._seq)
+            TpuBatchBackend._seq += 1
+        for name in ("submitted", "batches", "exact_dups", "near_dups", "kept"):
+            telemetry.gauge_fn(
+                f"astpu_stream_{name}", lambda b, _n=name: getattr(b.stats, _n),
+                owner=self, help=f"streaming dedup backend cumulative {name}", stream=sid,
+            )
+        telemetry.gauge_fn(
+            "astpu_stream_buffered", lambda b: len(b._buffer), owner=self,
+            help="records buffered toward the next device batch", stream=sid,
+        )
+        telemetry.gauge_fn(
+            "astpu_stream_index_keys",
+            lambda b: (
+                b._bloom.inserted if b._bloom_mode
+                else b._pindex.posting_count() if b._persist_mode
+                else len(b._kept_keys)
+            ),
+            owner=self, help="cross-batch stream-index population", stream=sid,
+        )
+        if self._bloom_mode:
+            for filt, attr in (("bands", "_bloom"), ("urls", "_bloom_urls")):
+                telemetry.gauge_fn(
+                    "astpu_stream_bloom_predicted_row_fp",
+                    lambda b, _a=attr: getattr(b, _a).predicted_row_fp(),
+                    owner=self,
+                    help="formula row false-drop rate of the band filters at "
+                    "the current insert count (utils.bloom saturation math)",
+                    stream=sid, filter=filt,
+                )
 
     def _reset_stream_state(self) -> None:
         """(Re)initialise all cross-batch state: at construction, and on
@@ -286,12 +330,20 @@ class TpuBatchBackend:
             return False
 
     def _quarantine_ckpt(self, path: str, fs, e: Exception, tail: str) -> None:
-        """Rename an unreadable checkpoint aside and say so on stderr."""
+        """Rename an unreadable checkpoint aside, count it, trace it and
+        say so on stderr."""
         quarantine = f"{path}.quarantine-{os.getpid()}"
         try:
             fs.replace(path, quarantine)
         except OSError:
             quarantine = "<unmovable>"
+        telemetry.event_counter(
+            "astpu_quarantine_total", "crash artifacts quarantined, by kind",
+            kind="stream_index",
+        ).inc()
+        trace.record(
+            "event", "quarantine.stream_index", path=os.path.basename(path), error=str(e),
+        )
         print(
             f"tpu_batch: stream-index checkpoint {path} is unreadable "
             f"({e}); quarantined to {quarantine}, {tail}",

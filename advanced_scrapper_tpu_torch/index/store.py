@@ -3,13 +3,15 @@
 The port's copy of the reference's ``index/store.py``.  The manifest, the
 WAL and segment files and the docmap are the reference's byte for byte, so
 either package reopens the other's directory and goes on to the same
-answers.  What differs: the reference exports its counters through
-``obs.telemetry`` and traces quarantines (ROADMAP item 14); here the
-counts are plain integers on the index (``probe_rows``, ``probe_hits``,
+answers.  It exports the reference's series through ``obs.telemetry``
+(``astpu_index_*``, ``astpu_scrub_*``, ``astpu_quarantine_total``, per
+``index`` label) and traces quarantines; the same counts are kept as plain
+integers on the index too (``probe_rows``, ``probe_hits``,
 ``postings_appended``, ``segment_cuts``, ``compactions``, ``tombstoned``,
 ``wal_torn``, ``quarantined``, ``corrupt_segments``, ``scrubs``,
 ``docmap_errors``), beside ``stats()`` and ``observed_fp_ratio()``.
-:meth:`PersistentIndex.close` joins a running compaction thread.  Module
+What differs: :meth:`PersistentIndex.close` joins a running compaction
+thread, and a cut starts a compaction thread only when none is alive.  Module
 names below are the reference's.
 
 :class:`PersistentIndex` is the durable cross-run successor of every
@@ -66,6 +68,7 @@ from advanced_scrapper_tpu_torch.index.segment import (
     write_segment,
 )
 from advanced_scrapper_tpu_torch.index.wal import WriteAheadLog, replay_wal
+from advanced_scrapper_tpu_torch.obs import telemetry, trace
 from advanced_scrapper_tpu_torch.storage.fsio import atomic_replace, default_fs
 
 __all__ = ["PersistentIndex", "resolve_intra_batch"]
@@ -165,9 +168,10 @@ class PersistentIndex:
         self._fs = fs or default_fs()
         self._lock = threading.RLock()
         self._compact_busy = threading.Lock()
-        #: the daemon compaction thread last started (joined by close)
+        #: the daemon compaction thread, the one running or the last one
+        #: started (joined by close; a cut starts none while it runs)
         self._compactor: threading.Thread | None = None
-        # the counts the reference exports as telemetry
+        # the counts the telemetry series export (_instrument)
         self.probe_rows = self.probe_hits = self.postings_appended = 0
         self.segment_cuts = self.compactions = self.tombstoned = 0
         self.wal_torn = self.quarantined = self.corrupt_segments = 0
@@ -247,6 +251,7 @@ class PersistentIndex:
                 # that is no longer there
                 self._write_manifest()
         self.reopen_seconds = time.perf_counter() - t0
+        self._instrument()
         if not read_only and os.environ.get("ASTPU_INDEX_SCRUB", "") not in ("", "0"):
             self.scrub()
 
@@ -263,6 +268,10 @@ class PersistentIndex:
         with self._fs.open(wal_path, "r+b") as fh:
             fh.truncate(valid_end)
         self.wal_torn += 1
+        telemetry.event_counter(
+            "astpu_index_wal_torn_total",
+            "torn WAL tails truncated at index open (crash artifacts)",
+        ).inc()
 
     def _check_writable(self) -> None:
         if self.read_only:
@@ -342,15 +351,24 @@ class PersistentIndex:
         ``.quarantine`` sidecar (evidence preserved for the operator,
         invisible to every reader pattern) and count it.  In read-only
         mode the file is left in place — the checker observes, never
-        mutates — but the drop from the live set still counts.
-        ``reason`` is what the reference's trace records."""
+        mutates — but the drop from the live set still counts, and is
+        traced with its ``reason``."""
+        moved = False
         if not self.read_only:
             try:
                 if self._fs.exists(path):
                     self._fs.replace(path, path + ".quarantine")
+                    moved = True
             except OSError:
                 pass
         self.quarantined += 1
+        telemetry.event_counter(
+            "astpu_quarantine_total", "crash artifacts quarantined, by kind", kind="segment",
+        ).inc()
+        trace.record(
+            "event", "quarantine.segment", path=os.path.basename(path),
+            reason=reason, moved=moved,
+        )
 
     def _quarantine_live_segment(self, seg: Segment, reason: str) -> None:
         """Quarantine a segment that is currently serving: drop it from
@@ -385,6 +403,7 @@ class PersistentIndex:
         Callers: ``ASTPU_INDEX_SCRUB=1`` runs it at open, the shard
         server exposes it as the ``scrub`` RPC, ``tools/fsck_index.py``
         is the offline twin."""
+        t0 = time.perf_counter()
         with self._lock:
             snapshot = list(self._segments)
         report: dict = {
@@ -400,7 +419,7 @@ class PersistentIndex:
                 digest = seg.verify_all(fs=self._fs)
             except SegmentCorruption as e:
                 report["corrupt"].append({"segment": name, "detail": e.detail})
-                self.corrupt_segments += 1
+                self._count_corrupt()
                 self._quarantine_live_segment(seg, e.detail)
                 continue
             except OSError:
@@ -425,12 +444,14 @@ class PersistentIndex:
                     f"{want})"
                 )
                 report["corrupt"].append({"segment": name, "detail": detail})
-                self.corrupt_segments += 1
+                self._count_corrupt()
                 self._quarantine_live_segment(seg, detail)
         if backfilled and not self.read_only:
             with self._lock:
                 self._write_manifest()
         self.scrubs += 1
+        self._m_scrubs.inc()
+        self._m_scrub_s.observe(time.perf_counter() - t0)
         report["ok"] = not report["corrupt"]
         return report
 
@@ -585,6 +606,71 @@ class PersistentIndex:
 
     # -- sizing / introspection ----------------------------------------------
 
+    # -- telemetry -----------------------------------------------------------
+
+    _seq_lock = threading.Lock()
+    _seq = 0
+
+    def _instrument(self) -> None:
+        """The reference's series, per ``index`` label (no-ops while
+        telemetry is disabled, except the always-on corrupt-segment
+        counter)."""
+        with PersistentIndex._seq_lock:
+            iid = f"{PersistentIndex._seq}:{os.path.basename(self.dir) or 'index'}"
+            PersistentIndex._seq += 1
+        self._m_probe_rows = telemetry.counter(
+            "astpu_index_probe_rows_total", "query rows probed", index=iid
+        )
+        self._m_probe_hits = telemetry.counter(
+            "astpu_index_probe_hits_total", "query rows that found a candidate", index=iid,
+        )
+        self._m_postings = telemetry.counter(
+            "astpu_index_postings_total", "postings appended (WAL-framed)", index=iid,
+        )
+        self._m_tombstoned = telemetry.counter(
+            "astpu_index_tombstoned_total", "superseded postings dropped by compaction",
+            index=iid,
+        )
+        self._m_cuts = telemetry.counter(
+            "astpu_index_segment_cuts_total", "segments cut from the WAL", index=iid,
+        )
+        self._m_compact_s = telemetry.histogram(
+            "astpu_index_compaction_seconds", "compaction wall clock", index=iid
+        )
+        self._m_cut_s = telemetry.histogram(
+            "astpu_index_segment_cut_seconds", "segment-cut wall clock", index=iid
+        )
+        self._m_scrubs = telemetry.counter(
+            "astpu_scrub_runs_total", "integrity scrub passes", index=iid
+        )
+        self._m_scrub_s = telemetry.histogram(
+            "astpu_scrub_seconds", "scrub pass wall clock", index=iid
+        )
+        # always-on: surfaced corruption is what an operator audits
+        self._m_scrub_corrupt = telemetry.event_counter(
+            "astpu_scrub_corrupt_segments_total",
+            "segments failing block-CRC/digest verification (quarantined)",
+            index=iid,
+        )
+        for name, fn, help in (
+            ("astpu_index_segments", lambda s: len(s._segments), "live segment files"),
+            ("astpu_index_segment_bytes", lambda s: sum(g.file_bytes for g in s._segments),
+             "on-disk segment bytes"),
+            ("astpu_index_wal_postings", lambda s: s._mem_count,
+             "postings in the live WAL/memtable (not yet in a segment)"),
+            ("astpu_index_resident_bytes", lambda s: s.resident_bytes(),
+             "RAM held by the index (segment Blooms + memtable)"),
+            ("astpu_index_next_doc_id", lambda s: s._next_doc_id,
+             "doc-id allocation high-water mark"),
+            ("astpu_index_bloom_observed_fp", lambda s: s.observed_fp_ratio(),
+             "observed per-segment Bloom false-positive ratio"),
+        ):
+            telemetry.gauge_fn(name, fn, owner=self, help=help, index=iid)
+
+    def _count_corrupt(self) -> None:
+        self.corrupt_segments += 1
+        self._m_scrub_corrupt.inc()
+
     def resident_bytes(self) -> int:
         """RAM the index holds: segment Blooms + memtable postings (the
         bounded-memory contract the two-session test asserts — NOT the
@@ -685,6 +771,10 @@ class PersistentIndex:
                 fh.write(lines)
         except OSError:
             self.docmap_errors += 1
+            telemetry.event_counter(
+                "astpu_index_docmap_errors_total",
+                "docmap sidecar appends that failed (attribution-only loss)",
+            ).inc()
 
     def lookup_names(self, doc_ids) -> dict[int, str]:
         """Resolve doc ids from the sidecar (offline/operator path: O(file))."""
@@ -740,6 +830,7 @@ class PersistentIndex:
             self._next_doc_id = max(self._next_doc_id, int(docs.max()) + 1)
             self._semantic_cache = None  # state moved; free the arrays
             self.postings_appended += keys.size
+            self._m_postings.inc(keys.size)
             due = self._mem_count >= self.cut_postings
         if due:
             self.cut_segment()
@@ -780,7 +871,7 @@ class PersistentIndex:
                 # of serving an answer derived from the corrupt block (a
                 # replica/scrub-repair restores the postings; a silently
                 # wrong attribution would be forever)
-                self.corrupt_segments += 1
+                self._count_corrupt()
                 self._quarantine_live_segment(seg, e.detail)
                 continue
             if rows.size:
@@ -794,8 +885,11 @@ class PersistentIndex:
             best[range_mask(flat, handed)] = np.iinfo(np.int64).max
         best = best.reshape(B, -1).min(axis=1)
         out = np.where(best == np.iinfo(np.int64).max, NO_DOC, best)
+        hits = int((out >= 0).sum())
         self.probe_rows += B
-        self.probe_hits += int((out >= 0).sum())
+        self.probe_hits += hits
+        self._m_probe_rows.inc(B)
+        self._m_probe_hits.inc(hits)
         return out
 
     def check_and_add_batch(
@@ -841,6 +935,7 @@ class PersistentIndex:
         zero lost, zero duplicated.
         """
         self._check_writable()
+        t_cut = time.perf_counter()
         # The whole cut (sort, Bloom build, fsync'd write) holds the index
         # lock: correct but probe-blocking for its duration.  The
         # single-writer backends probe and insert from one thread, so
@@ -896,16 +991,25 @@ class PersistentIndex:
             except OSError:
                 pass  # superseded generation; swept on next open anyway
             self.segment_cuts += 1
+            self._m_cuts.inc()
+            self._m_cut_s.observe(time.perf_counter() - t_cut)
             n_seg = len(self._segments)
         if self.compact_segments and n_seg >= self.compact_segments:
             if self.compact_inline:
                 self.compact()
             else:
-                self._compactor = threading.Thread(
-                    target=self.compact, daemon=True,
-                    name=f"astpu-index-compact-{os.path.basename(self.dir)}",
-                )
-                self._compactor.start()
+                # one compaction thread at a time: a cut made while one
+                # runs starts no second merge (it would find the merge
+                # busy and return, as the reference's does) and never
+                # replaces the running thread, which close() joins
+                with self._lock:
+                    running = self._compactor is not None and self._compactor.is_alive()
+                    if not running:
+                        self._compactor = threading.Thread(
+                            target=self.compact, daemon=True,
+                            name=f"astpu-index-compact-{os.path.basename(self.dir)}",
+                        )
+                        self._compactor.start()
         return True
 
     def compact(self) -> bool:
@@ -922,6 +1026,7 @@ class PersistentIndex:
         self._check_writable()
         if not self._compact_busy.acquire(blocking=False):
             return False  # a compaction is already running
+        t0 = time.perf_counter()
         try:
             with self._lock:
                 snapshot = list(self._segments)
@@ -969,6 +1074,8 @@ class PersistentIndex:
                     pass
             self.tombstoned += tombstoned
             self.compactions += 1
+            self._m_tombstoned.inc(tombstoned)
+            self._m_compact_s.observe(time.perf_counter() - t0)
             return True
         finally:
             self._compact_busy.release()

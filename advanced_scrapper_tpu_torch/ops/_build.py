@@ -14,7 +14,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
+
+from advanced_scrapper_tpu_torch.obs import devprof
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -64,10 +67,14 @@ def build(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built first if needed.
+    The first load in a process is counted by the kernel-build sentinel
+    (``obs.devprof.count_build``), so a warm process counts none."""
     lib = _loaded.get(name)
     if lib is None:
+        t0 = time.perf_counter()
         build(name)
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
+        devprof.count_build(name, time.perf_counter() - t0)
     return lib

@@ -61,9 +61,6 @@ def band_keys(sig: torch.Tensor, band_salt) -> torch.Tensor:
 WIDE_OFFSET = 0xCBF29CE4
 WIDE_PRIME = 0x01000197
 
-#: the queue item that ports the OPH backend and its densify
-SLICE_OPH = "the slice of ROADMAP item 12 (the OPH backend)"
-
 
 def band_keys_wide(sig: torch.Tensor, band_salt) -> torch.Tensor:
     """Two independent keys per band: ``uint32[B, P]`` signatures →
@@ -286,15 +283,29 @@ def borderline_edge_mask(
     return torch.cat(need_parts, dim=1), torch.cat(ok_parts, dim=1)
 
 
+def _maybe_densify(sig: torch.Tensor, densify_oph: bool) -> torch.Tensor:
+    """OPH accumulators arrive raw (empty bins ``U32_MAX``), so the
+    min-fold stays exact; the epilogues densify once, after it
+    (``ops.oph.densify``: the ``oph_densify`` kernel on the card)."""
+    if not densify_oph:
+        return sig
+    from advanced_scrapper_tpu_torch.ops.oph import densify
+
+    return densify(sig)
+
+
 def fused_candidate_epilogue(
-    sig_acc: torch.Tensor, valid: torch.Tensor, band_salt, fine_salt
+    sig_acc: torch.Tensor, valid: torch.Tensor, band_salt, fine_salt,
+    *, densify_oph: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(sigs, keys, rep_bands)`` from the signature accumulator: the
     front half of :func:`fused_resolve_epilogue`, for callers that edit
     the candidates between candidacy and resolution (the rerank tier,
-    exact verify).  ``sigs`` is the accumulator itself."""
-    keys = _coarse_fine_keys(sig_acc, band_salt, fine_salt)
-    return sig_acc, keys, duplicate_rep_bands(keys, valid)
+    exact verify).  ``sigs`` is the accumulator itself, densified first
+    with ``densify_oph``."""
+    sig = _maybe_densify(sig_acc, densify_oph)
+    keys = _coarse_fine_keys(sig, band_salt, fine_salt)
+    return sig, keys, duplicate_rep_bands(keys, valid)
 
 
 def fused_resolve_epilogue(
@@ -308,17 +319,21 @@ def fused_resolve_epilogue(
     num_coarse: int,
     jump_rounds: int,
     use_fine_margin: bool,
+    densify_oph: bool = False,
 ) -> torch.Tensor:
     """The whole estimator-only resolution from the signature accumulator:
-    coarse+fine keys → per-band candidates → (optional) per-edge fine bars
-    → verification and component labels.  Returns ``int32[B]``."""
-    _sig, keys, rep_bands = fused_candidate_epilogue(sig_acc, valid, band_salt, fine_salt)
+    (OPH densify) → coarse+fine keys → per-band candidates → (optional)
+    per-edge fine bars → verification and component labels.  Returns
+    ``int32[B]``."""
+    sig, keys, rep_bands = fused_candidate_epilogue(
+        sig_acc, valid, band_salt, fine_salt, densify_oph=densify_oph
+    )
     thr = (
         fine_edge_thresholds(rep_bands, keys, base, fine_margin, num_coarse=num_coarse)
         if use_fine_margin
         else base
     )
-    return resolve_rep_bands(rep_bands, sig_acc, valid, thr, jump_rounds=jump_rounds)
+    return resolve_rep_bands(rep_bands, sig, valid, thr, jump_rounds=jump_rounds)
 
 
 def fused_keys_epilogue(
@@ -328,14 +343,12 @@ def fused_keys_epilogue(
     join on the host (the stream backend): ``wide=False`` gives the
     :func:`candidate_keys` coarse + fine keys (``fine_salt`` may be
     empty), ``wide=True`` the :func:`band_keys_wide` lanes (``fine_salt``
-    unused).  ``sigs`` is the accumulator itself."""
-    if densify_oph:
-        raise NotImplementedError(
-            f"the OPH densify is not ported yet; it comes in {SLICE_OPH}"
-        )
+    unused).  ``sigs`` is the accumulator itself, densified first with
+    ``densify_oph``."""
+    sig = _maybe_densify(sig_acc, densify_oph)
     if wide:
-        return sig_acc, band_keys_wide(sig_acc, band_salt)
-    return sig_acc, _coarse_fine_keys(sig_acc, band_salt, fine_salt)
+        return sig, band_keys_wide(sig, band_salt)
+    return sig, _coarse_fine_keys(sig, band_salt, fine_salt)
 
 
 def keep_mask(rep: torch.Tensor) -> torch.Tensor:

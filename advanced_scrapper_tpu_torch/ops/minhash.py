@@ -157,11 +157,14 @@ def fold_segments_plain(
     params: MinHashParams,
     *,
     batch_bytes: int = 1 << 22,
+    signatures=None,
 ) -> torch.Tensor:
     """Plain version of the kernel's segment fold, in place on ``running``:
     gather each segment's ``shingles + k - 1`` bytes of ``text uint8[T]``
-    into a row, take the rows' signatures, min them into their owners'
-    rows (owners outside ``[0, N)`` dropped).  Rows go ``batch_bytes`` of
+    into a row, take the rows' signatures (``signatures(tokens, lengths,
+    params)``, by default :func:`minhash_signatures_plain`; the OPH
+    backend passes its raw form), min them into their owners' rows
+    (owners outside ``[0, N)`` dropped).  Rows go ``batch_bytes`` of
     gathered text at a time, which bounds the peak intermediate."""
     k = params.shingle_k
     check_segments(text.numel(), seg_start, seg_shingles, seg_owner, k)
@@ -177,7 +180,7 @@ def fold_segments_plain(
     for r0 in range(0, keep.numel(), rows):
         st, ns = start[r0 : r0 + rows], n[r0 : r0 + rows]
         idx = torch.clamp(st[:, None] + col, max=text.numel() - 1)
-        sigs = minhash_signatures_plain(
+        sigs = (signatures or minhash_signatures_plain)(
             text[idx], (ns + (k - 1)).to(torch.int32), params
         )
         accumulate_block_signatures(running, sigs, owner[r0 : r0 + rows])
@@ -214,26 +217,28 @@ def fused_tile_step_plain(
     rows: int,
     width: int,
     params: MinHashParams,
+    signatures=None,
 ) -> torch.Tensor:
-    """Plain version of the CUDA kernel's fold: unpack → signatures →
+    """Plain version of the CUDA kernel's fold: unpack → signatures
+    (``signatures``, by default :func:`minhash_signatures_plain`) →
     segment-min by owner → min into ``running``, in place."""
     tok, lens, owners = unpack_tile(packed, rows, width)
     return accumulate_block_signatures(
-        running, minhash_signatures_plain(tok, lens, params), owners
+        running, (signatures or minhash_signatures_plain)(tok, lens, params), owners
     )
 
 
-def check_backend(backend: str) -> None:
+def check_backend(backend: str, num_perm: int | None = None) -> None:
     """``scan`` and ``pallas`` name the signature function the reference
-    holds bit-identical across its two backends, and both take the kernel
-    here; ``oph`` is a later slice."""
-    if backend == "oph":
-        raise NotImplementedError(
-            "backend='oph' (one-permutation hashing) is not ported yet; "
-            "it comes in a later slice of the port, ROADMAP item 12 (the OPH backend)"
-        )
-    if backend not in ("scan", "pallas"):
+    holds bit-identical across its two backends, and both take the dense
+    kernel here; ``oph`` (``ops.oph``) takes the OPH kernels and needs a
+    power-of-two ``num_perm`` (checked when given)."""
+    if backend not in ("scan", "pallas", "oph"):
         raise ValueError(f"unknown signature backend {backend!r}; use scan|pallas|oph")
+    if backend == "oph" and num_perm is not None:
+        from advanced_scrapper_tpu_torch.ops.oph import _bin_bits
+
+        _bin_bits(num_perm)
 
 
 def make_fused_tile_step(
@@ -243,19 +248,38 @@ def make_fused_tile_step(
     *, rows, width) -> running``: fold one packed tile (``ops.pack``) into
     the accumulator in place.  For a CUDA tile it launches the kernel's
     fold entry point; for a CPU tile it runs :func:`fused_tile_step_plain`.
-    ``backend`` is checked by :func:`check_backend`.
+    ``backend`` is checked by :func:`check_backend`; ``backend="oph"``
+    folds the raw OPH form (``oph_fold`` on the card, else
+    ``ops.oph.oph_fused_tile_step_plain``), and the caller densifies once
+    after the last tile.
     """
-    check_backend(backend)
+    check_backend(backend, params.num_perm)
     device = torch.device(device)
-    if device.type == "cuda":
-        from advanced_scrapper_tpu_torch.ops.minhash_cuda import NUM_PERM, minhash_fold
+    k = params.shingle_k
+    if backend == "oph":
+        from advanced_scrapper_tpu_torch.ops.oph import oph_fused_tile_step_plain as plain
 
-        if params.num_perm != NUM_PERM:
-            raise ValueError(
-                f"the CUDA MinHash kernel is specialised to {NUM_PERM} perms, "
-                f"got {params.num_perm}"
-            )
-        a, b = perm_tensors(params, device)
+        if device.type == "cuda":
+            from advanced_scrapper_tpu_torch.ops.oph_cuda import check_bins, oph_fold
+
+            check_bins(params.num_perm)
+
+            def kernel(running, packed, rows, width):
+                return oph_fold(running, packed, rows=rows, width=width, k=k)
+    else:
+        plain = fused_tile_step_plain
+        if device.type == "cuda":
+            from advanced_scrapper_tpu_torch.ops.minhash_cuda import NUM_PERM, minhash_fold
+
+            if params.num_perm != NUM_PERM:
+                raise ValueError(
+                    f"the CUDA MinHash kernel is specialised to {NUM_PERM} perms, "
+                    f"got {params.num_perm}"
+                )
+            a, b = perm_tensors(params, device)
+
+            def kernel(running, packed, rows, width):
+                return minhash_fold(running, packed, rows=rows, width=width, a=a, b=b, k=k)
 
     def fused_tile_step(
         running: torch.Tensor, packed: torch.Tensor, *, rows: int, width: int
@@ -263,12 +287,7 @@ def make_fused_tile_step(
         if packed.device.type != device.type:
             raise ValueError(f"step built for {device}, tile is on {packed.device}")
         if device.type == "cuda":
-            return minhash_fold(
-                running, packed, rows=rows, width=width, a=a, b=b,
-                k=params.shingle_k,
-            )
-        return fused_tile_step_plain(
-            running, packed, rows=rows, width=width, params=params
-        )
+            return kernel(running, packed, rows, width)
+        return plain(running, packed, rows=rows, width=width, params=params)
 
     return fused_tile_step

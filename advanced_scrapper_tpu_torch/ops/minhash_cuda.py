@@ -16,8 +16,10 @@ modes of one kernel template, which folds segments of at most
   its padding requirements.
 
 Each wrapper checks device, dtype, shape and contiguity, launches on
-PyTorch's current stream, raises if the launch returns a CUDA error, and
-counts its launches in a plain integer attribute (``minhash_fold.launches``).
+PyTorch's current stream inside a profiler range of its own name (so a
+``torch.profiler`` trace names the entry point beside the kernel's
+symbol), raises if the launch returns a CUDA error, and counts its
+launches in a plain integer attribute (``minhash_fold.launches``).
 The plain PyTorch versions are in ``ops.minhash``; these wrappers never
 fall back to them.
 """
@@ -90,6 +92,12 @@ def _check_cuda(x: torch.Tensor) -> torch.device:
     return x.device
 
 
+def named(entry: str):
+    """A ``torch.profiler`` range named after the entry point, around
+    its launch (a cheap no-op when no profiler runs)."""
+    return torch.autograd.profiler.record_function(entry)
+
+
 def _raise_on(err: int, what: str) -> None:
     if err:
         msg = _lib().astt_cuda_error_string(err).decode()
@@ -118,11 +126,12 @@ def minhash_sig(
         raise ValueError(f"block length {width} < shingle width {k}")
     out = torch.full((rows, NUM_PERM), -1, dtype=torch.int32, device=dev)
     if rows:
-        err = _lib().astt_minhash_sig(
-            tokens.data_ptr(), lengths.data_ptr(), rows, width, k,
-            a.data_ptr(), b.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        with named("minhash_sig"):
+            err = _lib().astt_minhash_sig(
+                tokens.data_ptr(), lengths.data_ptr(), rows, width, k,
+                a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
         _raise_on(err, "minhash_sig")
         minhash_sig.launches += 1
     return out.view(torch.uint32)
@@ -161,11 +170,12 @@ def minhash_fold(
     if (rows * width) % 4 or packed.data_ptr() % 4:
         raise ValueError("the packed lengths/owners planes must be 4-byte aligned")
     if rows:
-        err = _lib().astt_minhash_fold(
-            packed.data_ptr(), rows, width, k, a.data_ptr(), b.data_ptr(),
-            running.data_ptr(), running.shape[0],
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        with named("minhash_fold"):
+            err = _lib().astt_minhash_fold(
+                packed.data_ptr(), rows, width, k, a.data_ptr(), b.data_ptr(),
+                running.data_ptr(), running.shape[0],
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
         _raise_on(err, "minhash_fold")
         minhash_fold.launches += 1
     return running
@@ -252,12 +262,13 @@ def minhash_fold_segments(
         start, shingles, owner = (
             t.to(dev, non_blocking=True) for t in (seg_start, seg_shingles, seg_owner)
         )
-        err = _lib().astt_minhash_fold_segments(
-            text.data_ptr(), text.numel(), start.data_ptr(), shingles.data_ptr(),
-            owner.data_ptr(), n_seg, k, a.data_ptr(), b.data_ptr(),
-            running.data_ptr(), running.shape[0],
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        with named("minhash_fold_segments"):
+            err = _lib().astt_minhash_fold_segments(
+                text.data_ptr(), text.numel(), start.data_ptr(), shingles.data_ptr(),
+                owner.data_ptr(), n_seg, k, a.data_ptr(), b.data_ptr(),
+                running.data_ptr(), running.shape[0],
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
         _raise_on(err, "minhash_fold_segments")
         minhash_fold_segments.launches += 1
     return running

@@ -15,13 +15,18 @@ import time
 
 import torch
 
+from advanced_scrapper_tpu_torch.obs import stages
+
 
 class StageClock:
     """``lap(name)`` ends stage ``name`` where the last lap, or the clock's
-    start, ended; a name lapped twice adds up."""
+    start, ended; a name lapped twice adds up.  With ``stage_prefix`` each
+    lap's host seconds also land in the always-on stage histogram
+    ``astpu_stage_seconds{stage=<prefix><name>}`` (``obs.stages.add``)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, stage_prefix: str | None = None):
         self.seconds: dict[str, float] = {}
+        self._prefix = stage_prefix
         self._t = time.perf_counter()
         self._device = device
         self._events: list[tuple[str, torch.cuda.Event]] = []
@@ -36,6 +41,8 @@ class StageClock:
     def lap(self, name: str) -> None:
         t = time.perf_counter()
         self.seconds[name] = self.seconds.get(name, 0.0) + t - self._t
+        if self._prefix is not None:
+            stages.add(self._prefix + name, t - self._t)
         self._t = t
         if self._events:
             self._record(name)

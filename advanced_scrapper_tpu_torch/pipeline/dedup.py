@@ -46,9 +46,15 @@ Against a persistent index (``index.store.PersistentIndex``),
 :meth:`NearDupEngine.dedup_against_index` attributes a corpus through the
 same wide keys: ``open_stream_index`` opens one under a directory.
 
+``backend="oph"`` (``ops.oph``) folds raw one-permutation signatures
+(``oph_fold_segments`` a chunk, ``oph_sig`` a tile on the legacy
+transport) into the same accumulator and densifies once after the fold
+(``oph_densify``), in :meth:`NearDupEngine.signatures` or inside the
+epilogue.
+
 What is not ported yet raises ``NotImplementedError`` naming its slice:
-the ``oph`` backend (item 12), the sharded methods and ``mesh=`` (item
-15), and the index fleet (``index_fleet``, item 9c).
+the sharded methods and ``mesh=`` (item 15), and the index fleet
+(``index_fleet``, item 9c).
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import time
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -80,7 +87,9 @@ from advanced_scrapper_tpu_torch.cpu.hostbatch import (
     segment_ranges,
 )
 from advanced_scrapper_tpu_torch.cpu.oracle import jaccard, shingle_set
+from advanced_scrapper_tpu_torch.obs import devprof, stages, telemetry, trace
 from advanced_scrapper_tpu_torch.obs.perfdb import platform_token
+from advanced_scrapper_tpu_torch.obs.profiler import StepTimer
 from advanced_scrapper_tpu_torch.ops.exact import ExactHasher
 from advanced_scrapper_tpu_torch.ops.lsh import (
     borderline_edge_mask,
@@ -100,6 +109,7 @@ from advanced_scrapper_tpu_torch.ops.minhash import (
     minhash_signatures,
     perm_tensors,
 )
+from advanced_scrapper_tpu_torch.ops.oph import densify, oph_fold_segments, oph_raw_signatures
 from advanced_scrapper_tpu_torch.ops.shingle import to_u32
 from advanced_scrapper_tpu_torch.pipeline.clock import StageClock
 from advanced_scrapper_tpu_torch.pipeline.dispatch import (
@@ -223,6 +233,7 @@ class _Chunk:
     shingles: torch.Tensor
     owner: torch.Tensor
     text_dev: torch.Tensor | None = None
+    put_s: float = 0.0
 
 
 class NearDupEngine:
@@ -248,7 +259,9 @@ class NearDupEngine:
             shingle_k=self.cfg.shingle_k,
             seed=self.cfg.seed,
         )
-        check_backend(self.cfg.backend)
+        check_backend(self.cfg.backend, self.params.num_perm)
+        #: the OPH backend folds raw signatures and densifies after the fold
+        self._use_oph = self.cfg.backend == "oph"
         self._perm = perm_tensors(self.params, self.device)
         #: chunks (tiles on the unpacked transport) of the last corpus, each
         #: folded by one kernel launch unless the OOM back-off halved it;
@@ -276,12 +289,75 @@ class NearDupEngine:
         #: exact verify
         self.last_clock = StageClock(self.device)
         self.last_exact_checks = 0
+        #: optional per-chunk observer ``(dict) -> None`` on the fold loop
+        #: (chunk index, segments, text bytes, h2d bytes, put and
+        #: dispatch ms); None = no per-chunk host work
+        self.dispatch_probe = None
+        self._instrument()
         #: warm launches made by ``cfg.prewarm`` at construction
         self.prewarm_launches = 0
         if self.cfg.prewarm and self.cfg.packed_h2d:
             self.prewarm_launches = self.prewarm(
                 None if self.cfg.prewarm == 1 else self.cfg.prewarm
             )
+
+    def _instrument(self) -> None:
+        """Telemetry handles, the reference's series (no-ops while
+        telemetry is disabled), and the ``StepTimer`` every fold launch
+        lands in (:meth:`step_summary`)."""
+        self.step_timer = StepTimer(
+            histogram=telemetry.histogram(
+                "astpu_dedup_step_seconds", "device block-batch dispatch latency"
+            )
+        )
+        self._m_batches = telemetry.counter(
+            "astpu_dedup_batches_total", "device block batches dispatched"
+        )
+        self._m_docs = {
+            regime: telemetry.counter(
+                "astpu_dedup_docs_total", "documents entering dedup", regime=regime
+            )
+            for regime in ("oneshot", "async", "sharded")
+        }
+        self._m_dups = {
+            regime: telemetry.counter(
+                "astpu_dedup_dups_total", "documents resolved as near-duplicates",
+                regime=regime,
+            )
+            for regime in ("oneshot", "sharded")
+        }
+        self._m_ratio = {
+            regime: telemetry.gauge(
+                "astpu_dedup_ratio", "last corpus' duplicate fraction", regime=regime
+            )
+            for regime in ("oneshot", "sharded")
+        }
+        self._m_cand = telemetry.counter(
+            "astpu_dedup_candidate_pairs_total",
+            "LSH candidate (row, band) hits examined by the certified "
+            "one-shot resolution (async/sharded never sync candidates)",
+        )
+        self._m_borderline = telemetry.counter(
+            "astpu_dedup_borderline_edges_total",
+            "estimator-fragile edges flagged for exact confirmation",
+        )
+        self._m_exact_checks = telemetry.counter(
+            "astpu_dedup_exact_checks_total",
+            "exact shingle-set Jaccard confirmations run",
+        )
+
+    def step_summary(self) -> dict:
+        """Rolling per-launch latency/throughput (``StepTimer.summary``)."""
+        return self.step_timer.summary()
+
+    def _count_result(self, regime: str, n: int, reps: np.ndarray) -> None:
+        """Duplicate count and ratio of a corpus whose representatives are
+        on the host; skipped while telemetry is disabled."""
+        if n == 0 or self._m_dups[regime] is telemetry.NOOP:
+            return
+        dups = int((reps[:n] != np.arange(n)).sum())
+        self._m_dups[regime].inc(dups)
+        self._m_ratio[regime].set(dups / n)
 
     # -- host encode ---------------------------------------------------------
 
@@ -425,7 +501,7 @@ class NearDupEngine:
     # -- device accumulation ---------------------------------------------------
 
     def _accumulate_device(
-        self, raw: list, clock: StageClock | None = None
+        self, raw: list, clock: StageClock | None = None, trace_id: str | None = None
     ) -> tuple[torch.Tensor, int]:
         """``(running, n_bucket)``: the device ``uint32[n_bucket, P]``
         accumulator after folding every chunk of ``raw`` into it.  Rows
@@ -458,40 +534,60 @@ class NearDupEngine:
         on this thread) and ``fold``.  ``encode`` is the join of a lone
         chunk, and through the dispatcher the wait for the next staged
         chunk, whose join and copy ran on the pipeline's threads.
+
+        Each join is timed into the ``encode`` stage, each copy into
+        ``h2d`` (one device put of the chunk's text), each fold launch into
+        ``kernel``, ``step_timer`` and ``dispatch_span("dedup_fold_segments",
+        rows=segments, width=text bytes)``, and counted as one dispatch
+        once it returned (so the back-off's leaf launches are what count).
         """
         dev = self.device
+        tid = trace_id or trace.new_trace_id()
         n_bucket = bucket_len(len(raw), min_bucket=64)
         running = torch.full(
             (n_bucket, self.params.num_perm), -1, dtype=torch.int32, device=dev
         ).view(torch.uint32)
         self.last_halvings = 0
         if not self.cfg.packed_h2d:
-            self._accumulate_tiles(raw, running)
+            self._accumulate_tiles(raw, running, tid)
             return running, n_bucket
         lens = np.fromiter(map(len, raw), np.int64, count=len(raw))
         stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
         h2d = 0
 
+        def copy(chunk: _Chunk) -> None:
+            t0 = time.perf_counter()
+            chunk.text_dev = chunk.text.to(dev, non_blocking=True)
+            chunk.put_s = time.perf_counter() - t0
+            stages.add("h2d", chunk.put_s)
+            stages.count_device_put(chunk.text.numel(), "dedup")
+
         def pack(spec) -> _Chunk:
-            return _Chunk(*self._pack_chunk(raw, lens, spec))
+            with stages.timed("encode"):
+                return _Chunk(*self._pack_chunk(raw, lens, spec))
 
         def put(chunk: _Chunk) -> _Chunk:
             with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
                 try:
-                    chunk.text_dev = chunk.text.to(dev, non_blocking=True)
+                    copy(chunk)
                 except torch.cuda.OutOfMemoryError:
                     pass  # the fold's back-off copies it, halving on OOM
             return chunk
 
         def fold(acc: torch.Tensor, chunk: _Chunk) -> torch.Tensor:
             nonlocal h2d
-            text_dev = chunk.text_dev
-            if text_dev is None:
-                text_dev = chunk.text.to(dev, non_blocking=True)
+            if chunk.text_dev is None:
+                copy(chunk)
             if clock is not None:
                 clock.lap("copy")
-            fold_segments(acc, text_dev, chunk.start, chunk.shingles, chunk.owner,
-                          self.params, self._perm)
+            with devprof.dispatch_span(
+                "dedup_fold_segments", rows=chunk.start.numel(),
+                width=chunk.text.numel(), trace=tid,
+            ) as sp:
+                sp.out = self._fold(
+                    acc, chunk.text_dev, chunk.start, chunk.shingles, chunk.owner
+                )
+            stages.count_dispatch("dedup")
             if clock is not None:
                 clock.lap("fold")
             h2d += chunk.text.numel() + 16 * chunk.start.numel()
@@ -508,35 +604,66 @@ class NearDupEngine:
             else None
         )
         chunks = 0
+        probe = self.dispatch_probe
         try:
             for chunk in pipe if pipe is not None else map(pack, specs):
                 if clock is not None:
                     clock.lap("encode")
-                running = dispatch_with_oom_backoff(
-                    fold, running, chunk, split=self._split_chunk,
-                    rows_of=lambda c: c.start.numel(), floor=OOM_FLOOR_SEGMENTS,
-                )
+                segments, put_s, before = chunk.start.numel(), chunk.put_s, h2d
+                t0 = time.perf_counter()
+                with stages.timed("kernel"), self.step_timer.step(segments):
+                    running = dispatch_with_oom_backoff(
+                        fold, running, chunk, split=self._split_chunk,
+                        rows_of=lambda c: c.start.numel(), floor=OOM_FLOOR_SEGMENTS,
+                    )
+                if probe is not None:
+                    probe({
+                        "tile": chunks, "rows": segments, "width": chunk.text.numel(),
+                        "h2d_bytes": h2d - before, "put_ms": round(put_s * 1e3, 3),
+                        "dispatch_ms": round((time.perf_counter() - t0) * 1e3, 3),
+                    })
                 chunks += 1
         finally:
             if pipe is not None:
                 pipe.close()
         self.last_chunks, self.last_h2d_bytes = chunks, h2d
+        self._m_batches.inc(chunks)
+        if trace.RECORDER.active:
+            trace.record("span", "dedup.dispatch", trace=tid, batches=chunks, docs=len(raw))
         return running, n_bucket
 
-    def _accumulate_tiles(self, raw: list, running: torch.Tensor) -> None:
+    def _fold(self, running, text, seg_start, seg_shingles, seg_owner) -> torch.Tensor:
+        """One segment fold into ``running``: ``minhash_fold_segments``,
+        or under ``backend="oph"`` the raw ``oph_fold_segments`` (plain
+        versions on the CPU)."""
+        if self._use_oph:
+            return oph_fold_segments(
+                running, text, seg_start, seg_shingles, seg_owner, self.params
+            )
+        return fold_segments(
+            running, text, seg_start, seg_shingles, seg_owner, self.params, self._perm
+        )
+
+    def _accumulate_tiles(self, raw: list, running: torch.Tensor, tid: str) -> None:
         """Fold ``raw`` into ``running`` by the reference's legacy tile
         transport (``packed_h2d=False``): the width-bucketed tiles of
         :meth:`_host_tiles` through the dispatcher, three copies a tile
         (tokens, lengths, owners), then two dispatches on this thread:
-        ``minhash_signatures`` (the ``minhash_sig`` kernel on the card) and
-        ``accumulate_block_signatures``.  No OOM back-off, as in the
+        ``minhash_signatures`` (the ``minhash_sig`` kernel on the card; the
+        raw ``oph_raw_signatures``, ``oph_sig``, under ``backend="oph"``)
+        and ``accumulate_block_signatures``.  No OOM back-off, as in the
         reference."""
         dev = self.device
+        block_fn = oph_raw_signatures if self._use_oph else minhash_signatures
         stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
 
         def put(tile) -> tuple:
             with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
-                return tuple(torch.from_numpy(x).to(dev) for x in tile)
+                with stages.timed("h2d"):
+                    out = tuple(torch.from_numpy(x).to(dev) for x in tile)
+            for x in tile:
+                stages.count_device_put(x.nbytes, "dedup")
+            return out
 
         pipe = self.last_dispatcher = PipelinedDispatcher(
             self._host_tiles(raw), pack=lambda tile: tile, put=put,
@@ -545,14 +672,20 @@ class NearDupEngine:
         tiles = h2d = 0
         try:
             for tok, lens, owners in pipe:
-                accumulate_block_signatures(
-                    running, minhash_signatures(tok, lens, self.params), owners
-                )
+                rows, width = tok.shape
+                with stages.timed("kernel"), self.step_timer.step(rows):
+                    with devprof.dispatch_span(
+                        "dedup_tile_sig", rows=rows, width=width, trace=tid
+                    ) as sp:
+                        sp.out = block_fn(tok, lens, self.params)
+                    stages.count_dispatch("dedup")
+                    accumulate_block_signatures(running, sp.out, owners)
                 tiles += 1
                 h2d += tok.numel() + 4 * lens.numel() + 4 * owners.numel()
         finally:
             pipe.close()
         self.last_chunks, self.last_h2d_bytes = tiles, h2d
+        self._m_batches.inc(tiles)
 
     def _fine_salt(self) -> np.ndarray:
         """``subband_salt(cand_subbands)``, or empty when fine bands are off."""
@@ -574,10 +707,18 @@ class NearDupEngine:
         return valid
 
     def _valid_device(self, raw: list, n_bucket: int) -> torch.Tensor:
-        """Device ``bool[n_bucket]``: rows with at least one k-shingle."""
-        return torch.from_numpy(self._valid_host(raw, n_bucket)).to(self.device)
+        """Device ``bool[n_bucket]``: rows with at least one k-shingle
+        (counted as the corpus's one device put beside its chunks)."""
+        valid = self._valid_host(raw, n_bucket)
+        stages.count_device_put(valid.nbytes, "dedup")
+        return torch.from_numpy(valid).to(self.device)
 
-    def _prepare(self, texts: Sequence[str | bytes]):
+    def _count_densify(self) -> None:
+        """Count the OPH densify an epilogue launches (one a corpus)."""
+        if self._use_oph:
+            stages.count_dispatch("dedup")
+
+    def _prepare(self, texts: Sequence[str | bytes], tid: str):
         """Front half of the hooked and verified paths: encode → device
         accumulator → candidate epilogue → the hook, if any.  With a hook,
         ``sigs``, ``rep_bands`` and ``valid`` cross to the host (the
@@ -586,16 +727,23 @@ class NearDupEngine:
         device.  Returns ``(raw, sigs, keys, valid, rep_bands, n_bucket)``
         on the device.  A new ``last_clock`` laps ``fold`` (encode, copy,
         fold), ``candidate_epilogue`` and, with a hook, ``readback``,
-        ``hook`` and ``writeback``; the caller laps ``resolve``."""
+        ``hook`` and ``writeback``; the caller laps ``resolve``.  The
+        epilogue is timed into the ``resolve`` stage under the
+        ``dedup.candidates`` span of trace ``tid``, the hook under
+        ``dedup.rerank``."""
         clock = self.last_clock = StageClock(self.device)
         raw = [to_bytes(t) for t in texts]
-        running, n_bucket = self._accumulate_device(raw)
+        running, n_bucket = self._accumulate_device(raw, trace_id=tid)
         clock.lap("fold")
         valid_host = self._valid_host(raw, n_bucket)
         valid = torch.from_numpy(valid_host).to(self.device)
-        sigs, keys, rep_bands = fused_candidate_epilogue(
-            running, valid, self.params.band_salt, self._fine_salt()
-        )
+        stages.count_device_put(valid_host.nbytes, "dedup")
+        with stages.timed("resolve"), trace.span("dedup.candidates", trace=tid, docs=len(raw)):
+            sigs, keys, rep_bands = fused_candidate_epilogue(
+                running, valid, self.params.band_salt, self._fine_salt(),
+                densify_oph=self._use_oph,
+            )
+            self._count_densify()
         clock.lap("candidate_epilogue")
         self._rerank_applied = False
         if self.rerank_hook is None:
@@ -603,9 +751,11 @@ class NearDupEngine:
         sigs_host = sigs.view(torch.int32).cpu().numpy().view(np.uint32)
         rb_host = rep_bands.cpu().numpy()
         clock.lap("readback")
-        rb_host = np.asarray(self.rerank_hook(raw, sigs_host, rb_host, valid_host))
+        with trace.span("dedup.rerank", trace=tid, docs=len(raw)):
+            rb_host = np.asarray(self.rerank_hook(raw, sigs_host, rb_host, valid_host))
         clock.lap("hook")
         rep_bands = torch.from_numpy(rb_host).to(self.device)
+        stages.count_device_put(rb_host.nbytes, "dedup")
         clock.lap("writeback")
         self._rerank_applied = bool(getattr(self.rerank_hook, "authoritative", False))
         return raw, sigs, keys, valid, rep_bands, n_bucket
@@ -636,6 +786,12 @@ class NearDupEngine:
             num_coarse=self.params.num_bands,
         )
         need = need_dev.cpu().numpy()
+        if self._m_cand is not telemetry.NOOP:
+            # metric-only host work, before the early return: candidate
+            # volume must not read 0 because every edge cleared the bar
+            rb_m = rep_bands.cpu().numpy()
+            self._m_cand.inc(int((rb_m != np.arange(rb_m.shape[0])[:, None]).sum()))
+            self._m_borderline.inc(int(need.sum()))
         if not need.any():
             return ok_dev, 0
         rb = rep_bands.cpu().numpy()
@@ -664,18 +820,27 @@ class NearDupEngine:
                     pairs[key] = jaccard(sset(key[0]), sset(key[1])) >= cfg.sim_threshold
             if not pairs[key]:
                 ok[r, c] = False  # exact Jaccard (or the strict bar) refuted it
+        self._m_exact_checks.inc(checked)
         return ok, checked
 
     # -- public API ------------------------------------------------------------
 
     def signatures(self, texts: Sequence[str | bytes]) -> np.ndarray:
-        """``uint32[N, num_perm]`` MinHash signatures (blockwise, batched)."""
+        """``uint32[N, num_perm]`` MinHash signatures (blockwise, batched);
+        under ``backend="oph"`` the raw fold densified once after it."""
         if len(texts) == 0:
             return np.zeros((0, self.params.num_perm), np.uint32)
-        running, _ = self._accumulate_device([to_bytes(t) for t in texts])
-        return running[: len(texts)].view(torch.int32).cpu().numpy().view(np.uint32)
+        tid = trace.new_trace_id()
+        running, _ = self._accumulate_device([to_bytes(t) for t in texts], trace_id=tid)
+        if self._use_oph:
+            running = densify(running)
+            self._count_densify()
+        with stages.timed("kernel"), trace.span("dedup.readback", trace=tid, docs=len(texts)):
+            return running[: len(texts)].view(torch.int32).cpu().numpy().view(np.uint32)
 
-    def dedup_reps_async(self, texts: Sequence[str | bytes]) -> torch.Tensor:
+    def dedup_reps_async(
+        self, texts: Sequence[str | bytes], *, _regime: str = "async"
+    ) -> torch.Tensor:
         """The device ``int32[bucket_len(N)]`` representatives.  Rows past
         ``len(texts)`` are padding (invalid, self-assigned).
 
@@ -683,40 +848,52 @@ class NearDupEngine:
         one resolve epilogue.  A hook needs the candidate matrix on the
         host, so the hooked path syncs there; it resolves an authoritative
         hook's cells as they are, others by signature agreement (with the
-        fine-only bars when ``fine_margin`` is set)."""
+        fine-only bars when ``fine_margin`` is set).  ``_regime`` labels
+        the documents' counter: the one-shot path delegates here as
+        ``"oneshot"``."""
+        tid = trace.new_trace_id()
+        span = dict(trace=tid, regime=_regime, docs=len(texts))
         if self.rerank_hook is not None:
-            _raw, sigs, keys, valid, rep_bands, n_bucket = self._prepare(texts)
-            if self._rerank_applied:
-                rep = self._resolve_authoritative(rep_bands, valid, n_bucket)
-            else:
-                cfg = self.cfg
-                thr = (
-                    fine_edge_thresholds(
-                        rep_bands, keys, cfg.sim_threshold, cfg.fine_margin,
-                        num_coarse=self.params.num_bands,
+            _raw, sigs, keys, valid, rep_bands, n_bucket = self._prepare(texts, tid)
+            self._m_docs[_regime].inc(len(texts))
+            with stages.timed("resolve"), trace.span("dedup.resolve", **span):
+                if self._rerank_applied:
+                    rep = self._resolve_authoritative(rep_bands, valid, n_bucket)
+                else:
+                    cfg = self.cfg
+                    thr = (
+                        fine_edge_thresholds(
+                            rep_bands, keys, cfg.sim_threshold, cfg.fine_margin,
+                            num_coarse=self.params.num_bands,
+                        )
+                        if cfg.cand_subbands and cfg.fine_margin
+                        else cfg.sim_threshold
                     )
-                    if cfg.cand_subbands and cfg.fine_margin
-                    else cfg.sim_threshold
-                )
-                rep = resolve_rep_bands(
-                    rep_bands, sigs, valid, thr, jump_rounds=_jump_rounds(n_bucket)
-                )
+                    rep = resolve_rep_bands(
+                        rep_bands, sigs, valid, thr, jump_rounds=_jump_rounds(n_bucket)
+                    )
             self.last_clock.lap("resolve")
             return rep
         raw = [to_bytes(t) for t in texts]
-        running, n_bucket = self._accumulate_device(raw)
+        running, n_bucket = self._accumulate_device(raw, trace_id=tid)
+        valid = self._valid_device(raw, n_bucket)
+        self._m_docs[_regime].inc(len(texts))
         cfg = self.cfg
-        return fused_resolve_epilogue(
-            running,
-            self._valid_device(raw, n_bucket),
-            self.params.band_salt,
-            self._fine_salt(),
-            cfg.sim_threshold,
-            cfg.fine_margin,
-            num_coarse=self.params.num_bands,
-            jump_rounds=_jump_rounds(n_bucket),
-            use_fine_margin=bool(cfg.cand_subbands and cfg.fine_margin),
-        )
+        with stages.timed("resolve"), trace.span("dedup.resolve", **span):
+            rep = fused_resolve_epilogue(
+                running,
+                valid,
+                self.params.band_salt,
+                self._fine_salt(),
+                cfg.sim_threshold,
+                cfg.fine_margin,
+                num_coarse=self.params.num_bands,
+                jump_rounds=_jump_rounds(n_bucket),
+                use_fine_margin=bool(cfg.cand_subbands and cfg.fine_margin),
+                densify_oph=self._use_oph,
+            )
+            self._count_densify()
+        return rep
 
     def dedup_reps(self, texts: Sequence[str | bytes]) -> np.ndarray:
         """``int32[N]`` first-seen-wins representative per text, the
@@ -728,20 +905,28 @@ class NearDupEngine:
         if n == 0:
             return np.zeros((0,), np.int32)
         if not self.cfg.exact_verify_band:
-            return self.dedup_reps_async(texts)[:n].cpu().numpy()
-        raw, sigs, keys, valid, rep_bands, n_bucket = self._prepare(texts)
-        if self._rerank_applied:
-            rep = self._resolve_authoritative(rep_bands, valid, n_bucket)
-        else:
-            ok, self.last_exact_checks = self._exact_verified_ok(
-                raw, sigs, keys, valid, rep_bands
-            )
-            rep = resolve_rep_bands_from_ok(
-                rep_bands, torch.as_tensor(ok, device=self.device), valid,
-                jump_rounds=_jump_rounds(n_bucket),
-            )
-        out = rep[:n].cpu().numpy()
+            out = self.dedup_reps_async(texts, _regime="oneshot")[:n].cpu().numpy()
+            self._count_result("oneshot", n, out)
+            return out
+        tid = trace.new_trace_id()
+        raw, sigs, keys, valid, rep_bands, n_bucket = self._prepare(texts, tid)
+        self._m_docs["oneshot"].inc(n)
+        with stages.timed("resolve"), trace.span(
+            "dedup.resolve", trace=tid, regime="oneshot", docs=n
+        ):
+            if self._rerank_applied:
+                rep = self._resolve_authoritative(rep_bands, valid, n_bucket)
+            else:
+                ok, self.last_exact_checks = self._exact_verified_ok(
+                    raw, sigs, keys, valid, rep_bands
+                )
+                rep = resolve_rep_bands_from_ok(
+                    rep_bands, torch.as_tensor(ok, device=self.device), valid,
+                    jump_rounds=_jump_rounds(n_bucket),
+                )
+            out = rep[:n].cpu().numpy()
         self.last_clock.lap("resolve")
+        self._count_result("oneshot", n, out)
         return out
 
     def keep(self, texts: Sequence[str | bytes]) -> np.ndarray:
@@ -750,9 +935,11 @@ class NearDupEngine:
 
     def prewarm(self, n_articles: int | None = None) -> int:
         """Warm launches ahead of the first corpus: one
-        ``minhash_fold_segments`` on a zero text of one segment into a
-        scratch accumulator of ``bucket_len(n_articles or batch_size)``
-        rows, and with the rerank tier its :meth:`RerankTier.prewarm`.
+        ``minhash_fold_segments`` (under ``backend="oph"``:
+        ``oph_fold_segments`` and ``oph_densify``) on a zero text of one
+        segment into a scratch accumulator of ``bucket_len(n_articles or
+        batch_size)`` rows, and with the rerank tier its
+        :meth:`RerankTier.prewarm`.
         Each kernel is built and loaded at its first launch, so a first
         corpus pays neither.  Returns the launches made, where the
         reference returns the tile shapes it compiled: the port compiles
@@ -763,12 +950,16 @@ class NearDupEngine:
             (n_bucket, self.params.num_perm), -1, dtype=torch.int32, device=dev
         ).view(torch.uint32)
         text = torch.zeros((self.params.shingle_k,), dtype=torch.uint8, device=dev)
-        fold_segments(
+        self._fold(
             running, text, torch.zeros((1,), dtype=torch.int64),
             torch.ones((1,), dtype=torch.int32), torch.zeros((1,), dtype=torch.int32),
-            self.params, self._perm,
         )
+        stages.count_dispatch("dedup")
         launches = 1
+        if self._use_oph:
+            densify(running)
+            self._count_densify()
+            launches += 1
         if self.rerank_tier is not None:
             launches += self.rerank_tier.prewarm()
         if dev.type == "cuda":
@@ -798,20 +989,23 @@ class NearDupEngine:
             sigs0 = np.zeros((0, self.params.num_perm), np.uint32)
             return (sigs0 if sync_sigs else None), np.zeros(shape, np.uint32)
         clock = self.last_clock = StageClock(self.device)
+        tid = trace.new_trace_id()
         raw = [to_bytes(t) for t in texts]
-        running, _n_bucket = self._accumulate_device(raw, clock)
+        running, _n_bucket = self._accumulate_device(raw, clock, trace_id=tid)
         sig_dev, keys_dev = fused_keys_epilogue(
             running, self.params.band_salt, self._fine_salt(),
-            densify_oph=False, wide=wide,
+            densify_oph=self._use_oph, wide=wide,
         )
+        self._count_densify()
         keys_dev = to_u32(keys_dev[:n]).view(torch.int32)
         clock.lap("keys_epilogue")
-        keys = keys_dev.cpu().numpy().view(np.uint32)
-        sigs = (
-            sig_dev[:n].view(torch.int32).cpu().numpy().view(np.uint32)
-            if sync_sigs
-            else None
-        )
+        with stages.timed("kernel"), trace.span("dedup.readback", trace=tid, docs=n):
+            keys = keys_dev.cpu().numpy().view(np.uint32)
+            sigs = (
+                sig_dev[:n].view(torch.int32).cpu().numpy().view(np.uint32)
+                if sync_sigs
+                else None
+            )
         clock.lap("readback")
         return sigs, keys
 

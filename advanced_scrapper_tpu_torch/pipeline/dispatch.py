@@ -14,10 +14,11 @@ and ``put`` are the caller's callables.
   the device plus two packed ones awaiting their copy.
 
 Each staged item is stamped as its put returns; the time to the caller's
-pop is kept as plain numbers on the dispatcher (``lag_count``,
-``lag_sum_s``, ``lag_max_s``), where the reference keeps a histogram:
-near-zero lag means the caller's dispatch is the bottleneck, a sustained
-lag that the host pipeline runs ahead.  Beside it, ``times`` tallies each
+pop is observed on the reference's
+``astpu_dispatch_queue_lag_seconds{graph}`` histogram (``obs/devprof.py``)
+and kept as plain numbers on the dispatcher (``lag_count``,
+``lag_sum_s``, ``lag_max_s``): near-zero lag means the caller's dispatch is
+the bottleneck, a sustained lag that the host pipeline runs ahead.  Beside it, ``times`` tallies each
 item's seconds in every stage, taken on the thread that runs it: ``pack``
 (wall) and ``pack_cpu`` (the pack thread's CPU time), ``put``, and on the
 caller's thread ``wait`` (blocked on the staged edge), ``dispatch`` (from
@@ -26,7 +27,10 @@ caller's CPU time in it).  A stage whose CPU time falls far short of its
 wall time was waiting: for the GIL, a lock or the device.  A watchdog (``watchdog_s`` or
 ``ASTPU_DISPATCH_WATCHDOG_S``) fails the graph with
 :class:`DispatchTimeout` when no item makes progress within its budget,
-counted in ``watchdog_trips``.
+counted in ``watchdog_trips`` and on
+``astpu_dispatch_watchdog_trips_total``, after a flight-recorder dump
+(``obs/trace.py``; the runtime's fault hook lands every live graph's
+snapshot in the ring first).
 
 Items may arrive out of order from the put pool; a worker error closes
 every edge and re-raises at the consumer.
@@ -34,7 +38,10 @@ every edge and re-raises at the consumer.
 :func:`dispatch_with_oom_backoff` runs one dispatch and, when the device
 runs out of memory (``torch.cuda.OutOfMemoryError`` or the reference's
 ``RESOURCE_EXHAUSTED`` markers, or the ``ASTPU_CHAOS_DISPATCH_OOM`` chaos
-seam), splits the item in two and retries each half, down to a floor.
+seam), splits the item in two and retries each half, down to a floor;
+each halving is counted on ``astpu_dispatch_oom_backoff_total{plane}``
+with a ``dispatch.oom_backoff`` event, each injected OOM on
+``astpu_fault_injected_total{plane,kind}``.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import threading
 import time
 from typing import Callable, Iterable, Iterator
 
+from advanced_scrapper_tpu_torch.obs import devprof, telemetry, trace
 from advanced_scrapper_tpu_torch.runtime import DONE, StageGraph
 
 __all__ = [
@@ -147,6 +155,7 @@ class PipelinedDispatcher:
         self.lag_count = 0
         self.lag_sum_s = 0.0
         self.lag_max_s = 0.0
+        self._lag_hist = devprof.queue_lag_histogram(name)
         #: each stage's seconds per item (see the module docstring)
         self.times = {k: Tally() for k in ("pack", "pack_cpu", "put", "wait", "dispatch",
                                            "dispatch_cpu")}
@@ -199,10 +208,22 @@ class PipelinedDispatcher:
         while not self._finished.wait(tick):
             if time.monotonic() - self._beat <= budget:
                 continue
-            # the blocked consumer wakes on the closed staged edge and
-            # raises; one stuck inside a hung device call cannot be woken
-            # from here, but every worker exits
+            # counted, dumped (the fault hooks land every live graph's
+            # snapshot in the ring first), then the graph torn down: the
+            # blocked consumer wakes on the closed staged edge and raises;
+            # one stuck inside a hung device call cannot be woken from
+            # here, but every worker exits
             self.watchdog_trips += 1
+            telemetry.event_counter(
+                "astpu_dispatch_watchdog_trips_total",
+                "dispatch tiles that blew their wall-clock budget "
+                "(graph torn down with a flight-recorder dump)",
+            ).inc()
+            trace.record("event", "dispatch.watchdog", graph=self._graph.name, budget_s=budget)
+            trace.dump_on_fault(
+                f"dispatch watchdog: no tile progress in {budget:.3g}s "
+                f"on graph '{self._graph.name}'"
+            )
             self._graph.fail(DispatchTimeout(
                 f"no tile progress in {budget:.3g}s (graph '{self._graph.name}')"
             ))
@@ -233,6 +254,7 @@ class PipelinedDispatcher:
             self.lag_count += 1
             self.lag_sum_s += lag
             self.lag_max_s = max(self.lag_max_s, lag)
+            self._lag_hist.observe(lag)
             yield payload
             self.times["dispatch_cpu"].add(time.thread_time() - popped_cpu)
             self.times["dispatch"].add(time.perf_counter() - popped)
@@ -299,6 +321,10 @@ def maybe_inject_oom(plane: str) -> None:
         if _chaos_oom_used >= budget:
             return
         _chaos_oom_used += 1
+    telemetry.event_counter(
+        "astpu_fault_injected_total", "chaos faults injected, by plane and kind",
+        plane="dispatch", kind="oom",
+    ).inc()
     raise RuntimeError(
         f"RESOURCE_EXHAUSTED: injected device OOM on {plane} (ASTPU_CHAOS_DISPATCH_OOM)"
     )
@@ -334,6 +360,12 @@ def dispatch_with_oom_backoff(
         rows = int(rows_of(item))
         if rows <= floor or rows < 2:
             raise
+    telemetry.event_counter(
+        "astpu_dispatch_oom_backoff_total",
+        "device-OOM tile halvings (re-packed and retried)",
+        plane=plane,
+    ).inc()
+    trace.record("event", "dispatch.oom_backoff", plane=plane, rows=rows, halved_to=rows // 2)
     for sub in split(item):
         carry = dispatch_with_oom_backoff(
             fn, carry, sub, split=split, rows_of=rows_of, floor=floor, plane=plane,

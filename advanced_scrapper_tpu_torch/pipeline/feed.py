@@ -11,11 +11,22 @@ This is the firehose path: documents truncate at the feed's block length
 (the queue's fixed row shape).  For full blockwise coverage of long texts
 use :class:`pipeline.dedup.NearDupEngine`.  ``sharding=`` (a tile split
 over a mesh) comes with ROADMAP item 15 and raises.
+
+Telemetry, as the reference's: ``astpu_feed_batches_total``,
+``astpu_feed_docs_total``, ``astpu_feed_partial_tiles_total``, the
+``astpu_feed_fill_ratio`` gauge and scrape-time gauges of the batcher's
+depth, arena and rejected pushes and the staged tiles (per ``feed``
+label); each pull's pop and copy land in the ``encode`` and ``h2d``
+stages and in :attr:`DeviceFeed.timer` (a ``StepTimer`` mirrored into
+``astpu_feed_step_seconds``), each copy on the ``feed`` plane's
+device-put counters, and a ``feed.stage`` trace record per tile.
 """
 
 from __future__ import annotations
 
 import os
+import threading
+import time
 from typing import Iterable, Iterator
 
 import numpy as np
@@ -25,6 +36,8 @@ from advanced_scrapper_tpu_torch import resolve_device
 from advanced_scrapper_tpu_torch.config import DedupConfig
 from advanced_scrapper_tpu_torch.core.hashing import make_params
 from advanced_scrapper_tpu_torch.cpu.hostbatch import HostBatcher
+from advanced_scrapper_tpu_torch.obs import stages, telemetry, trace
+from advanced_scrapper_tpu_torch.obs.profiler import StepTimer
 from advanced_scrapper_tpu_torch.ops.lsh import band_keys
 from advanced_scrapper_tpu_torch.ops.minhash import minhash_signatures
 from advanced_scrapper_tpu_torch.ops.shingle import to_u32, u32_values
@@ -95,12 +108,54 @@ class DeviceFeed:
             torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         )
         self._graph = StageGraph("feed")
+        self._instrument()
         self._out = self._graph.edge("staged", resolve_prefetch_depth(depth))
         self._graph.stage(
             "stage", source=self._pull, out_edge=self._out,
             workers=max(1, workers or auto_h2d_workers()),
         )
         self._graph.start()
+
+    _seq_lock = threading.Lock()
+    _seq = 0
+
+    def _instrument(self) -> None:
+        """Telemetry handles (no-ops while disabled), the scrape-time
+        gauges and the pull loop's ``StepTimer``."""
+        with DeviceFeed._seq_lock:
+            feed_id = str(DeviceFeed._seq)
+            DeviceFeed._seq += 1
+        self._m_batches = telemetry.counter(
+            "astpu_feed_batches_total", "tiles popped and staged on device"
+        )
+        self._m_docs = telemetry.counter("astpu_feed_docs_total", "documents staged on device")
+        self._m_partial = telemetry.counter(
+            "astpu_feed_partial_tiles_total",
+            "tiles dispatched below batch_size (timeout/close drains)",
+        )
+        self._m_fill = telemetry.gauge(
+            "astpu_feed_fill_ratio", "last tile's rows / batch_size", feed=feed_id
+        )
+        self.timer = StepTimer(
+            histogram=telemetry.histogram(
+                "astpu_feed_step_seconds", "pop→device_put cycle latency"
+            )
+        )
+        for name, fn, help in (
+            ("astpu_feed_queue_depth", lambda feed: feed.batcher.size(),
+             "documents buffered in the host batcher"),
+            ("astpu_feed_arena_used_bytes", lambda feed: feed.batcher.arena_used(),
+             "host batcher arena occupancy"),
+            ("astpu_feed_rejected_pushes", lambda feed: feed.batcher.stats()["rejected"],
+             "pushes rejected by doc/arena backpressure"),
+            ("astpu_feed_staged_depth", lambda feed: feed._out.qsize(),
+             "device-staged tiles awaiting the consumer"),
+        ):
+            telemetry.gauge_fn(name, fn, owner=self, help=help, feed=feed_id)
+
+    def summary(self) -> dict:
+        """Rolling per-tile step latency/throughput (``StepTimer.summary``)."""
+        return self.timer.summary()
 
     def _put_device(self, arr: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(arr)
@@ -115,20 +170,36 @@ class DeviceFeed:
         """One pop → copy cycle, the ``stage`` stage's source, shared by
         every pull worker: a staged tuple, :data:`RETRY` on an empty poll,
         or :data:`DONE` once the batcher is closed and drained."""
-        n, tok, lens, tags = self.batcher.pop_batch(
-            self.batch_size, timeout_ms=self.poll_timeout_ms, min_fill=self.min_fill
-        )
+        t0 = time.perf_counter()
+        with stages.timed("encode"):  # a slow producer's waits land here too
+            n, tok, lens, tags = self.batcher.pop_batch(
+                self.batch_size, timeout_ms=self.poll_timeout_ms, min_fill=self.min_fill
+            )
         if n == 0:
             # close() is one-way, so this check is race-free
             if self.batcher.closed() and self.batcher.size() == 0:
                 return DONE
             return RETRY
-        tok, lens = self._put_device(tok), self._put_device(lens)
+        with stages.timed("h2d"):
+            tok_dev, lens_dev = self._put_device(tok), self._put_device(lens)
+        stages.count_device_put(tok.nbytes, "feed")
+        stages.count_device_put(lens.nbytes, "feed")
         copied = None
         if self._copy_stream is not None:
             copied = torch.cuda.Event()
             copied.record(self._copy_stream)
-        return (n, tok, lens, tags, copied)
+        self.timer.add(time.perf_counter() - t0, n)
+        self._m_batches.inc()
+        self._m_docs.inc(n)
+        self._m_fill.set(n / self.batch_size)
+        if n < self.batch_size:
+            self._m_partial.inc()
+        if trace.RECORDER.active:
+            trace.record(
+                "span", "feed.stage", batch=int(tags[0]), rows=n,
+                dur_ms=round((time.perf_counter() - t0) * 1e3, 3),
+            )
+        return (n, tok_dev, lens_dev, tags, copied)
 
     def __iter__(self) -> Iterator[tuple[int, torch.Tensor, torch.Tensor, np.ndarray]]:
         while True:

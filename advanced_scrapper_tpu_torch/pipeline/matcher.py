@@ -35,8 +35,8 @@ What differs is below the entry points:
   stay single-writer and in chunk order.  ``MatchConfig.prewarm`` makes a
   warm launch of each kernel first (:func:`prewarm_screen`).
 
-Not ported yet (they are absent): ``EntityIndex.dispatch_probe`` (ROADMAP
-item 14, with the ``obs`` counters and spans).
+Not ported yet (they are absent): ``EntityIndex.dispatch_probe`` and the
+matcher's ``astpu_matcher_*`` counters and spans (ROADMAP item 14b).
 """
 
 from __future__ import annotations

@@ -33,6 +33,11 @@ past ``rerank_exact_cap`` is re-probed: both documents' wide band keys
 (``ops.rerank.band_keys_wide_host``) are probed, and the pair survives
 when the index attributes both to the same earliest posted doc.
 :meth:`RerankTier.prewarm` is a warm launch of the settle.
+
+Each stage of ``last_clock`` also lands in the always-on stage histogram
+as ``rerank_<stage>`` (``obs/stages.py``), and the settle counts two puts
+(the sketches, the pair indices) and one dispatch on the ``rerank``
+plane.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from advanced_scrapper_tpu_torch import resolve_device
 from advanced_scrapper_tpu_torch.config import DedupConfig
 from advanced_scrapper_tpu_torch.core.hashing import MinHashParams
 from advanced_scrapper_tpu_torch.cpu.oracle import jaccard, shingle_set
+from advanced_scrapper_tpu_torch.obs import stages
 from advanced_scrapper_tpu_torch.ops import rerank as oprr
 from advanced_scrapper_tpu_torch.ops.rerank_cuda import rerank_settle
 from advanced_scrapper_tpu_torch.pipeline.clock import StageClock
@@ -144,6 +150,8 @@ class RerankTier:
         lo = oprr.quantize(cfg.sim_threshold - cfg.rerank_margin)
         hi = oprr.quantize(cfg.sim_threshold + cfg.rerank_margin)
         sk = sketch_rows.to(dev, non_blocking=True).view(torch.uint32)
+        stages.count_device_put(sketch_rows.nbytes, "rerank")
+        stages.count_device_put(idx.nbytes, "rerank")  # the wrapper copies it
         self.last_settle_inputs = (sk, idx)
         clock.lap("sketch_copy")
         if dev.type == "cuda":
@@ -153,6 +161,7 @@ class RerankTier:
             jq = oprr.pair_jq_plain(sk, idx[0], idx[1])
             clock.lap("settle")
             out = torch.stack([jq, oprr.rerank_finalize(jq, lo, hi).to(torch.int32)])
+        stages.count_dispatch("rerank")
         clock.lap("finalize")
         out = out.cpu().numpy()
         clock.lap("settle_readback")
@@ -179,7 +188,7 @@ class RerankTier:
         rb = np.asarray(rep_bands)
         valid_np = np.asarray(valid)
         n_bucket, nc = rb.shape
-        clock = self.last_clock = StageClock(self.device)
+        clock = self.last_clock = StageClock(self.device, stage_prefix="rerank_")
         lap = clock.lap
         pair_arr, stats = self._candidate_pairs(sigs_np, rb, valid_np, n)
         lap("candidates")

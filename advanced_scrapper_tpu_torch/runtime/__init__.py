@@ -10,6 +10,11 @@ from advanced_scrapper_tpu_torch.runtime.graph import (
     EdgeClosed,
     Stage,
     StageGraph,
+    live_graphs,
+    snapshot_all,
 )
 
-__all__ = ["DONE", "RETRY", "Edge", "EdgeClosed", "Stage", "StageGraph"]
+__all__ = [
+    "DONE", "RETRY", "Edge", "EdgeClosed", "Stage", "StageGraph", "live_graphs",
+    "snapshot_all",
+]

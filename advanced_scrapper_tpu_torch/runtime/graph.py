@@ -1,8 +1,8 @@
 """Stage-graph scheduler: edges, stages, and the graph that runs them.
 
-A copy of the reference's ``runtime/graph.py`` without its telemetry, its
-trace spans and its crash-snapshot fault hook (ROADMAP item 14), its
-``FanoutPool`` (item 9c) and its pause gate (item 18).
+A copy of the reference's ``runtime/graph.py``, its telemetry, trace spans
+and crash-snapshot fault hook included, without its ``FanoutPool`` (ROADMAP
+item 9c) and its pause gate (item 18).
 
 **How do items move.**  An :class:`Edge` is a bounded FIFO owned by the
 graph.  Producers ``put`` (blocking while full: backpressure is the
@@ -22,10 +22,17 @@ topological order.  A producer whose timed put is rejected wakes
 closes, every blocked peer wakes, and :meth:`StageGraph.join` re-raises
 the first error.
 
-What the reference exports as gauges and counters stays here as plain
-numbers: each edge's items in and out and the seconds its producers and
-consumers waited (:meth:`Edge.snapshot`), and each stage's live workers
-and in-flight items (:meth:`StageGraph.drain_snapshot`).
+**What it exports.**  Each edge's items in and out and the seconds its
+producers and consumers waited (``astpu_edge_items_total``,
+``astpu_edge_stall_seconds_total``, and the scrape-time gauges
+``astpu_edge_depth`` / ``astpu_edge_capacity``), each stage's items and
+busy seconds (``astpu_stage_items_total``,
+``astpu_stage_busy_seconds_total``), all no-ops while telemetry is off; the
+same numbers as plain values in :meth:`Edge.snapshot` and
+:meth:`StageGraph.drain_snapshot`.  A stage with a ``tag`` runs each item
+under a trace span.  Every started graph is registered
+(:func:`live_graphs`, :func:`snapshot_all`), and a flight-recorder fault
+hook lands every live graph's snapshot in the ring before a crash dump.
 
 Pure Python, no torch: the matcher's verify-pool workers may import it.
 """
@@ -35,11 +42,17 @@ from __future__ import annotations
 import queue as _queue
 import threading
 import time
+import weakref
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Iterable, Iterator
 
-__all__ = ["DONE", "RETRY", "Edge", "EdgeClosed", "Stage", "StageGraph"]
+from advanced_scrapper_tpu_torch.obs import telemetry, trace
+
+__all__ = [
+    "DONE", "RETRY", "Edge", "EdgeClosed", "Stage", "StageGraph", "live_graphs",
+    "snapshot_all",
+]
 
 #: the queue item that ports the pause gate
 SLICE_PAUSE = "the slice of ROADMAP item 18 (the host planes)"
@@ -73,9 +86,22 @@ class Edge:
     """Named bounded FIFO between stages.  Thread-safe.  ``capacity=None``
     means unbounded; bounded edges block producers when full."""
 
-    def __init__(self, name: str, capacity: int | None = None, *, graph: str = "-"):
+    _seq = 0
+    _seq_lock = threading.Lock()
+
+    def __init__(
+        self, name: str, capacity: int | None = None, *, graph: str = "-",
+        instance: str | None = None,
+    ):
         self.name = name
         self.graph = graph
+        # graph-owned edges take the graph's instance label; a bare edge
+        # draws its own, so two live edges never replace each other's gauges
+        graph_owned = instance is not None
+        if instance is None:
+            with Edge._seq_lock:
+                instance = f"e{Edge._seq}"
+                Edge._seq += 1
         self.capacity = capacity if capacity and capacity > 0 else None
         self._items: deque = deque()
         self._lock = threading.Lock()
@@ -89,6 +115,47 @@ class Edge:
         #: seconds producers waited on a full edge, consumers on an empty one
         self.put_stall_s = 0.0
         self.get_stall_s = 0.0
+        self._instrument(graph, instance)
+        if not graph_owned:
+            with _live_lock:  # bare edges show in a fault dump themselves
+                _BARE_EDGES.add(self)
+
+    def _instrument(self, graph: str, instance: str) -> None:
+        """The reference's series.  Counters are keyed by (graph, edge)
+        without the instance label (graphs are built per call, and
+        per-instance counters would pile up in the registry); gauges carry
+        it and are swept with the edge."""
+        labels = {"graph": graph, "edge": self.name}
+        self._m_in = telemetry.counter(
+            "astpu_edge_items_total", "items accepted by the edge", dir="in", **labels,
+        )
+        self._m_out = telemetry.counter(
+            "astpu_edge_items_total", "items handed to consumers", dir="out", **labels,
+        )
+        self._m_stall_put = telemetry.counter(
+            "astpu_edge_stall_seconds_total",
+            "seconds producers spent blocked on a full edge", side="put", **labels,
+        )
+        self._m_stall_get = telemetry.counter(
+            "astpu_edge_stall_seconds_total",
+            "seconds consumers spent waiting on an empty edge", side="get", **labels,
+        )
+        telemetry.gauge_fn(
+            "astpu_edge_depth", lambda e: len(e._items), owner=self,
+            help="items buffered on the edge", g=instance, **labels,
+        )
+        telemetry.gauge_fn(
+            "astpu_edge_capacity", lambda e: e.capacity or 0, owner=self,
+            help="edge capacity (0 = unbounded)", g=instance, **labels,
+        )
+
+    def _stalled_put(self, seconds: float) -> None:
+        self.put_stall_s += seconds
+        self._m_stall_put.inc(seconds)
+
+    def _stalled_get(self, seconds: float) -> None:
+        self.get_stall_s += seconds
+        self._m_stall_get.inc(seconds)
 
     # -- producer side -----------------------------------------------------
 
@@ -119,6 +186,7 @@ class Edge:
                 if self.capacity is None or len(self._items) < self.capacity:
                     self._items.append(item)
                     self._in += 1
+                    self._m_in.inc()
                     self._not_empty.notify()
                     return True
                 t0 = time.perf_counter()
@@ -127,11 +195,11 @@ class Edge:
                 else:
                     remaining = deadline - time.monotonic()
                     if remaining <= 0 or not self._not_full.wait(remaining):
-                        self.put_stall_s += time.perf_counter() - t0
+                        self._stalled_put(time.perf_counter() - t0)
                         self._rejects += 1
                         self._not_empty.notify_all()
                         return False
-                self.put_stall_s += time.perf_counter() - t0
+                self._stalled_put(time.perf_counter() - t0)
 
     # -- consumer side -----------------------------------------------------
 
@@ -151,9 +219,9 @@ class Edge:
                 else:
                     remaining = deadline - time.monotonic()
                     if remaining <= 0 or not self._not_empty.wait(remaining):
-                        self.get_stall_s += time.perf_counter() - t0
+                        self._stalled_get(time.perf_counter() - t0)
                         return RETRY
-                self.get_stall_s += time.perf_counter() - t0
+                self._stalled_get(time.perf_counter() - t0)
 
     def pop_batch(
         self, max_n: int, *, min_fill: int = 1, timeout: float | None = None
@@ -179,9 +247,9 @@ class Edge:
                 else:
                     remaining = deadline - time.monotonic()
                     if remaining <= 0 or not self._not_empty.wait(remaining):
-                        self.get_stall_s += time.perf_counter() - t0
+                        self._stalled_get(time.perf_counter() - t0)
                         break
-                self.get_stall_s += time.perf_counter() - t0
+                self._stalled_get(time.perf_counter() - t0)
             out = []
             while self._items and len(out) < max_n:
                 out.append(self._pop_locked())
@@ -190,6 +258,7 @@ class Edge:
     def _pop_locked(self):
         item = self._items.popleft()
         self._out += 1
+        self._m_out.inc()
         self._not_full.notify()
         return item
 
@@ -287,6 +356,9 @@ class Stage:
     worker_init: Callable | None = None
     worker_close: Callable | None = None
     fan_out: bool = False
+    #: ``tag(item) -> dict | None``: with the flight recorder on, each item
+    #: runs under a ``<graph>.<stage>`` trace span carrying these fields
+    tag: Callable | None = None
     # -- runtime state (owned by the graph) --
     live: int = field(default=0, repr=False)
     threads: list = field(default_factory=list, repr=False)
@@ -309,6 +381,9 @@ class StageGraph:
                 f"the stage graph's pause gate is not ported yet; it comes in {SLICE_PAUSE}"
             )
         self.name = name
+        with StageGraph._seq_lock:
+            self._instance = str(StageGraph._seq)
+            StageGraph._seq += 1
         self._edges: dict[str, Edge] = {}
         self._stages: dict[str, Stage] = {}
         self._lock = threading.Lock()
@@ -316,6 +391,26 @@ class StageGraph:
         self._error: BaseException | None = None
         self._started = False
         self._in_flight: dict[tuple[str, int], str] = {}
+        self._m_items: dict[str, object] = {}
+        self._m_busy: dict[str, object] = {}
+
+    _seq = 0
+    _seq_lock = threading.Lock()
+
+    def _stage_metrics(self, name: str):
+        """The stage's items and busy-seconds counters, keyed by (graph,
+        stage) without an instance label, as the edges' counters are."""
+        m = self._m_items.get(name)
+        if m is None:
+            labels = {"graph": self.name, "stage": name}
+            m = self._m_items[name] = telemetry.counter(
+                "astpu_stage_items_total", "items processed by the stage", **labels,
+            )
+            self._m_busy[name] = telemetry.counter(
+                "astpu_stage_busy_seconds_total", "seconds the stage spent inside its fn",
+                **labels,
+            )
+        return m, self._m_busy[name]
 
     # -- construction ------------------------------------------------------
 
@@ -323,7 +418,9 @@ class StageGraph:
         """Declare (or fetch) the named edge."""
         e = self._edges.get(name)
         if e is None:
-            e = self._edges[name] = Edge(name, capacity, graph=self.name)
+            e = self._edges[name] = Edge(
+                name, capacity, graph=self.name, instance=self._instance
+            )
         return e
 
     def stage(self, name: str, **kw) -> Stage:
@@ -350,6 +447,8 @@ class StageGraph:
         if self._started:
             return self
         self._started = True
+        with _live_lock:
+            _LIVE.add(self)
         for st in self._stages.values():
             st.live = st.workers
             for w in range(st.workers):
@@ -401,6 +500,7 @@ class StageGraph:
     # -- the worker loop ---------------------------------------------------
 
     def _run_worker(self, st: Stage, widx: int) -> None:
+        m_items, m_busy = self._stage_metrics(st.name)
         ctx = None
         slot = (st.name, widx)
         try:
@@ -416,15 +516,21 @@ class StageGraph:
                 if item is DONE:
                     break
                 self._in_flight[slot] = _describe(item)
+                t0 = time.perf_counter()
                 try:
                     if st.fn is None:
                         out = item
                     elif st.worker_init is not None:
                         out = st.fn(item, ctx)
+                    elif trace.RECORDER.active and st.tag is not None:
+                        with trace.span(f"{self.name}.{st.name}", **(st.tag(item) or {})):
+                            out = st.fn(item)
                     else:
                         out = st.fn(item)
                 finally:
+                    m_busy.inc(time.perf_counter() - t0)
                     self._in_flight.pop(slot, None)
+                m_items.inc()
                 if out is None or st.out_edge is None:
                     continue
                 if st.fan_out:
@@ -462,6 +568,7 @@ class StageGraph:
         }
         return {
             "graph": self.name,
+            "instance": self._instance,
             "error": None if self._error is None else repr(self._error),
             "stages": stages,
             "edges": [e.snapshot() for e in self._edges.values()],
@@ -490,3 +597,44 @@ def _describe(item) -> str:
     if isinstance(item, tuple):
         return f"tuple[{len(item)}]"
     return type(item).__name__
+
+
+# -- crash-snapshot registry --------------------------------------------------
+
+_live_lock = threading.Lock()
+_LIVE: "weakref.WeakSet[StageGraph]" = weakref.WeakSet()
+#: edges built outside a graph: the fault hook covers them directly
+_BARE_EDGES: "weakref.WeakSet[Edge]" = weakref.WeakSet()
+
+
+def live_graphs() -> list[StageGraph]:
+    """Every started graph still referenced."""
+    with _live_lock:
+        return list(_LIVE)
+
+
+def snapshot_all() -> list[dict]:
+    """Drain snapshots of every live graph."""
+    return [g.drain_snapshot() for g in live_graphs()]
+
+
+def _record_snapshots(recorder) -> None:
+    """Fault hook: land every live graph's snapshot (and touched bare
+    edges, at most 64) in the flight-recorder ring before the dump is
+    written.  A ``graphs`` summary goes first, so a fault before any graph
+    started still shows the hook ran (``live=0``)."""
+    snaps = snapshot_all()
+    recorder.record("snapshot", "graphs", live=len(snaps))
+    for snap in snaps:
+        recorder.record("snapshot", "graph", **snap)
+    with _live_lock:
+        bare = list(_BARE_EDGES)
+    touched = [e.snapshot() for e in bare]
+    touched = [t for t in touched if t["in"] or t["depth"]][:64]
+    if touched:
+        recorder.record("snapshot", "edges", edges=touched)
+
+
+# registered at import: a fault before any graph exists still writes the
+# (live=0) summary
+trace.add_fault_hook(_record_snapshots)

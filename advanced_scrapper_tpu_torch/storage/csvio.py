@@ -2,10 +2,10 @@
 
 The port's copy of the reference's ``storage/csvio.py:_clean_end``,
 ``repair_torn_tail`` and ``AppendCsv`` (with ``_stat_sig`` and its clean
-cache), unchanged but for two things: the reference's quarantine counters
-and trace event (ROADMAP item 14) are left out, and so are the readers
-``read_url_column``, ``scraped_url_set`` and ``count_rows`` with their
-native scanner (item 18).
+cache), with its quarantine counters (``astpu_quarantine_total`` and
+``astpu_quarantine_bytes_total``, ``kind="csv_torn_tail"``) and trace
+event; the readers ``read_url_column``, ``scraped_url_set`` and
+``count_rows`` with their native scanner are left out (ROADMAP item 18).
 
 A process killed mid-``write_row`` leaves a *torn tail*, a final partial
 record.  :func:`repair_torn_tail` moves those bytes to a
@@ -22,6 +22,7 @@ import os
 import threading
 from typing import Sequence
 
+from advanced_scrapper_tpu_torch.obs import telemetry, trace
 from advanced_scrapper_tpu_torch.storage.fsio import default_fs
 
 _CHUNK = 1 << 20
@@ -121,6 +122,18 @@ def repair_torn_tail(path: str, fs=None) -> int:
     repaired = _stat_sig(path)
     if repaired is not None:
         _clean_cache[os.path.abspath(path)] = repaired
+    # a torn tail is a detected crash artifact: counted and traced
+    telemetry.event_counter(
+        "astpu_quarantine_total", "crash artifacts quarantined, by kind",
+        kind="csv_torn_tail",
+    ).inc()
+    telemetry.event_counter(
+        "astpu_quarantine_bytes_total", "bytes moved to quarantine sidecars",
+        kind="csv_torn_tail",
+    ).inc(len(torn))
+    trace.record(
+        "event", "quarantine.csv_torn_tail", path=os.path.basename(path), bytes=len(torn),
+    )
     return len(torn)
 
 

@@ -81,6 +81,27 @@ two copies of first-source articles under other urls: every planted copy
 of an eligible source is a dup in the manifest, one launch per batch;
 card and CPU manifests byte-equal on a 2,048-article cut.
 
+The OPH backend (``csrc/oph.cu``): ``oph_vs_plain`` holds each of its
+entry points bit-equal to its plain version (``oph_fold_segments`` at
+every start residue mod 16, k = 5, 9 and 1 and 64 bins, dropped owners,
+two chunks into one accumulator; ``oph_sig`` and ``oph_fold`` at every
+width bucket; ``oph_densify`` on all-empty, one-filled, all-filled,
+alternating and wrap-around rows at P = 128 and 64); ``oph_path`` runs
+``DedupConfig(backend="oph", rerank=False, exact_verify_band=0)`` over
+the 65,536 ragged articles, timed on its second call (one
+``oph_fold_segments`` a chunk, one ``oph_densify`` a corpus, no other
+launch, every planted duplicate resolved), then on the unpacked
+transport (one ``oph_sig`` a tile, equal), card against CPU on 2,048
+articles, and times each OPH kernel at these shapes beside its bound, its
+plain version and the reference's formulation (a sort and a
+``searchsorted`` of each unpacked tile).  ``obs_path`` turns telemetry on
+(``ASTPU_TELEMETRY=1``) for the estimator-only engine on 2,048 articles:
+no kernel build on its second call, one dispatch a launch, the stage,
+dispatch-latency, device-put and dispatch series in the Prometheus text,
+one fenced latency observation a launch under
+``ASTPU_DISPATCH_TIMING=fenced``, and a ``device_trace`` that names
+``minhash_fold_segments``.
+
 Then the card engines and the CPU engines (estimator-only, default,
 ``rerank=False``) must agree on 2,048 articles.
 
@@ -1652,12 +1673,19 @@ TIER_KEYS = (
 
 
 def launch_counters() -> dict:
-    from advanced_scrapper_tpu_torch.ops import editdist_cuda, match_cuda, minhash_cuda, rerank_cuda
+    from advanced_scrapper_tpu_torch.ops import (
+        editdist_cuda,
+        match_cuda,
+        minhash_cuda,
+        oph_cuda,
+        rerank_cuda,
+    )
 
     return {f.__name__: f for f in (
         minhash_cuda.minhash_fold_segments, minhash_cuda.minhash_fold,
         minhash_cuda.minhash_sig, rerank_cuda.rerank_settle, match_cuda.match_screen,
-        editdist_cuda.myers_bound, editdist_cuda.myers_pairs)}
+        editdist_cuda.myers_bound, editdist_cuda.myers_pairs, oph_cuda.oph_fold_segments,
+        oph_cuda.oph_fold, oph_cuda.oph_sig, oph_cuda.oph_densify)}
 
 
 def reset_launches() -> None:
@@ -2484,6 +2512,401 @@ def cross_source_path(card: str) -> tuple[int, int]:
     return got["minhash_fold_segments"], batches
 
 
+#: the OPH kernels' rows of the ``kernels`` line
+OPH_SOURCE = "advanced_scrapper_tpu_torch/csrc/oph.cu"
+OPH_RAW = "advanced_scrapper_tpu/ops/oph.py:61 (_raw_impl, jnp)"
+OPH_DENSIFY = "advanced_scrapper_tpu/ops/oph.py:91 (densify, jnp)"
+
+
+def oph_launches() -> dict[str, int]:
+    return {k: v for k, v in read_launches().items() if k.startswith("oph_")}
+
+
+def raw_oph_rows(rng: np.random.RandomState, rows: int, P: int, fill: float) -> np.ndarray:
+    """``uint32[rows, P]`` raw OPH rows with about ``fill`` of the bins filled."""
+    sig = rng.randint(0, 0xFFFFFFFF, size=(rows, P), dtype=np.uint64).astype(np.uint32)
+    sig[rng.rand(rows, P) >= fill] = 0xFFFFFFFF
+    return sig
+
+
+def densify_edge_rows(P: int) -> np.ndarray:
+    """All-empty, one-filled (first, middle, last bin), all-filled,
+    alternating (even and odd bins), and wrap-around rows (only the first
+    bins filled, so the last bins borrow across the end)."""
+    E = 0xFFFFFFFF
+    rows = [np.full(P, E, np.uint64) for _ in range(9)]
+    rows[1][0] = 5
+    rows[2][P // 2] = 7
+    rows[3][P - 1] = 11
+    rows[4][:] = np.arange(P) + 100
+    rows[5][0::2] = np.arange(0, P, 2) + 3
+    rows[6][1::2] = np.arange(1, P, 2) + 9
+    rows[7][:2] = [E - 1, 1]
+    rows[8][P // 4] = E - 1  # a value whose offset wraps past 2^32
+    return np.stack(rows).astype(np.uint32)
+
+
+def check_oph_vs_plain(params, cfg, dev) -> dict:
+    """Phase 3, OPH: each entry point bit-equal to its plain version.
+    ``oph_fold_segments`` on articles of edge lengths among random ones at
+    every start residue mod 16, segments of the engine's size, the
+    kernel's largest and 37, k = 5, 9 and 1 and 64 bins, two chunks into
+    one accumulator that starts part filled, shared and dropped owners;
+    ``oph_sig`` and ``oph_fold`` at every width bucket (and k = 9, 1);
+    ``oph_densify`` on all-empty, one-filled, all-filled, alternating and
+    wrap-around rows among random ones at P = 128 and 64."""
+    from advanced_scrapper_tpu_torch.core.hashing import make_params
+    from advanced_scrapper_tpu_torch.cpu.hostbatch import segment_ranges
+    from advanced_scrapper_tpu_torch.ops import oph, oph_cuda
+    from advanced_scrapper_tpu_torch.ops.minhash import SEGMENT_SHINGLES, fold_segments_plain
+    from advanced_scrapper_tpu_torch.ops.pack import pack_tile
+    from advanced_scrapper_tpu_torch.pipeline.dedup import _prewarm_widths
+
+    def same(x, y) -> bool:
+        return torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+    def on_card(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a.view(np.int32)).to(dev).view(torch.uint32)
+
+    rng = np.random.RandomState(17)
+    before = oph_launches()
+    residues: set[int] = set()
+    p64 = make_params(num_perm=64, num_bands=16)
+    runs = [(params, SEGMENT_SHINGLES), (params, oph_cuda.MAX_SEGMENT_SHINGLES),
+            (params, 37), (make_params(shingle_k=9), SEGMENT_SHINGLES),
+            (make_params(shingle_k=1), 37), (p64, SEGMENT_SHINGLES)]
+    for p, S in runs:
+        k, P = p.shingle_k, p.num_perm
+        edge = [0, 1, k - 1, k, S + k - 2, S + k - 1, S + k, 3 * S, 100_000]
+        lens = np.r_[edge, rng.randint(0, 5000, size=300)]
+        rng.shuffle(lens)
+        docs = [rng.randint(0, 256, size=int(n), dtype=np.uint8).tobytes() for n in lens]
+        n_docs = len(docs)
+        owners = rng.randint(0, n_docs + 2, size=n_docs)  # shared and dropped owners
+        owners[:2] = [n_docs - 1, n_docs]
+        start = on_card(raw_oph_rows(rng, n_docs, P, 0.3))
+        run_k, run_p = start.clone(), start.clone()
+        half = n_docs // 2
+        for lead, part in ((3, slice(0, half)), (0, slice(half, n_docs))):  # two chunks
+            text, off, ln = flat_text(docs[part], lead)
+            seg = segment_ranges(off, ln, owners[part], k, S)
+            residues.update((seg[0] % 16).tolist())
+            full = torch.from_numpy(np.r_[np.zeros(5, np.uint8), text]).to(dev)
+            text_d = full[5:]  # starts off a 16-byte boundary
+            host = [torch.from_numpy(x).pin_memory() for x in seg]
+            card = [x.to(dev) for x in host]
+            oph_cuda.oph_fold_segments(run_k, text_d, *(card if lead else host), k)
+            fold_segments_plain(run_p, text_d, *card, p,
+                                signatures=oph.oph_raw_signatures_plain)
+        torch.cuda.synchronize()
+        assert same(run_k, run_p), f"oph_fold_segments differs from plain at S={S}, k={k}, P={P}"
+    assert residues == set(range(16)), sorted(residues)
+    tiles = 0
+    for p, w in ([(params, w) for w in _prewarm_widths(cfg)]
+                 + [(make_params(shingle_k=kk), w) for kk in (9, 1) for w in (64, 4096)]
+                 + [(p64, 512)]):
+        k, P, rows = p.shingle_k, p.num_perm, 67
+        tok = rng.randint(0, 256, size=(rows, w)).astype(np.uint8)
+        lens = rng.randint(0, w + 1, size=rows).astype(np.int32)
+        lens[:4] = [0, k - 1, w, k]  # empty, below k, full width, one shingle
+        tok_d, lens_d = torch.from_numpy(tok).to(dev), torch.from_numpy(lens).to(dev)
+        got = oph_cuda.oph_sig(tok_d, lens_d, P, k)
+        want = oph.oph_raw_signatures_plain(tok_d, lens_d, p)
+        assert same(got, want), f"oph_sig differs from plain at {rows}x{w}, k={k}, P={P}"
+        n_art = max(rows // 3, 1)
+        packed = torch.from_numpy(pack_tile(tok, lens, rng.randint(0, n_art, size=rows)
+                                            .astype(np.int32))).to(dev)
+        start = on_card(raw_oph_rows(rng, n_art, P, 0.3))
+        run_k, run_p = start.clone(), start.clone()
+        oph_cuda.oph_fold(run_k, packed, rows=rows, width=w, k=k)
+        oph.oph_fused_tile_step_plain(run_p, packed, rows=rows, width=w, params=p)
+        torch.cuda.synchronize()
+        assert same(run_k, run_p), f"oph_fold differs from plain at {rows}x{w}, k={k}, P={P}"
+        tiles += 1
+    dens_rows = 0
+    for P in (128, 64):
+        sig = np.concatenate([densify_edge_rows(P)] + [
+            raw_oph_rows(rng, 1024, P, fill) for fill in (0.0, 0.01, 0.1, 0.5, 0.99)])
+        sig_d = on_card(sig)
+        got = oph_cuda.oph_densify(sig_d)
+        assert same(got, oph.densify_plain(sig_d)), f"oph_densify differs from plain at P={P}"
+        assert same(got[0], sig_d[0]), "an all-empty row changed"
+        dens_rows += sig.shape[0]
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in oph_launches().items()}
+    assert launches == {"oph_fold_segments": 2 * len(runs), "oph_fold": tiles,
+                        "oph_sig": tiles, "oph_densify": 2}, launches
+    return {"segment_cases": len(runs), "residues_mod_16": len(residues), "tile_cases": tiles,
+            "densify_rows": dens_rows, "launches": launches, "max_abs_err": 0}
+
+
+def oph_ms(fn, kernel: str, units: str, reps: int = 5, launches: int = 1) -> tuple[float, float]:
+    """``(event_ms, kernel_ms)`` per call, as :func:`timed`, for an OPH
+    kernel: the profiler's kernels whose name holds both ``kernel`` and
+    ``units`` (the fold's three modes share one template)."""
+    fn()
+    event_ms = cuda_ms(fn, reps)
+    seen = profiler_device_ms(fn, (kernel,), reps)
+    hit = {k: v for k, v in seen.items() if kernel in k and units in k}
+    n = sum(v[1] for v in hit.values())
+    assert n, f"the profiler saw no {kernel} {units} kernel, only {sorted(seen)}"
+    return event_ms, sum(v[0] for v in hit.values()) / n * launches
+
+
+def oph_path(docs: list[bytes], planted: dict[int, int], warm: list[bytes], card: str,
+             clock_mhz: float, dev: torch.device) -> list[dict]:
+    """``DedupConfig(backend="oph", rerank=False, exact_verify_band=0)``
+    over the main corpus, timed on its second call: one ``oph_fold_segments``
+    launch a chunk, one ``oph_densify`` a corpus and no other launch, every
+    planted duplicate resolved; the unpacked transport (``packed_h2d=False``)
+    equal with one ``oph_sig`` a tile; card and CPU equal on 2,048 articles;
+    the tile step (``oph_fold``) over the reference chunker's tiles equal to
+    the segment fold.  Each kernel timed by the profiler at these shapes
+    beside its bound and plain version, and beside the reference's own
+    formulation in torch (a sort and a ``searchsorted`` of each unpacked
+    tile).  Returns the four rows of the ``kernels`` line."""
+    import dataclasses
+
+    from advanced_scrapper_tpu_torch.config import DedupConfig
+    from advanced_scrapper_tpu_torch.ops import oph, oph_cuda
+    from advanced_scrapper_tpu_torch.ops.minhash import fold_segments_plain, make_fused_tile_step
+    from advanced_scrapper_tpu_torch.ops.pack import pack_tile
+    from advanced_scrapper_tpu_torch.pipeline.dedup import NearDupEngine
+
+    cfg = DedupConfig(backend="oph", rerank=False, exact_verify_band=0.0)
+    eng = NearDupEngine(cfg, device=dev)
+    params = eng.params
+    k, P = params.shingle_k, params.num_perm
+    n = len(docs)
+    eng.dedup_reps_async(warm)[: len(warm)].cpu()
+    t0 = time.perf_counter()
+    eng.dedup_reps_async(docs)[:n].cpu()
+    first_call_seconds = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    reps = eng.dedup_reps_async(docs)[:n].cpu().numpy()
+    seconds = time.perf_counter() - t0
+    got = read_launches()
+    chunks = eng.last_chunks
+    assert got == {**dict.fromkeys(got, 0), "oph_fold_segments": chunks,
+                   "oph_densify": 1} and chunks > 0, got
+    check_roots(reps, n)
+    missed = [i for i, s in planted.items() if reps[i] != reps[s]]
+    assert not missed, f"{len(missed)} planted dups unresolved, first {missed[:5]}"
+    log("oph_path", articles=n, seconds=seconds, articles_per_s=n / seconds,
+        first_call_seconds=first_call_seconds, chunks=chunks, launches=got,
+        planted=len(planted), dups=int((reps != np.arange(n)).sum()),
+        staged_lag=staged_lag(eng), card=card)
+
+    legacy = NearDupEngine(dataclasses.replace(cfg, packed_h2d=False), device=dev)
+    legacy.dedup_reps_async(warm)[: len(warm)].cpu()
+    reset_launches()
+    t0 = time.perf_counter()
+    lreps = legacy.dedup_reps_async(docs)[:n].cpu().numpy()
+    legacy_seconds = time.perf_counter() - t0
+    lgot = read_launches()
+    assert lgot == {**dict.fromkeys(lgot, 0), "oph_sig": legacy.last_chunks,
+                    "oph_densify": 1}, lgot
+    assert np.array_equal(lreps, reps), "the unpacked OPH transport disagrees"
+    sig_launches = lgot["oph_sig"]
+    del legacy, lreps
+
+    small, _ = ragged_corpus(np.random.RandomState(11), PARITY_ARTICLES)
+    cpu = NearDupEngine(cfg, device="cpu")
+    sig_equal = bool((eng.signatures(small) == cpu.signatures(small)).all())
+    reps_equal = bool((eng.dedup_reps(small) == cpu.dedup_reps(small)).all())
+    log("oph_card_vs_cpu", articles=PARITY_ARTICLES, signatures_equal=sig_equal,
+        reps_equal=reps_equal, unpacked_seconds=legacy_seconds,
+        unpacked_articles_per_s=n / legacy_seconds, unpacked_tiles=sig_launches, card=card)
+    assert sig_equal and reps_equal, "card and CPU OPH engines disagree"
+
+    # the kernels at the main path's shapes
+    lens = np.fromiter(map(len, docs), np.int64, count=n)
+    text_bytes = int(lens.sum())
+    shingles = int(np.maximum(lens - (k - 1), 0).sum())
+    int_ops = (2 * k + 10) * shingles  # FNV steps, fmix32, the bin shift and the min
+    running, n_bucket = eng._accumulate_device(docs)
+    resident = [[x.to(dev, non_blocking=True) for x in c] for c in eng._host_chunks(docs)]
+
+    def fresh():
+        return torch.full((n_bucket, P), -1, dtype=torch.int32, device=dev).view(torch.uint32)
+
+    def same(x, y) -> bool:
+        return torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+    run_k, run_p = fresh(), fresh()
+
+    def seg_pass():
+        for text, st, ns, ow in resident:
+            oph_cuda.oph_fold_segments(run_k, text, st, ns, ow, k)
+
+    def seg_plain():
+        for text, st, ns, ow in resident:
+            fold_segments_plain(run_p, text, st, ns, ow, params,
+                                signatures=oph.oph_raw_signatures_plain)
+
+    seg_event_ms, seg_ms = oph_ms(seg_pass, "oph_fold_kernel", "SegmentUnits",
+                                  launches=len(resident))
+    seg_plain_ms = cuda_ms(seg_plain)
+    assert same(run_k, run_p) and same(run_k, running), "OPH segment accumulators differ"
+    n_seg = sum(c[1].numel() for c in resident)
+    seg_ops_ms, seg_bytes_ms = bound_ms(int_ops, text_bytes + 16 * n_seg + n_bucket * P * 4,
+                                        clock_mhz)
+    del resident, run_p
+
+    dense = oph_cuda.oph_densify(run_k)
+    dens_event_ms, dens_ms = oph_ms(lambda: oph_cuda.oph_densify(run_k), "oph_densify_kernel", "")
+    dens_plain: list = []
+    dens_plain_ms = cuda_ms(lambda: dens_plain.append(oph.densify_plain(run_k)))
+    assert same(dense, dens_plain[0]), "oph_densify differs from plain on the corpus"
+    dens_ops_ms, dens_bytes_ms = bound_ms(3 * n_bucket * P, 2 * n_bucket * P * 4, clock_mhz)
+    del dense, dens_plain
+
+    raw_tiles = list(eng._host_tiles(docs))
+    packed = [torch.from_numpy(pack_tile(t, l, o)).to(dev) for t, l, o in raw_tiles]
+    tok_d = [(torch.from_numpy(t).to(dev), torch.from_numpy(l).to(dev)) for t, l, _o in raw_tiles]
+    shapes = [t.shape for t, _l, _o in raw_tiles]
+    step = make_fused_tile_step(params, "oph", dev)
+    run_t, run_tp = fresh(), fresh()
+
+    def fold_pass():
+        for pk, (rows, w) in zip(packed, shapes):
+            step(run_t, pk, rows=rows, width=w)
+
+    def fold_plain():
+        for pk, (rows, w) in zip(packed, shapes):
+            oph.oph_fused_tile_step_plain(run_tp, pk, rows=rows, width=w, params=params)
+
+    oph_cuda.oph_fold.launches = 0
+    fold_pass()  # the tile step's run: counted
+    fold_launches = oph_cuda.oph_fold.launches
+    assert fold_launches == len(packed), (fold_launches, len(packed))
+    assert same(run_t, running), "OPH tile and segment accumulators differ"
+    fold_event_ms, fold_ms = oph_ms(fold_pass, "oph_fold_kernel", "TileUnits",
+                                    launches=len(packed))
+    fold_plain_ms = cuda_ms(fold_plain)
+    assert same(run_t, run_tp), "oph_fold differs from plain on the corpus"
+    fold_ops_ms, fold_bytes_ms = bound_ms(
+        int_ops, sum(pk.numel() for pk in packed) + n_bucket * P * 4, clock_mhz)
+    del packed, run_t, run_tp
+
+    sig_event_ms, sig_ms = oph_ms(
+        lambda: [oph_cuda.oph_sig(t, l, P, k) for t, l in tok_d], "oph_fold_kernel",
+        "TileUnits", launches=len(tok_d))
+    sigs = [oph_cuda.oph_sig(t, l, P, k) for t, l in tok_d]
+    plain_sigs: list = []
+    sig_plain_ms = cuda_ms(lambda: plain_sigs.extend(
+        oph.oph_raw_signatures_plain(t, l, params) for t, l in tok_d))
+    assert all(same(x, y) for x, y in zip(sigs, plain_sigs)), "oph_sig differs from plain"
+    # the reference's formulation, the plain version's own: a sort of each
+    # row's shingle hashes and a searchsorted of the bins' lower bounds
+    reference_ms = sig_plain_ms
+    sig_ops_ms, sig_bytes_ms = bound_ms(
+        int_ops, sum(t.numel() + 4 * l.numel() + P * 4 * l.numel() for t, l in tok_d),
+        clock_mhz)
+    del tok_d, sigs, plain_sigs, raw_tiles, running, run_k
+    log("oph_kernel_timing", shingles=shingles, int_ops=int_ops, text_bytes=text_bytes,
+        segments=n_seg, tiles=len(shapes), clock_max_sm_mhz=clock_mhz,
+        fold_segments={"ms": seg_ms, "event_ms": seg_event_ms, "plain_ms": seg_plain_ms,
+                       "ops_bound_ms": seg_ops_ms, "bytes_bound_ms": seg_bytes_ms},
+        densify={"ms": dens_ms, "event_ms": dens_event_ms, "plain_ms": dens_plain_ms,
+                 "ops_bound_ms": dens_ops_ms, "bytes_bound_ms": dens_bytes_ms},
+        fold={"ms": fold_ms, "event_ms": fold_event_ms, "plain_ms": fold_plain_ms,
+              "ops_bound_ms": fold_ops_ms, "bytes_bound_ms": fold_bytes_ms},
+        sig={"ms": sig_ms, "event_ms": sig_event_ms, "plain_ms": sig_plain_ms,
+             "ops_bound_ms": sig_ops_ms, "bytes_bound_ms": sig_bytes_ms},
+        reference_formulation_ms=reference_ms, card=card)
+    info = {"source": OPH_SOURCE, "reference_formulation_ms": reference_ms}
+    return [
+        kernel_entry("oph_fold_segments", got["oph_fold_segments"], seg_ms, seg_plain_ms,
+                     seg_ops_ms, seg_bytes_ms, replaces=OPH_RAW, **info),
+        kernel_entry("oph_fold", fold_launches, fold_ms, fold_plain_ms, fold_ops_ms,
+                     fold_bytes_ms, replaces=OPH_RAW, **info),
+        kernel_entry("oph_sig", sig_launches, sig_ms, sig_plain_ms, sig_ops_ms,
+                     sig_bytes_ms, replaces=OPH_RAW, **info),
+        kernel_entry("oph_densify", got["oph_densify"], dens_ms, dens_plain_ms, dens_ops_ms,
+                     dens_bytes_ms, source=OPH_SOURCE, replaces=OPH_DENSIFY),
+    ]
+
+
+def obs_path(card: str, dev: torch.device) -> None:
+    """The obs core on the card, ``ASTPU_TELEMETRY=1``: the estimator-only
+    engine over 2,048 ragged articles (one chunk).  On its second call the
+    kernel-build sentinel stays at 0, the ``dedup`` plane counts one
+    dispatch a ``minhash_fold_segments`` launch and one put a chunk plus
+    the valid mask, and the Prometheus text holds the stage, dispatch
+    latency, device-put and dispatch series.  Under
+    ``ASTPU_DISPATCH_TIMING=fenced`` the timing gauge reads 1 and each
+    launch adds one latency observation.  ``device_trace`` writes a Chrome
+    trace that names ``minhash_fold_segments``."""
+    import tempfile
+
+    from advanced_scrapper_tpu_torch.config import DedupConfig
+    from advanced_scrapper_tpu_torch.obs import devprof, profiler, stages, telemetry
+    from advanced_scrapper_tpu_torch.pipeline.dedup import NearDupEngine
+
+    os.environ["ASTPU_TELEMETRY"] = "1"
+    telemetry.REGISTRY.set_enabled(None)
+    telemetry.REGISTRY.reset()
+    try:
+        docs, _ = ragged_corpus(np.random.RandomState(13), PARITY_ARTICLES)
+        eng = NearDupEngine(DedupConfig(rerank=False, exact_verify_band=0.0), device=dev)
+        eng.dedup_reps_async(docs).cpu()
+        builds = devprof.jit_compiles_total()
+        before = stages.regime_device_counters("dedup")
+        reset_launches()
+        t0 = time.perf_counter()
+        eng.dedup_reps_async(docs).cpu()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()["minhash_fold_segments"]
+        after = stages.regime_device_counters("dedup")
+        assert devprof.jit_compiles_total() == builds, "a kernel built on the second call"
+        assert after["device_dispatches"] - before["device_dispatches"] == launches \
+            == eng.last_chunks > 0, (before, after, launches)
+        assert after["device_puts"] - before["device_puts"] == eng.last_chunks + 1
+        text = telemetry.REGISTRY.prometheus_text()
+        series = ("astpu_stage_seconds", "astpu_dispatch_latency_seconds",
+                  "astpu_device_puts_total", "astpu_device_dispatches_total",
+                  "astpu_dedup_docs_total", "astpu_dedup_step_seconds")
+        missing = [s for s in series if s not in text]
+        assert not missing, missing
+
+        def fold_hists():
+            return [h for h in telemetry.REGISTRY.find(devprof.DISPATCH_HISTOGRAM)
+                    if h.labels["kernel"] == "dedup_fold_segments"]
+
+        async_count = sum(h.count for h in fold_hists())
+        async_sum = sum(h.sum for h in fold_hists())
+        os.environ["ASTPU_DISPATCH_TIMING"] = "fenced"
+        try:
+            eng.dedup_reps_async(docs).cpu()
+        finally:
+            del os.environ["ASTPU_DISPATCH_TIMING"]
+        (gauge,) = telemetry.REGISTRY.find("astpu_dispatch_timing_fenced")
+        fenced_count = sum(h.count for h in fold_hists())
+        fenced_sum = sum(h.sum for h in fold_hists()) - async_sum
+        assert gauge.value == 1.0 and fenced_count - async_count == eng.last_chunks
+        with tempfile.TemporaryDirectory() as d:
+            with profiler.device_trace(d):
+                eng.dedup_reps_async(docs).cpu()
+            (name,) = os.listdir(d)
+            with open(os.path.join(d, name)) as f:
+                trace_text = f.read()
+        assert "minhash_fold_segments" in trace_text, "the trace does not name the fold"
+        log("obs_path", articles=PARITY_ARTICLES, seconds=seconds, launches=launches,
+            device_counters={k: after[k] - before[k] for k in after},
+            builds_on_second_call=devprof.jit_compiles_total() - builds,
+            builds_total=devprof.jit_compiles_by_kernel(), series=list(series),
+            async_observations=async_count, async_mean_ms=1e3 * async_sum / async_count,
+            fenced_observations=fenced_count - async_count,
+            fenced_mean_ms=1e3 * fenced_sum / (fenced_count - async_count),
+            stage_ms=stages.snapshot_ms(), trace_bytes=len(trace_text), card=card)
+    finally:
+        os.environ.pop("ASTPU_TELEMETRY", None)
+        telemetry.REGISTRY.set_enabled(None)
+        telemetry.REGISTRY.reset()
+
+
 def bound_by(ops_ms: float, bytes_ms: float) -> str:
     return "operations" if ops_ms >= bytes_ms else "bytes"
 
@@ -2543,7 +2966,7 @@ def main() -> int:
         numpy=np.__version__, host_cpu=host_cpu(), host_cores=os.cpu_count())
 
     t0 = time.perf_counter()
-    sources = ("minhash", "rerank", "match", "editdist")
+    sources = ("minhash", "rerank", "match", "editdist", "oph")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
         outs = dict(zip(sources, pool.map(_build.build, sources)))
     log("build", seconds=time.perf_counter() - t0, built=[k for k, v in outs.items() if v],
@@ -2556,6 +2979,7 @@ def main() -> int:
     k = params.shingle_k
     log("kernel_vs_plain", **check_kernels_vs_plain(params, cfg, dev))
     log("segments_vs_plain", **check_segments_vs_plain(params, dev))
+    log("oph_vs_plain", **check_oph_vs_plain(params, cfg, dev))
     log("rerank_kernel_vs_plain", **check_rerank_vs_plain(dev))
     log("match_kernel_vs_plain", **check_match_vs_plain(dev), **check_myers_pairs_vs_plain(dev))
     entry_path(card)
@@ -2756,6 +3180,8 @@ def main() -> int:
     dispatched = dispatch_path(docs, main_reps, warm, card)
     legacy_tiles = legacy_transport_path(docs, main_reps, warm, card)
     fed = feed_path(docs, card)
+    oph_kernels = oph_path(docs, planted, warm, card, clock_mhz, dev)
+    obs_path(card, dev)
 
     kernels = [
         kernel_entry("minhash_fold_segments", seg_launches, seg_ms, seg_plain_ms,
@@ -2891,7 +3317,8 @@ def main() -> int:
         "semiglobal_dist :120, jnp)", pairs=legacy["pairs"], batches=legacy["batches"],
         launch_floor_ms=legacy["launch_floor_ms"], chain_floor_ms=legacy["chain_floor_ms"],
         share_of_floor=legacy["share_of_floor"], per=legacy["per"]))
-    assert len(kernels) == 7, [k["name"] for k in kernels]
+    kernels.extend(oph_kernels)
+    assert len(kernels) == 11, [k["name"] for k in kernels]
 
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi("name,power.limit"))

@@ -65,7 +65,9 @@ def test_port_files_found():
                 "index/repair.py", "storage/backends.py", "storage/stores.py",
                 "storage/csvio.py", "pipeline/cross_source.py", "entry.py", "cli.py",
                 "__main__.py", "runtime/graph.py", "pipeline/dispatch.py",
-                "pipeline/feed.py", "obs/perfdb.py"):
+                "pipeline/feed.py", "obs/perfdb.py", "ops/oph.py", "ops/oph_cuda.py",
+                "obs/telemetry.py", "obs/trace.py", "obs/stages.py", "obs/devprof.py",
+                "obs/profiler.py"):
         assert f"advanced_scrapper_tpu_torch/{rel}" in FILES, rel
     for name in NATIVE:
         assert (PORT / "native" / name).exists(), name

@@ -104,12 +104,24 @@ def test_empty_corpus():
     [dict(backend="oph", rerank=True, prewarm=4096), dict(backend="oph"),
      dict(backend="oph", packed_h2d=False), dict(backend="oph", prewarm=1)],
 )
-def test_unported_configs_raise(overrides):
-    """``backend="oph"`` raises on either transport, with or without
-    prewarm (``prewarm`` and ``packed_h2d=False`` themselves are ported:
-    ``tests/test_torch_dispatch.py``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        NearDupEngine(DedupConfig(**{**BASE, **overrides}), device="cpu")
+def test_unported_configs_raise(corpus, overrides):
+    """Once a pin of the raise of ``backend="oph"``; the OPH backend is
+    ported, so on the same configurations (either transport, with or
+    without prewarm, with the rerank tier) the engine now equals the JAX
+    package's: signatures, the estimator-only and the certified
+    representatives.  Prewarm is one warm ``oph_fold_segments`` and one
+    ``oph_densify`` launch (plus the tier's)."""
+    kw = {**BASE, **overrides}
+    ref = RefEngine(RefConfig(**kw))
+    eng = NearDupEngine(DedupConfig(**kw), device="cpu")
+    if kw.get("prewarm"):
+        assert eng.prewarm_launches == (3 if kw["rerank"] else 2)
+    assert np.array_equal(eng.signatures(corpus), ref.signatures(corpus))
+    got = eng.dedup_reps_async(corpus)
+    assert np.array_equal(got.numpy(), np.asarray(ref.dedup_reps_async(corpus)))
+    reps = eng.dedup_reps(corpus)
+    assert np.array_equal(reps, ref.dedup_reps(corpus))
+    assert (reps != np.arange(len(corpus))).sum() > 10  # the planted dups merged
 
 
 def test_unported_methods_raise(corpus):

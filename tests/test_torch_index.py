@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -598,6 +599,70 @@ def test_background_compaction_is_joined_at_close(tmp_path):
         again = pkg.PersistentIndex(d, cut_postings=16, compact_segments=0)
         assert sorted(again.dump_postings()[0].tolist()) == sorted(all_keys)
         again.close()
+
+
+def test_cut_during_compaction_starts_no_second_merge(tmp_path, monkeypatch):
+    """The first background compaction is held inside its merge while
+    four more segments are cut: no second merge starts, ``close`` returns
+    only after the held compaction's manifest swap, no thread raises, and
+    either package reopens the directory with the same postings."""
+    d = str(tmp_path / "ix")
+    entered, release = threading.Event(), threading.Event()
+    merging = []
+    plain_arrays = segment.Segment.arrays
+
+    def held_arrays(self):
+        me = threading.current_thread()
+        if me.name.startswith("astpu-index-compact"):
+            if me not in merging:
+                merging.append(me)
+            entered.set()
+            release.wait(30)
+        return plain_arrays(self)
+
+    raised = []
+    monkeypatch.setattr(segment.Segment, "arrays", held_arrays)
+    monkeypatch.setattr(threading, "excepthook", raised.append)
+    idx = ix.PersistentIndex(d, cut_postings=16, compact_segments=4)
+    rng = np.random.RandomState(11)
+    all_keys = []
+
+    def post_batch():
+        keys = _rand_keys(rng, 4, 4)
+        idx.insert_batch(keys.ravel(), np.repeat(idx.allocate_doc_ids(4), 4))
+        all_keys.extend(keys.ravel().tolist())
+
+    for _ in range(4):
+        post_batch()
+    assert entered.wait(10), "the fourth cut starts a compaction"
+    held = idx._compactor
+    for _ in range(4):
+        post_batch()  # cuts 5..8, each past the compaction cadence
+    assert idx.segment_cuts == 8
+    assert idx._compactor is held and held.is_alive()
+    before = json.loads(open(os.path.join(d, "manifest.json")).read())
+    closer = threading.Thread(target=idx.close)
+    closer.start()
+    closer.join(0.3)
+    assert closer.is_alive(), "close waits for the held compaction"
+    assert json.loads(open(os.path.join(d, "manifest.json")).read()) == before
+    release.set()
+    closer.join(30)
+    assert not closer.is_alive() and not held.is_alive()
+    assert merging == [held]
+    assert idx.compactions == 1
+    assert raised == []
+    after = json.loads(open(os.path.join(d, "manifest.json")).read())
+    assert after != before
+    dumps = []
+    for pkg in PACKAGES.values():
+        again = pkg.PersistentIndex(d, cut_postings=16, compact_segments=0)
+        keys, docs = again.dump_postings()
+        order = np.lexsort((docs, keys))
+        dumps.append((keys[order].tolist(), docs[order].tolist()))
+        assert sorted(keys.tolist()) == sorted(all_keys)
+        again.close()
+    assert dumps[0] == dumps[1]
 
 
 def test_wipe_and_snapshot_meta_equal_reference(tmp_path):

@@ -182,8 +182,23 @@ def test_kernel_wrappers_reject_what_the_kernel_does_not_take(params):
             torch.zeros((4, 128), dtype=torch.uint32),
             torch.zeros(4 * 136, dtype=torch.uint8), rows=4, width=128, a=a, b=b, k=5,
         )
-    with pytest.raises(NotImplementedError, match="later slice"):
-        minhash.make_fused_tile_step(params, "oph", "cpu")
+    # backend="oph" is ported: its CPU tile step folds the raw OPH form as
+    # the JAX package's does, and a num_perm that is not a power of two
+    # raises as the reference's OPH does
+    rng = np.random.RandomState(3)
+    otok, olens = _rows(rng, 64, 128)
+    buf = pack_tile(otok, olens, rng.randint(0, 16, size=64).astype(np.int32))
+    want = np.asarray(ref_minhash.make_fused_tile_step(ref_make_params(), "oph")(
+        jnp.full((16, 128), 0xFFFFFFFF, jnp.uint32), jnp.asarray(buf), rows=64, width=128,
+        num_articles=16,
+    ))
+    running = accumulator_from_numpy(np.full((16, 128), 0xFFFFFFFF, np.uint32), "cpu")
+    minhash.make_fused_tile_step(params, "oph", "cpu")(
+        running, torch.from_numpy(buf), rows=64, width=128)
+    assert np.array_equal(_u32(running), want)
+    with pytest.raises(ValueError, match="power-of-two"):
+        minhash.make_fused_tile_step(
+            params.__class__(**{**params.__dict__, "num_perm": 96}), "oph", "cpu")
     with pytest.raises(ValueError, match="unknown signature backend"):
         minhash.make_fused_tile_step(params, "bogus", "cpu")
 

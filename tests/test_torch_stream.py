@@ -158,9 +158,22 @@ def test_fused_keys_epilogue_equals_reference(sigs, wide):
 
 
 def test_fused_keys_epilogue_oph_densify_raises(sigs):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        lsh.fused_keys_epilogue(_sig_tensor(sigs), make_params(128, 16, 5, 1).band_salt,
-                                lsh.subband_salt(32), densify_oph=True, wide=False)
+    """Once a pin of the raise of ``densify_oph=True``; the OPH densify is
+    ported, so the epilogue now equals the JAX package's on a raw OPH
+    accumulator (empty bins ``U32_MAX``, all-empty rows among them)."""
+    raw = sigs.copy()
+    raw[np.random.RandomState(5).rand(*raw.shape) < 0.8] = 0xFFFFFFFF
+    raw[::7] = 0xFFFFFFFF
+    salt = make_params(128, 16, 5, 1).band_salt
+    fine = lsh.subband_salt(32)
+    for wide in (False, True):
+        want_sig, want_keys = ref_lsh.fused_keys_epilogue(
+            raw, salt, fine, densify_oph=True, wide=wide)
+        got_sig, got_keys = lsh.fused_keys_epilogue(
+            _sig_tensor(raw), salt, fine, densify_oph=True, wide=wide)
+        assert np.array_equal(
+            got_sig.view(torch.int32).numpy().view(np.uint32), np.asarray(want_sig))
+        assert np.array_equal(_u32(got_keys), np.asarray(want_keys))
 
 
 @pytest.mark.parametrize("wide", [False, True])
