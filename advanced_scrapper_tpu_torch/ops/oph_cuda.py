@@ -44,6 +44,12 @@ from advanced_scrapper_tpu_torch.ops.minhash_cuda import (
 from advanced_scrapper_tpu_torch.ops.pack import packed_nbytes
 
 MAX_BINS = 1024  # kMaxBins in csrc/oph.cu
+#: the fold's walk (``csrc/oph.cu``; the CPU tests model it): consecutive
+#: shingles a lane hashes at a time, ranges of units per resident warp,
+#: fewest shingles in a tile piece
+LANE_SHINGLES = 8  # kLaneShingles
+RANGES_PER_WARP = 4  # kRangesPerWarp
+MIN_TILE_PIECE = 256  # kMinPiece
 
 _ptr = ctypes.c_void_p
 _int = ctypes.c_int
@@ -62,10 +68,13 @@ def _lib() -> ctypes.CDLL:
     lib.astt_oph_densify.argtypes = [_ptr, _int, _int, _ptr, _ptr]
     for fn in (lib.astt_oph_sig, lib.astt_oph_fold, lib.astt_oph_fold_segments,
                lib.astt_oph_densify, lib.astt_oph_max_segment_shingles,
-               lib.astt_oph_max_bins):
+               lib.astt_oph_max_bins, lib.astt_oph_lane_shingles,
+               lib.astt_oph_ranges_per_warp, lib.astt_oph_min_tile_piece):
         fn.restype = _int
-    if (lib.astt_oph_max_segment_shingles(), lib.astt_oph_max_bins()) != (
-        MAX_SEGMENT_SHINGLES, MAX_BINS
+    if (lib.astt_oph_max_segment_shingles(), lib.astt_oph_max_bins(),
+            lib.astt_oph_lane_shingles(), lib.astt_oph_ranges_per_warp(),
+            lib.astt_oph_min_tile_piece()) != (
+        MAX_SEGMENT_SHINGLES, MAX_BINS, LANE_SHINGLES, RANGES_PER_WARP, MIN_TILE_PIECE
     ):
         raise RuntimeError("csrc/oph.cu and ops/oph_cuda.py disagree on their limits")
     lib.astt_oph_error_string.argtypes = [_int]

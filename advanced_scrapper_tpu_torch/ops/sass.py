@@ -2,9 +2,11 @@
 instructions one step of its innermost loop issues, by opcode and by pipe.
 
 Used by ``chip_smoke.py`` (the ``myers_bound``, ``match_screen`` and
-``myers_pairs`` rows of ``kernel_timing``) and ``myers_probe.py``;
-:func:`sass_step_counts`, :func:`pairs_sass` and :func:`screen_sass` need
-``cuobjdump`` beside ``nvcc``, so on the card's machine only.
+``myers_pairs`` rows of ``kernel_timing``, the OPH fold's rows of
+``oph_kernel_timing``), ``myers_probe.py`` and ``oph_probe.py``;
+:func:`sass_step_counts`, :func:`pairs_sass`, :func:`screen_sass` and
+:func:`oph_sass` need ``cuobjdump`` beside ``nvcc``, so on the card's
+machine only.
 """
 
 from __future__ import annotations
@@ -24,6 +26,10 @@ from advanced_scrapper_tpu_torch.ops import _build
 #: "other"
 PIPES = {"LOP3": "alu", "LEA": "alu", "VIMNMX": "alu", "SHF": "alu", "IADD3": "alu",
          "IMAD": "fma", "LDS": "mio", "LDG": "mio"}
+
+#: the OPH fold's hash loop also issues byte permutes and compares on the
+#: ALU pipe and shared atomics on MIO
+OPH_PIPES = {**PIPES, "PRMT": "alu", "ISETP": "alu", "ATOMS": "mio"}
 
 _FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)")
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
@@ -69,7 +75,7 @@ def parse_sass(text: str, function: str | None = None) -> list[tuple[int, str, s
 
 
 def step_loop(instrs: list[tuple[int, str, str]], step: str = "LDS.U8",
-              global_loads: bool = False) -> dict:
+              global_loads: bool = False, pipes: dict[str, str] = PIPES) -> dict:
     """The kernel's main step loop in parsed SASS: of the innermost loops
     (a backward branch with no other backward branch inside), the one with
     the most ``step`` instructions (one a step: ``LDS.U8``, the Myers
@@ -77,7 +83,7 @@ def step_loop(instrs: list[tuple[int, str, str]], step: str = "LDS.U8",
     bitmap load) and with global loads or none, as ``global_loads`` says
     (the Myers step's branch-free instance has none; the screen's probe
     loads its gram).  Its instructions per step, in all, by opcode and by
-    pipe (:data:`PIPES`)."""
+    pipe (``pipes``, :data:`PIPES` by default)."""
     loops = []
     for i, (addr, op, rest) in enumerate(instrs):
         if op.startswith("BRA") and rest.strip().startswith("0x"):
@@ -98,13 +104,13 @@ def step_loop(instrs: list[tuple[int, str, str]], step: str = "LDS.U8",
         raise RuntimeError("no step loop found in the SASS")
     steps, ops = best
     kinds = Counter(op.split(".")[0] for op in ops if op != "NOP")
-    pipes = Counter()
+    by_pipe = Counter()
     for kind, n in kinds.items():
-        pipes[PIPES.get(kind, "other")] += n
+        by_pipe[pipes.get(kind, "other")] += n
     return {"steps_in_loop": steps, "instructions_in_loop": sum(kinds.values()),
             "per_step": sum(kinds.values()) / steps,
             "by_opcode_per_step": {k: v / steps for k, v in sorted(kinds.items())},
-            "by_pipe_per_step": {k: v / steps for k, v in sorted(pipes.items())}}
+            "by_pipe_per_step": {k: v / steps for k, v in sorted(by_pipe.items())}}
 
 
 def work_per_step(loop: dict) -> float:
@@ -169,5 +175,26 @@ def screen_sass(lib: Path) -> dict:
     try:
         rows = ctypes.CDLL(str(lib)).astt_match_rows_per_block()
         return screen_loops(parse_sass(dump_sass(lib)), rows)
+    except (RuntimeError, subprocess.SubprocessError, OSError) as e:
+        return {"error": str(e)[:300]}
+
+
+def oph_loop(instrs: list[tuple[int, str, str]]) -> dict:
+    """The OPH fold's hash loop in parsed SASS, per shingle (:data:`OPH_PIPES`):
+    the loop with global loads and one ``LDS`` a shingle where the shared
+    atomic is filtered by a read of its bin (``oph_probe.py``'s
+    ``filter``), else one ``ATOMS`` a shingle (the shipped fold, PR 14's)."""
+    try:
+        return step_loop(instrs, step="LDS", global_loads=True, pipes=OPH_PIPES)
+    except RuntimeError:
+        return step_loop(instrs, step="ATOMS", global_loads=True, pipes=OPH_PIPES)
+
+
+def oph_sass(lib: Path, units: str = "SegmentUnits") -> dict:
+    """:func:`oph_loop` of a built ``oph.cu``'s fold at k = 5 in the
+    addressing mode whose unit type is ``units`` (``SegmentUnits`` or
+    ``TileUnits``); or the reason there is none."""
+    try:
+        return oph_loop(parse_sass(dump_sass(lib), f"{units}ELi5E"))
     except (RuntimeError, subprocess.SubprocessError, OSError) as e:
         return {"error": str(e)[:300]}

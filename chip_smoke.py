@@ -83,9 +83,11 @@ card and CPU manifests byte-equal on a 2,048-article cut.
 
 The OPH backend (``csrc/oph.cu``): ``oph_vs_plain`` holds each of its
 entry points bit-equal to its plain version (``oph_fold_segments`` at
-every start residue mod 16, k = 5, 9 and 1 and 64 bins, dropped owners,
-two chunks into one accumulator; ``oph_sig`` and ``oph_fold`` at every
-width bucket; ``oph_densify`` on all-empty, one-filled, all-filled,
+every start residue mod 16, k = 5, 9 and 1, P = 2, 64, 128 and 1,024,
+dropped owners, two chunks into one accumulator, segments of 8 shingles
+so that a warp's range cuts owner runs, each text ending at its last
+shingle; ``oph_sig`` and ``oph_fold`` at every width bucket on tiles of
+64 and 67 rows; ``oph_densify`` on all-empty, one-filled, all-filled,
 alternating and wrap-around rows at P = 128 and 64); ``oph_path`` runs
 ``DedupConfig(backend="oph", rerank=False, exact_verify_band=0)`` over
 the 65,536 ragged articles, timed on its second call (one
@@ -94,8 +96,10 @@ launch, every planted duplicate resolved), then on the unpacked
 transport (one ``oph_sig`` a tile, equal), card against CPU on 2,048
 articles, and times each OPH kernel at these shapes beside its bound, its
 plain version and the reference's formulation (a sort and a
-``searchsorted`` of each unpacked tile).  ``obs_path`` turns telemetry on
-(``ASTPU_TELEMETRY=1``) for the estimator-only engine on 2,048 articles:
+``searchsorted`` of each unpacked tile), the fold's rows with the SASS
+instructions a shingle of its hash loop and the floor each pipe sets.
+``obs_path`` turns telemetry on (``ASTPU_TELEMETRY=1``) for the
+estimator-only engine on 2,048 articles:
 no kernel build on its second call, one dispatch a launch, the stage,
 dispatch-latency, device-put and dispatch series in the Prometheus text,
 one fenced latency observation a launch under
@@ -1499,10 +1503,37 @@ def myers_sass(pair_steps: int, clock_mhz: float) -> dict:
         sass = sass_step_counts(_build.library_path("editdist"))
     except (RuntimeError, subprocess.SubprocessError, OSError) as e:
         return {"error": str(e)[:300]}
-    sass["pipe_floor_ms"] = {
-        pipe: pair_steps * sass["by_pipe_per_step"].get(pipe, 0.0)
-        / (lanes * CARD_SMS * clock_mhz * 1e6) * 1e3
-        for pipe, lanes in PIPE_LANES_PER_SM.items()}
+    sass["pipe_floor_ms"] = pipe_floor_ms(sass["by_pipe_per_step"], pair_steps, clock_mhz)
+    return sass
+
+
+def pipe_floor_ms(by_pipe: dict[str, float], steps: int, clock_mhz: float) -> dict[str, float]:
+    """The floor in ms each pipe sets for ``steps`` steps of ``by_pipe``
+    instructions a step, at ``clock_mhz`` on the card's SMs."""
+    return {pipe: steps * by_pipe.get(pipe, 0.0) / (lanes * CARD_SMS * clock_mhz * 1e6) * 1e3
+            for pipe, lanes in PIPE_LANES_PER_SM.items()}
+
+
+#: lane-instructions an SM issues a clock: four schedulers, a warp each
+ISSUE_LANES_PER_SM = 128
+
+
+def oph_fold_sass(shingles: int, clock_mhz: float, units: str = "SegmentUnits",
+                  lib=None) -> dict:
+    """Instructions per shingle in the hash loop of a built ``oph.cu``'s
+    fold (k = 5, the mode of ``units``; ``ops/sass.py:oph_sass``; the
+    shipped library unless ``lib``), by opcode and by pipe, with the floor
+    in ms each pipe sets for ``shingles`` at ``clock_mhz`` and the issue
+    floor (every instruction, ``ISSUE_LANES_PER_SM``); or the reason there
+    are none."""
+    from advanced_scrapper_tpu_torch.ops import _build
+    from advanced_scrapper_tpu_torch.ops.sass import oph_sass
+
+    sass = oph_sass(lib or _build.library_path("oph"), units)
+    if "error" not in sass:
+        sass["pipe_floor_ms"] = pipe_floor_ms(sass["by_pipe_per_step"], shingles, clock_mhz)
+        sass["issue_floor_ms"] = shingles * sass["per_step"] / (
+            ISSUE_LANES_PER_SM * CARD_SMS * clock_mhz * 1e6) * 1e3
     return sass
 
 
@@ -2546,15 +2577,22 @@ def densify_edge_rows(P: int) -> np.ndarray:
     return np.stack(rows).astype(np.uint32)
 
 
-def check_oph_vs_plain(params, cfg, dev) -> dict:
+def check_oph_vs_plain(params, cfg, dev, kernels=None) -> dict:
     """Phase 3, OPH: each entry point bit-equal to its plain version.
     ``oph_fold_segments`` on articles of edge lengths among random ones at
     every start residue mod 16, segments of the engine's size, the
-    kernel's largest and 37, k = 5, 9 and 1 and 64 bins, two chunks into
-    one accumulator that starts part filled, shared and dropped owners;
-    ``oph_sig`` and ``oph_fold`` at every width bucket (and k = 9, 1);
-    ``oph_densify`` on all-empty, one-filled, all-filled, alternating and
-    wrap-around rows among random ones at P = 128 and 64."""
+    kernel's largest, 37 and 8 (some 50,000 descriptors a launch, so a
+    warp's range holds several and cuts owner runs), k = 5, 9 and 1 and
+    2, 64 and 1,024 bins, two chunks into one accumulator that starts part
+    filled, shared and dropped owners, one article of 100,000 bytes, each
+    chunk's text ending at its last shingle (the allocation's last byte);
+    ``oph_sig`` and ``oph_fold`` at every width bucket (and k = 9, 1; P =
+    2, 64, 1,024) on tiles of 64 rows (the chunker's tail tiles) and 67,
+    the last row full; ``oph_densify`` on all-empty, one-filled,
+    all-filled, alternating and wrap-around rows among random ones at P =
+    128 and 64.  ``kernels``: an object with the three fold entry points
+    of ``ops/oph_cuda.py`` (``oph_probe.py`` passes a built variant's);
+    the wrappers' launches are counted only when it is not given."""
     from advanced_scrapper_tpu_torch.core.hashing import make_params
     from advanced_scrapper_tpu_torch.cpu.hostbatch import segment_ranges
     from advanced_scrapper_tpu_torch.ops import oph, oph_cuda
@@ -2568,34 +2606,42 @@ def check_oph_vs_plain(params, cfg, dev) -> dict:
     def on_card(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a.view(np.int32)).to(dev).view(torch.uint32)
 
+    kern = kernels or oph_cuda
     rng = np.random.RandomState(17)
     before = oph_launches()
     residues: set[int] = set()
-    p64 = make_params(num_perm=64, num_bands=16)
+    p2, p64 = make_params(num_perm=2, num_bands=2), make_params(num_perm=64, num_bands=16)
+    p1024 = make_params(num_perm=1024, num_bands=16)
     runs = [(params, SEGMENT_SHINGLES), (params, oph_cuda.MAX_SEGMENT_SHINGLES),
-            (params, 37), (make_params(shingle_k=9), SEGMENT_SHINGLES),
-            (make_params(shingle_k=1), 37), (p64, SEGMENT_SHINGLES)]
+            (params, 37), (params, 8), (make_params(shingle_k=9), SEGMENT_SHINGLES),
+            (make_params(shingle_k=1), 37), (p64, SEGMENT_SHINGLES), (p2, SEGMENT_SHINGLES),
+            (p1024, 37)]
+    descriptors = []
     for p, S in runs:
         k, P = p.shingle_k, p.num_perm
         edge = [0, 1, k - 1, k, S + k - 2, S + k - 1, S + k, 3 * S, 100_000]
         lens = np.r_[edge, rng.randint(0, 5000, size=300)]
         rng.shuffle(lens)
+        n_docs = len(lens)
+        half = n_docs // 2
+        lens[[half - 1, n_docs - 1]] = [2 * k + 3, 3 * S + k]  # each chunk ends in shingles
         docs = [rng.randint(0, 256, size=int(n), dtype=np.uint8).tobytes() for n in lens]
-        n_docs = len(docs)
         owners = rng.randint(0, n_docs + 2, size=n_docs)  # shared and dropped owners
         owners[:2] = [n_docs - 1, n_docs]
+        owners[[half - 1, n_docs - 1]] = [1, 2]
         start = on_card(raw_oph_rows(rng, n_docs, P, 0.3))
         run_k, run_p = start.clone(), start.clone()
-        half = n_docs // 2
         for lead, part in ((3, slice(0, half)), (0, slice(half, n_docs))):  # two chunks
             text, off, ln = flat_text(docs[part], lead)
             seg = segment_ranges(off, ln, owners[part], k, S)
+            assert seg[0][-1] + seg[1][-1] + k - 1 == len(text)
             residues.update((seg[0] % 16).tolist())
+            descriptors.append(len(seg[0]))
             full = torch.from_numpy(np.r_[np.zeros(5, np.uint8), text]).to(dev)
-            text_d = full[5:]  # starts off a 16-byte boundary
+            text_d = full[5:]  # starts off a 16-byte boundary, ends the allocation
             host = [torch.from_numpy(x).pin_memory() for x in seg]
             card = [x.to(dev) for x in host]
-            oph_cuda.oph_fold_segments(run_k, text_d, *(card if lead else host), k)
+            kern.oph_fold_segments(run_k, text_d, *(card if lead else host), k)
             fold_segments_plain(run_p, text_d, *card, p,
                                 signatures=oph.oph_raw_signatures_plain)
         torch.cuda.synchronize()
@@ -2604,25 +2650,27 @@ def check_oph_vs_plain(params, cfg, dev) -> dict:
     tiles = 0
     for p, w in ([(params, w) for w in _prewarm_widths(cfg)]
                  + [(make_params(shingle_k=kk), w) for kk in (9, 1) for w in (64, 4096)]
-                 + [(p64, 512)]):
-        k, P, rows = p.shingle_k, p.num_perm, 67
-        tok = rng.randint(0, 256, size=(rows, w)).astype(np.uint8)
-        lens = rng.randint(0, w + 1, size=rows).astype(np.int32)
-        lens[:4] = [0, k - 1, w, k]  # empty, below k, full width, one shingle
-        tok_d, lens_d = torch.from_numpy(tok).to(dev), torch.from_numpy(lens).to(dev)
-        got = oph_cuda.oph_sig(tok_d, lens_d, P, k)
-        want = oph.oph_raw_signatures_plain(tok_d, lens_d, p)
-        assert same(got, want), f"oph_sig differs from plain at {rows}x{w}, k={k}, P={P}"
-        n_art = max(rows // 3, 1)
-        packed = torch.from_numpy(pack_tile(tok, lens, rng.randint(0, n_art, size=rows)
-                                            .astype(np.int32))).to(dev)
-        start = on_card(raw_oph_rows(rng, n_art, P, 0.3))
-        run_k, run_p = start.clone(), start.clone()
-        oph_cuda.oph_fold(run_k, packed, rows=rows, width=w, k=k)
-        oph.oph_fused_tile_step_plain(run_p, packed, rows=rows, width=w, params=p)
-        torch.cuda.synchronize()
-        assert same(run_k, run_p), f"oph_fold differs from plain at {rows}x{w}, k={k}, P={P}"
-        tiles += 1
+                 + [(p64, 512), (p2, 4096), (p1024, 512)]):
+        for rows in (64, 67):
+            k, P = p.shingle_k, p.num_perm
+            tok = rng.randint(0, 256, size=(rows, w)).astype(np.uint8)
+            lens = rng.randint(0, w + 1, size=rows).astype(np.int32)
+            lens[:4] = [0, k - 1, w, k]  # empty, below k, full width, one shingle
+            lens[-1] = w  # the tile's last byte is a shingle's
+            tok_d, lens_d = torch.from_numpy(tok).to(dev), torch.from_numpy(lens).to(dev)
+            got = kern.oph_sig(tok_d, lens_d, P, k)
+            want = oph.oph_raw_signatures_plain(tok_d, lens_d, p)
+            assert same(got, want), f"oph_sig differs from plain at {rows}x{w}, k={k}, P={P}"
+            n_art = max(rows // 3, 1)
+            packed = torch.from_numpy(pack_tile(tok, lens, rng.randint(0, n_art, size=rows)
+                                                .astype(np.int32))).to(dev)
+            start = on_card(raw_oph_rows(rng, n_art, P, 0.3))
+            run_k, run_p = start.clone(), start.clone()
+            kern.oph_fold(run_k, packed, rows=rows, width=w, k=k)
+            oph.oph_fused_tile_step_plain(run_p, packed, rows=rows, width=w, params=p)
+            torch.cuda.synchronize()
+            assert same(run_k, run_p), f"oph_fold differs from plain at {rows}x{w}, k={k}, P={P}"
+            tiles += 1
     dens_rows = 0
     for P in (128, 64):
         sig = np.concatenate([densify_edge_rows(P)] + [
@@ -2634,9 +2682,11 @@ def check_oph_vs_plain(params, cfg, dev) -> dict:
         dens_rows += sig.shape[0]
     torch.cuda.synchronize()
     launches = {k: v - before[k] for k, v in oph_launches().items()}
-    assert launches == {"oph_fold_segments": 2 * len(runs), "oph_fold": tiles,
-                        "oph_sig": tiles, "oph_densify": 2}, launches
-    return {"segment_cases": len(runs), "residues_mod_16": len(residues), "tile_cases": tiles,
+    if kernels is None:
+        assert launches == {"oph_fold_segments": 2 * len(runs), "oph_fold": tiles,
+                            "oph_sig": tiles, "oph_densify": 2}, launches
+    return {"segment_cases": len(runs), "residues_mod_16": len(residues),
+            "most_descriptors": max(descriptors), "tile_cases": tiles,
             "densify_rows": dens_rows, "launches": launches, "max_abs_err": 0}
 
 
@@ -2805,25 +2855,32 @@ def oph_path(docs: list[bytes], planted: dict[int, int], warm: list[bytes], card
         int_ops, sum(t.numel() + 4 * l.numel() + P * 4 * l.numel() for t, l in tok_d),
         clock_mhz)
     del tok_d, sigs, plain_sigs, raw_tiles, running, run_k
+    seg_sass = oph_fold_sass(shingles, clock_mhz)
+    tile_sass = oph_fold_sass(shingles, clock_mhz, "TileUnits")
     log("oph_kernel_timing", shingles=shingles, int_ops=int_ops, text_bytes=text_bytes,
         segments=n_seg, tiles=len(shapes), clock_max_sm_mhz=clock_mhz,
         fold_segments={"ms": seg_ms, "event_ms": seg_event_ms, "plain_ms": seg_plain_ms,
-                       "ops_bound_ms": seg_ops_ms, "bytes_bound_ms": seg_bytes_ms},
+                       "ops_bound_ms": seg_ops_ms, "bytes_bound_ms": seg_bytes_ms,
+                       "sass": seg_sass},
         densify={"ms": dens_ms, "event_ms": dens_event_ms, "plain_ms": dens_plain_ms,
                  "ops_bound_ms": dens_ops_ms, "bytes_bound_ms": dens_bytes_ms},
         fold={"ms": fold_ms, "event_ms": fold_event_ms, "plain_ms": fold_plain_ms,
-              "ops_bound_ms": fold_ops_ms, "bytes_bound_ms": fold_bytes_ms},
+              "ops_bound_ms": fold_ops_ms, "bytes_bound_ms": fold_bytes_ms,
+              "sass": tile_sass},
         sig={"ms": sig_ms, "event_ms": sig_event_ms, "plain_ms": sig_plain_ms,
              "ops_bound_ms": sig_ops_ms, "bytes_bound_ms": sig_bytes_ms},
         reference_formulation_ms=reference_ms, card=card)
     info = {"source": OPH_SOURCE, "reference_formulation_ms": reference_ms}
+    floors = {name: {"pipe_floor_ms": x.get("pipe_floor_ms"),
+                     "issue_floor_ms": x.get("issue_floor_ms")}
+              for name, x in (("seg", seg_sass), ("tile", tile_sass))}
     return [
         kernel_entry("oph_fold_segments", got["oph_fold_segments"], seg_ms, seg_plain_ms,
-                     seg_ops_ms, seg_bytes_ms, replaces=OPH_RAW, **info),
+                     seg_ops_ms, seg_bytes_ms, replaces=OPH_RAW, **info, **floors["seg"]),
         kernel_entry("oph_fold", fold_launches, fold_ms, fold_plain_ms, fold_ops_ms,
-                     fold_bytes_ms, replaces=OPH_RAW, **info),
+                     fold_bytes_ms, replaces=OPH_RAW, **info, **floors["tile"]),
         kernel_entry("oph_sig", sig_launches, sig_ms, sig_plain_ms, sig_ops_ms,
-                     sig_bytes_ms, replaces=OPH_RAW, **info),
+                     sig_bytes_ms, replaces=OPH_RAW, **info, **floors["tile"]),
         kernel_entry("oph_densify", got["oph_densify"], dens_ms, dens_plain_ms, dens_ops_ms,
                      dens_bytes_ms, source=OPH_SOURCE, replaces=OPH_DENSIFY),
     ]

@@ -7,11 +7,16 @@ on both transports with a chunk budget of a few kB, and the stream,
 persist, index and CLI paths under ``backend="oph"``.  Exact equality
 throughout (the JAX side through jnp: OPH has no Pallas kernel).
 
-Two numpy models of the CUDA kernels' walks (``csrc/oph.cu``) are held to
-the plain versions: the fold's per-bin scatter-min and densify's
-filled-mask search."""
+Numpy models of the CUDA kernels' walks (``csrc/oph.cu``) are held to the
+plain versions: the fold's per-bin scatter-min, its walk (warp ranges,
+one flush an owner run, word-assembled shingle bytes, the filtered
+minimum; the segment and the tile modes, the latter also against the JAX
+package) and densify's filled-mask search; the reader of the fold's SASS
+and the variants of ``oph_probe.py`` are checked against the source."""
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import pytest
@@ -32,6 +37,7 @@ from advanced_scrapper_tpu_torch.cpu.hostbatch import segment_ranges
 from advanced_scrapper_tpu_torch.extractors import tpu_batch
 from advanced_scrapper_tpu_torch.index import PersistentIndex
 from advanced_scrapper_tpu_torch.ops import minhash, oph, oph_cuda
+from advanced_scrapper_tpu_torch.ops.pack import pack_tile
 from advanced_scrapper_tpu_torch.ops.shingle import U32_MAX, shingle_hash
 from advanced_scrapper_tpu_torch.pipeline import dedup
 from advanced_scrapper_tpu_torch.pipeline.dedup import NearDupEngine
@@ -296,6 +302,295 @@ def test_kernel_bin_min_equals_the_sort_form():
             hv = h[r][valid[r]].astype(np.uint64)
             np.minimum.at(model[r], (hv >> np.uint64(shift)).astype(np.int64), hv)
         assert np.array_equal(model.astype(np.uint32), _port_raw(tok, ln, params)), P
+
+
+_M32 = np.uint64(0xFFFFFFFF)
+_WORD_K = 5  # the shingle width the fold kernel compiles in: it reads words
+
+
+def _fnv_fmix(b: np.ndarray) -> np.ndarray:
+    """FNV-1a over the last axis of bytes ``b``, then fmix32 (uint64 values)."""
+    h = np.full(b.shape[:-1], 0x811C9DC5, np.uint64)
+    for m in range(b.shape[-1]):
+        h = ((h ^ b[..., m].astype(np.uint64)) * np.uint64(0x01000193)) & _M32
+    h ^= h >> np.uint64(16)
+    h = (h * np.uint64(0x85EBCA6B)) & _M32
+    h ^= h >> np.uint64(13)
+    h = (h * np.uint64(0xC2B2AE35)) & _M32
+    return h ^ (h >> np.uint64(16))
+
+
+def _lane_bytes(text: np.ndarray, addr0: int, p: np.ndarray, k: int) -> np.ndarray:
+    """The shingle bytes ``[lanes, LANE_SHINGLES, k]`` of lanes starting at
+    byte ``p`` of ``text`` (whose address is ``addr0`` mod 16), as
+    ``hash_lane`` assembles them: at k = 5 from the aligned 32-bit words
+    that cover them (words reaching outside the text read byte by byte,
+    zero outside), funnel-shifted by the start's residue mod 4; at any
+    other k byte by byte.  Entries of shingles past a lane's valid ones
+    are don't-cares."""
+    lanes = oph_cuda.LANE_SHINGLES
+    j = np.arange(lanes)[:, None] + np.arange(k)[None, :]  # stream position of (shingle, byte)
+    if k != _WORD_K:
+        return text[np.clip(p[:, None, None] + j[None], 0, len(text) - 1)]
+    n_words = lanes // 4 + (k + 5) // 4
+    a = ((addr0 + p) & 3).astype(np.uint64)
+    idx = (p - (addr0 + p) % 4)[:, None] + np.arange(4 * n_words)[None, :]
+    inside = (idx >= 0) & (idx < len(text))
+    byte = np.where(inside, text[np.clip(idx, 0, len(text) - 1)], 0).astype(np.uint64)
+    w = (byte.reshape(len(p), n_words, 4) << (np.uint64(8) * np.arange(4, dtype=np.uint64))
+         ).sum(-1)  # little-endian words
+    s = (((w[:, 1:] << np.uint64(32)) | w[:, :-1]) >> (np.uint64(8) * a[:, None])) & _M32
+    sel = np.uint64(8) * (j & 3).astype(np.uint64)
+    return ((s[:, j >> 2] >> sel) & np.uint64(0xFF)).astype(np.uint8)
+
+
+def _span(count: int, fit: int) -> int:
+    """Units a warp's range holds (``launch_k``): at most
+    ``RANGES_PER_WARP`` ranges per resident warp of ``fit``."""
+    return -(-count // min(count, fit * oph_cuda.RANGES_PER_WARP))
+
+
+def _fold_walk(running: np.ndarray, text: np.ndarray, addr0: int, units: list, k: int,
+               fit: int, filtered: bool = False) -> dict:
+    """``oph_fold_kernel``'s walk over ``units`` ``(off, n, owner)``, in
+    place on ``running uint64[N, P]``: a warp a range of ``_span`` units,
+    one table kept across consecutive units of one owner and flushed
+    (min into the owner's row) when the owner changes and at the range's
+    end; owners outside ``[0, N)`` dropped.  A unit runs in whole warp
+    iterations of ``32 · LANE_SHINGLES`` shingles, lane ``l`` hashing
+    ``LANE_SHINGLES`` consecutive ones, each hash taking the shared min;
+    ``filtered`` (``oph_probe.py``'s variant) only when below the bin it
+    read, every lane reading before any lane's atomic (the stalest the
+    table can be).  Returns the flushes, the shared atomics and the owners
+    whose units span two ranges."""
+    n_out, P = running.shape
+    shift = np.uint64(32 - (P.bit_length() - 1))
+    lanes = oph_cuda.LANE_SHINGLES
+    run = 32 * lanes
+    lane = np.arange(32)
+    span = _span(len(units), fit)
+    flushes = atomics = 0
+    first_range: dict[int, int] = {}
+    split: set[int] = set()
+    for r, lo in enumerate(range(0, len(units), span)):
+        table = np.full(P, U32_MAX, np.uint64)
+        owner = -1
+        for off, n, own in [*units[lo:lo + span], (0, 1, -2)]:  # -2: the range's end
+            if own != -2 and (n <= 0 or not 0 <= own < n_out):
+                continue
+            if own != owner:
+                if owner >= 0:
+                    running[owner] = np.minimum(running[owner], table)
+                    table[:] = U32_MAX
+                    flushes += 1
+                owner = own
+                if own == -2:
+                    break
+                split.update([own] if first_range.setdefault(own, r) != r else [])
+            for i in range(0, n, run):
+                p = off + i + lanes * lane
+                valid = np.clip(n - i - lanes * lane, 0, lanes)
+                h = _fnv_fmix(_lane_bytes(text, addr0, p, k))
+                h = h[np.arange(lanes)[None, :] < valid[:, None]]
+                b = (h >> shift).astype(np.int64)
+                hit = h < table[b] if filtered else np.ones(len(h), bool)
+                np.minimum.at(table, b[hit], h[hit])
+                atomics += int(hit.sum())
+    return {"flushes": flushes, "atomics": atomics, "split_owners": split}
+
+
+def _segment_units(text_len: int, start, shingles, owner, k: int) -> list:
+    """``SegmentUnits.get`` of every descriptor: one outside the text
+    yields no shingle."""
+    return [(int(s), int(n) if s >= 0 and n <= oph_cuda.MAX_SEGMENT_SHINGLES
+             and s + n + k - 1 <= text_len else 0, int(o))
+            for s, n, o in zip(start, shingles, owner)]
+
+
+def _tile_units(lens: np.ndarray, owners: np.ndarray, width: int, k: int, fit: int) -> list:
+    """``TileUnits.plan`` and ``get``: each row cut into pieces of the
+    planned size, row-major."""
+    most = max(width - k + 1, 1)
+    run = 32 * oph_cuda.LANE_SHINGLES
+    piece = max(len(lens) * most // fit, oph_cuda.MIN_TILE_PIECE)
+    piece = min(-(-piece // run) * run, oph_cuda.MAX_SEGMENT_SHINGLES)
+    units = []
+    for row, (ln, own) in enumerate(zip(lens, owners)):
+        ln = min(max(int(ln), 0), width)
+        for s0 in range(0, most, piece):
+            units.append((row * width + s0, max(min(piece, ln - (k - 1) - s0), 0), int(own)))
+    return units
+
+
+@pytest.mark.parametrize("fit", [3, 40], ids=["fit3", "fit40"])
+@pytest.mark.parametrize("P", [2, 8, 128, 1024])
+@pytest.mark.parametrize("k", [1, 5, 9])
+def test_kernel_fold_walk_equals_the_plain_and_reference_folds(k, P, fit):
+    """The segment mode's walk (:func:`_fold_walk`) on articles of edge
+    lengths among random ones, one 64× longer than the rest and last in
+    a text that ends at its last shingle, cut into segments of 40
+    shingles, with descriptors of 0 shingles and out-of-range owners
+    interleaved, shared owners, ranges that cut articles, lane starts at
+    every residue mod 16, the shared min filtered or not: equal to the
+    plain segment fold and to the JAX package's raw OPH signatures
+    min-combined by owner, from an accumulator that starts part filled."""
+    rng = np.random.RandomState(1000 * k + P + fit)
+    params = make_params(num_perm=P, num_bands=min(16, P), shingle_k=k)
+    ref_params = ref_make_params(num_perm=P, num_bands=min(16, P), shingle_k=k)
+    lens = np.r_[[0, 1, k - 1, k, k + 1, 40 + k - 1, 40 + k, 255 + k, 257 + k],
+                 rng.randint(0, 160, size=40)]
+    rng.shuffle(lens)
+    lens = np.r_[lens, 64 * 150]  # the long one, last
+    docs = [rng.randint(0, 256, size=int(n), dtype=np.uint8) for n in lens]
+    n_out = 12
+    doc_owner = rng.randint(0, n_out, size=len(docs))
+    doc_owner[1::4] = rng.choice([-1, n_out, n_out + 7], size=len(doc_owner[1::4]))
+    doc_owner[-1] = 3
+    text = np.concatenate(docs)
+    off = np.r_[0, np.cumsum(lens)[:-1]].astype(np.int64)
+    start, shingles, owner = segment_ranges(off, lens, doc_owner, k, 40)
+    zeros = rng.randint(0, len(start), size=5)  # descriptors of 0 shingles
+    start = np.insert(start, zeros, rng.randint(0, len(text) - k, size=5))
+    shingles = np.insert(shingles, zeros, 0).astype(np.int32)
+    owner = np.insert(owner, zeros, rng.randint(0, n_out, size=5)).astype(np.int32)
+    assert start[-1] + shingles[-1] + k - 1 == len(text)  # ends at its last shingle
+    begin = _raw_rows(rng, P, n_out, 0.2).astype(np.uint64)
+
+    units = _segment_units(len(text), start, shingles, owner, k)
+    for addr0, filtered in ((5, True), (0, False)):  # the text's address mod 16
+        model = begin.copy()
+        walk = _fold_walk(model, text, addr0, units, k, fit, filtered)
+        starts = (addr0 + np.concatenate([
+            s + np.arange(0, n, oph_cuda.LANE_SHINGLES) for s, n in zip(start, shingles)]))
+        assert set((starts % 16).tolist()) == set(range(16))
+        assert walk["split_owners"], "no owner's units span two ranges"
+        if filtered:
+            assert 0 < walk["atomics"] < int(shingles.sum())
+            filtered_model = model
+    assert np.array_equal(model, filtered_model)
+
+    running = _t32(begin.astype(np.uint32))
+    oph.oph_fold_segments(running, torch.from_numpy(text), torch.from_numpy(start),
+                          torch.from_numpy(shingles), torch.from_numpy(owner), params)
+    assert np.array_equal(model.astype(np.uint32), _u32(running))
+
+    tok = np.zeros((len(docs), int(lens.max())), np.uint8)
+    for i, d in enumerate(docs):
+        tok[i, :len(d)] = d
+    raw = np.asarray(ref_oph.oph_raw_signatures(tok, lens.astype(np.int32), ref_params))
+    want = begin.astype(np.uint32)
+    for i, o in enumerate(doc_owner):
+        if 0 <= o < n_out:
+            want[o] = np.minimum(want[o], raw[i])
+    assert np.array_equal(model.astype(np.uint32), want)
+
+
+@pytest.mark.parametrize("fit", [64, 2000], ids=["fit64", "fit2000"])
+@pytest.mark.parametrize("P", [2, 128, 1024])
+@pytest.mark.parametrize("width,k", [(4096, 5), (512, 9), (64, 5)])
+def test_kernel_tile_walk_equals_the_plain_and_reference_tiles(width, k, P, fit):
+    """The tile modes' walk: a 64-row tile (the chunker's tail tiles) of
+    rows empty, below k, full and random, cut into pieces planned for
+    ``fit`` resident warps.  As ``oph_sig`` (owner = row) equal to the
+    plain and the JAX package's raw signatures; as ``oph_fold`` (owners
+    shared by runs of rows) equal to the plain tile step."""
+    rng = np.random.RandomState(width + 10 * k + P + fit)
+    params = make_params(num_perm=P, num_bands=min(16, P), shingle_k=k)
+    ref_params = ref_make_params(num_perm=P, num_bands=min(16, P), shingle_k=k)
+    rows = 64
+    tok = rng.randint(0, 256, size=(rows, width)).astype(np.uint8)
+    lens = rng.randint(0, width + 1, size=rows).astype(np.int32)
+    lens[:4] = [0, k - 1, width, k]
+    lens[-1] = width  # the tile's last byte is a shingle's
+    flat = tok.ravel()
+
+    sig = np.full((rows, P), U32_MAX, np.uint64)
+    units = _tile_units(lens, np.arange(rows), width, k, fit)
+    _fold_walk(sig, flat, 3, units, k, fit)
+    assert np.array_equal(sig.astype(np.uint32), _port_raw(tok, lens, params))
+    assert np.array_equal(sig.astype(np.uint32),
+                          np.asarray(ref_oph.oph_raw_signatures(tok, lens, ref_params)))
+
+    owners = np.repeat(np.arange(rows // 4), 4).astype(np.int32)
+    owners[5] = rows  # dropped
+    begin = _raw_rows(rng, P, rows // 4, 0.2).astype(np.uint64)
+    folded = begin.copy()
+    _fold_walk(folded, flat, 0, _tile_units(lens, owners, width, k, fit), k, fit)
+    running = _t32(begin.astype(np.uint32))
+    oph.oph_fused_tile_step_plain(running, torch.from_numpy(pack_tile(tok, lens, owners)),
+                                  rows=rows, width=width, params=params)
+    assert np.array_equal(folded.astype(np.uint32), _u32(running))
+
+
+OPH_SASS = """
+        Function : _ZN12_GLOBAL__N_115oph_fold_kernelINS_9TileUnitsELi5EEEvPKhlT_liiiPji
+.L_x_9:
+        /*0000*/                   LDS R2, [R3] ;
+        /*0010*/                   LDG.E R4, desc[UR4][R6.64] ;
+        /*0020*/                   BRA 0x0 ;
+        Function : _ZN12_GLOBAL__N_115oph_fold_kernelINS_12SegmentUnitsELi5EEEvPKhlT_liiiPji
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+.L_x_1:
+        /*0010*/                   LDG.E R4, desc[UR4][R6.64] ;
+        /*0020*/                   SHF.R.W.U32 R5, R4, R8, R9 ;
+        /*0030*/                   LOP3.LUT R10, R5, 0xff, R11, 0x6a, !PT ;
+        /*0040*/                   IMAD R10, R10, R12, RZ ;
+        /*0050*/                   PRMT R13, R5, 0x7771, RZ ;
+        /*0060*/                   LDS R14, [R15] ;
+        /*0070*/                   ISETP.GE.U32.AND P0, PT, R10, R14, PT ;
+        /*0080*/              @!P0 ATOMS.MIN R14, [R15], R10 ;
+        /*0090*/                   LDS R16, [R17] ;
+        /*00a0*/                   ISETP.GE.U32.AND P1, PT, R13, R16, PT ;
+        /*00b0*/              @!P1 ATOMS.MIN R16, [R17], R13 ;
+        /*00c0*/               @P2 BRA `(.L_x_1) ;
+.L_x_2:
+        /*00d0*/                   LDS R2, [R3] ;
+        /*00e0*/                   RED.E.MIN.STRONG.GPU desc[UR4][R6.64], R2 ;
+        /*00f0*/                   STS [R3], R18 ;
+        /*0100*/                   BRA 0xd0 ;
+        /*0110*/                   EXIT ;
+"""
+
+
+def test_sass_reads_the_fold_hash_loop():
+    """The OPH fold's hash loop in the named mode's k = 5 kernel, per
+    shingle (a filtered read of its bin: LDS), not the flush loop (no
+    global load); a design without the read counts its shared atomics."""
+    from advanced_scrapper_tpu_torch.ops import sass
+
+    got = sass.oph_loop(sass.parse_sass(OPH_SASS, "SegmentUnitsELi5E"))
+    assert got["steps_in_loop"] == 2 and got["instructions_in_loop"] == 12
+    assert got["by_pipe_per_step"] == {"alu": 2.5, "fma": 0.5, "mio": 2.5, "other": 0.5}
+    unfiltered = OPH_SASS.replace("LDS R14", "MOV R14").replace("LDS R16", "MOV R16")
+    got = sass.oph_loop(sass.parse_sass(unfiltered, "SegmentUnitsELi5E"))
+    assert got["steps_in_loop"] == 2 and got["by_opcode_per_step"]["ATOMS"] == 1.0
+    assert sass.oph_loop(sass.parse_sass(OPH_SASS, "TileUnitsELi5E"))["steps_in_loop"] == 1
+
+
+def test_probe_variants_apply_to_the_fold_source():
+    """``oph_probe.py``'s variants and cuts each apply to ``csrc/oph.cu``
+    once and set 4, 8 and 16 shingles a lane, 1, 4, 8 and 16 ranges a
+    warp, pieces of 256, 1,024 and 2,048 shingles; the C getters the
+    wrappers check name the walk's constants."""
+    import myers_probe
+    import oph_probe
+
+    src = (myers_probe._build.CSRC_DIR / "oph.cu").read_text()
+    seen = {"lane": set(), "ranges": set(), "piece": set()}
+    for name, edits in {**oph_probe.VARIANTS, **oph_probe.CUTS}.items():
+        out = myers_probe.patched(src, edits)
+        assert (out == src) == (name == "shipped")
+        for key, const in (("lane", "kLaneShingles"), ("ranges", "kRangesPerWarp"),
+                           ("piece", "kMinPiece")):
+            seen[key] |= set(re.findall(rf"constexpr int {const} = (\d+);", out))
+    assert seen == {"lane": {"4", "8", "16"}, "ranges": {"1", "4", "8", "16"},
+                    "piece": {"256", "1024", "2048"}}
+    for const, value in (("kLaneShingles", oph_cuda.LANE_SHINGLES),
+                         ("kRangesPerWarp", oph_cuda.RANGES_PER_WARP),
+                         ("kMinPiece", oph_cuda.MIN_TILE_PIECE),
+                         ("kMaxSeg", oph_cuda.MAX_SEGMENT_SHINGLES),
+                         ("kMaxBins", oph_cuda.MAX_BINS)):
+        assert f"constexpr int {const} = {value};" in src, const
 
 
 def _densify_walk(sig: np.ndarray) -> np.ndarray:
