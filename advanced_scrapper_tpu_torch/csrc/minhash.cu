@@ -64,9 +64,26 @@
 //
 // Launches go on the caller's stream and allocate nothing.  Each entry
 // point returns cudaGetLastError() after its launch.
+//
+// Built with ASTT_CHECK_BOUNDS defined (oph_probe.py --checked), each
+// 16-byte word load of the text tests its address against [text, text +
+// text_len), each unit's staged words against the warp's stage, and each
+// hash its staged bytes against the unit's words; a failed test traps.
+// The shipped build leaves it undefined: ASTT_CHECK compiles to nothing.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#ifdef ASTT_CHECK_BOUNDS
+#define ASTT_CHECK(cond) \
+  do {                   \
+    if (!(cond)) __trap(); \
+  } while (0)
+#else
+#define ASTT_CHECK(cond) \
+  do {                   \
+  } while (0)
+#endif
 
 namespace {
 
@@ -186,10 +203,12 @@ minhash_fold_kernel(const uint8_t* __restrict__ text, int64_t text_len,
     const uintptr_t base = src & ~static_cast<uintptr_t>(15);
     const int shift = static_cast<int>(src - base);
     const int words = (shift + x.n + k - 1 + 15) >> 4;
+    ASTT_CHECK(words <= kStageWords);
     for (int w = lane; w < words; w += 32) {
       const uintptr_t p = base + 16 * static_cast<uintptr_t>(w);
       uint4 v;
       if (p >= text_lo && p + 16 <= text_hi) {
+        ASTT_CHECK(p >= text_lo && p + 16 <= text_hi);
         v = __ldg(reinterpret_cast<const uint4*>(p));
       } else {  // a word that straddles an end of the text
         uint32_t wv[4] = {0u, 0u, 0u, 0u};
@@ -217,6 +236,7 @@ minhash_fold_kernel(const uint8_t* __restrict__ text, int64_t text_len,
 #pragma unroll
       for (int t = 0; t < kRound / 32; ++t) {
         const int i = r0 + min(32 * t + lane, nr - 1);
+        ASTT_CHECK(i >= 0 && shift + i + k <= 16 * words);
         slot[32 * t + lane] = shingle_hash<kK>(stage + shift + i, k);
       }
       __syncwarp();

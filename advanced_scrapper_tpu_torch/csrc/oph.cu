@@ -76,9 +76,26 @@
 //
 // Launches go on the caller's stream and allocate nothing.  Each entry
 // point returns cudaGetLastError() after its launch.
+//
+// Built with ASTT_CHECK_BOUNDS defined (oph_probe.py --checked), every
+// unguarded word load and every byte load of the hash loop first tests its
+// address against [text, text + text_len) (in the tile modes, the tile's
+// rows end there) and traps outside it.  The shipped build leaves it
+// undefined: ASTT_CHECK then compiles to nothing.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#ifdef ASTT_CHECK_BOUNDS
+#define ASTT_CHECK(cond) \
+  do {                   \
+    if (!(cond)) __trap(); \
+  } while (0)
+#else
+#define ASTT_CHECK(cond) \
+  do {                   \
+  } while (0)
+#endif
 
 namespace {
 
@@ -206,6 +223,13 @@ __device__ __forceinline__ uint32_t guarded_word(const uint8_t* w, const uint8_t
   return x;
 }
 
+// The aligned word i of base, read without a guard.
+__device__ __forceinline__ uint32_t word_at(const uint8_t* base, int i, const uint8_t* lo,
+                                            const uint8_t* hi) {
+  ASTT_CHECK(base + 4 * i >= lo && base + 4 * i + 4 <= hi);
+  return __ldg(reinterpret_cast<const uint32_t*>(base) + i);
+}
+
 // Words a lane reads from its first shingle's aligned word on: its bytes
 // end at most 3 + kLaneShingles + kK - 2 bytes past that word's start.
 template <int kK>
@@ -220,7 +244,7 @@ __device__ __forceinline__ void load_words(uint32_t* w, const uint8_t* base, con
   for (int i = 0; i < lane_words<kK>(); ++i)
     w[i] = kGuard && (base + 4 * i < lo || base + 4 * i + 4 > hi)
                ? guarded_word(base + 4 * i, lo, hi)
-               : __ldg(reinterpret_cast<const uint32_t*>(base) + i);
+               : word_at(base, i, lo, hi);
 }
 
 // A lane's kLaneShingles consecutive shingles from the words w, starting
@@ -262,7 +286,10 @@ __device__ __forceinline__ void hash_runs(const uint8_t* __restrict__ src, int n
       const int valid = min(n - i - lane * kLaneShingles, kLaneShingles);
       for (int j = 0; j < valid; ++j) {
         uint32_t h = kFnvOffset;
-        for (int m = j; m < j + k; ++m) h = (h ^ __ldg(p + i + m)) * kFnvPrime;
+        for (int m = j; m < j + k; ++m) {
+          ASTT_CHECK(p + i + m >= lo && p + i + m < hi);
+          h = (h ^ __ldg(p + i + m)) * kFnvPrime;
+        }
         bin_min(table, fmix32(h), shift);
       }
     }

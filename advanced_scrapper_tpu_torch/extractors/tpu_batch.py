@@ -34,9 +34,14 @@ directory shared with the reference, and imports an exact-mode npz once.
 The reference's telemetry comes along: scrape-time gauges of the stream's
 stats (``astpu_stream_*``, per ``stream`` label) and the quarantine
 counter ``astpu_quarantine_total{kind="stream_index"}`` with its trace
-event.  Not ported yet, and raising ``NotImplementedError``: the remote
-index fleet (``index_fleet``, ROADMAP item 9c); the reference's decision
-counts and journal come with ROADMAP item 14b.
+event, and decision provenance (``obs/decisions.py``): the exact stage's
+verdicts counted at tier ``exact``, the exact index's near-dup verdicts at
+``band``, the bloom and persist indexes' at ``index``; with the decision
+journal on, the persist mode also writes a row a record (its stable doc
+id, url, verdict and winning band key, the latter from a probe of the
+row's own keys made only then).  Not ported yet, and raising
+``NotImplementedError``: the remote index fleet (``index_fleet``, ROADMAP
+item 9c).
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ import torch
 from advanced_scrapper_tpu_torch.config import DedupConfig
 from advanced_scrapper_tpu_torch.core.hashing import make_params
 from advanced_scrapper_tpu_torch.obs import telemetry, trace
+from advanced_scrapper_tpu_torch.obs.decisions import get_recorder
 from advanced_scrapper_tpu_torch.ops.lsh import candidate_keys
 from advanced_scrapper_tpu_torch.pipeline.clock import StageClock
 from advanced_scrapper_tpu_torch.ops.rerank import band_keys_wide_host
@@ -510,6 +516,10 @@ class TpuBatchBackend:
 
     # -- internals ---------------------------------------------------------
 
+    @staticmethod
+    def _decision_recorder():
+        return get_recorder()
+
     def _process(self) -> list[dict]:
         records, self._buffer = self._buffer, []
         self.stats.batches += 1
@@ -542,16 +552,26 @@ class TpuBatchBackend:
                     self.stats.exact_dups += 1
                 else:
                     rec["dup_of"] = None
+            drec = self._decision_recorder()
+            n_dup = int(url_dup.sum())
+            drec.count("exact", "dup", n_dup)
+            drec.count("exact", "unique", int(keyed.sum()) - n_dup)
         else:
+            n_dup = n_uni = 0
             for rec in records:
                 key = _key_of(rec, self.key_field)
                 if key and key in self._seen_keys:
                     rec["dup_of"] = key
                     self.stats.exact_dups += 1
+                    n_dup += 1
                 else:
                     rec["dup_of"] = None
                     if key:
                         self._seen_keys.add(key)
+                        n_uni += 1
+            drec = self._decision_recorder()
+            drec.count("exact", "dup", n_dup)
+            drec.count("exact", "unique", n_uni)
         clock.lap("exact_stage")
 
         # near-dup stage: signatures and band keys from one fold and one
@@ -572,6 +592,7 @@ class TpuBatchBackend:
         sigs, keys = self.engine.signatures_and_keys(texts)
         clock.lap("signatures_and_keys")
         nb = self.params.num_bands
+        nd_dup = nd_uni = 0
         for i, rec in enumerate(records):
             rec["near_dup_of"] = None
             if rec["dup_of"] is not None:
@@ -598,6 +619,7 @@ class TpuBatchBackend:
             if candidate is not None:
                 rec["near_dup_of"] = candidate
                 self.stats.near_dups += 1
+                nd_dup += 1
             else:
                 sig_idx = len(self._kept_sigs)
                 # copies: a row view would keep the whole batch array alive
@@ -607,6 +629,11 @@ class TpuBatchBackend:
                 for b in range(keys.shape[1]):
                     self._buckets.setdefault((b, int(keys[i, b])), sig_idx)
                 self.stats.kept += 1
+                nd_uni += 1
+        # the exact index settles on band collision + signature agreement
+        drec = self._decision_recorder()
+        drec.count("band", "dup", nd_dup)
+        drec.count("band", "unique", nd_uni)
         clock.lap("join")
 
         if self.sink is not None:
@@ -653,6 +680,23 @@ class TpuBatchBackend:
                 self.stats.exact_dups += 1
             else:
                 rec["dup_of"] = None
+        drec = self._decision_recorder()
+        n_dup = int((url_attr >= 0).sum())
+        drec.count("exact", "dup", n_dup)
+        drec.count("exact", "unique", int(keyed.sum()) - n_dup)
+        if drec.journal is not None:
+            drec.journal_rows(
+                {
+                    "doc": int(doc_ids[i]),
+                    "name": _key_of(records[i], self.key_field),
+                    "verdict": "dup" if url_attr[i] >= 0 else "unique",
+                    "tier": "exact",
+                    "attr": int(url_attr[i]),
+                    "band_key": int(url_hash[i]),
+                    "regime": "stream",
+                }
+                for i in np.flatnonzero(keyed).tolist()
+            )
         return url_postings
 
     def _near_dup_bloom(self, records, texts, keys) -> list[dict]:
@@ -691,6 +735,11 @@ class TpuBatchBackend:
                 self.stats.near_dups += 1
             elif eligible[i]:
                 self.stats.kept += 1
+        # membership-settled verdicts; no journal row (the filter stores
+        # no doc id to attribute to)
+        drec = self._decision_recorder()
+        drec.count("index", "dup", int(dup.sum()))
+        drec.count("index", "unique", int(eligible.sum()) - int(dup.sum()))
         self.last_clock.lap("bloom")
         if self.sink is not None:
             for rec in records:
@@ -735,8 +784,45 @@ class TpuBatchBackend:
                 self.stats.near_dups += 1
             elif eligible[i]:
                 self.stats.kept += 1
+        self._emit_stream_decisions(records, attr, keys, doc_ids, eligible)
         self.last_clock.lap("persist")
         if self.sink is not None:
             for rec in records:
                 self.sink(rec)
         return records
+
+    def _emit_stream_decisions(self, records, attr, keys, doc_ids, eligible) -> None:
+        """Decision provenance of the persist near-dup stage: every
+        eligible row settled at tier ``index``.  Journal rows carry the
+        row's stable doc id and url; a dup row's winning band key comes
+        from a probe of its own (already posted) keys, the column whose
+        attribution equals the row's answer, made only with the journal
+        on."""
+        drec = self._decision_recorder()
+        dup_rows = np.flatnonzero(attr >= 0)
+        n_dup = int(dup_rows.size)
+        drec.count("index", "dup", n_dup)
+        drec.count("index", "unique", int(eligible.sum()) - n_dup)
+        if drec.journal is None:
+            return
+        band_keys: dict[int, int | None] = {}
+        if n_dup:
+            nb = keys.shape[1]
+            probed = np.asarray(
+                self._pindex.probe_batch(keys[dup_rows].reshape(-1))
+            ).reshape(n_dup, nb)
+            for x, i in enumerate(dup_rows.tolist()):
+                cols = np.flatnonzero(probed[x] == attr[i])
+                band_keys[i] = int(keys[i, cols[0]]) if cols.size else None
+        drec.journal_rows(
+            {
+                "doc": int(doc_ids[i]),
+                "name": _key_of(records[i], self.key_field),
+                "verdict": "dup" if attr[i] >= 0 else "unique",
+                "tier": "index",
+                "attr": int(attr[i]),
+                "band_key": band_keys.get(int(i)),
+                "regime": "stream",
+            }
+            for i in np.flatnonzero(eligible).tolist()
+        )

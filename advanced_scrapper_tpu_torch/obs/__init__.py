@@ -2,5 +2,8 @@
 (``telemetry``), spans and the flight recorder (``trace``), stage timers and
 device-traffic counters (``stages``), the dispatch latency ledger and the
 kernel-build sentinel (``devprof``), the step timer, device trace and host
-profiler (``profiler``) — and the knob half of the perf ledger
-(``perfdb``).  Decisions, canaries and SLOs come with ROADMAP item 14b."""
+profiler (``profiler``) — the knob half of the perf ledger (``perfdb``),
+and the quality plane: decision provenance (``decisions``), the canary
+prober (``canary``), the SLO engine (``slo``) and the Prometheus text
+parser it reads a registry through (``collector``).  The fleet collector
+comes with ROADMAP item 18."""

@@ -52,6 +52,19 @@ transport) into the same accumulator and densifies once after the fold
 (``oph_densify``), in :meth:`NearDupEngine.signatures` or inside the
 epilogue.
 
+Decision provenance (``obs/decisions.py``): the certified one-shot
+:meth:`NearDupEngine.dedup_reps` counts each document's verdict by the tier
+that settled it (``astpu_decision_total{tier, verdict}``: ``rerank``,
+``margin`` or ``band``), :meth:`NearDupEngine.dedup_against_index` at tier
+``index`` and :class:`ExactDedup` at tier ``exact``; with the decision
+journal on they also write one row a document, and only then read the band
+keys (or re-probe the index) for the rows' winning band.  An installed
+``ladder`` (``runtime/admission.py:DegradationLadder``) is honoured at three
+points: ``shrink_window`` halves the dispatcher's window, ``skip_rerank``
+bypasses the rerank hook, ``fewer_bands`` keeps the first half of the band
+columns in :meth:`NearDupEngine.dedup_against_index`; each application is
+counted by ``ladder.count_effect``.
+
 What is not ported yet raises ``NotImplementedError`` naming its slice:
 the sharded methods and ``mesh=`` (item 15), and the index fleet
 (``index_fleet``, item 9c).
@@ -88,6 +101,7 @@ from advanced_scrapper_tpu_torch.cpu.hostbatch import (
 )
 from advanced_scrapper_tpu_torch.cpu.oracle import jaccard, shingle_set
 from advanced_scrapper_tpu_torch.obs import devprof, stages, telemetry, trace
+from advanced_scrapper_tpu_torch.obs.decisions import get_recorder
 from advanced_scrapper_tpu_torch.obs.perfdb import platform_token
 from advanced_scrapper_tpu_torch.obs.profiler import StepTimer
 from advanced_scrapper_tpu_torch.ops.exact import ExactHasher
@@ -116,6 +130,7 @@ from advanced_scrapper_tpu_torch.pipeline.dispatch import (
     PipelinedDispatcher,
     auto_h2d_workers,
     dispatch_with_oom_backoff,
+    resolve_dispatch_window,
 )
 from advanced_scrapper_tpu_torch.pipeline.rerank import RerankTier
 from advanced_scrapper_tpu_torch.utils.bloom import pack_keys64
@@ -284,6 +299,15 @@ class NearDupEngine:
         #: whether the last corpus's candidates passed through an
         #: authoritative hook, whose rewritten cells are resolved as they are
         self._rerank_applied = False
+        #: optional ``runtime.admission.DegradationLadder``: while one of its
+        #: steps ``shrink_window``, ``skip_rerank`` or ``fewer_bands`` is
+        #: active, the engine halves the dispatcher's window, bypasses the
+        #: rerank hook or probes half the bands, and counts each application
+        #: with ``ladder.count_effect`` (None = full service)
+        self.ladder = None
+        #: the pairs the last exact verify settled, ``(lo, hi) -> verdict``
+        #: (the ``margin`` tier of the decision counts)
+        self._last_exact_pairs: dict[tuple[int, int], bool] = {}
         #: host-clock seconds and device times of the last hooked or
         #: verified corpus's stages, and the exact checks of the last
         #: exact verify
@@ -598,7 +622,7 @@ class NearDupEngine:
         pipe = self.last_dispatcher = (
             PipelinedDispatcher(
                 specs, pack=pack, put=put,
-                put_workers=resolve_put_workers(self.cfg), window=self.cfg.dispatch_window,
+                put_workers=resolve_put_workers(self.cfg), window=self._dispatch_window(),
             )
             if len(ranges) > 1
             else None
@@ -631,6 +655,17 @@ class NearDupEngine:
         if trace.RECORDER.active:
             trace.record("span", "dedup.dispatch", trace=tid, batches=chunks, docs=len(raw))
         return running, n_bucket
+
+    def _dispatch_window(self) -> int:
+        """The window of a corpus's dispatcher: ``cfg.dispatch_window``, or
+        while the ladder's ``shrink_window`` step is active half the
+        effective window (at least 1), counted once a dispatcher."""
+        window = self.cfg.dispatch_window
+        if self.ladder is not None and self.ladder.active("shrink_window"):
+            workers = resolve_put_workers(self.cfg)
+            window = max(1, resolve_dispatch_window(window, workers) // 2)
+            self.ladder.count_effect("shrink_window")
+        return window
 
     def _fold(self, running, text, seg_start, seg_shingles, seg_owner) -> torch.Tensor:
         """One segment fold into ``running``: ``minhash_fold_segments``,
@@ -667,7 +702,7 @@ class NearDupEngine:
 
         pipe = self.last_dispatcher = PipelinedDispatcher(
             self._host_tiles(raw), pack=lambda tile: tile, put=put,
-            put_workers=resolve_put_workers(self.cfg), window=self.cfg.dispatch_window,
+            put_workers=resolve_put_workers(self.cfg), window=self._dispatch_window(),
         )
         tiles = h2d = 0
         try:
@@ -724,7 +759,8 @@ class NearDupEngine:
         ``sigs``, ``rep_bands`` and ``valid`` cross to the host (the
         signatures as their ``int32`` view, read as ``uint32``), the hook
         rewrites the matrix, and the rewritten matrix goes back to the
-        device.  Returns ``(raw, sigs, keys, valid, rep_bands, n_bucket)``
+        device; while the ladder's ``skip_rerank`` step is active the hook
+        is bypassed (counted) and nothing crosses.  Returns ``(raw, sigs, keys, valid, rep_bands, n_bucket)``
         on the device.  A new ``last_clock`` laps ``fold`` (encode, copy,
         fold), ``candidate_epilogue`` and, with a hook, ``readback``,
         ``hook`` and ``writeback``; the caller laps ``resolve``.  The
@@ -747,6 +783,10 @@ class NearDupEngine:
         clock.lap("candidate_epilogue")
         self._rerank_applied = False
         if self.rerank_hook is None:
+            return raw, sigs, keys, valid, rep_bands, n_bucket
+        if self.ladder is not None and self.ladder.active("skip_rerank"):
+            # brownout: the candidates pass through unreranked, counted
+            self.ladder.count_effect("skip_rerank")
             return raw, sigs, keys, valid, rep_bands, n_bucket
         sigs_host = sigs.view(torch.int32).cpu().numpy().view(np.uint32)
         rb_host = rep_bands.cpu().numpy()
@@ -779,13 +819,15 @@ class NearDupEngine:
         once.  Past ``exact_verify_cap`` exact checks a pair keeps the
         estimator's verdict at the strict bar ``sim_threshold +
         fine_margin``.  Returns ``ok`` (on the device when nothing was
-        flagged, else on the host) and the number of exact checks."""
+        flagged, else on the host) and the number of exact checks; the
+        settled pairs stay in ``_last_exact_pairs``."""
         cfg = self.cfg
         need_dev, ok_dev = borderline_edge_mask(
             rep_bands, sigs, keys, valid, cfg.sim_threshold, cfg.exact_verify_band,
             num_coarse=self.params.num_bands,
         )
         need = need_dev.cpu().numpy()
+        self._last_exact_pairs = {}
         if self._m_cand is not telemetry.NOOP:
             # metric-only host work, before the early return: candidate
             # volume must not read 0 because every edge cleared the bar
@@ -821,6 +863,7 @@ class NearDupEngine:
             if not pairs[key]:
                 ok[r, c] = False  # exact Jaccard (or the strict bar) refuted it
         self._m_exact_checks.inc(checked)
+        self._last_exact_pairs = pairs
         return ok, checked
 
     # -- public API ------------------------------------------------------------
@@ -927,7 +970,123 @@ class NearDupEngine:
             out = rep[:n].cpu().numpy()
         self.last_clock.lap("resolve")
         self._count_result("oneshot", n, out)
+        self._emit_decisions("oneshot", out, keys, n)
         return out
+
+    def _read_keys(self, keys: torch.Tensor, n: int) -> np.ndarray:
+        """The first ``n`` rows of the candidate keys on the host (the
+        decision journal's winning band keys)."""
+        return keys[:n].cpu().numpy()
+
+    def _emit_decisions(self, regime: str, out: np.ndarray, keys: torch.Tensor, n: int) -> None:
+        """Decision provenance of the certified one-shot path: each
+        document's verdict counted by the tier that settled it, and with
+        the journal on one row a document with its winning band key (the
+        keys are read back only then).
+
+        With an authoritative hook the tier's ``last_provenance`` (pairs
+        settled on the host: ``margin`` or ``reprobe``; every other settled
+        pair ``rerank``), ``last_evicted`` and ``last_participants`` name
+        the tier; without one, the exact verify's ``_last_exact_pairs``
+        (``margin``).  A document with no such evidence was decided by the
+        band collisions (``band``)."""
+        rec = get_recorder()
+        out = np.asarray(out)[:n]
+        dup = out != np.arange(n)
+        if self._rerank_applied:
+            prov = getattr(self.rerank_hook, "last_provenance", None) or {}
+            evicted = getattr(self.rerank_hook, "last_evicted", None) or set()
+            participants = getattr(self.rerank_hook, "last_participants", None) or set()
+            # the strongest host evidence of each document: reprobe > margin
+            host_tier: dict[int, str] = {}
+            for (a, b), t in prov.items():
+                if t in ("margin", "reprobe"):
+                    for d in (a, b):
+                        if t == "reprobe" or d not in host_tier:
+                            host_tier[d] = t
+
+            def dup_tier(i: int, r: int) -> str:
+                return prov.get((i, r) if i < r else (r, i), "rerank")
+
+            def uniq_tier(i: int) -> str:
+                if i in evicted:
+                    return "rerank"
+                t = host_tier.get(i)
+                if t is not None:
+                    return t
+                return "rerank" if i in participants else "band"
+        else:
+            pairs = self._last_exact_pairs
+            margin_docs = {d for k in pairs for d in k}
+
+            def dup_tier(i: int, r: int) -> str:
+                return "margin" if ((i, r) if i < r else (r, i)) in pairs else "band"
+
+            def uniq_tier(i: int) -> str:
+                return "margin" if i in margin_docs else "band"
+
+        tiers = [dup_tier(i, int(out[i])) if dup[i] else uniq_tier(i) for i in range(n)]
+        counts: dict[tuple[str, bool], int] = {}
+        for i, t in enumerate(tiers):
+            k = (t, bool(dup[i]))
+            counts[k] = counts.get(k, 0) + 1
+        for (t, is_dup), c in counts.items():
+            rec.count(t, "dup" if is_dup else "unique", c)
+        if rec.journal is None:
+            return
+        keys_host = self._read_keys(keys, n)
+        rows = []
+        for i in range(n):
+            r = int(out[i])
+            band_key = None
+            if dup[i]:
+                # the first candidate column where the document's key
+                # equals its representative's (None for a transitive merge)
+                cols = np.flatnonzero(keys_host[i] == keys_host[r])
+                if cols.size:
+                    band_key = int(keys_host[i, cols[0]])
+            rows.append({
+                "doc": i,
+                "verdict": "dup" if dup[i] else "unique",
+                "tier": tiers[i],
+                "attr": r if dup[i] else -1,
+                "band_key": band_key,
+                "regime": regime,
+            })
+        rec.journal_rows(rows)
+
+    def _emit_index_decisions(self, out: np.ndarray, keys64: np.ndarray,
+                              eligible: np.ndarray, index) -> None:
+        """Decision provenance of :meth:`dedup_against_index`: every
+        eligible row settled at tier ``index``.  With the journal on, a dup
+        row's winning band key comes from a probe of its own (already
+        posted) keys: the column whose attribution equals the row's answer;
+        the index is probed only then."""
+        rec = get_recorder()
+        dup_rows = np.flatnonzero(out >= 0)
+        n_dup = int(dup_rows.size)
+        rec.count("index", "dup", n_dup)
+        rec.count("index", "unique", int(eligible.sum()) - n_dup)
+        if rec.journal is None:
+            return
+        band_keys: dict[int, int | None] = {}
+        if n_dup:
+            nb = keys64.shape[1]
+            attr = np.asarray(index.probe_batch(keys64[dup_rows].reshape(-1))).reshape(n_dup, nb)
+            for x, i in enumerate(dup_rows.tolist()):
+                cols = np.flatnonzero(attr[x] == out[i])
+                band_keys[i] = int(keys64[i, cols[0]]) if cols.size else None
+        rec.journal_rows(
+            {
+                "doc": int(i),
+                "verdict": "dup" if out[i] >= 0 else "unique",
+                "tier": "index",
+                "attr": int(out[i]),
+                "band_key": band_keys.get(int(i)),
+                "regime": "stream",
+            }
+            for i in np.flatnonzero(eligible).tolist()
+        )
 
     def keep(self, texts: Sequence[str | bytes]) -> np.ndarray:
         reps = self.dedup_reps(texts)
@@ -1034,6 +1193,8 @@ class NearDupEngine:
         of that doc id; fresh rows post their keys under ``doc_ids``
         (allocated from the index when not given) and give -1.  Rows with
         fewer bytes than a shingle are neither probed nor posted (-1).
+        While the ladder's ``fewer_bands`` step is active only the first
+        half of the band columns is probed and posted (counted per row).
         ``mesh=`` raises (the sharded path is not ported)."""
         if mesh is not None:
             raise _not_ported("dedup_against_index(mesh=...)", SLICE_MESH)
@@ -1044,6 +1205,14 @@ class NearDupEngine:
         raw = [to_bytes(t) for t in texts]
         _sigs, keys_wide = self.signatures_and_keys(raw, wide=True, sync_sigs=False)
         keys64 = pack_keys64(keys_wide)
+        if (
+            self.ladder is not None
+            and self.ladder.active("fewer_bands")
+            and keys64.shape[1] > 1
+        ):
+            # brownout: probe and post the first half of the bands only
+            keys64 = keys64[:, : max(1, keys64.shape[1] // 2)]
+            self.ladder.count_effect("fewer_bands", n)
         eligible = np.fromiter((len(r) >= self.params.shingle_k for r in raw), bool, n)
         if not eligible.any():
             return out
@@ -1051,6 +1220,7 @@ class NearDupEngine:
             doc_ids = index.allocate_doc_ids(n)
         doc_ids = np.asarray(doc_ids, dtype=np.uint64)
         out[eligible] = index.check_and_add_batch(keys64[eligible], doc_ids[eligible])
+        self._emit_index_decisions(out, keys64, eligible, index)
         return out
 
     def prewarm_sharded(self, mesh, n_articles: int | None = None) -> int:
@@ -1095,6 +1265,16 @@ class ExactDedup:
         self.last_path: str = ""
 
     def keep_indices(self, items: Sequence[str]) -> list[int]:
+        keep = self._keep_indices(items)
+        if items:
+            # the exact tier settled every verdict: kept rows are first-seen
+            # uniques, the rest byte-equal dups of an earlier row
+            rec = get_recorder()
+            rec.count("exact", "unique", len(keep))
+            rec.count("exact", "dup", len(items) - len(keep))
+        return keep
+
+    def _keep_indices(self, items: Sequence[str]) -> list[int]:
         if not items:
             return []
         if not self._custom_hasher:

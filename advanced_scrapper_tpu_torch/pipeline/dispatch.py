@@ -147,6 +147,8 @@ class PipelinedDispatcher:
         watchdog_s: float | None = None,
     ):
         window = resolve_dispatch_window(window, put_workers)
+        #: the staged edge's capacity
+        self.window = window
         self._watchdog_s = resolve_watchdog_s(watchdog_s)
         self._beat = time.monotonic()
         self._finished = threading.Event()

@@ -35,8 +35,17 @@ What differs is below the entry points:
   stay single-writer and in chunk order.  ``MatchConfig.prewarm`` makes a
   warm launch of each kernel first (:func:`prewarm_screen`).
 
-Not ported yet (they are absent): ``EntityIndex.dispatch_probe`` and the
-matcher's ``astpu_matcher_*`` counters and spans (ROADMAP item 14b).
+Observability, the reference's series: ``astpu_matcher_articles_total``,
+``astpu_matcher_matches_total`` (gated by telemetry) and
+``astpu_matcher_overlong_total`` (an event counter); the stage timers
+``matcher_build``, ``matcher_screen``, ``h2d`` and ``matcher_verify`` and
+the ``matcher.screen`` / ``matcher.verify`` spans; one
+``stages.count_dispatch("matcher")`` and one ``devprof.dispatch_span`` a
+launch, one ``count_device_put`` a copy.  ``EntityIndex.dispatch_probe``,
+when set, receives one record a screen launch (a chunk on the one-buffer
+screen, a batch on the legacy one) with the reference's keys: ``tile``
+(the launch's index), ``rows``, ``width`` (the joined text's bytes),
+``h2d_bytes``, ``put_ms`` and ``dispatch_ms``.
 """
 
 from __future__ import annotations
@@ -61,6 +70,7 @@ from advanced_scrapper_tpu_torch.cpu.csvframe import (
     read_csv_records,
     write_rows,
 )
+from advanced_scrapper_tpu_torch.obs import devprof, stages, telemetry, trace
 
 ATTRIBUTES = (
     "id_label",
@@ -209,6 +219,9 @@ class EntityIndex:
         self._device_tables: dict = {}
         #: the last screened chunk's stage times (``pipeline/clock.py``)
         self.last_screen_clock = None
+        #: optional per-launch observer ``(dict) -> None`` of the screen:
+        #: launch index, rows, text bytes, h2d bytes, put and dispatch ms
+        self.dispatch_probe = None
 
     @classmethod
     def from_info_dir(cls, folder: str) -> "EntityIndex":
@@ -218,9 +231,10 @@ class EntityIndex:
         if self._tables is None:
             from advanced_scrapper_tpu_torch.ops.match import prepare_names
 
-            names = [e.name.encode("utf-8", "replace") for e in self.entries]
-            fuzzy = np.array([not e.is_exact_upper for e in self.entries], bool)
-            self._tables = prepare_names(names, fuzzy=fuzzy)
+            with stages.timed("matcher_build"):
+                names = [e.name.encode("utf-8", "replace") for e in self.entries]
+                fuzzy = np.array([not e.is_exact_upper for e in self.entries], bool)
+                self._tables = prepare_names(names, fuzzy=fuzzy)
         return self._tables
 
     def device_tables(self, device) -> tuple[dict, tuple | None]:
@@ -235,16 +249,18 @@ class EntityIndex:
         key = str(device)
         got = self._device_tables.get(key)
         if got is None:
-            screen = screen_tensors(self.screen_tables(), device)
-            ix, _names, (masks, lens, ok) = _refine_candidates(self)
-            refine = None
-            if len(ix):
-                refine = (
-                    torch.from_numpy(masks.view(np.int32)).to(device).view(torch.uint32),
-                    torch.from_numpy(lens).to(device),
-                    torch.from_numpy(ok).to(device),
-                    torch.from_numpy(ix.astype(np.int64)).to(device),
-                )
+            tables = self.screen_tables()
+            with stages.timed("matcher_build"):
+                screen = screen_tensors(tables, device)
+                ix, _names, (masks, lens, ok) = _refine_candidates(self)
+                refine = None
+                if len(ix):
+                    refine = (
+                        torch.from_numpy(masks.view(np.int32)).to(device).view(torch.uint32),
+                        torch.from_numpy(lens).to(device),
+                        torch.from_numpy(ok).to(device),
+                        torch.from_numpy(ix.astype(np.int64)).to(device),
+                    )
             got = self._device_tables[key] = (screen, refine)
         return got
 
@@ -253,15 +269,16 @@ class EntityIndex:
         ASCII ALL-CAPS names — the single-pass automaton that replaces
         per-name ``\\b re.escape(name) \\b`` scans; built once per index."""
         if self._upper_matcher is None:
-            names = sorted({
-                e.name for e in self.entries
-                if e.is_exact_upper and e.name.isascii()
-            })
-            mp = None
-            if names:
-                cand = native.MultiPattern([n.encode("ascii") for n in names])
-                mp = cand if cand.available else None
-            self._upper_matcher = (mp, {n: i for i, n in enumerate(names)})
+            with stages.timed("matcher_build"):
+                names = sorted({
+                    e.name for e in self.entries
+                    if e.is_exact_upper and e.name.isascii()
+                })
+                mp = None
+                if names:
+                    cand = native.MultiPattern([n.encode("ascii") for n in names])
+                    mp = cand if cand.available else None
+                self._upper_matcher = (mp, {n: i for i, n in enumerate(names)})
         return self._upper_matcher
 
     def verify_arena(self):
@@ -481,7 +498,15 @@ class RefineController:
 # -- the screen: one buffer, one copy, one launch per kernel ------------------
 
 
-def join_rows(rows: list, screen_block: int, device, clock=None):
+def _count_overlong(n: int) -> None:
+    if n:
+        telemetry.event_counter(
+            "astpu_matcher_overlong_total",
+            "articles above screen_block routed to the full host scan",
+        ).inc(n)
+
+
+def join_rows(rows: list, screen_block: int, device, clock=None, timing: dict | None = None):
     """The chunk's rows of at most ``screen_block`` bytes (``title\ntext``,
     utf-8 with ``errors="replace"``) joined into ONE pinned buffer — the
     text, then int64 row offsets, then int32 lengths, text lengths, title
@@ -489,11 +514,14 @@ def join_rows(rows: list, screen_block: int, device, clock=None):
     ASCII) — and copied to ``device`` once.  Returns ``(eligible, text,
     row_off, row_len, text_len, title_len, flags)``: the row indices that
     entered, then views of the device buffer.  ``clock`` laps
-    ``encode_join`` and ``copy``."""
+    ``encode_join`` and ``copy``; ``timing`` (a dict) gets the copy's
+    ``put_s`` and ``h2d_bytes``.  The join is timed into the
+    ``matcher_screen`` stage, the copy into ``h2d``."""
     import torch
 
     from advanced_scrapper_tpu_torch.ops.match import FLAG_REFINE_OK
 
+    t_join = time.perf_counter()
     n = len(rows)
     raw = [(title + "\n" + text).encode("utf-8", "replace") for text, title, _, _ in rows]
     lens = np.fromiter(map(len, raw), np.int64, count=n)
@@ -516,8 +544,15 @@ def join_rows(rows: list, screen_block: int, device, clock=None):
         [lens[eligible], text_len[eligible], title_len[eligible], flags[eligible]])
     if clock is not None:
         clock.lap("encode_join")
+    t_put = time.perf_counter()
+    stages.add("matcher_screen", t_put - t_join)
     dev_buf = buf.to(device, non_blocking=True)
     ints = dev_buf[head + 8 * R :].view(torch.int32).view(4, R)
+    put_s = time.perf_counter() - t_put
+    stages.add("h2d", put_s)
+    stages.count_device_put(buf.numel(), "matcher")
+    if timing is not None:
+        timing.update(put_s=put_s, h2d_bytes=buf.numel())
     if clock is not None:
         clock.lap("copy")
     return (eligible, dev_buf[:text_bytes], dev_buf[head : head + 8 * R].view(torch.int64),
@@ -552,7 +587,7 @@ def screen_chunk(
     ``use_refine``, one ``myers_bound``; the mask is read back once.
     ``prunes[a]`` holds the names whose screen and prune bits are both set
     (None where there is none).  The stage times land in
-    ``index.last_screen_clock``."""
+    ``index.last_screen_clock``; ``index.dispatch_probe`` gets one record."""
     from advanced_scrapper_tpu_torch.ops.editdist import myers_bound
     from advanced_scrapper_tpu_torch.ops.match import (
         MASK_SCREEN_KEEP,
@@ -564,19 +599,34 @@ def screen_chunk(
     clock = index.last_screen_clock = StageClock(device)
     masks: list[np.ndarray | None] = [None] * len(rows)
     prunes: list[set | None] = [None] * len(rows)
+    timing: dict = {}
     eligible, text, row_off, row_len, text_len, title_len, flags = join_rows(
-        rows, screen_block, device, clock)
+        rows, screen_block, device, clock, timing)
     R = eligible.size
+    _count_overlong(len(rows) - R)
     if R == 0:
         return masks, prunes
     screen_t, refine_t = index.device_tables(device)
-    mask = match_screen(text, row_off, row_len, text_len, title_len, screen_t,
-                        threshold=threshold)
-    clock.lap("screen")
-    if use_refine and refine_t is not None:
-        myers_bound(text, row_off, row_len, text_len, flags, *refine_t, threshold, mask)
-        clock.lap("bound")
-    m = _read_mask(mask)
+    t0 = time.perf_counter()
+    with stages.timed("matcher_screen"):
+        with devprof.dispatch_span("matcher_screen_chunk", rows=R, width=text.numel()) as sp:
+            sp.out = mask = match_screen(text, row_off, row_len, text_len, title_len, screen_t,
+                                         threshold=threshold)
+        stages.count_dispatch("matcher")
+        clock.lap("screen")
+        if use_refine and refine_t is not None:
+            with devprof.dispatch_span("matcher_bound_chunk", rows=R, width=text.numel()) as sp:
+                sp.out = myers_bound(text, row_off, row_len, text_len, flags, *refine_t,
+                                     threshold, mask)
+            stages.count_dispatch("matcher")
+            clock.lap("bound")
+    probe = index.dispatch_probe
+    if probe is not None:
+        probe({"tile": 0, "rows": R, "width": text.numel(), "h2d_bytes": timing["h2d_bytes"],
+               "put_ms": round(timing["put_s"] * 1e3, 3),
+               "dispatch_ms": round((time.perf_counter() - t0) * 1e3, 3)})
+    with stages.timed("matcher_screen"):
+        m = _read_mask(mask)
     clock.lap("readback")
     keep = (m & MASK_SCREEN_KEEP).view(np.bool_)
     for local, a in enumerate(eligible.tolist()):
@@ -650,14 +700,19 @@ def _refine_batch(batch, got, index: EntityIndex, threshold: float, device) -> l
     ints[:R] = lens
     ints[R:R + P] = pair_text
     ints[R + P:] = ks
-    dev_buf = buf.to(device, non_blocking=True)
+    with stages.timed("h2d"):
+        dev_buf = buf.to(device, non_blocking=True)
+    stages.count_device_put(buf.numel(), "matcher")
     dev_ints = dev_buf[head + 8 * R:].view(torch.int32)
     _screen_t, refine_t = index.device_tables(device)
-    d = semiglobal_dist(refine_t[0], refine_t[1], dev_buf[:R * L],
-                        dev_buf[head:head + 8 * R].view(torch.int64), dev_ints[:R],
-                        dev_ints[R:R + P], dev_ints[R + P:])
-    fuzzy_ix, _names, (_masks, name_lens, _ok) = _refine_candidates(index)
-    pruned = bound_at_most(d.cpu().numpy(), name_lens[ks], threshold)
+    with stages.timed("matcher_screen"):
+        with devprof.dispatch_span("matcher_pairs_legacy", rows=P, width=R * L) as sp:
+            sp.out = d = semiglobal_dist(refine_t[0], refine_t[1], dev_buf[:R * L],
+                                         dev_buf[head:head + 8 * R].view(torch.int64),
+                                         dev_ints[:R], dev_ints[R:R + P], dev_ints[R + P:])
+        stages.count_dispatch("matcher")
+        fuzzy_ix, _names, (_masks, name_lens, _ok) = _refine_candidates(index)
+        pruned = bound_at_most(d.cpu().numpy(), name_lens[ks], threshold)
     for r, k in zip(pair_row[pruned].tolist(), fuzzy_ix[ks[pruned]].tolist()):
         if out[r] is None:
             out[r] = set()
@@ -681,28 +736,45 @@ def _legacy_screen(
     once (:func:`join_rows`), screened by one ``match_screen`` launch and
     read back; with ``use_refine`` and refine names, :func:`_refine_batch`
     then launches ``myers_pairs`` once where the batch has pairs.  Longer
-    rows get mask None (the full host scan) and no prunes."""
+    rows get mask None (the full host scan) and no prunes.
+    ``index.dispatch_probe`` gets one record a ``match_screen`` launch."""
     from advanced_scrapper_tpu_torch.ops.match import MASK_SCREEN_KEEP, match_screen
 
     masks: list[np.ndarray | None] = [None] * len(rows)
     prunes: list[set | None] = [None] * len(rows)
     screen_t, refine_t = index.device_tables(device)
     refine = use_refine and refine_t is not None
+    probe = index.dispatch_probe
+    n_overlong = launches = 0
     for start in range(0, len(rows), screen_batch):
         batch = rows[start:start + screen_batch]
+        timing: dict = {}
         eligible, text, row_off, row_len, text_len, title_len, _flags = join_rows(
-            batch, screen_block, device)
+            batch, screen_block, device, timing=timing)
+        n_overlong += len(batch) - eligible.size
         if eligible.size == 0:
             continue
-        mask = match_screen(text, row_off, row_len, text_len, title_len, screen_t,
-                            threshold=threshold)
-        keep = (_read_mask(mask) & MASK_SCREEN_KEEP).view(np.bool_)
-        got: list[np.ndarray | None] = [None] * len(batch)
-        for local, i in enumerate(eligible.tolist()):
-            got[i] = masks[start + i] = keep[local]
+        t0 = time.perf_counter()
+        with stages.timed("matcher_screen"):
+            with devprof.dispatch_span("matcher_screen_legacy", rows=eligible.size,
+                                       width=text.numel()) as sp:
+                sp.out = mask = match_screen(text, row_off, row_len, text_len, title_len,
+                                             screen_t, threshold=threshold)
+            stages.count_dispatch("matcher")
+        if probe is not None:
+            probe({"tile": launches, "rows": int(eligible.size), "width": text.numel(),
+                   "h2d_bytes": timing["h2d_bytes"], "put_ms": round(timing["put_s"] * 1e3, 3),
+                   "dispatch_ms": round((time.perf_counter() - t0) * 1e3, 3)})
+        launches += 1
+        with stages.timed("matcher_screen"):
+            keep = (_read_mask(mask) & MASK_SCREEN_KEEP).view(np.bool_)
+            got: list[np.ndarray | None] = [None] * len(batch)
+            for local, i in enumerate(eligible.tolist()):
+                got[i] = masks[start + i] = keep[local]
         if refine:
             prunes[start:start + len(batch)] = _refine_batch(batch, got, index, threshold,
                                                              device)
+    _count_overlong(n_overlong)
     return masks, prunes
 
 
@@ -798,6 +870,13 @@ def match_chunk_async(
         ctrl = getattr(index, "refine_controller", None)
         use_refine = ctrl.verdict() if ctrl is not None else False
 
+    m_articles = telemetry.counter(
+        "astpu_matcher_articles_total", "articles entering the matcher"
+    )
+    m_matches = telemetry.counter(
+        "astpu_matcher_matches_total", "(ticker, article) matches produced"
+    )
+    tid = trace.new_trace_id()
     rows = []
     for row in _records(chunk):
         text = _get_col(row, "article_text", "article")
@@ -805,6 +884,7 @@ def match_chunk_async(
         raw_date = _get_col(row, "date_time", "datetime", default="")
         rows.append((text, title, parse_date(raw_date) if raw_date else None, row))
 
+    m_articles.inc(len(rows))
     masks: list[np.ndarray | None] = [None] * len(rows)
     text_prunes: list[set | None] = [None] * len(rows)
     if use_screen and index.entries and rows:
@@ -812,6 +892,7 @@ def match_chunk_async(
 
         if packed is None:
             packed = _match_cfg().packed
+        t_screen = time.perf_counter()
         if packed:
             masks, text_prunes = screen_chunk(
                 rows, index, use_refine=bool(use_refine), threshold=threshold,
@@ -823,6 +904,9 @@ def match_chunk_async(
                 screen_batch=screen_batch, screen_block=screen_block,
                 device=resolve_device(device),
             )
+        if trace.RECORDER.active:
+            trace.record("span", "matcher.screen", trace=tid, articles=len(rows),
+                         dur_ms=round((time.perf_counter() - t_screen) * 1e3, 3))
 
     if pool is not None and len(rows) > 1:
         # ship (text, title, date, row-INDEX); the record stays here
@@ -837,8 +921,12 @@ def match_chunk_async(
 
         def collect():
             out = []
-            for f in futures:  # slice order == row order
-                out.extend((ticker, m, rows[i][3]) for ticker, m, i in f.result())
+            with stages.timed("matcher_verify"), trace.span(
+                "matcher.verify", trace=tid, articles=len(rows)
+            ):
+                for f in futures:  # slice order == row order
+                    out.extend((ticker, m, rows[i][3]) for ticker, m, i in f.result())
+            m_matches.inc(len(out))
             return out
 
         collect.futures = futures
@@ -846,10 +934,14 @@ def match_chunk_async(
 
     def collect():
         out = []
-        for (text, title, adate, row), mask, pruned in zip(rows, masks, text_prunes):
-            matches = match_article(text, title, adate, index, mask, threshold, pruned)
-            for ticker, m in matches.items():
-                out.append((ticker, m, row))
+        with stages.timed("matcher_verify"), trace.span(
+            "matcher.verify", trace=tid, articles=len(rows)
+        ):
+            for (text, title, adate, row), mask, pruned in zip(rows, masks, text_prunes):
+                matches = match_article(text, title, adate, index, mask, threshold, pruned)
+                for ticker, m in matches.items():
+                    out.append((ticker, m, row))
+        m_matches.inc(len(out))
         return out
 
     return collect

@@ -1,8 +1,29 @@
-"""The stage-graph runtime: one scheduler owning the queues of the
-pipelined dispatcher (``pipeline/dispatch.py``) and the device feed
-(``pipeline/feed.py``).  A copy of the reference's ``runtime/graph.py``;
-its admission, autoscaler and pause gate come with ROADMAP item 18."""
+"""The runtime: the stage graph, the pause gate and the overload plane.
 
+- :class:`StageGraph` / :class:`Edge` (``runtime/graph.py``): one scheduler
+  owning the queues of the pipelined dispatcher (``pipeline/dispatch.py``)
+  and the device feed (``pipeline/feed.py``); ``pausable`` stages honour a
+  :class:`PauseGate` (``runtime/pause.py``).
+- :class:`AdmissionController` / :class:`DegradationLadder`
+  (``runtime/admission.py``): counted admission decisions with retry-after
+  hints, and the brownout ladder the dedup engine honours (``ladder``).
+
+Copies of the reference's modules.  Its autoscaler comes with ROADMAP
+item 18.  Pure Python, no torch: the matcher's verify-pool workers may
+import it.
+"""
+
+from advanced_scrapper_tpu_torch.runtime.admission import (
+    DEFAULT_LADDER_STEPS,
+    PRIORITY_CRITICAL,
+    PRIORITY_HIGH,
+    PRIORITY_LOW,
+    PRIORITY_NORMAL,
+    AdmissionController,
+    AdmissionDecision,
+    DegradationLadder,
+    LadderStep,
+)
 from advanced_scrapper_tpu_torch.runtime.graph import (
     DONE,
     RETRY,
@@ -13,8 +34,11 @@ from advanced_scrapper_tpu_torch.runtime.graph import (
     live_graphs,
     snapshot_all,
 )
+from advanced_scrapper_tpu_torch.runtime.pause import PauseGate
 
 __all__ = [
-    "DONE", "RETRY", "Edge", "EdgeClosed", "Stage", "StageGraph", "live_graphs",
-    "snapshot_all",
+    "DEFAULT_LADDER_STEPS", "DONE", "PRIORITY_CRITICAL", "PRIORITY_HIGH", "PRIORITY_LOW",
+    "PRIORITY_NORMAL", "RETRY", "AdmissionController", "AdmissionDecision",
+    "DegradationLadder", "Edge", "EdgeClosed", "LadderStep", "PauseGate", "Stage",
+    "StageGraph", "live_graphs", "snapshot_all",
 ]

@@ -1,8 +1,8 @@
 """Stage-graph scheduler: edges, stages, and the graph that runs them.
 
-A copy of the reference's ``runtime/graph.py``, its telemetry, trace spans
-and crash-snapshot fault hook included, without its ``FanoutPool`` (ROADMAP
-item 9c) and its pause gate (item 18).
+A copy of the reference's ``runtime/graph.py``, its telemetry, trace spans,
+crash-snapshot fault hook and pause gate included, without its
+``FanoutPool`` (ROADMAP item 9c).
 
 **How do items move.**  An :class:`Edge` is a bounded FIFO owned by the
 graph.  Producers ``put`` (blocking while full: backpressure is the
@@ -53,10 +53,6 @@ __all__ = [
     "DONE", "RETRY", "Edge", "EdgeClosed", "Stage", "StageGraph", "live_graphs",
     "snapshot_all",
 ]
-
-#: the queue item that ports the pause gate
-SLICE_PAUSE = "the slice of ROADMAP item 18 (the host planes)"
-
 
 class _Sentinel:
     __slots__ = ("_name",)
@@ -343,7 +339,8 @@ class Stage:
     item; ``None`` results are filtered, and with ``fan_out=True`` an
     iterable result emits item by item.  ``worker_init``/``worker_close``
     bracket per-worker context; when ``worker_init`` is set, ``fn`` is
-    called as ``fn(item, ctx)``.
+    called as ``fn(item, ctx)``.  ``pausable`` stages honour the graph's
+    :class:`~.pause.PauseGate` between pop and work.
     """
 
     name: str
@@ -356,6 +353,7 @@ class Stage:
     worker_init: Callable | None = None
     worker_close: Callable | None = None
     fan_out: bool = False
+    pausable: bool = False
     #: ``tag(item) -> dict | None``: with the flight recorder on, each item
     #: runs under a ``<graph>.<stage>`` trace span carrying these fields
     tag: Callable | None = None
@@ -371,16 +369,13 @@ class StageGraph:
     :meth:`start`, optionally push into externally-produced edges (close
     them when done), consume a terminal edge (iterate it), then
     :meth:`join`, which re-raises the first worker error.  :meth:`stop`
-    aborts: closes every edge and joins without draining.  ``pause=``
-    (the reference's pause gate) is not ported and raises.
+    aborts: closes every edge and joins without draining.  ``pause`` (a
+    :class:`~.pause.PauseGate` or None) holds the ``pausable`` stages.
     """
 
     def __init__(self, name: str, *, pause=None):
-        if pause is not None:
-            raise NotImplementedError(
-                f"the stage graph's pause gate is not ported yet; it comes in {SLICE_PAUSE}"
-            )
         self.name = name
+        self.pause = pause
         with StageGraph._seq_lock:
             self._instance = str(StageGraph._seq)
             StageGraph._seq += 1
@@ -515,6 +510,10 @@ class StageGraph:
                     continue
                 if item is DONE:
                     break
+                if st.pausable and self.pause is not None:
+                    self.pause.wait(should_stop=self._stop.is_set)
+                    if self._stop.is_set():
+                        break
                 self._in_flight[slot] = _describe(item)
                 t0 = time.perf_counter()
                 try:

@@ -107,7 +107,19 @@ one fenced latency observation a launch under
 ``minhash_fold_segments``.
 
 Then the card engines and the CPU engines (estimator-only, default,
-``rerank=False``) must agree on 2,048 articles.
+``rerank=False``) must agree on 2,048 articles.  ``quality_path`` runs the
+quality plane through the default engine's certified one-shot on the
+card: a ``CanaryProber`` round scored against its measured oracle (recall
+at least 0.9, ``canary_recall`` compliant in the ``SloEngine``, the SLIs
+equal to the CPU engine's), then the reference canary test's acceptance
+configuration under a ``DegradationLadder`` (compliant; violated with
+``skip_rerank`` armed and no ``rerank_settle`` launch; compliant again
+with the healthy recall), then seed 101 of both certification mixes
+(``quality_probe.py``) on the card and the CPU engine: equal
+representatives and decision counts by tier, recall at least 0.92, no
+unchained merge, on the knee-heavy mix precision at least the oracle's
+comparator less 0.02; the oracle's pairs computed in two worker
+processes meanwhile; under 90 s.
 
 The port's entry points: ``entry()`` (``entry_path``: its dedup step on
 the card equal to the CPU's, one ``minhash_sig`` launch, the planted row
@@ -262,7 +274,7 @@ def cuda_ms(fn, reps: int = 1, queued: bool = False, ahead: int = QUEUE_AHEAD_CY
 
 
 def profiler_device_ms(fn, want: tuple[str, ...], reps: int = 5,
-                       windows: int = 3) -> dict[str, tuple[float, int]]:
+                       windows: int = 6) -> dict[str, tuple[float, int]]:
     """Every event ``torch.profiler`` gave device time over ``reps`` calls
     of ``fn`` in one window, after one warm call, by name: its device ms in
     all and the launches recorded.  A window that lacks a kernel whose name
@@ -2067,6 +2079,171 @@ def feed_path(docs: list[bytes], card: str) -> dict:
             "batches": sum(r["batches"] for r in runs)}
 
 
+QUALITY_SECONDS_MAX = 90.0
+#: the canary's floors on the default engine, and the acceptance
+#: configuration's recall floor (the reference's canary test)
+CANARY_FLOOR = 0.9
+BROWNOUT_RECALL_FLOOR = 0.93
+
+
+def quality_path(card: str, dev: torch.device) -> dict:
+    """The quality plane on the card, through the default engine's
+    certified one-shot ``NearDupEngine(DedupConfig(), device="cuda")
+    .dedup_reps``.
+
+    Canary: one ``CanaryProber`` round (seed 0) scored against its measured
+    oracle: recall at least 0.9 and the SLO engine's ``canary_recall``
+    compliant, recall and precision equal to the CPU engine's round (the
+    precision, counting the pairs a knee family joins through its base, is
+    logged with its verdict against the 0.9 floor).  Brownout: the reference canary test's
+    acceptance configuration (``sim_threshold`` 0.6, ``exact_verify_cap``
+    0, ``fine_margin`` 0.06) under a ``DegradationLadder``: compliant with
+    one ``rerank_settle`` launch, violated with ``skip_rerank`` armed and
+    no settle launch, compliant again with the healthy recall after the
+    step exits; each round's recall equals the port's CPU engine's.
+    Certification: seed 101 of both mixes (``quality_probe.py``), knee-heavy
+    and ``knee_frac=0.2``, through the card engine and the CPU engine: equal
+    representatives and decision counts by tier, recall at least 0.92, no
+    unchained merge, on the knee-heavy mix precision at least the oracle's
+    comparator less 0.02.  The oracle's pairs are computed in two worker
+    processes meanwhile.  Launches are counted per round; the phase must
+    take under ``QUALITY_SECONDS_MAX`` seconds."""
+    import dataclasses
+
+    import quality_probe as qp
+
+    from advanced_scrapper_tpu_torch.config import DedupConfig
+    from advanced_scrapper_tpu_torch.obs import canary, decisions, slo, telemetry
+    from advanced_scrapper_tpu_torch.pipeline.dedup import NearDupEngine
+    from advanced_scrapper_tpu_torch.runtime.admission import DegradationLadder
+
+    t_phase = time.perf_counter()
+    seed = qp.SEEDS[0]
+    pool = qp.oracle_pool(2)
+    truths = {mix: pool.submit(qp.oracle_truth, seed, kf) for mix, kf in qp.MIXES.items()}
+    out: dict = {"card": card}
+    try:
+        def compliant(reg) -> float:
+            (g,) = [m for m in reg.find("astpu_slo_compliant")
+                    if m.labels["objective"] == "canary_recall"]
+            return g.value
+
+        def canary_round(prober, engine, reg, cpu_prober=None) -> dict:
+            reset_launches()
+            sli = prober.run_round(round_id=0)
+            got = read_launches()
+            verdict = {o["name"]: o for o in engine.evaluate(
+                slo.SloEngine.registry_samples(reg))["objectives"]}
+            row = {k: sli[k] for k in ("recall", "precision", "oracle_pairs",
+                                       "predicted_pairs", "caught_pairs", "latency_seconds")}
+            row.update(compliant=compliant(reg), recall_ok=verdict["canary_recall"]["ok"],
+                       fold_segments=got["minhash_fold_segments"],
+                       rerank_settle=got["rerank_settle"])
+            assert got["minhash_fold_segments"] >= 1, got
+            if cpu_prober is not None:
+                cpu = cpu_prober.run_round(round_id=0)
+                assert (cpu["recall"], cpu["precision"]) == (sli["recall"], sli["precision"]), \
+                    (cpu, sli)
+            return row
+
+        # -- one canary round through the default engine ---------------------
+        reg = telemetry.Registry(enabled=True)
+        default = NearDupEngine(DedupConfig(), device=dev)
+        prober = canary.CanaryProber(default.dedup_reps, registry=reg, seed=0)
+        cpu_prober = canary.CanaryProber(NearDupEngine(DedupConfig(), device="cpu").dedup_reps,
+                                         registry=telemetry.Registry(), seed=0)
+        engine = slo.SloEngine(prober.objectives(recall_min=CANARY_FLOOR,
+                                                 precision_min=CANARY_FLOOR), registry=reg)
+        out["canary"] = row = canary_round(prober, engine, reg, cpu_prober)
+        # the pair precision counts the members of a knee family that the
+        # engine joins through their base (true J under the bar between
+        # two members): it is the CPU engine's, and the reference's, value
+        row["precision_ok"] = {o["name"]: o["ok"] for o in engine.last_verdict["objectives"]}[
+            "canary_precision"]
+        assert row["recall"] >= CANARY_FLOOR, row
+        assert row["compliant"] == 1.0 and row["rerank_settle"] == 1, row
+
+        # -- the brownout: skip_rerank armed, then left ----------------------
+        def acceptance(device) -> NearDupEngine:
+            cfg = dataclasses.replace(DedupConfig(rerank=True), sim_threshold=0.6,
+                                      exact_verify_cap=0, fine_margin=0.06)
+            return NearDupEngine(cfg, device=device)
+
+        reg = telemetry.Registry(enabled=True)
+        card_eng, cpu_eng = acceptance(dev), acceptance("cpu")
+        ladder = DegradationLadder(dwell_s=0.0)
+        card_eng.ladder = cpu_eng.ladder = ladder
+        prober = canary.CanaryProber(card_eng.dedup_reps, registry=reg, seed=0, threshold=0.6)
+        cpu_prober = canary.CanaryProber(cpu_eng.dedup_reps, registry=telemetry.Registry(),
+                                         seed=0, threshold=0.6)
+        engine = slo.SloEngine(prober.objectives(recall_min=BROWNOUT_RECALL_FLOOR,
+                                                 precision_min=0.5), registry=reg)
+        rounds = {"healthy": canary_round(prober, engine, reg, cpu_prober)}
+        for _ in range(4):
+            ladder.observe(1.0)
+        assert ladder.active("skip_rerank"), ladder.status()
+        rounds["skip_rerank"] = canary_round(prober, engine, reg, cpu_prober)
+        for _ in range(4):
+            ladder.observe(0.0)
+        assert ladder.level() == 0, ladder.status()
+        rounds["recovered"] = canary_round(prober, engine, reg, cpu_prober)
+        healthy, brown, back = rounds["healthy"], rounds["skip_rerank"], rounds["recovered"]
+        assert healthy["recall"] >= BROWNOUT_RECALL_FLOOR and healthy["compliant"] == 1.0
+        assert healthy["rerank_settle"] == 1, healthy
+        assert brown["recall"] < BROWNOUT_RECALL_FLOOR and brown["compliant"] == 0.0, brown
+        assert brown["rerank_settle"] == 0, brown
+        assert back["recall"] == healthy["recall"] and back["compliant"] == 1.0, back
+        assert back["rerank_settle"] == 1, back
+        out["brownout"] = rounds
+        out["skip_rerank_effects"] = sum(
+            c.value for c in telemetry.REGISTRY.find("astpu_degraded_effects_total")
+            if c.labels["ladder"] == ladder.name and c.labels["step"] == "skip_rerank")
+
+        # -- certification seeds: card vs CPU, then the oracle ---------------
+        cpu_default = NearDupEngine(DedupConfig(), device="cpu")
+        launches = {"minhash_fold_segments": 0, "rerank_settle": 0}
+        cert = {}
+        for mix, kf in qp.MIXES.items():
+            texts = qp.certification_corpus(seed, kf)
+            before = decisions.decision_mix_snapshot()
+            reset_launches()
+            t0 = time.perf_counter()
+            reps = default.dedup_reps(texts)
+            card_s = time.perf_counter() - t0
+            got = read_launches()
+            card_mix = decisions.decision_mix_delta(before)
+            assert got["minhash_fold_segments"] == default.last_chunks and \
+                got["rerank_settle"] == 1, got
+            for k in launches:
+                launches[k] += got[k]
+            before = decisions.decision_mix_snapshot()
+            t0 = time.perf_counter()
+            cpu_reps = cpu_default.dedup_reps(texts)
+            cpu_s = time.perf_counter() - t0
+            cpu_mix = decisions.decision_mix_delta(before)
+            assert np.array_equal(reps, cpu_reps), f"{mix}: card and CPU reps differ"
+            assert card_mix == cpu_mix, (mix, card_mix, cpu_mix)
+            t0 = time.perf_counter()
+            pairs, comparator = truths[mix].result()
+            wait_s = time.perf_counter() - t0
+            row = qp.score(texts, reps, pairs)
+            row.update(docs=len(texts), card_seconds=card_s, cpu_seconds=cpu_s,
+                       oracle_wait_seconds=wait_s, oracle_precision=comparator[0],
+                       decisions=card_mix)
+            assert row["recall"] >= qp.SEED_RECALL_MIN and row["unchained"] == 0, (mix, row)
+            if mix == "knee_heavy":
+                assert row["precision"] >= comparator[0] - qp.COMPARATOR_SLACK, (mix, row)
+            cert[mix] = row
+        out["certification"] = cert
+        out["launches"] = launches
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    out["seconds"] = seconds = time.perf_counter() - t_phase
+    log("quality_path", **out)
+    assert seconds < QUALITY_SECONDS_MAX, f"quality_path took {seconds:.1f} s"
+    return out
+
+
 def prewarm_path(default, rsmall: list[bytes], cpu_default_reps: np.ndarray, card: str) -> dict:
     """``NearDupEngine(DedupConfig(prewarm=1))``: two warm launches (the
     fold and, through the tier, the settle), each counter up by one; the
@@ -3349,8 +3526,11 @@ def main() -> int:
     assert cert_equal and checks_equal, "card and CPU exact-verify engines disagree"
     warmed = prewarm_path(default, rsmall, cpu_default_reps, card)
     kernels[0]["prewarm_path"] = {"launches": warmed["fold_segments"]}
-    next(k for k in kernels if k["name"] == "rerank_settle")["prewarm_path"] = {
-        "launches": warmed["rerank_settle"]}
+    settle_row = next(k for k in kernels if k["name"] == "rerank_settle")
+    settle_row["prewarm_path"] = {"launches": warmed["rerank_settle"]}
+    quality = quality_path(card, dev)
+    kernels[0]["quality_path"] = {"launches": quality["launches"]["minhash_fold_segments"]}
+    settle_row["quality_path"] = {"launches": quality["launches"]["rerank_settle"]}
 
     cli_path(card)
 

@@ -3,6 +3,7 @@
     python3 oph_probe.py [--parent DIR]
     python3 oph_probe.py --edges
     python3 oph_probe.py --path --parent DIR
+    python3 oph_probe.py --checked [--parent DIR]
 
 Builds copies of ``advanced_scrapper_tpu_torch/csrc/oph.cu`` with other
 values of its walk's constants and other forms of its hash loop
@@ -40,8 +41,20 @@ With ``--path`` it runs ``chip_smoke.oph_path`` (the OPH engine over the
 checkout in turns, DIR, this, this, DIR, each turn a fresh process started
 in its checkout's root with that checkout's ``chip_smoke.py`` and package,
 and prints one JSON line a turn: articles/s and the chunk loop's pack and
-dispatch seconds a chunk.  Needs one card and ``nvcc``; run it from the
-repo's root.
+dispatch seconds a chunk.
+
+With ``--checked`` it builds ``oph.cu`` and ``minhash.cu`` with
+``ASTT_CHECK_BOUNDS`` defined (:data:`CHECKED`: every unguarded word load
+and byte load of the text tests its address against the text, or the
+tile's rows, and traps outside), loads them in place of the shipped
+libraries and runs, through the shipped wrappers, the edge cases of
+``chip_smoke.check_oph_vs_plain``, ``check_kernels_vs_plain`` and
+``check_segments_vs_plain``, then every OPH and MinHash fold mode over the
+65,536-article corpus, each held to its plain version; a trap fails the
+run.  A control build whose check fails on every unguarded load
+(:data:`CONTROL`) must trap, in a process of its own.  With ``--parent``
+the shipped sources' SASS (built without the macro) is compared with
+DIR's.  Needs one card and ``nvcc``; run it from the repo's root.
 """
 
 from __future__ import annotations
@@ -52,6 +65,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -103,6 +117,12 @@ CUTS = {
     "cut_flush": [("      atomicMin(row + j, v);\n", "")],
     "cut_min": [(BIN_MIN, "  if (h == 0u) *table = h;")],
 }
+
+#: the bounds-checked build (``--checked``): the macro defined ahead of the source
+CHECKED = [("#include <cstdint>\n", "#define ASTT_CHECK_BOUNDS 1\n#include <cstdint>\n")]
+#: the control: checked, and the unguarded word load's test made to fail
+CONTROL = CHECKED + [("ASTT_CHECK(base + 4 * i >= lo && base + 4 * i + 4 <= hi);",
+                      "ASTT_CHECK(base + 4 * i + 4 <= lo);")]
 
 #: the three fold entry points and their unit type in the kernel's name
 MODES = (("oph_fold_segments", "SegmentUnits"), ("oph_fold", "TileUnits"),
@@ -250,6 +270,127 @@ def sanitize(card: str) -> dict:
             "tail": out[-1500:], "card": card}
 
 
+def sass_of(lib: Path) -> list:
+    from advanced_scrapper_tpu_torch.ops import sass
+
+    return sass.parse_sass(sass.dump_sass(lib))
+
+
+def minhash_corpus_equal(dev: torch.device, c: dict) -> dict:
+    """Each MinHash fold mode over the corpus, through the shipped wrappers,
+    against its plain version: the segment fold on the resident chunks,
+    ``minhash_fold`` on the packed tiles, ``minhash_sig`` on the tiles."""
+    from advanced_scrapper_tpu_torch.core.hashing import make_params
+    from advanced_scrapper_tpu_torch.ops import minhash_cuda
+    from advanced_scrapper_tpu_torch.ops.minhash import (
+        fold_segments_plain,
+        fused_tile_step_plain,
+        make_fused_tile_step,
+        minhash_signatures,
+        minhash_signatures_plain,
+        perm_tensors,
+    )
+
+    params = make_params()
+    a, b = perm_tensors(params, dev)
+    k = params.shingle_k
+
+    def same(x, y) -> bool:
+        return bool(torch.equal(x.view(torch.int32), y.view(torch.int32)))
+
+    run, want = c["fresh"](), c["fresh"]()
+    for text, st, ns, ow in c["resident"]:
+        minhash_cuda.minhash_fold_segments(run, text, st, ns, ow, a, b, k)
+        fold_segments_plain(want, text, st, ns, ow, params)
+    out = {"minhash_fold_segments": same(run, want)}
+    step = make_fused_tile_step(params, "scan", dev)
+    run, want = c["fresh"](), c["fresh"]()
+    for pk, (rows, w) in zip(c["packed"], c["shapes"]):
+        step(run, pk, rows=rows, width=w)
+        fused_tile_step_plain(want, pk, rows=rows, width=w, params=params)
+    out["minhash_fold"] = same(run, want)
+    out["minhash_sig"] = all(same(minhash_signatures(t, l, params),
+                                  minhash_signatures_plain(t, l, params)) for t, l in c["tok"])
+    torch.cuda.synchronize()
+    return out
+
+
+def checked_control(lib: str) -> int:
+    """``--checked-control LIB``: one OPH segment fold with the control
+    build; prints whether the card reported the trap."""
+    dev = torch.device("cuda")
+    kern = Kernels(Path(lib))
+    text = torch.randint(32, 127, (4096,), dtype=torch.uint8, device=dev)
+    start = torch.zeros((1,), dtype=torch.int64)
+    shingles = torch.full((1,), 2048, dtype=torch.int32)
+    owner = torch.zeros((1,), dtype=torch.int32)
+    running = torch.full((1, 128), -1, dtype=torch.int32, device=dev).view(torch.uint32)
+    try:
+        kern.oph_fold_segments(running, text, start, shingles, owner, 5)
+        torch.cuda.synchronize()
+    except RuntimeError as e:  # the launch's or the sync's CUDA error
+        print(json.dumps({"trapped": True, "error": str(e)[:300]}), flush=True)
+        return 0
+    print(json.dumps({"trapped": False}), flush=True)
+    return 1
+
+
+def checked(parent: Path | None, card: str) -> int:
+    """``--checked``: see the module's docstring."""
+    import chip_smoke as cs
+    import myers_probe as mp
+
+    from advanced_scrapper_tpu_torch.config import DedupConfig
+    from advanced_scrapper_tpu_torch.core.hashing import make_params
+    from advanced_scrapper_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    builds = {"oph": {"shipped": [], "checked": CHECKED, "control": CONTROL},
+              "minhash": {"shipped": [], "checked": CHECKED}}
+    libs = mp.build_variants(parent, builds)
+    report: dict = {"card": card, "build_seconds": time.perf_counter() - t0}
+    for source in builds:
+        shipped = sass_of(libs[source, "shipped"])
+        guarded = sass_of(libs[source, "checked"])
+        report[f"{source}_traps"] = {
+            "shipped": sum(op.startswith("BPT.TRAP") for _a, op, _o in shipped),
+            "checked": sum(op.startswith("BPT.TRAP") for _a, op, _o in guarded)}
+        if parent is not None:
+            report[f"{source}_sass_equal_to_parent"] = shipped == sass_of(libs[source, "parent"])
+    # the shipped wrappers load the checked libraries from here on
+    for source in builds:
+        _build._loaded[source] = ctypes.CDLL(str(libs[source, "checked"]))
+    dev = torch.device("cuda")
+    cfg = DedupConfig(backend="oph", rerank=False, exact_verify_band=0.0)
+    params = make_params()
+    t0 = time.perf_counter()
+    report["oph_edges"] = cs.check_oph_vs_plain(params, cfg, dev)
+    report["minhash_tile_edges"] = cs.check_kernels_vs_plain(params, cfg, dev)
+    report["minhash_segment_edges"] = cs.check_segments_vs_plain(params, dev)
+    torch.cuda.synchronize()
+    report["edges_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c = corpus_inputs(dev)
+    kern = Kernels(libs["oph", "checked"])
+    report["oph_corpus_equal"] = {mode: fn() for mode, (_p, fn) in mode_runs(kern, c).items()}
+    report["minhash_corpus_equal"] = minhash_corpus_equal(dev, c)
+    torch.cuda.synchronize()
+    report["corpus_seconds"] = time.perf_counter() - t0
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--checked-control",
+                           str(libs["oph", "control"])], capture_output=True, text=True,
+                          timeout=300)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    report["control"] = {"rc": proc.returncode, **(json.loads(lines[-1]) if lines else {})}
+    ok = (all(report["oph_corpus_equal"].values())
+          and all(report["minhash_corpus_equal"].values())
+          and report["control"].get("trapped") is True
+          and report["oph_traps"]["checked"] > 0 and report["oph_traps"]["shipped"] == 0
+          and all(report.get(f"{s}_sass_equal_to_parent", True) for s in builds))
+    report["ok"] = ok
+    print(json.dumps({"phase": "checked", **report}), flush=True)
+    return 0 if ok else 1
+
+
 def path_turn() -> int:
     """One ``--path`` turn: ``chip_smoke.oph_path`` of the checkout in
     the current directory, as ``chip_smoke.py`` runs it."""
@@ -293,12 +434,22 @@ def main() -> int:
     ap.add_argument("--path", action="store_true",
                     help="chip_smoke.oph_path of DIR and of this checkout in turns")
     ap.add_argument("--path-turn", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--checked", action="store_true",
+                    help="the bounds-checked builds over the edge cases and the corpus")
+    ap.add_argument("--checked-control", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("oph_probe runs on the card", file=sys.stderr)
         return 2
     if args.path_turn:
         return path_turn()
+    if args.checked_control:
+        return checked_control(args.checked_control)
+    if args.checked:
+        import chip_smoke as cs
+
+        return checked(args.parent.resolve() if args.parent else None,
+                       cs.nvidia_smi("name,power.limit"))
     if args.path:
         if args.parent is None:
             ap.error("--path needs --parent DIR")

@@ -56,10 +56,10 @@ from test_torch_hashing import adversarial_corpus
 from test_torch_stream import run_stream, stream_records
 
 REGISTRIES = (ref_telemetry.REGISTRY, telemetry.REGISTRY)
-#: the reference's series the port does not emit on the CPU: decision
-#: provenance (ROADMAP item 14b) and the XLA compile sentinel, whose
-#: series the port feeds from kernel builds (none on the CPU)
-REF_ONLY = {"astpu_decision_total", "astpu_jit_compiles_total", "astpu_jit_compile_seconds"}
+#: the reference's series the port does not emit on the CPU: the XLA
+#: compile sentinel, whose series the port feeds from kernel builds (none
+#: on the CPU)
+REF_ONLY = {"astpu_jit_compiles_total", "astpu_jit_compile_seconds"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -614,3 +614,91 @@ def test_oom_backoff_counts_halvings_and_injections(monkeypatch):
     assert out == sum(range(16))
     assert _counter(telemetry.REGISTRY, "astpu_dispatch_oom_backoff_total", plane="dedup") == 3
     assert _counter(telemetry.REGISTRY, "astpu_fault_injected_total", kind="oom") == 3
+
+
+# -- the matcher's series, spans and probe --------------------------------------
+
+
+@pytest.fixture
+def matcher_indexes():
+    from advanced_scrapper_tpu.pipeline import matcher as ref_matcher
+    from advanced_scrapper_tpu_torch.pipeline import matcher
+    from test_match_dispatch import _entities
+
+    ents = _entities(12)
+    return (ref_matcher.EntityIndex(ref_matcher.process_json_data(ents)),
+            matcher.EntityIndex(matcher.process_json_data(ents)))
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["one_buffer", "legacy"])
+@pytest.mark.parametrize("frame", ["chunk", "overlong"])
+def test_matcher_series_equal_reference(telemetry_on, matcher_indexes, packed, frame):
+    """``match_chunk`` emits the reference's ``astpu_matcher_*`` values
+    (articles, matches, overlong), its stage timers and spans, one dispatch
+    a launch, and one probe record a screen launch."""
+    from advanced_scrapper_tpu.pipeline import matcher as ref_matcher
+    from advanced_scrapper_tpu_torch.pipeline import matcher
+    from test_match_dispatch import _chunk, _norm, _overlong_frame
+
+    ref_ix, ix = matcher_indexes
+    df, kw = _chunk(150, seed=11, pad_every=13), dict(use_refine=True)
+    if frame == "overlong":
+        df, kw = _overlong_frame(), dict(screen_block=4096, use_refine=True)
+    probe = []
+    ix.dispatch_probe = probe.append
+    rec = trace.RECORDER
+    rec.clear()
+    rec.set_active(True)
+    try:
+        before = stages.regime_device_counters("matcher")
+        got = matcher.match_chunk(df, ix, device="cpu", packed=packed, **kw)
+        after = stages.regime_device_counters("matcher")
+        names = {e["name"] for e in rec.snapshot()}
+    finally:
+        rec.set_active(None)
+        rec.clear()
+        ix.dispatch_probe = None
+    want = ref_matcher.match_chunk(df, ref_ix, packed=packed, **kw)
+    assert _norm(got) == _norm(want)
+    values = {k: v for k, v in _values(telemetry.REGISTRY, "astpu_matcher_").items()}
+    assert values == _values(ref_telemetry.REGISTRY, "astpu_matcher_")
+    assert values[("astpu_matcher_articles_total", ())] == len(df)
+    assert (("astpu_matcher_overlong_total", ()) in values) == (frame == "overlong")
+    assert {"matcher.screen", "matcher.verify"} <= names
+    stage_names = {h.labels["stage"] for h in telemetry.REGISTRY.find("astpu_stage_seconds")}
+    assert {"matcher_build", "matcher_screen", "h2d", "matcher_verify"} <= stage_names
+    overlong = values.get(("astpu_matcher_overlong_total", ()), 0)
+    screens = 1 if packed else -(-len(df) // 128)  # every batch here has a short row
+    assert len(probe) == screens and [p["tile"] for p in probe] == list(range(screens))
+    assert set(probe[0]) == {"tile", "rows", "width", "h2d_bytes", "put_ms", "dispatch_ms"}
+    assert sum(p["rows"] for p in probe) == len(df) - overlong
+    spans = {h.labels["kernel"] for h in telemetry.REGISTRY.find(devprof.DISPATCH_HISTOGRAM)}
+    launches = after["device_dispatches"] - before["device_dispatches"]
+    if packed:
+        assert spans == {"matcher_screen_chunk", "matcher_bound_chunk"} and launches == 2
+        assert after["device_puts"] - before["device_puts"] == 1
+    else:
+        assert "matcher_screen_legacy" in spans and launches >= screens
+
+
+def test_run_matcher_series_equal_reference(telemetry_on, tmp_path):
+    from advanced_scrapper_tpu.config import MatchConfig as RefMatchConfig
+    from advanced_scrapper_tpu.pipeline import matcher as ref_matcher
+    from advanced_scrapper_tpu_torch.config import MatchConfig
+    from advanced_scrapper_tpu_torch.pipeline import matcher
+    from test_match_dispatch import _entities
+    from test_torch_matcher import adversarial_csv
+
+    info = tmp_path / "info"
+    info.mkdir()
+    (info / "a.json").write_text(json.dumps(_entities(6)))
+    adversarial_csv(str(tmp_path / "articles.csv"), np.random.RandomState(5))
+    for name, cfg_cls, mod, kw in (("ref", RefMatchConfig, ref_matcher, {}),
+                                   ("port", MatchConfig, matcher, {"device": "cpu"})):
+        cfg = cfg_cls(source_name=str(tmp_path / name), info_dir=str(info), chunk_size=16,
+                      verify_workers=1)
+        assert mod.run_matcher(cfg, articles_csv=str(tmp_path / "articles.csv"),
+                               use_refine=True, **kw) == 0
+    got = _values(telemetry.REGISTRY, "astpu_matcher_")
+    assert got == _values(ref_telemetry.REGISTRY, "astpu_matcher_")
+    assert got[("astpu_matcher_matches_total", ())] > 0

@@ -593,6 +593,26 @@ def test_probe_variants_apply_to_the_fold_source():
         assert f"constexpr int {const} = {value};" in src, const
 
 
+def test_probe_checked_builds_apply_to_both_sources():
+    """``oph_probe.py --checked``: the macro goes ahead of ``oph.cu`` and
+    ``minhash.cu`` once each, both sources test their loads only under it
+    (``ASTT_CHECK`` is empty without it), and the control's failing test
+    replaces the unguarded word load's test in ``oph.cu``."""
+    import myers_probe
+    import oph_probe
+
+    for source in ("oph", "minhash"):
+        src = (myers_probe._build.CSRC_DIR / f"{source}.cu").read_text()
+        out = myers_probe.patched(src, oph_probe.CHECKED)
+        assert out.startswith(src[: src.index("#include <cstdint>")])
+        assert "#define ASTT_CHECK_BOUNDS 1\n#include <cstdint>" in out
+        assert "#ifdef ASTT_CHECK_BOUNDS" in src and src.count("ASTT_CHECK(") >= 3
+        assert "__trap()" in src.split("#else")[0]
+    src = (myers_probe._build.CSRC_DIR / "oph.cu").read_text()
+    control = myers_probe.patched(src, oph_probe.CONTROL)
+    assert "ASTT_CHECK(base + 4 * i + 4 <= lo);" in control
+
+
 def _densify_walk(sig: np.ndarray) -> np.ndarray:
     """``oph_densify``'s walk, modelled in numpy: the filled mask as words
     of 32 bins (a ``__ballot_sync`` each), and for each empty bin the

@@ -358,8 +358,23 @@ def test_port_edge_counts_items_and_stalls():
 
 
 def test_port_graph_pause_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-        port_runtime.StageGraph("t", pause=object())
+    """The pause gate is ported: a ``pausable`` stage waits it out, a stage
+    that is not pausable does not."""
+    pause = port_runtime.PauseGate()
+    g = port_runtime.StageGraph("t", pause=pause)
+    mid = g.edge("mid", capacity=8)
+    out = g.edge("out", capacity=8)
+    stamps: list[float] = []
+    g.stage("gen", source_iter=range(2), out_edge=mid)
+    g.stage("w", fn=lambda x: stamps.append(time.monotonic()) or x, in_edge=mid,
+            out_edge=out, pausable=True)
+    pause.trigger(0.4)
+    t0 = time.monotonic()
+    g.start()
+    assert list(out) == [0, 1]
+    g.join(timeout=10)
+    assert stamps[0] - t0 >= 0.3, "a pausable stage must wait out the gate"
+    assert g.pause is pause
 
 
 def test_runtime_imports_no_torch():
