@@ -11,9 +11,10 @@ The dedup engine runs its defaults: the rerank tier, the one-shot exact
 verify and the estimator-only path, through the pipelined dispatcher
 (``put_workers``, ``dispatch_window``), with ``packed_h2d=False`` (the
 reference's legacy tile transport), ``prewarm`` and ``backend="oph"``
-(the one-permutation kernels) too.  It raises ``NotImplementedError`` for
-``index_fleet``, whose slice is still to come, rather than approximating
-it; the fleet's timeouts are read by nothing yet.  The matcher runs every
+(the one-permutation kernels) too.  ``index_fleet`` puts the persist
+mode's index on remote shard servers (``index/fleet.py:open_fleet_index``
+reads it with ``index_fleet_timeout``, ``index_fleet_retries`` and
+``index_fleet_health_checks``).  The matcher runs every
 ``MatchConfig`` field it reads, ``packed=False`` and ``prewarm`` included.  The acquisition,
 enrichment, mesh and feed sections are here for ``Config`` and the CLI:
 their planes are not ported.

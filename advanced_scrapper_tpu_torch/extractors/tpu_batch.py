@@ -39,9 +39,10 @@ verdicts counted at tier ``exact``, the exact index's near-dup verdicts at
 ``band``, the bloom and persist indexes' at ``index``; with the decision
 journal on, the persist mode also writes a row a record (its stable doc
 id, url, verdict and winning band key, the latter from a probe of the
-row's own keys made only then).  Not ported yet, and raising
-``NotImplementedError``: the remote index fleet (``index_fleet``, ROADMAP
-item 9c).
+row's own keys made only then).  With ``cfg.index_fleet`` set the persist
+mode's two sub-indexes are clients of the remote shard fleet
+(``index/fleet.py:open_fleet_index``, spaces ``bands`` and ``urls``), and
+the local index directory holds only their spill journals.
 """
 
 from __future__ import annotations
@@ -62,7 +63,7 @@ from advanced_scrapper_tpu_torch.obs.decisions import get_recorder
 from advanced_scrapper_tpu_torch.ops.lsh import candidate_keys
 from advanced_scrapper_tpu_torch.pipeline.clock import StageClock
 from advanced_scrapper_tpu_torch.ops.rerank import band_keys_wide_host
-from advanced_scrapper_tpu_torch.pipeline.dedup import SLICE_FLEET, NearDupEngine
+from advanced_scrapper_tpu_torch.pipeline.dedup import NearDupEngine
 from advanced_scrapper_tpu_torch.utils.bloom import BloomBandIndex, hash_key64, pack_keys64
 
 #: dup marks in bloom mode: membership is known, the target is not
@@ -120,10 +121,6 @@ class TpuBatchBackend:
         device: str | torch.device | None = None,
     ):
         self.cfg = cfg or DedupConfig()
-        if self.cfg.index_fleet:
-            raise NotImplementedError(
-                f"index_fleet is not ported yet; it comes in {SLICE_FLEET}"
-            )
         if self.cfg.stream_index not in ("exact", "bloom", "persist"):
             raise ValueError(
                 f"unknown stream_index {self.cfg.stream_index!r}; "
@@ -223,14 +220,25 @@ class TpuBatchBackend:
                 self._pindex_urls.close()
             # two key domains, two sub-indexes; doc ids are allocated from
             # the bands index and posted into both
-            self._pindex, self._pindex_urls = (
-                PersistentIndex(
-                    os.path.join(self._index_dir, sub),
-                    cut_postings=self.cfg.index_cut_postings,
-                    compact_segments=self.cfg.index_compact_segments,
+            if self.cfg.index_fleet:
+                # the remote fleet: the same two key spaces live on every
+                # shard server; the local index dir holds only the spill
+                # journals of the dark-shard degraded mode
+                from advanced_scrapper_tpu_torch.index.fleet import open_fleet_index
+
+                self._pindex, self._pindex_urls = (
+                    open_fleet_index(self.cfg, self._index_dir, space=sub)
+                    for sub in ("bands", "urls")
                 )
-                for sub in ("bands", "urls")
-            )
+            else:
+                self._pindex, self._pindex_urls = (
+                    PersistentIndex(
+                        os.path.join(self._index_dir, sub),
+                        cut_postings=self.cfg.index_cut_postings,
+                        compact_segments=self.cfg.index_compact_segments,
+                    )
+                    for sub in ("bands", "urls")
+                )
             # union the durable floors: a crash before the bands index saw
             # an id durably must never reissue one the urls index (or the
             # docmap) already references

@@ -10,10 +10,18 @@ the other's directory.
 - :mod:`.segment` — immutable sorted segment files with per-segment Blooms.
 - :mod:`.store` — :class:`PersistentIndex`: WAL → memtable → segment cut →
   compaction, crash-safe via manifest swap.
-- :mod:`.repair` — the key-space helpers the store calls.
+- :mod:`.repair` — the key-space helpers the store calls and the
+  anti-entropy bucket digests.
+- :mod:`.remote` — :class:`~.remote.IndexShardServer` (one shard's key
+  spaces behind the RPC plane, ``python -m
+  advanced_scrapper_tpu_torch.index.remote``) and :class:`~.remote.RemoteIndex`.
+- :mod:`.fleet` — :class:`~.fleet.ShardedIndexClient`: the persistent
+  index's API over replicated shard servers, with failover, spill and
+  anti-entropy repair.  Its reshard driver comes with the second half of
+  ROADMAP item 9c.
 
-The index fleet (``remote``, ``fleet``, ``reshard`` and the anti-entropy
-digests) comes with ROADMAP item 9c.
+Like the reference's, this package does not re-export ``remote`` or
+``fleet``: callers import those modules by name.
 """
 
 from advanced_scrapper_tpu_torch.index.segment import (

@@ -1,14 +1,34 @@
-"""The key-space helpers the persistent index calls.
+"""Anti-entropy primitives: key-space digests over the index's semantic state.
 
-The port's copies of the reference's ``index/repair.py:semantic_min``,
-``mix64``, ``range_mask``, ``interval_add`` and ``interval_sub``, as they
-are: the store collapses raw postings to its semantic state (sorted unique
-keys, each with its minimum doc id), drops the ring ranges it has handed
-off (``mix64`` positions in ``[lo, hi)`` intervals, kept canonical by
-``interval_add``/``interval_sub``), and either package reopens a manifest
-that names such ranges.  The bucket digests of the anti-entropy plane
-(``bucket_digests``, ``bucket_range``) serve the index fleet and come with
-it (ROADMAP item 9c).
+Replicas of one shard can silently diverge three ways: a node missed writes
+while dark (gap ledger dropped past its cap), a scrub quarantined a
+bit-rotted segment (postings deliberately withdrawn rather than served
+corrupt), or an operator restored one node from an older snapshot.  The
+repair plane needs to find the divergence WITHOUT streaming whole indexes
+around — that is this module: a Merkle-style two-level digest over the
+uint64 key space.
+
+The digested representation is the **semantic state** — sorted unique keys
+with the minimum doc id each attributes to (``PersistentIndex
+.semantic_items``) — because that is the only thing probes can observe:
+posting multiplicity and compaction timing differ between healthy replicas
+by construction and must cancel out of the comparison.
+
+Shape: the key space splits into ``2**bits`` buckets by the key's top bits
+(keys are already hashes, so buckets are uniform); each bucket folds to a
+64-bit XOR of a mixed ``(key, min-doc)`` hash plus a key count.  Two
+replicas agree ⇔ every bucket's ``(digest, count)`` pair agrees; a
+divergent bucket names a key RANGE small enough to stream (the
+``fetch_range`` RPC, paged under the frame cap).  XOR-folding makes the
+digest order-independent and incrementally recomputable, and a single
+changed pair flips the bucket with probability 1 − 2⁻⁶⁴.
+
+The port's copy of the reference's ``index/repair.py``, whole.  The store
+calls ``semantic_min``, ``mix64``, ``range_mask``, ``interval_add`` and
+``interval_sub`` (its semantic state and handed-off ring ranges); the
+fleet's anti-entropy plane adds the bucket digests.  Pure numpy —
+importable by both halves of the fleet (client ``index/fleet.py``, server
+``index/remote.py``) and by offline tools.
 """
 
 from __future__ import annotations
@@ -16,13 +36,22 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = [
+    "DEFAULT_BITS",
     "KEY_SPACE_END",
+    "bucket_digests",
+    "bucket_range",
     "interval_add",
     "interval_sub",
     "mix64",
     "range_mask",
     "semantic_min",
 ]
+
+#: default digest resolution: 256 buckets ≈ 1/256th of a shard per
+#: divergent-range transfer — coarse enough that a digest frame is tiny
+#: (4 KiB), fine enough that healing one rotted segment never re-streams
+#: the whole shard
+DEFAULT_BITS = 8
 
 #: exclusive end of the uint64 key space (2**64 — kept a Python int:
 #: range arithmetic would overflow uint64)
@@ -78,6 +107,50 @@ def range_mask(keys: np.ndarray, ranges) -> np.ndarray:
     return mask
 
 
+def _mix_pair(keys: np.ndarray, docs: np.ndarray) -> np.ndarray:
+    """64-bit hash per (key, doc) pair — splitmix64 finalizer over an
+    odd-multiplier combine, so equal multisets XOR to equal digests and a
+    single differing pair flips the fold."""
+    with np.errstate(over="ignore"):
+        x = keys ^ (docs * np.uint64(0x9E3779B97F4A7C15))
+        x ^= x >> np.uint64(30)
+        x *= np.uint64(0xBF58476D1CE4E5B9)
+        x ^= x >> np.uint64(27)
+        x *= np.uint64(0x94D049BB133111EB)
+        x ^= x >> np.uint64(31)
+    return x
+
+
+def bucket_digests(
+    keys: np.ndarray,
+    docs: np.ndarray,
+    bits: int = DEFAULT_BITS,
+    positions: np.ndarray | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """``(digests u64[2**bits], counts u64[2**bits])`` over a SEMANTIC
+    ``(key → min doc)`` state (callers pass :func:`semantic_min` output —
+    raw postings would make healthy replicas look divergent).
+
+    ``positions`` buckets each pair by an alternate coordinate (same
+    length as ``keys``) instead of the raw key — the reshard plane passes
+    ``mix64(keys)`` so digests compare per RING RANGE; the fold itself
+    still mixes the raw ``(key, doc)`` pair, so the two bucketings answer
+    over the identical underlying state."""
+    nb = 1 << int(bits)
+    dig = np.zeros(nb, np.uint64)
+    cnt = np.zeros(nb, np.uint64)
+    keys = np.ascontiguousarray(keys, np.uint64).ravel()
+    docs = np.ascontiguousarray(docs, np.uint64).ravel()
+    if keys.size:
+        coord = keys if positions is None else np.ascontiguousarray(
+            positions, np.uint64
+        ).ravel()
+        b = (coord >> np.uint64(64 - int(bits))).astype(np.int64)
+        np.bitwise_xor.at(dig, b, _mix_pair(keys, docs))
+        np.add.at(cnt, b, np.uint64(1))
+    return dig, cnt
+
+
 def interval_add(ranges, lo: int, hi: int) -> list[tuple[int, int]]:
     """Add ``[lo, hi)`` to a list of disjoint sorted intervals, merging
     overlaps/adjacency; Python-int bounds (``hi`` may be 2**64).  The
@@ -111,3 +184,11 @@ def interval_sub(ranges, lo: int, hi: int) -> list[tuple[int, int]]:
         if b > hi:
             out.append((hi, b))
     return out
+
+
+def bucket_range(bucket: int, bits: int = DEFAULT_BITS) -> tuple[int, int]:
+    """``[lo, hi)`` uint64 key range owned by ``bucket`` (``hi`` may be
+    ``KEY_SPACE_END`` — Python ints, since 2**64 overflows uint64)."""
+    width = 1 << (64 - int(bits))
+    lo = int(bucket) * width
+    return lo, lo + width

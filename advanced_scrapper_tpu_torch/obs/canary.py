@@ -20,9 +20,11 @@ and band tiers and feels the brownout ladder), and optionally an
 ``index_run`` + ``wipe`` pair over an index whose postings the round may
 write (:data:`CANARY_SPACE_PREFIX` names the reserved key space);
 :meth:`run_round` calls ``wipe`` before it returns, whether the round
-raised or not.  The reference binds that pair to an index fleet client's
-canary space; the fleet is not ported yet (ROADMAP item 9c:
-``NearDupEngine.open_stream_index`` raises for ``index_fleet``).
+raised or not.  As in the reference, that pair binds to a fleet client's
+canary space: ``canary = client.for_space(CANARY_SPACE_PREFIX + "probe")``
+(``index/fleet.py``), ``index_run`` over ``canary.check_and_add_batch`` and
+``wipe=canary.wipe``; the shard servers provision the space on first touch
+and refuse a wipe of any other.
 
 Declared objectives (:meth:`objectives`) plug the SLIs into the SLO engine
 (``obs/slo.py``) as ``gauge_min`` objectives: a round whose recall falls

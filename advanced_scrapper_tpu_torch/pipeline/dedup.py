@@ -66,8 +66,10 @@ columns in :meth:`NearDupEngine.dedup_against_index`; each application is
 counted by ``ladder.count_effect``.
 
 What is not ported yet raises ``NotImplementedError`` naming its slice:
-the sharded methods and ``mesh=`` (item 15), and the index fleet
-(``index_fleet``, item 9c).
+the sharded methods and ``mesh=`` (item 15), and the index fleet's reshard
+driver (:data:`SLICE_RESHARD`, raised by ``index/fleet.py``).
+:meth:`NearDupEngine.open_stream_index` opens the index fleet when
+``cfg.index_fleet`` is set.
 """
 
 from __future__ import annotations
@@ -135,8 +137,8 @@ from advanced_scrapper_tpu_torch.pipeline.dispatch import (
 from advanced_scrapper_tpu_torch.pipeline.rerank import RerankTier
 from advanced_scrapper_tpu_torch.utils.bloom import pack_keys64
 
-SLICE_FLEET = "the slice of ROADMAP item 9c (the index fleet)"
 SLICE_MESH = "the slice of ROADMAP item 15 (parallel/* on torch.distributed)"
+SLICE_RESHARD = "the slice of ROADMAP item 9c, second half (reshard)"
 
 #: Most bytes of text in one chunk (one copy, one kernel launch); an
 #: article longer than this is a chunk of its own.
@@ -1169,12 +1171,18 @@ class NearDupEngine:
         return sigs, keys
 
     def open_stream_index(self, index_dir: str):
-        """A local :class:`~advanced_scrapper_tpu_torch.index.store.PersistentIndex`
-        under ``index_dir``, at the config's cut and compaction cadence: a
-        valid ``index`` for :meth:`dedup_against_index`.  ``cfg.index_fleet``
-        raises (the fleet is not ported)."""
+        """The durable stream index this engine's config names: a local
+        :class:`~advanced_scrapper_tpu_torch.index.store.PersistentIndex`
+        under ``index_dir`` at the config's cut and compaction cadence, or,
+        when ``cfg.index_fleet`` is set, a
+        :class:`~advanced_scrapper_tpu_torch.index.fleet.ShardedIndexClient`
+        over the remote shard fleet (``index_dir`` then holds only the
+        degraded-mode spill journals).  Either is a valid ``index`` for
+        :meth:`dedup_against_index`."""
         if self.cfg.index_fleet:
-            raise _not_ported("the index fleet (index_fleet)", SLICE_FLEET)
+            from advanced_scrapper_tpu_torch.index.fleet import open_fleet_index
+
+            return open_fleet_index(self.cfg, index_dir, space="bands")
         from advanced_scrapper_tpu_torch.index import PersistentIndex
 
         return PersistentIndex(

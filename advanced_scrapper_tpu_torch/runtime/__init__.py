@@ -7,6 +7,8 @@
 - :class:`AdmissionController` / :class:`DegradationLadder`
   (``runtime/admission.py``): counted admission decisions with retry-after
   hints, and the brownout ladder the dedup engine honours (``ladder``).
+- :class:`FanoutPool` (``runtime/graph.py``): a tiny Edge-fed executor for
+  bounded parallel fan-out (the index fleet's per-shard RPCs).
 
 Copies of the reference's modules.  Its autoscaler comes with ROADMAP
 item 18.  Pure Python, no torch: the matcher's verify-pool workers may
@@ -29,6 +31,7 @@ from advanced_scrapper_tpu_torch.runtime.graph import (
     RETRY,
     Edge,
     EdgeClosed,
+    FanoutPool,
     Stage,
     StageGraph,
     live_graphs,
@@ -39,6 +42,6 @@ from advanced_scrapper_tpu_torch.runtime.pause import PauseGate
 __all__ = [
     "DEFAULT_LADDER_STEPS", "DONE", "PRIORITY_CRITICAL", "PRIORITY_HIGH", "PRIORITY_LOW",
     "PRIORITY_NORMAL", "RETRY", "AdmissionController", "AdmissionDecision",
-    "DegradationLadder", "Edge", "EdgeClosed", "LadderStep", "PauseGate", "Stage",
+    "DegradationLadder", "Edge", "EdgeClosed", "FanoutPool", "LadderStep", "PauseGate", "Stage",
     "StageGraph", "live_graphs", "snapshot_all",
 ]

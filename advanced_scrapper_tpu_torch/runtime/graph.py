@@ -1,8 +1,8 @@
 """Stage-graph scheduler: edges, stages, and the graph that runs them.
 
 A copy of the reference's ``runtime/graph.py``, its telemetry, trace spans,
-crash-snapshot fault hook and pause gate included, without its
-``FanoutPool`` (ROADMAP item 9c).
+crash-snapshot fault hook, pause gate and ``FanoutPool`` (the index
+fleet's per-shard fan-out) included.
 
 **How do items move.**  An :class:`Edge` is a bounded FIFO owned by the
 graph.  Producers ``put`` (blocking while full: backpressure is the
@@ -50,8 +50,8 @@ from typing import Callable, Iterable, Iterator
 from advanced_scrapper_tpu_torch.obs import telemetry, trace
 
 __all__ = [
-    "DONE", "RETRY", "Edge", "EdgeClosed", "Stage", "StageGraph", "live_graphs",
-    "snapshot_all",
+    "DONE", "RETRY", "Edge", "EdgeClosed", "FanoutPool", "Stage", "StageGraph",
+    "live_graphs", "snapshot_all",
 ]
 
 class _Sentinel:
@@ -637,3 +637,60 @@ def _record_snapshots(recorder) -> None:
 # registered at import: a fault before any graph exists still writes the
 # (live=0) summary
 trace.add_fault_hook(_record_snapshots)
+
+
+# -- bounded fan-out pool -----------------------------------------------------
+
+
+class FanoutPool:
+    """A tiny Edge-fed executor for bounded parallel fan-out.
+
+    The index fleet's per-shard RPC fan-out (and any other remote hop)
+    rides this instead of a bespoke ``ThreadPoolExecutor``: the task queue
+    is a runtime :class:`Edge`, so depth/stall telemetry and the crash
+    snapshot see remote work exactly like local stage work.
+    """
+
+    def __init__(self, workers: int, *, name: str = "fanout"):
+        from concurrent.futures import Future
+
+        self._Future = Future
+        self.name = name
+        self._tasks = Edge(f"{name}.tasks", None, graph=name)
+        self._tasks.register_producer()
+        self._threads = [
+            threading.Thread(
+                target=self._run, name=f"astpu-{name}-{i}", daemon=True
+            )
+            for i in range(max(1, workers))
+        ]
+        for t in self._threads:
+            t.start()
+
+    def _run(self) -> None:
+        while True:
+            item = self._tasks.pop()
+            if item is DONE:
+                return
+            fut, fn, args, kw = item
+            if not fut.set_running_or_notify_cancel():
+                continue
+            try:
+                fut.set_result(fn(*args, **kw))
+            except BaseException as e:
+                fut.set_exception(e)
+
+    def submit(self, fn, *args, **kw):
+        fut = self._Future()
+        if not self._tasks.put((fut, fn, args, kw)):
+            raise RuntimeError(f"FanoutPool '{self.name}' is shut down")
+        return fut
+
+    def map(self, fn, items: Iterable):
+        return [self.submit(fn, it) for it in items]
+
+    def shutdown(self, wait: bool = True) -> None:
+        self._tasks.producer_done()
+        if wait:
+            for t in self._threads:
+                t.join(timeout=30)

@@ -71,7 +71,19 @@ docmap; records/s, reopen seconds, segments, compactions, postings, disk
 and resident bytes; card and CPU backends equal on 2,048 records over two
 sessions (annotations, stats, postings, docmap), and
 ``dedup_against_index`` over 4,096 ragged articles equal on the card and
-the CPU.  And ``ExactDedup`` over ``bench.py``'s 262,144 urls
+the CPU.  The persist mode on the index fleet (``fleet_path``): four shard
+server processes (``python -m advanced_scrapper_tpu_torch.index.remote``,
+2 shards of a primary and a replica) on loopback, the same records in the
+same two sessions with ``index_fleet`` set, shard 1's primary SIGKILLed
+after session 1's 16th batch: one segment-kernel launch per batch and no
+other, annotations equal to ``persist_path``'s, a failover and a promotion
+counted and no spill in each session, the killed node restarted after
+session 2 and healed by ``repair_once`` (its shard's nodes then give equal
+``bucket_digests``); card and CPU backends each over a fleet of its own
+equal on 2,048 records (annotations, postings), ``dedup_against_index``
+over a fleet equal to the local index's; records/s beside
+``persist_path``'s, the clients' RPC latency by method, ``fleet_status()``
+and the fan-out's share of each batch.  And ``ExactDedup`` over ``bench.py``'s 262,144 urls
 (``exact_path``): the default tier (which one served), the blob tier and
 the grouping path with its hash on the card, best of 5, each equal to a
 first-seen dict.  Then ``cross_source_dedup`` (``cross_source_path``)
@@ -2433,7 +2445,7 @@ def dir_bytes(path: str) -> int:
                for root, _dirs, files in os.walk(path) for f in files)
 
 
-def persist_path(docs: list[bytes], planted: dict[int, int], card: str) -> tuple[int, int]:
+def persist_path(docs: list[bytes], planted: dict[int, int], card: str) -> tuple[int, int, dict]:
     """The stream backend's persist mode at its defaults (batches of 1,024,
     cuts at 65,536 postings, compaction at 8 segments, on its thread) over
     the ragged records of ``stream_path`` in two sessions: the first half,
@@ -2447,7 +2459,9 @@ def persist_path(docs: list[bytes], planted: dict[int, int], card: str) -> tuple
     (annotations, stats and both sub-indexes' postings equal), and
     ``dedup_against_index`` over 4,096 ragged articles on the card and on
     the CPU (equal attributions, across a reopen).  Returns the segment
-    kernel's launches over the two sessions and the batches."""
+    kernel's launches over the two sessions, the batches, and what
+    ``fleet_path`` holds the fleet to: the two sessions' annotations and
+    records/s and the card's ``dedup_against_index`` attributions."""
     import shutil
     import tempfile
 
@@ -2571,6 +2585,279 @@ def persist_path(docs: list[bytes], planted: dict[int, int], card: str) -> tuple
         against_index_articles=AGAINST_INDEX_ARTICLES, parity=parity,
         cut_postings=cfg.index_cut_postings, compact_segments=cfg.index_compact_segments,
         card=card)
+    local = dict(annotations=ann, records_per_s=[x["records_per_s"] for x in sessions],
+                 against=card_run[4])
+    return launches, batches, local
+
+
+FLEET_SHARDS, FLEET_REPLICAS = 2, 2  # each shard a primary and a replica
+#: session 1's batches before shard 1's primary is killed.  Shard 1, not 0:
+#: shard 0 holds the doc-id allocator, and a fresh client (session 2's)
+#: whose allocator primary is dark refuses to allocate (it never synced a
+#: durable floor), as the reference's does
+FLEET_KILL_AFTER = 16
+KILLED = (1, 0)
+FLEET_READY_S = 60.0  # the most a shard process may take to listen
+#: the healing client's digest resolution: 16 buckets, each streamed with
+#: one ``fetch_range`` a side (the default 256 would stream 512 of them)
+FLEET_DIGEST_BITS = 4
+
+
+class ShardFleet:
+    """``FLEET_SHARDS`` × ``FLEET_REPLICAS`` index shard servers, each a
+    process of its own (``python -m advanced_scrapper_tpu_torch.index.remote``)
+    on loopback over a directory under ``root``, at the server's defaults
+    (spaces ``bands`` and ``urls``, cuts at 65,536 postings, compaction at
+    8 segments inline).  Every process is stopped (SIGTERM, then SIGKILL)
+    when the ``with`` block ends."""
+
+    def __init__(self, root: str):
+        self.root = root
+        self.procs: dict[tuple[int, int], subprocess.Popen] = {}
+        self.ports: dict[tuple[int, int], int] = {}
+        os.makedirs(root, exist_ok=True)
+        for node in self.nodes():
+            self.start(*node)
+        for node in self.nodes():
+            self.wait_ready(*node)
+
+    @staticmethod
+    def nodes():
+        return [(s, r) for s in range(FLEET_SHARDS) for r in range(FLEET_REPLICAS)]
+
+    def path(self, s: int, r: int, suffix: str = "") -> str:
+        return os.path.join(self.root, f"s{s}n{r}{suffix}")
+
+    def start(self, s: int, r: int, port: int = 0) -> None:
+        port_file = self.path(s, r, ".port")
+        if os.path.exists(port_file):
+            os.remove(port_file)
+        with open(self.path(s, r, ".log"), "ab") as err:
+            self.procs[(s, r)] = subprocess.Popen(
+                [sys.executable, "-m", "advanced_scrapper_tpu_torch.index.remote",
+                 "--dir", self.path(s, r), "--port", str(port), "--port-file", port_file,
+                 "--name", f"s{s}n{r}"],
+                stdout=subprocess.DEVNULL, stderr=err)
+
+    def wait_ready(self, s: int, r: int) -> None:
+        port_file, proc = self.path(s, r, ".port"), self.procs[(s, r)]
+        deadline = time.monotonic() + FLEET_READY_S
+        while not os.path.exists(port_file):
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise RuntimeError(f"shard s{s}n{r} did not listen: " + open(
+                    self.path(s, r, ".log"), errors="replace").read()[-2000:])
+            time.sleep(0.02)
+        self.ports[(s, r)] = int(open(port_file).read())
+
+    @property
+    def spec(self) -> str:
+        return ";".join("|".join(f"127.0.0.1:{self.ports[(s, r)]}" for r in range(FLEET_REPLICAS))
+                        for s in range(FLEET_SHARDS))
+
+    def kill(self, s: int, r: int) -> None:
+        proc = self.procs[(s, r)]
+        proc.kill()
+        proc.wait(timeout=30)
+
+    def restart(self, s: int, r: int) -> None:
+        """The killed node back on its port, over its directory."""
+        self.start(s, r, port=self.ports[(s, r)])
+        self.wait_ready(s, r)
+
+    def __enter__(self) -> "ShardFleet":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.terminate()
+        for proc in self.procs.values():
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=10)
+
+
+def rpc_latency(client) -> dict:
+    """The fleet client's own RPC histograms (``astpu_fleet_rpc_seconds``,
+    log2 buckets, interpolated inside the bucket): p50 and p99 in ms and
+    the call count, by method and shard."""
+    out: dict = {}
+    for (sid, method), h in client._m_rpc_s.items():
+        out.setdefault(method, {})[str(sid)] = dict(
+            p50_ms=h.percentile(0.50) * 1e3, p99_ms=h.percentile(0.99) * 1e3, calls=h.count)
+    return out
+
+
+def fleet_counts(client) -> dict:
+    return dict(failovers=client._m_failovers.value, promotions=client._m_promotions.value,
+                spilled=client._m_spilled.value, replayed=client._m_replayed.value,
+                degraded_probes=client._m_degraded.value)
+
+
+def node_digests(fleet: ShardFleet, s: int, space: str) -> list:
+    """``bucket_digests`` (and counts) of each node of shard ``s``, by RPC."""
+    from advanced_scrapper_tpu_torch.index.remote import RemoteIndex
+
+    out = []
+    for r in range(FLEET_REPLICAS):
+        node = RemoteIndex(("127.0.0.1", fleet.ports[(s, r)]), space=space)
+        try:
+            out.append(tuple(a.tolist() for a in node.digest()))
+        finally:
+            node.close()
+    return out
+
+
+def sorted_postings(index) -> list:
+    keys, docs = index.dump_postings()
+    order = np.lexsort((docs, keys))
+    return [keys[order].tolist(), docs[order].tolist()]
+
+
+def fleet_path(docs: list[bytes], card: str, local: dict, dev: str = "cuda") -> tuple[int, int]:
+    """The persist mode on the index fleet: ``TpuBatchBackend(DedupConfig(
+    stream_index="persist", index_fleet=spec))`` over a ``ShardFleet`` (2
+    shards of a primary and a replica, each a process), on the records of
+    ``persist_path`` in its two sessions, with telemetry on (the client's
+    counters and RPC histograms).  Shard 1's primary is SIGKILLed after
+    session 1's 16th batch and stays dark through session 2.  Checks: one segment-kernel launch per batch
+    and no other; the annotations equal ``persist_path``'s local ones; each
+    session's clients counted a failover and a promotion and spilled
+    nothing; the killed node, restarted after session 2, is healed by
+    ``repair_once`` and the shard's two nodes then give equal
+    ``bucket_digests`` in both spaces.  Then card and CPU backends, each
+    over a fleet of its own, on 2,048 ``rerank_corpus`` records in batches
+    of 512 over two sessions (annotations and postings equal), and
+    ``dedup_against_index`` over 4,096 ragged articles with
+    ``open_stream_index`` on a fleet, equal to the local index's on the
+    card.  Prints records/s beside ``persist_path``'s, the clients' RPC
+    latency by method, ``fleet_status()`` and the share of each batch's
+    host time in the index calls (the ``persist`` lap: the fan-out and its
+    RPCs).  Returns the segment kernel's launches and the batches."""
+    import shutil
+    import tempfile
+
+    from advanced_scrapper_tpu_torch.config import DedupConfig
+    from advanced_scrapper_tpu_torch.extractors.tpu_batch import TpuBatchBackend
+    from advanced_scrapper_tpu_torch.index.fleet import open_fleet_index
+    from advanced_scrapper_tpu_torch.obs import telemetry
+    from advanced_scrapper_tpu_torch.pipeline.dedup import NearDupEngine
+
+    t_phase = time.perf_counter()
+    records = stream_records(docs, np.random.RandomState(17))
+    telemetry.set_enabled(True)
+    tmp = tempfile.mkdtemp(prefix="fleet-")
+    try:
+        with ShardFleet(os.path.join(tmp, "main")) as fleet:
+            cfg = DedupConfig(stream_index="persist", index_fleet=fleet.spec)
+            index_dir = os.path.join(tmp, "local")
+            sessions, ann = [], []
+            launches = batches = 0
+            for si, part in enumerate((records[:PERSIST_SPLIT], records[PERSIST_SPLIT:])):
+                t0 = time.perf_counter()
+                backend = TpuBatchBackend(cfg, index_dir=index_dir, device=dev)
+                open_s = time.perf_counter() - t0
+                if si == 0:
+                    process, done = backend._process, [0]
+
+                    def killing(process=process, done=done):
+                        out = process()
+                        done[0] += 1
+                        if done[0] == FLEET_KILL_AFTER:
+                            fleet.kill(*KILLED)
+                        return out
+
+                    backend._process = killing
+                got, rec = run_stream(backend, part)
+                ann += got
+                n = backend.stats.batches
+                assert rec["launches"]["minhash_fold_segments"] == n == -(-len(part) // cfg.batch_size)
+                assert sum(rec["launches"].values()) == n, rec["launches"]
+                launches += n
+                batches += n
+                clients = {"bands": backend._pindex, "urls": backend._pindex_urls}
+                counts = {sp: fleet_counts(c) for sp, c in clients.items()}
+                for sp, c in counts.items():
+                    assert c["failovers"] >= 1 and c["promotions"] >= 1, (sp, c)
+                    assert c["spilled"] == 0, f"{sp} spilled while the replica lived: {c}"
+                sessions.append(dict(
+                    records=len(part), records_per_s=len(part) / rec["seconds"],
+                    local_records_per_s=local["records_per_s"][si], **rec,
+                    open_seconds=open_s,
+                    fanout_share=rec["host_s"].get("persist", 0.0) / rec["seconds"],
+                    persist_s_per_batch=rec["host_s"].get("persist", 0.0) / n,
+                    counts=counts, rpc_latency={sp: rpc_latency(c) for sp, c in clients.items()},
+                    fleet_status={sp: c.fleet_status() for sp, c in clients.items()}))
+                backend.close()
+            assert ann == local["annotations"], "the fleet's annotations differ from the local index's"
+            # the killed node returns on its port and is healed by anti-entropy
+            t0 = time.perf_counter()
+            fleet.restart(*KILLED)
+            before = {sp: node_digests(fleet, KILLED[0], sp) for sp in ("bands", "urls")}
+            healed = {}
+            for sp in ("bands", "urls"):
+                client = open_fleet_index(cfg, index_dir, space=sp, digest_bits=FLEET_DIGEST_BITS)
+                try:
+                    healed[sp] = client.repair_once()
+                finally:
+                    client.close()
+            after = {sp: [node_digests(fleet, s, sp) for s in range(FLEET_SHARDS)]
+                     for sp in ("bands", "urls")}
+            repair_s = time.perf_counter() - t0
+            for sp in ("bands", "urls"):
+                assert before[sp][0] != before[sp][1], f"{sp}: the killed node missed nothing"
+                assert healed[sp]["pushed"] > 0 and healed[sp]["unmatched"] == 0, healed
+                for s in range(FLEET_SHARDS):
+                    assert after[sp][s][0] == after[sp][s][1], f"{sp} shard {s} still diverged"
+        main_s = time.perf_counter() - t_phase
+
+        # card vs CPU, each over a fleet of its own; dedup_against_index
+        t0 = time.perf_counter()
+        rrecs = stream_records(rerank_corpus(np.random.RandomState(13), STREAM_PARITY),
+                               np.random.RandomState(14))
+        runs = {}
+        for name, device in (("card", dev), ("cpu", "cpu")):
+            with ShardFleet(os.path.join(tmp, f"parity-{name}")) as pf:
+                pcfg = DedupConfig(stream_index="persist", batch_size=STREAM_PARITY_BATCH,
+                                   index_fleet=pf.spec)
+                out = []
+                for part in (rrecs[:PERSIST_PARITY_SPLIT], rrecs[PERSIST_PARITY_SPLIT:]):
+                    b = TpuBatchBackend(pcfg, index_dir=os.path.join(tmp, f"parity-{name}-local"),
+                                        device=device)
+                    out += run_stream(b, part)[0]
+                    dumps = [sorted_postings(ix) for ix in (b._pindex, b._pindex_urls)]
+                    b.close()
+                runs[name] = (out, dumps)
+        adocs = ragged_corpus(np.random.RandomState(20), AGAINST_INDEX_ARTICLES)[0]
+        half = AGAINST_INDEX_ARTICLES // 2
+        with ShardFleet(os.path.join(tmp, "against")) as af:
+            engine = NearDupEngine(DedupConfig(rerank=False, index_fleet=af.spec), device=dev)
+            against = []
+            for docs_part in (adocs[:half], adocs[half:]):  # the client reopened between
+                index = engine.open_stream_index(os.path.join(tmp, "against-local"))
+                against += engine.dedup_against_index(docs_part, index).tolist()
+                index.close()
+        parity = dict(annotations_equal=runs["card"][0] == runs["cpu"][0],
+                      postings_equal=runs["card"][1] == runs["cpu"][1],
+                      against_index_equal=against == local["against"],
+                      near_dups=sum(1 for a in runs["card"][0] if a[2]),
+                      against_index_hits=sum(a >= 0 for a in against),
+                      seconds=time.perf_counter() - t0)
+        assert all(parity[k] for k in ("annotations_equal", "postings_equal",
+                                       "against_index_equal")), parity
+        assert parity["near_dups"] and parity["against_index_hits"], parity
+    finally:
+        telemetry.set_enabled(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("fleet_path", records=len(records), batches=batches, shards=FLEET_SHARDS,
+        replicas=FLEET_REPLICAS, killed="s{}n{}".format(*KILLED),
+        kill_after_batches=FLEET_KILL_AFTER,
+        sessions=sessions, repair=healed, repair_seconds=repair_s,
+        digest_bits=FLEET_DIGEST_BITS, main_seconds=main_s, parity_records=STREAM_PARITY,
+        parity_batch=STREAM_PARITY_BATCH, against_index_articles=AGAINST_INDEX_ARTICLES,
+        parity=parity, seconds=time.perf_counter() - t_phase, card=card)
     return launches, batches
 
 
@@ -3475,12 +3762,14 @@ def main() -> int:
     del reps
     # -- the stream backend and the exact dedup ---------------------------------
     stream_launches, stream_batches = stream_path(docs, planted, card)
-    persist_launches, persist_batches = persist_path(docs, planted, card)
-    del docs
+    persist_launches, persist_batches, local = persist_path(docs, planted, card)
+    fleet_launches, fleet_batches = fleet_path(docs, card, local)
+    del docs, local
     exact_path(card)
     cross_launches, cross_batches = cross_source_path(card)
     kernels[0]["stream_path"] = {"launches": stream_launches, "batches": stream_batches}
     kernels[0]["persist_path"] = {"launches": persist_launches, "batches": persist_batches}
+    kernels[0]["fleet_path"] = {"launches": fleet_launches, "batches": fleet_batches}
     kernels[0]["cross_source_path"] = {"launches": cross_launches, "batches": cross_batches}
     st_main = settle_timing(default.rerank_tier, clock_mhz)
     log("kernel_timing", name="rerank_settle", shape="default_engine_main_corpus",

@@ -67,7 +67,8 @@ def test_port_files_found():
                 "__main__.py", "runtime/graph.py", "pipeline/dispatch.py",
                 "pipeline/feed.py", "obs/perfdb.py", "ops/oph.py", "ops/oph_cuda.py",
                 "obs/telemetry.py", "obs/trace.py", "obs/stages.py", "obs/devprof.py",
-                "obs/profiler.py"):
+                "obs/profiler.py", "net/__init__.py", "net/rpc.py", "index/remote.py",
+                "index/fleet.py"):
         assert f"advanced_scrapper_tpu_torch/{rel}" in FILES, rel
     for name in NATIVE:
         assert (PORT / "native" / name).exists(), name

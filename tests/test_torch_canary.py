@@ -157,3 +157,55 @@ def test_skip_rerank_flips_the_canary_slo_and_recovers():
     (effects,) = [c for c in telemetry.REGISTRY.find("astpu_degraded_effects_total")
                   if c.labels["step"] == "skip_rerank"]
     assert effects.value == 1, "the bypassed round is counted"
+
+
+# -- the canary: key space on a live port fleet ------------------------------------
+
+
+def test_canary_space_isolation_and_fleet_wipe(tmp_path):
+    """The reference's case over a 1×2 port fleet: the canary space
+    auto-provisions on first touch, re-sent rows attribute as dups there,
+    the real space never sees them, a wipe of a real space is refused by
+    the client and by the server, the canary wipe expires every replica's
+    copy, and the allocator's high water survives it."""
+    from advanced_scrapper_tpu_torch.index.fleet import ShardedIndexClient
+    from advanced_scrapper_tpu_torch.index.remote import IndexShardServer, RemoteIndex
+    from advanced_scrapper_tpu_torch.net.rpc import RpcRemoteError
+
+    servers = [IndexShardServer(str(tmp_path / f"n{r}"), cut_postings=96, compact_segments=4,
+                                compact_inline=True, name=f"n{r}").start() for r in range(2)]
+    client = ShardedIndexClient("|".join(f"127.0.0.1:{s.port}" for s in servers),
+                                spill_dir=str(tmp_path / "spill"), timeout=2.0, retries=1,
+                                health_timeout=0.2)
+    canary_client = None
+    try:
+        canary_client = client.for_space(canary.CANARY_SPACE_PREFIX + "probe")
+        keys = np.arange(1, 65, dtype=np.uint64).reshape(8, 8)
+        ids = canary_client.allocate_doc_ids(8)
+        assert (canary_client.check_and_add_batch(keys, ids) == -1).all()
+        again = canary_client.check_and_add_batch(keys, canary_client.allocate_doc_ids(8))
+        assert (again == ids).all(), "re-sent rows attribute to their first posting"
+        assert (np.asarray(client.probe_batch(keys)) == -1).all()
+        with pytest.raises(ValueError, match="wipe"):
+            client.wipe()
+        real = RemoteIndex(("127.0.0.1", servers[0].port), space="bands", timeout=2.0)
+        try:
+            with pytest.raises(RpcRemoteError, match="wipe"):
+                real.wipe()
+        finally:
+            real.close()
+        assert canary_client.wipe() == 64 * 2, "every replica's copy must be expired"
+        assert (np.asarray(canary_client.probe_batch(keys)) == -1).all()
+        assert canary_client.wipe() == 0, "a re-wipe of an empty space is idempotent"
+        assert int(canary_client.allocate_doc_ids(4).min()) > int(ids.max())
+        for srv in servers:
+            for sp, idx in srv.indexes.items():
+                st = idx.stats()
+                assert int(st["segment_postings"]) + int(st["wal_postings"]) == 0, sp
+            assert canary.CANARY_SPACE_PREFIX + "probe" in srv.indexes
+    finally:
+        if canary_client is not None:
+            canary_client.close()
+        client.close()
+        for srv in servers:
+            srv.stop()

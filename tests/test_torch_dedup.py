@@ -125,14 +125,21 @@ def test_unported_configs_raise(corpus, overrides):
 
 
 def test_unported_methods_raise(corpus):
+    from advanced_scrapper_tpu_torch.index.fleet import ShardedIndexClient
+
+    def reshard():
+        client = ShardedIndexClient("127.0.0.1:9")  # opens no connection
+        try:
+            client.reshard_to("127.0.0.1:9;127.0.0.1:10")
+        finally:
+            client.close()
+
     eng = NearDupEngine(DedupConfig(rerank=False), device="cpu")
     for call in (
         lambda: eng.dedup_reps_sharded(corpus, None),
         lambda: eng.prewarm_sharded(None),
         lambda: eng.dedup_against_index(corpus, None, mesh=object()),
-        lambda: NearDupEngine(
-            DedupConfig(rerank=False, index_fleet="h:1"), device="cpu"
-        ).open_stream_index("x"),
+        reshard,
     ):
         with pytest.raises(NotImplementedError, match="slice"):
             call()

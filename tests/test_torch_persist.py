@@ -558,13 +558,7 @@ def test_cross_source_persist_mode_equals_reference(tmp_path):
 # -- still raising -----------------------------------------------------------------
 
 
-def test_fleet_and_mesh_still_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="9c"):
-        tpu_batch.TpuBatchBackend(DedupConfig(**PERSIST, index_fleet="h:1|h:2"),
-                                  index_dir=str(tmp_path), device="cpu")
+def test_mesh_still_raises():
     eng = NearDupEngine(DedupConfig(rerank=False), device="cpu")
     with pytest.raises(NotImplementedError, match="item 15"):
         eng.dedup_against_index(["abcdefgh"], None, mesh=object())
-    with pytest.raises(NotImplementedError, match="9c"):
-        NearDupEngine(DedupConfig(rerank=False, index_fleet="h:1"),
-                      device="cpu").open_stream_index(str(tmp_path))

@@ -337,20 +337,25 @@ def test_bloom_fill_warning_once(records, capsys):
     assert len(warn) == 2 and warn[0] == warn[1]  # once each, word for word
 
 
-def test_unported_modes_raise():
-    """The index fleet raises, in every mode and in the engine; the
-    persist mode itself is ported (``tests/test_torch_persist.py``)."""
-    fleet = dict(index_fleet="h:1", index_dir="x")
-    for mode in ("exact", "bloom", "persist"):
-        with pytest.raises(NotImplementedError, match="9c"):
-            tpu_batch.TpuBatchBackend(DedupConfig(stream_index=mode, **fleet), device="cpu")
+def test_unported_modes_raise(tmp_path):
+    """An unknown mode and a persist mode without a directory raise.  The
+    index fleet, ported since, is the persist mode's alone: the exact and
+    bloom modes leave ``index_fleet`` unread, as the reference's do, and
+    the engine opens a fleet client without a call to a shard (the fleet's
+    own tests: ``tests/test_torch_fleet.py``)."""
+    fleet = dict(index_fleet="127.0.0.1:9", index_dir=str(tmp_path))
+    for mode in ("exact", "bloom"):
+        b = tpu_batch.TpuBatchBackend(DedupConfig(stream_index=mode, **fleet), device="cpu")
+        assert not b._persist_mode and not hasattr(b, "_pindex")
     with pytest.raises(ValueError, match="unknown stream_index"):
         tpu_batch.TpuBatchBackend(DedupConfig(stream_index="lsm"), device="cpu")
     with pytest.raises(ValueError, match="index directory"):
         tpu_batch.TpuBatchBackend(DedupConfig(stream_index="persist"), device="cpu")
     eng = NearDupEngine(DedupConfig(rerank=False, **fleet), device="cpu")
-    with pytest.raises(NotImplementedError, match="9c"):
-        eng.open_stream_index("x")
+    index = eng.open_stream_index(str(tmp_path / "ix"))
+    assert type(index).__name__ == "ShardedIndexClient"
+    assert index.spec.shards == ((("127.0.0.1", 9),),)
+    index.close()
 
 
 def test_default_device_is_the_card():
