@@ -17,11 +17,13 @@ the other's directory.
   advanced_scrapper_tpu_torch.index.remote``) and :class:`~.remote.RemoteIndex`.
 - :mod:`.fleet` — :class:`~.fleet.ShardedIndexClient`: the persistent
   index's API over replicated shard servers, with failover, spill and
-  anti-entropy repair.  Its reshard driver comes with the second half of
-  ROADMAP item 9c.
+  anti-entropy repair, and live N→M resharding (``reshard_to``).
+- :mod:`.reshard` — the reshard plan math (:func:`~.reshard.plan_reshard`,
+  :class:`~.reshard.RangeTable`) and its crash-safe migration WAL
+  (:class:`~.reshard.ReshardLedger`).
 
-Like the reference's, this package does not re-export ``remote`` or
-``fleet``: callers import those modules by name.
+Like the reference's, this package does not re-export ``remote``,
+``fleet`` or ``reshard``: callers import those modules by name.
 """
 
 from advanced_scrapper_tpu_torch.index.segment import (

@@ -45,19 +45,16 @@ Every edge is on the telemetry plane: per-shard RPC latency histograms,
 retry / failover / promotion / spill / replay counters, and a
 ``fleet_status()`` dict for ``/status``.
 
-The port's copy of the reference's ``index/fleet.py`` without its reshard
-driver (``reshard_to`` and the live N→M cutover): request ids, routing,
-spill journals and every RPC are the reference's, so a port client drives
-reference shard servers and the other way round.  ``reshard_to`` raises
-``NotImplementedError``, and so does opening a spill directory that holds
-an active reshard ledger (its range table, not the plain ring, would route
-the keys).  Host code: no torch.
+The port's copy of the reference's ``index/fleet.py``, ``reshard_to``
+included: request ids, routing, spill journals, the migration WAL and
+every RPC are the reference's, so a port client drives reference shard
+servers (and reshards them) and the other way round.  Host code: no
+torch.
 """
 
 from __future__ import annotations
 
 import hashlib
-import json
 import os
 import threading
 import time
@@ -65,7 +62,12 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from advanced_scrapper_tpu_torch.index.repair import mix64
+from advanced_scrapper_tpu_torch.index.repair import (
+    interval_add,
+    interval_sub,
+    mix64,
+    range_mask,
+)
 from advanced_scrapper_tpu_torch.index.remote import (
     CANARY_SPACE_PREFIX,
     namespace_policy,
@@ -106,13 +108,6 @@ def open_fleet_index(cfg, index_dir: str, *, space: str = "bands", **kw):
         health_checks=cfg.index_fleet_health_checks,
         **kw,
     )
-
-def _reshard_not_ported(what: str) -> NotImplementedError:
-    from advanced_scrapper_tpu_torch.pipeline.dedup import SLICE_RESHARD
-
-    return NotImplementedError(f"{what}: the reshard driver is not ported yet; "
-                               f"it comes in {SLICE_RESHARD}")
-
 
 _I64_MAX = np.iinfo(np.int64).max
 
@@ -313,9 +308,6 @@ class ShardedIndexClient:
         from advanced_scrapper_tpu_torch.storage.fsio import default_fs
 
         self._fs = fs or default_fs()
-        if spill_dir:
-            os.makedirs(spill_dir, exist_ok=True)
-            self._refuse_active_reshard()
         # request-id namespace unique ACROSS client processes: a server
         # that outlived a previous client must never replay that client's
         # cached response for this one's fresh request
@@ -327,8 +319,8 @@ class ShardedIndexClient:
         self._postings_written = 0  # client-side view for cheap gauges
         self._floor_lock = threading.Lock()
         self._closed = False
-        # node-client construction knobs, kept so ``for_space`` (and a
-        # scale-out reshard) builds clients exactly like __init__'s
+        # node-client construction knobs, kept so a scale-out reshard can
+        # grow the topology with clients built exactly like __init__'s
         self._retries = int(retries)
         self._connect = connect
         self._seed = int(seed)
@@ -363,15 +355,29 @@ class ShardedIndexClient:
         self._pool = FanoutPool(
             min(16, 2 * len(self._shards)), name=f"fleet-{space}"
         )
-        # -- elastic reshard state: what the hot path reads --------------
-        self._reshard: dict | None = None      # live cutover (never, yet)
+        # -- elastic reshard state (reshard_to) -----------------------------
+        self._reshard: dict | None = None      # live cutover: table/ledger/…
+        self._reshard_lock = threading.RLock()  # single-flight reshard driver
         self._route_shards = len(self._shards)  # ring size OUTSIDE a reshard
+        #: arcs each shard handed off / re-acquired — re-asserted on nodes
+        #: that were unreachable when the cutover told them (rejoin sync)
+        self._retired: dict[int, list[tuple[int, int]]] = {}
+        self._unretired: dict[int, list[tuple[int, int]]] = {}
+        self._reshard_dirty: set[int] = set()  # shards owed a control resync
+        #: the flip gate: writes intersecting the arc under digest-verify
+        #: hold at the door (bounded — see _gate_wait) so the src/dst
+        #: comparison sees a settled range
+        self._gate_cv = threading.Condition()
+        self._gate: tuple[int, int] | None = None
+        self._inflight = 0
         self._instrument()
         if spill_dir:
+            os.makedirs(spill_dir, exist_ok=True)
             self._reload_spill()
             for sh in self._shards:
                 if sh.pending:  # best-effort recovery replay at open
                     self._ensure_write_target(sh)
+            self._resume_reshard()
         if self.repair_interval > 0:
             self.start_repair(self.repair_interval)
 
@@ -514,7 +520,15 @@ class ShardedIndexClient:
                         "awaiting_resync": sorted(sh.gap_overflow),
                     }
                 )
-        return {"space": self.space, "shards": shards}
+        out = {"space": self.space, "shards": shards}
+        rs = self._reshard
+        if rs is not None:
+            out["reshard"] = {
+                "old_shards": rs["old_n"],
+                "new_shards": rs["new_n"],
+                "ranges": rs["table"].counts(),
+            }
+        return out
 
     # -- spill journal -----------------------------------------------------
 
@@ -681,6 +695,14 @@ class ShardedIndexClient:
                 self._m_backfilled.inc(backfilled)
             if node.alive:
                 self._m_rejoins.inc()
+                # a rejoiner may have missed reshard control calls
+                # (retire/unretire/fence) while dark — re-assert them
+                if (
+                    self._retired.get(sh.sid)
+                    or self._unretired.get(sh.sid)
+                    or sh.sid in self._reshard_dirty
+                ):
+                    self._sync_reshard_node(sh, node)
 
     def _ensure_write_target(self, sh: _Shard) -> _Node | None:
         """Advance the shard state machine; returns the proven write
@@ -981,6 +1003,12 @@ class ShardedIndexClient:
         self._m_repair_rounds.inc()
         for sh in self._shards:
             self._try_revive(sh, allow_resync=True)
+            if sh.sid in self._reshard_dirty:
+                # shards owed reshard control calls (retire/unretire/
+                # fence marks that failed in line) heal at repair cadence
+                self._reshard_dirty.discard(sh.sid)
+                for node in sh.live_nodes():
+                    self._sync_reshard_node(sh, node)
             live = sh.live_nodes()
             stats["shards"] += 1
             if len(live) < 2:
@@ -1035,38 +1063,494 @@ class ShardedIndexClient:
             t.join(timeout=5)
             self._repair_thread = None
 
-    # -- the reshard driver (the next slice) --------------------------------
+    # -- elastic reshard: live N→M cutover --------------------------------
 
-    def _refuse_active_reshard(self) -> None:
-        """Client (re)start: a spill directory holding an ACTIVE migration
-        WAL (``reshard-wal-<space>.json``, the reference's
-        ``reshard.ledger_path``) names a cutover in flight, whose range
-        table — not the plain ring — routes its keys.  The reshard driver is
-        not ported, so such a ledger raises: routing by the plain ring
-        would send keys to the wrong shard.  A ledger that cannot be read
-        raises too, since it cannot be told inactive."""
-        path = os.path.join(self.spill_dir, f"reshard-wal-{self.space}.json")
-        if not self._fs.exists(path):
-            return
+    #: upper bound a write intersecting the arc-under-flip waits at the
+    #: gate.  Proceeding past it is SAFE (a late dual-write applies to
+    #: both owners; any transient divergence fails the digest check and
+    #: retries) — the bound only stops a wedged flip from deadlocking the
+    #: write path.
+    GATE_WAIT_S = 30.0
+
+    @staticmethod
+    def _spec_string(spec: FleetSpec) -> str:
+        """Canonical wire form of a topology — the ledger's identity check
+        (a resumed reshard must be THE reshard the WAL recorded)."""
+        return ";".join(
+            "|".join(f"{h}:{p}" for h, p in nodes) for nodes in spec.shards
+        )
+
+    def _grow_shards(self, new_spec: FleetSpec) -> None:
+        """Extend the live topology with the new spec's extra shards
+        (scale-out).  Shard ids present in both specs must keep their
+        replica sets — moving a shard's NODES is the repair/restore
+        plane's job; a reshard only moves ring arcs between shards."""
+        for sid in range(min(len(self._shards), new_spec.num_shards)):
+            if new_spec.shards[sid] != self.spec.shards[sid]:
+                raise ValueError(
+                    f"reshard cannot move shard {sid}'s replica set "
+                    f"({self.spec.shards[sid]} → {new_spec.shards[sid]}); "
+                    "node replacement is repair/restore, not reshard"
+                )
+        from advanced_scrapper_tpu_torch.obs import telemetry
+
+        for sid in range(len(self._shards), new_spec.num_shards):
+            self._shards.append(
+                _Shard(
+                    sid=sid,
+                    nodes=[
+                        _Node(
+                            address=addr,
+                            client=RpcClient(
+                                addr,
+                                timeout=self.timeout,
+                                retries=self._retries,
+                                connect=self._connect,
+                                seed=self._seed * 1000 + sid * 10 + k,
+                                overload_wait_cap=self.overload_backoff_cap,
+                            ),
+                        )
+                        for k, addr in enumerate(new_spec.shards[sid])
+                    ],
+                )
+            )
+            for method in ("probe", "insert"):
+                self._m_rpc_s.setdefault(
+                    (sid, method),
+                    telemetry.histogram(
+                        "astpu_fleet_rpc_seconds",
+                        "per-shard RPC wall clock, by method",
+                        fleet=self._fid, shard=str(sid), method=method,
+                    ),
+                )
+
+    def _resume_reshard(self) -> None:
+        """Client (re)start: adopt an in-flight migration WAL.
+
+        Flipped/retired ranges keep their new owner — the flip write was
+        the commit point, sealed strictly after the digest match proved
+        the data on the next owner.  Every dual-write window caught open
+        is VOIDED back to ``pending``: unsealed progress never counts
+        (the armed-ledger discipline the resync path uses).  Routing
+        honors the adopted states immediately; the migration itself
+        continues when ``reshard_to`` runs again."""
+        from advanced_scrapper_tpu_torch.index import reshard as _rs
+
+        path = _rs.ledger_path(self.spill_dir, self.space)
         try:
-            with self._fs.open(path, "rb") as fh:
-                phase = json.loads(fh.read().decode("utf-8")).get("phase")
-        except (OSError, ValueError, AttributeError):
-            phase = "unreadable"
-        if phase != "done":
-            raise _reshard_not_ported(f"{path}: a reshard ledger ({phase})")
+            ledger = _rs.ReshardLedger.load(path, fs=self._fs)
+        except (OSError, ValueError, KeyError):
+            return  # unreadable/foreign ledger: surfaced when reshard_to runs
+        if ledger is None or ledger.phase != "active":
+            return
+        if ledger.doc.get("old_spec") != self._spec_string(self.spec):
+            return  # a different topology's WAL; not ours to resume
+        voided = ledger.void_unflipped()
+        new_spec = FleetSpec.parse(ledger.doc["new_spec"])
+        self._grow_shards(new_spec)
+        table = _rs.RangeTable(ledger.ranges)
+        metrics = _rs.reshard_metrics(self._fid)
+        if voided:
+            metrics["voids"].inc(voided)
+        _rs.register_state_gauges(self._fid, table)
+        for r in ledger.ranges:
+            # every dst is owed an unretire (its arc may be handed-off
+            # residue from an earlier topology round trip); sealed arcs
+            # re-enter the src's handed-off set
+            self._unretired[int(r["dst"])] = interval_add(
+                self._unretired.get(int(r["dst"]), []), r["lo"], r["hi"]
+            )
+            if r["state"] in ("flipped", "retired"):
+                self._retired[int(r["src"])] = interval_add(
+                    self._retired.get(int(r["src"]), []), r["lo"], r["hi"]
+                )
+        self._reshard_dirty.update(range(len(self._shards)))
+        self._reshard = {
+            "table": table,
+            "ledger": ledger,
+            "old_n": int(ledger.doc["old_n"]),
+            "new_n": int(ledger.doc["new_n"]),
+            "new_spec": new_spec,
+            "metrics": metrics,
+            "voided": voided,
+        }
 
     def _route(self, flat: np.ndarray) -> tuple[np.ndarray, np.ndarray | None]:
-        """Owning shard per key: the plain ring.  Returns ``(primary,
-        dual)``; ``dual`` (each key's next owner in a live cutover's
-        dual-write window) is ``None`` while no reshard runs — always, until
-        the reshard driver is ported."""
-        return ring_assign(flat, self._route_shards, self.vnodes), None
+        """Owning shard per key: the plain ring — unless a reshard is
+        live, in which case the range table decides per the cutover
+        lifecycle.  Returns ``(primary, dual)``; ``dual`` names each
+        key's NEXT owner during its arc's dual-write window (-1 outside
+        one, ``None`` when no reshard is running)."""
+        rs = self._reshard
+        if rs is None:
+            return ring_assign(flat, self._route_shards, self.vnodes), None
+        from advanced_scrapper_tpu_torch.index.reshard import route_keys
+
+        return route_keys(
+            flat, rs["table"], rs["old_n"], rs["new_n"], self.vnodes
+        )
+
+    def _gate_wait(self, keys: np.ndarray) -> None:
+        """Hold a write that intersects the arc being flipped until the
+        cutover releases the gate (bounded by ``GATE_WAIT_S`` — see the
+        constant's note on why proceeding late is safe)."""
+        if self._gate is None:
+            return
+        deadline = time.monotonic() + self.GATE_WAIT_S
+        with self._gate_cv:
+            while self._gate is not None:
+                lo, hi = self._gate
+                if not range_mask(keys, [(lo, hi)]).any():
+                    return
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    return
+                self._gate_cv.wait(timeout=min(left, 0.1))
+
+    def _sync_reshard_node(self, sh: _Shard, node: _Node) -> None:
+        """Re-assert this client's reshard verdicts on one node — the
+        rejoin half of the control plane.  A node that was dark when the
+        cutover told it to retire/unretire an arc (or drop its fence
+        mark) hears it here; every call is idempotent, every failure
+        re-queues via the dirty set."""
+        sid = sh.sid
+        try:
+            for lo, hi in self._retired.get(sid, ()):
+                self._node_call(
+                    sh, node, "retire_range",
+                    {"space": self.space, "lo": lo, "hi": hi},
+                    budget=self.timeout,
+                )
+            for lo, hi in self._unretired.get(sid, ()):
+                self._node_call(
+                    sh, node, "unretire_range",
+                    {"space": self.space, "lo": lo, "hi": hi},
+                    budget=self.timeout,
+                )
+            if self._reshard is None:
+                self._node_call(
+                    sh, node, "reshard_mark", {"op": "clear"},
+                    budget=self.timeout,
+                )
+            else:
+                self._node_call(
+                    sh, node, "reshard_mark",
+                    {"op": "set", "token": self._token},
+                    budget=self.timeout,
+                )
+        except (RpcUnavailable, RpcOverloaded):
+            self._reshard_dirty.add(sid)
+
+    def _broadcast_mark(self, op: str) -> None:
+        """Best-effort reshard fence on every live node (``set`` while a
+        migration is in flight, ``clear`` at completion) — what
+        ``tools/fleet_snapshot.py`` checks before trusting a fence.
+        Nodes missed here catch up through the rejoin/dirty sync."""
+        for sh in self._shards:
+            ok = True
+            for node in sh.live_nodes():
+                try:
+                    header = {"op": op}
+                    if op == "set":
+                        header["token"] = self._token
+                    self._node_call(
+                        sh, node, "reshard_mark", header, budget=self.timeout
+                    )
+                except (RpcUnavailable, RpcOverloaded):
+                    ok = False
+            if not ok or any(not n.alive for n in sh.nodes):
+                self._reshard_dirty.add(sh.sid)
 
     def reshard_to(self, new_spec: FleetSpec | str) -> dict:
-        """Live-migrate the fleet to ``new_spec`` (N→M shards): not ported
-        yet, raises ``NotImplementedError``."""
-        raise _reshard_not_ported("reshard_to")
+        """Live-migrate the fleet to ``new_spec`` (N→M shards, split or
+        merge) while it keeps answering probes and inserts.
+
+        Per migrating arc, in ring order: unretire the arc on its next
+        owner → durably arm the dual-write window (every write from that
+        instant applies to BOTH owners; reads stay on the old one) →
+        stream the old owner's semantic state across, paged under the
+        frame cap → under the write gate, require the arc's mixed bucket
+        digest to MATCH on the old owner and every live replica of the
+        new one → seal the flip in the migration WAL (THE commit point;
+        reads+writes move atomically) → retire the arc on the old owner.
+
+        Crash-safe at any instant: rerunning (or reconstructing the
+        client) resumes from the WAL — sealed flips keep their new
+        owner, open dual-write windows are voided back to pending.
+        Raises when a shard the migration needs is fully dark; the WAL
+        stays resumable."""
+        new = (
+            new_spec if isinstance(new_spec, FleetSpec)
+            else FleetSpec.parse(new_spec)
+        )
+        if not self.spill_dir:
+            raise RuntimeError(
+                "reshard_to needs a spill_dir: the migration WAL (the "
+                "crash-safety of the cutover) lives there"
+            )
+        from advanced_scrapper_tpu_torch.index import reshard as rs
+
+        with self._reshard_lock:
+            if (
+                self._reshard is None
+                and self._spec_string(new) == self._spec_string(self.spec)
+            ):
+                return {"ranges": 0, "flips": 0, "migrated_postings": 0,
+                        "digest_retries": 0, "voided": 0, "already": True}
+            st = self._arm_reshard(new, rs)
+            ledger = st["ledger"]
+            stats = {
+                "ranges": len(ledger.ranges),
+                "flips": 0,
+                "migrated_postings": 0,
+                "digest_retries": 0,
+                "voided": int(st.get("voided", 0)),
+            }
+            self._broadcast_mark("set")
+            for i, r in enumerate(ledger.ranges):
+                if r["state"] == "retired":
+                    continue
+                lo, hi = int(r["lo"]), int(r["hi"])
+                src, dst = int(r["src"]), int(r["dst"])
+                if r["state"] != "flipped":
+                    self._migrate_range(st, i, lo, hi, src, dst, stats)
+                self._retire_range_src(st, i, lo, hi, src, dst, stats)
+            self._finish_reshard(st, new)
+        return stats
+
+    def _arm_reshard(self, new: FleetSpec, rs) -> dict:
+        """Adopt the in-flight reshard state, or create it (plan + fresh
+        migration WAL + grown topology + routing table)."""
+        if self._reshard is not None:
+            got = self._spec_string(self._reshard["new_spec"])
+            if got != self._spec_string(new):
+                raise RuntimeError(
+                    f"a reshard to {got!r} is already in flight; it must "
+                    "finish (rerun it) before targeting another topology"
+                )
+            return self._reshard
+        old_n = self._route_shards
+        path = rs.ledger_path(self.spill_dir, self.space)
+        stale = rs.ReshardLedger.load(path, fs=self._fs)
+        if stale is not None and stale.phase == "active":
+            # _resume_reshard didn't adopt it ⇒ its old_spec is not ours:
+            # overwriting would orphan that migration's verdicts
+            raise RuntimeError(
+                f"{path}: an unfinished reshard WAL for a different "
+                "topology is present; resolve it first"
+            )
+        plan = rs.plan_reshard(old_n, new.num_shards, self.vnodes)
+        ledger = rs.ReshardLedger.create(
+            path,
+            old_n=old_n,
+            new_n=new.num_shards,
+            vnodes=self.vnodes,
+            old_spec=self._spec_string(self.spec),
+            new_spec=self._spec_string(new),
+            space=self.space,
+            ranges=plan,
+            fs=self._fs,
+        )
+        self._grow_shards(new)
+        table = rs.RangeTable(ledger.ranges)
+        metrics = rs.reshard_metrics(self._fid)
+        rs.register_state_gauges(self._fid, table)
+        st = {
+            "table": table,
+            "ledger": ledger,
+            "old_n": old_n,
+            "new_n": new.num_shards,
+            "new_spec": new,
+            "metrics": metrics,
+            "voided": 0,
+        }
+        self._reshard = st
+        from advanced_scrapper_tpu_torch.obs import trace
+
+        trace.record(
+            "event", "fleet.reshard_start", old=old_n,
+            new=new.num_shards, ranges=len(plan),
+        )
+        return st
+
+    def _migrate_range(self, st, i, lo, hi, src, dst, stats) -> None:
+        """One arc, pending → flipped: arm, stream, digest-verify, seal."""
+        table, ledger, metrics = st["table"], st["ledger"], st["metrics"]
+        src_sh, dst_sh = self._shards[src], self._shards[dst]
+        # the next owner may hold this arc as handed-off residue from an
+        # earlier topology (N→M→N): un-retire BEFORE any page lands, or
+        # its own insert filter would silently drop the stream
+        self._unretired[dst] = interval_add(
+            self._unretired.get(dst, []), lo, hi
+        )
+        self._retired[dst] = interval_sub(self._retired.get(dst, []), lo, hi)
+        for node in dst_sh.live_nodes():
+            try:
+                self._node_call(
+                    dst_sh, node, "unretire_range",
+                    {"space": self.space, "lo": lo, "hi": hi},
+                    budget=self.timeout,
+                )
+            except (RpcUnavailable, RpcOverloaded):
+                self._reshard_dirty.add(dst)
+        if table.state(i) == "pending":
+            # the LEDGER write precedes the first dual-applied write: a
+            # crash between the two leaves a recorded window that moved
+            # nothing — voided on resume, nothing unaccounted
+            ledger.mark(i, "dual_write")
+            table.set_state(i, "dual_write")
+        for attempt in range(max(1, self.resync_rounds)):
+            src_node = self._ensure_write_target(src_sh)
+            if src_node is None:
+                raise RpcUnavailable(
+                    f"reshard: shard {src} is fully dark; the migration "
+                    "WAL stays resumable — rerun when it returns"
+                )
+            self._stream_range(st, src_sh, src_node, dst_sh, lo, hi, stats)
+            if self._flip_range(st, i, lo, hi, src_sh, dst_sh, stats):
+                return
+            metrics["retries"].inc()
+            stats["digest_retries"] += 1
+        raise RuntimeError(
+            f"reshard: range {i} [{lo:#x},{hi:#x}) did not digest-converge "
+            f"after {self.resync_rounds} rounds (WAL resumable)"
+        )
+
+    def _stream_range(self, st, src_sh, src_node, dst_sh, lo, hi, stats):
+        """Page the arc's semantic state src → dst under the frame cap;
+        pushes ride ``_replicated_insert`` so every live dst replica (and
+        the gap ledgers of dead ones) receives it."""
+        metrics = st["metrics"]
+        off = 0
+        while True:
+            t0 = time.perf_counter()
+            h, (k, d) = self._node_call(
+                src_sh, src_node, "fetch_range",
+                {
+                    "space": self.space, "lo": lo, "hi": hi,
+                    "offset": off, "limit": self.REPLAY_CHUNK_POSTINGS,
+                    "mixed": True,
+                },
+                budget=self.timeout,
+            )
+            k = np.asarray(k, np.uint64)
+            d = np.asarray(d, np.uint64)
+            if k.size:
+                rid = (
+                    f"mig-{self._token}-{self._fid}-{dst_sh.sid}"
+                    f"-{self._next_wid()}"
+                )
+                self._replicated_insert(dst_sh, k, d, rid)
+            metrics["pages"].inc()
+            metrics["postings"].inc(int(k.size))
+            metrics["page_s"].observe(time.perf_counter() - t0)
+            metrics["page_b"].observe(float(k.nbytes + d.nbytes))
+            stats["migrated_postings"] += int(k.size)
+            off += int(k.size)
+            if off >= int(h.get("total", off)) or k.size == 0:
+                break
+
+    def _range_digest(self, sh, node, lo, hi):
+        _h, (dig, cnt) = self._node_call(
+            sh, node, "digest",
+            {
+                "space": self.space, "bits": self.digest_bits,
+                "lo": lo, "hi": hi, "mixed": True,
+            },
+            budget=self.timeout,
+        )
+        return np.asarray(dig, np.uint64), np.asarray(cnt, np.uint64)
+
+    def _flip_range(self, st, i, lo, hi, src_sh, dst_sh, stats) -> bool:
+        """The two-phase commit's decision point, under the write gate:
+        flip iff the old owner and EVERY live replica of the new one
+        answer identical mixed digests over the arc — and neither side
+        holds un-replayed spill for it (a spilled-but-acked write absent
+        from both digests would otherwise flip, then replay into a
+        retired range and vanish).  False = not yet; caller re-streams."""
+        table, ledger, metrics = st["table"], st["ledger"], st["metrics"]
+        with self._gate_cv:
+            self._gate = (lo, hi)
+            deadline = time.monotonic() + 2 * self.timeout
+            while self._inflight > 0 and time.monotonic() < deadline:
+                self._gate_cv.wait(timeout=0.05)
+        try:
+            # replay both sides' spill journals first; pending spill on
+            # either side makes the digests meaningless for a flip
+            src_node = self._ensure_write_target(src_sh)
+            self._ensure_write_target(dst_sh)
+            if src_node is None or src_sh.pending or dst_sh.pending:
+                return False
+            live = dst_sh.live_nodes()
+            if not live:
+                return False
+            want = self._range_digest(src_sh, src_node, lo, hi)
+            for node in live:
+                got = self._range_digest(dst_sh, node, lo, hi)
+                if not (
+                    np.array_equal(want[0], got[0])
+                    and np.array_equal(want[1], got[1])
+                ):
+                    return False
+            # sealed: the ledger write IS the commit point — a crash
+            # after it keeps the flip (the data is proven on the new
+            # owner), a crash before it voids the window cleanly
+            ledger.mark(i, "flipped")
+            table.set_state(i, "flipped")
+            metrics["flips"].inc()
+            stats["flips"] += 1
+            return True
+        except (RpcUnavailable, RpcOverloaded):
+            return False
+        finally:
+            with self._gate_cv:
+                self._gate = None
+                self._gate_cv.notify_all()
+
+    def _retire_range_src(self, st, i, lo, hi, src, dst, stats) -> None:
+        """Post-flip: the old owner drops the arc (handed-off manifest
+        mark — probes/inserts for it now answer empty there) and the
+        verdict is sealed.  Re-run-safe: a crash between flip and here
+        re-asserts on resume."""
+        table, ledger = st["table"], st["ledger"]
+        src_sh = self._shards[src]
+        self._retired[src] = interval_add(self._retired.get(src, []), lo, hi)
+        self._unretired[src] = interval_sub(
+            self._unretired.get(src, []), lo, hi
+        )
+        for node in src_sh.live_nodes():
+            try:
+                self._node_call(
+                    src_sh, node, "retire_range",
+                    {"space": self.space, "lo": lo, "hi": hi},
+                    budget=self.timeout,
+                )
+            except (RpcUnavailable, RpcOverloaded):
+                self._reshard_dirty.add(src)
+        if any(not n.alive for n in src_sh.nodes):
+            self._reshard_dirty.add(src)
+        ledger.mark(i, "retired")
+        table.set_state(i, "retired")
+
+    def _finish_reshard(self, st, new: FleetSpec) -> None:
+        """Every range retired: seal the WAL, swap the routing topology,
+        drop the fence marks.  Shard objects beyond a scale-in's new
+        count stay open (their stores hold only handed-off residue and
+        answer empty) — closing live sockets under in-flight fan-outs is
+        not worth an empty probe saved."""
+        ledger = st["ledger"]
+        if not ledger.all_retired():
+            raise RuntimeError("reshard finish with unretired ranges")
+        ledger.finish()
+        self._route_shards = new.num_shards
+        self.spec = new
+        self._reshard = None
+        self._broadcast_mark("clear")
+        from advanced_scrapper_tpu_torch.obs import trace
+
+        trace.record(
+            "event", "fleet.reshard_done", shards=new.num_shards,
+        )
 
     # -- RPC fan-out internals --------------------------------------------
 
@@ -1418,26 +1902,57 @@ class ShardedIndexClient:
         with self._floor_lock:
             self._floor = max(self._floor, int(docs.max()) + 1)
             self._postings_written += int(keys.size)
-        shard_of, _dual = self._route(keys)
-        from advanced_scrapper_tpu_torch.obs import trace
+        self._gate_wait(keys)
+        with self._gate_cv:
+            self._inflight += 1
+        try:
+            shard_of, dual_of = self._route(keys)
+            from advanced_scrapper_tpu_torch.obs import trace
 
-        tctx = trace.current_context()
-        futures = []
-        for sid in range(len(self._shards)):
-            ix = np.flatnonzero(shard_of == sid)
-            if ix.size:
-                rid = (
-                    f"ins-{self._token}-{self._fid}-{sid}"
-                    f"-{self._next_wid()}"
-                )
-                futures.append(
-                    self._pool.submit(
-                        self._replicated_insert,
-                        self._shards[sid], keys[ix], docs[ix], rid, tctx=tctx,
+            tctx = trace.current_context()
+            futures = []
+            for sid in range(len(self._shards)):
+                ix = np.flatnonzero(shard_of == sid)
+                if ix.size:
+                    sh = self._shards[sid]
+                    rid = (
+                        f"ins-{self._token}-{self._fid}-{sid}"
+                        f"-{self._next_wid()}"
                     )
-                )
-        for fut in futures:
-            fut.result()
+                    futures.append(
+                        self._pool.submit(
+                            self._replicated_insert,
+                            sh, keys[ix], docs[ix], rid, tctx=tctx,
+                        )
+                    )
+                if dual_of is None:
+                    continue
+                # dual-write window: the arc's NEXT owner gets the same
+                # postings, first-class (gap ledger / spill discipline
+                # included) — idempotent server inserts make any overlap
+                # with the migration stream harmless
+                dx = np.flatnonzero(dual_of == sid)
+                if dx.size:
+                    rs = self._reshard
+                    if rs is not None:
+                        rs["metrics"]["dual"].inc(int(dx.size))
+                    rid = (
+                        f"dual-{self._token}-{self._fid}-{sid}"
+                        f"-{self._next_wid()}"
+                    )
+                    futures.append(
+                        self._pool.submit(
+                            self._replicated_insert,
+                            self._shards[sid], keys[dx], docs[dx], rid,
+                            tctx=tctx,
+                        )
+                    )
+            for fut in futures:
+                fut.result()
+        finally:
+            with self._gate_cv:
+                self._inflight -= 1
+                self._gate_cv.notify_all()
 
     _wid_lock = threading.Lock()
     _wid = 0

@@ -66,8 +66,7 @@ columns in :meth:`NearDupEngine.dedup_against_index`; each application is
 counted by ``ladder.count_effect``.
 
 What is not ported yet raises ``NotImplementedError`` naming its slice:
-the sharded methods and ``mesh=`` (item 15), and the index fleet's reshard
-driver (:data:`SLICE_RESHARD`, raised by ``index/fleet.py``).
+the sharded methods and ``mesh=`` (item 15).
 :meth:`NearDupEngine.open_stream_index` opens the index fleet when
 ``cfg.index_fleet`` is set.
 """
@@ -138,7 +137,6 @@ from advanced_scrapper_tpu_torch.pipeline.rerank import RerankTier
 from advanced_scrapper_tpu_torch.utils.bloom import pack_keys64
 
 SLICE_MESH = "the slice of ROADMAP item 15 (parallel/* on torch.distributed)"
-SLICE_RESHARD = "the slice of ROADMAP item 9c, second half (reshard)"
 
 #: Most bytes of text in one chunk (one copy, one kernel launch); an
 #: article longer than this is a chunk of its own.

@@ -7,12 +7,15 @@
 - :class:`AdmissionController` / :class:`DegradationLadder`
   (``runtime/admission.py``): counted admission decisions with retry-after
   hints, and the brownout ladder the dedup engine honours (``ladder``).
+- :class:`Autoscaler` (``runtime/autoscaler.py``): the elastic fleet's
+  policy head; it decides from the admission pressure when the shard count
+  changes (hysteresis, dwell, cooldown, an SLO gate) and calls the reshard
+  it is handed.
 - :class:`FanoutPool` (``runtime/graph.py``): a tiny Edge-fed executor for
   bounded parallel fan-out (the index fleet's per-shard RPCs).
 
-Copies of the reference's modules.  Its autoscaler comes with ROADMAP
-item 18.  Pure Python, no torch: the matcher's verify-pool workers may
-import it.
+Copies of the reference's modules.  Pure Python, no torch: the matcher's
+verify-pool workers may import it.
 """
 
 from advanced_scrapper_tpu_torch.runtime.admission import (
@@ -25,6 +28,10 @@ from advanced_scrapper_tpu_torch.runtime.admission import (
     AdmissionDecision,
     DegradationLadder,
     LadderStep,
+)
+from advanced_scrapper_tpu_torch.runtime.autoscaler import (
+    Autoscaler,
+    admission_pressure,
 )
 from advanced_scrapper_tpu_torch.runtime.graph import (
     DONE,
@@ -41,7 +48,7 @@ from advanced_scrapper_tpu_torch.runtime.pause import PauseGate
 
 __all__ = [
     "DEFAULT_LADDER_STEPS", "DONE", "PRIORITY_CRITICAL", "PRIORITY_HIGH", "PRIORITY_LOW",
-    "PRIORITY_NORMAL", "RETRY", "AdmissionController", "AdmissionDecision",
+    "PRIORITY_NORMAL", "RETRY", "AdmissionController", "AdmissionDecision", "Autoscaler",
     "DegradationLadder", "Edge", "EdgeClosed", "FanoutPool", "LadderStep", "PauseGate", "Stage",
-    "StageGraph", "live_graphs", "snapshot_all",
+    "StageGraph", "admission_pressure", "live_graphs", "snapshot_all",
 ]

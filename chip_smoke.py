@@ -2461,7 +2461,9 @@ def persist_path(docs: list[bytes], planted: dict[int, int], card: str) -> tuple
     the CPU (equal attributions, across a reopen).  Returns the segment
     kernel's launches over the two sessions, the batches, and what
     ``fleet_path`` holds the fleet to: the two sessions' annotations and
-    records/s and the card's ``dedup_against_index`` attributions."""
+    records/s and the card's ``dedup_against_index`` attributions, and a
+    copy of the index directory as session 1 left it (``session1``, a
+    temporary directory ``reshard_path`` probes and removes)."""
     import shutil
     import tempfile
 
@@ -2483,7 +2485,10 @@ def persist_path(docs: list[bytes], planted: dict[int, int], card: str) -> tuple
         index_dir = os.path.join(tmp, "index")
         sessions, ann = [], []
         launches = batches = 0
-        for part in (records[:PERSIST_SPLIT], records[PERSIST_SPLIT:]):
+        session1 = tempfile.mkdtemp(prefix="persist-session1-")
+        for si, part in enumerate((records[:PERSIST_SPLIT], records[PERSIST_SPLIT:])):
+            if si == 1:  # session 1's index, for reshard_path's probes
+                shutil.copytree(index_dir, session1, dirs_exist_ok=True)
             t0 = time.perf_counter()
             backend = TpuBatchBackend(cfg, index_dir=index_dir, device=dev)
             open_s = time.perf_counter() - t0
@@ -2586,7 +2591,7 @@ def persist_path(docs: list[bytes], planted: dict[int, int], card: str) -> tuple
         cut_postings=cfg.index_cut_postings, compact_segments=cfg.index_compact_segments,
         card=card)
     local = dict(annotations=ann, records_per_s=[x["records_per_s"] for x in sessions],
-                 against=card_run[4])
+                 against=card_run[4], session1=session1)
     return launches, batches, local
 
 
@@ -2608,22 +2613,29 @@ class ShardFleet:
     process of its own (``python -m advanced_scrapper_tpu_torch.index.remote``)
     on loopback over a directory under ``root``, at the server's defaults
     (spaces ``bands`` and ``urls``, cuts at 65,536 postings, compaction at
-    8 segments inline).  Every process is stopped (SIGTERM, then SIGKILL)
-    when the ``with`` block ends."""
+    8 segments inline).  ``grow`` adds shards.  Every process is stopped
+    (SIGTERM, then SIGKILL) when the ``with`` block ends."""
 
     def __init__(self, root: str):
         self.root = root
         self.procs: dict[tuple[int, int], subprocess.Popen] = {}
         self.ports: dict[tuple[int, int], int] = {}
+        self.shards = 0
         os.makedirs(root, exist_ok=True)
-        for node in self.nodes():
-            self.start(*node)
-        for node in self.nodes():
-            self.wait_ready(*node)
+        self.grow(FLEET_SHARDS)
 
-    @staticmethod
-    def nodes():
-        return [(s, r) for s in range(FLEET_SHARDS) for r in range(FLEET_REPLICAS)]
+    def grow(self, shards: int) -> None:
+        """Start the nodes of shards ``self.shards .. shards - 1`` together
+        and wait until each listens."""
+        new = [(s, r) for s in range(self.shards, shards) for r in range(FLEET_REPLICAS)]
+        for node in new:
+            self.start(*node)
+        for node in new:
+            self.wait_ready(*node)
+        self.shards = max(self.shards, shards)
+
+    def nodes(self):
+        return [(s, r) for s in range(self.shards) for r in range(FLEET_REPLICAS)]
 
     def path(self, s: int, r: int, suffix: str = "") -> str:
         return os.path.join(self.root, f"s{s}n{r}{suffix}")
@@ -2651,8 +2663,12 @@ class ShardFleet:
 
     @property
     def spec(self) -> str:
+        return self.spec_of(FLEET_SHARDS)
+
+    def spec_of(self, shards: int) -> str:
+        """The spec of this fleet's first ``shards`` shards."""
         return ";".join("|".join(f"127.0.0.1:{self.ports[(s, r)]}" for r in range(FLEET_REPLICAS))
-                        for s in range(FLEET_SHARDS))
+                        for s in range(shards))
 
     def kill(self, s: int, r: int) -> None:
         proc = self.procs[(s, r)]
@@ -2859,6 +2875,458 @@ def fleet_path(docs: list[bytes], card: str, local: dict, dev: str = "cuda") -> 
         parity_batch=STREAM_PARITY_BATCH, against_index_articles=AGAINST_INDEX_ARTICLES,
         parity=parity, seconds=time.perf_counter() - t_phase, card=card)
     return launches, batches
+
+
+RESHARD_BATCHES = 32  # persist_path's session 1: 32 batches of 1,024 records
+RESHARD_SHARDS = 4  # the scale-out's target; the scale-in merges back to FLEET_SHARDS
+RESHARD_PROBE_ROWS = 4096  # key rows a fresh client probes after each transition
+RESHARD_JOIN_S = 600.0  # the most the split may run on past the stream's end
+#: the autoscaler's scripted input: one observation a batch on a clock of
+#: ``RESHARD_TICK_S`` a batch, the pressure in the middle band until batch
+#: ``RESHARD_PRESSURE_AT`` and in the scale-out band from there; armed at
+#: batch 5, it holds past the 30 s dwell at batch 8
+RESHARD_TICK_S, RESHARD_DWELL_S, RESHARD_PRESSURE_AT = 10.0, 30.0, 5
+RESHARD_COOLDOWN_S = 300.0
+RESHARD_SCALE_AT = RESHARD_PRESSURE_AT + int(RESHARD_DWELL_S // RESHARD_TICK_S)
+
+
+def counter_total(name: str, fleet_id: str) -> float:
+    """An always-on ``astpu_reshard_*`` counter of one fleet client."""
+    from advanced_scrapper_tpu_torch.obs import telemetry
+
+    return sum(m.value for m in telemetry.REGISTRY.find(name)
+               if m.labels.get("fleet") == fleet_id)
+
+
+def percentiles_ms(seconds: list[float]) -> dict:
+    a = np.asarray(seconds, np.float64) * 1e3
+    if not a.size:
+        return dict(n=0, p50_ms=None, p99_ms=None, max_ms=None)
+    return dict(n=int(a.size), p50_ms=float(np.percentile(a, 50)),
+                p99_ms=float(np.percentile(a, 99)), max_ms=float(a.max()))
+
+
+def reshard_space(client, space: str, spec: str) -> dict:
+    """``client.reshard_to(spec)`` for one key space, timed, with the write
+    gate's hold time per flip (each ``_flip_range`` call holds the gate from
+    its start to its end); checks that every range flipped, none was voided
+    and the migration WAL ended ``done`` with every range retired."""
+    from advanced_scrapper_tpu_torch.index.reshard import ReshardLedger, ledger_path
+
+    holds: list[float] = []
+    flip = client._flip_range
+
+    def timed_flip(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return flip(*args, **kw)
+        finally:
+            holds.append(time.perf_counter() - t0)
+
+    pages0 = counter_total("astpu_reshard_pages_total", client._fid)
+    client._flip_range = timed_flip
+    t0 = time.perf_counter()
+    try:
+        stats = client.reshard_to(spec)
+    finally:
+        del client._flip_range
+    seconds = time.perf_counter() - t0
+    assert stats["flips"] == stats["ranges"] > 0 and stats["voided"] == 0, (space, stats)
+    ledger = ReshardLedger.load(ledger_path(client.spill_dir, space))
+    assert ledger.phase == "done" and ledger.all_retired(), (space, ledger.doc["phase"])
+    return dict(space=space, seconds=seconds, arcs=stats["ranges"], flips=stats["flips"],
+                voided=stats["voided"], digest_retries=stats["digest_retries"],
+                migrated_postings=stats["migrated_postings"],
+                pages=counter_total("astpu_reshard_pages_total", client._fid) - pages0,
+                gate_hold=percentiles_ms(holds), spilled=fleet_counts(client)["spilled"])
+
+
+def reshard_path(fleet: ShardFleet, docs: list[bytes], card: str, local: dict,
+                 dev: str = "cuda") -> tuple[int, int]:
+    """Live N→M resharding under the stream: the persist mode on ``fleet``
+    (2 shards of a primary and a replica, each a process) over the first
+    ``RESHARD_BATCHES`` batches of ``persist_path``'s records, with telemetry
+    on.  An ``Autoscaler`` observes one scripted pressure sample a batch on
+    an injected clock and fires ``scale_out(4)`` after batch
+    ``RESHARD_SCALE_AT``: the callback starts 4 more shard processes and
+    runs ``reshard_to`` the 4 × 2 spec on a thread of its own, the ``bands``
+    space and then the ``urls`` space (a node's ``reshard_mark`` covers
+    every space it hosts), while the batches keep flowing.  After the
+    stream, two more samples make it fire ``scale_in(2)``, which merges the
+    fleet back to 2 × 2 through fresh clients.  Checks: one segment-kernel
+    launch per batch and no other; the annotations equal ``persist_path``'s
+    session 1; each reshard flips every range and voids none, and its
+    ledger ends ``done`` with every range retired; after each transition a
+    fresh client on the spill directory gives the probes of session 1's
+    local index over ``RESHARD_PROBE_ROWS`` band-key rows and their urls;
+    nothing is spilled; the two replicas of each shard give equal
+    ``bucket_digests`` in both spaces.  Prints records/s inside the split's
+    window and outside it, each reshard's seconds, arcs, pages, migrated
+    postings and the gate's hold time per flip, and the clients' RPC
+    latency by method.  Returns the segment kernel's launches and the
+    batches."""
+    import threading
+
+    from advanced_scrapper_tpu_torch.config import DedupConfig
+    from advanced_scrapper_tpu_torch.extractors.tpu_batch import TpuBatchBackend
+    from advanced_scrapper_tpu_torch.index import PersistentIndex
+    from advanced_scrapper_tpu_torch.index.fleet import open_fleet_index
+    from advanced_scrapper_tpu_torch.obs import telemetry
+    from advanced_scrapper_tpu_torch.runtime.autoscaler import Autoscaler
+    from advanced_scrapper_tpu_torch.utils.bloom import hash_key64, pack_keys64
+
+    t_phase = time.perf_counter()
+    cfg = DedupConfig(stream_index="persist", index_fleet=fleet.spec)
+    records = stream_records(docs, np.random.RandomState(17))[:RESHARD_BATCHES * cfg.batch_size]
+    index_dir = os.path.join(fleet.root, "reshard-local")
+    telemetry.set_enabled(True)
+    backend = TpuBatchBackend(cfg, index_dir=index_dir, device=dev)
+    clients = {"bands": backend._pindex, "urls": backend._pindex_urls}
+    window: dict = {}
+    box: dict = {}
+    split: list[dict] = []
+    merge: list[dict] = []
+
+    def run_split(spec: str) -> None:
+        try:
+            for sp, client in clients.items():
+                split.append(reshard_space(client, sp, spec))
+        except BaseException as e:  # raised on the main thread after the stream
+            box["error"] = e
+        finally:
+            window["end"] = time.perf_counter()
+
+    def scale_out(target: int) -> None:
+        window["start"] = time.perf_counter()
+        fleet.grow(target)
+        window["grow_seconds"] = time.perf_counter() - window["start"]
+        box["thread"] = threading.Thread(target=run_split, args=(fleet.spec_of(target),),
+                                         daemon=True)
+        box["thread"].start()
+
+    def scale_in(target: int) -> None:
+        cfg_now = DedupConfig(stream_index="persist", index_fleet=fleet.spec_of(fleet.shards))
+        for sp in ("bands", "urls"):
+            client = open_fleet_index(cfg_now, index_dir, space=sp)
+            try:
+                merge.append(reshard_space(client, sp, fleet.spec_of(target)))
+                merge[-1]["rpc_latency"] = rpc_latency(client)
+            finally:
+                client.close()
+
+    clock = [0.0]
+    scaler = Autoscaler(FLEET_SHARDS, scale_out=scale_out, scale_in=scale_in,
+                        dwell_s=RESHARD_DWELL_S, cooldown_s=RESHARD_COOLDOWN_S,
+                        min_shards=FLEET_SHARDS, max_shards=RESHARD_SHARDS,
+                        clock=lambda: clock[0], name="reshard_path")
+    process, ends, fired = backend._process, [], []
+
+    def observed():
+        out = process()
+        ends.append(time.perf_counter())
+        done = len(ends)
+        clock[0] = done * RESHARD_TICK_S
+        pressure = 0.9 if done >= RESHARD_PRESSURE_AT else 0.35
+        fired.append(scaler.observe(pressure, now=clock[0]))
+        return out
+
+    backend._process = observed
+    try:
+        t_stream = time.perf_counter()
+        got, rec = run_stream(backend, records)
+        n = backend.stats.batches
+        assert rec["launches"]["minhash_fold_segments"] == n == RESHARD_BATCHES, rec["launches"]
+        assert sum(rec["launches"].values()) == n, rec["launches"]
+        assert fired.index("out") + 1 == RESHARD_SCALE_AT, fired
+        assert got == local["annotations"][:len(records)], \
+            "the resharded fleet's annotations differ from the local index's"
+        box["thread"].join(timeout=RESHARD_JOIN_S)
+        assert not box["thread"].is_alive(), "the split did not finish"
+        if "error" in box:
+            raise box["error"]
+        stream_counts = {sp: fleet_counts(c) for sp, c in clients.items()}
+        stream_latency = {sp: rpc_latency(c) for sp, c in clients.items()}
+        stream_status = {sp: c.fleet_status() for sp, c in clients.items()}
+        rng = np.random.RandomState(23)
+        sample = np.sort(rng.choice(len(records), RESHARD_PROBE_ROWS, replace=False))
+        _s, wide = backend.engine.signatures_and_keys(
+            [records[i]["article"] for i in sample], wide=True, sync_sigs=False)
+        rows = {"bands": pack_keys64(wide),
+                "urls": np.array([[hash_key64(records[i]["url"])] for i in sample
+                                  if records[i]["url"]], np.uint64)}
+    finally:
+        backend._process = process
+        backend.close()
+    # records/s: a batch's interval runs from the previous batch's end
+    starts = [t_stream] + ends[:-1]
+    inside = [i for i, e in enumerate(ends) if window["start"] <= e <= window["end"]]
+    outside = [i for i in range(len(ends)) if i not in inside]
+
+    def rate(ix: list[int]) -> float | None:
+        secs = sum(ends[i] - starts[i] for i in ix)
+        return len(ix) * cfg.batch_size / secs if ix else None
+
+    oracle = {sp: PersistentIndex(os.path.join(local["session1"], sp), read_only=True)
+              for sp in ("bands", "urls")}
+    try:
+        want = {sp: np.asarray(oracle[sp].probe_batch(rows[sp])) for sp in rows}
+    finally:
+        for ix in oracle.values():
+            ix.close()
+
+    def check_transition(shards: int) -> dict:
+        """A fresh client at ``shards`` shards on the spill directory: its
+        probes equal session 1's local index's, nothing spilled; every
+        shard's two nodes give equal digests in both spaces."""
+        tcfg = DedupConfig(stream_index="persist", index_fleet=fleet.spec_of(shards))
+        hits = {}
+        for sp in ("bands", "urls"):
+            client = open_fleet_index(tcfg, index_dir, space=sp)
+            try:
+                probed = np.asarray(client.probe_batch(rows[sp]))
+                assert client._route_shards == shards
+            finally:
+                client.close()
+            assert (probed == want[sp]).all(), f"{sp} at {shards} shards: probes differ"
+            hits[sp] = int((probed >= 0).sum())
+            for s in range(fleet.shards):
+                d = node_digests(fleet, s, sp)
+                assert d[0] == d[1], f"{sp} shard {s}: the replicas diverged"
+        return hits
+
+    after_split = check_transition(RESHARD_SHARDS)
+    clock[0] = max(clock[0], RESHARD_SCALE_AT * RESHARD_TICK_S + RESHARD_COOLDOWN_S)
+    assert scaler.observe(0.05, now=clock[0], slo_ok=True) == "none"
+    clock[0] += RESHARD_DWELL_S
+    assert scaler.observe(0.05, now=clock[0], slo_ok=True) == "in"
+    after_merge = check_transition(FLEET_SHARDS)
+    for r in split + merge:
+        assert r["spilled"] == 0, r
+    for sp, c in stream_counts.items():
+        assert c["spilled"] == 0 and c["failovers"] == 0, (sp, c)
+    status = scaler.status()
+    assert status["shards"] == FLEET_SHARDS, status
+    assert scaler._m_trans["out"].value == scaler._m_trans["in"].value == 1
+    telemetry.set_enabled(None)
+    log("reshard_path", records=len(records), batches=n, shards=FLEET_SHARDS,
+        replicas=FLEET_REPLICAS, grown_to=RESHARD_SHARDS, scale_out_after_batch=RESHARD_SCALE_AT,
+        autoscaler=dict(status=status, decisions=fired,
+                        blocked={k: c.value for k, c in scaler._m_blocked.items()}),
+        grow_seconds=window["grow_seconds"], window_seconds=window["end"] - window["start"],
+        batches_in_window=len(inside), records_per_s_in_window=rate(inside),
+        records_per_s_outside=rate(outside),
+        local_records_per_s=local["records_per_s"][0],
+        stream_seconds=rec["seconds"], split=split, merge=merge,
+        probe_rows={sp: len(r) for sp, r in rows.items()},
+        probe_hits=dict(after_split=after_split, after_merge=after_merge),
+        counts=stream_counts, rpc_latency=stream_latency, fleet_status=stream_status,
+        seconds=time.perf_counter() - t_phase, card=card)
+    return n, n
+
+
+GATEWAY_BATCHES, GATEWAY_BATCH = 8, 1024  # each of tenants a and b
+GATEWAY_SHARED = 256  # of a's articles repeated in each of b's batches
+GATEWAY_Q_BATCHES, GATEWAY_Q_BATCH = 4, 256
+GATEWAY_Q_RATE = 3.0  # tenant q's quota, requests/s, burst 1
+
+
+def gateway_path(fleet: ShardFleet, card: str, dev: str = "cuda") -> tuple[int, int]:
+    """The multi-tenant gateway on the merged 2 × 2 fleet: a process of
+    its own (``python -m advanced_scrapper_tpu_torch.service.gateway``),
+    tenants ``a`` and ``b`` provisioned on first sight, ``q`` declared with
+    a quota of ``GATEWAY_Q_RATE`` requests/s.  ``a`` and ``b`` each submit
+    ``GATEWAY_BATCHES`` batches of 1,024 ``rerank_corpus`` articles, their
+    keys computed on the card (``signatures_and_keys(wide=True,
+    sync_sigs=False)``, packed by ``pack_keys64``) and sent by ``RpcClient``
+    as ``submit_batch`` with ``allocate: true``; each of ``b``'s batches
+    repeats ``GATEWAY_SHARED`` of ``a``'s articles.  Checks: one
+    segment-kernel launch per batch and no other; each tenant's
+    attributions equal a local ``PersistentIndex``'s fed the same rows and
+    ids; every attribution of ``b`` names one of ``b``'s own ids (the
+    allocators are per tenant space, so both draw from 0), and the rows
+    ``b`` copied from ``a`` are first sight in ``b`` wherever its local
+    index says so; a client without retries gets ``RpcOverloaded`` from
+    ``q``'s bucket, and a retrying one lands the rest with the local
+    index's attributions; ``tenant_status`` counts each tenant's postings
+    as its local index does; ``wipe_tenant("b")`` drops exactly ``b``'s
+    postings on every node and leaves the others; SIGTERM stops the
+    gateway with status 0.  Prints ``submit_batch`` p50/p99 per tenant and
+    articles/s end to end with the keys' share.  Returns the segment
+    kernel's launches and the batches."""
+    from advanced_scrapper_tpu_torch.config import DedupConfig
+    from advanced_scrapper_tpu_torch.index import PersistentIndex
+    from advanced_scrapper_tpu_torch.net.rpc import RpcClient, RpcOverloaded
+    from advanced_scrapper_tpu_torch.pipeline.dedup import NearDupEngine
+    from advanced_scrapper_tpu_torch.utils.bloom import pack_keys64
+
+    t_phase = time.perf_counter()
+    root = os.path.join(fleet.root, "gateway")
+    os.makedirs(root)
+    port_file, log_path = os.path.join(root, "port"), os.path.join(root, "log")
+    cmd = [sys.executable, "-m", "advanced_scrapper_tpu_torch.service.gateway",
+           "--port-file", port_file, "--name", "chip-gateway", "--stats-interval", "0",
+           "--tenant", f"q,rate={GATEWAY_Q_RATE},burst=1"]
+    for s in range(FLEET_SHARDS):
+        cmd += ["--shard", ",".join(f"127.0.0.1:{fleet.ports[(s, r)]}"
+                                    for r in range(FLEET_REPLICAS))]
+    engine = NearDupEngine(DedupConfig(stream_index="persist"), device=dev)
+    rng = np.random.RandomState(43)
+    a_docs = rerank_corpus(np.random.RandomState(41), GATEWAY_BATCHES * GATEWAY_BATCH)
+    b_docs = rerank_corpus(np.random.RandomState(42), GATEWAY_BATCHES * GATEWAY_BATCH)
+    q_docs = rerank_corpus(np.random.RandomState(44), GATEWAY_Q_BATCHES * GATEWAY_Q_BATCH)
+    batches = {"a": [], "b": []}
+    copied = []  # per b batch: the rows copied from a
+    for k in range(GATEWAY_BATCHES):
+        lo, hi = k * GATEWAY_BATCH, (k + 1) * GATEWAY_BATCH
+        a_batch, b_batch = a_docs[lo:hi], list(b_docs[lo:hi])
+        rows = np.sort(rng.choice(GATEWAY_BATCH, GATEWAY_SHARED, replace=False))
+        for r, src in zip(rows, rng.choice(GATEWAY_BATCH, GATEWAY_SHARED, replace=False)):
+            b_batch[r] = a_batch[src]
+        batches["a"].append(a_batch)
+        batches["b"].append(b_batch)
+        copied.append(rows)
+    with open(log_path, "ab") as err:
+        proc = subprocess.Popen(cmd, stdout=subprocess.DEVNULL, stderr=err)
+    locals_: dict = {}
+    rc = strict = retrying = None
+    try:
+        deadline = time.monotonic() + FLEET_READY_S
+        while not os.path.exists(port_file):
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise RuntimeError("the gateway did not listen: "
+                                   + open(log_path, errors="replace").read()[-2000:])
+            time.sleep(0.02)
+        addr = ("127.0.0.1", int(open(port_file).read()))
+        rc = RpcClient(addr, timeout=60.0)
+        locals_ = {t: PersistentIndex(os.path.join(root, f"local-{t}")) for t in ("a", "b", "q")}
+        submit_s: dict[str, list[float]] = {"a": [], "b": [], "q": []}
+        keys_s = 0.0
+        attrs: dict[str, list] = {"a": [], "b": [], "q": []}
+        ids_of: dict[str, list] = {"a": [], "b": [], "q": []}
+        want: dict[str, list] = {"a": [], "b": [], "q": []}
+
+        def keys_of(texts) -> np.ndarray:
+            nonlocal keys_s
+            t0 = time.perf_counter()
+            _s, wide = engine.signatures_and_keys(texts, wide=True, sync_sigs=False)
+            keys = pack_keys64(wide)
+            keys_s += time.perf_counter() - t0
+            return keys
+
+        local_s = 0.0
+
+        def landed(t: str, keys, resp, arrays, seconds: float) -> None:
+            nonlocal local_s
+            attr, ids = (np.asarray(x) for x in arrays)
+            assert resp["allocated"] and resp["n"] == len(keys) == len(ids), resp
+            submit_s[t].append(seconds)
+            attrs[t].append(attr.astype(np.int64))
+            ids_of[t].append(ids.astype(np.uint64))
+            t0 = time.perf_counter()
+            want[t].append(np.asarray(locals_[t].check_and_add_batch(keys, ids), np.int64))
+            local_s += time.perf_counter() - t0
+
+        reset_launches()
+        t_ab = time.perf_counter()
+        for k in range(GATEWAY_BATCHES):
+            for t in ("a", "b"):
+                keys = keys_of(batches[t][k])
+                t0 = time.perf_counter()
+                resp, arrays = rc.call("submit_batch", {"tenant": t, "allocate": True}, [keys])
+                landed(t, keys, resp, arrays, time.perf_counter() - t0)
+        # end to end without the local indexes' own time
+        ab_seconds, ab_keys_s = time.perf_counter() - t_ab - local_s, keys_s
+        q_keys = [keys_of(q_docs[k * GATEWAY_Q_BATCH:(k + 1) * GATEWAY_Q_BATCH])
+                  for k in range(GATEWAY_Q_BATCHES)]
+        launches = read_launches()
+        n_batches = 2 * GATEWAY_BATCHES + GATEWAY_Q_BATCHES
+        assert launches["minhash_fold_segments"] == n_batches, launches
+        assert sum(launches.values()) == n_batches, launches
+        # q: a client without retries until the bucket refuses, then one that retries
+        strict = RpcClient(addr, timeout=60.0, retries=0)
+        retrying = RpcClient(addr, timeout=60.0, retries=8)
+        refused, k = None, 0
+        t_q = time.perf_counter()
+        while k < GATEWAY_Q_BATCHES:
+            client = retrying if refused else strict
+            t0 = time.perf_counter()
+            try:
+                resp, arrays = client.call("submit_batch", {"tenant": "q", "allocate": True},
+                                           [q_keys[k]])
+            except RpcOverloaded as e:
+                assert refused is None and e.retry_after and e.retry_after > 0, e
+                refused = dict(batch=k, retry_after_s=e.retry_after)
+                continue
+            landed("q", q_keys[k], resp, arrays, time.perf_counter() - t0)
+            k += 1
+        q_seconds = time.perf_counter() - t_q
+        assert refused is not None, "q's bucket never refused"
+        for t in attrs:
+            got, exp = np.concatenate(attrs[t]), np.concatenate(want[t])
+            assert np.array_equal(got, exp), f"tenant {t}: attributions differ from its local index"
+        b_attr, b_ids = np.concatenate(attrs["b"]), np.concatenate(ids_of["b"])
+        assert set(b_attr[b_attr >= 0].tolist()) <= set(b_ids.tolist())
+        copied_first = sum(int((attrs["b"][k][rows] < 0).sum()) for k, rows in enumerate(copied))
+        assert copied_first > 0, "every row b copied from a was a dup in b"
+        status = rc.call("tenant_status", {})[0]["tenants"]
+        postings = {}
+        for t, ix in locals_.items():
+            st = ix.stats()
+            postings[t] = int(st["segment_postings"]) + int(st["wal_postings"])
+            fresh = sum(int((a < 0).sum()) for a in want[t])
+            assert status[t]["postings"] == postings[t] == fresh * engine.params.num_bands, \
+                (t, status[t]["postings"], postings[t], fresh)
+        dropped = rc.call("wipe_tenant", {"tenant": "b"})[0]["dropped"]
+        after = rc.call("tenant_status", {})[0]["tenants"]
+        assert dropped == FLEET_REPLICAS * postings["b"], (dropped, postings["b"])
+        assert after["b"]["postings"] == 0 and all(
+            after[t]["postings"] == postings[t] for t in ("a", "q")), after
+        probe = np.asarray(rc.call("probe_batch", {"tenant": "b"},
+                                   [keys_of(batches["b"][0])])[1][0])
+        assert (probe < 0).all(), "b's postings survived its wipe"
+    finally:
+        for c in (rc, strict, retrying):
+            if c is not None:
+                c.close()
+        for ix in locals_.values():
+            ix.close()
+        proc.terminate()
+        try:
+            rc_gw = proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=10)
+            rc_gw = None
+    assert rc_gw == 0, f"the gateway exited {rc_gw} on SIGTERM"
+    articles = 2 * GATEWAY_BATCHES * GATEWAY_BATCH
+    log("gateway_path", tenants=sorted(attrs), batches=n_batches, articles=articles,
+        shared_per_b_batch=GATEWAY_SHARED, q_rate=GATEWAY_Q_RATE, q_refused=refused,
+        q_seconds=q_seconds, copied_first_sight_in_b=copied_first,
+        submit_batch={t: percentiles_ms(s) for t, s in submit_s.items()},
+        articles_per_s=articles / ab_seconds, keys_share=ab_keys_s / ab_seconds,
+        postings=postings, wiped=dropped, dups={t: int(sum((a >= 0).sum() for a in v))
+                                              for t, v in attrs.items()},
+        seconds=time.perf_counter() - t_phase, card=card)
+    return launches["minhash_fold_segments"], n_batches
+
+
+def elastic_paths(docs: list[bytes], card: str, local: dict,
+                  dev: str = "cuda") -> tuple[tuple[int, int], tuple[int, int]]:
+    """``reshard_path`` and then ``gateway_path`` on one ``ShardFleet``;
+    removes ``persist_path``'s copy of session 1.  Returns each phase's
+    launches and batches."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="elastic-")
+    try:
+        with ShardFleet(os.path.join(tmp, "fleet")) as fleet:
+            resharded = reshard_path(fleet, docs, card, local, dev)
+            served = gateway_path(fleet, card, dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(local["session1"], ignore_errors=True)
+    return resharded, served
 
 
 CROSS_A, CROSS_B, CROSS_STORE = 32768, 16384, 16384  # articles per source
@@ -3764,12 +4232,16 @@ def main() -> int:
     stream_launches, stream_batches = stream_path(docs, planted, card)
     persist_launches, persist_batches, local = persist_path(docs, planted, card)
     fleet_launches, fleet_batches = fleet_path(docs, card, local)
+    (reshard_launches, reshard_batches), (gateway_launches, gateway_batches) = elastic_paths(
+        docs, card, local)
     del docs, local
     exact_path(card)
     cross_launches, cross_batches = cross_source_path(card)
     kernels[0]["stream_path"] = {"launches": stream_launches, "batches": stream_batches}
     kernels[0]["persist_path"] = {"launches": persist_launches, "batches": persist_batches}
     kernels[0]["fleet_path"] = {"launches": fleet_launches, "batches": fleet_batches}
+    kernels[0]["reshard_path"] = {"launches": reshard_launches, "batches": reshard_batches}
+    kernels[0]["gateway_path"] = {"launches": gateway_launches, "batches": gateway_batches}
     kernels[0]["cross_source_path"] = {"launches": cross_launches, "batches": cross_batches}
     st_main = settle_timing(default.rerank_tier, clock_mhz)
     log("kernel_timing", name="rerank_settle", shape="default_engine_main_corpus",

@@ -68,7 +68,8 @@ def test_port_files_found():
                 "pipeline/feed.py", "obs/perfdb.py", "ops/oph.py", "ops/oph_cuda.py",
                 "obs/telemetry.py", "obs/trace.py", "obs/stages.py", "obs/devprof.py",
                 "obs/profiler.py", "net/__init__.py", "net/rpc.py", "index/remote.py",
-                "index/fleet.py"):
+                "index/fleet.py", "index/reshard.py", "runtime/autoscaler.py",
+                "service/__init__.py", "service/tenancy.py", "service/gateway.py"):
         assert f"advanced_scrapper_tpu_torch/{rel}" in FILES, rel
     for name in NATIVE:
         assert (PORT / "native" / name).exists(), name
@@ -83,6 +84,80 @@ def test_no_jax_or_reference_import(rel):
 
 #: drivers a module may import only inside the function that needs them
 LAZY = ("psycopg2",)
+
+
+def _reference_lint():
+    """The reference's layer rules (``tools/lint_imports.py``, stdlib only)."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    try:
+        import lint_imports
+    finally:
+        sys.path.pop(0)
+    return lint_imports
+
+
+#: the layers whose rules the port holds as the reference's; ``ops/`` is a
+#: known difference (``ops/_build.py`` counts builds on the obs plane)
+LINT_LAYERS = ("index", "net", "runtime", "service")
+LINTED = [rel for rel in FILES if rel.startswith("advanced_scrapper_tpu_torch/")
+          and Path(rel).parts[1] in LINT_LAYERS]
+
+
+def _banned_imports(rel: str, text: str | None = None) -> list[str]:
+    """The imports of port file ``rel`` that the reference's rules ban for
+    its twin: the layer's banned layers (less the layer's allowed
+    modules), or the stricter per-module rule where the reference has one;
+    ``tools`` modules are banned to every port module.  ``text`` stands
+    in for the file's source."""
+    lint = _reference_lint()
+    pkg = "advanced_scrapper_tpu_torch"
+    inner = str(Path(*Path(rel).parts[1:]))
+    layer = Path(rel).parts[1]
+    banned = lint.RULES.get(layer, ())
+    allowed = tuple(a.replace(lint.PACKAGE, pkg, 1) for a in lint.ALLOW.get(layer, ()))
+    rule = lint.MODULE_RULES.get(inner)
+    if rule is not None:
+        extra, honor_allow = rule
+        banned = tuple(dict.fromkeys(banned + extra))
+        allowed = allowed if honor_allow else ()
+    tree = ast.parse((ROOT / rel).read_text() if text is None else text, filename=rel)
+    bad = []
+    for mod in _imported_modules(tree):
+        if mod == "tools" or mod.startswith("tools.") or mod in ("lint_imports", "loadgen"):
+            bad.append(mod)
+            continue
+        if any(mod == a or mod.startswith(a + ".") for a in allowed):
+            continue
+        bad += [mod for t in banned if mod == f"{pkg}.{t}" or mod.startswith(f"{pkg}.{t}.")]
+    return bad
+
+
+@pytest.mark.parametrize("rel", sorted(set(LINTED) | {
+    f"advanced_scrapper_tpu_torch/{m}" for m in ("ops/rerank.py", "obs/decisions.py",
+                                                  "obs/canary.py")}))
+def test_reference_layer_rules_hold(rel):
+    assert not _banned_imports(rel), f"{rel} imports {_banned_imports(rel)}"
+
+
+def test_elastic_modules_keep_their_stricter_rules():
+    """``index/reshard.py`` imports nothing from ``net/`` (not even the
+    ``net.rpc`` the rest of ``index/`` uses), ``runtime/autoscaler.py``
+    nothing from ``index/``, ``net/`` or ``tools/``, and
+    ``service/tenancy.py`` nothing from ``net/``, ``storage/`` or ``obs/``;
+    the rules bite (a banned import planted in a copy is reported)."""
+    lint = _reference_lint()
+    for inner, must in (("index/reshard.py", ("net",)),
+                        ("runtime/autoscaler.py", ("index", "net")),
+                        ("service/tenancy.py", ("net", "storage", "obs"))):
+        extra, honor_allow = lint.MODULE_RULES[inner]
+        assert set(must) <= set(extra) and not honor_allow, inner
+        assert not _banned_imports(f"advanced_scrapper_tpu_torch/{inner}")
+    planted = ("from advanced_scrapper_tpu_torch.net.rpc import RpcClient\n"
+               "import tools.loadgen\n")
+    assert _banned_imports("advanced_scrapper_tpu_torch/index/reshard.py", planted) == [
+        "advanced_scrapper_tpu_torch.net.rpc", "tools.loadgen"]
+    assert _banned_imports("advanced_scrapper_tpu_torch/index/fleet.py", planted) == [
+        "tools.loadgen"]
 
 
 @pytest.mark.parametrize("rel", FILES)

@@ -125,24 +125,25 @@ def test_unported_configs_raise(corpus, overrides):
 
 
 def test_unported_methods_raise(corpus):
+    """The sharded methods raise naming their slice.  The fleet's
+    ``reshard_to`` is ported: without a spill directory (the migration
+    WAL's home) it refuses as the reference's does, not as unported."""
     from advanced_scrapper_tpu_torch.index.fleet import ShardedIndexClient
-
-    def reshard():
-        client = ShardedIndexClient("127.0.0.1:9")  # opens no connection
-        try:
-            client.reshard_to("127.0.0.1:9;127.0.0.1:10")
-        finally:
-            client.close()
 
     eng = NearDupEngine(DedupConfig(rerank=False), device="cpu")
     for call in (
         lambda: eng.dedup_reps_sharded(corpus, None),
         lambda: eng.prewarm_sharded(None),
         lambda: eng.dedup_against_index(corpus, None, mesh=object()),
-        reshard,
     ):
         with pytest.raises(NotImplementedError, match="slice"):
             call()
+    client = ShardedIndexClient("127.0.0.1:9")  # opens no connection
+    try:
+        with pytest.raises(RuntimeError, match="spill_dir"):
+            client.reshard_to("127.0.0.1:9;127.0.0.1:10")
+    finally:
+        client.close()
 
 
 def test_default_device_is_the_card():

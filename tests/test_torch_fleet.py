@@ -8,8 +8,8 @@ also while a primary dies, a shard goes dark and spills, a replica misses
 writes and is backfilled, or a scrubbed or overflowed replica is healed by
 the anti-entropy plane.  Shard directories move between the packages, a
 fleet mixes JAX and port nodes on one wire, and the stream backend and the
-engine ride the port's fleet on the CPU as the JAX package's ride its own.
-The reshard driver is the next slice and raises.  Shard servers run in this
+engine ride the port's fleet on the CPU as the JAX package's ride its own
+(``reshard_to``: ``tests/test_torch_reshard.py``).  Shard servers run in this
 process (their stop waits out a 0.5 s accept poll, so the helpers stop them
 in parallel); waits are bounded by short timeouts of the tests' own."""
 
@@ -32,7 +32,6 @@ from advanced_scrapper_tpu.extractors import tpu_batch as ref_tb
 from advanced_scrapper_tpu.index import fleet as ref_fleet
 from advanced_scrapper_tpu.index import remote as ref_remote
 from advanced_scrapper_tpu.index import repair as ref_repair
-from advanced_scrapper_tpu.index import reshard as ref_reshard
 from advanced_scrapper_tpu.index import store as ref_store
 from advanced_scrapper_tpu.net import rpc as ref_rpc
 from advanced_scrapper_tpu.obs import telemetry as ref_telemetry
@@ -42,7 +41,7 @@ from advanced_scrapper_tpu_torch.extractors import tpu_batch
 from advanced_scrapper_tpu_torch.index import fleet, remote, repair, store
 from advanced_scrapper_tpu_torch.net import rpc
 from advanced_scrapper_tpu_torch.obs import telemetry, trace
-from advanced_scrapper_tpu_torch.pipeline.dedup import SLICE_RESHARD, NearDupEngine
+from advanced_scrapper_tpu_torch.pipeline.dedup import NearDupEngine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = {
@@ -779,54 +778,16 @@ def test_engine_open_stream_index_picks_the_fleet(tmp_path):
         stop_all([srv])
 
 
-# -- the reshard driver: the next slice --------------------------------------------------
-
-
-def test_reshard_raises_naming_its_slice(tmp_path):
-    servers, client = make_fleet(tmp_path, shards=1, replicas=1)
-    spill = str(tmp_path / "spill")
-    spec = client.spec
-    try:
-        with pytest.raises(NotImplementedError, match="9c, second half") as ei:
-            client.reshard_to("127.0.0.1:1;127.0.0.1:2")
-        assert SLICE_RESHARD in str(ei.value)
-        assert client._reshard is None and client._route_shards == 1
-    finally:
-        client.close()
-    path = ref_reshard.ledger_path(spill, "bands")
-    ledger = ref_reshard.ReshardLedger.create(
-        path, old_n=1, new_n=2, vnodes=64, old_spec="127.0.0.1:1",
-        new_spec="127.0.0.1:1;127.0.0.1:2", space="bands",
-        ranges=ref_reshard.plan_reshard(1, 2, 64))
-    try:
-        for space in ("bands", "urls"):
-            opened = None
-            try:
-                opened = fleet.ShardedIndexClient(spec, space=space, spill_dir=spill,
-                                                  timeout=WAIT, retries=0)
-            except NotImplementedError as e:
-                assert space == "bands" and SLICE_RESHARD in str(e) and path in str(e)
-            else:
-                assert space == "urls", "an active ledger must never be ignored"
-                opened.close()
-        with open(path, "wb") as fh:
-            fh.write(b"{not json")
-        with pytest.raises(NotImplementedError, match="unreadable"):
-            fleet.ShardedIndexClient(spec, space="bands", spill_dir=spill, timeout=WAIT)
-        ledger.save()
-        ledger.finish()  # a finished cutover routes by the plain ring
-        fleet.ShardedIndexClient(spec, space="bands", spill_dir=spill, timeout=WAIT).close()
-    finally:
-        stop_all(servers)
-
-
 # -- the shard process --------------------------------------------------------------------
 
 
 def test_shard_modules_load_no_torch():
     code = ("import sys\n"
             "import advanced_scrapper_tpu_torch.index.remote, advanced_scrapper_tpu_torch.net.rpc\n"
-            "import advanced_scrapper_tpu_torch.index.fleet\n"
+            "import advanced_scrapper_tpu_torch.index.fleet, advanced_scrapper_tpu_torch.index.reshard\n"
+            "import advanced_scrapper_tpu_torch.runtime.autoscaler\n"
+            "import advanced_scrapper_tpu_torch.service.tenancy\n"
+            "import advanced_scrapper_tpu_torch.service.gateway\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('torch', 'jax', "
             "'advanced_scrapper_tpu')]\n"
             "assert not bad, bad\n")
