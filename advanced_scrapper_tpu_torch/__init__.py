@@ -15,6 +15,10 @@ and ``editdist.cu`` (the matcher's Myers bound over every pattern, and
 per pair for the legacy screen); the last three replace jnp device code
 of the reference.
 
+``core/mesh.py`` and ``parallel/`` run the sharded paths over a
+``(data, seq)`` mesh of shards, in one process or a ``torch.distributed``
+world.
+
 Entry points run on the card: a ``device`` of ``None`` means ``"cuda"``
 and raises when CUDA is not available.  Pass ``device="cpu"`` to run the
 plain PyTorch versions of every kernel, as the tests do.

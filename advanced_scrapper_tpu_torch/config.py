@@ -15,9 +15,10 @@ reference's legacy tile transport), ``prewarm`` and ``backend="oph"``
 mode's index on remote shard servers (``index/fleet.py:open_fleet_index``
 reads it with ``index_fleet_timeout``, ``index_fleet_retries`` and
 ``index_fleet_health_checks``).  The matcher runs every
-``MatchConfig`` field it reads, ``packed=False`` and ``prewarm`` included.  The acquisition,
-enrichment, mesh and feed sections are here for ``Config`` and the CLI:
-their planes are not ported.
+``MatchConfig`` field it reads, ``packed=False`` and ``prewarm`` included.
+``MeshConfig`` holds ``core.mesh.build_mesh``'s arguments (the reference
+reads it nowhere either).  The acquisition, enrichment and feed sections
+are here for ``Config`` and the CLI: their planes are not ported.
 """
 
 from __future__ import annotations

@@ -17,9 +17,9 @@ readers would see each other's time).
 
 The device-traffic counters (:func:`count_device_put`,
 :func:`count_dispatch`) count the port's explicit copies to the card and
-its kernel launches.  The reference's sharded half (per-shard counters,
-the put-skew gauge) raises until the sharded planes are ported
-(:data:`SLICE_MESH`).
+its kernel launches; the mesh's planes label them per shard
+(:func:`sharded_device_counters`, the ``astpu_sharded_put_skew`` gauge
+of :func:`record_sharded_put_skew`).
 """
 
 from __future__ import annotations
@@ -29,9 +29,6 @@ import time
 from contextlib import contextmanager
 
 from advanced_scrapper_tpu_torch.obs import telemetry
-
-#: the queue item that ports the sharded planes
-SLICE_MESH = "the slice of ROADMAP item 15 (parallel/* on torch.distributed)"
 
 _lock = threading.Lock()
 _hists: dict[str, telemetry.Histogram] = {}
@@ -101,12 +98,17 @@ def snapshot_ms() -> dict[str, float]:
 # tier).  Only explicit traffic is counted: a ``Tensor.to(card)`` of host
 # data, and a launch of a hand-written kernel.
 
-_dev_counters: dict[tuple[str, str], telemetry.Counter] = {}
+_dev_counters: dict[tuple[str, str, str | None], telemetry.Counter] = {}
 
 
-def _dev(name: str, regime: str) -> telemetry.Counter:
-    c = _dev_counters.get((name, regime))
+def _dev(name: str, regime: str, shard: str | None = None) -> telemetry.Counter:
+    c = _dev_counters.get((name, regime, shard))
     if c is None:
+        labels = {"regime": regime}
+        if shard is not None:
+            # the mesh's planes label traffic per shard, so the per-shard
+            # one-copy, one-launch contract is a ledger fact
+            labels["shard"] = shard
         c = telemetry.event_counter(
             name,
             {
@@ -114,33 +116,32 @@ def _dev(name: str, regime: str) -> telemetry.Counter:
                 "astpu_device_dispatches_total": "hand-written kernel launches",
                 "astpu_h2d_bytes_total": "host→device bytes shipped by puts",
             }[name],
-            regime=regime,
+            **labels,
         )
         with _lock:
-            _dev_counters[(name, regime)] = c
+            _dev_counters[(name, regime, shard)] = c
     return c
 
 
 def count_device_put(
     nbytes: int, regime: str = "dedup", *, shard: int | str | None = None
 ) -> None:
-    """Record one explicit copy of ``nbytes`` to the card.  ``shard``
-    (the reference's mesh row-shard label) raises: the sharded planes are
-    not ported."""
-    if shard is not None:
-        raise _sharded()
-    _dev("astpu_device_puts_total", regime).inc()
-    _dev("astpu_h2d_bytes_total", regime).inc(nbytes)
+    """Record one explicit copy of ``nbytes`` to the card (``shard``: the
+    mesh shard the copy landed on, for the sharded planes)."""
+    shard = None if shard is None else str(shard)
+    _dev("astpu_device_puts_total", regime, shard).inc()
+    _dev("astpu_h2d_bytes_total", regime, shard).inc(nbytes)
 
 
 def count_dispatch(
     regime: str = "dedup", n: int = 1, *, shard: int | str | None = None
 ) -> None:
-    """Record ``n`` kernel launches.  ``shard`` raises, as in
-    :func:`count_device_put`."""
-    if shard is not None:
-        raise _sharded()
-    _dev("astpu_device_dispatches_total", regime).inc(n)
+    """Record ``n`` kernel launches (``shard``: the mesh shard that ran
+    them; a step over the mesh counts once per shard)."""
+    _dev(
+        "astpu_device_dispatches_total", regime,
+        None if shard is None else str(shard),
+    ).inc(n)
 
 
 def device_counters() -> dict[str, float]:
@@ -180,22 +181,49 @@ def regime_device_counters(regime: str) -> dict[str, float]:
     return out
 
 
-def _sharded() -> NotImplementedError:
-    return NotImplementedError(
-        f"the sharded device counters are not ported yet; they come in {SLICE_MESH}"
-    )
-
-
 def sharded_device_counters(regime: str = "sharded") -> dict[str, dict[str, float]]:
-    """The reference's per-shard totals: raises until the sharded planes
-    are ported."""
-    raise _sharded()
+    """Per-shard cumulative device-traffic totals of one regime: ``{shard:
+    {"device_puts", "device_dispatches", "h2d_bytes"}}``; only
+    shard-labelled series count.  Subtract two snapshots to window a
+    corpus (every shard's delta is tiles + 1 / tiles + 1)."""
+    short = {
+        "astpu_device_puts_total": "device_puts",
+        "astpu_device_dispatches_total": "device_dispatches",
+        "astpu_h2d_bytes_total": "h2d_bytes",
+    }
+    out: dict[str, dict[str, float]] = {}
+    for name, key in short.items():
+        for c in telemetry.REGISTRY.find(name):
+            shard = c.labels.get("shard")
+            if shard is None or c.labels.get("regime") != regime:
+                continue
+            per = out.setdefault(
+                shard, {"device_puts": 0.0, "device_dispatches": 0.0, "h2d_bytes": 0.0}
+            )
+            per[key] += c.value
+    return out
 
 
 def record_sharded_put_skew(baseline: dict | None = None, regime: str = "sharded") -> float:
-    """The reference's per-shard put-skew gauge: raises until the sharded
-    planes are ported."""
-    raise _sharded()
+    """Max − min per-shard put count, set on the always-on
+    ``astpu_sharded_put_skew`` gauge: 0 for a balanced plane.
+    ``baseline`` (an earlier :func:`sharded_device_counters`) windows it to
+    the work since, and only the shards active in the window count, so
+    corpora on meshes of different shard counts read no false skew."""
+    per = sharded_device_counters(regime)
+    base = baseline or {}
+    puts = [
+        v["device_puts"] - base.get(s, {}).get("device_puts", 0.0)
+        for s, v in per.items()
+    ]
+    puts = [p for p in puts if p > 0]  # shards active in the window
+    skew = (max(puts) - min(puts)) if puts else 0.0
+    telemetry.REGISTRY.gauge(
+        "astpu_sharded_put_skew",
+        "max-min per-shard device_put count (0 = balanced sharded ledger)",
+        always=True,
+    ).set(skew)
+    return skew
 
 
 def _clear_for_tests() -> None:

@@ -14,7 +14,11 @@ are plain PyTorch on the accumulator's device.
 - resolution: a candidate edge holds when the two signatures agree on at
   least ``threshold`` of their permutations (``count/P`` in float32
   against a float32 threshold, as the reference compares), then labels
-  are propagated to the connected-component minimum.
+  are propagated to the connected-component minimum;
+- the reference's single-candidate path (``duplicate_reps``: the
+  smallest run head over all bands; ``resolve_reps``: verify it, then
+  pointer jumping) and the ``psum``-able key histogram
+  (``bucket_histogram``) of the mesh's batch step.
 """
 
 from __future__ import annotations
@@ -151,6 +155,52 @@ def duplicate_rep_bands(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor
         cand = torch.empty_like(si).scatter_(1, si, cand_sorted)
         cands.append(torch.where(valid[None, :], cand, idxb).T)
     return torch.cat(cands, dim=1).to(torch.int32)
+
+
+def duplicate_reps(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Candidate representative per row ``int32[B]``: the smallest earlier
+    row sharing any band (``rep[i] <= i``; self when none).  Invalid rows
+    take key ``U32_MAX`` and map to themselves.  Candidates still need
+    verification (:func:`resolve_reps`)."""
+    B, nb = keys.shape
+    idx = torch.arange(B, device=keys.device)
+    kt = torch.where(valid[:, None], keys, U32_MAX).T.contiguous()
+    si, head, _pred, _pred2 = _run_head_per_band(kt)
+    rep = torch.empty_like(si).scatter_(1, si, head).amin(dim=0)
+    return torch.where(valid, rep, idx).to(torch.int32)
+
+
+def resolve_reps(
+    rep: torch.Tensor,
+    sig: torch.Tensor,
+    valid: torch.Tensor,
+    threshold: float,
+    *,
+    jump_rounds: int,
+) -> torch.Tensor:
+    """Verify each row's one candidate by signature agreement (``count/P``
+    in float32 against a float32 ``threshold``; below it, or an invalid
+    row, reverts to self), then ``jump_rounds`` rounds of pointer jumping:
+    ``int32[B]``."""
+    B, P = sig.shape
+    dev = sig.device
+    idx = torch.arange(B, device=dev)
+    r = rep.to(torch.int64)
+    s32 = sig.view(torch.int32)
+    agree = (s32 == s32[r]).sum(dim=1).to(torch.float32) / P
+    ok = (agree >= torch.tensor(threshold, dtype=torch.float32, device=dev)) & valid
+    r = torch.where(ok, r, idx)
+    for _ in range(jump_rounds):
+        r = r[r]
+    return r.to(torch.int32)
+
+
+def bucket_histogram(keys: torch.Tensor, valid: torch.Tensor, *, nbins: int = 1 << 16) -> torch.Tensor:
+    """``int32[nbins]`` histogram of the valid rows' band keys modulo
+    ``nbins``: the dense summary the sharded step merges with ``psum``."""
+    flat = (keys.to(torch.int64) % nbins).reshape(-1)
+    w = valid[:, None].expand(keys.shape).reshape(-1).to(torch.int32)
+    return torch.zeros((nbins,), dtype=torch.int32, device=keys.device).index_add_(0, flat, w)
 
 
 def _fine_only_chunks(rep_bands: torch.Tensor, keys: torch.Tensor, num_coarse: int):

@@ -65,10 +65,20 @@ bypasses the rerank hook, ``fewer_bands`` keeps the first half of the band
 columns in :meth:`NearDupEngine.dedup_against_index`; each application is
 counted by ``ladder.count_effect``.
 
-What is not ported yet raises ``NotImplementedError`` naming its slice:
-the sharded methods and ``mesh=`` (item 15).
 :meth:`NearDupEngine.open_stream_index` opens the index fleet when
 ``cfg.index_fleet`` is set.
+
+Over a device mesh (``core.mesh.build_mesh``, ``parallel/``),
+:meth:`NearDupEngine.dedup_reps_sharded` runs the packed tile plane: the
+reference's width-bucketed tiles (:meth:`_host_tiles`) in groups of one
+tile a shard, each shard's tile packed, copied to its device and folded
+into its own accumulator (``minhash_fold`` or ``oph_fold``, one launch a
+shard a group), and one end-of-corpus epilogue that ``pmin``-combines the
+shards and resolves; each shard's ledger (``obs.stages``, ``shard=``) is
+tiles + 1 copies and tiles + 1 dispatches.  With ``packed_h2d=False`` it
+runs the reference's blockwise plane
+(``parallel.sharded.make_sharded_block_dedup``).
+``dedup_against_index(mesh=...)`` takes its wide keys off the same plane.
 """
 
 from __future__ import annotations
@@ -86,9 +96,11 @@ import torch
 from advanced_scrapper_tpu_torch import resolve_device
 from advanced_scrapper_tpu_torch.config import DedupConfig
 from advanced_scrapper_tpu_torch.core.hashing import MinHashParams, make_params
+from advanced_scrapper_tpu_torch.core.mesh import ShardedArray
 from advanced_scrapper_tpu_torch.core.tokenizer import (
     bucket_len,
     bucket_widths,
+    encode_blocks,
     tile_rows_options,
     to_bytes,
 )
@@ -125,7 +137,19 @@ from advanced_scrapper_tpu_torch.ops.minhash import (
     perm_tensors,
 )
 from advanced_scrapper_tpu_torch.ops.oph import densify, oph_fold_segments, oph_raw_signatures
+from advanced_scrapper_tpu_torch.ops.pack import pack_tile, packed_nbytes
 from advanced_scrapper_tpu_torch.ops.shingle import to_u32
+from advanced_scrapper_tpu_torch.parallel.sharded import make_sharded_block_dedup
+from advanced_scrapper_tpu_torch.parallel.sharded_packed import (
+    assemble_packed_tiles,
+    local_shard_rows,
+    make_sharded_accumulator_init,
+    make_sharded_fused_tile_step,
+    make_sharded_keys_epilogue,
+    make_sharded_resolve_epilogue,
+    mesh_num_shards,
+    shard_row_devices,
+)
 from advanced_scrapper_tpu_torch.pipeline.clock import StageClock
 from advanced_scrapper_tpu_torch.pipeline.dispatch import (
     PipelinedDispatcher,
@@ -135,8 +159,6 @@ from advanced_scrapper_tpu_torch.pipeline.dispatch import (
 )
 from advanced_scrapper_tpu_torch.pipeline.rerank import RerankTier
 from advanced_scrapper_tpu_torch.utils.bloom import pack_keys64
-
-SLICE_MESH = "the slice of ROADMAP item 15 (parallel/* on torch.distributed)"
 
 #: Most bytes of text in one chunk (one copy, one kernel launch); an
 #: article longer than this is a chunk of its own.
@@ -148,10 +170,6 @@ JOIN_BYTES = 4 << 20
 #: the OOM back-off's floor: a chunk of one segment is not split further
 #: (the reference's floor is a tile of 64 rows)
 OOM_FLOOR_SEGMENTS = 1
-
-
-def _not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet; it comes in {where}")
 
 
 def _jump_rounds(n: int) -> int:
@@ -287,6 +305,10 @@ class NearDupEngine:
         self.last_halvings = 0
         self.last_h2d_bytes = 0
         self.last_dispatcher: PipelinedDispatcher | None = None
+        #: tile groups of the last corpus on a mesh (one fold a shard each)
+        self.last_tiles = 0
+        #: the mesh planes' steps and epilogues, by (mesh, what)
+        self._sharded_steps: dict = {}
         #: the hook on the candidates → resolve edge: every resolution path
         #: passes the candidate matrix through it (None = pass-through).
         #: ``cfg.rerank`` installs the precision tier, kept as
@@ -1201,15 +1223,20 @@ class NearDupEngine:
         fewer bytes than a shingle are neither probed nor posted (-1).
         While the ladder's ``fewer_bands`` step is active only the first
         half of the band columns is probed and posted (counted per row).
-        ``mesh=`` raises (the sharded path is not ported)."""
-        if mesh is not None:
-            raise _not_ported("dedup_against_index(mesh=...)", SLICE_MESH)
+        With ``mesh`` the keys come off the mesh's packed plane
+        (:meth:`_keys_wide_sharded`), equal to the one-device keys, so the
+        attributions do not depend on the device layout; with
+        ``packed_h2d=False`` ``mesh`` is ignored, as in the reference (its
+        blockwise plane has no keys epilogue)."""
         n = len(texts)
         out = np.full((n,), -1, np.int64)
         if n == 0:
             return out
         raw = [to_bytes(t) for t in texts]
-        _sigs, keys_wide = self.signatures_and_keys(raw, wide=True, sync_sigs=False)
+        if mesh is not None and self.cfg.packed_h2d:
+            keys_wide = self._keys_wide_sharded(raw, mesh)
+        else:
+            _sigs, keys_wide = self.signatures_and_keys(raw, wide=True, sync_sigs=False)
         keys64 = pack_keys64(keys_wide)
         if (
             self.ladder is not None
@@ -1229,11 +1256,281 @@ class NearDupEngine:
         self._emit_index_decisions(out, keys64, eligible, index)
         return out
 
-    def prewarm_sharded(self, mesh, n_articles: int | None = None) -> int:
-        raise _not_ported("the sharded path", SLICE_MESH)
+    # -- the packed plane over a device mesh ------------------------------------
 
-    def dedup_reps_sharded(self, texts, mesh) -> np.ndarray:
-        raise _not_ported("the sharded path", SLICE_MESH)
+    def _sharded(self, mesh, what: str, make):
+        """The mesh's step or epilogue ``what``, made once per (mesh, what)."""
+        key = (mesh, what)
+        got = self._sharded_steps.get(key)
+        if got is None:
+            got = self._sharded_steps[key] = make()
+        return got
+
+    def _get_sharded_fused_step(self, mesh):
+        """The tile step over the mesh (one fold launch a local shard)."""
+        return self._sharded(mesh, "fused", lambda: make_sharded_fused_tile_step(
+            mesh, self.params, self.cfg.backend))
+
+    def _get_sharded_init(self, mesh):
+        return self._sharded(mesh, "init", lambda: make_sharded_accumulator_init(
+            mesh, self.params.num_perm))
+
+    def _get_sharded_epilogue(self, mesh):
+        """The end-of-corpus combine and resolve (``pmin`` across shards,
+        then the estimator-only resolution of :meth:`dedup_reps_async`)."""
+        cfg = self.cfg
+        return self._sharded(mesh, "resolve", lambda: make_sharded_resolve_epilogue(
+            mesh, self.params, threshold=cfg.sim_threshold, fine_margin=cfg.fine_margin,
+            fine_salt=self._fine_salt(), backend=cfg.backend))
+
+    def _get_sharded_keys_epilogue(self, mesh):
+        return self._sharded(mesh, "keys", lambda: make_sharded_keys_epilogue(
+            mesh, self.params, self.cfg.backend))
+
+    def _sharded_tile_groups(self, tiles, nsh: int):
+        """The chunker's tiles in groups of ``nsh`` of one shape, one tile a
+        shard: one group is one step over the mesh.  The min-combine does
+        not depend on which shard folds which tile.  A shape's leftover
+        group is padded with zero tiles (lengths 0: all-``U32_MAX``
+        signatures, the min identity), so every shard's ledger stays
+        tiles + 1 copies and tiles + 1 dispatches a corpus."""
+        pending: dict = {}
+        for t, l, o in tiles:
+            shape = (t.shape[0], t.shape[1])
+            bucket = pending.setdefault(shape, [])
+            bucket.append((t, l, o))
+            if len(bucket) == nsh:
+                yield shape, pending.pop(shape)
+        for (rows, w), bucket in list(pending.items()):
+            while len(bucket) < nsh:
+                bucket.append((
+                    np.zeros((rows, w), np.uint8),
+                    np.zeros((rows,), np.int32),
+                    np.zeros((rows,), np.int32),
+                ))
+            yield (rows, w), bucket
+
+    def _accumulate_device_sharded(self, raw: list, mesh, trace_id: str | None = None):
+        """``(running, n_bucket)``: the mesh's accumulator (one
+        ``uint32[n_bucket, P]`` a shard) after folding every tile group of
+        ``raw`` into it.  The chunker's tiles (:meth:`_host_tiles`) run
+        through :class:`PipelinedDispatcher`: ``pack`` packs the local
+        shards' tiles of a group into pinned buffers (``ops.pack``), the
+        put threads copy each to its shard's device on that device's
+        current stream (one copy a shard, counted ``shard=``), and this
+        thread launches one fold a local shard (counted ``shard=``).  A
+        remote shard's tile is packed and copied by the rank that owns
+        it."""
+        tid = trace_id or trace.new_trace_id()
+        n = len(raw)
+        n_bucket = bucket_len(n, min_bucket=64)
+        nsh = mesh_num_shards(mesh)
+        shards = shard_row_devices(mesh)
+        local_rows = local_shard_rows(mesh)
+        step = self._get_sharded_fused_step(mesh)
+        streams = {shards[s].device: torch.cuda.current_stream(shards[s].device)
+                   for s in local_rows if shards[s].device.type == "cuda"}
+        tiles = self._sharded_tile_groups(self._host_tiles(raw), nsh)
+
+        def pack(group):
+            (rows, w), batch = group
+            nb = packed_nbytes(rows, w)
+            bufs = {}
+            with stages.timed("encode"):
+                for s in local_rows:
+                    buf = torch.empty((nb,), dtype=torch.uint8,
+                                      pin_memory=shards[s].device.type == "cuda")
+                    pack_tile(*batch[s], out=buf.numpy())
+                    bufs[s] = buf
+            return bufs, rows, w
+
+        def put(item):
+            bufs, rows, w = item
+            t0 = time.perf_counter()
+            pieces = []
+            with stages.timed("h2d"):
+                for s in local_rows:
+                    dev = shards[s].device
+                    ctx = torch.cuda.stream(streams[dev]) if dev in streams \
+                        else contextlib.nullcontext()
+                    with ctx:
+                        pieces.append(bufs[s].to(dev, non_blocking=True))
+                    stages.count_device_put(bufs[s].numel(), "sharded", shard=s)
+                packed = assemble_packed_tiles(mesh, pieces, packed_nbytes(rows, w))
+            nbytes = sum(bufs[s].numel() for s in local_rows)
+            return packed, rows, w, nbytes, time.perf_counter() - t0
+
+        def dispatch(running, item):
+            packed, rows, w, _nb, _put_s = item
+            # one latency observation a step; the per-shard truth is the
+            # ledger's copies and launches
+            with devprof.dispatch_span("sharded_fused_tile", rows=rows, width=w, trace=tid) as sp:
+                sp.out = step(running, packed, rows=rows, width=w, num_articles=n_bucket)
+            for s in local_rows:
+                stages.count_dispatch("sharded", shard=s)
+            return sp.out
+
+        running = self._get_sharded_init(mesh)(num_articles=n_bucket)
+        probe = self.dispatch_probe
+        pipe = self.last_dispatcher = PipelinedDispatcher(
+            tiles, pack=pack, put=put, put_workers=resolve_put_workers(self.cfg),
+            window=self._dispatch_window(), name="dedup.sharded.h2d",
+        )
+        dispatched = 0
+        try:
+            for item in pipe:
+                t0 = time.perf_counter()
+                rows = int(item[1])
+                with stages.timed("kernel"), self.step_timer.step(rows * nsh):
+                    running = dispatch(running, item)
+                if probe is not None:
+                    probe({
+                        "tile": dispatched, "rows": rows, "width": int(item[2]),
+                        "shards": nsh, "h2d_bytes": int(item[3]),
+                        "put_ms": round(item[4] * 1e3, 3),
+                        "dispatch_ms": round((time.perf_counter() - t0) * 1e3, 3),
+                    })
+                dispatched += 1
+        finally:
+            pipe.close()
+        self._m_batches.inc(dispatched)
+        self.last_tiles = dispatched
+        if trace.RECORDER.active:
+            trace.record("span", "dedup.dispatch", trace=tid, batches=dispatched, docs=n,
+                         shards=nsh)
+        return running, n_bucket
+
+    def _valid_device_sharded(self, raw: list, n_bucket: int, mesh) -> ShardedArray:
+        """The replicated ``bool[n_bucket]`` eligibility mask, one copy on
+        each local shard's device (one put a shard)."""
+        valid = self._valid_host(raw, n_bucket)
+        pieces = []
+        for s in local_shard_rows(mesh):
+            pieces.append(torch.from_numpy(valid).to(mesh.shards[s].device))
+            stages.count_device_put(valid.nbytes, "sharded", shard=s)
+        return ShardedArray(mesh, (None,), pieces, valid.shape)
+
+    def prewarm_sharded(self, mesh, n_articles: int | None = None) -> int:
+        """Warm launches over the mesh ahead of the first corpus: one fold
+        of a zero tile of the chunker's smallest shape (64 rows of 64
+        bytes) a local shard into a scratch accumulator of
+        ``bucket_len(n_articles or batch_size)`` rows, and the end-of-corpus
+        epilogue once (``oph_densify`` under OPH).  The steps are made and
+        cached here and each kernel built and loaded at its first launch,
+        so a first corpus pays neither.  Returns the launches made, where
+        the reference returns the shapes it compiled."""
+        n_bucket = bucket_len(n_articles or self.cfg.batch_size, min_bucket=64)
+        step = self._get_sharded_fused_step(mesh)
+        running = self._get_sharded_init(mesh)(num_articles=n_bucket)
+        rows, w = 64, 64
+        nb = packed_nbytes(rows, w)
+        pieces = [torch.zeros((nb,), dtype=torch.uint8, device=mesh.shards[s].device)
+                  for s in local_shard_rows(mesh)]
+        step(running, assemble_packed_tiles(mesh, pieces, nb), rows=rows, width=w,
+             num_articles=n_bucket)
+        launches = len(pieces)
+        valid = ShardedArray(mesh, (None,), [
+            torch.zeros((n_bucket,), dtype=torch.bool, device=p.device) for p in pieces
+        ], (n_bucket,))
+        self._get_sharded_epilogue(mesh)(running, valid, jump_rounds=_jump_rounds(n_bucket))
+        self._get_sharded_keys_epilogue(mesh)
+        if self._use_oph:
+            launches += 1
+        for p in pieces:
+            if p.device.type == "cuda":
+                torch.cuda.synchronize(p.device)
+        return launches
+
+    def dedup_reps_sharded(self, texts: Sequence[str | bytes], mesh) -> np.ndarray:
+        """``int32[N]`` representatives over a device mesh, equal to
+        :meth:`dedup_reps_async`'s (its estimator-only resolution; the
+        one-shot :meth:`dedup_reps` is the certified path).
+
+        With ``packed_h2d`` (the default), the packed plane: per-shard
+        packed tiles through the dispatcher, one fold a shard a tile group
+        (:meth:`_accumulate_device_sharded`), then one epilogue: the
+        shards' ``pmin`` and the resolution.  ``packed_h2d=False`` runs the
+        reference's blockwise plane (``encode_blocks`` →
+        ``make_sharded_block_dedup``), kept equal as the packed plane's
+        oracle."""
+        if self.cfg.packed_h2d:
+            return self._dedup_reps_sharded_packed(texts, mesh)
+        return self._dedup_reps_sharded_legacy(texts, mesh)
+
+    def _dedup_reps_sharded_packed(self, texts, mesh) -> np.ndarray:
+        n = len(texts)
+        if n == 0:
+            return np.zeros((0,), np.int32)
+        tid = trace.new_trace_id()
+        self._m_docs["sharded"].inc(n)
+        raw = [to_bytes(t) for t in texts]
+        running, n_bucket = self._accumulate_device_sharded(raw, mesh, trace_id=tid)
+        valid = self._valid_device_sharded(raw, n_bucket, mesh)
+        with stages.timed("resolve"), trace.span(
+            "dedup.resolve", trace=tid, regime="sharded", docs=n
+        ):
+            rep = self._get_sharded_epilogue(mesh)(
+                running, valid, jump_rounds=_jump_rounds(n_bucket))
+            for s in local_shard_rows(mesh):
+                stages.count_dispatch("sharded", shard=s)
+            out = rep[:n].cpu().numpy()
+        self._count_result("sharded", n, out)
+        return out
+
+    def _keys_wide_sharded(self, raw: list, mesh) -> np.ndarray:
+        """Host ``uint32[N, nb, 2]`` wide band keys off the mesh's packed
+        accumulator: the sharded twin of ``signatures_and_keys(wide=True,
+        sync_sigs=False)``, one keys epilogue (``pmin`` and
+        ``band_keys_wide``)."""
+        tid = trace.new_trace_id()
+        running, _n_bucket = self._accumulate_device_sharded(raw, mesh, trace_id=tid)
+        keys = self._get_sharded_keys_epilogue(mesh)(running)
+        for s in local_shard_rows(mesh):
+            stages.count_dispatch("sharded", shard=s)
+        keys = to_u32(keys[: len(raw)]).view(torch.int32)
+        with stages.timed("kernel"), trace.span("dedup.readback", trace=tid, docs=len(raw)):
+            return keys.cpu().numpy().view(np.uint32)
+
+    def _dedup_reps_sharded_legacy(self, texts, mesh) -> np.ndarray:
+        """The reference's blockwise mesh plane: ``encode_blocks`` → one
+        ``make_sharded_block_dedup`` step (the blocks split over the data
+        axis, each shard's segment minimum, ``pmin``, the resolution), the
+        block rows padded to a multiple of the shards, padding owned by
+        the scratch article ``n_bucket``."""
+        n = len(texts)
+        if n == 0:
+            return np.zeros((0,), np.int32)
+        tid = trace.new_trace_id()
+        self._m_docs["sharded"].inc(n)
+        cfg = self.cfg
+        raw = [to_bytes(t) for t in texts]
+        with stages.timed("encode"):
+            tok, lens, owners = encode_blocks(raw, cfg.block_len, overlap=self.params.shingle_k - 1)
+            owners = owners.astype(np.int32)
+            n_bucket = bucket_len(n, min_bucket=64)
+            ndev = mesh_num_shards(mesh)
+            rows = bucket_len(max(tok.shape[0], ndev), min_bucket=64)
+            rows = -(-rows // ndev) * ndev  # an exact multiple for odd meshes
+            if tok.shape[0] < rows:
+                pad = rows - tok.shape[0]
+                tok = np.concatenate([tok, np.zeros((pad, cfg.block_len), np.uint8)])
+                lens = np.concatenate([lens, np.zeros((pad,), np.int32)])
+                owners = np.concatenate([owners, np.full((pad,), n_bucket, np.int32)])
+        step = self._sharded(mesh, ("legacy", n_bucket, cfg.block_len),
+                             lambda: make_sharded_block_dedup(
+                                 mesh, self.params, n_bucket, threshold=cfg.sim_threshold,
+                                 jump_rounds=_jump_rounds(n_bucket), backend=cfg.backend,
+                                 cand_subbands=cfg.cand_subbands, fine_margin=cfg.fine_margin))
+        with self.step_timer.step(int(tok.shape[0])):
+            rep, _hist = step(tok, lens, owners)
+        stages.count_dispatch("dedup")
+        self._m_batches.inc()
+        with stages.timed("resolve"), trace.span(
+            "dedup.resolve", trace=tid, regime="sharded", docs=n
+        ):
+            out = rep[:n].cpu().numpy()
+        self._count_result("sharded", n, out)
+        return out
 
 
 class ExactDedup:

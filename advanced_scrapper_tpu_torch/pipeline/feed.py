@@ -9,8 +9,10 @@ along so results map back to records.
 
 This is the firehose path: documents truncate at the feed's block length
 (the queue's fixed row shape).  For full blockwise coverage of long texts
-use :class:`pipeline.dedup.NearDupEngine`.  ``sharding=`` (a tile split
-over a mesh) comes with ROADMAP item 15 and raises.
+use :class:`pipeline.dedup.NearDupEngine`.  ``sharding=mesh`` splits each
+tile's rows over the mesh's data axis: every local shard gets its rows,
+copied to its device, as :class:`core.mesh.ShardedArray` s that the
+mesh's steps (``parallel.sharded``) take as they are.
 
 Telemetry, as the reference's: ``astpu_feed_batches_total``,
 ``astpu_feed_docs_total``, ``astpu_feed_partial_tiles_total``, the
@@ -35,13 +37,13 @@ import torch
 from advanced_scrapper_tpu_torch import resolve_device
 from advanced_scrapper_tpu_torch.config import DedupConfig
 from advanced_scrapper_tpu_torch.core.hashing import make_params
+from advanced_scrapper_tpu_torch.core.mesh import Mesh, ShardedArray, piece_slices
 from advanced_scrapper_tpu_torch.cpu.hostbatch import HostBatcher
 from advanced_scrapper_tpu_torch.obs import stages, telemetry, trace
 from advanced_scrapper_tpu_torch.obs.profiler import StepTimer
 from advanced_scrapper_tpu_torch.ops.lsh import band_keys
 from advanced_scrapper_tpu_torch.ops.minhash import minhash_signatures
 from advanced_scrapper_tpu_torch.ops.shingle import to_u32, u32_values
-from advanced_scrapper_tpu_torch.pipeline.dedup import SLICE_MESH
 from advanced_scrapper_tpu_torch.pipeline.dispatch import auto_h2d_workers
 from advanced_scrapper_tpu_torch.runtime import DONE, RETRY, StageGraph
 
@@ -81,6 +83,14 @@ class DeviceFeed:
     on them is done.  PyTorch's pinned cache keeps a pinned tile out of
     reuse until its copy has completed.  ``device=None`` means the card
     (and raises without one); ``device="cpu"`` stages host tensors.
+
+    ``sharding`` (a :class:`core.mesh.Mesh`; the reference takes the
+    mesh's ``(P(data, None), P(data))`` shardings) splits each tile's rows
+    over the data axis: each local shard's rows are copied to its device
+    (one copy of the tokens and one of the lengths a shard, counted with
+    ``shard=``), one copy stream and event per card, and the batch comes
+    as two :class:`core.mesh.ShardedArray` s.  ``batch_size`` must split
+    over the data axis; ``device`` is then unused.
     """
 
     def __init__(
@@ -96,17 +106,24 @@ class DeviceFeed:
         device: str | torch.device | None = None,
     ):
         if sharding is not None:
-            raise NotImplementedError(
-                f"DeviceFeed(sharding=...) is not ported yet; it comes in {SLICE_MESH}"
-            )
-        self.device = resolve_device(device)
+            if not isinstance(sharding, Mesh):
+                raise TypeError(f"sharding must be a core.mesh.Mesh, got {type(sharding).__name__}")
+            data = sharding.axis_names[0]
+            if batch_size % sharding.shape[data]:
+                raise ValueError(
+                    f"batch_size {batch_size} does not split over {sharding.shape[data]} data shards"
+                )
+            devices = [sharding.shards[g].device for g in sharding.local]
+        else:
+            devices = [resolve_device(device)]
+        self.sharding = sharding
+        self.device = devices[0]
         self.batcher = batcher
         self.batch_size = batch_size
         self.poll_timeout_ms = poll_timeout_ms
         self.min_fill = batch_size if min_fill is None else min_fill
-        self._copy_stream = (
-            torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
-        )
+        #: one copy stream a card the tiles land on
+        self._copy_streams = {d: torch.cuda.Stream(d) for d in devices if d.type == "cuda"}
         self._graph = StageGraph("feed")
         self._instrument()
         self._out = self._graph.edge("staged", resolve_prefetch_depth(depth))
@@ -157,14 +174,38 @@ class DeviceFeed:
         """Rolling per-tile step latency/throughput (``StepTimer.summary``)."""
         return self.timer.summary()
 
-    def _put_device(self, arr: np.ndarray) -> torch.Tensor:
+    def _put_device(self, arr: np.ndarray, device: torch.device | None = None) -> torch.Tensor:
+        """``arr`` on ``device`` (the feed's by default)."""
         t = torch.from_numpy(arr)
-        if self._copy_stream is None:
+        device = device or self.device
+        stream = self._copy_streams.get(device)
+        if stream is None:
             return t
         # from pinned memory the copy is asynchronous; from pageable memory
         # it could wait for the stream's queued work
-        with torch.cuda.stream(self._copy_stream):
-            return t.pin_memory().to(self.device, non_blocking=True)
+        with torch.cuda.stream(stream):
+            return t.pin_memory().to(device, non_blocking=True)
+
+    def _put(self, tok: np.ndarray, lens: np.ndarray):
+        """One tile's copies: ``(tokens, lengths)`` on the feed's device,
+        or each local shard's rows on its device as ``ShardedArray`` s."""
+        mesh = self.sharding
+        if mesh is None:
+            tok_dev, lens_dev = self._put_device(tok), self._put_device(lens)
+            stages.count_device_put(tok.nbytes, "feed")
+            stages.count_device_put(lens.nbytes, "feed")
+            return tok_dev, lens_dev
+        data = mesh.axis_names[0]
+        pt, pl = [], []
+        for g in mesh.local:
+            rows = piece_slices(mesh, (data,), lens.shape, g)
+            dev = mesh.shards[g].device
+            pt.append(self._put_device(np.ascontiguousarray(tok[rows]), dev))
+            pl.append(self._put_device(np.ascontiguousarray(lens[rows]), dev))
+            stages.count_device_put(pt[-1].numel(), "feed", shard=g)
+            stages.count_device_put(4 * pl[-1].numel(), "feed", shard=g)
+        return (ShardedArray(mesh, (data, None), pt, tok.shape),
+                ShardedArray(mesh, (data,), pl, lens.shape))
 
     def _pull(self):
         """One pop → copy cycle, the ``stage`` stage's source, shared by
@@ -181,13 +222,12 @@ class DeviceFeed:
                 return DONE
             return RETRY
         with stages.timed("h2d"):
-            tok_dev, lens_dev = self._put_device(tok), self._put_device(lens)
-        stages.count_device_put(tok.nbytes, "feed")
-        stages.count_device_put(lens.nbytes, "feed")
-        copied = None
-        if self._copy_stream is not None:
-            copied = torch.cuda.Event()
-            copied.record(self._copy_stream)
+            tok_dev, lens_dev = self._put(tok, lens)
+        copied = []
+        for dev, stream in self._copy_streams.items():
+            event = torch.cuda.Event()
+            event.record(stream)
+            copied.append((dev, event))
         self.timer.add(time.perf_counter() - t0, n)
         self._m_batches.inc()
         self._m_docs.inc(n)
@@ -210,11 +250,12 @@ class DeviceFeed:
                     raise RuntimeError("DeviceFeed worker died mid-stream") from self._graph.error
                 return
             n, tok, lens, tags, copied = item
-            if copied is not None:
-                stream = torch.cuda.current_stream(self.device)
-                stream.wait_event(copied)
-                tok.record_stream(stream)
-                lens.record_stream(stream)
+            for dev, event in copied:
+                stream = torch.cuda.current_stream(dev)
+                stream.wait_event(event)
+                for x in (tok.pieces + lens.pieces) if self.sharding is not None else (tok, lens):
+                    if x.device == dev:
+                        x.record_stream(stream)
             yield n, tok, lens, tags
 
     def close(self) -> None:

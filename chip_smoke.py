@@ -118,6 +118,21 @@ one fenced latency observation a launch under
 ``ASTPU_DISPATCH_TIMING=fenced``, and a ``device_trace`` that names
 ``minhash_fold_segments``.
 
+``mesh_path`` runs the device mesh (``core/mesh.py``, ``parallel/*``):
+``dedup_reps_sharded`` over the 65,536 ragged articles on 4×2 and 8×1
+meshes of 8 shards on the card, with the estimator-only engine and with
+``backend="oph"`` (each equal to the one-device representatives, each
+shard's ledger tiles + 1 copies and tiles + 1 dispatches with put skew 0,
+the fold once a shard a tile group, one ``oph_densify`` a corpus);
+``dedup_against_index(mesh=...)`` on 4,096 articles (keys, attributions
+and postings equal to the one-device call's); the batch, block, sequence
+and ring steps on 2,048 × 1,024 bytes, card equal to CPU shards; then a
+gloo world of 2 ranks sharing the card and an NCCL world of 1
+(``chip_smoke.py --mesh-worker``, a process a rank), whose
+``multihost_dedup`` and ``dedup_reps_sharded`` equal the one-process
+results on every rank, with the collectives' bytes, ms and staging
+copies.
+
 Then the card engines and the CPU engines (estimator-only, default,
 ``rerank=False``) must agree on 2,048 articles.  ``quality_path`` runs the
 quality plane through the default engine's certified one-shot on the
@@ -3896,6 +3911,352 @@ def obs_path(card: str, dev: torch.device) -> None:
         telemetry.REGISTRY.reset()
 
 
+MESH_SHAPES = ((4, 2), (8, 1))
+MESH_SHARDS = 8
+MESH_BATCH = 2048  # the sharded functions' batch: 2,048 rows of 1,024 bytes
+MESH_BLOCK = 1024
+MESH_WORLD_TIMEOUT_S = 300.0  # the most a rank of a world may take
+
+
+def mesh_batch() -> tuple[np.ndarray, np.ndarray]:
+    """The sharded functions' batch: ``ragged_corpus`` seed 11 cut to
+    1,024-byte rows (planted copies across shards)."""
+    from advanced_scrapper_tpu_torch.core.tokenizer import encode_batch
+
+    small, _ = ragged_corpus(np.random.RandomState(11), MESH_BATCH)
+    return encode_batch(small, block_len=MESH_BLOCK)
+
+
+def reps_digest(reps: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(reps, np.int32).tobytes()).hexdigest()
+
+
+def ledger_deltas(before: dict, after: dict) -> dict:
+    return {s: {k: after[s][k] - before.get(s, {}).get(k, 0.0) for k in after[s]} for s in after}
+
+
+def mesh_planes(docs: list[bytes], engines: dict, wants: dict, dev) -> dict:
+    """Part 1 of ``mesh_path``: ``dedup_reps_sharded`` of each engine
+    (``minhash``, ``oph``) on each of ``MESH_SHAPES`` (8 shards on the one
+    card), after a ``prewarm_sharded``: the representatives equal the
+    one-device ones, every shard's ledger is tiles + 1 / tiles + 1 with
+    skew 0, and the fold ran once a shard a tile group (OPH: one densify a
+    corpus).  Returns each run's record and the launches summed."""
+    from advanced_scrapper_tpu_torch.core.mesh import build_mesh
+    from advanced_scrapper_tpu_torch.obs import stages
+
+    runs, launches = [], dict.fromkeys(launch_counters(), 0)
+    for backend, eng in engines.items():
+        fold = "oph_fold" if backend == "oph" else "minhash_fold"
+        for shape in MESH_SHAPES:
+            mesh = build_mesh(*shape, devices=[dev] * MESH_SHARDS)
+            t0 = time.perf_counter()
+            warm = eng.prewarm_sharded(mesh, len(docs))
+            prewarm_s = time.perf_counter() - t0
+            before = stages.sharded_device_counters()
+            stages.reset()
+            reset_launches()
+            t0 = time.perf_counter()
+            reps = eng.dedup_reps_sharded(docs, mesh)
+            seconds = time.perf_counter() - t0
+            got = read_launches()
+            stage_ms = stages.snapshot_ms()
+            deltas = ledger_deltas(before, stages.sharded_device_counters())
+            groups = eng.last_tiles
+            skew = stages.record_sharded_put_skew(before)
+            assert np.array_equal(reps, wants[backend]), f"{backend} {shape}: reps differ"
+            assert len(deltas) == MESH_SHARDS and all(
+                d["device_puts"] == d["device_dispatches"] == groups + 1 for d in deltas.values()
+            ), (backend, shape, groups, deltas)
+            assert skew == 0.0, skew
+            assert got[fold] == groups * MESH_SHARDS, (fold, got, groups)
+            assert got["oph_densify"] == (backend == "oph"), got
+            assert sum(got.values()) == got[fold] + got["oph_densify"], got
+            launches = {k: launches[k] + v for k, v in got.items()}
+            runs.append({
+                "backend": backend, "mesh": f"{shape[0]}x{shape[1]}", "shards": MESH_SHARDS,
+                "seconds": seconds, "articles_per_s": len(docs) / seconds,
+                "prewarm_s": prewarm_s, "prewarm_launches": warm, "tile_groups": groups,
+                "launches": {k: v for k, v in got.items() if v},
+                "ledger_per_shard": deltas["0"], "put_skew": skew,
+                "h2d_bytes_per_shard": sorted({d["h2d_bytes"] for d in deltas.values()}),
+                "stage_ms": stage_ms, "local_combines": mesh.stats["local_combines"],
+                "reps_equal": True,
+            })
+    return {"runs": runs, "launches": launches}
+
+
+def mesh_against_index(engine, dev) -> dict:
+    """``dedup_against_index(mesh=...)`` on 4,096 ragged articles in two
+    batches: the mesh's wide keys equal the one-device keys, and the
+    attributions (and both indexes' postings) equal the one-device call's."""
+    import tempfile
+
+    from advanced_scrapper_tpu_torch.core.mesh import build_mesh
+    from advanced_scrapper_tpu_torch.index import PersistentIndex
+
+    adocs = ragged_corpus(np.random.RandomState(20), AGAINST_INDEX_ARTICLES)[0]
+    half = AGAINST_INDEX_ARTICLES // 2
+    mesh = build_mesh(4, 2, devices=[dev] * MESH_SHARDS)
+    keys_mesh = engine._keys_wide_sharded(adocs, mesh)
+    _sigs, keys_one = engine.signatures_and_keys(adocs, wide=True, sync_sigs=False)
+    assert np.array_equal(keys_mesh, keys_one), "the mesh's wide keys differ"
+    got, postings = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, m in (("mesh", mesh), ("one", None)):
+            idx = PersistentIndex(os.path.join(tmp, name))
+            try:
+                t0 = time.perf_counter()
+                got[name] = [engine.dedup_against_index(adocs[:half], idx, mesh=m),
+                             engine.dedup_against_index(adocs[half:], idx, mesh=m)]
+                got[name + "_s"] = time.perf_counter() - t0
+                postings[name] = sorted_postings(idx)
+            finally:
+                idx.close()
+    same = all(np.array_equal(a, b) for a, b in zip(got["mesh"], got["one"]))
+    assert same and postings["mesh"] == postings["one"], "the mesh's attributions differ"
+    return {"articles": AGAINST_INDEX_ARTICLES, "keys_equal": True, "attributions_equal": True,
+            "dups": int(sum((x >= 0).sum() for x in got["mesh"])),
+            "postings": len(postings["mesh"][0]), "mesh_seconds": got["mesh_s"],
+            "one_device_seconds": got["one_s"]}
+
+
+def mesh_functions(dev) -> tuple[list[dict], dict, np.ndarray]:
+    """Part 2 of ``mesh_path``: ``make_sharded_dedup``,
+    ``make_sharded_block_dedup`` (two 1,024-byte blocks an article),
+    ``make_seq_sharded_signatures`` and ``make_ring_dedup`` on each of
+    ``MESH_SHAPES``, card against the same function on CPU shards, on the
+    2,048 × 1,024-byte batch.  Returns each check's record, the card's
+    launches summed, and the 8×1 card batch step's representatives (the
+    one-process result the worlds are held to)."""
+    from advanced_scrapper_tpu_torch.core.hashing import make_params
+    from advanced_scrapper_tpu_torch.core.mesh import build_mesh, host_numpy
+    from advanced_scrapper_tpu_torch.parallel.ring import make_ring_dedup
+    from advanced_scrapper_tpu_torch.parallel.sharded import (
+        make_seq_sharded_signatures,
+        make_sharded_block_dedup,
+        make_sharded_dedup,
+    )
+
+    params = make_params()
+    tok, lens = mesh_batch()
+    owners = (np.arange(MESH_BATCH) // 2).astype(np.int32)
+    steps = {
+        "sharded_dedup": (lambda m: make_sharded_dedup(m, params), (tok, lens)),
+        "sharded_block_dedup": (lambda m: make_sharded_block_dedup(m, params, MESH_BATCH // 2),
+                                (tok, lens, owners)),
+        "seq_sharded_signatures": (lambda m: make_seq_sharded_signatures(m, params, MESH_BLOCK),
+                                   (tok, lens)),
+        "ring_dedup": (lambda m: make_ring_dedup(m, params), (tok, lens)),
+    }
+
+    def host(out):
+        if isinstance(out, tuple):
+            return [host_numpy(x) for x in out]
+        return [out.numpy() if hasattr(out, "pieces") else host_numpy(out)]
+
+    records, launches, one_process = [], dict.fromkeys(launch_counters(), 0), None
+    for shape in MESH_SHAPES:
+        card_mesh = build_mesh(*shape, devices=[dev] * MESH_SHARDS)
+        cpu_mesh = build_mesh(*shape, devices=["cpu"] * MESH_SHARDS)
+        for name, (make, args) in steps.items():
+            step = make(card_mesh)
+            reset_launches()
+            t0 = time.perf_counter()
+            out = host(step(*args))  # the readback waits for the card
+            card_s = time.perf_counter() - t0
+            got = read_launches()
+            t0 = time.perf_counter()
+            want = host(make(cpu_mesh)(*args))
+            cpu_s = time.perf_counter() - t0
+            equal = all(np.array_equal(a, b) for a, b in zip(out, want))
+            assert equal, f"{name} on {shape}: card and CPU differ"
+            assert got["minhash_sig"] == MESH_SHARDS and sum(got.values()) == MESH_SHARDS, got
+            launches = {k: launches[k] + v for k, v in got.items()}
+            if name == "sharded_dedup" and shape == (8, 1):
+                one_process = out[0]
+            records.append({"function": name, "mesh": f"{shape[0]}x{shape[1]}",
+                            "card_s": card_s, "cpu_s": cpu_s, "equal": True,
+                            "minhash_sig_launches": got["minhash_sig"],
+                            "dups": int((out[0] != np.arange(len(out[0]))).sum())
+                            if out[0].ndim == 1 else None})
+    return records, launches, one_process
+
+
+def run_mesh_world(world: int, backend: str, dev: torch.device, articles: int) -> list[dict]:
+    """Start ``world`` ranks of ``chip_smoke.py --mesh-worker`` on ``dev``
+    (the card; CPU shards to rehearse) over ``articles`` of the ragged
+    corpus and return each rank's JSON line; a rank that fails or
+    outlasts ``MESH_WORLD_TIMEOUT_S`` fails the phase (every rank is
+    stopped)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    script = os.path.abspath(__file__)
+    procs = [subprocess.Popen([sys.executable, script, "--mesh-worker", str(r), str(world),
+                               str(port), backend, dev.type, str(articles), str(MESH_BATCH)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=MESH_WORLD_TIMEOUT_S)
+            assert p.returncode == 0, f"{backend} rank failed ({p.returncode}):\n{err[-4000:]}"
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def mesh_worker(rank: str, world: str, port: str, backend: str, device: str = "cuda",
+                articles: str = str(MAIN_ARTICLES), batch: str = str(MESH_BATCH)) -> int:
+    """One rank of a ``torch.distributed`` world on the card (``mesh_path``
+    parts 3 and 4): ``world`` ranks share the card, ``8 / world`` shards
+    each.  It runs ``multihost_dedup`` over its rows of the ``batch`` ×
+    1,024-byte batch and ``dedup_reps_sharded`` over ``articles`` ragged
+    articles on ``global_mesh``, and prints their representatives'
+    digests, times, launches and the collectives' bytes, ms and staging
+    copies as one JSON line.  Under NCCL it also all-reduces the uint32
+    edge values in their sign-flip wire form.  ``device="cpu"`` rehearses
+    it on CPU shards."""
+    global MESH_BATCH
+    MESH_BATCH = int(batch)
+    if device == "cuda" and not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this runs on the card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from advanced_scrapper_tpu_torch.config import DedupConfig
+    from advanced_scrapper_tpu_torch.core.hashing import make_params
+    from advanced_scrapper_tpu_torch.core.mesh import new_stats
+    from advanced_scrapper_tpu_torch.parallel import collectives
+    from advanced_scrapper_tpu_torch.parallel.dist import (
+        global_mesh,
+        initialize_multihost,
+        multihost_dedup,
+        world_info,
+    )
+    from advanced_scrapper_tpu_torch.pipeline.dedup import NearDupEngine
+
+    rank, world = int(rank), int(world)
+    t_start = time.perf_counter()
+    assert initialize_multihost(f"localhost:{port}", world, rank, backend=backend)
+    dev = torch.device("cuda", 0) if device == "cuda" else torch.device("cpu")
+    mesh = global_mesh(devices=[dev] * (MESH_SHARDS // world))
+    out = {"rank": rank, "backend": backend, "world": world_info(mesh)}
+    if backend == "nccl":
+        edges = np.array([0, 2**31 - 1, 2**31, 2**32 - 1], np.uint32)
+        wire = torch.from_numpy(edges.view(np.int32)).to(dev) ^ -(1 << 31)
+        back = collectives.world_reduce(mesh, wire, "min", (rank,))
+        assert np.array_equal((back ^ -(1 << 31)).cpu().numpy().view(np.uint32), edges)
+        out["nccl_wire_check"] = True
+    tok, lens = mesh_batch()
+    per = MESH_BATCH // world
+    params = make_params()
+    mesh.stats = new_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    rep, hist = multihost_dedup(tok[rank * per:(rank + 1) * per], lens[rank * per:(rank + 1) * per],
+                                params, mesh=mesh)
+    out["multihost"] = {"seconds": time.perf_counter() - t0, "digest": reps_digest(rep),
+                        "hist_sum": int(hist.sum()), "launches": read_launches()["minhash_sig"],
+                        "collectives": dict(mesh.stats)}
+    docs, _ = ragged_corpus(np.random.RandomState(7), int(articles))
+    eng = NearDupEngine(DedupConfig(rerank=False, exact_verify_band=0.0), device=dev)
+    warm = eng.prewarm_sharded(mesh, len(docs))
+    mesh.stats = new_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    reps = eng.dedup_reps_sharded(docs, mesh)
+    seconds = time.perf_counter() - t0
+    got = read_launches()
+    if dev.type == "cuda":  # the plain versions count no launch
+        assert got["minhash_fold"] == eng.last_tiles * len(mesh.local), (got, eng.last_tiles)
+    out["packed"] = {"seconds": seconds, "articles_per_s": len(docs) / seconds,
+                     "digest": reps_digest(reps), "tile_groups": eng.last_tiles,
+                     "prewarm_launches": warm, "minhash_fold_launches": got["minhash_fold"],
+                     "collectives": dict(mesh.stats)}
+    out["process_seconds"] = time.perf_counter() - t_start
+    print(json.dumps(out), flush=True)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_path(docs: list[bytes], main_reps: np.ndarray, engine, card: str, dev="cuda") -> dict:
+    """The device mesh on the card (``core/mesh.py``, ``parallel/*``), each
+    part with the launch counters set to 0 just before it and read just
+    after:
+
+    1. a virtual 8-shard mesh in this process, 4×2 and 8×1:
+       ``dedup_reps_sharded`` over the 65,536 ragged articles with
+       ``main_path``'s engine equals its ``dedup_reps_async``
+       representatives, each shard's ledger tiles + 1 / tiles + 1 with
+       skew 0, ``minhash_fold`` launches = tile groups × 8; the same with
+       ``backend="oph"`` (``oph_fold`` = groups × 8, one ``oph_densify`` a
+       corpus); ``dedup_against_index(mesh=...)`` on 4,096 articles equal
+       to the one-device call; ``entry.dryrun_multichip(8)`` over the
+       visible cards;
+    2. ``make_sharded_dedup``, ``make_sharded_block_dedup``,
+       ``make_seq_sharded_signatures`` and ``make_ring_dedup`` on both
+       meshes, card equal to CPU shards, on 2,048 × 1,024 bytes;
+    3. a gloo world of 2 ranks sharing the card, 4 shards each: its
+       ``multihost_dedup`` equals part 2's 8×1 batch step, its
+       ``dedup_reps_sharded`` part 1's, both ranks agreeing; the
+       collectives' bytes, ms and staging copies;
+    4. an NCCL world of 1 on the card: the same, and the wire form through
+       NCCL.
+
+    Returns the launches of the kernels on the path (parts 1 and 2)."""
+    from advanced_scrapper_tpu_torch.config import DedupConfig
+    from advanced_scrapper_tpu_torch.pipeline.dedup import NearDupEngine
+
+    t_phase = time.perf_counter()
+    dev = torch.device(dev)
+    n = len(docs)
+    oph = NearDupEngine(DedupConfig(backend="oph", rerank=False, exact_verify_band=0.0),
+                        device=dev)
+    oph_reps = oph.dedup_reps_async(docs)[:n].cpu().numpy()
+    planes = mesh_planes(docs, {"minhash": engine, "oph": oph},
+                         {"minhash": main_reps, "oph": oph_reps}, dev)
+    log("mesh_path_planes", articles=n, runs=planes["runs"], card=card)
+    against = mesh_against_index(engine, dev)
+    log("mesh_path_against_index", **against, card=card)
+    from advanced_scrapper_tpu_torch.entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(MESH_SHARDS, device=dev)
+    cards = min(MESH_SHARDS, torch.cuda.device_count()) if dev.type == "cuda" else 1
+    assert dry["distinct_devices"] == cards, dry
+    log("mesh_path_dryrun", **dry, seconds=time.perf_counter() - t0, card=card)
+    functions, fn_launches, one_process = mesh_functions(dev)
+    log("mesh_path_functions", batch=[MESH_BATCH, MESH_BLOCK], checks=functions, card=card)
+    for world, backend in ((2, "gloo"), (1, "nccl" if dev.type == "cuda" else "gloo")):
+        t0 = time.perf_counter()
+        ranks = run_mesh_world(world, backend, dev, n)
+        wall = time.perf_counter() - t0
+        for r in ranks:
+            assert r["multihost"]["digest"] == reps_digest(one_process), (backend, r["rank"])
+            assert r["packed"]["digest"] == reps_digest(main_reps), (backend, r["rank"])
+            assert r["world"]["global_devices"] == MESH_SHARDS, r["world"]
+        log("mesh_path_world", backend=backend, ranks=world, wall_s=wall, per_rank=ranks,
+            multihost_equal=True, packed_equal=True, card=card)
+    launches = {k: planes["launches"][k] + fn_launches[k] for k in planes["launches"]}
+    seconds = time.perf_counter() - t_phase
+    log("mesh_path", seconds=seconds, launches={k: v for k, v in launches.items() if v},
+        card=card)
+    return launches
+
+
 def bound_by(ops_ms: float, bytes_ms: float) -> str:
     return "operations" if ops_ms >= bytes_ms else "bytes"
 
@@ -4171,6 +4532,7 @@ def main() -> int:
     fed = feed_path(docs, card)
     oph_kernels = oph_path(docs, planted, warm, card, clock_mhz, dev)
     obs_path(card, dev)
+    meshed = mesh_path(docs, main_reps, engine, card)
 
     kernels = [
         kernel_entry("minhash_fold_segments", seg_launches, seg_ms, seg_plain_ms,
@@ -4317,6 +4679,9 @@ def main() -> int:
         share_of_floor=legacy["share_of_floor"], per=legacy["per"]))
     kernels.extend(oph_kernels)
     assert len(kernels) == 11, [k["name"] for k in kernels]
+    for row in kernels:
+        if row["name"] in ("minhash_fold", "minhash_sig", "oph_fold", "oph_densify"):
+            row["mesh_path"] = {"launches": meshed[row["name"]]}
 
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi("name,power.limit"))
@@ -4327,4 +4692,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker(*sys.argv[2:]))
     sys.exit(main())

@@ -69,7 +69,10 @@ def test_port_files_found():
                 "obs/telemetry.py", "obs/trace.py", "obs/stages.py", "obs/devprof.py",
                 "obs/profiler.py", "net/__init__.py", "net/rpc.py", "index/remote.py",
                 "index/fleet.py", "index/reshard.py", "runtime/autoscaler.py",
-                "service/__init__.py", "service/tenancy.py", "service/gateway.py"):
+                "service/__init__.py", "service/tenancy.py", "service/gateway.py",
+                "core/mesh.py", "parallel/__init__.py", "parallel/collectives.py",
+                "parallel/sharded.py", "parallel/sharded_packed.py", "parallel/ring.py",
+                "parallel/dist.py"):
         assert f"advanced_scrapper_tpu_torch/{rel}" in FILES, rel
     for name in NATIVE:
         assert (PORT / "native" / name).exists(), name
@@ -98,7 +101,7 @@ def _reference_lint():
 
 #: the layers whose rules the port holds as the reference's; ``ops/`` is a
 #: known difference (``ops/_build.py`` counts builds on the obs plane)
-LINT_LAYERS = ("index", "net", "runtime", "service")
+LINT_LAYERS = ("index", "net", "parallel", "runtime", "service")
 LINTED = [rel for rel in FILES if rel.startswith("advanced_scrapper_tpu_torch/")
           and Path(rel).parts[1] in LINT_LAYERS]
 
@@ -134,7 +137,7 @@ def _banned_imports(rel: str, text: str | None = None) -> list[str]:
 
 @pytest.mark.parametrize("rel", sorted(set(LINTED) | {
     f"advanced_scrapper_tpu_torch/{m}" for m in ("ops/rerank.py", "obs/decisions.py",
-                                                  "obs/canary.py")}))
+                                                  "obs/canary.py", "core/mesh.py")}))
 def test_reference_layer_rules_hold(rel):
     assert not _banned_imports(rel), f"{rel} imports {_banned_imports(rel)}"
 
@@ -233,3 +236,22 @@ def test_importing_the_port_loads_no_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
+
+
+def test_parallel_imports_only_core_and_ops():
+    """The mesh's ``parallel/`` is device math: like the reference's, it
+    imports nothing of ``pipeline``, ``net``, ``index`` or ``runtime``
+    (the rule bites on a planted import), and in fact only ``core``,
+    ``ops``, ``config`` and itself of the port."""
+    lint = _reference_lint()
+    assert set(lint.RULES["parallel"]) == {"pipeline", "net", "index", "runtime"}
+    planted = ("from advanced_scrapper_tpu_torch.pipeline.dispatch import PipelinedDispatcher\n"
+               "import advanced_scrapper_tpu_torch.runtime.graph\n")
+    assert _banned_imports("advanced_scrapper_tpu_torch/parallel/sharded.py", planted) == [
+        "advanced_scrapper_tpu_torch.pipeline.dispatch", "advanced_scrapper_tpu_torch.runtime.graph"]
+    pkg = "advanced_scrapper_tpu_torch"
+    for rel in (r for r in FILES if r.startswith(f"{pkg}/parallel/")):
+        tree = ast.parse((ROOT / rel).read_text(), filename=rel)
+        for mod in _imported_modules(tree):
+            if mod.startswith(pkg + "."):
+                assert mod.split(".")[1] in ("core", "ops", "config", "parallel"), (rel, mod)

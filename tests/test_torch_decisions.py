@@ -11,6 +11,7 @@ built and nothing extra is read back.  Everything on the CPU."""
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import os
 
@@ -37,6 +38,9 @@ PACKAGES = (decisions, ref_decisions)
 
 @pytest.fixture(autouse=True)
 def fresh_state():
+    # a stopped stack sampler another module left in a reference cycle
+    # re-registers its series at every reset until it is collected
+    gc.collect()
     for reg in (telemetry.REGISTRY, ref_telemetry.REGISTRY):
         reg.reset()
     yield

@@ -124,20 +124,31 @@ def test_unported_configs_raise(corpus, overrides):
     assert (reps != np.arange(len(corpus))).sum() > 10  # the planted dups merged
 
 
-def test_unported_methods_raise(corpus):
-    """The sharded methods raise naming their slice.  The fleet's
-    ``reshard_to`` is ported: without a spill directory (the migration
-    WAL's home) it refuses as the reference's does, not as unported."""
+def test_unported_methods_raise(corpus, tmp_path):
+    """The sharded methods once raised naming their slice; they are ported
+    now: on a CPU mesh ``dedup_reps_sharded`` equals the one-device
+    estimator-only representatives, ``prewarm_sharded`` makes one fold a
+    shard, and ``dedup_against_index(mesh=...)`` attributes as the
+    one-device call.  The fleet's ``reshard_to`` is ported too: without a
+    spill directory (the migration WAL's home) it refuses as the
+    reference's does."""
+    from advanced_scrapper_tpu_torch.core.mesh import build_mesh
+    from advanced_scrapper_tpu_torch.index import PersistentIndex
     from advanced_scrapper_tpu_torch.index.fleet import ShardedIndexClient
 
-    eng = NearDupEngine(DedupConfig(rerank=False), device="cpu")
-    for call in (
-        lambda: eng.dedup_reps_sharded(corpus, None),
-        lambda: eng.prewarm_sharded(None),
-        lambda: eng.dedup_against_index(corpus, None, mesh=object()),
-    ):
-        with pytest.raises(NotImplementedError, match="slice"):
-            call()
+    eng = NearDupEngine(DedupConfig(**BASE), device="cpu")
+    mesh = build_mesh(4, 2, devices=["cpu"] * 8)
+    want = eng.dedup_reps_async(corpus)[: len(corpus)].numpy()
+    assert np.array_equal(eng.dedup_reps_sharded(corpus, mesh), want)
+    assert eng.prewarm_sharded(mesh) == 8
+    got = []
+    for name, m in (("mesh", mesh), ("one", None)):
+        idx = PersistentIndex(str(tmp_path / name))
+        try:
+            got.append(eng.dedup_against_index(corpus, idx, mesh=m).tolist())
+        finally:
+            idx.close()
+    assert got[0] == got[1]
     client = ShardedIndexClient("127.0.0.1:9")  # opens no connection
     try:
         with pytest.raises(RuntimeError, match="spill_dir"):

@@ -527,9 +527,17 @@ def test_prewarm_is_skipped_on_the_unpacked_transport(folds):
     assert eng.prewarm_launches == 0 and not folds
 
 
-def test_sharded_methods_name_the_mesh_slice(corpus):
-    eng = NearDupEngine(DedupConfig(**BASE), device="cpu")
-    for call in (lambda: eng.dedup_reps_sharded(corpus, None),
-                 lambda: eng.prewarm_sharded(None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-            call()
+def test_sharded_methods_name_the_mesh_slice(corpus, want):
+    """The sharded methods, once a raise naming the mesh slice, run their
+    tile groups through the dispatcher (``dedup.sharded.h2d``): the
+    representatives equal the reference's, one group a step, and
+    ``prewarm_sharded`` warms one fold a shard."""
+    from advanced_scrapper_tpu_torch.core.mesh import build_mesh
+
+    eng = NearDupEngine(DedupConfig(**BASE, put_workers=2, dispatch_window=3), device="cpu")
+    mesh = build_mesh(8, 1, devices=["cpu"] * 8)
+    assert eng.prewarm_sharded(mesh) == 8
+    assert np.array_equal(eng.dedup_reps_sharded(corpus, mesh), want[1])
+    pipe = eng.last_dispatcher
+    assert pipe is not None and pipe.window == 3
+    assert pipe.times["put"].count == eng.last_tiles > 0

@@ -48,8 +48,17 @@ def test_entry_on_an_absent_card_raises():
 
 
 def test_dryrun_multichip_names_its_slice():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        entry.dryrun_multichip(4)
+    """The sharded dry run, once a raise naming the mesh slice: on CPU
+    shards the sharded step and the packed plane equal the one-shard
+    results and every planted family resolves; without a card the default
+    device raises."""
+    report = entry.dryrun_multichip(4, device="cpu")
+    assert report["shards"] == 4 and report["distinct_devices"] == 1
+    assert report["devices"] == ["cpu"] and report["dups"] == 48
+    assert report["hist_sum"] == 256 * 16 and report["tile_groups"] >= 1
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry.dryrun_multichip(4)
 
 
 def test_version_is_the_references():

@@ -331,9 +331,45 @@ def test_device_feed_multi_worker_death_raises_promptly():
 
 
 def test_device_feed_sharding_and_default_device():
-    b = HostBatcher(8)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        DeviceFeed(b, 4, sharding=(None, None), device="cpu")
+    """``sharding=mesh`` (once a raise naming the mesh slice) splits each
+    tile's rows over the data shards, and the mesh's batch step resolves
+    a duplicate across shards (the reference's
+    ``test_hostbatch_feed.py`` sharded-feed case); a tile that does not
+    split, or a sharding that is not a mesh, is refused."""
+    from advanced_scrapper_tpu_torch.core.hashing import make_params
+    from advanced_scrapper_tpu_torch.core.mesh import ShardedArray, build_mesh
+    from advanced_scrapper_tpu_torch.obs import stages
+    from advanced_scrapper_tpu_torch.parallel.sharded import make_sharded_dedup
+
+    mesh = build_mesh(8, 1, devices=["cpu"] * 8)
+    step = make_sharded_dedup(mesh, make_params())
+    batch, block = 64, 128
+    rng = np.random.RandomState(5)
+    base = rng.randint(32, 127, size=(batch, block), dtype=np.uint8)
+    base[batch // 2] = base[3]  # a duplicate across shards (4 vs 0)
+    b = HostBatcher(block)
+    b.feed([base[i].tobytes() for i in range(batch)], start_tag=0)
+    b.close()
+    before = stages.sharded_device_counters("feed")
+    feed = DeviceFeed(b, batch, depth=2, sharding=mesh)
+    got = []
+    for n, t_dev, l_dev, tags in feed:
+        assert isinstance(t_dev, ShardedArray) and t_dev.spec == ("data", None)
+        assert [p.shape for p in t_dev.pieces] == [(batch // 8, block)] * 8
+        assert np.array_equal(t_dev.numpy(), base)
+        rep, _h = step(t_dev, l_dev)
+        got.append((rep.numpy()[:n], tags[:n]))
+    feed.join()
+    assert len(got) == 1
+    rep, tags = got[0]
+    assert rep[batch // 2] == 3 and tags.tolist() == list(range(batch))
+    after = stages.sharded_device_counters("feed")
+    assert all(after[str(s)]["device_puts"] - before.get(str(s), {}).get("device_puts", 0) == 2
+               for s in range(8))
+    with pytest.raises(ValueError, match="does not split"):
+        DeviceFeed(HostBatcher(8), 12, sharding=mesh)
+    with pytest.raises(TypeError, match="Mesh"):
+        DeviceFeed(HostBatcher(8), 8, sharding=(None, None))
     import torch
 
     if not torch.cuda.is_available():

@@ -280,10 +280,21 @@ def test_stage_windows_equal_reference():
         got.append((mod.device_counters(), mod.regime_device_counters("dedup")))
     assert got[0] == got[2] == {"encode": 250.0, "h2d": 125.0}
     assert got[1] == got[3]
-    with pytest.raises(NotImplementedError, match="item 15"):
-        stages.sharded_device_counters()
-    with pytest.raises(NotImplementedError, match="item 15"):
-        stages.count_dispatch("sharded", shard=0)
+    # the per-shard half, once a raise naming the mesh slice: the same
+    # per-shard totals and put skew in both packages
+    views = []
+    for mod in (ref_stages, stages):
+        base = mod.sharded_device_counters()
+        for s, puts in ((0, 3), (1, 3), (2, 1)):
+            for _ in range(puts):
+                mod.count_device_put(64, "sharded", shard=s)
+            mod.count_dispatch("sharded", 2, shard=s)
+        after = mod.sharded_device_counters()
+        views.append(({s: {k: v - base.get(s, {}).get(k, 0.0) for k, v in d.items()}
+                       for s, d in after.items()}, mod.record_sharded_put_skew(base)))
+    assert views[0] == views[1]
+    assert views[1][0]["0"] == {"device_puts": 3.0, "device_dispatches": 2.0, "h2d_bytes": 192.0}
+    assert views[1][1] == 2.0
 
 
 @pytest.mark.parametrize("mode", ["async", "fenced"])

@@ -555,10 +555,29 @@ def test_cross_source_persist_mode_equals_reference(tmp_path):
     assert open(str(tmp_path / "port.csv"), "rb").read() == open(str(tmp_path / "jax.csv"), "rb").read()
 
 
-# -- still raising -----------------------------------------------------------------
+# -- on a mesh -----------------------------------------------------------------------
 
 
-def test_mesh_still_raises():
+def test_mesh_still_raises(tmp_path):
+    """``dedup_against_index(mesh=...)``, once a raise naming the mesh
+    slice: the keys off a CPU mesh's packed plane attribute a two-batch
+    stream as the one-device keys do, and the index directories are
+    byte-equal."""
+    from advanced_scrapper_tpu_torch.core.mesh import build_mesh
+    from advanced_scrapper_tpu_torch.index import PersistentIndex
+
+    rng = np.random.RandomState(31)
+    docs = [rng.randint(32, 127, size=int(n), dtype=np.uint8).tobytes()
+            for n in rng.randint(0, 3000, size=40)]
+    docs += docs[:5] + [b"abcdefgh", b""]
     eng = NearDupEngine(DedupConfig(rerank=False), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        eng.dedup_against_index(["abcdefgh"], None, mesh=object())
+    got = {}
+    for name, mesh in (("mesh", build_mesh(4, 2, devices=["cpu"] * 8)), ("one", None)):
+        idx = PersistentIndex(str(tmp_path / name))
+        try:
+            got[name] = [eng.dedup_against_index(docs[:24], idx, mesh=mesh).tolist(),
+                         eng.dedup_against_index(docs[24:], idx, mesh=mesh).tolist()]
+        finally:
+            idx.close()
+    assert got["mesh"] == got["one"]
+    assert sum(x >= 0 for x in got["mesh"][1]) >= 5
