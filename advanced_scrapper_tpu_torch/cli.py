@@ -7,9 +7,10 @@ subcommands and arguments, plus one global ``--device {cuda,cpu}``
 kernel's plain version).  Flags override the ``ASTPU_*`` environment knobs
 (``config.from_env``), which override the defaults.  Ported: ``version``,
 ``config``, ``dedup`` (whole corpus, and ``--stream`` with an exact or
-bloom index), ``match``, ``xdedup`` and ``smoke``.  The acquisition,
-lease and set-operation commands keep their arguments and exit non-zero
-naming the ROADMAP item that ports them.
+bloom index), ``match``, ``xdedup``, ``scrape`` (its successes streamed
+into the dedup backend on ``--device``) and ``smoke``.  The harvest,
+enrichment, lease and set-operation commands keep their arguments and
+exit non-zero naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -138,10 +139,17 @@ def _cmd_xdedup(args: argparse.Namespace) -> int:
     return 0
 
 
+def _cmd_scrape(args: argparse.Namespace) -> int:
+    from advanced_scrapper_tpu_torch.pipeline.scraper import run_scraper
+
+    return run_scraper(_with_overrides(default_config().scraper, transport=args.transport),
+                       device=args.device)
+
+
 def _cmd_smoke(args: argparse.Namespace) -> int:
-    """Environment check: the device, the port's native host libraries and
-    one tiny dedup on the device.  The transport check comes with the
-    transports (ROADMAP item 18)."""
+    """Environment check: the device, the port's native host libraries, the
+    transport (fetches a page with ``mock``, the default; builds and closes
+    any other) and one tiny dedup on the device."""
     report: dict = {}
     ok = True
     try:
@@ -158,11 +166,13 @@ def _cmd_smoke(args: argparse.Namespace) -> int:
     except Exception as e:
         report["torch"] = {"error": str(e)}
         ok = False
-    from advanced_scrapper_tpu_torch.cpu import exactdedup, hostbatch, native as fastmatch
+    from advanced_scrapper_tpu_torch.cpu import csvnative, exactdedup, hostbatch
+    from advanced_scrapper_tpu_torch.cpu import native as fastmatch
 
     native: dict = {}
     for name, load in (("fastmatch", fastmatch._load), ("hostbatch", hostbatch._load),
-                       ("exactdedup", exactdedup.exactdedup_backend)):
+                       ("exactdedup", exactdedup.exactdedup_backend),
+                       ("csvscan", csvnative._load)):
         try:
             got = load()
             native[name] = got if isinstance(got, str) else "native"
@@ -170,7 +180,16 @@ def _cmd_smoke(args: argparse.Namespace) -> int:
             native[name] = f"error: {e}"
             ok = False
     report["native"] = native
-    report["transport"] = f"not checked: the transports come with {SLICE_HOST_PLANES}"
+    try:
+        from advanced_scrapper_tpu_torch.net.transport import make_transport
+
+        t = make_transport(args.transport, pages={"https://smoke/x": "<html></html>"})
+        t.fetch("https://smoke/x") if args.transport == "mock" else None
+        t.close()
+        report["transport"] = {args.transport: "ok"}
+    except Exception as e:
+        report["transport"] = {args.transport: f"error: {e}"}
+        ok = False
     try:
         from advanced_scrapper_tpu_torch.pipeline.dedup import NearDupEngine
 
@@ -228,9 +247,9 @@ def build_parser() -> argparse.ArgumentParser:
     h.add_argument("--engine", choices=("threads", "async"), default="threads")
     h.set_defaults(fn=_not_ported("harvest"))
 
-    s = sub.add_parser("scrape", help="constant-rate article scrape (not ported: ROADMAP item 18)")
+    s = sub.add_parser("scrape", help="constant-rate article scrape")
     s.add_argument("--transport", default=None)
-    s.set_defaults(fn=_not_ported("scrape"))
+    s.set_defaults(fn=_cmd_scrape)
 
     e = sub.add_parser("enrich", help="Wikidata enrichment (not ported: ROADMAP item 18)")
     e.add_argument("--crypto", action="store_true")
@@ -301,8 +320,8 @@ def build_parser() -> argparse.ArgumentParser:
     st.add_argument("--live-url", default="https://example.com/")
     st.set_defaults(fn=_not_ported("selftest"))
 
-    sm = sub.add_parser("smoke", help="environment check (device, native libraries, a tiny "
-                        "dedup; the transport check comes with ROADMAP item 18)")
+    sm = sub.add_parser("smoke", help="environment check (device, native libraries, "
+                        "transport, a tiny dedup)")
     sm.add_argument("--transport", default="mock")
     sm.set_defaults(fn=_cmd_smoke)
 

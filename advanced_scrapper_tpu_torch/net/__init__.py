@@ -1,8 +1,13 @@
 """The network planes.
 
-Only :mod:`.rpc` is ported: the length-framed RPC the index fleet rides
-(``index/remote.py``, ``index/fleet.py``).  The reference's fetch
-transports, lease plane and chaos sockets come with ROADMAP item 18.
+- :mod:`.rpc`: the length-framed RPC the index fleet rides
+  (``index/remote.py``, ``index/fleet.py``);
+- :mod:`.transport` and :mod:`.webdriver`: the scraper's fetch transports
+  and the stdlib W3C WebDriver wire client (``requests``, ``selenium`` and
+  ``undetected_chromedriver`` are imported only by the transport that
+  needs them).
+
+The reference's lease plane and chaos sockets come with ROADMAP item 18c.
 """
 
 from advanced_scrapper_tpu_torch.net.rpc import (
@@ -16,15 +21,25 @@ from advanced_scrapper_tpu_torch.net.rpc import (
     recv_frame,
     send_frame,
 )
+from advanced_scrapper_tpu_torch.net.transport import (
+    FetchError,
+    MockTransport,
+    RequestsTransport,
+    make_transport,
+)
 
 __all__ = [
     "DEFAULT_MAX_FRAME",
+    "FetchError",
+    "MockTransport",
+    "RequestsTransport",
     "RpcClient",
     "RpcError",
     "RpcOverloaded",
     "RpcRemoteError",
     "RpcServer",
     "RpcUnavailable",
+    "make_transport",
     "recv_frame",
     "send_frame",
 ]

@@ -1,11 +1,14 @@
-"""Append-only CSV writing, torn-tail safe.
+"""Resumable append-only CSV stores, torn-tail safe: the writer and the
+resume readers.
 
 The port's copy of the reference's ``storage/csvio.py:_clean_end``,
 ``repair_torn_tail`` and ``AppendCsv`` (with ``_stat_sig`` and its clean
 cache), with its quarantine counters (``astpu_quarantine_total`` and
 ``astpu_quarantine_bytes_total``, ``kind="csv_torn_tail"``) and trace
-event; the readers ``read_url_column``, ``scraped_url_set`` and
-``count_rows`` with their native scanner are left out (ROADMAP item 18).
+event, and the readers ``read_url_column``, ``scraped_url_set`` and
+``count_rows`` (with ``_BoundedRaw``, ``_open_clean_text`` and
+``_read_clean_region``) over the native column scanner
+(``cpu/csvnative.py``).
 
 A process killed mid-``write_row`` leaves a *torn tail*, a final partial
 record.  :func:`repair_torn_tail` moves those bytes to a
@@ -18,6 +21,7 @@ lock around each write).  All I/O goes through the ``storage.fsio`` seam.
 from __future__ import annotations
 
 import csv
+import io
 import os
 import threading
 from typing import Sequence
@@ -170,3 +174,133 @@ class AppendCsv:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+class _BoundedRaw(io.RawIOBase):
+    """Read-only raw view of the first ``limit`` bytes of an open binary
+    file — lets the degraded-substrate fallback stream a multi-GB clean
+    region through the csv parser instead of buffering it whole."""
+
+    def __init__(self, fh, limit: int):
+        self._fh = fh
+        self._left = limit
+
+    def readable(self) -> bool:
+        return True
+
+    def readinto(self, b) -> int:
+        if self._left <= 0:
+            return 0
+        n = self._fh.readinto(memoryview(b)[: min(len(b), self._left)])
+        self._left -= n
+        return n
+
+    def close(self) -> None:
+        try:
+            self._fh.close()
+        finally:
+            super().close()
+
+
+def _open_clean_text(path: str, fs):
+    """Text handle over the file's whole-record region, read without
+    mutating it (the fallback for substrates where the repair write is
+    not permitted).  Caller closes it (closes the chain)."""
+    fh = fs.open(path, "rb")
+    try:
+        good = _clean_end(fh)
+        fh.seek(0)
+    except BaseException:
+        fh.close()
+        raise
+    return io.TextIOWrapper(
+        io.BufferedReader(_BoundedRaw(fh, good)),
+        encoding="utf-8",
+        errors="replace",
+        newline="",
+    )
+
+
+def _read_clean_region(path: str, column: str, fs) -> list[str]:
+    out: list[str] = []
+    with _open_clean_text(path, fs) as txt:
+        for row in csv.DictReader(txt):
+            v = row.get(column)
+            if v is not None:
+                out.append(str(v))
+    return out
+
+
+def read_url_column(
+    path: str, column: str = "url", fs=None, repair: bool = False
+) -> list[str]:
+    """Read one column as strings.
+
+    Served by the C++ scanner (``native/csvscan.cpp``, built at first use;
+    a failed build raises) — the resume anti-join re-reads multi-GB
+    article CSVs on every start, the same job the original scraper hands
+    to pandas' C parser (``constant_rate_scrapper.py:316-356``) — and by
+    the ``csv`` module for the files the scanner does not serve: a missing
+    column, bytes that are not UTF-8, a NUL inside a value.
+
+    ``repair=True`` quarantines a torn tail first; it is only correct for
+    FRAMEWORK-OWNED append artifacts (success/failed/annotation CSVs),
+    whose writer newline-terminates every record — there, an unterminated
+    tail IS a torn write.  The default read is lenient and non-mutating:
+    an externally-authored work list may legitimately end without a
+    trailing newline, and its final row must neither be dropped nor the
+    user's file rewritten.  (:func:`scraped_url_set` — the resume
+    anti-join over framework-owned CSVs — repairs by default.)
+    """
+    fs = fs or default_fs()
+    if not fs.exists(path):
+        return []
+    if repair:
+        try:
+            repair_torn_tail(path, fs=fs)
+        except OSError:
+            return _read_clean_region(path, column, fs)
+    from advanced_scrapper_tpu_torch.cpu.csvnative import scan_column
+
+    native = scan_column(path, column)
+    if native is not None:
+        return native
+    out: list[str] = []
+    with fs.open(path, newline="", encoding="utf-8") as fh:
+        for row in csv.DictReader(fh):
+            v = row.get(column)
+            if v is not None:
+                out.append(str(v))
+    return out
+
+
+def scraped_url_set(
+    *paths: str, column: str = "url", fs=None, repair: bool = True
+) -> set[str]:
+    """Union of url columns across existing CSVs — the resume anti-join set
+    (``constant_rate_scrapper.py:317-342``).  These are the framework's
+    own success/failed CSVs, so torn tails are quarantined first: a torn
+    row must never masquerade as a completed URL."""
+    seen: set[str] = set()
+    for p in paths:
+        seen.update(read_url_column(p, column, fs=fs, repair=repair))
+    return seen
+
+
+def count_rows(path: str, fs=None, repair: bool = True) -> int:
+    """Data-row count of a framework-owned CSV (repairs torn tails first,
+    like :func:`scraped_url_set`; pass ``repair=False`` for files the
+    framework does not write)."""
+    fs = fs or default_fs()
+    if not fs.exists(path):
+        return 0
+    if repair:
+        try:
+            repair_torn_tail(path, fs=fs)
+        except OSError:
+            with _open_clean_text(path, fs) as txt:
+                n = sum(1 for _ in csv.reader(txt))
+            return max(0, n - 1)
+    with fs.open(path, newline="", encoding="utf-8") as fh:
+        n = sum(1 for _ in csv.reader(fh))
+    return max(0, n - 1)  # minus header

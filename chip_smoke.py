@@ -30,9 +30,10 @@ before and read just after:
   version and a one-element fill kernel (the launch floor);
 - the certified path without the tier, ``DedupConfig(rerank=False)``, on
   the same corpora;
-- the default engine once over the 65,536 ragged articles: every planted
-  duplicate resolves to its source; the settle kernel timed on the tier's
-  inputs there as well (the ``rerank_settle`` row's
+- the default engine once over the first 32,768 of the ragged articles
+  (the run's time budget: the tier's host half takes most of it): every
+  planted duplicate resolves to its source; the settle kernel timed on
+  the tier's inputs there as well (the ``rerank_settle`` row's
   ``default_engine_main_corpus`` fields).
 
 The estimator-only path runs its chunks through the pipelined dispatcher
@@ -91,7 +92,18 @@ over three sources made from the ragged corpus: a success CSV of 32,768
 articles, a second CSV and a sqlite store of 16,384 each, 10% of the last
 two copies of first-source articles under other urls: every planted copy
 of an eligible source is a dup in the manifest, one launch per batch;
-card and CPU manifests byte-equal on a 2,048-article cut.
+card and CPU manifests byte-equal on a 2,048-article cut.  Then the scrape
+plane (``scrape_path``): ``run_scraper`` over 1,024 generated yfin pages
+(``scrape_pages``: ragged bodies, 10% near-dup copies, 2% without a title,
+a rate-limit sentinel) from ``MockTransport`` at 8 fetch threads and 5,000
+pages/s, its successes streamed into the card's stream backend: the rows
+add up, every planted copy is annotated, one ``minhash_fold_segments``
+launch a stream batch and no other, a resume adds no row, 256 pages at
+one thread write the same CSV bytes on the card and on the CPU; pages/s,
+the shares of the tree + extractor and of the backend (the scraper's own
+stage series) and the card's busy share (``torch.profiler``).
+``python3 chip_smoke.py --scrape`` runs that phase alone at its full
+depth: 8,192 pages, 1,024 of them for the card-vs-CPU bytes.
 
 The OPH backend (``csrc/oph.cu``): ``oph_vs_plain`` holds each of its
 entry points bit-equal to its plain version (``oph_fold_segments`` at
@@ -195,6 +207,7 @@ JAX or of the JAX package.
 
 from __future__ import annotations
 
+import html
 import json
 import os
 import re
@@ -2450,6 +2463,306 @@ def exact_path(card: str) -> None:
         card=card)
 
 
+SCRAPE_PAGES = 8192      # --scrape: the scrape plane alone at full depth
+SCRAPE_PARITY = 1024     # its card-vs-CPU run, one thread
+SCRAPE_SMOKE_PAGES = 1024  # the default run's depth
+SCRAPE_SMOKE_PARITY = 256
+SCRAPE_THREADS = 8
+SCRAPE_RATE = 5000.0     # admitted pages a second
+SCRAPE_COPIES = 0.10     # planted near-dup copies of earlier pages
+SCRAPE_TITLELESS = 0.02  # pages without a title (failed rows)
+SCRAPE_RATE_LIMIT_WAIT = 0.2
+SCRAPE_TICKERS = ("AAPL", "MSFT", "NVDA", "AMZN", "GOOGL", "META", "TSLA", "JPM", "XOM", "BRK-B")
+SCRAPE_SOURCES = ("Reuters", "Bloomberg", "Motley Fool", "Barron's", "Zacks", "Benzinga")
+#: the throttle interstitial the yfin extractor reads as ``rate_limit_reached``
+RATE_LIMIT_PAGE = (
+    "<!DOCTYPE html>\n<html>\n<head><title>Yahoo</title></head>\n<body>\n"
+    "  <div class=\"error-page\">\n    <h1>We're experiencing technical difficulties.</h1>\n"
+    "    <p>Thank you for your patience.</p>\n"
+    "    <p>Our engineers are working quickly to resolve the issue.</p>\n  </div>\n"
+    "</body>\n</html>\n")
+
+
+def article_blocks(rng: np.random.RandomState, text: str) -> list[tuple[str, list[str]]]:
+    """``text`` cut into a yfin body's blocks, ``(kind, pieces)``: mostly
+    paragraphs, some bullet and numbered lists of 2-4 items and tables of
+    2-4 rows."""
+    blocks: list[tuple[str, list[str]]] = []
+    pos = 0
+    while pos < len(text):
+        kind = ("p", "p", "p", "p", "ul", "ol", "table")[rng.randint(7)]
+        pieces = []
+        for _ in range(1 if kind == "p" else int(rng.randint(2, 5))):
+            step = int(rng.randint(60, 600))
+            pieces.append(text[pos:pos + step])
+            pos += step
+            if pos >= len(text):
+                break
+        blocks.append((kind, pieces))
+    return blocks
+
+
+def edit_blocks(rng: np.random.RandomState, blocks, share: float = 0.003):
+    """A near-dup copy of ``blocks``: about ``share`` of the characters
+    replaced by random letters (at least one)."""
+    out = [(kind, list(pieces)) for kind, pieces in blocks]
+    total = sum(len(p) for _, pieces in out for p in pieces)
+    for _ in range(max(1, int(total * share))):
+        kind, pieces = out[rng.randint(len(out))]
+        j = rng.randint(len(pieces))
+        if pieces[j]:
+            k = rng.randint(len(pieces[j]))
+            pieces[j] = pieces[j][:k] + chr(97 + rng.randint(26)) + pieces[j][k + 1:]
+    return out
+
+
+def yfin_page(rng: np.random.RandomState, i: int, blocks, tickers, title: str | None) -> str:
+    """One page with the yfin fixture's structure (``div.cover-title``,
+    ``div.byline-attr-author``, ``time[datetime]``, the source link
+    ``a.subtle-link.fin-size-small``, ``div.body`` inside ``div.body-wrap``
+    with the blocks, quote links to ``tickers`` in its last paragraph), a
+    script, a style and a comment; ``title=None`` leaves the title out."""
+    esc = html.escape
+    author = f"{letters(rng, 3, 9).title()} {letters(rng, 4, 11).title()}"
+    source = SCRAPE_SOURCES[rng.randint(len(SCRAPE_SOURCES))]
+    day = int(rng.randint(0, 3650))
+    stamp = time.strftime("%Y-%m-%dT%H:%M:00.000Z", time.gmtime(1.4e9 + day * 86400
+                                                                  + rng.randint(86400)))
+    out = [
+        "<!DOCTYPE html>\n<html>\n<head><title>",
+        esc(title or "Yahoo Finance"), "</title>\n",
+        f"<script>window.__page = {{\"id\": {i}, \"cmp\": \"a<b && c>d\"}};</script>\n",
+        "<style>.cover-title { font-weight: 700 } p > a { color: #0f69ff }</style>\n",
+        f"</head>\n<body>\n<!-- article {i} -->\n<div class=\"article-wrap\">\n",
+    ]
+    if title is not None:
+        out += ["  <div class=\"cover-title\">", esc(title), "</div>\n"]
+    out += [
+        "  <div class=\"byline-attr\">\n    <div class=\"byline-attr-author\">", esc(author),
+        f"</div>\n    <time datetime=\"{stamp}\">{stamp[:10]}</time>\n  </div>\n",
+        f"  <a class=\"subtle-link fin-size-small\" aria-label=\"{esc(source)}\" "
+        f"href=\"https://news.example/{i}/story\">{esc(source)}</a>\n",
+        "  <div class=\"body-wrap\">\n    <div class=\"body\">\n",
+    ]
+    for kind, pieces in blocks:
+        if kind == "p":
+            out += ["      <p>", esc(pieces[0]), "</p>\n"]
+        elif kind in ("ul", "ol"):
+            out.append(f"      <{kind}>\n")
+            out += [f"        <li>{esc(p)}</li>\n" for p in pieces]
+            out.append(f"      </{kind}>\n")
+        else:
+            out.append("      <table>\n        <tr><th>Segment</th><th>Note</th></tr>\n")
+            for p in pieces:
+                half = len(p) // 2
+                out.append(f"        <tr><td>{esc(p[:half])}</td><td>{esc(p[half:])}</td></tr>\n")
+            out.append("      </table>\n")
+    links = [f"<a href=\"https://finance.yahoo.com/quote/{SCRAPE_TICKERS[t]}?p="
+             f"{SCRAPE_TICKERS[t]}\">{SCRAPE_TICKERS[t]}</a>" for t in tickers]
+    out += ["      <p>Shares of ", ", ".join(links) or "the group", " moved &amp; traded.</p>\n",
+            "    </div>\n  </div>\n</div>\n</body>\n</html>\n"]
+    return "".join(out)
+
+
+def scrape_pages(rng: np.random.RandomState, n: int, body_cap: int | None = None):
+    """``n`` article pages keyed by url, bodies from the ragged recipe
+    (``ragged_corpus``, its exact copies redrawn): 10%
+    near-dup copies of earlier titled pages (distinct sources, their quote
+    links kept, about 0.3% of the characters edited), 2% without a title, one rate-limit sentinel
+    page; ``body_cap`` cuts each body to that many bytes (the CPU tests'
+    small pages).  Returns ``(urls, pages, {copy url: source url}, titleless
+    urls, sentinel url)``."""
+    docs, dups = ragged_corpus(rng, n)
+    for i in dups:
+        docs[i] = rng.randint(32, 127, size=len(docs[i]), dtype=np.uint8).tobytes()
+    urls: list[str] = []
+    pages: dict[str, str] = {}
+    planted: dict[str, str] = {}
+    titleless: set[str] = set()
+    blocks_of: dict[str, list] = {}
+    sources: list[str] = []
+    limited = n // 2
+    for i in range(n):
+        url = f"https://finance.example/news/story-{i}-{rng.randint(1 << 30)}.html"
+        urls.append(url)
+        if i == limited:
+            pages[url] = RATE_LIMIT_PAGE
+            continue
+        title = f"{letters(rng, 4, 10).title()} {letters(rng, 3, 8)} {letters(rng, 5, 12)} {i}"
+        u = rng.rand()
+        if u < SCRAPE_COPIES and len(sources) > 8:
+            src = sources.pop(rng.randint(len(sources)))
+            planted[url] = src
+            blocks, tickers = blocks_of[src]
+            blocks = edit_blocks(rng, blocks)
+        else:
+            blocks = article_blocks(rng, docs[i][:body_cap].decode("ascii"))
+            tickers = rng.choice(len(SCRAPE_TICKERS), size=int(rng.randint(0, 4)), replace=False)
+            if u < SCRAPE_COPIES + SCRAPE_TITLELESS:
+                titleless.add(url)
+                title = None
+            else:
+                sources.append(url)
+                blocks_of[url] = blocks, tickers
+        pages[url] = yfin_page(rng, i, blocks, tickers, title)
+    return urls, pages, planted, titleless, urls[limited]
+
+
+def csv_tree(path: str) -> dict[str, bytes]:
+    """The bytes of each CSV file directly under ``path``."""
+    out = {}
+    for name in sorted(os.listdir(path)):
+        if name.endswith(".csv"):
+            with open(os.path.join(path, name), "rb") as f:
+                out[name] = f.read()
+    return out
+
+
+def run_scrape(urls: list[str], pages: dict[str, str], out_dir: str, dev, threads: int,
+               input_csv: str, busy: bool = False) -> dict:
+    """``run_scraper`` over ``urls`` (read from ``input_csv``) served by
+    ``MockTransport(pages)``, its console caught; returns the run's
+    seconds, the launches counted over it (counters set to 0 first), the
+    scraper's own stage series over it (``obs.stages``: ``scrape_extract``,
+    the tree build and extractor summed over the fetch threads by wall
+    clock, GIL waits included; ``scrape_extract_cpu``, the same by each
+    thread's CPU clock; ``scrape_backend``, the result loop's time in the
+    backend's ``submit`` and the final ``flush``), its summary line, and
+    with ``busy`` the card's busy ms: the device time of every kernel and
+    copy that ``torch.profiler`` (device activity only) recorded over the
+    run, ``None`` where it recorded none, and the segment folds it recorded
+    (fewer than were launched: the busy ms is short by the rest)."""
+    import contextlib
+    import io
+
+    from advanced_scrapper_tpu_torch.config import ScraperConfig
+    from advanced_scrapper_tpu_torch.net.transport import MockTransport
+    from advanced_scrapper_tpu_torch.obs import stages
+    from advanced_scrapper_tpu_torch.pipeline import scraper
+
+    if not os.path.exists(input_csv):
+        with open(input_csv, "w") as f:
+            f.write("url\n" + "\n".join(urls) + "\n")
+    cfg = ScraperConfig(input_csv=input_csv, out_dir=out_dir, max_threads=threads,
+                        desired_request_rate=SCRAPE_RATE, rate_limit_wait=SCRAPE_RATE_LIMIT_WAIT,
+                        result_timeout=120.0, transport="mock")
+    os.makedirs(out_dir, exist_ok=True)
+    console = io.StringIO()
+    with contextlib.ExitStack() as stack:
+        prof = None
+        if busy:
+            from torch.profiler import ProfilerActivity, profile
+
+            prof = stack.enter_context(profile(activities=[ProfilerActivity.CUDA]))
+        reset_launches()
+        stages.reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(console):
+            rc = scraper.run_scraper(cfg, transport_factory=lambda: MockTransport(pages),
+                                     show_stats=False, device=dev)
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        stage_ms = stages.snapshot_ms()
+        if busy:
+            torch.cuda.synchronize()
+    busy_ms, seen_folds = None, 0
+    if prof is not None:
+        seen = [e for e in prof.key_averages() if e.device_time_total > 0]
+        busy_ms = sum(e.device_time_total for e in seen) / 1e3 or None
+        seen_folds = sum(e.count for e in seen if "SegmentUnits" in e.key)
+    assert rc == 0, console.getvalue()[-2000:]
+    summary = [ln for ln in console.getvalue().splitlines() if ln.startswith("Scraping completed")]
+    return dict(seconds=seconds, launches=launches, busy_ms=busy_ms, seen_folds=seen_folds,
+                extract_s=stage_ms.get("scrape_extract", 0.0) / 1e3,
+                extract_cpu_s=stage_ms.get("scrape_extract_cpu", 0.0) / 1e3,
+                backend_s=stage_ms.get("scrape_backend", 0.0) / 1e3,
+                summary=summary[-1] if summary else "")
+
+
+def scrape_path(card: str, dev=None, pages_n: int = SCRAPE_SMOKE_PAGES,
+                parity_n: int = SCRAPE_SMOKE_PARITY) -> tuple[int, int]:
+    """The scrape plane end to end: ``run_scraper`` over ``pages_n``
+    generated yfin pages (``scrape_pages``) served by ``MockTransport``, 8
+    fetch threads at 5,000 pages/s, successes streamed into the card's
+    stream backend.  Checks: the rows add up, every planted copy is
+    annotated a near-dup of its source (or its source of it), one
+    ``minhash_fold_segments`` launch a stream batch of 1,024 successes and
+    no other launch, a resume adds no row and launches nothing, and
+    ``parity_n`` pages at one thread write the same CSV bytes on the card
+    and on the CPU.  The default run takes 1,024 pages (parity 256);
+    ``--scrape`` the full 8,192 (parity 1,024).  Returns the segment
+    kernel's launches and the stream batches.  ``dev`` is the backend's
+    device (``None``: the card; a CPU rehearsal passes ``"cpu"``)."""
+    import csv
+    import tempfile
+
+    from advanced_scrapper_tpu_torch.config import DedupConfig
+    from advanced_scrapper_tpu_torch.storage.csvio import count_rows
+
+    t0 = time.perf_counter()
+    urls, pages, planted, titleless, limited = scrape_pages(np.random.RandomState(41), pages_n)
+    generate_s = time.perf_counter() - t0
+    html_bytes = sum(len(p.encode()) for p in pages.values())
+    on_card = dev != "cpu"
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "card")
+        src_csv = os.path.join(tmp, "urls.csv")
+        run = run_scrape(urls, pages, out, dev, SCRAPE_THREADS, src_csv, busy=on_card)
+        ok_csv = os.path.join(out, "success_articles_yfin.csv")
+        bad_csv = os.path.join(out, "failed_articles_yfin.csv")
+        ann_csv = os.path.join(out, "dedup_annotations_yfin.csv")
+        succeeded, failed = count_rows(ok_csv), count_rows(bad_csv)
+        assert succeeded == len(urls) - len(titleless) - 1, (succeeded, len(urls), len(titleless))
+        assert failed == len(titleless), (failed, len(titleless))
+        with open(ann_csv, newline="", encoding="utf-8") as f:
+            ann = {r["url"]: r for r in csv.DictReader(f)}
+        assert len(ann) == succeeded, (len(ann), succeeded)
+        missed = [c for c, s in planted.items()
+                  if ann[c]["near_dup_of"] != s and ann[s]["near_dup_of"] != c]
+        assert planted and not missed, f"{len(missed)} of {len(planted)} planted copies not annotated"
+        got = run["launches"]
+        batches = -(-succeeded // DedupConfig().batch_size)
+        if on_card:  # the CPU runs the plain versions, which count no launch
+            assert got["minhash_fold_segments"] == batches > 0, (got, batches)
+            assert sum(got.values()) == batches, got  # no other kernel on this path
+        near = sum(1 for r in ann.values() if r["near_dup_of"])
+        before = csv_tree(out)
+        resume = run_scrape(urls, pages, out, dev, SCRAPE_THREADS, src_csv)
+        after = csv_tree(out)
+        assert count_rows(ok_csv) == succeeded and count_rows(bad_csv) == failed
+        assert after == before, "the resume run changed the CSVs"
+        assert sum(resume["launches"].values()) == 0, resume["launches"]
+
+        # card vs CPU: one fetch thread, so the rows come in one order
+        sub = urls[:parity_n]
+        sub_pages = {u: pages[u] for u in sub}
+        sub_csv = os.path.join(tmp, "urls_parity.csv")
+        par = {}
+        for name, where in (("card", dev), ("cpu", "cpu")):
+            par[name] = run_scrape(sub, sub_pages, os.path.join(tmp, f"parity_{name}"), where, 1,
+                                   sub_csv)
+        card_tree, cpu_tree = (csv_tree(os.path.join(tmp, f"parity_{n}")) for n in ("card", "cpu"))
+        assert card_tree == cpu_tree and len(card_tree) == 3, "card and CPU scrape trees differ"
+    seconds = run["seconds"]
+    busy_ms = run["busy_ms"]
+    log("scrape_path", pages=len(urls), html_bytes=html_bytes, generate_s=generate_s,
+        threads=SCRAPE_THREADS, rate=SCRAPE_RATE, succeeded=succeeded, failed=failed,
+        rate_limited=1, planted=len(planted), near_dups=near, seconds=seconds,
+        pages_per_s=len(urls) / seconds, extract_s=run["extract_s"],
+        extract_cpu_s=run["extract_cpu_s"], extract_share=run["extract_cpu_s"] / seconds,
+        backend_s=run["backend_s"], backend_share=run["backend_s"] / seconds, batches=batches,
+        launches=got, card_busy_ms=busy_ms, profiler_fold_launches=run["seen_folds"],
+        card_busy_share=None if busy_ms is None else busy_ms / 1e3 / seconds,
+        summary=run["summary"],
+        resume=dict(seconds=resume["seconds"], launches=resume["launches"],
+                    summary=resume["summary"]),
+        parity=dict(pages=parity_n, card_equals_cpu=True,
+                    card_seconds=par["card"]["seconds"], cpu_seconds=par["cpu"]["seconds"],
+                    card_launches=par["card"]["launches"]),
+        phase_s=time.perf_counter() - t0, card=card)
+    return got["minhash_fold_segments"], batches
+
+
 PERSIST_SPLIT = 32768  # session 1 takes the first half of the stream
 PERSIST_PARITY_SPLIT = 1024  # the 2,048 parity records: two sessions
 AGAINST_INDEX_ARTICLES = 4096
@@ -4599,12 +4912,14 @@ def main() -> int:
     del docs, local
     exact_path(card)
     cross_launches, cross_batches = cross_source_path(card)
+    scrape_launches, scrape_batches = scrape_path(card)
     kernels[0]["stream_path"] = {"launches": stream_launches, "batches": stream_batches}
     kernels[0]["persist_path"] = {"launches": persist_launches, "batches": persist_batches}
     kernels[0]["fleet_path"] = {"launches": fleet_launches, "batches": fleet_batches}
     kernels[0]["reshard_path"] = {"launches": reshard_launches, "batches": reshard_batches}
     kernels[0]["gateway_path"] = {"launches": gateway_launches, "batches": gateway_batches}
     kernels[0]["cross_source_path"] = {"launches": cross_launches, "batches": cross_batches}
+    kernels[0]["scrape_path"] = {"launches": scrape_launches, "batches": scrape_batches}
     st_main = settle_timing(default.rerank_tier, clock_mhz)
     log("kernel_timing", name="rerank_settle", shape="default_engine_main_corpus",
         launches=got["rerank_settle"], **st_main, card=card)
@@ -4691,7 +5006,35 @@ def main() -> int:
     return 0
 
 
+def scrape_main() -> int:
+    """``--scrape``: the scrape plane alone at full depth (``scrape_path``
+    over 8,192 pages, parity on 1,024), with Kernel A built first; kept
+    out of the default run for the run's time."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this runs on the card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from advanced_scrapper_tpu_torch.ops import _build
+
+    card = nvidia_smi("name,power.limit")
+    log("device", card=card, kind=torch.cuda.get_device_name(0),
+        count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda,
+        host_cpu=host_cpu(), host_cores=os.cpu_count())
+    t0 = time.perf_counter()
+    _build.build("minhash")
+    log("build", seconds=time.perf_counter() - t0, built=["minhash"])
+    scrape_path(card, pages_n=SCRAPE_PAGES, parity_n=SCRAPE_PARITY)
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-worker"]:
         sys.exit(mesh_worker(*sys.argv[2:]))
+    if sys.argv[1:] == ["--scrape"]:
+        sys.exit(scrape_main())
     sys.exit(main())

@@ -1,9 +1,11 @@
 """The PyTorch port stands alone: no module of ``advanced_scrapper_tpu_torch``
 and no card script beside it (``chip_smoke.py``, the probes) imports
-``jax``, the JAX package, ``pandas`` or ``dateutil`` (the card's host has
-neither), or ``psycopg2`` at module level
-(the Postgres backend imports it when it is opened), or names a path into
-the JAX package from which a native source or library could be loaded."""
+``jax``, the JAX package, ``pandas``, ``dateutil`` or ``bs4`` (the card's
+host has none of them), or ``psycopg2``, ``requests``, ``selenium`` or
+``undetected_chromedriver`` at module level (the Postgres backend and the
+fetch transports import their driver when they are opened), or names a
+path into the JAX package from which a native source or library could be
+loaded."""
 
 from __future__ import annotations
 
@@ -23,14 +25,15 @@ SCRIPTS = ("chip_smoke.py", "myers_probe.py", "stream_probe.py", "oph_probe.py",
 FILES = sorted(
     str(p.relative_to(ROOT)) for p in [*PORT.rglob("*.py"), *(ROOT / s for s in SCRIPTS)]
 )
-FORBIDDEN = ("jax", "jaxlib", "advanced_scrapper_tpu", "pandas", "dateutil")
+FORBIDDEN = ("jax", "jaxlib", "advanced_scrapper_tpu", "pandas", "dateutil", "bs4",
+             "soupsieve")
 #: a path into the JAX package that names native code
 LOADABLE = re.compile(
     r"advanced_scrapper_tpu(?!_torch)[/\\](?:native\b|.*\.(?:cpp|cc|h|so|cu)\b)")
 
 
 #: the port's host C++ sources and headers
-NATIVE = ("fastmatch.cpp", "exactdedup.cpp", "hostbatch.cpp", "bytehash.h")
+NATIVE = ("fastmatch.cpp", "exactdedup.cpp", "hostbatch.cpp", "csvscan.cpp", "bytehash.h")
 
 
 def _imported_modules(tree: ast.AST):
@@ -72,7 +75,10 @@ def test_port_files_found():
                 "service/__init__.py", "service/tenancy.py", "service/gateway.py",
                 "core/mesh.py", "parallel/__init__.py", "parallel/collectives.py",
                 "parallel/sharded.py", "parallel/sharded_packed.py", "parallel/ring.py",
-                "parallel/dist.py"):
+                "parallel/dist.py", "core/soup.py", "extractors/__init__.py",
+                "extractors/yfin.py", "extractors/template.py", "obs/stats.py",
+                "obs/console.py", "cpu/csvnative.py", "net/webdriver.py", "net/transport.py",
+                "pipeline/controllers.py", "pipeline/scraper.py"):
         assert f"advanced_scrapper_tpu_torch/{rel}" in FILES, rel
     for name in NATIVE:
         assert (PORT / "native" / name).exists(), name
@@ -86,7 +92,7 @@ def test_no_jax_or_reference_import(rel):
 
 
 #: drivers a module may import only inside the function that needs them
-LAZY = ("psycopg2",)
+LAZY = ("psycopg2", "requests", "selenium", "undetected_chromedriver")
 
 
 def _reference_lint():
@@ -137,7 +143,8 @@ def _banned_imports(rel: str, text: str | None = None) -> list[str]:
 
 @pytest.mark.parametrize("rel", sorted(set(LINTED) | {
     f"advanced_scrapper_tpu_torch/{m}" for m in ("ops/rerank.py", "obs/decisions.py",
-                                                  "obs/canary.py", "core/mesh.py")}))
+                                                  "obs/canary.py", "core/mesh.py",
+                                                  "core/soup.py")}))
 def test_reference_layer_rules_hold(rel):
     assert not _banned_imports(rel), f"{rel} imports {_banned_imports(rel)}"
 
@@ -197,11 +204,15 @@ def test_host_library_is_the_ports_own():
     from advanced_scrapper_tpu_torch.cpu import exactdedup, native
 
     ref = ROOT / "advanced_scrapper_tpu"
+    from advanced_scrapper_tpu_torch.cpu import csvnative
+
     for p in (native.SOURCE, native.library_path(), native.BUILD_DIR, exactdedup.SOURCE,
-              native.library_path(exactdedup.SOURCE)):
+              native.library_path(exactdedup.SOURCE), csvnative.SOURCE,
+              native.library_path(csvnative.SOURCE)):
         assert ref not in Path(p).resolve().parents, p
     assert native.SOURCE.resolve().is_relative_to(PORT)
     assert exactdedup.SOURCE.resolve().is_relative_to(PORT)
+    assert csvnative.SOURCE.resolve().is_relative_to(PORT)
 
 
 @pytest.mark.parametrize("name", NATIVE)
@@ -227,7 +238,8 @@ def test_importing_the_port_loads_no_jax():
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'advanced_scrapper_tpu', 'pandas', 'dateutil', 'psycopg2')]\n"
+        "('jax', 'jaxlib', 'advanced_scrapper_tpu', 'pandas', 'dateutil', 'psycopg2', "
+        "'bs4', 'soupsieve', 'requests', 'selenium', 'undetected_chromedriver')]\n"
         "assert not bad, bad\n"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT)}

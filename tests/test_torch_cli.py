@@ -218,7 +218,7 @@ def test_match_writes_the_reference_trees(tmp_path, monkeypatch, capsys):
     assert tree(str(tmp_path / "port_ticker_matched_articles")) == want and want
 
 
-UNPORTED = [["harvest"], ["scrape"], ["enrich", "--crypto"], ["poll", "--rounds", "1"],
+UNPORTED = [["harvest"], ["enrich", "--crypto"], ["poll", "--rounds", "1"],
             ["serve"], ["work"], ["new-links", "a", "b", "c"], ["split", "a", "-n", "2"],
             ["selftest"]]
 
@@ -237,8 +237,8 @@ def test_smoke_on_the_cpu(capsys):
     assert cli.main(CPU + ["smoke"]) == 0
     report = json.loads(capsys.readouterr().out)
     assert report["ok"] and report["dedup"]["reps"] == [0, 0, 2]
-    assert set(report["native"]) == {"fastmatch", "hostbatch", "exactdedup"}
-    assert "item 18" in report["transport"]
+    assert set(report["native"]) == {"fastmatch", "hostbatch", "exactdedup", "csvscan"}
+    assert report["transport"] == {"mock": "ok"}
 
 
 def test_device_defaults_to_the_card(tmp_path):
@@ -250,3 +250,27 @@ def test_device_defaults_to_the_card(tmp_path):
         cli.main(["dedup", str(tmp_path / "in.txt"), "-o", str(tmp_path / "o.txt")])
     assert not (tmp_path / "o.txt").exists()
     assert cli.main(["smoke"]) == 1
+
+
+def test_cli_scrape_matches_the_reference(tmp_path, monkeypatch, capsys):
+    """``astpu scrape --transport mock`` against ``astpu-torch --device cpu
+    scrape``: the mock transport has no pages, so every url is a failed
+    row; one fetch thread keeps the order."""
+    for name in ("ref", "port"):
+        root = tmp_path / name
+        root.mkdir()
+        (root / "urls.csv").write_text("url\n" + "".join(f"https://x/{i}\n" for i in range(6)))
+    monkeypatch.setenv("ASTPU_SCRAPER_MAX_THREADS", "1")
+    monkeypatch.setenv("ASTPU_SCRAPER_DESIRED_REQUEST_RATE", "1000")
+    monkeypatch.setenv("ASTPU_SCRAPER_RESULT_TIMEOUT", "10")
+    outs = {}
+    for name, main, pre in (("ref", ref_cli.main, []), ("port", cli.main, ["--device", "cpu"])):
+        monkeypatch.setenv("ASTPU_SCRAPER_INPUT_CSV", str(tmp_path / name / "urls.csv"))
+        monkeypatch.setenv("ASTPU_SCRAPER_OUT_DIR", str(tmp_path / name))
+        assert main(pre + ["scrape", "--transport", "mock"]) == 0
+        outs[name] = [ln for ln in capsys.readouterr().out.splitlines()
+                      if ln.startswith(("Total", "Already", "Remaining", "Scraping"))]
+    want, got = ({k: v for k, v in tree(str(tmp_path / name)).items() if k.endswith(".csv")}
+                 for name in ("ref", "port"))
+    assert got == want and outs["port"] == outs["ref"] and len(want) == 4
+    assert want["failed_articles_yfin.csv"].count(b"no fixture for") == 6
