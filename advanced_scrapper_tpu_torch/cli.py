@@ -8,9 +8,11 @@ kernel's plain version).  Flags override the ``ASTPU_*`` environment knobs
 (``config.from_env``), which override the defaults.  Ported: ``version``,
 ``config``, ``dedup`` (whole corpus, and ``--stream`` with an exact or
 bloom index), ``match``, ``xdedup``, ``scrape`` (its successes streamed
-into the dedup backend on ``--device``) and ``smoke``.  The harvest,
-enrichment, lease and set-operation commands keep their arguments and
-exit non-zero naming the ROADMAP item that ports them.
+into the dedup backend on ``--device``), ``harvest`` (both engines; the
+merge's exact dedup on ``--device``), ``new-links``, ``split``, ``serve``
+and ``work`` (the lease server and client) and ``smoke``.  The
+enrichment, poller and self-test commands keep their arguments and exit
+non-zero naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -146,6 +148,90 @@ def _cmd_scrape(args: argparse.Namespace) -> int:
                        device=args.device)
 
 
+def _cmd_harvest(args: argparse.Namespace) -> int:
+    cfg = _with_overrides(default_config().harvest, transport=args.transport)
+    if args.engine == "async":
+        if args.transport is not None:
+            # the async engine rides its own aiohttp session; silently
+            # ignoring a requested browser transport would let the operator
+            # believe it ran
+            print("--engine async is plain-HTTP only; drop --transport "
+                  "or use --engine threads")
+            return 2
+        from advanced_scrapper_tpu_torch.pipeline.harvest_async import run_harvest_async
+
+        return run_harvest_async(cfg, device=args.device)
+    from advanced_scrapper_tpu_torch.pipeline.harvest import run_harvest
+
+    return run_harvest(cfg, device=args.device)
+
+
+def _cmd_serve(args: argparse.Namespace) -> int:
+    """Lease server: resume-aware URL distribution + centralized parsing."""
+    import os
+    import time
+
+    from advanced_scrapper_tpu_torch.extractors import load_extractor
+    from advanced_scrapper_tpu_torch.net.lease import LeaseServer
+    from advanced_scrapper_tpu_torch.storage.csvio import read_url_column, scraped_url_set
+
+    cfg = default_config()
+    scraper = cfg.scraper
+    input_csv = args.input or scraper.input_csv
+    if not os.path.exists(input_csv):
+        print(f"Input CSV '{input_csv}' not found.")
+        return 1
+    success_csv = f"success_articles_{scraper.website}.csv"
+    failed_csv = f"failed_articles_{scraper.website}.csv"
+    urls = read_url_column(input_csv)
+    scraped = scraped_url_set(success_csv, failed_csv)
+    todo = [u for u in urls if u not in scraped]
+    print(f"Serving {len(todo)} URLs ({len(urls) - len(todo)} already scraped)")
+    feed = _with_overrides(cfg.feed, port=args.port)
+    server = LeaseServer(feed, todo).start()
+    print(f"Listening on {server.host}:{server.port} — Ctrl-C to stop")
+    try:
+        while not server.done():
+            time.sleep(1)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()
+    ok, bad = server.process_results(load_extractor(scraper.website), success_csv, failed_csv)
+    print(f"Parsed results: {ok} success, {bad} failed")
+    return 0
+
+
+def _cmd_work(args: argparse.Namespace) -> int:
+    """Lease worker node."""
+    from advanced_scrapper_tpu_torch.net.lease import LeaseClient
+    from advanced_scrapper_tpu_torch.net.transport import make_transport
+
+    cfg = default_config()
+    feed = _with_overrides(cfg.feed, host=args.host, port=args.port)
+    transport = args.transport or cfg.scraper.transport
+    client = LeaseClient(feed, lambda: make_transport(transport))
+    sent = client.run(max_seconds=args.max_seconds)
+    print(f"Worker done: {sent} pages shipped")
+    return 0
+
+
+def _cmd_new_links(args: argparse.Namespace) -> int:
+    from advanced_scrapper_tpu_torch.utils.setops import new_links
+
+    n = new_links(args.input, args.output, *args.done)
+    print(f"{n} new links → {args.output}")
+    return 0
+
+
+def _cmd_split(args: argparse.Namespace) -> int:
+    from advanced_scrapper_tpu_torch.utils.setops import round_robin_split
+
+    paths = round_robin_split(args.input, args.parts, *args.done, output_template=args.template)
+    print("wrote " + ", ".join(paths))
+    return 0
+
+
 def _cmd_smoke(args: argparse.Namespace) -> int:
     """Environment check: the device, the port's native host libraries, the
     transport (fetches a page with ``mock``, the default; builds and closes
@@ -242,10 +328,12 @@ def build_parser() -> argparse.ArgumentParser:
                    "bloom (LSHBloom, fixed memory forever); --stream only")
     d.set_defaults(fn=_cmd_dedup)
 
-    h = sub.add_parser("harvest", help="CDX URL harvest (not ported: ROADMAP item 18)")
+    h = sub.add_parser("harvest", help="CDX URL harvest (the merge's exact dedup on --device)")
     h.add_argument("--transport", default=None)
-    h.add_argument("--engine", choices=("threads", "async"), default="threads")
-    h.set_defaults(fn=_not_ported("harvest"))
+    h.add_argument("--engine", choices=("threads", "async"), default="threads",
+                   help="threads: one transport per worker (browsers); async: one "
+                   "event loop of plain HTTP fetches")
+    h.set_defaults(fn=_cmd_harvest)
 
     s = sub.add_parser("scrape", help="constant-rate article scrape")
     s.add_argument("--transport", default=None)
@@ -283,31 +371,30 @@ def build_parser() -> argparse.ArgumentParser:
     pl.add_argument("--scroll", action="store_true")
     pl.set_defaults(fn=_not_ported("poll"))
 
-    sv = sub.add_parser("serve", help="lease server (not ported: ROADMAP item 18)")
+    sv = sub.add_parser("serve", help="lease server: distribute urls, parse results centrally")
     sv.add_argument("--input", default=None)
     sv.add_argument("--port", type=int, default=None)
-    sv.set_defaults(fn=_not_ported("serve"))
+    sv.set_defaults(fn=_cmd_serve)
 
-    wk = sub.add_parser("work", help="lease client (not ported: ROADMAP item 18)")
+    wk = sub.add_parser("work", help="lease client: fetch leased urls")
     wk.add_argument("--host", default=None)
     wk.add_argument("--port", type=int, default=None)
     wk.add_argument("--transport", default=None)
     wk.add_argument("--max-seconds", type=float, default=3600.0)
-    wk.set_defaults(fn=_not_ported("work"))
+    wk.set_defaults(fn=_cmd_work)
 
-    nl = sub.add_parser("new-links", help="anti-join of scraped urls "
-                        "(not ported: ROADMAP item 18)")
+    nl = sub.add_parser("new-links", help="anti-join of scraped urls")
     nl.add_argument("input")
     nl.add_argument("output")
     nl.add_argument("done", nargs="+")
-    nl.set_defaults(fn=_not_ported("new-links"))
+    nl.set_defaults(fn=_cmd_new_links)
 
-    sp = sub.add_parser("split", help="round-robin shard split (not ported: ROADMAP item 18)")
+    sp = sub.add_parser("split", help="round-robin shard split")
     sp.add_argument("input")
     sp.add_argument("-n", "--parts", type=int, required=True)
     sp.add_argument("--done", nargs="*", default=[])
     sp.add_argument("--template", default="part_{i}.csv")
-    sp.set_defaults(fn=_not_ported("split"))
+    sp.set_defaults(fn=_cmd_split)
 
     xd = sub.add_parser("xdedup", help="cross-source dedup over CSVs and sqlite stores")
     xd.add_argument("sources", nargs="+")

@@ -26,13 +26,20 @@ the values the matcher reads:
   floats such as ``7.0`` and ``1e+16``, ``True``/``False``, NA as empty).
 
 A record's NA is ``float("nan")``, as ``DataFrame.to_dict("records")``
-gives it.  Differences from pandas found so far are logged in ROADMAP
-queue 3.
+gives it.
+
+For the harvest and the set operations, :class:`Frame` holds a table as
+``read_csv`` typed it (a header-only file's columns are ``object``) and
+writes ``to_csv(index=False)``'s bytes; :func:`read_delimited_text` reads
+a space-delimited CDX dump as ``read_csv(header=None, usecols=...,
+names=...)`` does; :func:`concat` promotes column kinds as ``pd.concat``
+does.  Differences from pandas found so far are logged in ROADMAP queue 3.
 """
 
 from __future__ import annotations
 
 import csv
+import io
 import math
 import sys
 from collections.abc import Iterator
@@ -181,24 +188,32 @@ def _header(names: list[str]) -> list[str]:
     return out
 
 
-def _rows(path: str) -> Iterator[list[str]]:
+def _records(lines, delimiter: str = ",", source: str = "the input") -> Iterator[list[str]]:
+    """Rows of ``lines`` as pandas' C tokenizer cuts them: ``csv.reader``
+    with ``delimiter`` (a run of delimiters is a run of empty fields), a
+    quote opening a field only at its start, blank and unquoted
+    whitespace-only lines skipped."""
     csv.field_size_limit(sys.maxsize)  # articles can pass csv's 128 KiB default
+    last = [""]  # the raw line that ended the record being read
+    ended = [False]
+
+    def tracked():
+        for line in lines:
+            last[0] = line
+            yield line
+        ended[0] = True
+
+    for row in csv.reader(tracked(), delimiter=delimiter):
+        if ended[0]:  # csv hands back a quoted field still open at the end
+            raise ValueError(f"Error tokenizing data: EOF inside a quoted field in {source}")
+        if not row or (len(row) == 1 and not row[0].strip(_SPACE) and '"' not in last[0]):
+            continue  # blank and unquoted whitespace-only lines, as skip_blank_lines
+        yield row
+
+
+def _rows(path: str) -> Iterator[list[str]]:
     with open(path, encoding="utf-8-sig", newline="") as f:
-        last = [""]  # the raw line that ended the record being read
-        ended = [False]
-
-        def lines():
-            for line in f:
-                last[0] = line
-                yield line
-            ended[0] = True
-
-        for row in csv.reader(lines()):
-            if ended[0]:  # csv hands back a quoted field still open at the end
-                raise ValueError(f"Error tokenizing data: EOF inside a quoted field in {path}")
-            if not row or (len(row) == 1 and not row[0].strip(_SPACE) and '"' not in last[0]):
-                continue  # blank and unquoted whitespace-only lines, as skip_blank_lines
-            yield row
+        yield from _records(f, source=path)
 
 
 def read_csv_columns(path: str, chunksize: int | None = None) -> Iterator[tuple[list[str], list[tuple[str, list]]]]:
@@ -256,3 +271,100 @@ def write_rows(path: str, rows: list[list], *, header: list[str] | None = None,
         if header is not None:
             w.writerow(header)
         w.writerows([format_value(v) for v in r] for r in rows)
+
+
+class Frame:
+    """A table as pandas holds what ``read_csv`` gave it: column names and,
+    for each column, ``(kind, values)`` as :func:`infer_column` types it.
+    ``kind`` is ``int``, ``float``, ``bool``, ``str`` or ``object`` (no
+    rows, or columns of several kinds met in :func:`concat`, each value
+    keeping its own type).  Rows are taken by index; :meth:`to_csv` writes
+    ``to_csv(index=False)``'s bytes."""
+
+    def __init__(self, names: list[str], columns: list[tuple[str, list]]):
+        self.names = list(names)
+        self.columns = [(k, list(v)) for k, v in columns]
+
+    def __len__(self) -> int:
+        return len(self.columns[0][1]) if self.columns else 0
+
+    def column(self, name: str) -> tuple[str, list]:
+        if name not in self.names:
+            raise KeyError(name)
+        return self.columns[self.names.index(name)]
+
+    def take(self, rows) -> "Frame":
+        """The rows at ``rows``, in that order; each column keeps its kind,
+        as a boolean mask or ``iloc`` keeps the dtype."""
+        rows = list(rows)
+        return Frame(self.names, [(k, [v[i] for i in rows]) for k, v in self.columns])
+
+    def write(self, fh) -> None:
+        """``to_csv(fh, index=False)`` into an open text handle."""
+        w = csv.writer(fh, lineterminator="\n", quoting=csv.QUOTE_MINIMAL)
+        w.writerow(self.names)
+        w.writerows([format_value(v) for v in r] for r in zip(*(v for _k, v in self.columns)))
+
+    def to_csv(self, path: str) -> None:
+        with open(path, "w", encoding="utf-8", newline="") as f:
+            self.write(f)
+
+
+def read_frame(path: str) -> Frame:
+    """``pd.read_csv(path)``: a header-only file gives ``object`` columns."""
+    names, cols = next(read_csv_columns(path))
+    if not cols or not cols[0][1]:
+        cols = [("object", []) for _ in names]
+    return Frame(names, cols)
+
+
+def read_delimited_text(text: str, *, delimiter: str, usecols: list[int],
+                        names: list[str]) -> Frame:
+    """``pd.read_csv(io.StringIO(text), delimiter=delimiter, header=None,
+    usecols=usecols, names=names)`` with the C parser.
+
+    The row width is the first row's field count or ``len(names)``,
+    whichever is larger: a field past it reads NA on every row, even on
+    rows that have it, and a column that every row lacks raises, as
+    pandas' out-of-bounds ``usecols`` check does.  Fields past the used
+    ones are ignored; a short row reads NA."""
+    rows = list(_records(io.StringIO(text, newline=""), delimiter=delimiter))
+    if not rows:
+        raise ValueError("No columns to parse from file")
+    longest = max(len(r) for r in rows)
+    missing = [j for j in usecols if j >= longest]
+    if missing:
+        raise ValueError(f"Defining usecols with out-of-bounds indices is not allowed. "
+                         f"{missing} are out of bounds.")
+    width = max(len(rows[0]), len(names))
+    cols = []
+    for j in usecols:
+        if j >= width:
+            cols.append(("object", [NAN] * len(rows)))  # an all-NA column of no type
+        else:
+            cols.append(infer_column([r[j] if j < len(r) else None for r in rows]))
+    return Frame(names, cols)
+
+
+def concat(frames: list[Frame]) -> Frame:
+    """``pd.concat(frames, ignore_index=True)`` of frames with the same
+    columns.  A column's kind is the common one: the same kind stays;
+    ``int`` with ``float`` is ``float`` (each integer as a float, so it is
+    written ``7.0``); any other mix, an ``object`` column (a header-only
+    frame's) included, is ``object`` with each value as its frame had it."""
+    names = frames[0].names
+    for f in frames[1:]:
+        if f.names != names:
+            raise ValueError(f"columns differ: {f.names} against {names}")
+    out = []
+    for j in range(len(names)):
+        kinds = {f.columns[j][0] for f in frames}
+        values = [v for f in frames for v in f.columns[j][1]]
+        if len(kinds) == 1:
+            kind = kinds.pop()
+        elif kinds == {"int", "float"}:
+            kind, values = "float", [float(v) for v in values]
+        else:
+            kind = "object"
+        out.append((kind, values))
+    return Frame(names, out)

@@ -5,9 +5,12 @@
 - :mod:`.transport` and :mod:`.webdriver`: the scraper's fetch transports
   and the stdlib W3C WebDriver wire client (``requests``, ``selenium`` and
   ``undetected_chromedriver`` are imported only by the transport that
-  needs them).
-
-The reference's lease plane and chaos sockets come with ROADMAP item 18c.
+  needs them);
+- :mod:`.lease`: the pull-based work-lease protocol over TCP + NDJSON,
+  its server parsing centrally; :mod:`.control`: the HTTP template and
+  extraction service; :mod:`.pipe_pool` / :mod:`.pipe_worker`: the
+  stdin/stdout subprocess worker pool; :mod:`.chaos`: seeded socket
+  faults under the lease and RPC clients.
 """
 
 from advanced_scrapper_tpu_torch.net.rpc import (

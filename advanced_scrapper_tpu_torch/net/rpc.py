@@ -6,9 +6,9 @@ byte for byte, so a port client talks to a reference server and the other
 way round.  Host code over numpy and the standard library: a shard
 process imports no torch.
 
-The lease protocol (the reference's ``net/lease.py``, ROADMAP item 18) is
-newline-delimited JSON: right for url strings, hopeless for posting
-arrays (a million uint64 band keys must not round-trip through base64).
+The lease protocol (``net/lease.py``) is newline-delimited JSON: right
+for url strings, hopeless for posting arrays (a million uint64 band keys
+must not round-trip through base64).
 This module is the *binary* sibling the index fleet rides on:
 
 - **length-framed**: every message is ``u32 total | u32 header_len |
@@ -28,9 +28,9 @@ This module is the *binary* sibling the index fleet rides on:
   double-apply through this layer (the shard server adds a second,
   semantic idempotency net underneath — ``index/remote.py``).
 
-``RpcClient(connect=...)`` accepts any dialer: the chaos seam (the
-reference's ``net/chaos.py``, ROADMAP item 18) and the tests put a
-wrapped socket under every connection without touching protocol code.
+``RpcClient(connect=...)`` accepts any dialer: the chaos seam
+(``net/chaos.py``) and the tests put a wrapped socket under every
+connection without touching protocol code.
 
 Layering: ``net/`` imports nothing of ``pipeline/``; ``index/`` imports
 THIS module only (transport, not protocol).

@@ -6,4 +6,4 @@ profiler (``profiler``) — the knob half of the perf ledger (``perfdb``),
 and the quality plane: decision provenance (``decisions``), the canary
 prober (``canary``), the SLO engine (``slo``) and the Prometheus text
 parser it reads a registry through (``collector``).  The fleet collector
-comes with ROADMAP item 18."""
+comes with ROADMAP item 18d."""

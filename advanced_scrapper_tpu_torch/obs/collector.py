@@ -5,7 +5,7 @@
 value)`` samples, the form the SLO engine (``obs/slo.py``) evaluates.  The
 rest of the reference's collector, the ``FleetCollector`` that scrapes and
 merges a fleet's ``/metrics`` endpoints, is not ported yet: it comes with
-ROADMAP item 18 (the host planes).
+ROADMAP item 18d (the last of the host planes).
 """
 
 from __future__ import annotations

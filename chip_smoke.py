@@ -105,6 +105,28 @@ stage series) and the card's busy share (``torch.profiler``).
 ``python3 chip_smoke.py --scrape`` runs that phase alone at its full
 depth: 8,192 pages, 1,024 of them for the card-vs-CPU bytes.
 
+``python3 chip_smoke.py --fleet`` runs the persist mode's two sessions,
+``fleet_path`` and then the elastic fleet on one ``ShardFleet``
+(``elastic_paths``): ``reshard_path``, a live 2→4→2 reshard of session
+1's index under the stream, and ``gateway_path``, three tenants behind
+the gateway process; the default run keeps ``fleet_path`` alone.
+
+``python3 chip_smoke.py --hostplanes`` runs the harvest and lease planes:
+``harvest_path`` (``run_harvest`` over all 1,521 CDX prefixes of about
+256 rows each from ``MockTransport``, 10 workers, the merge's
+``ExactDedup`` on the card; the merged CSV equal to a CPU merge and to the
+planted first-seen urls, the async engine's shards equal to the threaded
+engine's, a resume after 10% of the checkpoints are deleted fetching
+exactly those), ``lease_path`` (8,192 scrape pages through a
+``LeaseServer`` and 4 ``LeaseClient``s of 2 threads on loopback, one
+client's link cut mid-run; every url answered once, ``process_results``
+streaming its successes into the card's stream backend with one
+``minhash_fold_segments`` launch a batch and no other, its CSVs and
+annotations equal to a CPU replay), ``control_path`` (the control server:
+``add_template``, 256 synchronous and 64 asynchronous extracts) and
+``pipe_path`` (a ``PipePool`` of 3 workers over 1,024 urls, none of them
+loading torch).
+
 The OPH backend (``csrc/oph.cu``): ``oph_vs_plain`` holds each of its
 entry points bit-equal to its plain version (``oph_fold_segments`` at
 every start residue mod 16, k = 5, 9 and 1, P = 2, 64, 128 and 1,024,
@@ -207,10 +229,12 @@ JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import html
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -4907,8 +4931,7 @@ def main() -> int:
     stream_launches, stream_batches = stream_path(docs, planted, card)
     persist_launches, persist_batches, local = persist_path(docs, planted, card)
     fleet_launches, fleet_batches = fleet_path(docs, card, local)
-    (reshard_launches, reshard_batches), (gateway_launches, gateway_batches) = elastic_paths(
-        docs, card, local)
+    shutil.rmtree(local["session1"], ignore_errors=True)  # reshard_path's copy: --fleet
     del docs, local
     exact_path(card)
     cross_launches, cross_batches = cross_source_path(card)
@@ -4916,8 +4939,6 @@ def main() -> int:
     kernels[0]["stream_path"] = {"launches": stream_launches, "batches": stream_batches}
     kernels[0]["persist_path"] = {"launches": persist_launches, "batches": persist_batches}
     kernels[0]["fleet_path"] = {"launches": fleet_launches, "batches": fleet_batches}
-    kernels[0]["reshard_path"] = {"launches": reshard_launches, "batches": reshard_batches}
-    kernels[0]["gateway_path"] = {"launches": gateway_launches, "batches": gateway_batches}
     kernels[0]["cross_source_path"] = {"launches": cross_launches, "batches": cross_batches}
     kernels[0]["scrape_path"] = {"launches": scrape_launches, "batches": scrape_batches}
     st_main = settle_timing(default.rerank_tier, clock_mhz)
@@ -5032,9 +5053,496 @@ def scrape_main() -> int:
     return 0
 
 
+HARVEST_ROWS = 256        # CDX rows a shard: 1,521 shards, 389,376 rows
+HARVEST_UNIQUE = 262144   # distinct articles among them: the exact cell's urls
+HARVEST_WORKERS = 10      # HarvestConfig's default num_workers
+HARVEST_TRAP_SHARDS = 8   # shards with a double-space row and a short row
+HARVEST_RESUME = 0.10     # share of the checkpoints deleted before the resume
+LEASE_PAGES = 8192        # the scrape cell's pages (seed 41)
+LEASE_CLIENTS = 4
+LEASE_THREADS = 2         # fetch threads a client
+CONTROL_SYNC, CONTROL_ASYNC = 256, 64
+PIPE_WORKERS, PIPE_URLS = 3, 1024
+#: the control server's template: the yfin fields its extractor reads
+CONTROL_TEMPLATE = {
+    "title": "div.cover-title",
+    "author": "div.byline-attr-author",
+    "date": {"selector": "time", "attribute": "datetime", "index": [0]},
+    "source": {"selector": "a.subtle-link.fin-size-small", "attribute": "href"},
+    "article": "div.body",
+    "quotes": {"selector": "div.body p a", "attribute": "href"},
+}
+
+
+def cdx_site(seed: int) -> tuple[dict[str, str], list[str]]:
+    """A CDX dump for each of the 1,521 prefixes, ``HARVEST_ROWS`` rows each
+    inside an HTML page, keyed by prefix; and the urls the merge must keep,
+    in their first-seen order over the shards' sorted file names.  Rows draw
+    from ``HARVEST_UNIQUE`` articles (each at least once, the rest repeats
+    across shards) as ``https``, ``http``, ``http`` with ``:80`` or with a
+    query; 2% ``news/%`` and 2% ``news/'`` junk, 3% without ``.html``;
+    ``HARVEST_TRAP_SHARDS`` shards hold a double-space row (its fields
+    shift: that shard's ``date_time`` turns float) and a short row."""
+    from advanced_scrapper_tpu_torch.pipeline.harvest import CHAR_LIST
+
+    rng = np.random.RandomState(seed)
+    prefixes = [a + b for a in CHAR_LIST for b in CHAR_LIST]
+    n = len(prefixes) * HARVEST_ROWS
+    ids = np.concatenate([np.arange(HARVEST_UNIQUE),
+                          rng.randint(0, HARVEST_UNIQUE, n - HARVEST_UNIQUE)])
+    rng.shuffle(ids)
+    kinds = rng.rand(n)
+    variants = rng.randint(0, 4, n)
+    stamps = 20150101000000 + rng.randint(0, 10 ** 9, n)
+    traps = set(rng.choice(len(prefixes), HARVEST_TRAP_SHARDS, replace=False).tolist())
+    host = "finance.yahoo.com"
+    pages, kept = {}, {}
+    for s, prefix in enumerate(prefixes):
+        lines, urls = [], []
+        for r in range(s * HARVEST_ROWS, (s + 1) * HARVEST_ROWS):
+            slug = f"story-{ids[r]}"
+            u, keep = kinds[r], None
+            if u < 0.02:
+                url = f"https://{host}/news/%20{slug}.html"
+            elif u < 0.04:
+                url = f"https://{host}/news/'{slug}.html"
+            elif u < 0.07:
+                url = f"https://{host}/news/{slug}.jpg"
+            else:
+                url = (f"https://{host}/news/{slug}.html", f"http://{host}/news/{slug}.html",
+                       f"http://{host}:80/news/{slug}.html",
+                       f"https://{host}/news/{slug}.html?src=rss")[variants[r]]
+                keep = f"https://{host}/news/{slug}.html"
+            key = f"com,yahoo,finance)/news/{slug}"
+            line = f"{key} {stamps[r]} {url} text/html 200 D{ids[r]:X} {700 + r % 900}"
+            if s in traps and r % HARVEST_ROWS == 5:
+                line, keep = f"{key}  {stamps[r]} {url} text/html 200", None
+            elif s in traps and r % HARVEST_ROWS == 9:
+                line, keep = f"{key} {stamps[r]}", None
+            lines.append(line)
+            urls.append(keep)
+        pages[prefix] = "<html><body><pre>" + "\n".join(lines) + "\n</pre></body></html>"
+        kept[prefix] = urls
+    seen: dict[str, None] = {}
+    for prefix in sorted(prefixes):
+        for url in kept[prefix]:
+            if url is not None:
+                seen.setdefault(url)
+    return pages, list(seen)
+
+
+def harvest_path(card: str, dev=None) -> None:
+    """The CDX harvest plane: ``run_harvest`` over all 1,521 prefixes served
+    by ``MockTransport`` (``cdx_site``), 10 worker threads, then the merge's
+    ``ExactDedup`` on ``dev`` (``None``: the card).  Checks: the merged CSV
+    byte-equal to a ``device="cpu"`` merge of the same shard directory and
+    its urls the first-seen ones the generator planted; the async engine
+    (``harvest_shards_async`` with an injected fetch over the same pages)
+    writes shard files byte-equal to the threaded engine's; a resume after
+    deleting 10% of the ``.txt`` checkpoints fetches exactly those shards
+    and leaves the output byte-equal."""
+    import asyncio
+    import contextlib
+    import csv
+    import dataclasses
+    import io
+    import tempfile
+
+    from advanced_scrapper_tpu_torch.config import HarvestConfig
+    from advanced_scrapper_tpu_torch.net.transport import MockTransport
+    from advanced_scrapper_tpu_torch.pipeline import dedup, harvest, harvest_async
+
+    t_phase = time.perf_counter()
+    pages, want_urls = cdx_site(43)
+    generate_s = time.perf_counter() - t_phase
+    rows = len(pages) * HARVEST_ROWS
+
+    def page_of(url: str) -> str:
+        return pages[url.rsplit("news/", 1)[1].rstrip("*")]
+
+    made, merges = [], []
+    exact, merge = dedup.ExactDedup, harvest.merge_shards
+
+    class Recorded(exact):  # keeps the merge's instance for its last_path
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    def timed_merge(*a, **kw):
+        t0 = time.perf_counter()
+        n = merge(*a, **kw)
+        merges.append(time.perf_counter() - t0)
+        return n
+
+    console = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(console):
+        cfg = HarvestConfig(shard_dir=os.path.join(tmp, "threads"),
+                            output_csv=os.path.join(tmp, "yfin_urls.csv"),
+                            num_workers=HARVEST_WORKERS)
+        dedup.ExactDedup, harvest.merge_shards = Recorded, timed_merge
+        try:
+            t0 = time.perf_counter()
+            assert harvest.run_harvest(cfg, transport=MockTransport(page_of), device=dev) == 0
+            run_s = time.perf_counter() - t0
+            card_merge_s = merges[-1]
+            out = open(cfg.output_csv, "rb").read()
+            t0 = time.perf_counter()
+            cpu_cfg = dataclasses.replace(cfg, output_csv=os.path.join(tmp, "cpu.csv"))
+            unique = harvest.merge_shards(cpu_cfg, device="cpu")
+            cpu_merge_s = time.perf_counter() - t0
+            assert open(cpu_cfg.output_csv, "rb").read() == out, "card and CPU merges differ"
+            with open(cfg.output_csv, newline="", encoding="utf-8") as f:
+                got_rows = list(csv.DictReader(f))
+            assert [r["url"] for r in got_rows] == want_urls, "merged urls differ from the plan"
+            threads_tree = tree_bytes(cfg.shard_dir)
+            assert len(threads_tree) == 2 * len(pages), len(threads_tree)
+
+            acfg = dataclasses.replace(cfg, shard_dir=os.path.join(tmp, "async"))
+
+            async def fetch(url: str) -> str:
+                return page_of(url)
+
+            t0 = time.perf_counter()
+            n_async = asyncio.run(harvest_async.harvest_shards_async(acfg, fetch=fetch))
+            async_s = time.perf_counter() - t0
+            assert n_async == len(pages), n_async
+            assert tree_bytes(acfg.shard_dir) == threads_tree, "async shards differ"
+
+            rng = np.random.RandomState(44)
+            gone = sorted(rng.choice(sorted(pages), int(len(pages) * HARVEST_RESUME),
+                                     replace=False).tolist())
+            for prefix in gone:
+                os.remove(os.path.join(cfg.shard_dir, f"yahoo_{prefix}.txt"))
+            again = MockTransport(page_of)
+            t0 = time.perf_counter()
+            assert harvest.run_harvest(cfg, transport=again, device=dev) == 0
+            resume_s = time.perf_counter() - t0
+            assert sorted(again.fetched) == sorted(harvest.cdx_query_url(p, cfg) for p in gone)
+            assert open(cfg.output_csv, "rb").read() == out, "the resume changed the output"
+            assert tree_bytes(cfg.shard_dir) == threads_tree
+        finally:
+            dedup.ExactDedup, harvest.merge_shards = exact, merge
+    sweep_s = run_s - card_merge_s
+    log("harvest_path", shards=len(pages), rows=rows, unique_urls=unique,
+        planned_articles=HARVEST_UNIQUE, workers=HARVEST_WORKERS, generate_s=generate_s,
+        sweep_s=sweep_s, shards_per_s=len(pages) / sweep_s, rows_per_s=rows / sweep_s,
+        async_s=async_s, async_shards_per_s=len(pages) / async_s,
+        merge_s=card_merge_s,
+        merge_cpu_s=cpu_merge_s, exact_path=made[0].last_path,
+        date_time_float=got_rows[0]["date_time"].endswith(".0"),
+        resume=dict(deleted=len(gone), fetched=len(again.fetched), seconds=resume_s),
+        card_equals_cpu=True, async_equals_threads=True, phase_s=time.perf_counter() - t_phase,
+        card=card)
+
+
+def lease_path(card: str, dev=None) -> tuple[int, int]:
+    """The lease plane: 8,192 yfin pages (``scrape_pages``, seed 41) through
+    a ``LeaseServer`` and 4 ``LeaseClient``s of 2 fetch threads each on
+    loopback; the first client's socket is shut down once a quarter of the
+    pages are in, so the server requeues its leases.  ``process_results``
+    then parses every result centrally, streaming its successes into
+    ``TpuBatchBackend(DedupConfig())`` on ``dev``.  Checks: every url
+    answered exactly once; one ``minhash_fold_segments`` launch a batch of
+    successes and no other launch; replaying ``server.results`` in arrival
+    order through ``process_results`` into a CPU backend writes byte-equal
+    success and failed CSVs and equal annotations.  Returns the launches and
+    the batches."""
+    import socket
+    import tempfile
+    import threading
+
+    from advanced_scrapper_tpu_torch.config import DedupConfig, FeedConfig
+    from advanced_scrapper_tpu_torch.extractors import load_extractor
+    from advanced_scrapper_tpu_torch.extractors.tpu_batch import TpuBatchBackend
+    from advanced_scrapper_tpu_torch.net.lease import LeaseClient, LeaseServer
+    from advanced_scrapper_tpu_torch.net.transport import MockTransport
+
+    t_phase = time.perf_counter()
+    urls, pages, planted, titleless, limited = scrape_pages(np.random.RandomState(41), LEASE_PAGES)
+    generate_s = time.perf_counter() - t_phase
+    cfg = FeedConfig(host="127.0.0.1", port=0, batch_size=64, min_queue_length=32,
+                     client_threads=LEASE_THREADS, client_rate=200.0)
+    server = LeaseServer(cfg, urls, status_port=0).start()
+    dialled = []
+
+    def dial(addr):
+        sock = socket.create_connection(addr, timeout=10)
+        dialled.append(sock)
+        return sock
+
+    clients = [LeaseClient(cfg, lambda: MockTransport(pages), port=server.port,
+                           connect=dial if i == 0 else None) for i in range(LEASE_CLIENTS)]
+    sent = [0] * LEASE_CLIENTS
+
+    def work(i):
+        sent[i] = clients[i].run(max_seconds=300.0)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(LEASE_CLIENTS)]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + 300.0
+    while len(server.results) < LEASE_PAGES // 4 and time.monotonic() < deadline:
+        time.sleep(0.005)
+    cut_at = len(server.results)
+    dialled[0].shutdown(socket.SHUT_RDWR)  # the first client's link dies mid-run
+    done = server.wait_done(300.0)
+    round_trip_s = time.perf_counter() - t0
+    for t in threads:
+        t.join(timeout=60)
+    status = server.fleet_status()
+    requeued = server._m_requeued.value
+    server.stop()
+    assert done, f"{server._pending} urls never answered"
+    answered = [r["url"] for r in server.results]
+    assert sorted(answered) == sorted(urls) and len(set(answered)) == len(answered)
+    assert requeued > 0, "the dead client's leases were never requeued"
+
+    extractor = load_extractor("yfin")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {}
+        for where in ("card", "cpu"):
+            ann: list[dict] = []
+            backend = TpuBatchBackend(DedupConfig(), sink=ann.append,
+                                      device=dev if where == "card" else "cpu")
+            replay = server
+            if where == "cpu":
+                replay = LeaseServer(cfg, [])
+                replay.results = list(server.results)
+            ok_csv, bad_csv = (os.path.join(tmp, f"{where}_{k}.csv") for k in ("ok", "bad"))
+            busy_ms = None
+            with contextlib.ExitStack() as stack:
+                prof = None
+                if where == "card" and dev != "cpu":
+                    from torch.profiler import ProfilerActivity, profile
+
+                    prof = stack.enter_context(profile(activities=[ProfilerActivity.CUDA]))
+                reset_launches()
+                t0 = time.perf_counter()
+                ok, bad = replay.process_results(extractor, ok_csv, bad_csv,
+                                                 on_success=backend.submit)
+                backend.flush()
+                seconds = time.perf_counter() - t0
+                launches = read_launches()
+                if prof is not None:
+                    torch.cuda.synchronize()
+            if prof is not None:
+                seen = [e for e in prof.key_averages() if e.device_time_total > 0]
+                busy_ms = sum(e.device_time_total for e in seen) / 1e3 or None
+            backend.close()
+            out[where] = dict(ok=ok, bad=bad, seconds=seconds, launches=launches, ann=ann,
+                              busy_ms=busy_ms, csvs=(open(ok_csv, "rb").read(),
+                                                     open(bad_csv, "rb").read()))
+    card_run, cpu_run = out["card"], out["cpu"]
+    assert card_run["csvs"] == cpu_run["csvs"], "card and CPU CSVs differ"
+    assert card_run["ann"] == cpu_run["ann"], "card and CPU annotations differ"
+    assert card_run["ok"] + card_run["bad"] == LEASE_PAGES
+    assert card_run["bad"] == len(titleless) + 1, (card_run["bad"], len(titleless))
+    batches = -(-card_run["ok"] // DedupConfig().batch_size)
+    got = card_run["launches"]
+    if dev != "cpu":
+        assert got["minhash_fold_segments"] == batches > 0, (got, batches)
+        assert sum(got.values()) == batches, got
+    near = {r["url"]: r["near_dup_of"] for r in card_run["ann"]}
+    missed = [c for c, s in planted.items() if near.get(c) != s and near.get(s) != c]
+    assert not missed, f"{len(missed)} of {len(planted)} planted copies not annotated"
+    busy_ms = card_run["busy_ms"]
+    log("lease_path", pages=LEASE_PAGES, clients=LEASE_CLIENTS, fetch_threads=LEASE_THREADS,
+        batch_size=cfg.batch_size, generate_s=generate_s, round_trip_s=round_trip_s,
+        pages_per_s=LEASE_PAGES / round_trip_s, sent=sent, cut_at=cut_at, requeued=requeued,
+        fleet_status=status, succeeded=card_run["ok"], failed=card_run["bad"],
+        planted=len(planted), process_results_s=card_run["seconds"],
+        process_results_pages_per_s=LEASE_PAGES / card_run["seconds"],
+        cpu_replay_s=cpu_run["seconds"], batches=batches, launches=got, card_busy_ms=busy_ms,
+        card_busy_share=None if busy_ms is None else busy_ms / 1e3 / card_run["seconds"],
+        card_equals_cpu=True, phase_s=time.perf_counter() - t_phase, card=card)
+    return got["minhash_fold_segments"], batches
+
+
+def http_json(url: str, obj=None) -> tuple[int, dict]:
+    import urllib.error
+    import urllib.request
+
+    data = None if obj is None else json.dumps(obj).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def control_path(card: str) -> None:
+    """The control server on an ephemeral loopback port over the scrape
+    cell's first pages: ``add_template``, 256 synchronous
+    ``extract_and_get_article`` calls and 64 asynchronous ones polled to
+    their result.  Checks: every answer's fields equal the template applied
+    in this process (``extract_with_template`` on the tree), and each page
+    was persisted."""
+    import tempfile
+
+    from advanced_scrapper_tpu_torch.core.soup import Soup
+    from advanced_scrapper_tpu_torch.extractors.template import extract_with_template
+    from advanced_scrapper_tpu_torch.net.control import ControlPlane, ControlServer
+    from advanced_scrapper_tpu_torch.net.transport import MockTransport
+
+    t_phase = time.perf_counter()
+    urls, pages, _planted, _titleless, _limited = scrape_pages(
+        np.random.RandomState(41), CONTROL_SYNC + CONTROL_ASYNC)
+    want = {u: extract_with_template(Soup(pages[u]), CONTROL_TEMPLATE) for u in urls}
+    with tempfile.TemporaryDirectory() as tmp:
+        plane = ControlPlane(lambda: MockTransport(pages),
+                             templates_path=os.path.join(tmp, "templates.json"), out_root=tmp)
+        server = ControlServer(plane).start()
+        base = f"http://127.0.0.1:{server.port}"
+        try:
+            assert http_json(base + "/add_template", {"name": "yfin_tpl",
+                                                     "template": CONTROL_TEMPLATE})[0] == 200
+            t0 = time.perf_counter()
+            for u in urls[:CONTROL_SYNC]:
+                code, got = http_json(base + "/extract_and_get_article",
+                                      {"url": u, "template": "yfin_tpl"})
+                assert code == 200 and got == want[u], u
+            sync_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rids = {u: http_json(base + "/extract_and_get_article",
+                                 {"url": u, "template": "yfin_tpl", "async": True})[1]["request_id"]
+                    for u in urls[CONTROL_SYNC:]}
+            for u, rid in rids.items():
+                deadline = time.monotonic() + 60
+                while (res := http_json(f"{base}/get_result/{rid}"))[0] == 202:
+                    assert time.monotonic() < deadline, rid
+                    time.sleep(0.002)
+                assert res == (200, want[u]), u
+            async_s = time.perf_counter() - t0
+            status = http_json(base + "/status")[1]["control"]
+        finally:
+            server.stop()
+        persisted = len(os.listdir(os.path.join(tmp, "yfin_tpl")))
+    assert persisted == len(urls), persisted
+    assert status["results_done"] == CONTROL_ASYNC, status
+    log("control_path", sync=CONTROL_SYNC, sync_s=sync_s, sync_per_s=CONTROL_SYNC / sync_s,
+        asynchronous=CONTROL_ASYNC, async_s=async_s, async_per_s=CONTROL_ASYNC / async_s,
+        persisted=persisted, fields_equal=True, phase_s=time.perf_counter() - t_phase, card=card)
+
+
+def pipe_path(card: str) -> None:
+    """A ``PipePool`` of 3 ``pipe_worker`` processes over 1,024 urls with a
+    template extractor and the mock transport (the pages travel in the
+    worker's argv, so they are small).  Checks: every url answered once,
+    each result's fields equal the template applied in this process, and no
+    worker loaded torch."""
+    from advanced_scrapper_tpu_torch.core.soup import Soup
+    from advanced_scrapper_tpu_torch.extractors.template import extract_with_template
+    from advanced_scrapper_tpu_torch.net.pipe_pool import PipePool
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(45)
+    template = {"title": "b", "tags": {"selector": "i", "attribute": "text"}}
+    pages = {f"u{i}": f"<b>t{i} {letters(rng, 2, 6)}</b><i>{rng.randint(99)}</i>"
+             for i in range(PIPE_URLS)}
+    want = {u: {**extract_with_template(Soup(p), template), "url": u} for u, p in pages.items()}
+    torch_lib = os.path.join(os.path.dirname(torch.__file__), "lib")
+    pool = PipePool(num_workers=PIPE_WORKERS,
+                    config={"transport": "mock", "pages": pages, "template": template}).start()
+    try:
+        t0 = time.perf_counter()
+        for u in pages:
+            assert pool.dispatch(u, timeout=60)
+        got = pool.drain(len(pages), timeout=120)
+        seconds = time.perf_counter() - t0
+        loaded = []
+        for p in pool._procs:
+            with open(f"/proc/{p.pid}/maps") as f:
+                loaded.append(torch_lib in f.read())
+    finally:
+        pool.stop()
+    assert len(got) == len(pages) and {r["url"]: r for r in got} == want
+    assert loaded == [False] * PIPE_WORKERS, "a pipe worker loaded torch"
+    log("pipe_path", workers=PIPE_WORKERS, urls=PIPE_URLS, seconds=seconds,
+        urls_per_s=PIPE_URLS / seconds, fields_equal=True, torch_in_workers=False,
+        phase_s=time.perf_counter() - t_phase, card=card)
+
+
+def hostplanes_main() -> int:
+    """``--hostplanes``: the harvest and lease planes at the users' sizes
+    (``harvest_path``, ``lease_path``), then ``control_path`` and
+    ``pipe_path``; kept out of the default run for the run's time."""
+    card = card_start(("minhash",))
+    if card is None:
+        return 2
+    t0 = time.perf_counter()
+    harvest_path(card)
+    launches, batches = lease_path(card)
+    control_path(card)
+    pipe_path(card)
+    log("hostplanes", kernel="minhash_fold_segments",
+        lease_path={"launches": launches, "batches": batches},
+        seconds=time.perf_counter() - t0, card=card)
+    return card_end(card)
+
+
+def card_start(sources: tuple[str, ...]) -> str | None:
+    """The card's name and power limit after the device line and the
+    build of ``sources`` (one ``nvcc`` each, all at once); ``None`` without
+    a card."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this runs on the card",
+              file=sys.stderr)
+        return None
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from advanced_scrapper_tpu_torch.ops import _build
+
+    card = nvidia_smi("name,power.limit")
+    log("device", card=card, kind=torch.cuda.get_device_name(0),
+        count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda,
+        host_cpu=host_cpu(), host_cores=os.cpu_count())
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(_build.build, sources))
+    log("build", seconds=time.perf_counter() - t0, built=list(sources))
+    return card
+
+
+def card_end(card: str) -> int:
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def fleet_main() -> int:
+    """``--fleet``: the persist mode's two sessions (``persist_path``, whose
+    session 1 the elastic fleet reuses), ``fleet_path``, then
+    ``reshard_path`` and ``gateway_path`` on one ``ShardFleet``
+    (``elastic_paths``), at the default run's depth; kept out of the
+    default run for the run's time."""
+    card = card_start(("minhash",))
+    if card is None:
+        return 2
+    t0 = time.perf_counter()
+    docs, planted = ragged_corpus(np.random.RandomState(7), MAIN_ARTICLES)
+    persist_launches, persist_batches, local = persist_path(docs, planted, card)
+    fleet_launches, fleet_batches = fleet_path(docs, card, local)
+    (reshard_launches, reshard_batches), (gateway_launches, gateway_batches) = elastic_paths(
+        docs, card, local)
+    log("fleet_launches", kernel="minhash_fold_segments",
+        persist_path={"launches": persist_launches, "batches": persist_batches},
+        fleet_path={"launches": fleet_launches, "batches": fleet_batches},
+        reshard_path={"launches": reshard_launches, "batches": reshard_batches},
+        gateway_path={"launches": gateway_launches, "batches": gateway_batches},
+        seconds=time.perf_counter() - t0, card=card)
+    return card_end(card)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-worker"]:
         sys.exit(mesh_worker(*sys.argv[2:]))
     if sys.argv[1:] == ["--scrape"]:
         sys.exit(scrape_main())
+    if sys.argv[1:] == ["--fleet"]:
+        sys.exit(fleet_main())
+    if sys.argv[1:] == ["--hostplanes"]:
+        sys.exit(hostplanes_main())
     sys.exit(main())

@@ -1,9 +1,10 @@
 """The PyTorch port stands alone: no module of ``advanced_scrapper_tpu_torch``
 and no card script beside it (``chip_smoke.py``, the probes) imports
 ``jax``, the JAX package, ``pandas``, ``dateutil`` or ``bs4`` (the card's
-host has none of them), or ``psycopg2``, ``requests``, ``selenium`` or
-``undetected_chromedriver`` at module level (the Postgres backend and the
-fetch transports import their driver when they are opened), or names a
+host has none of them), or ``psycopg2``, ``requests``, ``aiohttp``,
+``selenium`` or ``undetected_chromedriver`` at module level (the Postgres
+backend, the fetch transports and the async harvest import their driver
+when they are opened), or names a
 path into the JAX package from which a native source or library could be
 loaded."""
 
@@ -78,7 +79,9 @@ def test_port_files_found():
                 "parallel/dist.py", "core/soup.py", "extractors/__init__.py",
                 "extractors/yfin.py", "extractors/template.py", "obs/stats.py",
                 "obs/console.py", "cpu/csvnative.py", "net/webdriver.py", "net/transport.py",
-                "pipeline/controllers.py", "pipeline/scraper.py"):
+                "pipeline/controllers.py", "pipeline/scraper.py", "pipeline/harvest.py",
+                "pipeline/harvest_async.py", "utils/setops.py", "net/lease.py",
+                "net/control.py", "net/pipe_pool.py", "net/pipe_worker.py", "net/chaos.py"):
         assert f"advanced_scrapper_tpu_torch/{rel}" in FILES, rel
     for name in NATIVE:
         assert (PORT / "native" / name).exists(), name
@@ -92,7 +95,7 @@ def test_no_jax_or_reference_import(rel):
 
 
 #: drivers a module may import only inside the function that needs them
-LAZY = ("psycopg2", "requests", "selenium", "undetected_chromedriver")
+LAZY = ("psycopg2", "requests", "aiohttp", "selenium", "undetected_chromedriver")
 
 
 def _reference_lint():

@@ -4,7 +4,8 @@ with ``--device cpu``: the configuration JSON under ``ASTPU_*`` knobs,
 ``dedup``'s output byte for byte (the whole corpus, ``--stream`` with an
 exact and a bloom index), its short-line rule and its untouched output
 on a failing input, ``xdedup``'s manifest, ``match``'s flags and CSV
-trees, and the commands that are not ported."""
+trees, ``harvest`` (both engines), ``new-links``, ``split``, ``serve`` and
+``work``'s files, and the commands that are not ported."""
 
 from __future__ import annotations
 
@@ -218,9 +219,7 @@ def test_match_writes_the_reference_trees(tmp_path, monkeypatch, capsys):
     assert tree(str(tmp_path / "port_ticker_matched_articles")) == want and want
 
 
-UNPORTED = [["harvest"], ["enrich", "--crypto"], ["poll", "--rounds", "1"],
-            ["serve"], ["work"], ["new-links", "a", "b", "c"], ["split", "a", "-n", "2"],
-            ["selftest"]]
+UNPORTED = [["enrich", "--crypto"], ["poll", "--rounds", "1"], ["selftest"]]
 
 
 @pytest.mark.parametrize("argv", UNPORTED, ids=lambda a: a[0])
@@ -231,6 +230,134 @@ def test_unported_commands_name_their_item(argv):
     ref_parser = ref_cli.build_parser()
     assert vars(cli.build_parser().parse_args(argv)).keys() - {"device"} == \
         vars(ref_parser.parse_args(argv)).keys()
+
+
+HOST_PLANE_ARGVS = [["harvest"], ["harvest", "--engine", "async"], ["serve"], ["work"],
+                    ["new-links", "a", "b", "c"], ["split", "a", "-n", "2"]]
+
+
+@pytest.mark.parametrize("argv", HOST_PLANE_ARGVS, ids=lambda a: "-".join(a))
+def test_host_plane_commands_take_the_reference_arguments(argv):
+    ref_parser = ref_cli.build_parser()
+    assert vars(cli.build_parser().parse_args(argv)).keys() - {"device"} == \
+        vars(ref_parser.parse_args(argv)).keys()
+
+
+def cdx_site(url: str) -> str:
+    """A CDX page for a few prefixes, nothing for the rest."""
+    prefix = url.split("news/")[-1].rstrip("*")
+    if prefix in ("aa", "b7", "$_"):
+        rows = [f"k 2023010100000{i} http://finance.yahoo.com:80/news/{prefix}-{i % 3}.html t"
+                for i in range(6)] + [f"k 20230101 https://x/news/%20{prefix}.html"]
+        return "<html><body><pre>" + "\n".join(rows) + "</pre></body></html>"
+    return ""
+
+
+@pytest.mark.parametrize("engine", ["threads", "async"])
+def test_harvest_writes_the_reference_files(engine, tmp_path, monkeypatch, capsys):
+    """Both CLIs over the same pages (their transport and async fetch
+    pointed at a mock site): equal shard directories and url CSVs."""
+    from advanced_scrapper_tpu.net import transport as ref_transport
+    from advanced_scrapper_tpu.pipeline import harvest_async as ref_async
+    from advanced_scrapper_tpu_torch.net import transport
+    from advanced_scrapper_tpu_torch.pipeline import harvest_async
+
+    for mod in (ref_transport, transport):
+        monkeypatch.setattr(mod, "make_transport",
+                            lambda *a, mod=mod, **k: mod.MockTransport(cdx_site))
+    for mod in (ref_async, harvest_async):
+        async def fetch(url):
+            return cdx_site(url)
+
+        monkeypatch.setattr(mod, "_default_fetch", lambda fetch=fetch: fetch)
+    monkeypatch.setenv("ASTPU_HARVEST_NUM_WORKERS", "3")
+    trees = []
+    for main, pre, name in ((ref_cli.main, [], "ref"), (cli.main, CPU, "port")):
+        monkeypatch.setenv("ASTPU_HARVEST_SHARD_DIR", str(tmp_path / name / "shards"))
+        monkeypatch.setenv("ASTPU_HARVEST_OUTPUT_CSV", str(tmp_path / name / "urls.csv"))
+        assert main(pre + ["harvest", "--engine", engine]) == 0
+        trees.append({**tree(str(tmp_path / name / "shards")),
+                      "urls.csv": (tmp_path / name / "urls.csv").read_bytes()})
+    capsys.readouterr()
+    assert trees[1] == trees[0] and len(trees[0]) == 1521 + 3 + 1
+    assert trees[0]["urls.csv"].count(b"\n") == 1 + 9
+
+
+def test_harvest_async_refuses_a_transport(capsys):
+    assert cli.main(CPU + ["harvest", "--engine", "async", "--transport", "mock"]) == 2
+    assert ref_cli.main(["harvest", "--engine", "async", "--transport", "mock"]) == 2
+    out = capsys.readouterr().out
+    assert out.count("--engine async is plain-HTTP only") == 2
+
+
+def test_new_links_and_split_write_the_reference_files(tmp_path, capsys):
+    rng = np.random.RandomState(8)
+    urls = [f"https://x/{i}.html" for i in rng.randint(0, 40, 60)]
+    (tmp_path / "all.csv").write_text("url,date_time\n" + "".join(
+        f"{u},{2023 + i}\n" for i, u in enumerate(urls)))
+    (tmp_path / "done.csv").write_text("url,title\n" + "".join(f"{u},t\n" for u in urls[::7]))
+    outs = []
+    for main, pre, name in ((ref_cli.main, [], "ref"), (cli.main, CPU, "port")):
+        d = tmp_path / name
+        d.mkdir()
+        assert main(pre + ["new-links", str(tmp_path / "all.csv"), str(d / "new.csv"),
+                           str(tmp_path / "done.csv")]) == 0
+        assert main(pre + ["split", str(tmp_path / "all.csv"), "-n", "3", "--done",
+                           str(tmp_path / "done.csv"), "--template",
+                           str(d / "part_{i}.csv")]) == 0
+        outs.append((tree(str(d)), capsys.readouterr().out.replace(name, "")))
+    assert outs[1] == outs[0] and len(outs[0][0]) == 4
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_serve_and_work_write_the_reference_csvs(tmp_path, monkeypatch, capsys):
+    """``serve`` and ``work`` of each package on loopback: the same success
+    and failed CSVs from the same pages (one fetch thread, so results
+    arrive in lease order)."""
+    import os
+    import threading
+
+    from advanced_scrapper_tpu.net import transport as ref_transport
+    from advanced_scrapper_tpu_torch.net import transport
+
+    article = open(os.path.join(os.path.dirname(__file__), "fixtures",
+                                "yfin_article.html")).read()
+    urls = [f"https://x/{i}.html" for i in range(8)]
+    pages = {u: article.replace("Apple Reports", f"Apple {i} Reports")
+             for i, u in enumerate(urls) if i != 5}
+    for mod in (ref_transport, transport):
+        monkeypatch.setattr(mod, "make_transport",
+                            lambda *a, mod=mod, **k: mod.MockTransport(dict(pages)))
+    (tmp_path / "urls.csv").write_text("url\n" + "".join(u + "\n" for u in urls))
+    monkeypatch.setenv("ASTPU_SCRAPER_INPUT_CSV", str(tmp_path / "urls.csv"))
+    monkeypatch.setenv("ASTPU_FEED_CLIENT_THREADS", "1")
+    monkeypatch.setenv("ASTPU_FEED_CLIENT_RATE", "200")
+    monkeypatch.setenv("ASTPU_FEED_HOST", "127.0.0.1")
+    trees = []
+    for main, pre, name in ((ref_cli.main, [], "ref"), (cli.main, CPU, "port")):
+        (tmp_path / name).mkdir()
+        monkeypatch.chdir(tmp_path / name)
+        port = str(free_port())
+        rc = {}
+        serve = threading.Thread(target=lambda: rc.setdefault("serve", main(
+            pre + ["serve", "--port", port])))
+        serve.start()
+        assert main(pre + ["work", "--host", "127.0.0.1", "--port", port,
+                           "--transport", "mock", "--max-seconds", "30"]) == 0
+        serve.join(timeout=30)
+        assert not serve.is_alive() and rc["serve"] == 0
+        trees.append(tree(str(tmp_path / name)))
+    out = capsys.readouterr().out
+    assert trees[1] == trees[0] and set(trees[0]) == {"success_articles_yfin.csv",
+                                                      "failed_articles_yfin.csv"}
+    assert out.count("Parsed results: 7 success, 1 failed") == 2
 
 
 def test_smoke_on_the_cpu(capsys):

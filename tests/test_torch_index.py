@@ -1,7 +1,8 @@
 """The port's persistent index (``advanced_scrapper_tpu_torch/index/``) on
 the CPU against the JAX package's: the write-ahead log, segments, the
-store's lifecycle, crash windows (the JAX package's ``ChaosFs`` and
-``SimulatedCrash`` drive the port's index), integrity and quarantine, and
+store's lifecycle, crash windows (each package's ``ChaosFs`` and
+``SimulatedCrash`` drive the port's index, with equal ledgers), integrity
+and quarantine, and
 directories that either package writes and the other reopens.  Exact
 equality throughout: the same answers, and the same bytes on disk where no
 compaction runs on a thread."""
@@ -18,13 +19,19 @@ import pytest
 from advanced_scrapper_tpu import index as ref_ix
 from advanced_scrapper_tpu.index import repair as ref_repair
 from advanced_scrapper_tpu.index import segment as ref_seg
-from advanced_scrapper_tpu.storage.fsio import ChaosFs, OsFs, SimulatedCrash
+from advanced_scrapper_tpu.storage import fsio as ref_fsio
+from advanced_scrapper_tpu.storage.fsio import OsFs, SimulatedCrash
 from advanced_scrapper_tpu_torch import index as ix
 from advanced_scrapper_tpu_torch.index import repair, segment
 from advanced_scrapper_tpu_torch.index.store import resolve_intra_batch
 from advanced_scrapper_tpu_torch.index.wal import WriteAheadLog, replay_wal
+from advanced_scrapper_tpu_torch.storage import fsio
 
 PACKAGES = {"jax": ref_ix, "port": ix}
+#: each package's fault injection: (ChaosFs, SimulatedCrash)
+CHAOS = {"jax": (ref_fsio.ChaosFs, ref_fsio.SimulatedCrash),
+         "port": (fsio.ChaosFs, fsio.SimulatedCrash)}
+OTHER = {"jax": "port", "port": "jax"}
 
 
 def _rand_keys(rng, n, nb=4):
@@ -108,13 +115,13 @@ def test_wal_torn_tail_dropped_whole(tmp_path):
     assert replay_wal(path)[0].tolist() == [7, 8]
 
 
-def test_wal_failed_append_rolls_back_framing(tmp_path):
-    path = str(tmp_path / "wal-0.log")
+def wal_short_write(chaos: str, d) -> list:
+    path = str(d / "wal-0.log")
     good = WriteAheadLog(path)
     good.append(np.array([1], np.uint64), np.array([5], np.uint64))
     good.close()
-    chaos = ChaosFs(OsFs(), seed=3, short_write_rate=1.0, only="wal-")
-    wal = WriteAheadLog(path, fs=chaos)
+    fs = CHAOS[chaos][0](OsFs(), seed=3, short_write_rate=1.0, only="wal-")
+    wal = WriteAheadLog(path, fs=fs)
     with pytest.raises(OSError):
         wal.append(np.array([2, 3], np.uint64), np.array([6, 6], np.uint64))
     wal.close()
@@ -124,17 +131,36 @@ def test_wal_failed_append_rolls_back_framing(tmp_path):
     wal2.close()
     keys, docs, _ = replay_wal(path)
     assert keys.tolist() == [1, 4] and docs.tolist() == [5, 7]
+    return fs.ledger
 
 
-def test_wal_crash_mid_append_propagates(tmp_path):
-    """A ``SimulatedCrash`` inside an append goes through (the process is
-    dead) and leaves a torn tail that replay drops whole."""
-    path = str(tmp_path / "wal-0.log")
+@pytest.mark.parametrize("chaos", ["jax", "port"])
+def test_wal_failed_append_rolls_back_framing(tmp_path, chaos):
+    (tmp_path / "a").mkdir()
+    (tmp_path / "b").mkdir()
+    ledger = wal_short_write(chaos, tmp_path / "a")
+    assert ledger and ledger == wal_short_write(OTHER[chaos], tmp_path / "b")
+
+
+def wal_crash(chaos: str, d) -> list:
+    path = str(d / "wal-0.log")
     WriteAheadLog(path).append(np.array([1], np.uint64), np.array([5], np.uint64))
-    wal = WriteAheadLog(path, fs=ChaosFs(OsFs(), seed=1, crash_rate=1.0, only="wal-"))
-    with pytest.raises(SimulatedCrash):
+    fs = CHAOS[chaos][0](OsFs(), seed=1, crash_rate=1.0, only="wal-")
+    wal = WriteAheadLog(path, fs=fs)
+    with pytest.raises(CHAOS[chaos][1]):
         wal.append(np.array([2, 3], np.uint64), np.array([6, 6], np.uint64))
     assert replay_wal(path)[0].tolist() == [1]
+    return fs.ledger
+
+
+@pytest.mark.parametrize("chaos", ["jax", "port"])
+def test_wal_crash_mid_append_propagates(tmp_path, chaos):
+    """A ``SimulatedCrash`` inside an append goes through (the process is
+    dead) and leaves a torn tail that replay drops whole."""
+    (tmp_path / "a").mkdir()
+    (tmp_path / "b").mkdir()
+    ledger = wal_crash(chaos, tmp_path / "a")
+    assert ledger and ledger == wal_crash(OTHER[chaos], tmp_path / "b")
 
 
 # -- segments ------------------------------------------------------------------
@@ -187,12 +213,22 @@ def test_segment_duplicate_pairs_collapse_and_empty(tmp_path):
         segment.write_segment(empty, np.zeros(0, np.uint64), np.zeros(0, np.uint64), version=3)
 
 
-def test_segment_write_is_atomic_under_crash(tmp_path):
-    path = str(tmp_path / "seg-1.seg")
-    with pytest.raises(SimulatedCrash):
+def segment_crash(chaos: str, d) -> list:
+    path = str(d / "seg-1.seg")
+    fs = CHAOS[chaos][0](OsFs(), seed=5, crash_rate=1.0, only="seg-")
+    with pytest.raises(CHAOS[chaos][1]):
         segment.write_segment(path, np.array([1, 2], np.uint64), np.array([0, 1], np.uint64),
-                              fs=ChaosFs(OsFs(), seed=5, crash_rate=1.0, only="seg-"))
+                              fs=fs)
     assert not os.path.exists(path)
+    return fs.ledger
+
+
+@pytest.mark.parametrize("chaos", ["jax", "port"])
+def test_segment_write_is_atomic_under_crash(tmp_path, chaos):
+    (tmp_path / "a").mkdir()
+    (tmp_path / "b").mkdir()
+    ledger = segment_crash(chaos, tmp_path / "a")
+    assert ledger and ledger == segment_crash(OTHER[chaos], tmp_path / "b")
 
 
 @pytest.mark.parametrize("case", ["rot-in-block", "rotted-key", "downward-at-boundary",
@@ -333,17 +369,14 @@ def test_crash_at_manifest_swap_converges(tmp_path, step):
     idx2.close()
 
 
-def test_seeded_crashes_inside_the_index_converge(tmp_path):
-    """``ChaosFs`` crashes at seeded points of WAL appends, segment writes
-    and manifest swaps: after each, a fresh open holds every posting that
-    was acknowledged, none twice."""
+def seeded_index_crashes(chaos: str, d) -> list:
     rng = np.random.RandomState(9)
     batches = [_rand_keys(rng, 6, 2) for _ in range(12)]
-    crashed = 0
+    crashed, ledgers = 0, []
     for seed in range(6):
-        d = str(tmp_path / f"ix{seed}")
-        fs = ChaosFs(OsFs(), seed=seed, crash_rate=0.08)
-        idx = ix.PersistentIndex(d, cut_postings=20, compact_segments=3,
+        root = str(d / f"ix{seed}")
+        fs = CHAOS[chaos][0](OsFs(), seed=seed, crash_rate=0.08)
+        idx = ix.PersistentIndex(root, cut_postings=20, compact_segments=3,
                                  compact_inline=True, fs=fs)
         acked: list[int] = []
         try:
@@ -351,14 +384,28 @@ def test_seeded_crashes_inside_the_index_converge(tmp_path):
                 ids = idx.allocate_doc_ids(len(b))
                 idx.insert_batch(b.ravel(), np.repeat(ids, 2))
                 acked += b.ravel().tolist()
-        except SimulatedCrash:
+        except CHAOS[chaos][1]:
             crashed += 1
-        again = ix.PersistentIndex(d, cut_postings=20, compact_segments=3, compact_inline=True)
+        again = ix.PersistentIndex(root, cut_postings=20, compact_segments=3, compact_inline=True)
         keys, _ = again.dump_postings()
         have = keys.tolist()
         assert set(acked) <= set(have) and len(set(have)) == len(have)
         again.close()
+        ledgers.append(list(fs.ledger))
     assert crashed
+    return ledgers
+
+
+@pytest.mark.parametrize("chaos", ["jax", "port"])
+def test_seeded_crashes_inside_the_index_converge(tmp_path, chaos):
+    """``ChaosFs`` crashes at seeded points of WAL appends, segment writes
+    and manifest swaps: after each, a fresh open holds every posting that
+    was acknowledged, none twice; both packages' ``ChaosFs`` fire the same
+    faults."""
+    (tmp_path / "a").mkdir()
+    (tmp_path / "b").mkdir()
+    ledgers = seeded_index_crashes(chaos, tmp_path / "a")
+    assert ledgers == seeded_index_crashes(OTHER[chaos], tmp_path / "b")
 
 
 def test_docmap_torn_tail_read_only_and_ids_never_reissued(tmp_path):

@@ -289,7 +289,13 @@ def admitted_server(pkg: str, **ctrl_kw):
 
 
 def hold_the_slot(cpkg, srv, ctrl, gate):
-    """Park one call inside the handler; returns its thread and client."""
+    """Park one call inside the handler; returns its thread and client.
+
+    A server answers before it hands its admission slot back, so an
+    earlier call's slot may still be held when its client has the answer:
+    wait for it first, or that slot passes for the parked call's and the
+    blocker is refused."""
+    wait_released(ctrl)
     gate.clear()
     blocker = client(cpkg, srv.port, retries=0, timeout=PARK)
     t = threading.Thread(target=lambda: blocker.call("echo", {"x": 0}), daemon=True)
@@ -311,7 +317,9 @@ def wait_released(ctrl):
 def test_overload_carries_retry_after_and_is_honoured(cpkg, spkg):
     srv, ctrl, gate, calls = admitted_server(spkg)
     t, blocker = hold_the_slot(cpkg, srv, ctrl, gate)
-    c = client(cpkg, srv.port, retries=0)
+    # the clients' socket waits take PARK: under a loaded machine a 2 s
+    # budget can lapse before the refusal arrives (RpcUnavailable)
+    c = client(cpkg, srv.port, retries=0, timeout=PARK)
     try:
         rid = c.next_request_id()
         with pytest.raises(PKGS[cpkg][0].RpcOverloaded) as ei:
@@ -320,7 +328,7 @@ def test_overload_carries_retry_after_and_is_honoured(cpkg, spkg):
         # the refusal is not cached under the id: the same id retried later
         # gets a fresh admission and executes
         gate.set()
-        t.join(timeout=WAIT)
+        t.join(timeout=PARK)
         wait_released(ctrl)
         assert c.call("echo", {"x": 2}, request_id=rid)[0]["echo"] == 2
         # a client with retries sleeps at least the hint and retries the same id
@@ -330,10 +338,10 @@ def test_overload_carries_retry_after_and_is_honoured(cpkg, spkg):
         def sleep_and_free(s):
             sleeps.append(s)
             gate.set()
-            t.join(timeout=WAIT)
+            t.join(timeout=PARK)
             wait_released(ctrl)
 
-        c2 = client(cpkg, srv.port, retries=2, sleep=sleep_and_free)
+        c2 = client(cpkg, srv.port, retries=2, sleep=sleep_and_free, timeout=PARK)
         assert c2.call("echo", {"x": 9})[0]["echo"] == 9
         assert sleeps and sleeps[0] > 0 and calls["n"] == 4
         c2.close()

@@ -500,10 +500,16 @@ def test_atomic_write_sweeps_a_crashed_writers_tmp(tmp_path, monkeypatch):
 
 
 def test_default_fs_and_the_unported_chaos_spec(monkeypatch):
+    """``ASTPU_CHAOS_FS`` (ported since the harvest slice) gives a
+    ``ChaosFs`` whose spec equals the JAX ``_parse_env_spec``'s."""
+    from advanced_scrapper_tpu.storage import fsio as ref_fsio
+
     monkeypatch.setattr(fsio, "_default_fs", None)
     assert isinstance(fsio.default_fs(), fsio.OsFs)
     fsio.set_default_fs(None)
-    monkeypatch.setenv("ASTPU_CHAOS_FS", "seed=1,crash=1")
-    with pytest.raises(NotImplementedError, match="item 18"):
-        fsio.default_fs()
+    spec = "seed=1,crash=1,short_write=0.5,only=wal-"
+    monkeypatch.setenv("ASTPU_CHAOS_FS", spec)
+    got, want = fsio.default_fs(), ref_fsio._parse_env_spec(spec)
+    assert isinstance(got, fsio.ChaosFs)
+    assert (got._seed, got._rates, got._only) == (want._seed, want._rates, want._only)
     fsio.set_default_fs(None)
