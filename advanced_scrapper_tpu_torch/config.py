@@ -18,7 +18,7 @@ reads it with ``index_fleet_timeout``, ``index_fleet_retries`` and
 ``MatchConfig`` field it reads, ``packed=False`` and ``prewarm`` included.
 ``MeshConfig`` holds ``core.mesh.build_mesh``'s arguments (the reference
 reads it nowhere either).  The acquisition, enrichment and feed sections
-are here for ``Config`` and the CLI: their planes are not ported.
+drive the scrape, harvest, enrichment and lease planes.
 """
 
 from __future__ import annotations

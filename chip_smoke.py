@@ -109,7 +109,14 @@ depth: 8,192 pages, 1,024 of them for the card-vs-CPU bytes.
 ``fleet_path`` and then the elastic fleet on one ``ShardFleet``
 (``elastic_paths``): ``reshard_path``, a live 2→4→2 reshard of session
 1's index under the stream, and ``gateway_path``, three tenants behind
-the gateway process; the default run keeps ``fleet_path`` alone.
+the gateway process; then ``collector_path``, the fleet collector over a
+2 × 2 fleet of its own exporting ``/metrics`` under an obs dir while 24
+batches of the persist stream go through the card, shard 1's primary
+SIGKILLed after the 8th (every instance merged without a collision, the
+dead node down within two scrape rounds, the sidecar harvest naming
+shard 1, a ``gauge_min`` objective on ``astpu_fleet_shards_healthy``
+failing over the merged samples after the kill); the default run keeps
+``fleet_path`` alone.
 
 ``python3 chip_smoke.py --hostplanes`` runs the harvest and lease planes:
 ``harvest_path`` (``run_harvest`` over all 1,521 CDX prefixes of about
@@ -123,9 +130,19 @@ client's link cut mid-run; every url answered once, ``process_results``
 streaming its successes into the card's stream backend with one
 ``minhash_fold_segments`` launch a batch and no other, its CSVs and
 annotations equal to a CPU replay), ``control_path`` (the control server:
-``add_template``, 256 synchronous and 64 asynchronous extracts) and
+``add_template``, 256 synchronous and 64 asynchronous extracts),
 ``pipe_path`` (a ``PipePool`` of 3 workers over 1,024 urls, none of them
-loading torch).
+loading torch), ``enrich_path`` (Wikidata enrichment of the matcher
+cell's 500 companies from a fake SPARQL endpoint with seeded 429s, 503s
+and raised exceptions, every sleep recorded, cut at the 301st symbol and
+resumed from its ledger after one artifact is deleted, its sleeps the
+retry ladder's; then ``run_matcher`` on the card over its info files and
+20,000 articles, every planted mention found, ``match_screen`` once a
+chunk, the card's and the CPU's match trees over 256 articles equal) and
+``poll_path`` (64 rounds of a topic page of 32 links, ``poll_links`` with
+the mirror CSV and ``drain_unscraped`` with the yfin extractor on sqlite
+and on the Postgres backend over ``pgfake``, equal rows; the CLI's
+``poll --rounds 2 --drain`` and ``selftest``).
 
 The OPH backend (``csrc/oph.cu``): ``oph_vs_plain`` holds each of its
 entry points bit-equal to its plain version (``oph_fold_segments`` at
@@ -1386,19 +1403,22 @@ def sp500_articles(rng: np.random.RandomState, entities: list[dict], n: int):
 def write_matcher_inputs(root: str, entities: list[dict], records: list[dict]) -> tuple[str, str]:
     """An info directory (10 companies per JSON file) and an articles CSV
     under ``root``; returns their paths."""
-    import csv
-
     info = os.path.join(root, "info")
     os.makedirs(info, exist_ok=True)
     for k in range(0, len(entities), 10):
         with open(os.path.join(info, f"part{k // 10:03d}.json"), "w", encoding="utf-8") as f:
             json.dump(entities[k : k + 10], f, ensure_ascii=False)
-    path = os.path.join(root, "articles.csv")
+    return info, write_articles_csv(os.path.join(root, "articles.csv"), records)
+
+
+def write_articles_csv(path: str, records: list[dict]) -> str:
+    import csv
+
     with open(path, "w", newline="", encoding="utf-8") as f:
         w = csv.writer(f)
         w.writerow(list(records[0]))
         w.writerows([list(r.values()) for r in records])
-    return info, path
+    return path
 
 
 def norm_matches(res) -> list:
@@ -5464,11 +5484,577 @@ def pipe_path(card: str) -> None:
         phase_s=time.perf_counter() - t_phase, card=card)
 
 
+ENRICH_SEED = 23
+ENRICH_FAULTS = 0.04  # share of (symbol, query) first calls that fail
+ENRICH_CUT = 300      # the first run is cut at this symbol's first query
+ENRICH_LOST = 150     # the symbol whose artifact is deleted before the resume
+SPARQL_SEP = "| | |"
+
+
+class EnrichCut(BaseException):
+    """Raised by :class:`SparqlFake` to cut an enrichment run mid-list, as
+    a crash does (``EnrichClient.query_symbol`` catches only
+    ``Exception``)."""
+
+
+class SparqlResponse:
+    """The part of a ``requests`` response the enrichment reads."""
+
+    def __init__(self, status: int, bindings: list[dict]):
+        self.status_code = status
+        self.ok = status < 400
+        self._bindings = bindings
+
+    def json(self) -> dict:
+        return {"results": {"bindings": self._bindings}}
+
+
+class SparqlFake:
+    """A Wikidata SPARQL endpoint made from info-JSON entities (the
+    ``requests.Session.get`` the enrichment calls).  Q1 answers a company's
+    label, aliases, industries, countries and products; Q2 its
+    subsidiaries (their ``(Start: …)`` text kept) and owned entities; Q3
+    its CEOs and board members with their terms; a symbol it does not
+    know gets no bindings.  The first call of a (symbol, query) fails with
+    a seeded share ``faults``, a third each as a 429, a 503 and a raised
+    ``ConnectionError``: a pure function of (``seed``, symbol, query), so
+    :func:`enrich_ladder` can replay it.  ``cut`` raises
+    :class:`EnrichCut` at that symbol's first query.  ``queried`` lists
+    every answered call as (symbol, query), ``injected`` every fault as
+    (symbol, query, kind)."""
+
+    KINDS = ("429", "503", "raise")
+
+    def __init__(self, entities: list[dict], seed: int, faults: float = ENRICH_FAULTS,
+                 cut: str | None = None):
+        self.by_symbol = {e["ticker"]: e for e in entities}
+        self.seed, self.faults, self.cut = seed, faults, cut
+        self.calls: dict[tuple[str, str], int] = {}
+        self.queried: list[tuple[str, str]] = []
+        self.injected: list[tuple[str, str, str]] = []
+
+    def fault(self, symbol: str, query: str, n: int) -> str | None:
+        """The fault of call ``n`` (from 0) of ``query`` for ``symbol``."""
+        import random
+
+        if n:
+            return None
+        r = random.Random(f"{self.seed}|{symbol}|{query}")
+        if r.random() >= self.faults:
+            return None
+        return self.KINDS[r.randrange(3)]
+
+    def bindings(self, symbol: str, query: str) -> list[dict]:
+        e = self.by_symbol.get(symbol)
+        if e is None:
+            return []
+        fields = {"q1": {"idLabels": e["id_label"], "aliases": e["aliases"],
+                         "industries": e["industry"], "countries": e["country"],
+                         "products": e["products"]},
+                  "q2": {"subsidiaries": e["subsidiaries"], "ownedEntities": e["owned_entities"]},
+                  "q3": {"ceosWithTerms": e["ceos"], "boardMembersWithTerms": e["board_members"]},
+                  }[query]
+        out = {"ticker": {"value": symbol}, "id": {"value": f"http://www.wikidata.org/entity/{symbol}"}}
+        for k, v in fields.items():
+            out[k] = {"value": v if isinstance(v, str) else SPARQL_SEP.join(v)}
+        return [out]
+
+    def get(self, url, params=None, timeout=None) -> SparqlResponse:
+        query = params["query"]
+        symbol = re.search(r"UCASE\(STR\(\?ticker\)\) = '([^']*)'", query).group(1)
+        kind = ("q3" if "?ceosWithTerms" in query else
+                "q2" if "?subsidiaries" in query else "q1")
+        if symbol == self.cut and kind == "q1" and not self.calls.get((symbol, kind)):
+            raise EnrichCut(symbol)
+        n = self.calls.get((symbol, kind), 0)
+        self.calls[(symbol, kind)] = n + 1
+        self.queried.append((symbol, kind))
+        fault = self.fault(symbol, kind, n)
+        if fault is not None:
+            self.injected.append((symbol, kind, fault))
+        if fault == "raise":
+            raise ConnectionError(f"injected reset: {symbol} {kind}")
+        if fault is not None:
+            return SparqlResponse(int(fault), [])
+        return SparqlResponse(200, self.bindings(symbol, kind))
+
+
+def enrich_ladder(fault, symbols: list[str], cfg, rng) -> list[float]:
+    """The sleeps a hardened ``run_enrich`` makes over ``symbols`` (each
+    queried, none skipped) when call ``n`` of a (symbol, query) fails as
+    ``fault(symbol, query, n)`` says, drawn from ``rng`` in the order the
+    enrichment draws them: ``U(1, 3)`` between queries, ``U(5, 10)`` after
+    a success, ``base·3^attempt + U(10, 20)`` after a 429,
+    ``base·2^attempt + U(2, 8)`` after another failed answer,
+    ``base·2^attempt + U(5, 15)`` after a raised exception (none after the
+    last attempt), and the cool-downs after every 10th symbol, else every
+    3rd."""
+    out: list[float] = []
+    last = cfg.max_retries - 1
+    for done, symbol in enumerate(symbols, 1):
+        calls = dict.fromkeys(("q1", "q2", "q3"), 0)
+        for attempt in range(cfg.max_retries):
+            answers, raised = [], False
+            for qi, q in enumerate(("q1", "q2", "q3")):
+                f = fault(symbol, q, calls[q])
+                calls[q] += 1
+                if f == "raise":
+                    raised = True
+                    break
+                answers.append(f)
+                if qi < 2:
+                    out.append(rng.uniform(1, 3))
+            if raised:
+                if attempt == last:
+                    break
+                out.append(cfg.base_delay * 2**attempt + rng.uniform(5, 15))
+            elif not any(answers):
+                out.append(rng.uniform(5, 10))
+                break
+            elif "429" in answers:
+                if attempt == last:
+                    break
+                out.append(cfg.base_delay * 3**attempt + rng.uniform(10, 20))
+            elif attempt < last:
+                out.append(cfg.base_delay * 2**attempt + rng.uniform(2, 8))
+        if done % 10 == 0:
+            out.append(rng.uniform(*cfg.cooldown_every10))
+        elif done % 3 == 0:
+            out.append(rng.uniform(*cfg.cooldown_every3))
+    return out
+
+
+def info_json(entity: dict) -> str:
+    """The ``<SYMBOL>_info.json`` text the enrichment writes for a company
+    the endpoint answers with ``entity``."""
+    return json.dumps([entity], indent=4, ensure_ascii=False)
+
+
+def planted_found(out_dir: str, planted: dict[int, set]) -> list[tuple[int, str]]:
+    """The planted (article, ticker) mentions missing from the matcher's
+    ``{ticker}_match.csv`` tree under ``out_dir``."""
+    found = set()
+    for name in os.listdir(out_dir):
+        ticker = name[: -len("_match.csv")]
+        for row in read_csv_records_all(os.path.join(out_dir, name)):
+            found.add((int(row["url"].rsplit("/", 1)[1].split(".")[0]), ticker))
+    return [(i, t) for i, ts in planted.items() for t in ts if (i, t) not in found]
+
+
+def enrich_path(card: str, dev="cuda", articles: int = MATCH_ARTICLES) -> dict:
+    """Wikidata enrichment feeding the matcher on the card.  The 500
+    companies of the matcher cell (``sp500_entities``, seed 17) answered by
+    a :class:`SparqlFake` with seeded faults, every sleep recorded (none
+    waits): a hardened ``run_enrich`` cut at the 301st symbol, one
+    finished artifact deleted, then resumed from its ledger.  Checks: the
+    cut run's sleeps are the ladder's (:func:`enrich_ladder`) over the
+    symbols before the cut; the resumed run queries exactly the deleted
+    symbol and the unfinished ones, in list order, with the ladder's
+    sleeps; every symbol ends processed and none failed, its info JSON
+    the reference's text for its company.  Then ``run_matcher`` on
+    ``dev`` at its defaults with ``info_dir`` the enrichment's output over
+    ``articles`` of ``sp500_articles``: every planted mention found,
+    ``match_screen`` launched once a chunk and ``myers_bound`` as the
+    refine race decides (never on the first chunk); and the card's and the
+    CPU's ``{ticker}_match.csv`` trees over the first 256 articles equal
+    byte for byte.  Returns the launches."""
+    import random
+    import tempfile
+
+    from advanced_scrapper_tpu_torch.config import EnrichConfig, MatchConfig
+    from advanced_scrapper_tpu_torch.pipeline.enrich import run_enrich
+    from advanced_scrapper_tpu_torch.pipeline.matcher import run_matcher
+    from advanced_scrapper_tpu_torch.storage.progress import ProgressLedger
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(17)
+    entities = sp500_entities(rng)
+    records, planted = sp500_articles(rng, entities, articles)
+    symbols = [e["ticker"] for e in entities]
+    cut, lost = symbols[ENRICH_CUT], symbols[ENRICH_LOST]
+    tmp = tempfile.TemporaryDirectory()
+    cfg = EnrichConfig(out_dir=os.path.join(tmp.name, "info", "ticker"),
+                       progress_file=os.path.join(tmp.name, "progress.json"))
+    console = contextlib.redirect_stdout(sys.stderr)
+
+    first = SparqlFake(entities, ENRICH_SEED, cut=cut)
+    sleeps: list[float] = []
+    t0 = time.perf_counter()
+    try:
+        with console:
+            run_enrich(cfg, session=first, sleep=sleeps.append,
+                       rng=random.Random(ENRICH_SEED), symbols=symbols)
+        raise AssertionError("the cut did not end the first run")
+    except EnrichCut:
+        pass
+    first_s = time.perf_counter() - t0
+    ledger = ProgressLedger(cfg.progress_file)
+    assert sorted(ledger.processed) == sorted(symbols[:ENRICH_CUT]) and not ledger.failed
+    assert sleeps == enrich_ladder(first.fault, symbols[:ENRICH_CUT], cfg,
+                                   random.Random(ENRICH_SEED)), "the cut run left the ladder"
+    os.remove(os.path.join(cfg.out_dir, f"{lost}_info.json"))
+
+    resumed = SparqlFake(entities, ENRICH_SEED + 1)
+    sleeps2: list[float] = []
+    t0 = time.perf_counter()
+    with console:
+        assert run_enrich(cfg, session=resumed, sleep=sleeps2.append,
+                          rng=random.Random(ENRICH_SEED + 1), symbols=symbols) == 0
+    resume_s = time.perf_counter() - t0
+    want = [lost] + symbols[ENRICH_CUT:]
+    queried = list(dict.fromkeys(s for s, _q in resumed.queried))
+    assert queried == want, (queried[:5], want[:5])
+    assert sleeps2 == enrich_ladder(resumed.fault, want, cfg, random.Random(ENRICH_SEED + 1)), \
+        "the resumed run left the ladder"
+    ledger = ProgressLedger(cfg.progress_file)
+    assert ledger.processed == set(symbols) and not ledger.failed
+    assert sorted(os.listdir(cfg.out_dir)) == sorted(f"{s}_info.json" for s in symbols)
+    for e in entities:
+        with open(os.path.join(cfg.out_dir, f"{e['ticker']}_info.json"), encoding="utf-8") as f:
+            assert f.read() == info_json(e), e["ticker"]
+    injected = [k for _s, _q, k in first.injected + resumed.injected]
+    queries = len(first.queried) + len(resumed.queried)
+    attempted = ENRICH_CUT + len(want)
+    attempts = sum(q == "q1" for _s, q in first.queried + resumed.queried)
+    log("enrich_path", symbols=len(symbols), attempted=attempted, cut_at=ENRICH_CUT,
+        deleted=lost, resumed=len(want), queries=queries,
+        faults={k: injected.count(k) for k in SparqlFake.KINDS},
+        retries=attempts - attempted, sleeps=len(sleeps) + len(sleeps2),
+        slept_s_recorded=sum(sleeps) + sum(sleeps2),
+        symbols_per_s=attempted / (first_s + resume_s), first_run_s=first_s,
+        resume_s=resume_s, card=card)
+
+    out_root = os.path.join(tmp.name, "match")
+    os.makedirs(out_root)
+    csv_path = write_articles_csv(os.path.join(out_root, "articles.csv"), records)
+    mcfg = MatchConfig(source_name=os.path.join(out_root, "yahoo"), info_dir=cfg.out_dir)
+    chunks = -(-len(records) // mcfg.chunk_size)
+    reset_launches()
+    t0 = time.perf_counter()
+    with console:
+        assert run_matcher(mcfg, articles_csv=csv_path, device=dev) == 0
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+    out_dir = mcfg.source_name + mcfg.out_dir_suffix
+    missed = planted_found(out_dir, planted)
+    assert not missed, f"{len(missed)} planted mentions not found, first {missed[:5]}"
+    if dev != "cpu":
+        assert launches["match_screen"] == chunks, (launches, chunks)
+        assert launches["myers_bound"] <= chunks - 1, (launches, chunks)
+    trees = []
+    sub_csv = write_articles_csv(os.path.join(out_root, "subset.csv"), records[:MATCH_SUBSET])
+    for k, name in enumerate((dev, "cpu")):
+        c = MatchConfig(source_name=os.path.join(out_root, f"subset{k}-{name}"),
+                        info_dir=cfg.out_dir, verify_workers=1)
+        with console:
+            assert run_matcher(c, articles_csv=sub_csv, device=name) == 0
+        trees.append(tree_bytes(c.source_name + c.out_dir_suffix))
+    assert trees[0] == trees[1] and trees[0], "card and CPU match trees differ"
+    log("enrich_matcher", articles=len(records), chunks=chunks, seconds=run_s,
+        articles_per_s=len(records) / run_s, launches=launches,
+        planted_articles=len(planted), files=len(os.listdir(out_dir)),
+        card_vs_cpu_articles=MATCH_SUBSET, card_vs_cpu_files=len(trees[0]),
+        phase_seconds=time.perf_counter() - t_phase, card=card)
+    tmp.cleanup()
+    return {"match_screen": launches["match_screen"], "myers_bound": launches["myers_bound"]}
+
+
+POLL_ROUNDS = 64
+POLL_LINKS = 32    # links a topic page
+POLL_PAGES = 1024  # scrape_pages(seed 41): the article pages the links point at
+POLL_TOPIC = "https://finance.example/topic/crypto/"
+
+
+def topic_pages(rng: np.random.RandomState, urls: list[str], rounds: int = POLL_ROUNDS,
+                links: int = POLL_LINKS) -> tuple[list[str], list[str]]:
+    """``rounds`` topic pages over ``urls``: the first page all new links,
+    each later one 3/8 to 5/8 of ``links`` not shown before (12-20 of 32)
+    and the rest drawn from
+    those already shown (repeats too), shuffled, with three hrefs the
+    poller's filter drops (relative, not ``/news/``, no ``.html``).
+    Returns the pages and the new links in the order they first appear."""
+    pages, fresh, shown = [], [], []
+    nxt = 0
+    for r in range(rounds):
+        n_new = links if r == 0 else int(rng.randint(links * 3 // 8, links * 5 // 8 + 1))
+        new = urls[nxt : nxt + n_new]
+        nxt += len(new)
+        old = [shown[i] for i in rng.randint(0, len(shown), size=links - len(new))] if shown else []
+        order = rng.permutation(len(new) + len(old))
+        hrefs = [(new + old)[i] for i in order]
+        fresh += [u for u in hrefs if u in set(new)]
+        shown += new
+        hrefs[1:1] = [f"/news/relative-{r}.html", f"https://finance.example/video/{r}.html",
+                      f"https://finance.example/news/{r}-no-extension"]
+        pages.append("<html><body><div id=\"Fin-Stream\"><ul>" + "".join(
+            f'<li><a href="{html.escape(u)}">story {k}</a></li>' for k, u in enumerate(hrefs))
+            + "</ul></div></body></html>")
+    return pages, fresh
+
+
+def topic_transport(pages: dict[str, str], topics: list[str]):
+    """``MockTransport`` over ``pages`` whose topic url answers the next of
+    ``topics`` on each fetch."""
+    from advanced_scrapper_tpu_torch.net.transport import MockTransport
+
+    rounds = iter(topics)
+    return MockTransport({**pages, POLL_TOPIC: lambda _u: next(rounds)})
+
+
+def store_rows(links, articles) -> tuple[list, list]:
+    """A link and an article store's rows by url: links as (url,
+    is_scraped), articles whole."""
+    out = []
+    for store, sql in ((links, "SELECT url, is_scraped FROM links ORDER BY url"),
+                       (articles, "SELECT * FROM articles ORDER BY url")):
+        conn = store.backend.connect()
+        try:
+            cur = conn.cursor()
+            cur.execute(sql)
+            out.append([tuple(r) for r in cur.fetchall()])
+        finally:
+            conn.close()
+    return out[0], out[1]
+
+
+def poll_run(links, articles, pages, topics, mirror: str) -> dict:
+    """The CLI's loop at its defaults, one poll and one drain a round, over
+    ``topics``; returns the counts and seconds."""
+    from advanced_scrapper_tpu_torch.extractors import load_extractor
+    from advanced_scrapper_tpu_torch.pipeline.poller import drain_unscraped, poll_links
+
+    transport = topic_transport(pages, topics)
+    extractor = load_extractor("yfin")
+    new = stored = 0
+    poll_s = drain_s = 0.0
+    for _ in topics:
+        t0 = time.perf_counter()
+        new += poll_links(links, transport, topic_url=POLL_TOPIC, max_iterations=1,
+                          sleep=lambda _s: None, mirror_csv=mirror)
+        t1 = time.perf_counter()
+        stored += drain_unscraped(links, articles, transport, extractor, max_rounds=1,
+                                  sleep=lambda _s: None)
+        poll_s += t1 - t0
+        drain_s += time.perf_counter() - t1
+    fetched = sum(1 for u in transport.fetched if u != POLL_TOPIC)
+    return dict(new=new, stored=stored, fetched=fetched, poll_s=poll_s, drain_s=drain_s)
+
+
+def poll_path(card: str) -> None:
+    """The topic poller and its drain: 64 rounds of a topic page of 32
+    links (:func:`topic_pages` over ``scrape_pages``' 1,024 pages, seed
+    41, the rate-limit sentinel left out), each round ``poll_links`` into a
+    sqlite ``LinkStore`` with the mirror CSV and ``drain_unscraped`` with
+    the yfin extractor into an ``ArticleStore``; then the same over the
+    Postgres backend on the port's ``pgfake``.  Checks: the new links are
+    the planted ones, in order, and so are the mirror's rows; every titled
+    page is stored once; the titleless pages stay unscraped; sqlite and
+    pgfake hold equal rows.  Then the CLI's ``poll --rounds 2 --drain``
+    over two more topic pages and ``selftest`` (offline)."""
+    import csv
+    import tempfile
+
+    from advanced_scrapper_tpu_torch.net import transport as transport_mod
+    from advanced_scrapper_tpu_torch.storage.backends import PostgresBackend
+    from advanced_scrapper_tpu_torch.storage.pgfake import FakePostgresServer
+    from advanced_scrapper_tpu_torch.storage.stores import ArticleStore, LinkStore
+
+    t_phase = time.perf_counter()
+    urls, pages, _planted, titleless, limited = scrape_pages(np.random.RandomState(41), POLL_PAGES)
+    urls = [u for u in urls if u != limited]
+    topics, fresh = topic_pages(np.random.RandomState(43), urls)
+    titled = [u for u in fresh if u not in titleless]
+    tmp = tempfile.TemporaryDirectory()
+    runs = {}
+    server = FakePostgresServer()
+    try:
+        dsn = "postgresql://localhost/crypto_links"
+        PostgresBackend(dsn, driver=server).ensure_database(
+            "crypto_links", "postgresql://localhost/postgres")
+        for name, make in (("sqlite", lambda cls: cls(os.path.join(tmp.name, "news.db"))),
+                           ("pgfake", lambda cls: cls(dsn, driver=server))):
+            links, articles = make(LinkStore), make(ArticleStore)
+            mirror = os.path.join(tmp.name, f"{name}-mirror.csv")
+            with contextlib.redirect_stdout(sys.stderr):
+                rec = poll_run(links, articles, pages, topics, mirror)
+            with open(mirror, newline="", encoding="utf-8") as f:
+                mirrored = [r["url"] for r in csv.DictReader(f)]
+            assert rec["new"] == len(fresh) and mirrored == fresh, (name, rec["new"], len(fresh))
+            assert rec["stored"] == len(titled) == articles.count(), (name, rec, len(titled))
+            assert sorted(links.unscraped()) == sorted(set(fresh) & titleless), name
+            runs[name] = (rec, store_rows(links, articles))
+    finally:
+        server.close()
+    assert runs["sqlite"][1] == runs["pgfake"][1], "sqlite and pgfake rows differ"
+    for name, (rec, _rows) in runs.items():
+        log("poll_path", backend=name, rounds=POLL_ROUNDS, links_a_page=POLL_LINKS,
+            new_links=rec["new"], titled=len(titled),
+            titleless=len(set(fresh) & titleless), stored=rec["stored"],
+            pages_fetched=rec["fetched"], pages_per_s=rec["fetched"] / rec["drain_s"],
+            rounds_per_s=POLL_ROUNDS / rec["poll_s"], poll_s=rec["poll_s"],
+            drain_s=rec["drain_s"], card=card)
+
+    # the CLI: two rounds with the drain, and the offline self-test
+    cli_topics, cli_fresh = topic_pages(np.random.RandomState(44), urls, rounds=2)
+    make = transport_mod.make_transport
+    transport_mod.make_transport = lambda *_a, **_k: topic_transport(pages, cli_topics)
+    db = os.path.join(tmp.name, "cli.db")
+    try:
+        polled = cli_run(["poll", "--rounds", "2", "--drain", "--interval", "0", "--db", db,
+                          "--topic", POLL_TOPIC, "--transport", "mock"])
+    finally:
+        transport_mod.make_transport = make
+    cli_titled = [u for u in cli_fresh if u not in titleless]
+    assert polled["rc"] == 0 and f"{len(cli_fresh)} new links" in polled["stdout"], polled
+    assert f"{len(cli_titled)} articles stored" in polled["stdout"], polled
+    selftest = cli_run(["selftest"])
+    report = json.loads(selftest["stdout"])
+    assert selftest["rc"] == 0 and report["harness"] == "ok" and report["ok"], report
+    assert all(report[k].startswith("skipped (") for k in ("cdx", "fetch", "extract")), report
+    log("poll_cli", new_links=len(cli_fresh), stored=len(cli_titled),
+        selftest=report, seconds=time.perf_counter() - t_phase, card=card)
+    tmp.cleanup()
+
+
+COLLECTOR_BATCHES = 24  # persist-stream batches of 1,024 records; the kill after the 8th
+COLLECTOR_KILL_AFTER = 8
+COLLECTOR_TIMEOUT_S = 1.0  # the collector's scrape timeout an endpoint
+
+
+def collector_path(docs: list[bytes], card: str, dev="cuda") -> int:
+    """The fleet collector over a 2 × 2 ``ShardFleet`` of its own (each
+    shard process exporting ``/metrics`` under ``ASTPU_OBS_DIR``, with
+    ``ASTPU_TELEMETRY=1``) and this process's own ``StatusServer``
+    (``client``: the fleet clients' series), while the persist stream runs
+    24 batches of ``stream_records`` through the card into the fleet, a
+    scrape round after each batch.  The collector discovers the endpoints
+    from the obs dir and serves the merged view.  Shard 1's primary is
+    SIGKILLed after the 8th batch, and once the stream has failed over
+    this process dumps its flight recorder into the sidecar dir.  Right
+    after the kill a reader client of its own probes the fleet: its read
+    fails over and shard 1 waits for a write to prove the replica.  Checks:
+    all 4 shard instances and the client are in the merged view; no two
+    merged series share (name, labels); ``astpu_collector_endpoint_up``
+    reads 0 for the dead node within two rounds of the kill, in the
+    collector's served ``/metrics`` too; the sidecar harvest names shard 1;
+    a ``gauge_min`` objective on ``astpu_fleet_shards_healthy`` (threshold
+    2), evaluated over ``merged_samples``, holds in every round before the
+    kill and fails in the round after it; one ``minhash_fold_segments``
+    launch a batch.  Returns the launches."""
+    import tempfile
+    import urllib.request
+
+    from advanced_scrapper_tpu_torch.config import DedupConfig
+    from advanced_scrapper_tpu_torch.extractors.tpu_batch import TpuBatchBackend
+    from advanced_scrapper_tpu_torch.index.fleet import open_fleet_index
+    from advanced_scrapper_tpu_torch.obs import telemetry, trace
+    from advanced_scrapper_tpu_torch.obs.collector import FleetCollector, parse_prometheus_text
+    from advanced_scrapper_tpu_torch.obs.slo import SloEngine
+
+    t_phase = time.perf_counter()
+    records = stream_records(docs[: COLLECTOR_BATCHES * STREAM_WARM], np.random.RandomState(17))
+    tmp = tempfile.mkdtemp(prefix="collector-")
+    obs_dir, side = os.path.join(tmp, "obs"), os.path.join(tmp, "side")
+    os.makedirs(side)
+    saved = {k: os.environ.get(k) for k in ("ASTPU_TELEMETRY", "ASTPU_OBS_DIR")}
+    os.environ.update(ASTPU_TELEMETRY="1", ASTPU_OBS_DIR=obs_dir)
+    telemetry.set_enabled(None)
+    telemetry.REGISTRY.reset()
+    trace.set_enabled(True)
+    trace.RECORDER.clear()
+    objective = {"name": "shards_healthy", "kind": "gauge_min",
+                 "metric": "astpu_fleet_shards_healthy", "threshold": 2, "agg": "min"}
+    dead = "shard-s{}n{}".format(*KILLED)
+    shards = {"shard-s{}n{}".format(*n) for n in
+              ((s, r) for s in range(FLEET_SHARDS) for r in range(FLEET_REPLICAS))}
+    own = fc = backend = reader = None
+    rounds: list[float] = []
+    try:
+        with ShardFleet(os.path.join(tmp, "fleet")) as fleet:
+            own = telemetry.StatusServer(name="client").start()
+            cfg = DedupConfig(stream_index="persist", index_fleet=fleet.spec)
+            backend = TpuBatchBackend(cfg, index_dir=os.path.join(tmp, "local"), device=dev)
+            fc = FleetCollector(obs_dir=obs_dir, sidecar_dir=side, timeout=COLLECTOR_TIMEOUT_S,
+                                stale_after=3600.0)
+            fc.serve(interval=3600.0)  # rounds are driven below, one a batch
+            slo = SloEngine([objective], export=False)
+            verdicts, up_after = [], []
+            reset_launches()
+            for b in range(COLLECTOR_BATCHES):
+                for rec in records[b * STREAM_WARM : (b + 1) * STREAM_WARM]:
+                    backend.submit(dict(rec))
+                if b == COLLECTOR_KILL_AFTER:
+                    fleet.kill(*KILLED)
+                    reader = open_fleet_index(cfg, os.path.join(tmp, "reader"))
+                    reader.probe_batch(np.arange(1, 4097, dtype=np.uint64))
+                t0 = time.perf_counter()
+                fc.scrape_once()
+                rounds.append(time.perf_counter() - t0)
+                samples, _types = fc.merged_samples()
+                verdicts.append(slo.evaluate(samples)["ok"])
+                if b >= COLLECTOR_KILL_AFTER:
+                    up_after.append({l["instance"]: v for n, l, v in samples
+                                     if n == "astpu_collector_endpoint_up"}.get(dead))
+                if b == COLLECTOR_KILL_AFTER - 1:
+                    full = [(n, tuple(sorted(l.items()))) for n, l, _v in samples]
+                    instances = {l.get("instance") for n, l, _v in samples
+                                 if not n.startswith("astpu_collector_")}
+                    assert shards | {"client"} <= instances, instances
+                    assert len(full) == len(set(full)), "two merged series collide"
+                    series_before = len(full)
+            backend.flush()
+            launches = read_launches()
+            batches = backend.stats.batches
+            trace.RECORDER.dump(os.path.join(side, "client.flight.jsonl"),
+                                reason="shard 1's primary SIGKILLed")
+            fc.scrape_once()
+            with urllib.request.urlopen(f"http://{fc.host}:{fc.port}/metrics", timeout=10) as r:
+                served, _t, _e = parse_prometheus_text(r.read().decode("utf-8"))
+            with urllib.request.urlopen(f"http://{fc.host}:{fc.port}/status", timeout=10) as r:
+                status = json.loads(r.read())
+    finally:
+        for client in (reader, backend):
+            if client is not None:
+                client.close()
+        for server in (fc, own):
+            if server is not None:
+                server.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+        telemetry.set_enabled(None)
+        telemetry.REGISTRY.reset()
+        trace.set_enabled(None)
+        trace.RECORDER.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert 0.0 in up_after[:2], f"{dead} still up two rounds after the kill: {up_after}"
+    assert {l["instance"]: v for n, l, v in served
+            if n == "astpu_collector_endpoint_up"}.get(dead) == 0.0, "the served view"
+    assert status["dead_shards"] == ["1"], status["dead_shards"]
+    assert all(verdicts[:COLLECTOR_KILL_AFTER]) and verdicts[COLLECTOR_KILL_AFTER] is False, \
+        verdicts
+    if dev != "cpu":
+        assert launches["minhash_fold_segments"] == batches == COLLECTOR_BATCHES, launches
+        assert sum(launches.values()) == batches, launches
+    log("collector_path", endpoints=len(status["endpoints"]), batches=batches,
+        killed=dead, series_before_kill=series_before,
+        down_within_rounds=up_after.index(0.0) + 1, dead_shards=status["dead_shards"],
+        slo_verdicts=verdicts,
+        scrape_round=percentiles_ms(rounds), scrape_timeout_s=COLLECTOR_TIMEOUT_S,
+        launches=launches["minhash_fold_segments"], seconds=time.perf_counter() - t_phase,
+        card=card)
+    return launches["minhash_fold_segments"]
+
+
 def hostplanes_main() -> int:
     """``--hostplanes``: the harvest and lease planes at the users' sizes
-    (``harvest_path``, ``lease_path``), then ``control_path`` and
-    ``pipe_path``; kept out of the default run for the run's time."""
-    card = card_start(("minhash",))
+    (``harvest_path``, ``lease_path``), then ``control_path``,
+    ``pipe_path``, the enrichment feeding the matcher (``enrich_path``)
+    and the topic poller (``poll_path``); kept out of the default run for
+    the run's time."""
+    card = card_start(("minhash", "match", "editdist"))
     if card is None:
         return 2
     t0 = time.perf_counter()
@@ -5476,8 +6062,12 @@ def hostplanes_main() -> int:
     launches, batches = lease_path(card)
     control_path(card)
     pipe_path(card)
+    t1 = time.perf_counter()
+    matcher = enrich_path(card)
+    poll_path(card)
     log("hostplanes", kernel="minhash_fold_segments",
         lease_path={"launches": launches, "batches": batches},
+        enrich_path=matcher, enrich_and_poll_seconds=time.perf_counter() - t1,
         seconds=time.perf_counter() - t0, card=card)
     return card_end(card)
 
@@ -5516,7 +6106,8 @@ def fleet_main() -> int:
     """``--fleet``: the persist mode's two sessions (``persist_path``, whose
     session 1 the elastic fleet reuses), ``fleet_path``, then
     ``reshard_path`` and ``gateway_path`` on one ``ShardFleet``
-    (``elastic_paths``), at the default run's depth; kept out of the
+    (``elastic_paths``), at the default run's depth, and the fleet
+    collector over a fleet of its own (``collector_path``); kept out of the
     default run for the run's time."""
     card = card_start(("minhash",))
     if card is None:
@@ -5527,11 +6118,15 @@ def fleet_main() -> int:
     fleet_launches, fleet_batches = fleet_path(docs, card, local)
     (reshard_launches, reshard_batches), (gateway_launches, gateway_batches) = elastic_paths(
         docs, card, local)
+    t1 = time.perf_counter()
+    collector_launches = collector_path(docs, card)
     log("fleet_launches", kernel="minhash_fold_segments",
         persist_path={"launches": persist_launches, "batches": persist_batches},
         fleet_path={"launches": fleet_launches, "batches": fleet_batches},
         reshard_path={"launches": reshard_launches, "batches": reshard_batches},
         gateway_path={"launches": gateway_launches, "batches": gateway_batches},
+        collector_path={"launches": collector_launches, "batches": COLLECTOR_BATCHES},
+        collector_seconds=time.perf_counter() - t1,
         seconds=time.perf_counter() - t0, card=card)
     return card_end(card)
 

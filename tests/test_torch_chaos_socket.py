@@ -147,17 +147,25 @@ def test_chaos_client_then_clean_client_converge(cpkg, spkg):
 
 @pytest.mark.parametrize("cpkg,spkg", PAIRS)
 def test_trickled_and_fragmented_frames_still_parse(cpkg, spkg):
+    """Every send trickles and every read fragments.  A seeded rate below 1
+    on the reads left the fragment to chance: how many reads the client
+    makes depends on how TCP coalesces the server's frames, and for seed 11
+    the first four reads all draw above 0.5, so a loaded run that needed
+    only four reads fragmented none."""
     urls = [f"https://x/{i}.html" for i in range(6)]
     server = PKGS[spkg][1].LeaseServer(cfg_of(spkg, client_threads=1), urls).start()
     try:
         connect, sockets = PKGS[cpkg][0].chaos_connector(
             seed=11, trickle_rate=1.0, trickle_chunk=3, trickle_delay=0.0005,
-            fragment_rate=0.5, fragment_bytes=7)
+            fragment_rate=1.0, fragment_bytes=7)
         client = PKGS[cpkg][1].LeaseClient(cfg_of(cpkg, client_threads=1),
                                            lambda: PKGS[cpkg][4](lambda u: PAGE),
                                            port=server.port, connect=connect)
         assert client.run(max_seconds=WAIT) == 6 and server.wait_done(WAIT)
-        assert sockets[0].injected["trickle"] > 0 and sockets[0].injected["fragment"] > 0
+        reads = [entry for entry in sockets[0].ledger if entry[0] == "recv"]
+        assert reads and reads == [("recv", n, "fragment") for n in range(len(reads))]
+        assert sockets[0].injected["trickle"] > 0
+        assert sockets[0].injected["fragment"] == len(reads)
     finally:
         server.stop()
     got = [r["url"] for r in server.results]

@@ -5,7 +5,7 @@ with ``--device cpu``: the configuration JSON under ``ASTPU_*`` knobs,
 exact and a bloom index), its short-line rule and its untouched output
 on a failing input, ``xdedup``'s manifest, ``match``'s flags and CSV
 trees, ``harvest`` (both engines), ``new-links``, ``split``, ``serve`` and
-``work``'s files, and the commands that are not ported."""
+``work``'s files, and ``enrich``, ``poll`` and ``selftest``."""
 
 from __future__ import annotations
 
@@ -223,13 +223,125 @@ UNPORTED = [["enrich", "--crypto"], ["poll", "--rounds", "1"], ["selftest"]]
 
 
 @pytest.mark.parametrize("argv", UNPORTED, ids=lambda a: a[0])
-def test_unported_commands_name_their_item(argv):
-    with pytest.raises(SystemExit) as e:
-        cli.main(CPU + argv)
-    assert "item 18" in str(e.value.code)
+def test_unported_commands_name_their_item(argv, tmp_path, monkeypatch, capsys):
+    """The commands ported last (ROADMAP item 18d) take the reference's
+    arguments and, with nothing to read, give its exit code and output:
+    ``enrich`` without its symbols CSV, ``poll`` with a mock transport
+    that has no page, ``selftest`` offline."""
     ref_parser = ref_cli.build_parser()
     assert vars(cli.build_parser().parse_args(argv)).keys() - {"device"} == \
         vars(ref_parser.parse_args(argv)).keys()
+    monkeypatch.chdir(tmp_path)
+    extra = ["--transport", "mock", "--interval", "0"] if argv[0] == "poll" else []
+    want, got = run_both(argv + extra, capsys)
+    assert got == want and got[0] == (1 if argv[0] == "enrich" else 0)
+
+
+def walk_tree(root: str) -> dict[str, bytes]:
+    """Every file under ``root`` by its path there, with its bytes."""
+    import os
+
+    out = {}
+    for here, _dirs, files in os.walk(root):
+        for name in files:
+            with open(os.path.join(here, name), "rb") as f:
+                out[os.path.relpath(os.path.join(here, name), root)] = f.read()
+    return out
+
+
+def enrich_fixture(tmp_path, monkeypatch):
+    """Both packages' ``create_session`` answer a ``SparqlFake`` over a
+    few companies (no request leaves the process), and a symbols CSV and
+    a crypto list under ``tmp_path``."""
+    import csv
+
+    import chip_smoke
+    from advanced_scrapper_tpu.pipeline import enrich as ref_enrich
+    from advanced_scrapper_tpu_torch.pipeline import enrich
+
+    entities = chip_smoke.sp500_entities(np.random.RandomState(17))[:8]
+    for mod in (ref_enrich, enrich):
+        monkeypatch.setattr(mod, "create_session", lambda hardened=True: chip_smoke.SparqlFake(
+            entities, 3, faults=0.3))
+    for name, rows in (("sp500list.csv", entities[:6]), ("crypto_list.csv", entities[6:])):
+        with open(tmp_path / name, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["Symbol", "Security"])
+            w.writerows([[e["ticker"], e["id_label"]] for e in rows])
+    monkeypatch.setenv("ASTPU_ENRICH_BASE_DELAY", "0")
+    monkeypatch.setenv("ASTPU_ENRICH_COOLDOWN_EVERY3", "0,0")
+    monkeypatch.setenv("ASTPU_ENRICH_COOLDOWN_EVERY10", "0,0")
+
+
+@pytest.mark.parametrize("flags", [[], ["--simple"], ["--crypto"]], ids=lambda f: f[0] if f else "hardened")
+def test_enrich_writes_the_reference_files(tmp_path, monkeypatch, capsys, flags):
+    """``enrich`` of each package over the same fake endpoint: the same
+    info files, ledger and exit code (the politeness sleeps, whose
+    lengths are drawn at random, are skipped here)."""
+    import time
+
+    enrich_fixture(tmp_path, monkeypatch)
+    monkeypatch.setattr(time, "sleep", lambda _s: None)
+    trees = []
+    for main, pre, name in ((ref_cli.main, [], "ref"), (cli.main, CPU, "port")):
+        (tmp_path / name).mkdir()
+        monkeypatch.chdir(tmp_path / name)
+        for f in ("sp500list.csv", "crypto_list.csv"):
+            (tmp_path / name / f).write_bytes((tmp_path / f).read_bytes())
+        assert main(pre + ["enrich"] + flags) == 0
+        trees.append(walk_tree(str(tmp_path / name)))
+    assert trees[1] == trees[0]
+    out = capsys.readouterr().out
+    assert out.count("Enrichment finished: 6 symbols attempted.") == 2 * (flags != ["--crypto"])
+    infos = [k for k in trees[0] if k.endswith("_info.json")]
+    assert infos and ("progress.json" in trees[0]) == (flags == [])
+
+
+def test_poll_writes_the_reference_rows(tmp_path, monkeypatch, capsys):
+    """``poll --rounds 2 --drain --mirror-csv`` of each package over the
+    same topic pages (their ``make_transport`` a mock site), the clock
+    fixed: the same store rows, mirror CSV and summary."""
+    import sqlite3
+    import time
+
+    import chip_smoke
+    from advanced_scrapper_tpu.net import transport as ref_transport
+    from advanced_scrapper_tpu_torch.net import transport
+
+    urls, pages, _planted, _titleless, limited = chip_smoke.scrape_pages(
+        np.random.RandomState(41), 64, body_cap=400)
+    topics, fresh = chip_smoke.topic_pages(np.random.RandomState(44),
+                                           [u for u in urls if u != limited], rounds=2, links=16)
+    monkeypatch.setattr(time, "time", lambda: 1_700_000_000.0)
+    for mod in (ref_transport, transport):
+        monkeypatch.setattr(mod, "make_transport", lambda *a, mod=mod, **k: mod.MockTransport(
+            {**pages, chip_smoke.POLL_TOPIC: lambda _u, it=iter(topics): next(it)}))
+    views = []
+    for main, pre, name in ((ref_cli.main, [], "ref"), (cli.main, CPU, "port")):
+        db, mirror = str(tmp_path / f"{name}.db"), str(tmp_path / f"{name}.csv")
+        assert main(pre + ["poll", "--rounds", "2", "--drain", "--interval", "0", "--db", db,
+                           "--topic", chip_smoke.POLL_TOPIC, "--mirror-csv", mirror]) == 0
+        conn = sqlite3.connect(db)
+        rows = [conn.execute(f"SELECT * FROM {t} ORDER BY url").fetchall()
+                for t in ("links", "articles")]
+        conn.close()
+        views.append((rows, open(mirror, "rb").read(),
+                      capsys.readouterr().out.replace(db, "DB")))
+    assert views[1] == views[0]
+    assert f"{len(fresh)} new links" in views[0][2] and len(views[0][0][1]) > 0
+
+
+@pytest.mark.parametrize("live", [False, True], ids=["offline", "live-without-env"])
+def test_selftest_reports_as_the_reference(capsys, monkeypatch, live):
+    """Without ``ASTPU_LIVE=1`` only the harness rung runs, on ``Soup``;
+    the live rungs read ``skipped (…)`` and no request is sent."""
+    monkeypatch.delenv("ASTPU_LIVE", raising=False)
+    want, got = run_both(["selftest"] + (["--live"] if live else []), capsys)
+    assert got == want and got[0] == 0
+    report = json.loads(got[1])
+    assert report["harness"] == "ok" and report["ok"] is True
+    reason = "ASTPU_LIVE=1 not set" if live else "pass --live and set ASTPU_LIVE=1"
+    assert report["cdx"] == report["fetch"] == report["extract"] == f"skipped ({reason})"
 
 
 HOST_PLANE_ARGVS = [["harvest"], ["harvest", "--engine", "async"], ["serve"], ["work"],
