@@ -9,7 +9,11 @@ and ``minhash_fold`` at every width bucket and tile shape,
 ``minhash_fold_segments`` on ragged articles of edge lengths, at every
 start residue, with several chunks and dropped owners, and the rerank
 settle ``rerank_settle`` (its verdicts fused) at sketch widths 1,024, 256,
-37, 6,140 and its widest on up to 65,536 pairs with its edge cases.  Then
+37, 6,140 and its widest on up to 65,536 pairs with its edge cases, and
+the LSH epilogues of ``csrc/lsh.cu`` (``lsh_kernels_vs_plain``:
+``lsh_keys``, ``lsh_run_heads``, ``lsh_verify``, ``lsh_label`` on the CPU
+tests' edge cases, at 65,536 rows with 32 and 0 fine key sets, the wide
+lanes, an OPH-densified input and truncated label rounds).  Then
 it drives the port's paths, each with the launch counters set to 0 just
 before and read just after:
 
@@ -18,7 +22,10 @@ before and read just after:
   permutations, 16 + 32 bands) over 65,536 ragged articles, timed on
   its second call (the first call's time beside it, and what a fresh
   64 MiB pinned buffer costs): every planted duplicate resolves to its
-  source, the segment kernel ran once per chunk; its time broken down,
+  source, the segment kernel ran once per chunk and the epilogue once on
+  its four LSH kernels; its time broken down (the epilogue on its kernels
+  beside its plain version's), each LSH kernel timed beside its bound,
+  plain version and, for the run heads, ``torch.sort``,
   each MinHash entry point timed on the same corpus beside its bound and
   plain version, the segment size swept;
 - the default engine, ``NearDupEngine().dedup_reps`` (the rerank tier,
@@ -58,7 +65,8 @@ its defaults (batches of 1,024, ``bloom_bits`` 2²⁴, 4 hashes) over the
 65,536 ragged articles as records with urls (10% repeating an earlier
 url, 1% without), submitted one by one, in the exact and the bloom mode,
 each timed after a warm batch (``stream_path``): one segment-kernel
-launch per batch and no other launch, every planted copy with a fresh url
+launch and one ``lsh_keys`` launch per batch and no other launch, every
+planted copy with a fresh url
 and an eligible source marked near-dup, the backend's and the engine's
 stage times; card and CPU backends equal on 2,048 ``rerank_corpus``
 records in batches of 512, and a checkpoint saved after batch 2 resumed
@@ -169,7 +177,10 @@ one fenced latency observation a launch under
 ``ASTPU_DISPATCH_TIMING=fenced``, and a ``device_trace`` that names
 ``minhash_fold_segments``.
 
-``mesh_path`` runs the device mesh (``core/mesh.py``, ``parallel/*``):
+``python3 chip_smoke.py --mesh`` runs the device mesh (``mesh_path``,
+``core/mesh.py``, ``parallel/*``; out of the default run since the LSH
+epilogues came in, its corpus and one-device representatives made from the
+same seeds):
 ``dedup_reps_sharded`` over the 65,536 ragged articles on 4×2 and 8×1
 meshes of 8 shards on the card, with the estimator-only engine and with
 ``backend="oph"`` (each equal to the one-device representatives, each
@@ -272,8 +283,14 @@ INT32_OPS_PER_SM = 128
 CARD_SMS = 132
 
 
+_T0 = time.perf_counter()
+
+
 def log(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line a phase; ``at_s`` is the process's seconds so far (what
+    each phase costs the run's time limit)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": round(time.perf_counter() - _T0, 1)}), flush=True)
 
 
 def nvidia_smi(query: str) -> str:
@@ -895,8 +912,8 @@ def entry_path(card: str) -> None:
     """The port's ``entry()`` (``advanced_scrapper_tpu_torch/entry.py``):
     its dedup step on the card against the same step on the CPU, with the
     launch counters set to 0 just before the card's call: one
-    ``minhash_sig`` launch and no other; the planted copy (row 128)
-    resolved to row 0."""
+    ``minhash_sig`` launch and no other fold, the LSH epilogue on its
+    kernels; the planted copy (row 128) resolved to row 0."""
     from advanced_scrapper_tpu_torch.entry import entry
 
     fn, args = entry()
@@ -906,16 +923,20 @@ def entry_path(card: str) -> None:
     t0 = time.perf_counter()
     out = fn(*args).cpu()
     seconds = time.perf_counter() - t0
-    launches = read_launches()
+    launches, lsh_launches = read_launches(), read_lsh_launches()
     cpu_fn, cpu_args = entry(device="cpu")
     want = cpu_fn(*cpu_args)
     equal = torch.equal(out, want)
     log("entry_path", rows=int(args[0].shape[0]), width=int(args[0].shape[1]), seconds=seconds,
-        launches=launches, reps_equal=equal, planted_rep=int(out[128]),
+        launches=launches, lsh_launches=lsh_launches, reps_equal=equal,
+        planted_rep=int(out[128]),
         merged_rows=int((out != torch.arange(out.numel(), dtype=out.dtype)).sum()), card=card)
     assert equal, "entry() differs between the card and the CPU"
     assert int(out[128]) == 0, "entry(): the planted copy is not resolved"
     assert launches["minhash_sig"] == 1 and sum(launches.values()) == 1, launches
+    # candidate_keys, then duplicate_rep_bands' packing pass; its jump_rounds 8
+    assert lsh_launches == {"lsh_keys": 2, "lsh_run_heads": 1, "lsh_verify": 1,
+                            "lsh_label": 17}, lsh_launches
 
 
 def cli_run(argv: list[str]) -> dict:
@@ -1816,7 +1837,8 @@ def launch_counters() -> dict:
 
 
 def reset_launches() -> None:
-    for f in launch_counters().values():
+    """Every kernel's launch count to 0, the LSH epilogues' too."""
+    for f in (*launch_counters().values(), *lsh_counters().values()):
         f.launches = 0
 
 
@@ -1963,11 +1985,11 @@ def run_stream(backend, records: list[dict]) -> tuple[list[tuple], dict]:
         out += backend.submit(dict(rec))
     out += backend.flush()
     seconds = time.perf_counter() - t0
-    launches = read_launches()
+    launches, lsh_launches = read_launches(), read_lsh_launches()
     backend._process = process
     return [(r["i"], r["dup_of"], r["near_dup_of"]) for r in out], {
         "seconds": seconds, "host_s": host, "engine_host_s": engine_host,
-        "engine_device_ms": device, "launches": launches}
+        "engine_device_ms": device, "launches": launches, "lsh_launches": lsh_launches}
 
 
 DISPATCH_KNOBS = ((1, 0), (2, 4))  # (put_workers, dispatch_window)
@@ -2382,6 +2404,8 @@ def stream_path(docs: list[bytes], planted: dict[int, int], card: str) -> int:
         got = rec["launches"]
         assert got["minhash_fold_segments"] == batches == backend.stats.batches, got
         assert sum(got.values()) == batches, got  # no other kernel on this path
+        lsh_got = rec["lsh_launches"]  # the keys epilogue: one launch a batch
+        assert lsh_got == {**dict.fromkeys(LSH_KERNELS, 0), "lsh_keys": batches}, lsh_got
         by_i = {a[0]: a for a in ann}
         checked = missed = 0
         for i, src in planted.items():
@@ -2395,6 +2419,7 @@ def stream_path(docs: list[bytes], planted: dict[int, int], card: str) -> int:
                            planted_checked=checked, exact_dups=stats.exact_dups,
                            near_dups=stats.near_dups, kept=stats.kept)
     seg_launches = modes["exact"]["launches"]["minhash_fold_segments"]
+    lsh_launches = modes["exact"]["lsh_launches"]
 
     # card vs CPU on mutated near-dups (the fine bar), and a checkpoint
     # saved after batch 2 resumed by a fresh card backend
@@ -2429,7 +2454,7 @@ def stream_path(docs: list[bytes], planted: dict[int, int], card: str) -> int:
         text_bytes=int(sum(map(len, docs))), modes=modes, parity_records=STREAM_PARITY,
         parity_batch=STREAM_PARITY_BATCH, parity=parity,
         parity_seconds=time.perf_counter() - t0, card=card)
-    return seg_launches, batches
+    return seg_launches, batches, lsh_launches
 
 
 def exact_urls(seed: int, n: int = EXACT_URLS) -> list[str]:
@@ -4614,6 +4639,335 @@ def mesh_path(docs: list[bytes], main_reps: np.ndarray, engine, card: str, dev="
     return launches
 
 
+LSH_SOURCE = "advanced_scrapper_tpu_torch/csrc/lsh.cu"
+#: the reference's jnp code each LSH kernel replaces
+LSH_REPLACES = {
+    "lsh_keys": "advanced_scrapper_tpu/ops/lsh.py:416 (fused_keys_epilogue; band_keys :56, "
+                "band_keys_wide :68, _fold_bands :39, jnp)",
+    "lsh_run_heads": "advanced_scrapper_tpu/ops/lsh.py:87 (_run_head_per_band under "
+                     "duplicate_rep_bands :158, jnp)",
+    "lsh_verify": "advanced_scrapper_tpu/ops/lsh.py:192 (resolve_rep_bands; "
+                  "fine_edge_thresholds :514, borderline_edge_mask :462, jnp)",
+    "lsh_label": "advanced_scrapper_tpu/ops/lsh.py:251 (_label_components, jnp)",
+}
+LSH_KERNELS = tuple(LSH_REPLACES)
+LSH_U32 = 0xFFFFFFFF
+
+
+def lsh_counters() -> dict:
+    from advanced_scrapper_tpu_torch.ops import lsh_cuda
+
+    return {name: getattr(lsh_cuda, name) for name in LSH_KERNELS}
+
+
+def read_lsh_launches() -> dict[str, int]:
+    return {name: f.launches for name, f in lsh_counters().items()}
+
+
+def lsh_sigs(rng: np.random.RandomState, B: int, P: int = 128) -> tuple[np.ndarray, np.ndarray]:
+    """``(uint32[B, P], bool[B])``: random signatures, a quarter of the
+    rows copies of others at 55-100% of the words (ties in some bands or
+    all), 1% rows of ``U32_MAX`` (no shingle), 2% invalid and the last
+    sixteenth invalid padding."""
+    sig = rng.randint(0, 1 << 32, size=(B, P), dtype=np.uint64).astype(np.uint32)
+    n = B // 4
+    src, dst = rng.randint(0, B, n), rng.randint(0, B, n)
+    keep = rng.rand(n, P) < rng.uniform(0.55, 1.0, (n, 1))
+    sig[dst] = np.where(keep, sig[src], sig[dst])
+    sig[rng.rand(B) < 0.01] = LSH_U32
+    valid = rng.rand(B) > 0.02
+    valid[B - B // 16:] = False
+    return sig, valid
+
+
+def lsh_key_cases(rng: np.random.RandomState) -> dict[str, tuple[np.ndarray, np.ndarray]]:
+    """The CPU tests' edge cases of the candidate stage: ``(int64 keys [B,
+    nb], bool valid [B])``."""
+    cases = {f"B={B}": (rng.randint(0, 4, size=(B, 5)).astype(np.int64), rng.rand(B) > 0.3)
+             for B in (1, 2, 3, 5, 37, 255)}
+    cases["heavy_ties"] = (rng.randint(0, 3, size=(999, 6)).astype(np.int64), rng.rand(999) > 0.1)
+    cases["all_invalid"] = (rng.randint(0, LSH_U32 + 1, size=(301, 4), dtype=np.int64),
+                            np.zeros(301, bool))
+    keys = rng.randint(0, 50, size=(65536, 4)).astype(np.int64)
+    valid = np.zeros(65536, bool)
+    valid[:400] = True  # 65,136 padding rows share one U32_MAX run
+    cases["padding_run"] = (keys, valid)
+    keys = rng.randint(0, 20, size=(4099, 3)).astype(np.int64)
+    valid = rng.rand(4099) > 0.2
+    keys[[0, 7, 8, 2048, 2049, 4098], :] = LSH_U32  # valid rows whose key is U32_MAX
+    valid[[0, 7, 8, 2048, 2049, 4098]] = True
+    cases["valid_u32_max"] = (keys, valid)
+    return cases
+
+
+def lsh_boundary(rng: np.random.RandomState) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pairs of rows agreeing on exactly k of 128 words (k around the bars
+    0.70, 0.72, 0.75 = 96/128), the differing words hitting every coarse
+    band unless the pair keeps band 0; ``(sig, valid, rep int32[B, 144])``
+    with each pair's second row naming its first in every column."""
+    pairs = [(k, shared) for k in (89, 90, 92, 93, 95, 96, 97, 128) for shared in (0, 1)]
+    n = len(pairs)
+    sig = rng.randint(0, 1 << 32, size=(2 * n, 128), dtype=np.uint64).astype(np.uint32)
+    for i, (k, shared) in enumerate(pairs):
+        diff = 128 - k
+        first = [8 * b + rng.randint(8) for b in range(shared, 16)][:diff]
+        rest = [p for p in range(8 * shared, 128) if p not in first]
+        pos = first + list(rng.choice(rest, diff - len(first), replace=False))
+        row = sig[2 * i].copy()
+        row[pos] ^= np.uint32(0x5A5A5A5A)
+        sig[2 * i + 1] = row
+    valid = np.ones(2 * n, bool)
+    valid[-1] = False
+    rep = np.tile(np.arange(2 * n, dtype=np.int32)[:, None], (1, 144))
+    rep[1::2] = np.arange(0, 2 * n, 2, dtype=np.int32)[:, None]
+    return sig, valid, rep
+
+
+def lsh_graphs(rng: np.random.RandomState) -> dict[str, tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """``(rep int32[B, nc], ok bool[B, nc], valid bool[B])``: a 64-node
+    forward chain and random graphs, the label rounds' edge cases."""
+    rep = np.tile(np.arange(64, dtype=np.int32)[:, None], (1, 3))
+    rep[:-1, 0] = np.arange(1, 64)
+    out = {"chain64": (rep, rep != np.arange(64)[:, None], np.ones(64, bool))}
+    for name, (B, nc, p) in {"random_sparse": (5000, 6, 0.2),
+                             "random_dense": (65536, 48, 0.02)}.items():
+        out[name] = (rng.randint(0, B, size=(B, nc)).astype(np.int32), rng.rand(B, nc) < p,
+                     rng.rand(B) > 0.05)
+    return out
+
+
+def check_lsh_vs_plain(params, dev) -> dict:
+    """Each LSH epilogue kernel (``csrc/lsh.cu``) bit-equal to its plain
+    version in ``ops/lsh.py`` on the card: ``lsh_keys`` (and its packing
+    pass) at B = 1, 2, 3, 37, 999 and 65,536 with 32, 0 and 64 fine
+    key sets, the wide lanes, an OPH-densified input; ``lsh_run_heads`` on
+    those keys and on the CPU tests' edge cases (ties, all invalid, a
+    padding run of 65,136 rows, valid rows at ``U32_MAX``);
+    ``lsh_verify`` on the 65,536 rows' candidates in every mode (a scalar,
+    per-column, per-edge and fine bar, ``need``, the bars alone) and at
+    the exact bars; ``lsh_label`` at ``jump_rounds`` 0, 1, 2 and 16 on
+    those edges, a 64-node chain and random graphs."""
+    from advanced_scrapper_tpu_torch.ops import lsh, lsh_cuda
+    from advanced_scrapper_tpu_torch.ops.oph import densify
+
+    assert lsh_cuda.max_salts() == lsh_cuda.MAX_SALTS, "kMaxSalts and MAX_SALTS differ"
+    rng = np.random.RandomState(29)
+    salt = params.band_salt
+    counts = dict.fromkeys(LSH_KERNELS, 0)
+    before = read_lsh_launches()
+
+    def same(name: str, got, want, case) -> None:
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"{name} differs from its plain version: {case}"
+        counts[name] += 1
+
+    def card(a: np.ndarray) -> torch.Tensor:
+        if a.dtype == np.uint32:
+            return torch.from_numpy(a.view(np.int32)).to(dev).view(torch.uint32)
+        return torch.from_numpy(a).to(dev)
+
+    main = None
+    for B, cs, wide, oph in ((1, 32, False, False), (2, 32, False, False), (3, 0, False, False),
+                             (37, 32, False, False), (999, 64, False, False),
+                             (65536, 32, False, False), (65536, 0, False, False),
+                             (65536, 0, True, False), (65536, 32, False, True)):
+        sig_np, valid_np = lsh_sigs(rng, B)
+        if oph:  # raw OPH bins: 30% empty, densified by oph_densify first
+            sig_np[rng.rand(*sig_np.shape) < 0.3] = LSH_U32
+        sig, valid = card(sig_np), card(valid_np)
+        if oph:
+            sig = densify(sig)
+        fine = lsh.subband_salt(cs) if cs else np.zeros((0,), np.uint32)
+        case = dict(B=B, cand_subbands=cs, wide=wide, oph=oph)
+        if wide:
+            got = lsh_cuda.lsh_keys(sig, salt, wide=True)[0]
+            same("lsh_keys", got, lsh.keys_plain(sig, salt, wide=True), case)
+            continue
+        bits = lsh.row_bits(B)
+        got, packed = lsh_cuda.lsh_keys(sig, salt, fine, valid=valid, bits=bits)
+        want = lsh.keys_plain(sig, salt, fine)
+        same("lsh_keys", got, want, case)
+        want_packed = lsh.pack_keys_plain(want, valid, bits)
+        same("lsh_keys", packed, want_packed, dict(case, packed=True))
+        same("lsh_keys", lsh_cuda.pack_keys(got, valid, bits), want_packed, dict(case, pack=True))
+        srt = torch.sort(packed, dim=1).values
+        rep = lsh_cuda.lsh_run_heads(srt, valid, bits)
+        same("lsh_run_heads", rep, lsh.run_heads_plain(srt, valid, bits), case)
+        if B == 65536 and cs == 32 and not oph:
+            main = (sig, valid, got, rep)
+    for name, (keys_np, valid_np) in lsh_key_cases(rng).items():
+        keys, valid = card(keys_np), card(valid_np)
+        bits = lsh.row_bits(keys.shape[0])
+        packed = lsh_cuda.pack_keys(keys, valid, bits)
+        same("lsh_keys", packed, lsh.pack_keys_plain(keys, valid, bits), name)
+        srt = torch.sort(packed, dim=1).values
+        same("lsh_run_heads", lsh_cuda.lsh_run_heads(srt, valid, bits),
+             lsh.run_heads_plain(srt, valid, bits), name)
+
+    sig, valid, keys, rep = main
+    B, nc = rep.shape
+    col = card(rng.uniform(0.6, 0.8, nc).astype(np.float32))
+    edge = card(rng.uniform(0.6, 0.8, (B, nc)).astype(np.float32))
+    strict = lsh.strict_bar(0.7, 0.05)
+    modes = {"scalar": dict(base=0.7), "column": dict(thr=col), "edge": dict(thr=edge),
+             "fine": dict(base=0.7, strict=strict, keys=keys, num_coarse=16),
+             "need": dict(base=0.7, band=0.72, keys=keys, num_coarse=16)}
+    oks = {}
+    for name, kw in modes.items():
+        got = lsh_cuda.lsh_verify(rep, valid, sig, **kw)
+        want = lsh.verify_plain(rep, valid, sig, **kw)
+        for g, w in zip(got, want):
+            if w is not None:
+                same("lsh_verify", g, w, name)
+        oks[name] = got[0]
+    bars = lsh_cuda.lsh_verify(rep, None, base=0.7, strict=strict, keys=keys, num_coarse=16)[2]
+    same("lsh_verify", bars, lsh.verify_plain(rep, None, base=0.7, strict=strict, keys=keys,
+                                              num_coarse=16)[2], "bars")
+    bsig, bvalid, brep = (card(a) for a in lsh_boundary(rng))
+    bkeys = lsh_cuda.lsh_keys(bsig, salt, lsh.subband_salt(32))[0]
+    for base, margin, band in ((0.7, 0.05, 0.72), (0.75, 0.0, 0.75), (0.71, 0.04, 0.75)):
+        kw = dict(base=base, strict=lsh.strict_bar(base, margin), band=band,
+                  keys=bkeys, num_coarse=16)
+        got = lsh_cuda.lsh_verify(brep, bvalid, bsig, **kw)
+        for g, w in zip(got, lsh.verify_plain(brep, bvalid, bsig, **kw)):
+            if w is not None:
+                same("lsh_verify", g, w, dict(boundary=(base, margin, band)))
+
+    graphs = {f"main_{k}": (rep, ok, valid) for k, ok in oks.items() if k in ("scalar", "fine")}
+    graphs.update({k: tuple(card(a) for a in v) for k, v in lsh_graphs(rng).items()})
+    for name, (grep, gok, gvalid) in graphs.items():
+        for rounds in (0, 1, 2, 16):
+            same("lsh_label", lsh_cuda.lsh_label(grep, gok, gvalid, rounds),
+                 lsh.label_plain(grep, gok, gvalid, rounds), dict(graph=name, rounds=rounds))
+    after = read_lsh_launches()
+    return {"cases": counts, "launches": {k: after[k] - before[k] for k in LSH_KERNELS},
+            "max_abs_err": 0}
+
+
+def lsh_epilogue_plain(sig, valid, band_salt, fine_salt, base, fine_margin, *, num_coarse,
+                       jump_rounds, use_fine_margin):
+    """``ops.lsh.fused_resolve_epilogue`` from the plain versions alone, on
+    the tensors' device: what the epilogue costs without its kernels."""
+    from advanced_scrapper_tpu_torch.ops import lsh
+
+    bits = lsh.row_bits(sig.shape[0])
+    keys = lsh.keys_plain(sig, band_salt, fine_salt)
+    srt = torch.sort(lsh.pack_keys_plain(keys, valid, bits), dim=1).values
+    rep = lsh.run_heads_plain(srt, valid, bits)
+    fine = dict(strict=lsh.strict_bar(base, fine_margin), keys=keys,
+                num_coarse=num_coarse) if use_fine_margin else {}
+    ok = lsh.verify_plain(rep, valid, sig, base=base, **fine)[0]
+    return lsh.label_plain(rep, ok, valid, jump_rounds)
+
+
+def label_rounds_run(rep, ok, valid, jump_rounds: int) -> int:
+    """The rounds ``lsh_label`` runs in full: up to and with the first
+    round that changed nothing (``label_plain``'s loop, counted)."""
+    B, nc = rep.shape
+    idx = torch.arange(B, device=rep.device)
+    cand = torch.where(ok, rep.to(torch.int64), idx[:, None])
+    x = idx
+    for r in range(jump_rounds):
+        pulled = torch.minimum(x, x[cand].amin(dim=1))
+        z = pulled.scatter_reduce(0, cand.reshape(-1), pulled[:, None].expand(B, nc).reshape(-1),
+                                  "amin", include_self=True)
+        nxt = z[z]
+        if torch.equal(nxt, x):
+            return r + 1
+        x = nxt
+    return jump_rounds
+
+
+def lsh_kernel_timing(engine, running, valid, jump_rounds: int, clock_mhz: float,
+                      card: str) -> list[dict]:
+    """Each LSH kernel at the main path's shapes (the 65,536 ragged
+    articles' accumulator, 16 + 32 key sets, 144 candidate columns): its
+    device time by the profiler per call (every launch of a call summed),
+    its CUDA-event time, its plain version's time, its bounds (each input
+    read once and each output written once; the operations these inputs
+    need: compares of the non-self edges, the label rounds that ran) and,
+    for ``lsh_run_heads``, the one library call on the path, ``torch.sort``
+    of the packed keys.  Returns the four rows of the ``kernels`` line
+    (launches filled in by the caller)."""
+    from advanced_scrapper_tpu_torch.ops import lsh, lsh_cuda
+
+    cfg = engine.cfg
+    salt, fine = engine.params.band_salt, engine._fine_salt()
+    B, P = running.shape
+    nk = len(salt) + len(fine)
+    bits = lsh.row_bits(B)
+    keys, packed = lsh_cuda.lsh_keys(running, salt, fine, valid=valid, bits=bits)
+    srt = torch.sort(packed, dim=1).values
+    rep = lsh_cuda.lsh_run_heads(srt, valid, bits)
+    nc = rep.shape[1]
+    ok = lsh_cuda.lsh_verify(rep, valid, running, base=cfg.sim_threshold)[0]
+    idx = torch.arange(B, device=rep.device)
+    edges = int((rep != idx[:, None]).sum())
+    rounds_run = label_rounds_run(rep, ok, valid, jump_rounds)
+    stages = {
+        "lsh_keys": dict(
+            fn=lambda: lsh_cuda.lsh_keys(running, salt, fine, valid=valid, bits=bits),
+            plain=lambda: lsh.pack_keys_plain(lsh.keys_plain(running, salt, fine), valid, bits),
+            kernels={"keys_kernel": 1},
+            # signatures and valid read; keys and packed keys written
+            moved=B * P * 4 + B + 2 * B * nk * 8,
+            # a fold step (xor, multiply) a word for each of the two key set
+            # groups; fmix32 and the salt (8) and the packed key (3) a key
+            ops=B * (2 * P * (1 + (len(fine) > 0)) + 11 * nk)),
+        "lsh_run_heads": dict(
+            fn=lambda: lsh_cuda.lsh_run_heads(srt, valid, bits),
+            plain=lambda: lsh.run_heads_plain(srt, valid, bits),
+            kernels={"run_heads_kernel": 1},
+            moved=nk * B * 8 + B + B * nc * 4,
+            ops=nk * B * 8),  # a run-start test, the scan and the three picks a position
+        "lsh_verify": dict(
+            fn=lambda: lsh_cuda.lsh_verify(rep, valid, running, base=cfg.sim_threshold),
+            plain=lambda: lsh.verify_plain(rep, valid, running, base=cfg.sim_threshold),
+            kernels={"verify_kernel": 1},
+            moved=B * P * 4 + B * nc * 4 + B + B * nc,
+            ops=2 * edges * P),  # a compare and an add a word of each non-self edge
+        "lsh_label": dict(
+            fn=lambda: lsh_cuda.lsh_label(rep, ok, valid, jump_rounds),
+            plain=lambda: lsh.label_plain(rep, ok, valid, jump_rounds),
+            kernels={"label_init_kernel": 1, "label_pull_kernel": jump_rounds,
+                     "label_jump_kernel": jump_rounds},
+            moved=B * nc * 4 + B * nc + B + B * 4,
+            # a min and an atomic min an edge and a jump a row, each round run
+            ops=rounds_run * (2 * B * nc + B)),
+    }
+    rows = []
+    for name, st in stages.items():
+        st["fn"]()
+        event_ms = cuda_ms(st["fn"], reps=5)
+        seen = profiler_device_ms(st["fn"], tuple(st["kernels"]))
+        ms, recorded = 0.0, {}
+        for kern, per_call in st["kernels"].items():
+            per, n = per_launch_ms(seen, kern)
+            assert per > 0, f"the profiler saw no {kern}, only {sorted(seen)}"
+            ms += per * per_call
+            recorded[kern] = n
+        plain_ms = cuda_ms(st["plain"])
+        ops_ms, bytes_ms = bound_ms(st["ops"], st["moved"], clock_mhz)
+        extra = {}
+        if name == "lsh_run_heads":
+            torch.sort(packed, dim=1)
+            extra["library_ms"] = cuda_ms(lambda: torch.sort(packed, dim=1), reps=5)
+            extra["library"] = f"torch.sort(dim=1) of the packed keys, int64 [{nk}, {B}]"
+        if name == "lsh_label":
+            extra.update(jump_rounds=jump_rounds, rounds_run=rounds_run,
+                         launches_per_call=lsh_cuda.label_launches(jump_rounds))
+        if name == "lsh_verify":
+            extra["non_self_edges"] = edges
+        log("kernel_timing", name=name, rows=B, columns=nc, key_sets=nk, ms=ms,
+            event_ms=event_ms, plain_ms=plain_ms, ops=st["ops"], bytes=st["moved"],
+            ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms,
+            share_of_bound=max(ops_ms, bytes_ms) / ms, profiler_launches=recorded,
+            **extra, card=card)
+        rows.append(kernel_entry(name, 0, ms, plain_ms, ops_ms, bytes_ms, source=LSH_SOURCE,
+                                 replaces=LSH_REPLACES[name], event_ms=event_ms, **extra))
+    return rows
+
+
 def bound_by(ops_ms: float, bytes_ms: float) -> str:
     return "operations" if ops_ms >= bytes_ms else "bytes"
 
@@ -4648,7 +5002,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from advanced_scrapper_tpu_torch.config import DedupConfig
-    from advanced_scrapper_tpu_torch.core.tokenizer import to_bytes
+    from advanced_scrapper_tpu_torch.core.tokenizer import bucket_len, to_bytes
     from advanced_scrapper_tpu_torch.cpu.hostbatch import chunk_ranges, segment_ranges
     from advanced_scrapper_tpu_torch.ops import _build, minhash_cuda
     from advanced_scrapper_tpu_torch.ops.lsh import fused_resolve_epilogue
@@ -4673,7 +5027,7 @@ def main() -> int:
         numpy=np.__version__, host_cpu=host_cpu(), host_cores=os.cpu_count())
 
     t0 = time.perf_counter()
-    sources = ("minhash", "rerank", "match", "editdist", "oph")
+    sources = ("minhash", "rerank", "match", "editdist", "oph", "lsh")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
         outs = dict(zip(sources, pool.map(_build.build, sources)))
     log("build", seconds=time.perf_counter() - t0, built=[k for k, v in outs.items() if v],
@@ -4689,6 +5043,7 @@ def main() -> int:
     log("oph_vs_plain", **check_oph_vs_plain(params, cfg, dev))
     log("rerank_kernel_vs_plain", **check_rerank_vs_plain(dev))
     log("match_kernel_vs_plain", **check_match_vs_plain(dev), **check_myers_pairs_vs_plain(dev))
+    log("lsh_kernels_vs_plain", **check_lsh_vs_plain(params, dev))
     entry_path(card)
 
     # -- phase 4: the main path at full width ------------------------------
@@ -4706,9 +5061,14 @@ def main() -> int:
     reps = engine.dedup_reps_async(docs)[:MAIN_ARTICLES].cpu().numpy()
     seconds = time.perf_counter() - t0
     seg_launches = minhash_cuda.minhash_fold_segments.launches
+    main_lsh = read_lsh_launches()
     chunks, h2d = engine.last_chunks, engine.last_h2d_bytes
     assert seg_launches == chunks > 0, f"{seg_launches} kernel launches for {chunks} chunks"
     assert minhash_cuda.minhash_fold.launches == minhash_cuda.minhash_sig.launches == 0
+    n_main = bucket_len(MAIN_ARTICLES, min_bucket=64)  # the accumulator's rows
+    want_lsh = {"lsh_keys": 1, "lsh_run_heads": 1, "lsh_verify": 1,
+                "lsh_label": 1 + 2 * _jump_rounds(n_main)}
+    assert main_lsh == want_lsh, (main_lsh, want_lsh)  # one epilogue, on its kernels
     assert reps.shape == (MAIN_ARTICLES,)
     idx = np.arange(MAIN_ARTICLES)
     assert (reps <= idx).all() and (reps >= 0).all(), "a representative after its row"
@@ -4730,7 +5090,8 @@ def main() -> int:
         articles_per_s=MAIN_ARTICLES / seconds, first_call_seconds=first_call_seconds,
         pinned_alloc_ms=pinned_alloc_ms, chunks=chunks,
         chunk_bytes=dedup.CHUNK_BYTES, segment_shingles=SEGMENT_SHINGLES,
-        h2d_bytes=h2d, fold_segments_launches=seg_launches, planted=len(planted),
+        h2d_bytes=h2d, fold_segments_launches=seg_launches, lsh_launches=main_lsh,
+        planted=len(planted),
         dups=int((reps != idx).sum()), put_workers=dedup.resolve_put_workers(cfg),
         dispatch_window=resolve_dispatch_window(cfg.dispatch_window,
                                                 dedup.resolve_put_workers(cfg)),
@@ -4761,16 +5122,25 @@ def main() -> int:
     torch.cuda.synchronize()
     chunk_loop_s = time.perf_counter() - t0
     valid = engine._valid_device(docs, n_bucket)
-    epilogue_ms = cuda_ms(lambda: fused_resolve_epilogue(
-        running, valid, params.band_salt, engine._fine_salt(), cfg.sim_threshold,
-        cfg.fine_margin, num_coarse=params.num_bands, jump_rounds=_jump_rounds(n_bucket),
-        use_fine_margin=False,
-    ))
+    epi_args = (running, valid, params.band_salt, engine._fine_salt(), cfg.sim_threshold,
+                cfg.fine_margin)
+    epi_kw = dict(num_coarse=params.num_bands, jump_rounds=_jump_rounds(n_bucket),
+                  use_fine_margin=bool(cfg.cand_subbands and cfg.fine_margin))
+    fused_resolve_epilogue(*epi_args, **epi_kw)
+    epilogue_ms = cuda_ms(lambda: fused_resolve_epilogue(*epi_args, **epi_kw), reps=3)
+    epilogue_plain = lsh_epilogue_plain(*epi_args, **epi_kw)
+    epilogue_plain_ms = cuda_ms(lambda: lsh_epilogue_plain(*epi_args, **epi_kw))
+    assert torch.equal(fused_resolve_epilogue(*epi_args, **epi_kw), epilogue_plain), \
+        "the epilogue on its kernels differs from its plain version"
+    assert torch.equal(epilogue_plain[:MAIN_ARTICLES].cpu(), torch.from_numpy(main_reps))
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    lsh_rows = lsh_kernel_timing(engine, running, valid, _jump_rounds(n_bucket), clock_mhz, card)
+    for row in lsh_rows:
+        row["launches"] = main_lsh[row["name"]]
     seg_running = running
-    del valid
+    del valid, epilogue_plain
 
     a, b = perm_tensors(params, dev)
-    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
 
     def fresh():
         return torch.full((n_bucket, 128), -1, dtype=torch.int32, device=dev).view(torch.uint32)
@@ -4799,7 +5169,9 @@ def main() -> int:
     seg_ops_ms, seg_bytes_ms = bound_ms(int_ops, seg_moved, clock_mhz)
     log("main_path_breakdown", host_prep_s=host_prep_s, to_bytes_s=to_bytes_s,
         descriptors_s=descriptors_s, copy_ms=copy_ms, kernel_ms=seg_ms,
-        epilogue_ms=epilogue_ms, chunk_loop_s=chunk_loop_s, chunks=len(resident),
+        epilogue_ms=epilogue_ms, epilogue_plain_ms=epilogue_plain_ms,
+        epilogue_sort_ms=next(r["library_ms"] for r in lsh_rows if r["name"] == "lsh_run_heads"),
+        chunk_loop_s=chunk_loop_s, chunks=len(resident),
         segments=n_seg, card=card)
     log("kernel_timing", name="minhash_fold_segments", launches_per_pass=len(resident),
         shingles=shingles, int_ops=int_ops, bytes=seg_moved, clock_max_sm_mhz=clock_mhz,
@@ -4889,7 +5261,6 @@ def main() -> int:
     fed = feed_path(docs, card)
     oph_kernels = oph_path(docs, planted, warm, card, clock_mhz, dev)
     obs_path(card, dev)
-    meshed = mesh_path(docs, main_reps, engine, card)
 
     kernels = [
         kernel_entry("minhash_fold_segments", seg_launches, seg_ms, seg_plain_ms,
@@ -4948,7 +5319,7 @@ def main() -> int:
         planted=len(planted), dups=int((reps != np.arange(MAIN_ARTICLES)).sum()), card=card)
     del reps
     # -- the stream backend and the exact dedup ---------------------------------
-    stream_launches, stream_batches = stream_path(docs, planted, card)
+    stream_launches, stream_batches, stream_lsh = stream_path(docs, planted, card)
     persist_launches, persist_batches, local = persist_path(docs, planted, card)
     fleet_launches, fleet_batches = fleet_path(docs, card, local)
     shutil.rmtree(local["session1"], ignore_errors=True)  # reshard_path's copy: --fleet
@@ -4957,6 +5328,8 @@ def main() -> int:
     cross_launches, cross_batches = cross_source_path(card)
     scrape_launches, scrape_batches = scrape_path(card)
     kernels[0]["stream_path"] = {"launches": stream_launches, "batches": stream_batches}
+    for row in lsh_rows:
+        row["stream_path"] = {"launches": stream_lsh[row["name"]], "batches": stream_batches}
     kernels[0]["persist_path"] = {"launches": persist_launches, "batches": persist_batches}
     kernels[0]["fleet_path"] = {"launches": fleet_launches, "batches": fleet_batches}
     kernels[0]["cross_source_path"] = {"launches": cross_launches, "batches": cross_batches}
@@ -5034,10 +5407,8 @@ def main() -> int:
         launch_floor_ms=legacy["launch_floor_ms"], chain_floor_ms=legacy["chain_floor_ms"],
         share_of_floor=legacy["share_of_floor"], per=legacy["per"]))
     kernels.extend(oph_kernels)
-    assert len(kernels) == 11, [k["name"] for k in kernels]
-    for row in kernels:
-        if row["name"] in ("minhash_fold", "minhash_sig", "oph_fold", "oph_densify"):
-            row["mesh_path"] = {"launches": meshed[row["name"]]}
+    kernels.extend(lsh_rows)
+    assert len(kernels) == 15, [k["name"] for k in kernels]
 
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi("name,power.limit"))
@@ -5063,8 +5434,9 @@ def scrape_main() -> int:
         count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda,
         host_cpu=host_cpu(), host_cores=os.cpu_count())
     t0 = time.perf_counter()
-    _build.build("minhash")
-    log("build", seconds=time.perf_counter() - t0, built=["minhash"])
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(_build.build, ("minhash", "lsh")))
+    log("build", seconds=time.perf_counter() - t0, built=["minhash", "lsh"])
     scrape_path(card, pages_n=SCRAPE_PAGES, parity_n=SCRAPE_PARITY)
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -6054,7 +6426,7 @@ def hostplanes_main() -> int:
     ``pipe_path``, the enrichment feeding the matcher (``enrich_path``)
     and the topic poller (``poll_path``); kept out of the default run for
     the run's time."""
-    card = card_start(("minhash", "match", "editdist"))
+    card = card_start(("minhash", "match", "editdist", "lsh"))
     if card is None:
         return 2
     t0 = time.perf_counter()
@@ -6102,6 +6474,28 @@ def card_end(card: str) -> int:
     return 0
 
 
+def mesh_main() -> int:
+    """``--mesh``: the device mesh (``mesh_path``) at the default run's
+    former depth, on the 65,536 ragged articles (seed 7) and their
+    estimator-only representatives on one device, made as the default run
+    makes them; kept out of the default run for the run's time."""
+    card = card_start(("minhash", "oph", "lsh"))
+    if card is None:
+        return 2
+    from advanced_scrapper_tpu_torch.config import DedupConfig
+    from advanced_scrapper_tpu_torch.pipeline.dedup import NearDupEngine
+
+    t0 = time.perf_counter()
+    docs, _planted = ragged_corpus(np.random.RandomState(7), MAIN_ARTICLES)
+    engine = NearDupEngine(DedupConfig(rerank=False, exact_verify_band=0.0),
+                           device=torch.device("cuda"))
+    main_reps = engine.dedup_reps_async(docs)[:MAIN_ARTICLES].cpu().numpy()
+    meshed = mesh_path(docs, main_reps, engine, card)
+    log("mesh_launches", launches={k: v for k, v in meshed.items() if v},
+        seconds=time.perf_counter() - t0, card=card)
+    return card_end(card)
+
+
 def fleet_main() -> int:
     """``--fleet``: the persist mode's two sessions (``persist_path``, whose
     session 1 the elastic fleet reuses), ``fleet_path``, then
@@ -6109,7 +6503,7 @@ def fleet_main() -> int:
     (``elastic_paths``), at the default run's depth, and the fleet
     collector over a fleet of its own (``collector_path``); kept out of the
     default run for the run's time."""
-    card = card_start(("minhash",))
+    card = card_start(("minhash", "lsh"))
     if card is None:
         return 2
     t0 = time.perf_counter()
@@ -6138,6 +6532,8 @@ if __name__ == "__main__":
         sys.exit(scrape_main())
     if sys.argv[1:] == ["--fleet"]:
         sys.exit(fleet_main())
+    if sys.argv[1:] == ["--mesh"]:
+        sys.exit(mesh_main())
     if sys.argv[1:] == ["--hostplanes"]:
         sys.exit(hostplanes_main())
     sys.exit(main())

@@ -1,0 +1,506 @@
+"""The LSH epilogue kernels' formulations (``csrc/lsh.cu``) on the CPU.
+
+The kernels run only on the card; here their plain versions in
+``ops.lsh`` and numpy models of their walks are held exactly to the JAX
+package's ``ops.lsh``:
+
+- the packed-key sort of the candidate stage (``(key << row_bits) | row``,
+  invalid rows at ``U32_MAX``) and the run-head scan, at B = 1, 2, 3 and
+  odd sizes, under heavy key ties, with every row invalid, a padding run of
+  hundreds of rows and a valid row whose key is ``U32_MAX``; a model of the
+  kernel's tiles (one binary search a tile, a max-scan of run starts);
+- the label rounds, double-buffered as the kernel runs them (three
+  buffers, a flag a round), at ``jump_rounds`` 1, 2 and full on a 64-node
+  chain and on random graphs;
+- the agreement pass at bars where ``count/P`` meets the bar exactly and at
+  ``base + fine_margin`` boundaries, and a model of the kernel's per-edge
+  logic;
+- the keys, a thread a (row, key set), as the kernel folds them;
+- the wrappers' argument checks, which raise before anything is built.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from advanced_scrapper_tpu.core.hashing import make_params as ref_make_params
+from advanced_scrapper_tpu.ops import lsh as ref_lsh
+from advanced_scrapper_tpu_torch.core.hashing import make_params
+from advanced_scrapper_tpu_torch.ops import _build, lsh, lsh_cuda
+
+U32 = 0xFFFFFFFF
+
+
+def _t(sig: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(sig).view(np.int32).copy()).view(torch.uint32)
+
+
+def _ref_rep_bands(keys: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    return np.asarray(ref_lsh.duplicate_rep_bands(
+        jnp.asarray(keys.astype(np.uint32)), jnp.asarray(valid)))
+
+
+# -- the candidate stage: packed keys, sort, run heads ----------------------
+
+
+def _keys_case(name: str) -> tuple[np.ndarray, np.ndarray]:
+    """``(keys int64[B, nb], valid bool[B])`` for one edge case."""
+    rng = np.random.RandomState(sum(name.encode()))
+    if name.startswith("B="):
+        B = int(name[2:])
+        keys = rng.randint(0, 4, size=(B, 5)).astype(np.int64)
+        valid = rng.rand(B) > 0.3
+        return keys, valid
+    if name == "heavy_ties":
+        keys = rng.randint(0, 3, size=(999, 6)).astype(np.int64)
+        return keys, rng.rand(999) > 0.1
+    if name == "all_invalid":
+        keys = rng.randint(0, U32 + 1, size=(301, 4), dtype=np.int64)
+        return keys, np.zeros(301, bool)
+    if name == "padding_run":
+        keys = rng.randint(0, 50, size=(1333, 4)).astype(np.int64)
+        valid = np.zeros(1333, bool)
+        valid[:400] = rng.rand(400) > 0.05  # 933 padding rows share one U32_MAX run
+        return keys, valid
+    if name == "valid_u32_max":
+        keys = rng.randint(0, 20, size=(517, 3)).astype(np.int64)
+        valid = rng.rand(517) > 0.2
+        keys[[0, 7, 8, 200, 516], :] = U32  # valid rows whose key is U32_MAX
+        valid[[0, 7, 8, 200, 516]] = True
+        valid[[1, 3, 9]] = False  # invalid rows in the same U32_MAX run
+        return keys, valid
+    if name == "random_wide":
+        keys = rng.randint(0, U32 + 1, size=(1777, 8), dtype=np.int64)
+        keys[100:300] = keys[:200]  # exact copies
+        return keys, rng.rand(1777) > 0.02
+    raise KeyError(name)
+
+
+KEY_CASES = ["B=1", "B=2", "B=3", "B=5", "B=37", "B=255", "heavy_ties", "all_invalid",
+             "padding_run", "valid_u32_max", "random_wide"]
+
+
+@pytest.mark.parametrize("case", KEY_CASES)
+def test_packed_sort_run_heads_match_the_reference(case):
+    keys, valid = _keys_case(case)
+    B, nb = keys.shape
+    got = lsh.duplicate_rep_bands(torch.from_numpy(keys), torch.from_numpy(valid))
+    reps = lsh.duplicate_reps(torch.from_numpy(keys), torch.from_numpy(valid))
+    assert got.dtype == torch.int32 and got.shape == (B, 3 * nb)
+    if B == 1:  # the reference's two-back shift does not trace at B = 1: self
+        assert not got.numpy().any() and not reps.numpy().any()
+        return
+    assert np.array_equal(got.numpy(), _ref_rep_bands(keys, valid))
+    if case not in ("heavy_ties", "padding_run", "valid_u32_max"):
+        return  # each reference call compiles anew for its shape
+    want = ref_lsh.duplicate_reps(jnp.asarray(keys.astype(np.uint32)), jnp.asarray(valid))
+    assert np.array_equal(reps.numpy(), np.asarray(want))
+
+
+def _packed_sorted(keys: np.ndarray, valid: np.ndarray) -> tuple[torch.Tensor, int]:
+    bits = lsh.row_bits(keys.shape[0])
+    packed = lsh.pack_keys_plain(torch.from_numpy(keys), torch.from_numpy(valid), bits)
+    return torch.sort(packed, dim=1).values, bits
+
+
+def run_heads_walk(sorted_keys: np.ndarray, valid: np.ndarray, bits: int,
+                   threads: int = 4, items: int = 3) -> np.ndarray:
+    """numpy model of ``run_heads_kernel``: a block a tile of ``threads ×
+    items`` sorted positions of one band; thread 0's binary search for the
+    run start of the tile's first position; each thread's last run start
+    among its items; the exclusive max-scan over the block's threads."""
+    nbt, B = sorted_keys.shape
+    mask = (1 << bits) - 1
+    out = np.full((B, 3 * nbt), -7, np.int32)
+    tile = threads * items
+    for band in range(nbt):
+        s = [int(v) for v in sorted_keys[band]]
+        for lo in range(0, B, tile):
+            target = (s[lo] >> bits) << bits
+            a, z = 0, lo
+            while a < z:
+                m = (a + z) >> 1
+                if s[m] < target:
+                    a = m + 1
+                else:
+                    z = m
+            carry = a
+            lasts, starts = [], []
+            for t in range(threads):
+                p0 = lo + t * items
+                prev = s[p0 - 1] >> bits if 0 < p0 < B else -1
+                last, st = -1, []
+                for i in range(items):
+                    p = p0 + i
+                    if p < B:
+                        key = s[p] >> bits
+                        if p == 0 or key != prev:
+                            last = p
+                        prev = key
+                    st.append(last)
+                lasts.append(last)
+                starts.append(st)
+            for t in range(threads):
+                before = max([carry, *lasts[:t]])
+                for i in range(items):
+                    p = lo + t * items + i
+                    if p >= B:
+                        break
+                    v = s[p]
+                    key, row = v >> bits, v & mask
+                    o = out[row]
+                    if not valid[row]:
+                        o[band] = o[nbt + band] = o[2 * nbt + band] = row
+                        continue
+                    o[band] = s[max(before, starts[t][i])] & mask
+                    same1 = p >= 1 and s[p - 1] >> bits == key
+                    same2 = p >= 2 and s[p - 2] >> bits == key
+                    o[nbt + band] = s[p - 1] & mask if same1 else row
+                    o[2 * nbt + band] = s[p - 2] & mask if same2 else row
+    return out
+
+
+@pytest.mark.parametrize("case", KEY_CASES)
+def test_run_heads_tile_walk_equals_the_plain_version(case):
+    keys, valid = _keys_case(case)
+    sorted_keys, bits = _packed_sorted(keys, valid)
+    plain = lsh.run_heads_plain(sorted_keys, torch.from_numpy(valid), bits)
+    for threads, items in ((4, 3), (32, 8)):
+        walk = run_heads_walk(sorted_keys.numpy(), valid, bits, threads, items)
+        assert np.array_equal(walk, plain.numpy()), (threads, items)
+
+
+def test_row_bits_bound():
+    assert [lsh.row_bits(b) for b in (1, 2, 3, 65536, 65537, 1 << 31)] == [1, 1, 2, 16, 17, 31]
+    with pytest.raises(ValueError, match="at most 31"):
+        lsh.row_bits((1 << 31) + 1)
+
+
+# -- the label rounds --------------------------------------------------------
+
+
+def label_walk(rep: np.ndarray, ok: np.ndarray, valid: np.ndarray, rounds: int) -> np.ndarray:
+    """numpy model of ``astt_lsh_label``: ``x``, ``z[0]``, ``z[1]`` and a
+    flag a round; the pull reads ``x`` and min-scatters into ``z[r & 1]``
+    (rows in a shuffled order: atomics land in any order), the jump reads
+    ``z[r & 1]`` and writes ``x``, ``z[(r + 1) & 1]`` and ``out``; a round
+    whose predecessor changed nothing returns at once."""
+    B, nc = rep.shape
+    x = np.arange(B)
+    z = [np.arange(B), np.zeros(B, np.int64)]
+    out = np.arange(B)
+    changed = np.zeros(rounds, np.int64)
+    order = np.random.RandomState(B + rounds).permutation(B)
+    for r in range(rounds):
+        if r > 0 and changed[r - 1] == 0:
+            continue
+        zr = z[r & 1]
+        for b in order:
+            js = [int(j) for j, k in zip(rep[b], ok[b]) if k and 0 <= j < B]
+            m = min([x[b], *(x[j] for j in js)])
+            zr[b] = min(zr[b], m)
+            for j in js:
+                if j != b:
+                    zr[j] = min(zr[j], m)
+        n = zr[zr]
+        changed[r] = int((n != x).any())
+        x = n.copy()
+        z[(r + 1) & 1] = n.copy()
+        out = np.where(valid, n, np.arange(B))
+    return out.astype(np.int32)
+
+
+def _graph(name: str):
+    """``(rep int32[B, nc], ok bool[B, nc], valid bool[B])``."""
+    rng = np.random.RandomState(len(name))
+    if name == "chain64":
+        # a path 0 - 1 - ... - 63 whose edges all point forward: the min
+        # label needs many rounds to reach the far end
+        B, nc = 64, 3
+        rep = np.tile(np.arange(B, dtype=np.int32)[:, None], (1, nc))
+        rep[:-1, 0] = np.arange(1, B)
+        ok = rep != np.arange(B)[:, None]
+        return rep, ok, np.ones(B, bool)
+    B, nc = {"random_sparse": (500, 6), "random_dense": (257, 12)}[name]
+    rep = rng.randint(0, B, size=(B, nc)).astype(np.int32)
+    ok = rng.rand(B, nc) < (0.2 if name == "random_sparse" else 0.5)
+    valid = rng.rand(B) > 0.05
+    return rep, ok, valid
+
+
+@pytest.mark.parametrize("name", ["chain64", "random_sparse", "random_dense"])
+@pytest.mark.parametrize("rounds", [0, 1, 2, "full"])
+def test_label_rounds_match_the_reference(name, rounds):
+    rep, ok, valid = _graph(name)
+    B = rep.shape[0]
+    n = int(np.ceil(np.log2(B))) if rounds == "full" else rounds
+    want = np.asarray(ref_lsh.resolve_rep_bands_from_ok(
+        jnp.asarray(rep), jnp.asarray(ok), jnp.asarray(valid), jump_rounds=n))
+    got = lsh.resolve_rep_bands_from_ok(
+        torch.from_numpy(rep), torch.from_numpy(ok), torch.from_numpy(valid), jump_rounds=n)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(label_walk(rep, ok, valid, n), want)
+    if name == "chain64" and rounds in (1, 2):
+        assert (want != 0).any()  # truncated: the far end has not heard of row 0
+
+
+# -- the agreement pass at its bars -------------------------------------------
+
+#: agreements (of 128) and whether the pair shares a coarse band
+PAIRS = [(k, shared) for k in (89, 90, 92, 93, 95, 96, 97, 128) for shared in (False, True)]
+
+
+@pytest.fixture(scope="module")
+def boundary():
+    """Rows 2i and 2i+1 agree on exactly ``k`` of 128 words; the words
+    that differ hit every coarse band of 8 words unless the pair shares
+    one (band 0 left whole).  Row 2i+1's candidates: 2i in every column.
+    The last pair's second row is invalid."""
+    rng = np.random.RandomState(5)
+    n = len(PAIRS)
+    sig = rng.randint(0, 1 << 32, size=(2 * n, 128), dtype=np.uint64).astype(np.uint32)
+    for i, (k, shared) in enumerate(PAIRS):
+        diff = 128 - k
+        bands = list(range(1 if shared else 0, 16))
+        first = [8 * b + rng.randint(8) for b in bands][:diff]
+        rest = [p for p in range(8 if shared else 0, 128) if p not in first]
+        pos = first + list(rng.choice(rest, diff - len(first), replace=False))
+        row = sig[2 * i].copy()
+        row[pos] ^= np.uint32(0x5A5A5A5A)
+        sig[2 * i + 1] = row
+    valid = np.ones(2 * n, bool)
+    valid[-1] = False
+    keys = lsh._coarse_fine_keys(_t(sig), make_params().band_salt, lsh.subband_salt(32))
+    nk = keys.shape[1]
+    rep = np.tile(np.arange(2 * n, dtype=np.int32)[:, None], (1, 3 * nk))
+    rep[1::2] = np.arange(0, 2 * n, 2, dtype=np.int32)[:, None]
+    return sig, valid, keys, rep
+
+
+def _ref_keys(keys: torch.Tensor):
+    return jnp.asarray(keys.numpy().astype(np.uint32))
+
+
+@pytest.mark.parametrize("threshold", [0.75, 0.7, 0.72, 96 / 128, "column", "edge"])
+def test_resolve_at_exact_bars(boundary, threshold):
+    sig, valid, keys, rep = boundary
+    nc = rep.shape[1]
+    if threshold == "column":
+        thr = np.where(np.arange(nc) % 2, np.float32(0.75), np.float32(0.7)).astype(np.float32)
+    elif threshold == "edge":
+        thr = np.where(np.arange(rep.size).reshape(rep.shape) % 3, 0.75, 0.7).astype(np.float32)
+    else:
+        thr = threshold
+    got = lsh.resolve_rep_bands(torch.from_numpy(rep), _t(sig), torch.from_numpy(valid),
+                                torch.from_numpy(thr) if isinstance(thr, np.ndarray) else thr,
+                                jump_rounds=6)
+    want = ref_lsh.resolve_rep_bands(jnp.asarray(rep), jnp.asarray(sig), jnp.asarray(valid),
+                                     jnp.asarray(thr) if isinstance(thr, np.ndarray) else thr,
+                                     jump_rounds=6)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    if threshold == 0.75:  # 96 of 128 is exactly 0.75: merged
+        i96, i95 = PAIRS.index((96, False)), PAIRS.index((95, False))
+        assert got[2 * i96 + 1] == 2 * i96 and got[2 * i95 + 1] == 2 * i95 + 1
+
+
+@pytest.mark.parametrize("base,margin,band", [
+    (0.7, 0.05, 0.72), (0.7, 0.05, 0.75), (0.71, 0.04, 0.75), (0.6875, 0.0625, 0.7265625),
+    (0.7, 0.0, 0.72),
+])
+def test_fine_bars_and_borderline_at_boundaries(boundary, base, margin, band):
+    sig, valid, keys, rep = boundary
+    rk = _ref_keys(keys)
+    got = lsh.fine_edge_thresholds(torch.from_numpy(rep), keys, base, margin, num_coarse=16)
+    want = ref_lsh.fine_edge_thresholds(jnp.asarray(rep), rk, base, margin, num_coarse=16)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    got_r = lsh.fused_resolve_epilogue(
+        _t(sig), torch.from_numpy(valid), make_params().band_salt, lsh.subband_salt(32), base,
+        margin, num_coarse=16, jump_rounds=6, use_fine_margin=True)
+    want_r = ref_lsh.fused_resolve_epilogue(
+        jnp.asarray(sig), jnp.asarray(valid), np.asarray(ref_make_params().band_salt),
+        ref_lsh.subband_salt(32), base, margin, densify_oph=False, num_coarse=16,
+        jump_rounds=6, use_fine_margin=True)
+    assert np.array_equal(got_r.numpy(), np.asarray(want_r))
+    need, ok = lsh.borderline_edge_mask(torch.from_numpy(rep), _t(sig), keys,
+                                        torch.from_numpy(valid), base, band, num_coarse=16)
+    want_need, want_ok = ref_lsh.borderline_edge_mask(
+        jnp.asarray(rep), jnp.asarray(sig), rk, jnp.asarray(valid), base, band, num_coarse=16)
+    assert np.array_equal(need.numpy(), np.asarray(want_need))
+    assert np.array_equal(ok.numpy(), np.asarray(want_ok))
+    model = verify_walk(rep, sig, valid, keys.numpy(), 16, base=base, band=band,
+                        strict=lsh.strict_bar(base, margin))
+    assert np.array_equal(model["ok"], ok.numpy())
+    assert np.array_equal(model["need"], need.numpy())
+    assert np.array_equal(model["bars"], got.numpy())
+    assert np.array_equal(model["ok_fine"], verify_ok_fine(rep, sig, valid, got))
+
+
+def verify_ok_fine(rep, sig, valid, bars) -> np.ndarray:
+    """The plain ``ok`` of :func:`lsh.resolve_rep_bands` against per-edge
+    bars: the fine-bar mode of the kernel computes the same matrix."""
+    s = sig.view(np.int32)
+    agree = (s[:, None, :] == s[rep]).sum(2).astype(np.float32) / np.float32(s.shape[1])
+    return (agree >= bars.numpy()) & valid[:, None] & valid[rep]
+
+
+def verify_walk(rep, sig, valid, keys, num_coarse, *, base, band, strict) -> dict:
+    """numpy model of ``verify_kernel``'s per-edge logic: the count of
+    equal words (P for self, 0 out of range), ``count / P`` in float32,
+    the fine-only test of column ``c % nk``, each mode's bar."""
+    B, nc = rep.shape
+    P, nk = sig.shape[1], keys.shape[1]
+    res = {k: np.zeros((B, nc), bool) for k in ("ok", "need", "ok_fine")}
+    res["bars"] = np.zeros((B, nc), np.float32)
+    for b in range(B):
+        for c in range(nc):
+            j = int(rep[b, c])
+            in_range = 0 <= j < B
+            count = P if j == b else int((sig[b] == sig[j]).sum()) if in_range else 0
+            fo = in_range and c % nk >= num_coarse and not (
+                keys[b, :num_coarse] == keys[j, :num_coarse]).any()
+            agree = np.float32(count) / np.float32(P)
+            both = in_range and valid[b] and valid[j]
+            res["bars"][b, c] = np.float32(strict) if fo else np.float32(base)
+            ok = both and agree >= np.float32(base)
+            res["ok"][b, c] = ok
+            res["need"][b, c] = ok and j != b and (fo or agree < np.float32(band))
+            res["ok_fine"][b, c] = both and agree >= res["bars"][b, c]
+    return res
+
+
+# -- the keys ----------------------------------------------------------------
+
+
+def keys_walk(sig: np.ndarray, salts: np.ndarray, nb: int, nf: int, wide: bool) -> np.ndarray:
+    """numpy model of ``keys_kernel``: a thread (b, j) folds ``P/nb`` (or
+    ``P/nf``) words from ``j·r`` in uint32, XORs ``salts[j]``, fmix32."""
+    B, P = sig.shape
+
+    def fmix(h):
+        h = h ^ (h >> np.uint32(16))
+        h = h * np.uint32(0x85EBCA6B)
+        h = h ^ (h >> np.uint32(13))
+        h = h * np.uint32(0xC2B2AE35)
+        return h ^ (h >> np.uint32(16))
+
+    out = np.zeros((B, nb + nf, 2), np.uint32)
+    with np.errstate(over="ignore"):
+        for j in range(nb + nf):
+            r = P // nb if j < nb else P // nf
+            w = sig[:, (j if j < nb else j - nb) * r:][:, :r]
+            for lane, (off, prime) in enumerate(((0x811C9DC5, 0x01000193),
+                                                 (lsh.WIDE_OFFSET, lsh.WIDE_PRIME))):
+                k = np.full(B, off, np.uint32)
+                for i in range(r):
+                    k = (k ^ w[:, i]) * np.uint32(prime)
+                s = np.uint32(salts[j])
+                s = s if lane == 0 else np.uint32(((int(s) << 13) | (int(s) >> 19)) & U32)
+                out[:, j, lane] = fmix(k ^ s)
+    return out if wide else out[:, :, 0]
+
+
+@pytest.mark.parametrize("cs,wide", [(32, False), (0, False), (0, True), (64, False)])
+def test_keys_walk_matches_the_reference(cs, wide):
+    rng = np.random.RandomState(cs + wide)
+    sig = rng.randint(0, 1 << 32, size=(333, 128), dtype=np.uint64).astype(np.uint32)
+    sig[::7] = U32  # rows of a signature with no shingle
+    salt = make_params().band_salt
+    fine = lsh.subband_salt(cs) if cs else np.zeros((0,), np.uint32)
+    walk = keys_walk(sig, np.concatenate([salt, fine]), len(salt), cs, wide)
+    if wide:
+        want = np.asarray(ref_lsh.band_keys_wide(jnp.asarray(sig), jnp.asarray(salt)))
+        got = lsh.fused_keys_epilogue(_t(sig), salt, fine, densify_oph=False, wide=True)[1]
+    else:
+        want = np.asarray(ref_lsh.candidate_keys(jnp.asarray(sig), salt, cs))
+        got = lsh.fused_keys_epilogue(_t(sig), salt, fine, densify_oph=False, wide=False)[1]
+    assert np.array_equal(walk, want)
+    assert np.array_equal(got.numpy(), want.astype(np.int64))
+    if not wide:  # the packed sort keys the same launch writes
+        valid = rng.rand(333) > 0.1
+        bits = lsh.row_bits(333)
+        packed = lsh.pack_keys_plain(got, torch.from_numpy(valid), bits).numpy()
+        k = np.where(valid[:, None], want.astype(np.int64), U32)
+        assert np.array_equal(packed, ((k << bits) | np.arange(333)[:, None]).T)
+
+
+# -- the wrappers raise before any build ------------------------------------
+
+
+@pytest.fixture
+def no_build(monkeypatch):
+    """Any build or load fails the test: the checks come first."""
+    def refuse(name):
+        raise AssertionError(f"built {name}")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(_build, "build", refuse)
+    lsh_cuda._lib.cache_clear()
+    yield
+    lsh_cuda._lib.cache_clear()
+
+
+def _calls():
+    sig = torch.zeros((8, 128), dtype=torch.int32)
+    rep = torch.zeros((8, 6), dtype=torch.int32)
+    valid = torch.ones(8, dtype=torch.bool)
+    ok = torch.ones((8, 6), dtype=torch.bool)
+    keys = torch.zeros((8, 6), dtype=torch.int64)
+    srt = torch.zeros((6, 8), dtype=torch.int64)
+    salt = np.arange(16, dtype=np.uint32)
+    return {
+        "keys_dtype": (TypeError, lambda: lsh_cuda.lsh_keys(sig.float(), salt)),
+        "keys_ndim": (ValueError, lambda: lsh_cuda.lsh_keys(sig[0], salt)),
+        "keys_salts": (ValueError, lambda: lsh_cuda.lsh_keys(sig, np.arange(600))),
+        "keys_divide": (ValueError, lambda: lsh_cuda.lsh_keys(sig, np.arange(24))),
+        "keys_wide_fine": (ValueError, lambda: lsh_cuda.lsh_keys(sig, salt, salt, wide=True)),
+        "keys_valid_len": (ValueError, lambda: lsh_cuda.lsh_keys(sig, salt, valid=valid[:5])),
+        "keys_bits": (ValueError, lambda: lsh_cuda.lsh_keys(sig, salt, valid=valid, bits=2)),
+        "keys_strided": (ValueError, lambda: lsh_cuda.lsh_keys(sig[:, ::2], salt)),
+        "pack_dtype": (TypeError, lambda: lsh_cuda.pack_keys(keys.int(), valid, 3)),
+        "pack_valid": (TypeError, lambda: lsh_cuda.pack_keys(keys, valid.int(), 3)),
+        "heads_dtype": (TypeError, lambda: lsh_cuda.lsh_run_heads(srt.int(), valid, 3)),
+        "heads_valid": (ValueError, lambda: lsh_cuda.lsh_run_heads(srt, valid[:3], 3)),
+        "heads_bits": (ValueError, lambda: lsh_cuda.lsh_run_heads(srt, valid, 32)),
+        "verify_rep_dtype": (TypeError, lambda: lsh_cuda.lsh_verify(rep.long(), valid, sig)),
+        "verify_rows": (ValueError, lambda: lsh_cuda.lsh_verify(rep, valid, sig[:4])),
+        "verify_no_valid": (ValueError, lambda: lsh_cuda.lsh_verify(rep, None, sig)),
+        "verify_thr_shape": (ValueError, lambda: lsh_cuda.lsh_verify(
+            rep, valid, sig, thr=torch.zeros(5))),
+        "verify_keys_cols": (ValueError, lambda: lsh_cuda.lsh_verify(
+            rep, valid, sig, band=0.7, keys=torch.zeros((8, 4), dtype=torch.int64))),
+        "verify_fine_no_keys": (ValueError, lambda: lsh_cuda.lsh_verify(
+            rep, valid, sig, strict=0.75)),
+        "verify_bars_no_strict": (ValueError, lambda: lsh_cuda.lsh_verify(rep, None)),
+        "label_ok_shape": (ValueError, lambda: lsh_cuda.lsh_label(rep, ok[:, :3], valid, 2)),
+        "label_ok_dtype": (TypeError, lambda: lsh_cuda.lsh_label(rep, ok.int(), valid, 2)),
+        "label_rounds": (ValueError, lambda: lsh_cuda.lsh_label(rep, ok, valid, -1)),
+    }
+
+
+@pytest.mark.parametrize("case", list(_calls()))
+def test_wrappers_check_arguments_before_any_build(no_build, monkeypatch, case):
+    monkeypatch.setattr(lsh_cuda, "_on_card", lambda t, name: None)
+    err, call = _calls()[case]
+    with pytest.raises(err):
+        call()
+
+
+@pytest.mark.parametrize("fn", ["lsh_keys", "pack_keys", "lsh_run_heads", "lsh_verify",
+                                "lsh_label"])
+def test_wrappers_refuse_cpu_tensors(no_build, fn):
+    sig = torch.zeros((8, 128), dtype=torch.int32)
+    valid = torch.ones(8, dtype=torch.bool)
+    rep = torch.zeros((8, 6), dtype=torch.int32)
+    calls = {
+        "lsh_keys": lambda: lsh_cuda.lsh_keys(sig, np.arange(16)),
+        "pack_keys": lambda: lsh_cuda.pack_keys(rep.long(), valid, 3),
+        "lsh_run_heads": lambda: lsh_cuda.lsh_run_heads(rep.long().T.contiguous(), valid, 3),
+        "lsh_verify": lambda: lsh_cuda.lsh_verify(rep, valid, sig),
+        "lsh_label": lambda: lsh_cuda.lsh_label(rep, rep.bool(), valid, 1),
+    }
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        calls[fn]()
