@@ -1,5 +1,5 @@
-// The LSH epilogues by hand for Hopper (sm_90a): band keys, candidate run
-// heads, edge verification and component labels.
+// The LSH epilogues by hand for Hopper (sm_90a): band keys, the candidate
+// stage's sort and run heads, edge verification and component labels.
 //
 // Replaces the jnp device code of advanced_scrapper_tpu/ops/lsh.py, which
 // XLA fuses into one dispatch (fused_resolve_epilogue, :376) and which the
@@ -7,6 +7,8 @@
 //   lsh_keys       fused_keys_epilogue (:416), band_keys (:56),
 //                  band_keys_wide (:68), _coarse_fine_keys (:332),
 //                  _fold_bands (:39);
+//   lsh_sort       the lax.sort((key, row), num_keys=2) of
+//                  _run_head_per_band (:104);
 //   lsh_run_heads  _run_head_per_band (:87), duplicate_rep_bands (:158);
 //   lsh_verify     resolve_rep_bands (:192), fine_edge_thresholds (:514),
 //                  borderline_edge_mask (:462), _fine_only_chunks (:439);
@@ -23,19 +25,52 @@
 //   read once from memory and then hit L1), XORs the salt, applies
 //   fmix32, all uint32 with wrap-around.  The salts travel in the launch's
 //   parameter buffer (a 2 KiB struct by value): no copy to the card.
-// - lsh_run_heads reads the sorted packed keys once and writes
-//   int32[B, 3 nbt]: bytes.  Runs can be long (all padding rows share one
-//   U32_MAX run), so no thread walks a run: a block takes a tile of 2,048
-//   sorted positions, finds the run start of its first position by one
-//   binary search, and a block-wide max-scan of run starts gives every
-//   position its run start.  Predecessors compare neighbouring keys.
-// - lsh_verify gathers nc candidate rows per row from the 32 MiB signature
-//   matrix, which stays in the 50 MB L2: a warp a row, a lane a word of P,
-//   the equal words counted with one warp reduction a candidate.  Bound by
-//   the 4.8 GB gathered through L2 at this shape; the bytes it must move
-//   from memory are the signatures, candidates and outputs once.  The
-//   agreement is count / P in float32 (__fdiv_rn, no fast math) against
-//   the bar in float32, as the reference compares.
+// - lsh_sort sorts each band's packed keys (key << row_bits) | row.  Only
+//   the 32 key bits carry order: the rows enter ascending, so a stable LSD
+//   radix sort of the key's digits (kSortPasses passes of kRadixBits) gives
+//   the (key, row) order of torch.sort and of the reference.  One launch
+//   counts every pass's digits of every band (the counts do not depend on
+//   the order); then a launch a pass over every band at once (onesweep): a
+//   block takes the next tile of its band by ticket, each warp ranks its
+//   items stably (a ballot a digit bit within a round of 32, a
+//   warp-private counter a digit across rounds), the block publishes its
+//   digit counts and sums the earlier tiles' by a decoupled look-back, then
+//   stages its tile in digit order in shared memory and writes each
+//   digit's run out contiguously.  Each pass reads and writes the int64
+//   keys once, 25 MiB each way, mostly in the 50 MB L2; the passes are
+//   bound by the ranking's latency at 3 blocks an SM (80 registers).
+// - lsh_run_heads reads the sorted keys once and writes int32[B, 3 nbt]:
+//   bytes.  Runs can be long (all padding rows share one U32_MAX run), so
+//   no thread walks a run: a block takes a tile of 512 sorted positions
+//   and a block-wide max-scan of run starts gives every position its run
+//   start.  A tile whose first key continues the previous tile's run finds
+//   the run's start by a 256-way search of the positions before it (a load
+//   a thread a round, two rounds at 65,536 rows), not by a serial binary
+//   search.  The three candidates of a position go to its row, which the
+//   sort scattered: one 8-byte record a (band, row) (three 21-bit rows; 16
+//   bytes past 2^21 rows), written only where the three differ (the rest
+//   are (row, row, row), which the records' all-ones start already says),
+//   then a second launch transposes the records of 64 rows through shared
+//   memory into their contiguous 64 x 3 nbt int32 of the output, in place
+//   of three scattered int32 writes a position (9.4 M at this shape); the
+//   scattered records are what is left of the cost.  A row's 3 nbt + 1
+//   int32 must fit the 48 KiB tile: at most 4,095 bands.
+// - lsh_verify gathers the candidate rows' signatures from the 32 MiB
+//   signature matrix, which stays in the 50 MB L2: a warp a row.  It
+//   compacts the row's non-self, in-range candidates with match_any and a
+//   ballot, each distinct candidate once (a pair shares many bands: 98.7%
+//   of the main corpus's non-self columns repeat a candidate of their row),
+//   and counts two candidates at a time, 16 lanes each, a lane holding 8
+//   words of the row's own signature in registers (loaded at the row's
+//   first candidate) and loading the candidate's with 16-byte loads.  The
+//   row's coarse keys, in the fine mode, are held in registers too.  With
+//   the repeats gone the gather is small; what bounds it is each row's
+//   walk of its 144 columns, so it runs at 8 blocks an SM (32 registers).
+//   The agreement is count / P in float32 (__fdiv_rn, no fast math)
+//   against the bar in float32, as the reference compares.  A P that is
+//   no multiple of 64 (or above 512, or a signature not 16-byte aligned)
+//   takes a general path in the same kernel: a candidate a warp, a lane a
+//   word.
 // - lsh_label runs the reference's rounds (pull the min along ok edges,
 //   scatter-min it back, pointer-double) as two launches a round over
 //   three int32[B] buffers: the pull reads X and atomicMins into Z (Z
@@ -58,9 +93,22 @@ constexpr uint32_t kWidePrime = 0x01000197u;   // ops/lsh.py WIDE_PRIME
 constexpr int64_t kU32Max = 0xFFFFFFFFLL;
 constexpr int kMaxSalts = 512;
 constexpr int kThreads = 256;
-constexpr int kHeadItems = 8;
+constexpr int kHeadItems = 2;
 constexpr int kHeadTile = kThreads * kHeadItems;
 constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRadixBits = 8;
+constexpr int kBins = 1 << kRadixBits;
+constexpr int kSortPasses = (32 + kRadixBits - 1) / kRadixBits;
+constexpr int kSortItems = 16;
+constexpr int kSortTile = kThreads * kSortItems;
+constexpr int kDigitCopies = 2;    // copies of the digit counts in shared memory
+constexpr int kRecBits = 21;       // 8-byte run-head records where rows fit 21 bits
+constexpr int kStageRows = 64;
+constexpr int kStageInts = 12288;  // 48 KiB of shared memory: the transpose's tile
+constexpr int kMaxHeadBands = (kStageInts - 1) / 3;  // 4,095: a row's 3 nbt + 1 fit the tile
+constexpr int kSub = 16;           // lanes a candidate in lsh_verify
+constexpr int kVerifyChunk = 192;  // columns compacted at a time
 
 struct Salts {
   uint32_t v[kMaxSalts];
@@ -123,30 +171,285 @@ __global__ void pack_kernel(const int64_t* __restrict__ keys, int B, int nk,
   packed[static_cast<size_t>(j) * B + b] = (k << row_bits) | b;
 }
 
-// Block (tile, band): sorted int64[nbt, B] (each band ascending) ->
-// out[row, band], out[row, nbt + band], out[row, 2 nbt + band]: run head,
-// predecessor, predecessor² (self where there is none; self for invalid
-// rows).  key = packed >> row_bits, row = packed & mask.
+// ---- lsh_sort ---------------------------------------------------------
+
+__device__ __forceinline__ int digit_of(int64_t v, int shift) {
+  return static_cast<int>((static_cast<uint64_t>(v) >> shift) & (kBins - 1));
+}
+
+// The lanes of the warp whose d (0 .. kBins: kBins marks no digit) equals
+// this lane's: a ballot a bit (the instruction match.any is slower).
+__device__ __forceinline__ unsigned match_digit(int d) {
+  unsigned peers = kFull;
+#pragma unroll
+  for (int i = 0; i <= kRadixBits; ++i) {
+    const bool bit = (d >> i) & 1;
+    const unsigned v = __ballot_sync(kFull, bit);
+    peers &= bit ? v : ~v;
+  }
+  return peers;
+}
+
+// The sum of x over the block's earlier threads; every thread calls it.
+__device__ int block_exclusive_sum(int x, int* warp_tot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int y = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(kFull, y, o);
+    if (lane >= o) y += t;
+  }
+  if (lane == 31) warp_tot[warp] = y;
+  __syncthreads();
+  int before = y - x;
+  for (int w = 0; w < warp; ++w) before += warp_tot[w];
+  __syncthreads();
+  return before;
+}
+
+// In place: a[0..kBins) becomes its exclusive prefix sum; every thread of
+// the block calls it.  A thread takes kBins / kThreads consecutive digits
+// (one, at 8-bit digits).
+__device__ void block_exclusive_scan(int* a, int* warp_tot) {
+  constexpr int per = kBins >= kThreads ? kBins / kThreads : 1;
+  const int t = threadIdx.x;
+  const bool on = t * per < kBins;
+  int local[per];
+  int sum = 0;
+#pragma unroll
+  for (int i = 0; i < per; ++i) {
+    local[i] = on ? a[t * per + i] : 0;
+    sum += local[i];
+  }
+  int before = block_exclusive_sum(sum, warp_tot);
+  if (on) {
+#pragma unroll
+    for (int i = 0; i < per; ++i) {
+      a[t * per + i] = before;
+      before += local[i];
+    }
+  }
+  __syncthreads();
+}
+
+// Block (tile, band): the tile's digit counts of every pass, added into
+// ghist[band][pass][digit] (one read of the keys for all passes).  A
+// shared atomic a digit, into one of kDigitCopies copies of the counts by
+// warp (a warp's equal digits still meet in one copy).
+__global__ void __launch_bounds__(kThreads)
+sort_digits_kernel(const int64_t* __restrict__ src, int B, int row_bits,
+                   int* __restrict__ ghist) {
+  constexpr int kCounts = kSortPasses * kBins;
+  __shared__ int h[kDigitCopies * kCounts];
+  for (int i = threadIdx.x; i < kDigitCopies * kCounts; i += kThreads) h[i] = 0;
+  __syncthreads();
+  const int64_t* s = src + static_cast<size_t>(blockIdx.y) * B;
+  int* mine = h + ((threadIdx.x >> 5) % kDigitCopies) * kCounts;
+  const long long lo = static_cast<long long>(blockIdx.x) * kSortTile;
+#pragma unroll 4
+  for (int i = 0; i < kSortItems; ++i) {
+    const long long p = lo + static_cast<long long>(i) * kThreads + threadIdx.x;
+    if (p >= B) break;
+    const int64_t v = __ldg(s + p);
+#pragma unroll
+    for (int k = 0; k < kSortPasses; ++k) {
+      atomicAdd(mine + k * kBins + digit_of(v, row_bits + k * kRadixBits), 1);
+    }
+  }
+  __syncthreads();
+  int* g = ghist + static_cast<size_t>(blockIdx.y) * kCounts;
+  for (int i = threadIdx.x; i < kCounts; i += kThreads) {
+    int n = 0;
+#pragma unroll
+    for (int c = 0; c < kDigitCopies; ++c) n += h[c * kCounts + i];
+    if (n != 0) atomicAdd(g + i, n);
+  }
+}
+
+constexpr size_t kScatterSmem = sizeof(int64_t) * kSortTile + sizeof(int) * (kWarps + 2) * kBins;
+
+// A tile's published count of one digit (onesweep): the flag in the high
+// word, the count in the low one, one 64-bit store
+constexpr unsigned long long kAggregate = 1ull << 32;  // the tile's own
+constexpr unsigned long long kInclusive = 2ull << 32;  // with every earlier tile's
+constexpr int kMaxSpins = 1 << 22;
+
+__device__ __forceinline__ unsigned long long load_volatile(const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+__device__ __forceinline__ void store_volatile(unsigned long long* p, unsigned long long v) {
+  *reinterpret_cast<volatile unsigned long long*>(p) = v;
+}
+
+// Block (tile, band): the stable scatter of one pass.  Warp w takes the
+// tile's positions [w, w + 1) x 32 kSortItems, round i its 32 positions
+// from 32 i, lane l the l-th: the order of the positions is (warp, round,
+// lane), and a position's rank among its digit's is the digit's start in
+// the tile + the digit's count in earlier warps + in earlier rounds of its
+// warp + in earlier lanes of its round.  A digit's start in the band: its
+// start in the pass's band counts ofs[band][digit] (stride kSortPasses
+// kBins) + the counts of the earlier tiles, found by a decoupled look-back
+// over their published counts (tiles by ticket, so an earlier tile has
+// started and publishes before it looks back).
+__global__ void __launch_bounds__(kThreads, 3)
+sort_scatter_kernel(const int64_t* __restrict__ src, int64_t* __restrict__ dst, int B, int shift,
+                    int ntiles, const int* __restrict__ ofs, unsigned long long* status,
+                    int* ticket) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int64_t* stage = reinterpret_cast<int64_t*>(smem);
+  int* wcnt = reinterpret_cast<int*>(stage + kSortTile);  // [kWarps][kBins]
+  int* dstart = wcnt + kWarps * kBins;                    // the digit's start in the tile
+  int* gbase = dstart + kBins;                            // ... in the sorted band
+  __shared__ int warp_tot[kWarps];
+  __shared__ int tile_s;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t band = blockIdx.y;
+  const int64_t* s = src + band * B;
+  int64_t* o = dst + band * B;
+  if (threadIdx.x == 0) tile_s = atomicAdd(ticket + band, 1);
+  __syncthreads();
+  const int tile = tile_s;
+  const long long lo = static_cast<long long>(tile) * kSortTile;
+  const long long base = lo + static_cast<long long>(warp) * 32 * kSortItems;
+  for (int i = threadIdx.x; i < kWarps * kBins; i += kThreads) wcnt[i] = 0;
+  int64_t v[kSortItems];
+#pragma unroll
+  for (int i = 0; i < kSortItems; ++i) {
+    const long long p = base + 32 * i + lane;
+    v[i] = p < B ? __ldg(s + p) : 0;
+  }
+  __syncthreads();
+  int* mine = wcnt + warp * kBins;
+  const unsigned lt = (1u << lane) - 1u;
+  int rk[kSortItems];
+#pragma unroll
+  for (int i = 0; i < kSortItems; ++i) {
+    const bool in = base + 32 * i + lane < B;
+    const int d = in ? digit_of(v[i], shift) : kBins;
+    const unsigned peers = match_digit(d);
+    const int leader = 31 - __clz(peers);
+    int old = 0;
+    if (in && lane == leader) {
+      old = mine[d];
+      mine[d] = old + __popc(peers);
+    }
+    old = __shfl_sync(kFull, old, leader);
+    rk[i] = old + __popc(peers & lt);
+    __syncwarp();
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < kBins; d += kThreads) {
+    int run = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = wcnt[w * kBins + d];
+      wcnt[w * kBins + d] = run;
+      run += c;
+    }
+    dstart[d] = run;
+    gbase[d] = ofs[band * kSortPasses * kBins + d];
+    store_volatile(status + (band * ntiles + tile) * kBins + d,
+                   (tile == 0 ? kInclusive : kAggregate) | static_cast<unsigned>(run));
+  }
+  __syncthreads();
+  block_exclusive_scan(gbase, warp_tot);
+  for (int d = threadIdx.x; d < kBins; d += kThreads) {
+    unsigned long long* st = status + band * ntiles * kBins + d;
+    int before = 0;
+    for (int t = tile - 1; t >= 0; --t) {
+      unsigned long long x;
+      int spins = 0;
+      do {
+        x = load_volatile(st + static_cast<size_t>(t) * kBins);
+        if (++spins > kMaxSpins) __trap();  // a tile that never published: fail, not hang
+      } while (x < kAggregate);
+      before += static_cast<int>(x & 0xFFFFFFFFull);
+      if (x >= kInclusive) break;
+    }
+    if (tile > 0) {
+      store_volatile(st + static_cast<size_t>(tile) * kBins,
+                     kInclusive | static_cast<unsigned>(before + dstart[d]));
+    }
+    gbase[d] += before;
+  }
+  block_exclusive_scan(dstart, warp_tot);
+#pragma unroll
+  for (int i = 0; i < kSortItems; ++i) {
+    if (base + 32 * i + lane < B) {
+      const int d = digit_of(v[i], shift);
+      stage[dstart[d] + mine[d] + rk[i]] = v[i];
+    }
+  }
+  __syncthreads();
+  const int n = static_cast<int>(B - lo < kSortTile ? B - lo : kSortTile);
+  for (int q = threadIdx.x; q < n; q += kThreads) {
+    const int64_t val = stage[q];
+    const int d = digit_of(val, shift);
+    o[gbase[d] + q - dstart[d]] = val;
+  }
+}
+
+// ---- lsh_run_heads ------------------------------------------------------
+
+// A (band, row)'s record for heads_out_kernel: its head, predecessor and
+// predecessor², three rows of kRecBits in one int64 (Pack) or an int4.
+template <bool Pack>
+struct Rec;
+template <>
+struct Rec<true> {
+  using T = int64_t;
+  __device__ static T make(int h, int p1, int p2) {
+    return static_cast<int64_t>(h) | (static_cast<int64_t>(p1) << kRecBits) |
+           (static_cast<int64_t>(p2) << (2 * kRecBits));
+  }
+  __device__ static int get(T v, int k) {
+    return static_cast<int>((v >> (k * kRecBits)) & ((int64_t{1} << kRecBits) - 1));
+  }
+};
+template <>
+struct Rec<false> {
+  using T = int4;
+  __device__ static T make(int h, int p1, int p2) { return make_int4(h, p1, p2, 0); }
+  __device__ static int get(T v, int k) { return k == 0 ? v.x : k == 1 ? v.y : v.z; }
+};
+
+// Block (tile, band): sorted int64[nbt, B] (each band ascending) -> run
+// head, predecessor, predecessor² of each position's row (self where there
+// is none; self for invalid rows), key = packed >> row_bits, row = packed &
+// mask, as one record a (band, row) for heads_out_kernel.
+template <bool Pack>
 __global__ void __launch_bounds__(kThreads)
 run_heads_kernel(const int64_t* __restrict__ sorted, const bool* __restrict__ valid, int B,
-                 int nbt, int row_bits, int32_t* __restrict__ out) {
+                 int row_bits, typename Rec<Pack>::T* __restrict__ rec) {
   const int band = blockIdx.y;
   const int64_t* s = sorted + static_cast<size_t>(band) * B;
   const int lo = blockIdx.x * kHeadTile;
   const int64_t mask = (int64_t{1} << row_bits) - 1;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __shared__ int carry;
-  __shared__ int warp_max[kThreads / 32];
-  if (threadIdx.x == 0) {
-    // the first position in [0, lo] whose key equals the tile's first key
-    const int64_t target = (s[lo] >> row_bits) << row_bits;
-    int a = 0, z = lo;
+  __shared__ int warp_max[kWarps];
+  // the run start of position lo: lo, unless its key continues the run of
+  // lo - 1; then the first position of [0, lo] with its key, by a
+  // kThreads-way search (a load a thread a round; the positions below the
+  // key come first)
+  const int64_t tkey = s[lo] >> row_bits;
+  long long a = lo;
+  if (lo > 0 && (s[lo - 1] >> row_bits) == tkey) {
+    a = 0;
+    long long z = lo;
     while (a < z) {
-      const int m = (a + z) >> 1;
-      if (s[m] < target) a = m + 1; else z = m;
+      const long long step = (z - a + kThreads - 1) / kThreads;
+      const long long m = a + threadIdx.x * step;
+      const int c = __syncthreads_count(m < z && (s[m] >> row_bits) < tkey);
+      if (c == 0) {
+        z = a;
+      } else {
+        const long long top = a + c * step;
+        a += (c - 1) * step + 1;
+        z = top < z ? top : z;
+      }
     }
-    carry = a;
   }
+  const int carry = static_cast<int>(a);
   const int p0 = lo + threadIdx.x * kHeadItems;
   int starts[kHeadItems];
   int last = -1;
@@ -174,7 +477,6 @@ run_heads_kernel(const int64_t* __restrict__ sorted, const bool* __restrict__ va
   __syncthreads();
   before = max(before, carry);
   for (int w = 0; w < warp; ++w) before = max(before, warp_max[w]);
-  const int nc = 3 * nbt;
 #pragma unroll
   for (int i = 0; i < kHeadItems; ++i) {
     const int p = p0 + i;
@@ -182,19 +484,62 @@ run_heads_kernel(const int64_t* __restrict__ sorted, const bool* __restrict__ va
     const int64_t v = s[p];
     const int64_t key = v >> row_bits;
     const int row = static_cast<int>(v & mask);
-    int32_t* o = out + static_cast<size_t>(row) * nc + band;
-    if (!valid[row]) {
-      o[0] = o[nbt] = o[2 * nbt] = row;
-      continue;
+    int h = row, p1 = row, p2 = row;
+    if (valid[row]) {
+      h = static_cast<int32_t>(s[max(before, starts[i])] & mask);
+      const int64_t v1 = p >= 1 ? s[p - 1] : -1;
+      const int64_t v2 = p >= 2 ? s[p - 2] : -1;
+      if (p >= 1 && (v1 >> row_bits) == key) p1 = static_cast<int32_t>(v1 & mask);
+      if (p >= 2 && (v2 >> row_bits) == key) p2 = static_cast<int32_t>(v2 & mask);
     }
-    const int rs = max(before, starts[i]);
-    o[0] = static_cast<int32_t>(s[rs] & mask);
-    const int64_t v1 = p >= 1 ? s[p - 1] : -1;
-    const int64_t v2 = p >= 2 ? s[p - 2] : -1;
-    o[nbt] = p >= 1 && (v1 >> row_bits) == key ? static_cast<int32_t>(v1 & mask) : row;
-    o[2 * nbt] = p >= 2 && (v2 >> row_bits) == key ? static_cast<int32_t>(v2 & mask) : row;
+    // a record whose three rows are equal is (row, row, row): the run's
+    // first row, a row alone in its run, an invalid row; the records start
+    // all ones (three equal fields), so those are not written
+    if (h != p1 || p1 != p2) {
+      rec[static_cast<size_t>(band) * B + row] = Rec<Pack>::make(h, p1, p2);
+    }
   }
 }
+
+// Block: `rows` consecutive rows.  rec[band][row] of every band into a
+// shared tile of rows x (3 nbt + 1) int32 (the padding keeps the column
+// writes off one bank), then the rows' 3 nbt columns out contiguously.
+template <bool Pack>
+__global__ void __launch_bounds__(kThreads)
+heads_out_kernel(const typename Rec<Pack>::T* __restrict__ rec, int B, int nbt, int rows,
+                 int32_t* __restrict__ out) {
+  extern __shared__ int32_t tile_s[];
+  const int nc = 3 * nbt, pitch = nc + 1;
+  const long long r0 = static_cast<long long>(blockIdx.x) * rows;
+  const int nr = static_cast<int>(B - r0 < rows ? B - r0 : rows);
+  for (int idx = threadIdx.x; idx < nbt * nr; idx += kThreads) {
+    const int band = idx / nr, r = idx - band * nr;
+    const typename Rec<Pack>::T v = __ldg(rec + static_cast<size_t>(band) * B + r0 + r);
+    int h = Rec<Pack>::get(v, 0), p1 = Rec<Pack>::get(v, 1), p2 = Rec<Pack>::get(v, 2);
+    if (h == p1 && p1 == p2) h = p1 = p2 = static_cast<int>(r0 + r);  // not written: self
+    int32_t* t = tile_s + r * pitch;
+    t[band] = h;
+    t[nbt + band] = p1;
+    t[2 * nbt + band] = p2;
+  }
+  __syncthreads();
+  int32_t* o = out + r0 * nc;
+  for (int idx = threadIdx.x; idx < nr * nc; idx += kThreads) {
+    const int r = idx / nc;
+    o[idx] = tile_s[r * pitch + idx - r * nc];
+  }
+}
+
+// Rows a heads_out_kernel block takes at nbt <= kMaxHeadBands bands.
+inline int stage_rows(int nbt) {
+  const int rows = kStageInts / (3 * nbt + 1);
+  return rows < kStageRows ? rows : kStageRows;
+}
+
+// Whether a run-head record packs its three rows into 8 bytes (Rec<true>).
+inline bool packed_records(int row_bits) { return row_bits <= kRecBits; }
+
+// ---- lsh_verify ---------------------------------------------------------
 
 enum ThrMode { kThrScalar = 0, kThrColumn = 1, kThrEdge = 2, kThrFine = 3 };
 
@@ -218,66 +563,185 @@ struct VerifyArgs {
   float* bars;
 };
 
-// True when column c of row b is a fine column whose candidate j shares no
-// coarse key with b (the reference's _fine_only_chunks).
-__device__ __forceinline__ bool fine_only(const VerifyArgs& a, int b, int c, int j) {
-  if (c % a.nk < a.num_coarse) return false;
-  const int64_t* kb = a.keys + static_cast<size_t>(b) * a.nk;
-  const int64_t* kj = a.keys + static_cast<size_t>(j) * a.nk;
-  for (int i = 0; i < a.num_coarse; ++i) {
-    if (kb[i] == kj[i]) return false;
-  }
-  return true;
-}
+constexpr unsigned char kShares = 1;  // a coarse key shared with the row
+constexpr unsigned char kValid = 2;   // the candidate is valid
 
-// A warp a row: lane l takes column c0 + l of each group of 32 columns;
-// the warp counts the agreement of every column's candidate in turn.
-__global__ void __launch_bounds__(kThreads) verify_kernel(const VerifyArgs a) {
-  const int b = static_cast<int>((static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5);
-  if (b >= a.B) return;
-  const int lane = threadIdx.x & 31;
-  const uint32_t* sb = a.sig != nullptr ? a.sig + static_cast<size_t>(b) * a.P : nullptr;
+// A warp a row b, over its columns in chunks of kVerifyChunk:
+// 1. compaction: each group of 32 columns' non-self, in-range candidates,
+//    each distinct j given a slot once (match_any within the group, a scan
+//    of the chunk's earlier slots across groups), each lane keeping its
+//    columns' candidates and slots in registers;
+// 2. each slot's agreement count, whether it shares a coarse key with b
+//    and whether it is valid: R > 0 takes kSub lanes a candidate and 32 /
+//    kSub candidates at once, a lane R 16-byte words of each signature
+//    (P = 4 kSub R), the row's own words held in registers; R = 0 takes a
+//    candidate at a time, a lane every 32nd word;
+// 3. each column's bar, ok, need or bar alone, from its slot (self: P
+//    words agree; out of range: no edge).
+template <int R>
+__global__ void __launch_bounds__(kThreads, 8) verify_kernel(const VerifyArgs a) {
+  __shared__ int s_j[kWarps][kVerifyChunk];
+  __shared__ int s_cnt[kWarps][kVerifyChunk];
+  __shared__ unsigned char s_flag[kWarps][kVerifyChunk];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarps + warp;
+  if (b >= a.B) return;  // no block-wide barrier below
+  const int g = lane & (kSub - 1), sg = lane / kSub;
+  const unsigned lt = (1u << lane) - 1u;
   const bool vb = a.valid != nullptr && a.valid[b];
   const float fp = static_cast<float>(a.P);
-  for (int c0 = 0; c0 < a.nc; c0 += 32) {
-    const int c = c0 + lane;
-    const size_t e = static_cast<size_t>(b) * a.nc + c;
-    const int j = c < a.nc ? a.rep[e] : b;
-    const bool in_range = j >= 0 && j < a.B;
-    int count = 0;
-    if (sb != nullptr) {
-      const int group = min(32, a.nc - c0);
-      for (int t = 0; t < group; ++t) {
-        const int jt = __shfl_sync(kFull, j, t);
-        int n;
-        if (jt == b) {
-          n = a.P;  // self: every word agrees
-        } else if (jt < 0 || jt >= a.B) {
-          n = 0;
-        } else {
-          const uint32_t* sj = a.sig + static_cast<size_t>(jt) * a.P;
-          int m = 0;
-          for (int p = lane; p < a.P; p += 32) m += __ldg(sb + p) == __ldg(sj + p);
-          n = __reduce_add_sync(kFull, m);
+  const size_t rb = static_cast<size_t>(b) * a.nc;
+  uint4 mine[R > 0 ? R : 1];  // loaded with the row's first candidate
+  bool have_mine = false;
+  const int64_t* kb = a.keys != nullptr ? a.keys + static_cast<size_t>(b) * a.nk : nullptr;
+  const int64_t kb0 = kb != nullptr && g < a.num_coarse ? kb[g] : 0;
+  const int64_t kb1 = kb != nullptr && g + kSub < a.num_coarse ? kb[g + kSub] : 0;
+  int* uj = s_j[warp];
+  int* ucnt = s_cnt[warp];
+  unsigned char* uflag = s_flag[warp];
+  constexpr int kGroups = kVerifyChunk / 32;
+  for (int c0 = 0; c0 < a.nc; c0 += kVerifyChunk) {
+    const int cn = min(kVerifyChunk, a.nc - c0);
+    int nu = 0;
+    int jr[kGroups], sr[kGroups];  // the lane's column of each group: its j and slot
+#pragma unroll
+    for (int gi = 0; gi < kGroups; ++gi) {
+      const int cl = gi * 32 + lane;
+      const int j = cl < cn ? a.rep[rb + c0 + cl] : b;
+      const bool cand = cl < cn && j != b && j >= 0 && j < a.B;
+      jr[gi] = j;
+      sr[gi] = -1;
+      if (__ballot_sync(kFull, cand) == 0) continue;  // self or out of range: no slot
+      const unsigned peers = __match_any_sync(kFull, cand ? j : -1);
+      const int first = __ffs(peers) - 1;
+      bool fresh = cand && lane == first;
+      int slot = -1;
+      if (fresh) {
+        // a j of an earlier group of the chunk keeps its slot
+        for (int u = 0; u < nu; ++u) {
+          if (uj[u] == j) {
+            slot = u;
+            fresh = false;
+            break;
+          }
         }
-        if (lane == t) count = n;
+      }
+      const unsigned fm = __ballot_sync(kFull, fresh);
+      if (fresh) {
+        slot = nu + __popc(fm & lt);
+        uj[slot] = j;
+      }
+      slot = __shfl_sync(kFull, slot, first);
+      sr[gi] = cand ? slot : -1;
+      nu += __popc(fm);
+    }
+    __syncwarp();
+    if (R > 0) {
+      constexpr int kAtOnce = 32 / kSub;
+      if (nu > 0 && !have_mine) {  // R > 0: sig is given
+        const uint4* sb = reinterpret_cast<const uint4*>(a.sig + static_cast<size_t>(b) * a.P);
+#pragma unroll
+        for (int r = 0; r < R; ++r) mine[r] = __ldg(sb + r * kSub + g);
+        have_mine = true;
+      }
+      for (int u0 = 0; u0 < nu; u0 += kAtOnce) {
+        const int u = u0 + sg;
+        const int j = u < nu ? uj[u] : b;
+        const uint4* sj = reinterpret_cast<const uint4*>(a.sig + static_cast<size_t>(j) * a.P);
+        uint4 w[R > 0 ? R : 1];
+#pragma unroll
+        for (int r = 0; r < R; ++r) w[r] = u < nu ? __ldg(sj + r * kSub + g) : uint4{};
+        int m = 0;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          m += (w[r].x == mine[r].x) + (w[r].y == mine[r].y) + (w[r].z == mine[r].z) +
+               (w[r].w == mine[r].w);
+        }
+#pragma unroll
+        for (int o = 1; o < kSub; o <<= 1) m += __shfl_xor_sync(kFull, m, o);
+        bool eq = false;
+        if (kb != nullptr && u < nu) {
+          const int64_t* kj = a.keys + static_cast<size_t>(j) * a.nk;
+          eq = (g < a.num_coarse && __ldg(kj + g) == kb0) ||
+               (g + kSub < a.num_coarse && __ldg(kj + g + kSub) == kb1);
+          for (int i = g + 2 * kSub; i < a.num_coarse && !eq; i += kSub) eq = kj[i] == kb[i];
+        }
+        const unsigned anyeq = __ballot_sync(kFull, eq);
+        if (g == 0 && u < nu) {
+          ucnt[u] = m;
+          const bool shares = (anyeq >> (sg * kSub)) & (kSub == 32 ? kFull : (1u << kSub) - 1u);
+          uflag[u] = (shares ? kShares : 0) | (a.valid != nullptr && a.valid[j] ? kValid : 0);
+        }
+      }
+    } else {
+      for (int u = 0; u < nu; ++u) {
+        const int j = uj[u];
+        int m = 0;
+        if (a.sig != nullptr) {
+          const uint32_t* sb = a.sig + static_cast<size_t>(b) * a.P;
+          const uint32_t* sj = a.sig + static_cast<size_t>(j) * a.P;
+          for (int p = lane; p < a.P; p += 32) m += __ldg(sb + p) == __ldg(sj + p);
+          m = __reduce_add_sync(kFull, m);
+        }
+        bool eq = false;
+        if (kb != nullptr) {
+          const int64_t* kj = a.keys + static_cast<size_t>(j) * a.nk;
+          for (int i = lane; i < a.num_coarse && !eq; i += 32) eq = kj[i] == kb[i];
+        }
+        const bool shares = __any_sync(kFull, eq);
+        if (lane == 0) {
+          ucnt[u] = m;
+          uflag[u] = (shares ? kShares : 0) | (a.valid != nullptr && a.valid[j] ? kValid : 0);
+        }
       }
     }
-    if (c >= a.nc) continue;
-    const bool fo = a.keys != nullptr && in_range && fine_only(a, b, c, j);
-    if (a.bars != nullptr) {
-      a.bars[e] = fo ? a.strict : a.base;
-      continue;
+    __syncwarp();
+#pragma unroll
+    for (int gi = 0; gi < kGroups; ++gi) {
+      const int cl = gi * 32 + lane;
+      if (cl >= cn) break;
+      const int c = c0 + cl;
+      const size_t e = rb + c;
+      const int j = jr[gi], slot = sr[gi];
+      const bool in_range = j >= 0 && j < a.B;
+      int count = 0;
+      bool shares = true, vj = false;
+      if (j == b) {
+        count = a.P;  // self: every word agrees
+        shares = a.num_coarse > 0;
+        vj = vb;
+      } else if (slot >= 0) {
+        count = ucnt[slot];
+        shares = uflag[slot] & kShares;
+        vj = uflag[slot] & kValid;
+      }
+      const bool fo = kb != nullptr && in_range && c % a.nk >= a.num_coarse && !shares;
+      if (a.bars != nullptr) {
+        a.bars[e] = fo ? a.strict : a.base;
+        continue;
+      }
+      const float agree = __fdiv_rn(static_cast<float>(count), fp);
+      float bar = a.base;
+      if (a.thr_mode == kThrColumn) bar = a.thr[c];
+      else if (a.thr_mode == kThrEdge) bar = a.thr[e];
+      else if (a.thr_mode == kThrFine) bar = fo ? a.strict : a.base;
+      const bool ok = in_range && agree >= bar && vb && vj;
+      if (a.ok != nullptr) a.ok[e] = ok;
+      if (a.need != nullptr) a.need[e] = ok && j != b && (fo || agree < a.band);
     }
-    const float agree = __fdiv_rn(static_cast<float>(count), fp);
-    float bar = a.base;
-    if (a.thr_mode == kThrColumn) bar = a.thr[c];
-    else if (a.thr_mode == kThrEdge) bar = a.thr[e];
-    else if (a.thr_mode == kThrFine) bar = fo ? a.strict : a.base;
-    const bool ok = in_range && agree >= bar && vb && a.valid[j];
-    if (a.ok != nullptr) a.ok[e] = ok;
-    if (a.need != nullptr) a.need[e] = ok && j != b && (fo || agree < a.band);
+    __syncwarp();
   }
+}
+
+// The words of a P-word signature that one lane of kSub loads a round are
+// 4: R = P / (4 kSub) rounds where that is 1, 2, 4 or 8 and the rows are
+// 16-byte aligned; 0 (the general path) otherwise.
+inline int verify_rounds(const void* sig, int P) {
+  if (sig == nullptr || P % (4 * kSub) != 0 || reinterpret_cast<uintptr_t>(sig) % 16 != 0) {
+    return 0;
+  }
+  const int r = P / (4 * kSub);
+  return r == 1 || r == 2 || r == 4 || r == 8 ? r : 0;
 }
 
 // x = z0 = out = arange(B); the round flags cleared.
@@ -329,6 +793,26 @@ __global__ void label_jump_kernel(const bool* __restrict__ valid, int B, int rou
   out[b] = valid[b] ? n : b;
 }
 
+template <bool Pack>
+cudaError_t run_heads(const void* sorted, const void* valid, int B, int nbt, int row_bits,
+                      void* out, void* rec, cudaStream_t s) {
+  using T = typename Rec<Pack>::T;
+  auto* r = static_cast<T*>(rec);
+  cudaError_t err = cudaMemsetAsync(r, 0xFF, sizeof(T) * B * static_cast<size_t>(nbt), s);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((B + kHeadTile - 1) / kHeadTile, nbt);
+  run_heads_kernel<Pack><<<grid, kThreads, 0, s>>>(static_cast<const int64_t*>(sorted),
+                                                   static_cast<const bool*>(valid), B,
+                                                   row_bits, r);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int rows = stage_rows(nbt);
+  const size_t smem = sizeof(int32_t) * rows * (3 * nbt + 1);  // at most 48 KiB
+  heads_out_kernel<Pack><<<(B + rows - 1) / rows, kThreads, smem, s>>>(
+      r, B, nbt, rows, static_cast<int32_t*>(out));
+  return cudaGetLastError();
+}
+
 inline unsigned blocks_for(long long threads) {
   return static_cast<unsigned>((threads + kThreads - 1) / kThreads);
 }
@@ -374,19 +858,85 @@ int astt_lsh_pack(const void* keys, int B, int nk, const void* valid, int row_bi
   return static_cast<int>(cudaGetLastError());
 }
 
-// sorted int64[nbt, B] (each band ascending), valid bool[B] -> out
-// int32[B, 3 nbt].
-int astt_lsh_run_heads(const void* sorted, const void* valid, int B, int nbt, int row_bits,
-                       void* out, void* stream) {
+int astt_lsh_sort_passes() { return kSortPasses; }
+
+// Launches of one astt_lsh_sort call with B > 0: a digit count, then a
+// scatter a pass.
+int astt_lsh_sort_launches() { return 1 + kSortPasses; }
+
+// The bytes of astt_lsh_sort's scratch: each pass's published tile counts
+// (uint64 [passes][nbt][ntiles][kBins]), the band counts (int32
+// [nbt][passes][kBins]) and the tile tickets (int32 [passes][nbt]), zeroed
+// by the call.
+long long astt_lsh_sort_scratch(int B, int nbt) {
+  const long long ntiles = (B + kSortTile - 1) / kSortTile;
+  return 8LL * kSortPasses * nbt * ntiles * kBins + 4LL * nbt * kSortPasses * kBins +
+         4LL * kSortPasses * nbt;
+}
+
+// packed int64[nbt, B] -> out int64[nbt, B], each band ascending; packed is
+// (key << row_bits) | row with key < 2^32 and each band's rows ascending.
+// tmp int64[nbt, B] and astt_lsh_sort_scratch bytes are scratch.
+int astt_lsh_sort(const void* packed, int B, int nbt, int row_bits, void* out, void* tmp,
+                  void* scratch, void* stream) {
   if (B < 0 || nbt < 1 || nbt > 65535 || row_bits < 0 || row_bits > 31) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0) return 0;
-  const dim3 grid((B + kHeadTile - 1) / kHeadTile, nbt);
-  run_heads_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(sorted), static_cast<const bool*>(valid), B, nbt, row_bits,
-      static_cast<int32_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+  auto* s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(sort_scatter_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kScatterSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int ntiles = (B + kSortTile - 1) / kSortTile;
+  const dim3 grid(ntiles, nbt);
+  // the passes alternate between tmp and out, the last one into out
+  int64_t* bufs[2] = {static_cast<int64_t*>(tmp), static_cast<int64_t*>(out)};
+  const int64_t* src = static_cast<const int64_t*>(packed);
+  const size_t per_pass = static_cast<size_t>(nbt) * ntiles * kBins;
+  auto* status = static_cast<unsigned long long*>(scratch);
+  auto* counts = reinterpret_cast<int*>(status + kSortPasses * per_pass);
+  int* tickets = counts + static_cast<size_t>(nbt) * kSortPasses * kBins;
+  err = cudaMemsetAsync(scratch, 0, static_cast<size_t>(astt_lsh_sort_scratch(B, nbt)), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sort_digits_kernel<<<grid, kThreads, 0, s>>>(src, B, row_bits, counts);
+  err = cudaGetLastError();
+  for (int pass = 0; pass < kSortPasses && err == cudaSuccess; ++pass) {
+    const int shift = row_bits + pass * kRadixBits;
+    int64_t* dst = bufs[(pass + kSortPasses) & 1];
+    sort_scatter_kernel<<<grid, kThreads, kScatterSmem, s>>>(
+        src, dst, B, shift, ntiles, counts + pass * kBins, status + pass * per_pass,
+        tickets + pass * nbt);
+    src = dst;
+    err = cudaGetLastError();
+  }
+  return static_cast<int>(err);
+}
+
+// The most bands astt_lsh_run_heads takes.
+int astt_lsh_max_head_bands() { return kMaxHeadBands; }
+
+// The bytes of astt_lsh_run_heads' rec scratch.
+long long astt_lsh_run_heads_scratch(int B, int nbt, int row_bits) {
+  const size_t rec = packed_records(row_bits) ? sizeof(int64_t) : sizeof(int4);
+  return static_cast<long long>(B) * nbt * static_cast<long long>(rec);
+}
+
+// sorted int64[nbt, B] (each band ascending), valid bool[B] -> out
+// int32[B, 3 nbt], nbt <= kMaxHeadBands; rec: astt_lsh_run_heads_scratch
+// bytes of scratch.  Two launches: the records, then their transpose.
+int astt_lsh_run_heads(const void* sorted, const void* valid, int B, int nbt, int row_bits,
+                       void* out, void* rec, void* stream) {
+  if (B < 0 || nbt < 1 || nbt > kMaxHeadBands || row_bits < 0 || row_bits > 31) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (B == 0) return 0;
+  auto* s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      packed_records(row_bits)
+          ? run_heads<true>(sorted, valid, B, nbt, row_bits, out, rec, s)
+          : run_heads<false>(sorted, valid, B, nbt, row_bits, out, rec, s);
+  return static_cast<int>(err);
 }
 
 // See VerifyArgs: the ok / need / bars matrices of rep int32[B, nc].
@@ -403,7 +953,15 @@ int astt_lsh_verify(const void* sig, int P, const void* rep, int B, int nc, cons
                static_cast<const bool*>(valid), static_cast<const int64_t*>(keys), nk,
                num_coarse, static_cast<const float*>(thr), thr_mode, base, strict, band,
                static_cast<bool*>(ok), static_cast<bool*>(need), static_cast<float*>(bars)};
-  verify_kernel<<<blocks_for(32LL * B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  const unsigned blocks = (B + kWarps - 1) / kWarps;
+  auto* s = static_cast<cudaStream_t>(stream);
+  switch (verify_rounds(sig, P)) {
+    case 1: verify_kernel<1><<<blocks, kThreads, 0, s>>>(a); break;
+    case 2: verify_kernel<2><<<blocks, kThreads, 0, s>>>(a); break;
+    case 4: verify_kernel<4><<<blocks, kThreads, 0, s>>>(a); break;
+    case 8: verify_kernel<8><<<blocks, kThreads, 0, s>>>(a); break;
+    default: verify_kernel<0><<<blocks, kThreads, 0, s>>>(a); break;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,20 +3,21 @@
 Counterpart of the reference's ``ops/lsh.py``, bit-equal to it.  The
 reference leaves these stages to XLA outside any Pallas kernel.  For a
 tensor on the card each public function here launches the hand-written
-kernels of ``csrc/lsh.cu`` (``ops.lsh_cuda``: ``lsh_keys``,
-``lsh_run_heads``, ``lsh_verify``, ``lsh_label``; the one library call is
-``torch.sort`` of the packed per-band keys); for a CPU tensor it runs the
-plain PyTorch version below, which the kernels mirror.
+kernels of ``csrc/lsh.cu`` (``ops.lsh_cuda``: ``lsh_keys``, ``lsh_sort``,
+``lsh_run_heads``, ``lsh_verify``, ``lsh_label``; no library call); for a
+CPU tensor it runs the plain PyTorch version below, which the kernels
+mirror.
 
 - band keys: an FNV-1a fold of each band's signature rows, XOR a salt,
   then ``fmix32`` — ``int64`` values in ``[0, 2³²)`` (``ops.shingle``);
   the wide keys add a second lane of other constants (the stream
   backend's bloom mode packs the two into 64 bits);
 - candidates: each band's rows sorted by (key, row) — one ``int64`` sort
-  key ``(key << row_bits) | row``, invalid rows at key ``U32_MAX``, unique
-  so the sort needs no stability — give every row its run head (the row
-  at its run's start, a segmented max-scan of run starts), predecessor
-  and predecessor² as candidate representatives;
+  key ``(key << row_bits) | row``, invalid rows at key ``U32_MAX``; on the
+  card a stable radix sort of the 32 key bits, the rows entering in
+  ascending order — give every row its run head (the row at its run's
+  start, a segmented max-scan of run starts), predecessor and
+  predecessor² as candidate representatives;
 - resolution: a candidate edge holds when the two signatures agree on at
   least ``threshold`` of their permutations (``count/P`` in float32
   against a float32 threshold, as the reference compares), then labels
@@ -196,13 +197,21 @@ def run_heads_plain(sorted_keys: torch.Tensor, valid: torch.Tensor, bits: int) -
     return torch.cat(cands, dim=1).to(torch.int32)
 
 
+def sort_plain(packed: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ``lsh_sort`` kernel: each band of the packed
+    sort keys ``int64[nbt, B]`` ascending.  The keys are unique, so the
+    order is the reference's stable ``(key, row)`` sort."""
+    return torch.sort(packed, dim=1).values
+
+
 def _rep_bands_from_packed(packed: torch.Tensor, valid: torch.Tensor, bits: int) -> torch.Tensor:
-    """``torch.sort`` of each band's packed keys (unique, so no stability
-    is needed), then the run heads: the kernel on the card."""
-    sorted_keys = torch.sort(packed, dim=1).values
-    if _on_card(sorted_keys):
-        return lsh_cuda.lsh_run_heads(sorted_keys, valid, bits)
-    return run_heads_plain(sorted_keys, valid, bits)
+    """Each band's packed keys sorted, then the run heads.  On the card
+    ``lsh_sort`` (a stable LSD radix sort of the 32 key bits: the rows
+    enter ascending, so ties end ordered by row, the packed keys' order)
+    and ``lsh_run_heads``; on the CPU their plain versions."""
+    if _on_card(packed):
+        return lsh_cuda.lsh_run_heads(lsh_cuda.lsh_sort(packed, bits), valid, bits)
+    return run_heads_plain(sort_plain(packed), valid, bits)
 
 
 def duplicate_rep_bands(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -464,8 +473,8 @@ def _maybe_densify(sig: torch.Tensor, densify_oph: bool) -> torch.Tensor:
 
 def _keys_and_candidates(sig: torch.Tensor, valid: torch.Tensor, band_salt, fine_salt):
     """``(keys, rep_bands)``: on the card one ``lsh_keys`` launch writes the
-    keys and the packed sort keys, then ``torch.sort`` and one
-    ``lsh_run_heads`` launch."""
+    keys and the packed sort keys, then ``lsh_sort`` and
+    ``lsh_run_heads``."""
     bits = row_bits(sig.shape[0])
     valid = valid.contiguous()
     if _on_card(sig):
@@ -507,9 +516,9 @@ def fused_resolve_epilogue(
     """The whole estimator-only resolution from the signature accumulator:
     (OPH densify) → coarse+fine keys → per-band candidates → (optional)
     per-edge fine bars → verification and component labels.  Returns
-    ``int32[B]``.  On the card: ``lsh_keys``, ``torch.sort``,
+    ``int32[B]``.  On the card: ``lsh_keys``, ``lsh_sort``,
     ``lsh_run_heads``, ``lsh_verify`` (the fine bars inline) and
-    ``lsh_label``, 4 + 2·``jump_rounds`` launches and the sort."""
+    ``lsh_label``, no library call."""
     sig, keys, rep_bands = fused_candidate_epilogue(
         sig_acc, valid, band_salt, fine_salt, densify_oph=densify_oph
     )

@@ -1,14 +1,19 @@
 """Wrappers of the hand-written CUDA LSH epilogues (``csrc/lsh.cu``).
 
-Four kernels replace the jnp device code of the reference's
+Five kernels replace the jnp device code of the reference's
 ``ops/lsh.py``, each bit-equal to its plain version in ``ops.lsh``:
 
 - :func:`lsh_keys`: the band keys of every key set of a signature row in
   one launch (coarse then fine, or the two wide lanes), and, from the same
-  launch, the packed per-band sort keys of :func:`lsh_run_heads`;
+  launch, the packed per-band sort keys of :func:`lsh_sort`;
   :func:`pack_keys` packs keys already made (counted as ``lsh_keys``);
+- :func:`lsh_sort`: each band's packed keys, whose rows enter ascending,
+  sorted by a stable LSD radix sort of their 32 key bits (a digit count,
+  then a scatter a pass, all counted);
 - :func:`lsh_run_heads`: run head, predecessor and predecessor² of every
-  row in every band from the bands' sorted packed keys;
+  row in every band (at most :data:`MAX_HEAD_BANDS`) from the bands'
+  sorted packed keys (a scan, then a transpose into the rows: 2 launches,
+  both counted);
 - :func:`lsh_verify`: the agreement of every (row, candidate) edge against
   a scalar, per-column, per-edge or fine-only bar, the exact-verify
   ``need`` mask, or the fine-only bars alone;
@@ -39,6 +44,11 @@ _float = ctypes.c_float
 #: the most key sets a row may have (``kMaxSalts`` in ``csrc/lsh.cu``: the
 #: salts travel by value in the launch's parameter buffer)
 MAX_SALTS = 512
+#: the most bands :func:`lsh_run_heads` takes (``kMaxHeadBands``: a row's
+#: ``3·nbt + 1`` int32 fit the transpose's 48 KiB tile)
+MAX_HEAD_BANDS = 4095
+#: kernel launches of one :func:`lsh_run_heads` call
+RUN_HEADS_LAUNCHES = 2
 #: ``thr_mode`` of ``astt_lsh_verify``
 THR_SCALAR, THR_COLUMN, THR_EDGE, THR_FINE = 0, 1, 2, 3
 
@@ -52,13 +62,21 @@ def _lib() -> ctypes.CDLL:
         _ptr, _int, _int, _int, _int, _ptr, _int, _ptr, _ptr, _int, _ptr, _ptr,
     ]
     lib.astt_lsh_pack.argtypes = [_ptr, _int, _int, _ptr, _int, _ptr, _ptr]
-    lib.astt_lsh_run_heads.argtypes = [_ptr, _ptr, _int, _int, _int, _ptr, _ptr]
+    lib.astt_lsh_sort.argtypes = [_ptr, _int, _int, _int, _ptr, _ptr, _ptr, _ptr]
+    lib.astt_lsh_sort_scratch.argtypes = [_int, _int]
+    lib.astt_lsh_sort_scratch.restype = ctypes.c_longlong
+    lib.astt_lsh_sort_launches.restype = ctypes.c_int
+    lib.astt_lsh_sort_passes.restype = ctypes.c_int
+    lib.astt_lsh_run_heads.argtypes = [_ptr, _ptr, _int, _int, _int, _ptr, _ptr, _ptr]
+    lib.astt_lsh_max_head_bands.restype = ctypes.c_int
+    lib.astt_lsh_run_heads_scratch.argtypes = [_int, _int, _int]
+    lib.astt_lsh_run_heads_scratch.restype = ctypes.c_longlong
     lib.astt_lsh_verify.argtypes = [
         _ptr, _int, _ptr, _int, _int, _ptr, _ptr, _int, _int, _ptr, _int, _float, _float,
         _float, _ptr, _ptr, _ptr, _ptr,
     ]
     lib.astt_lsh_label.argtypes = [_ptr, _ptr, _ptr, _int, _int, _int, _ptr, _ptr, _ptr]
-    for fn in ("keys", "pack", "run_heads", "verify", "label"):
+    for fn in ("keys", "pack", "sort", "run_heads", "verify", "label"):
         getattr(lib, f"astt_lsh_{fn}").restype = ctypes.c_int
     lib.astt_lsh_max_salts.restype = ctypes.c_int
     lib.astt_lsh_error_string.argtypes = [ctypes.c_int]
@@ -69,6 +87,11 @@ def _lib() -> ctypes.CDLL:
 def max_salts() -> int:
     """The kernel's ``kMaxSalts`` (builds the library if needed)."""
     return _lib().astt_lsh_max_salts()
+
+
+def max_head_bands() -> int:
+    """The kernel's ``kMaxHeadBands`` (builds the library if needed)."""
+    return _lib().astt_lsh_max_head_bands()
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -188,26 +211,79 @@ def pack_keys(keys: torch.Tensor, valid: torch.Tensor, bits: int) -> torch.Tenso
     return packed
 
 
-def lsh_run_heads(sorted_keys: torch.Tensor, valid: torch.Tensor, bits: int) -> torch.Tensor:
-    """``int32[B, 3·nbt]``: run heads of every band, then predecessors,
-    then predecessors², from ``sorted_keys int64[nbt, B]`` (each band's
-    packed keys ascending, :func:`lsh_keys` then ``torch.sort(dim=1)``);
-    self where there is none, self for invalid rows.  One launch."""
-    _on_card(sorted_keys, "sorted_keys")
-    dev = sorted_keys.device
-    _check(sorted_keys, "sorted_keys", (torch.int64,), 2, dev)
-    nbt, B = sorted_keys.shape
-    _check_valid(valid, B, dev)
+def _check_bands(packed: torch.Tensor, name: str, bits: int) -> tuple[int, int]:
+    """``(nbt, B)`` of packed sort keys ``int64[nbt, B]`` on the card."""
+    _on_card(packed, name)
+    _check(packed, name, (torch.int64,), 2, packed.device)
+    nbt, B = packed.shape
     if not 1 <= nbt <= 65535:
         raise ValueError(f"{nbt} bands; the kernel takes 1 to 65,535")
     if not 0 <= bits <= 31 or (B > 1 and (B - 1) >> bits):
         raise ValueError(f"{B} rows do not fit {bits} row bits (at most 31)")
+    return nbt, B
+
+
+def lsh_sort(packed: torch.Tensor, bits: int) -> torch.Tensor:
+    """Each band of the packed sort keys ``packed int64[nbt, B]``, whose
+    row fields ascend along the band, sorted: ``int64[nbt, B]``.
+
+    The kernel sorts by the 32 key bits alone, stably, so the rows must
+    enter ascending: ``packed`` is ``(key << bits) | row`` with ``key <
+    2³²`` and ``row`` the position in the band, as :func:`lsh_keys` and
+    :func:`pack_keys` write it.  Then the result is ``torch.sort(packed,
+    dim=1).values``; keys in any other row order come out ordered by key
+    and, within a key, in the order they entered, which is not that.  The
+    precondition is not checked (it would read every key once more).
+    ``sort_launches()`` launches (a digit count, then a scatter a pass)."""
+    nbt, B = _check_bands(packed, "packed", bits)
+    out = torch.empty_like(packed)
+    if B:
+        lib = _lib()
+        tmp = torch.empty_like(packed)
+        scratch = torch.empty((lib.astt_lsh_sort_scratch(B, nbt),), dtype=torch.uint8,
+                              device=packed.device)
+        err = lib.astt_lsh_sort(packed.data_ptr(), B, nbt, bits, out.data_ptr(), tmp.data_ptr(),
+                                scratch.data_ptr(), _stream(packed.device))
+        _raise_on(err, "lsh_sort")
+        lsh_sort.launches += sort_launches()
+    return out
+
+
+lsh_sort.launches = 0
+
+
+def sort_launches() -> int:
+    """Kernel launches of one :func:`lsh_sort` call (builds the library if
+    needed)."""
+    return _lib().astt_lsh_sort_launches()
+
+
+def sort_passes() -> int:
+    """The radix passes of one :func:`lsh_sort` call."""
+    return _lib().astt_lsh_sort_passes()
+
+
+def lsh_run_heads(sorted_keys: torch.Tensor, valid: torch.Tensor, bits: int) -> torch.Tensor:
+    """``int32[B, 3·nbt]``: run heads of every band, then predecessors,
+    then predecessors², from ``sorted_keys int64[nbt, B]`` (each band's
+    packed keys ascending, :func:`lsh_sort`); self where there is none,
+    self for invalid rows; ``nbt`` at most :data:`MAX_HEAD_BANDS`.
+    :data:`RUN_HEADS_LAUNCHES` launches (the scan, then the transpose into
+    the rows)."""
+    nbt, B = _check_bands(sorted_keys, "sorted_keys", bits)
+    if nbt > MAX_HEAD_BANDS:
+        raise ValueError(f"{nbt} bands; the run heads take 1 to {MAX_HEAD_BANDS:,}")
+    dev = sorted_keys.device
+    _check_valid(valid, B, dev)
     out = torch.empty((B, 3 * nbt), dtype=torch.int32, device=dev)
     if B:
-        err = _lib().astt_lsh_run_heads(sorted_keys.data_ptr(), valid.data_ptr(), B, nbt, bits,
-                                        out.data_ptr(), _stream(dev))
+        lib = _lib()
+        rec = torch.empty((lib.astt_lsh_run_heads_scratch(B, nbt, bits),), dtype=torch.uint8,
+                          device=dev)
+        err = lib.astt_lsh_run_heads(sorted_keys.data_ptr(), valid.data_ptr(), B, nbt, bits,
+                                     out.data_ptr(), rec.data_ptr(), _stream(dev))
         _raise_on(err, "lsh_run_heads")
-        lsh_run_heads.launches += 1
+        lsh_run_heads.launches += RUN_HEADS_LAUNCHES
     return out
 
 

@@ -11,9 +11,11 @@ start residue, with several chunks and dropped owners, and the rerank
 settle ``rerank_settle`` (its verdicts fused) at sketch widths 1,024, 256,
 37, 6,140 and its widest on up to 65,536 pairs with its edge cases, and
 the LSH epilogues of ``csrc/lsh.cu`` (``lsh_kernels_vs_plain``:
-``lsh_keys``, ``lsh_run_heads``, ``lsh_verify``, ``lsh_label`` on the CPU
-tests' edge cases, at 65,536 rows with 32 and 0 fine key sets, the wide
-lanes, an OPH-densified input and truncated label rounds).  Then
+``lsh_keys``, ``lsh_sort`` against ``torch.sort``, ``lsh_run_heads``,
+``lsh_verify``, ``lsh_label`` on the CPU tests' edge cases, at 65,536 rows
+with 32 and 0 fine key sets, one band, rows just past a tile, the wide
+lanes, an OPH-densified input, P = 64 and 36 and truncated label
+rounds).  Then
 it drives the port's paths, each with the launch counters set to 0 just
 before and read just after:
 
@@ -23,9 +25,10 @@ before and read just after:
   its second call (the first call's time beside it, and what a fresh
   64 MiB pinned buffer costs): every planted duplicate resolves to its
   source, the segment kernel ran once per chunk and the epilogue once on
-  its four LSH kernels; its time broken down (the epilogue on its kernels
-  beside its plain version's), each LSH kernel timed beside its bound,
-  plain version and, for the run heads, ``torch.sort``,
+  its five LSH kernels, and no library sort ran on the card; its time
+  broken down (the epilogue on its kernels beside its plain version's),
+  each LSH kernel timed beside its bound, plain version and, for
+  ``lsh_sort``, ``torch.sort``, the verify beside its gather floor,
   each MinHash entry point timed on the same corpus beside its bound and
   plain version, the segment size swept;
 - the default engine, ``NearDupEngine().dedup_reps`` (the rerank tier,
@@ -921,7 +924,8 @@ def entry_path(card: str) -> None:
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    out = fn(*args).cpu()
+    with card_sorts() as sorts:
+        out = fn(*args).cpu()
     seconds = time.perf_counter() - t0
     launches, lsh_launches = read_launches(), read_lsh_launches()
     cpu_fn, cpu_args = entry(device="cpu")
@@ -934,9 +938,10 @@ def entry_path(card: str) -> None:
     assert equal, "entry() differs between the card and the CPU"
     assert int(out[128]) == 0, "entry(): the planted copy is not resolved"
     assert launches["minhash_sig"] == 1 and sum(launches.values()) == 1, launches
-    # candidate_keys, then duplicate_rep_bands' packing pass; its jump_rounds 8
-    assert lsh_launches == {"lsh_keys": 2, "lsh_run_heads": 1, "lsh_verify": 1,
-                            "lsh_label": 17}, lsh_launches
+    # candidate_keys, then duplicate_rep_bands' packing pass; 16 + 32
+    # bands; its jump_rounds 8
+    assert lsh_launches == lsh_path_launches(8, keys=2), lsh_launches
+    assert sorts == [], f"a library sort ran on the card: {sorts}"
 
 
 def cli_run(argv: list[str]) -> dict:
@@ -4644,6 +4649,8 @@ LSH_SOURCE = "advanced_scrapper_tpu_torch/csrc/lsh.cu"
 LSH_REPLACES = {
     "lsh_keys": "advanced_scrapper_tpu/ops/lsh.py:416 (fused_keys_epilogue; band_keys :56, "
                 "band_keys_wide :68, _fold_bands :39, jnp)",
+    "lsh_sort": "advanced_scrapper_tpu/ops/lsh.py:104 (the lax.sort((key, row), num_keys=2) "
+                "of _run_head_per_band :87, XLA)",
     "lsh_run_heads": "advanced_scrapper_tpu/ops/lsh.py:87 (_run_head_per_band under "
                      "duplicate_rep_bands :158, jnp)",
     "lsh_verify": "advanced_scrapper_tpu/ops/lsh.py:192 (resolve_rep_bands; "
@@ -4662,6 +4669,42 @@ def lsh_counters() -> dict:
 
 def read_lsh_launches() -> dict[str, int]:
     return {name: f.launches for name, f in lsh_counters().items()}
+
+
+def lsh_path_launches(jump_rounds: int, keys: int = 1) -> dict[str, int]:
+    """The LSH launches of one resolve epilogue: ``keys`` ``lsh_keys``
+    calls, then one call of each other kernel."""
+    from advanced_scrapper_tpu_torch.ops import lsh_cuda
+
+    return {"lsh_keys": keys, "lsh_sort": lsh_cuda.sort_launches(),
+            "lsh_run_heads": lsh_cuda.RUN_HEADS_LAUNCHES, "lsh_verify": 1,
+            "lsh_label": lsh_cuda.label_launches(jump_rounds)}
+
+
+@contextlib.contextmanager
+def card_sorts():
+    """Yields a list that collects every library sort (``torch.sort``,
+    ``argsort``, ``msort``, ``Tensor.sort``/``argsort``) called on a CUDA
+    tensor inside the block: the card path sorts with ``lsh_sort``."""
+    seen: list[str] = []
+    patched = [(torch, n) for n in ("sort", "argsort", "msort")]
+    patched += [(torch.Tensor, n) for n in ("sort", "argsort", "msort")]
+    saved = [(obj, n, getattr(obj, n)) for obj, n in patched]
+
+    def counting(name, fn):
+        def call(t, *a, **kw):
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                seen.append(name)
+            return fn(t, *a, **kw)
+        return call
+
+    for obj, n, fn in saved:
+        setattr(obj, n, counting(f"{getattr(obj, '__name__', obj)}.{n}", fn))
+    try:
+        yield seen
+    finally:
+        for obj, n, fn in saved:
+            setattr(obj, n, fn)
 
 
 def lsh_sigs(rng: np.random.RandomState, B: int, P: int = 128) -> tuple[np.ndarray, np.ndarray]:
@@ -4739,18 +4782,22 @@ def lsh_graphs(rng: np.random.RandomState) -> dict[str, tuple[np.ndarray, np.nda
 def check_lsh_vs_plain(params, dev) -> dict:
     """Each LSH epilogue kernel (``csrc/lsh.cu``) bit-equal to its plain
     version in ``ops/lsh.py`` on the card: ``lsh_keys`` (and its packing
-    pass) at B = 1, 2, 3, 37, 999 and 65,536 with 32, 0 and 64 fine
-    key sets, the wide lanes, an OPH-densified input; ``lsh_run_heads`` on
-    those keys and on the CPU tests' edge cases (ties, all invalid, a
-    padding run of 65,136 rows, valid rows at ``U32_MAX``);
-    ``lsh_verify`` on the 65,536 rows' candidates in every mode (a scalar,
-    per-column, per-edge and fine bar, ``need``, the bars alone) and at
-    the exact bars; ``lsh_label`` at ``jump_rounds`` 0, 1, 2 and 16 on
-    those edges, a 64-node chain and random graphs."""
+    pass) at B = 1, 2, 3, 37, 999, 2,049 and 4,097 (one past a run-head
+    and a sort tile) and 65,536 with 32, 0 and 64 fine key sets, the wide
+    lanes, an OPH-densified input; ``lsh_sort`` (``torch.sort``) and
+    ``lsh_run_heads`` on those keys, on their first band alone and on the
+    CPU tests' edge cases (ties, all invalid, a padding run of 65,136 rows,
+    valid rows at ``U32_MAX``) and on one band of 2²¹ + 1 rows (22 row
+    bits: the run heads' 16-byte records); ``lsh_verify`` on the 65,536 rows'
+    candidates in every mode (a scalar, per-column, per-edge and fine bar,
+    ``need``, the bars alone), at P = 64 (its fast path) and 36 (its
+    general path) and at the exact bars; ``lsh_label`` at ``jump_rounds``
+    0, 1, 2 and 16 on those edges, a 64-node chain and random graphs."""
     from advanced_scrapper_tpu_torch.ops import lsh, lsh_cuda
     from advanced_scrapper_tpu_torch.ops.oph import densify
 
     assert lsh_cuda.max_salts() == lsh_cuda.MAX_SALTS, "kMaxSalts and MAX_SALTS differ"
+    assert lsh_cuda.max_head_bands() == lsh_cuda.MAX_HEAD_BANDS, "kMaxHeadBands differs"
     rng = np.random.RandomState(29)
     salt = params.band_salt
     counts = dict.fromkeys(LSH_KERNELS, 0)
@@ -4766,9 +4813,20 @@ def check_lsh_vs_plain(params, dev) -> dict:
             return torch.from_numpy(a.view(np.int32)).to(dev).view(torch.uint32)
         return torch.from_numpy(a).to(dev)
 
+    def sorted_heads(packed, valid, bits, case) -> torch.Tensor:
+        """``lsh_sort``, then ``lsh_run_heads`` on its output, each against
+        its plain version."""
+        srt = lsh_cuda.lsh_sort(packed, bits)
+        want = lsh.sort_plain(packed)
+        same("lsh_sort", srt, want, case)
+        rep = lsh_cuda.lsh_run_heads(srt, valid, bits)
+        same("lsh_run_heads", rep, lsh.run_heads_plain(want, valid, bits), case)
+        return rep
+
     main = None
     for B, cs, wide, oph in ((1, 32, False, False), (2, 32, False, False), (3, 0, False, False),
                              (37, 32, False, False), (999, 64, False, False),
+                             (2049, 32, False, False), (4097, 0, False, False),
                              (65536, 32, False, False), (65536, 0, False, False),
                              (65536, 0, True, False), (65536, 32, False, True)):
         sig_np, valid_np = lsh_sigs(rng, B)
@@ -4790,9 +4848,8 @@ def check_lsh_vs_plain(params, dev) -> dict:
         want_packed = lsh.pack_keys_plain(want, valid, bits)
         same("lsh_keys", packed, want_packed, dict(case, packed=True))
         same("lsh_keys", lsh_cuda.pack_keys(got, valid, bits), want_packed, dict(case, pack=True))
-        srt = torch.sort(packed, dim=1).values
-        rep = lsh_cuda.lsh_run_heads(srt, valid, bits)
-        same("lsh_run_heads", rep, lsh.run_heads_plain(srt, valid, bits), case)
+        rep = sorted_heads(packed, valid, bits, case)
+        sorted_heads(packed[:1].contiguous(), valid, bits, dict(case, bands=1))
         if B == 65536 and cs == 32 and not oph:
             main = (sig, valid, got, rep)
     for name, (keys_np, valid_np) in lsh_key_cases(rng).items():
@@ -4800,9 +4857,17 @@ def check_lsh_vs_plain(params, dev) -> dict:
         bits = lsh.row_bits(keys.shape[0])
         packed = lsh_cuda.pack_keys(keys, valid, bits)
         same("lsh_keys", packed, lsh.pack_keys_plain(keys, valid, bits), name)
-        srt = torch.sort(packed, dim=1).values
-        same("lsh_run_heads", lsh_cuda.lsh_run_heads(srt, valid, bits),
-             lsh.run_heads_plain(srt, valid, bits), name)
+        sorted_heads(packed, valid, bits, name)
+    # past 2^21 rows a run-head record takes 16 bytes; 513 sort tiles a band
+    B = (1 << 21) + 1
+    keys_np = rng.randint(0, 1 << 18, size=(B, 1)).astype(np.int64)
+    keys_np[rng.rand(B) < 0.01] = LSH_U32
+    keys, valid = card(keys_np), card(rng.rand(B) > 0.1)
+    bits = lsh.row_bits(B)
+    assert bits == 22, bits
+    packed = lsh_cuda.pack_keys(keys, valid, bits)
+    same("lsh_keys", packed, lsh.pack_keys_plain(keys, valid, bits), "B=2^21+1")
+    sorted_heads(packed, valid, bits, dict(B=B, bands=1))
 
     sig, valid, keys, rep = main
     B, nc = rep.shape
@@ -4823,6 +4888,14 @@ def check_lsh_vs_plain(params, dev) -> dict:
     bars = lsh_cuda.lsh_verify(rep, None, base=0.7, strict=strict, keys=keys, num_coarse=16)[2]
     same("lsh_verify", bars, lsh.verify_plain(rep, None, base=0.7, strict=strict, keys=keys,
                                               num_coarse=16)[2], "bars")
+    for P in (64, 36):  # the fast path at 2 rounds a candidate; the general path
+        psig = card(rng.randint(0, 2, size=(B, P)).astype(np.uint32))
+        for kw in (dict(base=0.7), dict(base=0.5, band=0.7, keys=keys, num_coarse=16)):
+            got = lsh_cuda.lsh_verify(rep, valid, psig, **kw)
+            for g, w in zip(got, lsh.verify_plain(rep, valid, psig, **kw)):
+                if w is not None:
+                    same("lsh_verify", g, w, dict(P=P, **{k: v for k, v in kw.items()
+                                                          if k != "keys"}))
     bsig, bvalid, brep = (card(a) for a in lsh_boundary(rng))
     bkeys = lsh_cuda.lsh_keys(bsig, salt, lsh.subband_salt(32))[0]
     for base, margin, band in ((0.7, 0.05, 0.72), (0.75, 0.0, 0.75), (0.71, 0.04, 0.75)):
@@ -4852,12 +4925,64 @@ def lsh_epilogue_plain(sig, valid, band_salt, fine_salt, base, fine_margin, *, n
 
     bits = lsh.row_bits(sig.shape[0])
     keys = lsh.keys_plain(sig, band_salt, fine_salt)
-    srt = torch.sort(lsh.pack_keys_plain(keys, valid, bits), dim=1).values
+    srt = lsh.sort_plain(lsh.pack_keys_plain(keys, valid, bits))
     rep = lsh.run_heads_plain(srt, valid, bits)
     fine = dict(strict=lsh.strict_bar(base, fine_margin), keys=keys,
                 num_coarse=num_coarse) if use_fine_margin else {}
     ok = lsh.verify_plain(rep, valid, sig, base=base, **fine)[0]
     return lsh.label_plain(rep, ok, valid, jump_rounds)
+
+
+def lsh_bounds(sig, rep, nk: int, clock_mhz: float) -> dict[str, dict]:
+    """The bounds of Kernel B (``kernel_b``: the sort and the run heads
+    together), ``sort``, ``run_heads`` and ``verify`` at the main path's
+    inputs: each input read once and each output written once (Kernel B's
+    sorted keys are its own intermediate); the operations these inputs
+    need (a digit and a rank a key a pass; a run-start test, the scan and
+    three picks a position; a compare and an add a word of each non-self
+    edge)."""
+    from advanced_scrapper_tpu_torch.ops import lsh_cuda
+
+    B, P = sig.shape
+    nc = rep.shape[1]
+    idx = torch.arange(B, device=rep.device)
+    edges = int((rep != idx[:, None]).sum())
+    passes = lsh_cuda.sort_passes()
+    work = {
+        "sort": (2 * nk * B * 8, 2 * passes * nk * B),
+        "run_heads": (nk * B * 8 + B + B * nc * 4, nk * B * 8),
+        "kernel_b": (nk * B * 8 + B + B * nc * 4, (2 * passes + 8) * nk * B),
+        "verify": (B * P * 4 + B * nc * 4 + B + B * nc, 2 * edges * P),
+    }
+    out = {}
+    for stage, (moved, ops) in work.items():
+        ops_ms, bytes_ms = bound_ms(ops, moved, clock_mhz)
+        out[stage] = dict(moved=moved, ops=ops, ops_ms=ops_ms, bytes_ms=bytes_ms,
+                          bound_ms=max(ops_ms, bytes_ms), bound_by=bound_by(ops_ms, bytes_ms),
+                          edges=edges)
+    return out
+
+
+def verify_gather_floor(sig, rep) -> dict:
+    """``lsh_verify``'s gather floor: the signature bytes its non-self
+    edges pull (all of them, and each distinct (row, candidate) pair once,
+    as the kernel counts them) over the L2 read rate, measured by
+    ``lsh_probe.l2_read_rate`` (a read of a 32 MiB buffer that stays in
+    L2, by a kernel of the probe's own)."""
+    import lsh_probe
+
+    B, P = sig.shape
+    idx = torch.arange(B, device=rep.device)[:, None]
+    r = torch.where(rep != idx, rep, -1)
+    srt = torch.sort(r, dim=1).values  # measurement only: the distinct pairs
+    edges = int((srt >= 0).sum())
+    distinct = int(((srt[:, 1:] != srt[:, :-1]) & (srt[:, 1:] >= 0)).sum()
+                   + (srt[:, 0] >= 0).sum())
+    read = lsh_probe.l2_read_rate(cuda_ms)
+    rate = read["l2_bytes_per_s"]
+    return {"non_self_edges": edges, "distinct_pairs": distinct, "l2_read_ms": read["l2_read_ms"],
+            "l2_bytes_per_s": rate, "gather_floor_ms": edges * P * 4 / rate * 1e3,
+            "distinct_floor_ms": distinct * P * 4 / rate * 1e3}
 
 
 def label_rounds_run(rep, ok, valid, jump_rounds: int) -> int:
@@ -4885,10 +5010,11 @@ def lsh_kernel_timing(engine, running, valid, jump_rounds: int, clock_mhz: float
     device time by the profiler per call (every launch of a call summed),
     its CUDA-event time, its plain version's time, its bounds (each input
     read once and each output written once; the operations these inputs
-    need: compares of the non-self edges, the label rounds that ran) and,
-    for ``lsh_run_heads``, the one library call on the path, ``torch.sort``
-    of the packed keys.  Returns the four rows of the ``kernels`` line
-    (launches filled in by the caller)."""
+    need: :func:`lsh_bounds`, the label rounds that ran) and, for
+    ``lsh_sort``, the library call that computes the same function,
+    ``torch.sort`` of the packed keys; for ``lsh_verify`` its gather floor
+    (:func:`verify_gather_floor`).  Returns the five rows of the
+    ``kernels`` line (launches filled in by the caller)."""
     from advanced_scrapper_tpu_torch.ops import lsh, lsh_cuda
 
     cfg = engine.cfg
@@ -4897,13 +5023,13 @@ def lsh_kernel_timing(engine, running, valid, jump_rounds: int, clock_mhz: float
     nk = len(salt) + len(fine)
     bits = lsh.row_bits(B)
     keys, packed = lsh_cuda.lsh_keys(running, salt, fine, valid=valid, bits=bits)
-    srt = torch.sort(packed, dim=1).values
+    srt = lsh_cuda.lsh_sort(packed, bits)
     rep = lsh_cuda.lsh_run_heads(srt, valid, bits)
     nc = rep.shape[1]
     ok = lsh_cuda.lsh_verify(rep, valid, running, base=cfg.sim_threshold)[0]
-    idx = torch.arange(B, device=rep.device)
-    edges = int((rep != idx[:, None]).sum())
     rounds_run = label_rounds_run(rep, ok, valid, jump_rounds)
+    bounds = lsh_bounds(running, rep, nk, clock_mhz)
+    sort_passes = lsh_cuda.sort_passes()
     stages = {
         "lsh_keys": dict(
             fn=lambda: lsh_cuda.lsh_keys(running, salt, fine, valid=valid, bits=bits),
@@ -4914,18 +5040,22 @@ def lsh_kernel_timing(engine, running, valid, jump_rounds: int, clock_mhz: float
             # a fold step (xor, multiply) a word for each of the two key set
             # groups; fmix32 and the salt (8) and the packed key (3) a key
             ops=B * (2 * P * (1 + (len(fine) > 0)) + 11 * nk)),
+        "lsh_sort": dict(
+            fn=lambda: lsh_cuda.lsh_sort(packed, bits),
+            plain=lambda: lsh.sort_plain(packed),
+            kernels={"sort_digits_kernel": 1, "sort_scatter_kernel": sort_passes},
+            moved=bounds["sort"]["moved"], ops=bounds["sort"]["ops"]),
         "lsh_run_heads": dict(
             fn=lambda: lsh_cuda.lsh_run_heads(srt, valid, bits),
             plain=lambda: lsh.run_heads_plain(srt, valid, bits),
-            kernels={"run_heads_kernel": 1},
-            moved=nk * B * 8 + B + B * nc * 4,
-            ops=nk * B * 8),  # a run-start test, the scan and the three picks a position
+            kernels={"run_heads_kernel": 1,
+                     "heads_out_kernel": lsh_cuda.RUN_HEADS_LAUNCHES - 1},
+            moved=bounds["run_heads"]["moved"], ops=bounds["run_heads"]["ops"]),
         "lsh_verify": dict(
             fn=lambda: lsh_cuda.lsh_verify(rep, valid, running, base=cfg.sim_threshold),
             plain=lambda: lsh.verify_plain(rep, valid, running, base=cfg.sim_threshold),
             kernels={"verify_kernel": 1},
-            moved=B * P * 4 + B * nc * 4 + B + B * nc,
-            ops=2 * edges * P),  # a compare and an add a word of each non-self edge
+            moved=bounds["verify"]["moved"], ops=bounds["verify"]["ops"]),
         "lsh_label": dict(
             fn=lambda: lsh_cuda.lsh_label(rep, ok, valid, jump_rounds),
             plain=lambda: lsh.label_plain(rep, ok, valid, jump_rounds),
@@ -4939,25 +5069,27 @@ def lsh_kernel_timing(engine, running, valid, jump_rounds: int, clock_mhz: float
     for name, st in stages.items():
         st["fn"]()
         event_ms = cuda_ms(st["fn"], reps=5)
-        seen = profiler_device_ms(st["fn"], tuple(st["kernels"]))
+        wanted = tuple(k for k, n in st["kernels"].items() if n)
+        seen = profiler_device_ms(st["fn"], wanted)
         ms, recorded = 0.0, {}
-        for kern, per_call in st["kernels"].items():
+        for kern in wanted:
             per, n = per_launch_ms(seen, kern)
             assert per > 0, f"the profiler saw no {kern}, only {sorted(seen)}"
-            ms += per * per_call
+            ms += per * st["kernels"][kern]
             recorded[kern] = n
         plain_ms = cuda_ms(st["plain"])
         ops_ms, bytes_ms = bound_ms(st["ops"], st["moved"], clock_mhz)
         extra = {}
-        if name == "lsh_run_heads":
+        if name == "lsh_sort":
             torch.sort(packed, dim=1)
             extra["library_ms"] = cuda_ms(lambda: torch.sort(packed, dim=1), reps=5)
             extra["library"] = f"torch.sort(dim=1) of the packed keys, int64 [{nk}, {B}]"
+            extra["passes"] = sort_passes
         if name == "lsh_label":
             extra.update(jump_rounds=jump_rounds, rounds_run=rounds_run,
                          launches_per_call=lsh_cuda.label_launches(jump_rounds))
         if name == "lsh_verify":
-            extra["non_self_edges"] = edges
+            extra.update(verify_gather_floor(running, rep))
         log("kernel_timing", name=name, rows=B, columns=nc, key_sets=nk, ms=ms,
             event_ms=event_ms, plain_ms=plain_ms, ops=st["ops"], bytes=st["moved"],
             ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms,
@@ -5058,7 +5190,8 @@ def main() -> int:
     first_call_seconds = time.perf_counter() - t0
     reset_launches()
     t0 = time.perf_counter()
-    reps = engine.dedup_reps_async(docs)[:MAIN_ARTICLES].cpu().numpy()
+    with card_sorts() as main_sorts:
+        reps = engine.dedup_reps_async(docs)[:MAIN_ARTICLES].cpu().numpy()
     seconds = time.perf_counter() - t0
     seg_launches = minhash_cuda.minhash_fold_segments.launches
     main_lsh = read_lsh_launches()
@@ -5066,9 +5199,9 @@ def main() -> int:
     assert seg_launches == chunks > 0, f"{seg_launches} kernel launches for {chunks} chunks"
     assert minhash_cuda.minhash_fold.launches == minhash_cuda.minhash_sig.launches == 0
     n_main = bucket_len(MAIN_ARTICLES, min_bucket=64)  # the accumulator's rows
-    want_lsh = {"lsh_keys": 1, "lsh_run_heads": 1, "lsh_verify": 1,
-                "lsh_label": 1 + 2 * _jump_rounds(n_main)}
+    want_lsh = lsh_path_launches(_jump_rounds(n_main))
     assert main_lsh == want_lsh, (main_lsh, want_lsh)  # one epilogue, on its kernels
+    assert main_sorts == [], f"a library sort ran on the card: {main_sorts}"
     assert reps.shape == (MAIN_ARTICLES,)
     idx = np.arange(MAIN_ARTICLES)
     assert (reps <= idx).all() and (reps >= 0).all(), "a representative after its row"
@@ -5170,7 +5303,9 @@ def main() -> int:
     log("main_path_breakdown", host_prep_s=host_prep_s, to_bytes_s=to_bytes_s,
         descriptors_s=descriptors_s, copy_ms=copy_ms, kernel_ms=seg_ms,
         epilogue_ms=epilogue_ms, epilogue_plain_ms=epilogue_plain_ms,
-        epilogue_sort_ms=next(r["library_ms"] for r in lsh_rows if r["name"] == "lsh_run_heads"),
+        epilogue_sort_ms=next(r["ms"] for r in lsh_rows if r["name"] == "lsh_sort"),
+        epilogue_library_sort_ms=next(r["library_ms"] for r in lsh_rows
+                                      if r["name"] == "lsh_sort"),
         chunk_loop_s=chunk_loop_s, chunks=len(resident),
         segments=n_seg, card=card)
     log("kernel_timing", name="minhash_fold_segments", launches_per_pass=len(resident),
@@ -5408,7 +5543,7 @@ def main() -> int:
         share_of_floor=legacy["share_of_floor"], per=legacy["per"]))
     kernels.extend(oph_kernels)
     kernels.extend(lsh_rows)
-    assert len(kernels) == 15, [k["name"] for k in kernels]
+    assert len(kernels) == 16, [k["name"] for k in kernels]
 
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi("name,power.limit"))

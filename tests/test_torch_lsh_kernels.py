@@ -8,18 +8,24 @@ package's ``ops.lsh``:
   invalid rows at ``U32_MAX``) and the run-head scan, at B = 1, 2, 3 and
   odd sizes, under heavy key ties, with every row invalid, a padding run of
   hundreds of rows and a valid row whose key is ``U32_MAX``; a model of the
-  kernel's tiles (one binary search a tile, a max-scan of run starts);
+  radix sort's passes (tiles, per-band digit offsets, stable warp ranks) at
+  small tiles and other digit widths, over bands of many lengths; a model
+  of the run-head kernels (a many-way search for a tile's run start, a
+  max-scan of run starts, records a (band, row) transposed into the rows);
 - the label rounds, double-buffered as the kernel runs them (three
   buffers, a flag a round), at ``jump_rounds`` 1, 2 and full on a 64-node
   chain and on random graphs;
 - the agreement pass at bars where ``count/P`` meets the bar exactly and at
-  ``base + fine_margin`` boundaries, and a model of the kernel's per-edge
-  logic;
+  ``base + fine_margin`` boundaries, a model of the per-edge logic and one
+  of the kernel's compaction (each distinct candidate of a chunk once) and
+  grouping (lanes a candidate, words a lane), at P = 30, 36, 64 and 128;
 - the keys, a thread a (row, key set), as the kernel folds them;
 - the wrappers' argument checks, which raise before anything is built.
 """
 
 from __future__ import annotations
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +36,9 @@ from advanced_scrapper_tpu.core.hashing import make_params as ref_make_params
 from advanced_scrapper_tpu.ops import lsh as ref_lsh
 from advanced_scrapper_tpu_torch.core.hashing import make_params
 from advanced_scrapper_tpu_torch.ops import _build, lsh, lsh_cuda
+
+import lsh_probe
+import myers_probe
 
 U32 = 0xFFFFFFFF
 
@@ -106,28 +115,57 @@ def _packed_sorted(keys: np.ndarray, valid: np.ndarray) -> tuple[torch.Tensor, i
     return torch.sort(packed, dim=1).values, bits
 
 
+def run_start_search(s: list[int], lo: int, bits: int, threads: int) -> int:
+    """The kernel's search for the run start of position ``lo``: ``lo``
+    unless its key continues the run of ``lo - 1``; then the first position
+    of ``[0, lo]`` with its key, ``threads`` probes a round, each round
+    keeping the gap after the last probe below the key."""
+    tkey = s[lo] >> bits
+    if lo == 0 or s[lo - 1] >> bits != tkey:
+        return lo
+    a, z, rounds = 0, lo, 0
+    while a < z:
+        step = -(-(z - a) // threads)
+        probes = [a + t * step for t in range(threads)]
+        below = [m < z and s[m] >> bits < tkey for m in probes]
+        c = sum(below)
+        assert below == [True] * c + [False] * (threads - c)  # the block's count is a prefix
+        if c == 0:
+            z = a
+        else:
+            a, z = a + (c - 1) * step + 1, min(z, a + c * step)
+        rounds += 1
+    assert rounds <= max(1, int(np.ceil(np.log(lo + 1) / np.log(threads))) + 1)
+    return a
+
+
+#: rows' bits in one packed int64 record (``kRecBits``)
+REC_BITS = 21
+
+
 def run_heads_walk(sorted_keys: np.ndarray, valid: np.ndarray, bits: int,
-                   threads: int = 4, items: int = 3) -> np.ndarray:
-    """numpy model of ``run_heads_kernel``: a block a tile of ``threads ×
-    items`` sorted positions of one band; thread 0's binary search for the
-    run start of the tile's first position; each thread's last run start
-    among its items; the exclusive max-scan over the block's threads."""
+                   threads: int = 4, items: int = 3, rows: int = 5,
+                   pack: bool | None = None) -> np.ndarray:
+    """numpy model of ``astt_lsh_run_heads``: ``run_heads_kernel``, a
+    block a tile of ``threads × items`` sorted positions of one band (the
+    tile's run start by :func:`run_start_search`, each thread's last run
+    start among its items, the exclusive max-scan over the block's
+    threads) writing a record a (band, row) whose three rows differ,
+    packed into an int64 of three ``REC_BITS`` fields where the rows fit
+    (``pack`` None) or as three fields of their own (``pack`` False), into
+    records that start all ones; then ``heads_out_kernel``, a block ``rows``
+    rows, the records of every band (three equal fields: the row itself)
+    through a tile of ``rows × (3 nbt + 1)`` into the rows' contiguous
+    columns."""
     nbt, B = sorted_keys.shape
     mask = (1 << bits) - 1
-    out = np.full((B, 3 * nbt), -7, np.int32)
+    pack = bits <= REC_BITS if pack is None else pack
+    rec = np.full((nbt, B), -1, np.int64) if pack else np.full((nbt, B, 3), -1, np.int64)
     tile = threads * items
     for band in range(nbt):
         s = [int(v) for v in sorted_keys[band]]
         for lo in range(0, B, tile):
-            target = (s[lo] >> bits) << bits
-            a, z = 0, lo
-            while a < z:
-                m = (a + z) >> 1
-                if s[m] < target:
-                    a = m + 1
-                else:
-                    z = m
-            carry = a
+            carry = run_start_search(s, lo, bits, threads)
             lasts, starts = [], []
             for t in range(threads):
                 p0 = lo + t * items
@@ -151,16 +189,34 @@ def run_heads_walk(sorted_keys: np.ndarray, valid: np.ndarray, bits: int,
                         break
                     v = s[p]
                     key, row = v >> bits, v & mask
-                    o = out[row]
-                    if not valid[row]:
-                        o[band] = o[nbt + band] = o[2 * nbt + band] = row
-                        continue
-                    o[band] = s[max(before, starts[t][i])] & mask
-                    same1 = p >= 1 and s[p - 1] >> bits == key
-                    same2 = p >= 2 and s[p - 2] >> bits == key
-                    o[nbt + band] = s[p - 1] & mask if same1 else row
-                    o[2 * nbt + band] = s[p - 2] & mask if same2 else row
-    return out
+                    h = p1 = p2 = row
+                    if valid[row]:
+                        h = s[max(before, starts[t][i])] & mask
+                        if p >= 1 and s[p - 1] >> bits == key:
+                            p1 = s[p - 1] & mask
+                        if p >= 2 and s[p - 2] >> bits == key:
+                            p2 = s[p - 2] & mask
+                    if h == p1 == p2:
+                        assert h == row  # the run's first row, alone, or invalid
+                    elif pack:
+                        rec[band, row] = h | p1 << REC_BITS | p2 << 2 * REC_BITS
+                    else:
+                        rec[band, row] = (h, p1, p2)
+    out = np.full((B, 3 * nbt), -9, np.int64)
+    field = (1 << REC_BITS) - 1
+    for r0 in range(0, B, rows):
+        nr = min(rows, B - r0)
+        tile_s = np.full((nr, 3 * nbt + 1), -5, np.int64)
+        for band in range(nbt):
+            for r in range(nr):
+                v = rec[band, r0 + r]
+                three = [(int(v) >> k * REC_BITS) & field for k in range(3)] if pack else v
+                if three[0] == three[1] == three[2]:
+                    three = [r0 + r] * 3
+                for k in range(3):
+                    tile_s[r, k * nbt + band] = three[k]
+        out[r0:r0 + nr] = tile_s[:, :3 * nbt]
+    return out.astype(np.int32)
 
 
 @pytest.mark.parametrize("case", KEY_CASES)
@@ -168,9 +224,137 @@ def test_run_heads_tile_walk_equals_the_plain_version(case):
     keys, valid = _keys_case(case)
     sorted_keys, bits = _packed_sorted(keys, valid)
     plain = lsh.run_heads_plain(sorted_keys, torch.from_numpy(valid), bits)
-    for threads, items in ((4, 3), (32, 8)):
-        walk = run_heads_walk(sorted_keys.numpy(), valid, bits, threads, items)
-        assert np.array_equal(walk, plain.numpy()), (threads, items)
+    for threads, items, rows, pack in ((4, 3, 5, None), (3, 2, 1, False), (32, 8, 64, None)):
+        walk = run_heads_walk(sorted_keys.numpy(), valid, bits, threads, items, rows, pack)
+        assert np.array_equal(walk, plain.numpy()), (threads, items, rows, pack)
+
+
+def radix_sort_walk(packed: np.ndarray, bits: int, radix_bits: int = 8, warps: int = 2,
+                    lanes: int = 4, items: int = 3) -> np.ndarray:
+    """numpy model of ``astt_lsh_sort``: ``ceil(32 / radix_bits)`` LSD passes
+    over the key bits of ``(key << bits) | row``, each over every band.
+    ``sort_digits_kernel`` counts every pass's digits of each band once, up
+    front (the counts do not depend on the order).  A pass's
+    ``sort_scatter_kernel``: warp w takes the tile's positions from
+    ``w·lanes·items``, round i ``lanes`` of them; a position's rank is its
+    digit's start in the tile plus the digit's count in earlier warps,
+    earlier rounds and earlier lanes; the tile staged in digit order, each
+    digit's run written from the digit's start in the band (its start in
+    the band's counts) plus the earlier tiles' counts, summed by a
+    look-back that stops at the first tile that published its inclusive
+    count (which tiles did is left to chance)."""
+    nbt, B = packed.shape
+    bins = 1 << radix_bits
+    tile = warps * lanes * items
+    ntiles = -(-B // tile)
+    src = packed.astype(np.int64)
+    passes = -(-32 // radix_bits)
+    band_counts = np.stack([[np.bincount((row >> (bits + k * radix_bits)) & (bins - 1),
+                                         minlength=bins) for row in src]
+                            for k in range(passes)])
+    chance = np.random.RandomState(B * nbt)
+    for k in range(passes):
+        digit = (src >> (bits + k * radix_bits)) & (bins - 1)
+        hist = np.zeros((nbt, bins, ntiles), np.int64)
+        for t in range(ntiles):
+            for band in range(nbt):
+                hist[band, :, t] = np.bincount(digit[band, t * tile:(t + 1) * tile],
+                                               minlength=bins)
+        inclusive = np.cumsum(hist, axis=2)
+        ofs = np.zeros((nbt, bins, ntiles), np.int64)
+        for band in range(nbt):
+            start = np.cumsum(band_counts[k, band]) - band_counts[k, band]
+            for t in range(ntiles):
+                published = chance.rand(t) < 0.5  # earlier tiles that hold their inclusive
+                before = np.zeros(bins, np.int64)
+                for u in range(t - 1, -1, -1):
+                    if published[u]:
+                        before += inclusive[band, :, u]
+                        break
+                    before += hist[band, :, u]
+                ofs[band, :, t] = start + before
+        dst = np.full_like(src, -1)
+        for band in range(nbt):
+            for t in range(ntiles):
+                lo = t * tile
+                wcnt = np.zeros((warps, bins), np.int64)
+                ranked = []
+                for w in range(warps):
+                    for i in range(items):
+                        ps = [lo + (w * items + i) * lanes + lane for lane in range(lanes)]
+                        ds = [int(digit[band, p]) if p < B else bins for p in ps]
+                        for lane, p in enumerate(ps):
+                            if p < B:
+                                d = ds[lane]
+                                ranked.append((src[band, p], d, w,
+                                               wcnt[w, d] + ds[:lane].count(d)))
+                        for d in set(ds) - {bins}:
+                            wcnt[w, d] += ds.count(d)
+                prefix = np.cumsum(wcnt, axis=0) - wcnt
+                total = wcnt.sum(axis=0)
+                start = np.cumsum(total) - total
+                n = min(tile, B - lo)
+                stage = np.full(n, -1, np.int64)
+                for v, d, w, r in ranked:
+                    assert stage[start[d] + prefix[w, d] + r] == -1
+                    stage[start[d] + prefix[w, d] + r] = v
+                for q in range(n):
+                    d = (stage[q] >> (bits + k * radix_bits)) & (bins - 1)
+                    dst[band, ofs[band, d, t] + q - start[d]] = stage[q]
+        assert (dst >= 0).all()
+        src = dst
+    return src
+
+
+@pytest.mark.parametrize("case", KEY_CASES)
+def test_radix_sort_walk_equals_torch_sort(case):
+    keys, valid = _keys_case(case)
+    bits = lsh.row_bits(keys.shape[0])
+    packed = lsh.pack_keys_plain(torch.from_numpy(keys), torch.from_numpy(valid), bits)
+    want = lsh.sort_plain(packed)
+    for radix_bits, warps, lanes, items in ((8, 2, 4, 3), (5, 3, 2, 2), (8, 8, 32, 16)):
+        got = radix_sort_walk(packed.numpy(), bits, radix_bits, warps, lanes, items)
+        assert np.array_equal(got, want.numpy()), (radix_bits, warps, lanes, items)
+    if keys.shape[0] > 1:  # the reference's candidates from the model's order
+        got_rb = lsh.run_heads_plain(torch.from_numpy(got), torch.from_numpy(valid), bits)
+        assert np.array_equal(got_rb.numpy(), _ref_rep_bands(keys, valid))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_radix_sort_needs_rows_ascending(seed):
+    """``lsh_sort`` sorts by the key bits alone, stably: rows that enter
+    ascending, as ``pack_keys`` writes them, come out in the (key, row)
+    order of ``torch.sort``; the same packed keys with their rows in
+    another order come out by key and then in the order they entered,
+    which is not that (the wrapper's precondition)."""
+    rng = np.random.RandomState(seed)
+    B = 40
+    keys = rng.randint(0, 3, size=(B, 2)).astype(np.int64)
+    valid = rng.rand(B) > 0.2
+    bits = lsh.row_bits(B)
+    packed = lsh.pack_keys_plain(torch.from_numpy(keys), torch.from_numpy(valid), bits).numpy()
+    assert np.array_equal(radix_sort_walk(packed, bits), np.sort(packed, axis=1))
+    shuffled = packed[:, rng.permutation(B)]
+    got = radix_sort_walk(shuffled, bits)
+    stable = np.argsort(shuffled >> bits, axis=1, kind="stable")
+    assert np.array_equal(got, np.take_along_axis(shuffled, stable, axis=1))
+    assert not np.array_equal(got, np.sort(shuffled, axis=1))
+
+
+@pytest.mark.parametrize("B", [1, 2, 23, 24, 25, 97])
+def test_radix_sort_walk_over_bands_of_many_lengths(B):
+    """Bands of B rows, 1 to 7 of them, ties within and across tiles of
+    24 (B one short of, at and past a tile), invalid rows at ``U32_MAX``
+    beside valid rows whose key is ``U32_MAX``."""
+    rng = np.random.RandomState(B)
+    for nbt in (1, 3, 7):
+        keys = rng.randint(0, 6, size=(B, nbt)).astype(np.int64) * 0x2F0F0F1
+        keys[rng.rand(B, nbt) < 0.1] = U32
+        valid = rng.rand(B) > 0.25
+        bits = lsh.row_bits(B)
+        packed = lsh.pack_keys_plain(torch.from_numpy(keys), torch.from_numpy(valid), bits)
+        got = radix_sort_walk(packed.numpy(), bits)
+        assert np.array_equal(got, lsh.sort_plain(packed).numpy()), nbt
 
 
 def test_row_bits_bound():
@@ -372,6 +556,175 @@ def verify_walk(rep, sig, valid, keys, num_coarse, *, base, band, strict) -> dic
     return res
 
 
+def verify_compact_walk(rep, sig, valid, keys, num_coarse, *, thr=None, base=0.0,
+                        strict=None, band=None, chunk=192, lanes=32, sub=16,
+                        rounds=(1, 2, 4, 8)) -> dict:
+    """numpy model of ``verify_kernel``'s compaction and grouping, a warp
+    of ``lanes`` a row: each chunk of ``chunk`` columns, in groups of
+    ``lanes``, gives its non-self in-range candidates slots, each distinct
+    candidate once (the first lane of a group holding it takes a slot
+    unless an earlier group's slot holds it; the new slots in lane order);
+    each slot's count is summed the way the lanes split it (``sub`` lanes
+    a candidate, lane g the 4 words ``4(r·sub + g)`` of round r, where ``P
+    = 4·sub·R`` with R in ``rounds``; else a lane every ``lanes``-th
+    word), whether it shares a coarse key (lane g the keys ``g + sub·i``,
+    or every ``lanes``-th) and whether it is valid; then each column's bar
+    and edge from its slot.  Returns ``ok``, ``need`` and ``bars``."""
+    B, nc = rep.shape
+    P = 0 if sig is None else sig.shape[1]
+    fast = sig is not None and P % (4 * sub) == 0 and P // (4 * sub) in rounds
+    step = sub if fast else lanes
+    res = {"ok": np.zeros((B, nc), bool), "need": np.zeros((B, nc), bool),
+           "bars": np.zeros((B, nc), np.float32)}
+    for b in range(B):
+        for c0 in range(0, nc, chunk):
+            cn = min(chunk, nc - c0)
+            uj, slot_of = [], [None] * cn
+            for g0 in range(0, cn, lanes):
+                js = [int(rep[b, c0 + g0 + lane]) if g0 + lane < cn else b
+                      for lane in range(lanes)]
+                cand = [g0 + lane < cn and j != b and 0 <= j < B for lane, j in enumerate(js)]
+                first = {}
+                for lane in range(lanes):
+                    if cand[lane] and js[lane] not in first:
+                        first[js[lane]] = uj.index(js[lane]) if js[lane] in uj else len(uj)
+                        if first[js[lane]] == len(uj):
+                            uj.append(js[lane])
+                    if cand[lane]:
+                        slot_of[g0 + lane] = first[js[lane]]
+            assert len(set(uj)) == len(uj) <= cn
+            count, shares, vflag = [], [], []
+            for j in uj:
+                if sig is None:
+                    count.append(0)
+                else:
+                    words = []
+                    if fast:
+                        for r in range(P // (4 * sub)):
+                            for g in range(sub):
+                                words += range(4 * (r * sub + g), 4 * (r * sub + g) + 4)
+                    else:
+                        for lane in range(lanes):
+                            words += range(lane, P, lanes)
+                    assert sorted(words) == list(range(P))  # each word once
+                    count.append(int((sig[b, words] == sig[j, words]).sum()))
+                eq = keys is not None and any(
+                    keys[j, i] == keys[b, i] for g in range(step)
+                    for i in range(g, num_coarse, step))
+                shares.append(eq)
+                vflag.append(valid is not None and bool(valid[j]))
+            for cl in range(cn):
+                c = c0 + cl
+                j = int(rep[b, c])
+                in_range = 0 <= j < B
+                if j == b:
+                    n, sh, vj = P, num_coarse > 0, valid is not None and bool(valid[b])
+                elif slot_of[cl] is not None:
+                    u = slot_of[cl]
+                    n, sh, vj = count[u], shares[u], vflag[u]
+                else:
+                    n, sh, vj = 0, True, False
+                fo = keys is not None and in_range and c % keys.shape[1] >= num_coarse and not sh
+                res["bars"][b, c] = np.float32(strict) if fo else np.float32(base)
+                if sig is None:
+                    continue
+                agree = np.float32(n) / np.float32(P)
+                if thr is not None:
+                    bar = thr[c] if thr.ndim == 1 else thr[b, c]
+                elif strict is not None:
+                    bar = res["bars"][b, c]
+                else:
+                    bar = np.float32(base)
+                ok = in_range and agree >= bar and bool(valid[b]) and vj
+                res["ok"][b, c] = ok
+                res["need"][b, c] = ok and j != b and (
+                    fo or (band is not None and agree < np.float32(band)))
+    return res
+
+
+#: (chunk, lanes, sub): the kernel's, and small ones whose groups, chunks
+#: and candidates a warp split the boundary pairs' 144 columns many ways
+VERIFY_SHAPES = [(192, 32, 16), (192, 32, 8), (10, 4, 2), (7, 8, 4)]
+
+
+@pytest.mark.parametrize("base,margin,band", [
+    (0.7, 0.05, 0.72), (0.75, 0.0, 0.75), (0.6875, 0.0625, 0.7265625),
+])
+@pytest.mark.parametrize("shape", VERIFY_SHAPES)
+def test_verify_compaction_at_boundaries(boundary, base, margin, band, shape):
+    """The compacted, grouped agreement equals the reference's at the exact
+    bars and at ``base + fine_margin`` (the boundary rows name their pair
+    in every column: every candidate repeats)."""
+    sig, valid, keys, rep = boundary
+    chunk, lanes, sub = shape
+    strict = lsh.strict_bar(base, margin)
+    kw = dict(chunk=chunk, lanes=lanes, sub=sub)
+    model = verify_compact_walk(rep, sig.view(np.int32), valid, keys.numpy(), 16, base=base,
+                                band=band, strict=None, **kw)
+    need, ok = ref_lsh.borderline_edge_mask(
+        jnp.asarray(rep), jnp.asarray(sig), _ref_keys(keys), jnp.asarray(valid), base, band,
+        num_coarse=16)
+    assert np.array_equal(model["ok"], np.asarray(ok))
+    assert np.array_equal(model["need"], np.asarray(need))
+    fine = verify_compact_walk(rep, sig.view(np.int32), valid, keys.numpy(), 16, base=base,
+                               strict=strict, **kw)
+    bars = ref_lsh.fine_edge_thresholds(jnp.asarray(rep), _ref_keys(keys), base, margin,
+                                        num_coarse=16)
+    assert np.array_equal(fine["bars"], np.asarray(bars))
+    plain = lsh.verify_plain(torch.from_numpy(rep), torch.from_numpy(valid), _t(sig), base=base,
+                             strict=strict, keys=keys, num_coarse=16)[0]
+    assert np.array_equal(fine["ok"], plain.numpy())
+
+
+@pytest.mark.parametrize("P", [30, 36, 64, 128])
+@pytest.mark.parametrize("shape", VERIFY_SHAPES)
+def test_verify_compaction_any_width(P, shape):
+    """P not a multiple of 4 (30) or of 32 (36) takes the general path,
+    64 and 128 the fast one at the kernel's shape; words from a 3-letter
+    alphabet put agreements on the bars; candidates repeat within rows;
+    the keys share coarse values at random.  Candidates outside ``[0, B)``
+    (no edge; the plain version takes none) against the per-edge model."""
+    rng = np.random.RandomState(P + shape[0])
+    B, nk, num_coarse = 41, 6, 2
+    sig = rng.randint(0, 3, size=(B, P)).astype(np.uint32)
+    sig[1::4] = sig[0::4][: len(sig[1::4])]  # exact copies
+    valid = rng.rand(B) > 0.15
+    keys = rng.randint(0, 3, size=(B, nk)).astype(np.int64)
+    rep = rng.randint(-2, B + 2, size=(B, 3 * nk)).astype(np.int32)
+    rep[:, ::2] = rep[:, :1]  # the same candidate in many columns
+    rep[::5, 1] = np.arange(0, B, 5)  # self
+    base, band, strict = 0.5, 0.6, 0.55
+    chunk, lanes, sub = shape
+    kw = dict(chunk=chunk, lanes=lanes, sub=sub)
+    model = verify_compact_walk(rep, sig.view(np.int32), valid, keys, num_coarse, base=base,
+                                band=band, **kw)
+    edge = verify_walk(rep, sig, valid, keys, num_coarse, base=base, band=band, strict=strict)
+    assert np.array_equal(model["ok"], edge["ok"])
+    assert np.array_equal(model["need"], edge["need"])
+    fine = verify_compact_walk(rep, sig.view(np.int32), valid, keys, num_coarse, base=base,
+                               strict=strict, **kw)
+    assert np.array_equal(fine["bars"], edge["bars"])
+    assert np.array_equal(fine["ok"], edge["ok_fine"])
+    rep = np.where((rep >= 0) & (rep < B), rep, np.arange(B)[:, None]).astype(np.int32)
+    model = verify_compact_walk(rep, sig.view(np.int32), valid, keys, num_coarse, base=base,
+                                band=band, **kw)
+    plain = lsh.verify_plain(torch.from_numpy(rep), torch.from_numpy(valid), _t(sig), base=base,
+                             band=band, keys=torch.from_numpy(keys), num_coarse=num_coarse)
+    assert np.array_equal(model["ok"], plain[0].numpy())
+    assert np.array_equal(model["need"], plain[1].numpy())
+    thr = np.where(np.arange(3 * nk) % 2, np.float32(0.5), np.float32(0.6)).astype(np.float32)
+    model = verify_compact_walk(rep, sig.view(np.int32), valid, None, 0, thr=thr, **kw)
+    plain = lsh.verify_plain(torch.from_numpy(rep), torch.from_numpy(valid), _t(sig),
+                             thr=torch.from_numpy(thr))[0]
+    assert np.array_equal(model["ok"], plain.numpy())
+    want = np.asarray(ref_lsh.resolve_rep_bands(
+        jnp.asarray(rep), jnp.asarray(sig), jnp.asarray(valid), jnp.asarray(thr),
+        jump_rounds=6))
+    got = lsh.resolve_rep_bands(torch.from_numpy(rep), _t(sig), torch.from_numpy(valid),
+                                torch.from_numpy(thr), jump_rounds=6)
+    assert np.array_equal(got.numpy(), want)
+
+
 # -- the keys ----------------------------------------------------------------
 
 
@@ -462,9 +815,17 @@ def _calls():
         "keys_strided": (ValueError, lambda: lsh_cuda.lsh_keys(sig[:, ::2], salt)),
         "pack_dtype": (TypeError, lambda: lsh_cuda.pack_keys(keys.int(), valid, 3)),
         "pack_valid": (TypeError, lambda: lsh_cuda.pack_keys(keys, valid.int(), 3)),
+        "sort_dtype": (TypeError, lambda: lsh_cuda.lsh_sort(srt.int(), 3)),
+        "sort_ndim": (ValueError, lambda: lsh_cuda.lsh_sort(srt[0], 3)),
+        "sort_no_bands": (ValueError, lambda: lsh_cuda.lsh_sort(srt[:0], 3)),
+        "sort_bits": (ValueError, lambda: lsh_cuda.lsh_sort(srt, 2)),
+        "sort_bits_32": (ValueError, lambda: lsh_cuda.lsh_sort(srt, 32)),
+        "sort_strided": (ValueError, lambda: lsh_cuda.lsh_sort(srt[:, ::2], 2)),
         "heads_dtype": (TypeError, lambda: lsh_cuda.lsh_run_heads(srt.int(), valid, 3)),
         "heads_valid": (ValueError, lambda: lsh_cuda.lsh_run_heads(srt, valid[:3], 3)),
         "heads_bits": (ValueError, lambda: lsh_cuda.lsh_run_heads(srt, valid, 32)),
+        "heads_bands": (ValueError, lambda: lsh_cuda.lsh_run_heads(
+            torch.zeros((lsh_cuda.MAX_HEAD_BANDS + 1, 8), dtype=torch.int64), valid, 3)),
         "verify_rep_dtype": (TypeError, lambda: lsh_cuda.lsh_verify(rep.long(), valid, sig)),
         "verify_rows": (ValueError, lambda: lsh_cuda.lsh_verify(rep, valid, sig[:4])),
         "verify_no_valid": (ValueError, lambda: lsh_cuda.lsh_verify(rep, None, sig)),
@@ -489,8 +850,8 @@ def test_wrappers_check_arguments_before_any_build(no_build, monkeypatch, case):
         call()
 
 
-@pytest.mark.parametrize("fn", ["lsh_keys", "pack_keys", "lsh_run_heads", "lsh_verify",
-                                "lsh_label"])
+@pytest.mark.parametrize("fn", ["lsh_keys", "pack_keys", "lsh_sort", "lsh_run_heads",
+                                "lsh_verify", "lsh_label"])
 def test_wrappers_refuse_cpu_tensors(no_build, fn):
     sig = torch.zeros((8, 128), dtype=torch.int32)
     valid = torch.ones(8, dtype=torch.bool)
@@ -498,9 +859,28 @@ def test_wrappers_refuse_cpu_tensors(no_build, fn):
     calls = {
         "lsh_keys": lambda: lsh_cuda.lsh_keys(sig, np.arange(16)),
         "pack_keys": lambda: lsh_cuda.pack_keys(rep.long(), valid, 3),
+        "lsh_sort": lambda: lsh_cuda.lsh_sort(rep.long().T.contiguous(), 3),
         "lsh_run_heads": lambda: lsh_cuda.lsh_run_heads(rep.long().T.contiguous(), valid, 3),
         "lsh_verify": lambda: lsh_cuda.lsh_verify(rep, valid, sig),
         "lsh_label": lambda: lsh_cuda.lsh_label(rep, rep.bool(), valid, 1),
     }
     with pytest.raises(ValueError, match="CUDA tensors"):
         calls[fn]()
+
+
+def test_wrapper_limits_match_the_kernel_source():
+    src = (_build.CSRC_DIR / "lsh.cu").read_text()
+    ints = int(re.search(r"constexpr int kStageInts = (\d+);", src).group(1))
+    assert "kMaxHeadBands = (kStageInts - 1) / 3;" in src
+    assert lsh_cuda.MAX_HEAD_BANDS == (ints - 1) // 3 == 4095
+    assert f"constexpr int kMaxSalts = {lsh_cuda.MAX_SALTS};" in src
+
+
+@pytest.mark.parametrize("name", [*lsh_probe.VARIANTS, *lsh_probe.CUTS])
+def test_probe_variants_patch_the_shipped_source(name):
+    """Each of ``lsh_probe.py``'s edits is found exactly once in the
+    shipped ``lsh.cu`` (the probe builds them on the card only)."""
+    src = (_build.CSRC_DIR / "lsh.cu").read_text()
+    edits = {**lsh_probe.VARIANTS, **lsh_probe.CUTS}[name]
+    out = myers_probe.patched(src, edits)
+    assert (out == src) == (name == "shipped")
