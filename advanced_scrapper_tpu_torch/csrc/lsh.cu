@@ -20,11 +20,23 @@
 // What bounds them on the card, at the main path's shapes (B = 65,536
 // rows, P = 128, 16 coarse + 32 fine key sets, nc = 144 candidates):
 // - lsh_keys reads 32 MiB of signatures and writes 25 MiB of int64 keys
-//   and packed sort keys: bytes (~17 us at 3.35 TB/s).  A thread a key:
-//   it folds P/nb consecutive words of its row (the row's 512 bytes are
-//   read once from memory and then hit L1), XORs the salt, applies
-//   fmix32, all uint32 with wrap-around.  The salts travel in the launch's
-//   parameter buffer (a 2 KiB struct by value): no copy to the card.
+//   and 25 MiB of packed sort keys: bytes (~25 us at 3.35 TB/s).  A block
+//   takes a tile of kKeyRows consecutive rows (one contiguous span of the
+//   signatures), loads it into shared memory with 16-byte loads at a row
+//   pitch of an odd number of 16-byte words (so the lanes of a quarter warp,
+//   one row each, read distinct banks), and each warp folds key sets with
+//   its 32 lanes over the tile's rows: FNV-1a over the band's words in
+//   order, XOR the salt, fmix32, all uint32 with wrap-around.  The salts
+//   travel in the launch's parameter buffer (a 2 KiB struct by value).
+//   Lanes over rows make each band's packed keys ((key << row_bits) | row)
+//   one contiguous 256-byte store; the keys are staged in shared memory
+//   (uint32, an odd row pitch) and written out as one contiguous span with
+//   16-byte stores.  A signature that is not 16-byte aligned, a P or band
+//   width no multiple of 4 loads words at an odd pitch; a tile that does
+//   not fit a block's shared memory folds from global memory (the general
+//   paths, bit-equal too).  pack_keys (the packing alone, from keys already
+//   made) stages a tile of rows' keys the same way and writes each band's
+//   packed keys contiguously.
 // - lsh_sort sorts each band's packed keys (key << row_bits) | row.  Only
 //   the 32 key bits carry order: the rows enter ascending, so a stable LSD
 //   radix sort of the key's digits (kSortPasses passes of kRadixBits) gives
@@ -72,14 +84,26 @@
 //   takes a general path in the same kernel: a candidate a warp, a lane a
 //   word.
 // - lsh_label runs the reference's rounds (pull the min along ok edges,
-//   scatter-min it back, pointer-double) as two launches a round over
-//   three int32[B] buffers: the pull reads X and atomicMins into Z (Z
-//   starts as X, which every value written is at most), the jump reads Z
-//   and writes X and the next round's Z.  Nothing is read from a buffer
-//   being written, so truncated rounds give the reference's labels.  A
-//   round that changed nothing leaves a zero flag, and the later rounds'
-//   launches return at once: each of them would change nothing either.
+//   scatter-min it back, pointer-double) in two launches whatever the
+//   rounds.  The first, a warp a row, reads rep and ok once (the bytes
+//   bound; kLabelGroups groups of 32 columns' loads issued together, for
+//   enough bytes in flight) and compacts each row's distinct, in-range, ok
+//   candidates other than itself (match_any and a ballot, as lsh_verify)
+//   into the row's list in scratch sized for every column distinct: 98.7%
+//   of the main corpus's non-self columns repeat a candidate of their row,
+//   and min is idempotent, so the lists give the reference's labels with
+//   an atomic an edge in place of one a column.  It also sets x = z0 =
+//   arange(B).  The second is one cooperative launch (a grid no larger
+//   than can be co-resident) that runs every round, a grid sync between
+//   the pull and the jump and after the jump: the pull reads x and
+//   atomicMins into z (z starts as x, which every value written is at
+//   most), the jump reads z and writes x and the next round's z, so nothing
+//   is read from a buffer being written and truncated rounds give the
+//   reference's labels.  A round that changed nothing ends the loop: each
+//   later round would change nothing either.  Buffers written inside the
+//   launch are read through L2 (__ldcg), never the non-coherent path.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -109,6 +133,10 @@ constexpr int kStageInts = 12288;  // 48 KiB of shared memory: the transpose's t
 constexpr int kMaxHeadBands = (kStageInts - 1) / 3;  // 4,095: a row's 3 nbt + 1 fit the tile
 constexpr int kSub = 16;           // lanes a candidate in lsh_verify
 constexpr int kVerifyChunk = 192;  // columns compacted at a time
+constexpr int kKeyRows = 32;       // rows a keys tile: a warp's lanes
+constexpr size_t kMaxBlockSmem = 232448;  // shared memory a block may opt in to (227 KiB)
+constexpr int kLabelLaunches = 2;  // astt_lsh_label: the edge lists, then the rounds
+constexpr int kLabelGroups = 6;    // groups of 32 columns a label_edges_kernel warp loads at once
 
 struct Salts {
   uint32_t v[kMaxSalts];
@@ -122,53 +150,202 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h ^ (h >> 16);
 }
 
+// ---- lsh_keys ----------------------------------------------------------
+
+// How a keys tile reads its rows' words: 16-byte words from shared memory,
+// 4-byte words from shared memory, or straight from global memory (a tile
+// that does not fit a block's shared memory).
+enum KeysLoad { kLoadGlobal = 0, kLoadWords = 1, kLoadVec = 2 };
+
+// uint32 words of a keys tile's staged keys: kKeyRows rows of ncol | 1
+// (an odd pitch: the lanes, a row each, store to distinct banks), rounded
+// up to 16 bytes so the signature tile after them stays aligned.
+inline __host__ __device__ int key_stage_words(int ncol) {
+  return (kKeyRows * (ncol | 1) + 3) & ~3;
+}
+
+// r words from w in order, FNV-1a from k with prime (w in shared or global
+// memory).
 __device__ __forceinline__ uint32_t fold(const uint32_t* w, int r, uint32_t k, uint32_t prime) {
-  for (int i = 0; i < r; ++i) k = (k ^ __ldg(w + i)) * prime;
+  for (int i = 0; i < r; ++i) k = (k ^ w[i]) * prime;
   return k;
 }
 
-// A thread a (row, key set): key sets 0..nb-1 fold P/nb words each with
-// salts[j], sets nb..nb+nf-1 fold P/nf words with salts[j]; wide: lane 1
-// beside lane 0 (nf = 0), out int64[B, nb, 2].  With packed, also
-// packed[j, b] = ((valid[b] ? key : U32_MAX) << row_bits) | b.
-__global__ void keys_kernel(const uint32_t* __restrict__ sig, int B, int P, int nb, int nf,
-                            const Salts salts, int wide, int64_t* __restrict__ keys,
-                            const bool* __restrict__ valid, int row_bits,
-                            int64_t* __restrict__ packed) {
-  const int nk = nb + nf;
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<long long>(B) * nk) return;
-  const int b = static_cast<int>(t / nk);
-  const int j = static_cast<int>(t - static_cast<long long>(b) * nk);
-  const int r = j < nb ? P / nb : P / nf;
-  const int start = j < nb ? j * r : (j - nb) * r;
-  const uint32_t* w = sig + static_cast<size_t>(b) * P + start;
-  const uint32_t salt = salts.v[j];
-  const uint32_t lo = fmix32(fold(w, r, kFnvOffset, kFnvPrime) ^ salt);
-  if (wide) {
-    const uint32_t rot = (salt << 13) | (salt >> 19);
-    const uint32_t hi = fmix32(fold(w, r, kWideOffset, kWidePrime) ^ rot);
-    keys[2 * t] = lo;
-    keys[2 * t + 1] = hi;
-    return;
+// The same over r / 4 16-byte words of shared memory.
+__device__ __forceinline__ uint32_t fold4(const uint4* w, int r4, uint32_t k, uint32_t prime) {
+  for (int i = 0; i < r4; ++i) {
+    const uint4 v = w[i];
+    k = (k ^ v.x) * prime;
+    k = (k ^ v.y) * prime;
+    k = (k ^ v.z) * prime;
+    k = (k ^ v.w) * prime;
   }
-  keys[t] = lo;
-  if (packed != nullptr) {
-    const int64_t k = valid[b] ? static_cast<int64_t>(lo) : kU32Max;
+  return k;
+}
+
+// Block: rows [r0, r0 + kKeyRows).  The tile's signatures into shared
+// memory (Load kLoadVec: pitch 16-byte words a row, P / 4 | 1 of them;
+// kLoadWords: pitch words, P | 1), then warp w folds key sets w, w +
+// kWarps, ..., lane l row r0 + l: sets 0..nb-1 fold P/nb words each with
+// salts[j], sets nb..nb+nf-1 P/nf words with salts[j]; wide: lane 1 beside
+// lane 0 (nf = 0), out int64[B, nb, 2].  With packed, each set's
+// packed[j, r0 + l] = ((valid ? key : U32_MAX) << row_bits) | row in one
+// contiguous store a warp; the keys staged as uint32 and written out as
+// the tile's contiguous span of keys, 16 bytes a store (keys 16-byte
+// aligned).
+template <int Load>
+__global__ void __launch_bounds__(kThreads)
+keys_kernel(const uint32_t* __restrict__ sig, int B, int P, int nb, int nf, const Salts salts,
+            int wide, int pitch, int64_t* __restrict__ keys, const bool* __restrict__ valid,
+            int row_bits, int64_t* __restrict__ packed) {
+  extern __shared__ __align__(16) uint32_t keys_smem[];
+  const int nk = nb + nf, ncol = wide ? 2 * nb : nk, kp = ncol | 1;
+  uint32_t* stage = keys_smem;
+  uint32_t* tile = keys_smem + key_stage_words(ncol);
+  const long long r0 = static_cast<long long>(blockIdx.x) * kKeyRows;
+  const int nr = static_cast<int>(B - r0 < kKeyRows ? B - r0 : kKeyRows);
+  const uint32_t* rows = sig + r0 * P;
+  if (Load == kLoadVec) {
+    const int c4 = P / 4, p4 = pitch / 4;
+    const uint4* src = reinterpret_cast<const uint4*>(rows);
+    uint4* dst = reinterpret_cast<uint4*>(tile);
+    for (int i = threadIdx.x; i < nr * c4; i += kThreads) {
+      const int r = i / c4;
+      dst[r * p4 + i - r * c4] = __ldg(src + i);
+    }
+  } else if (Load == kLoadWords) {
+    for (int i = threadIdx.x; i < nr * P; i += kThreads) {
+      const int r = i / P;
+      tile[r * pitch + i - r * P] = __ldg(rows + i);
+    }
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long b = r0 + lane;
+  const bool live = lane < nr;
+  const bool vb = live && packed != nullptr && valid[b];
+  const uint32_t* mine = Load == kLoadGlobal ? sig + b * P : tile + lane * pitch;
+  for (int j = warp; j < nk && live; j += kWarps) {
+    const int r = j < nb ? P / nb : P / nf;
+    const int start = (j < nb ? j : j - nb) * r;
+    const uint32_t salt = salts.v[j];
+    uint32_t lo, hi = 0;
+    if (Load == kLoadVec) {
+      const uint4* w = reinterpret_cast<const uint4*>(mine + start);
+      lo = fold4(w, r / 4, kFnvOffset, kFnvPrime);
+      if (wide) hi = fold4(w, r / 4, kWideOffset, kWidePrime);
+    } else {
+      lo = fold(mine + start, r, kFnvOffset, kFnvPrime);
+      if (wide) hi = fold(mine + start, r, kWideOffset, kWidePrime);
+    }
+    lo = fmix32(lo ^ salt);
+    if (wide) {
+      stage[lane * kp + 2 * j] = lo;
+      stage[lane * kp + 2 * j + 1] = fmix32(hi ^ ((salt << 13) | (salt >> 19)));
+      continue;
+    }
+    stage[lane * kp + j] = lo;
+    if (packed != nullptr) {
+      const int64_t k = vb ? static_cast<int64_t>(lo) : kU32Max;
+      packed[static_cast<size_t>(j) * B + b] = (k << row_bits) | b;
+    }
+  }
+  __syncthreads();
+  int64_t* out = keys + r0 * ncol;
+  const int n = nr * ncol;
+  for (int e = 2 * threadIdx.x; e < n; e += 2 * kThreads) {
+    int r = e / ncol, c = e - r * ncol;
+    const int64_t v0 = stage[r * kp + c];
+    if (e + 1 == n) {
+      out[e] = v0;
+      break;
+    }
+    if (++c == ncol) {
+      c = 0;
+      ++r;
+    }
+    *reinterpret_cast<longlong2*>(out + e) = make_longlong2(v0, stage[r * kp + c]);
+  }
+}
+
+// Block: rows [r0, r0 + kKeyRows).  Their keys int64[nr, nk], one
+// contiguous span, into shared memory (16-byte loads where the span is
+// 16-byte aligned; a row pitch of nk | 1), then warp w writes sets w, w +
+// kWarps, ... of packed[j, r0 + l] = ((valid ? key : U32_MAX) << row_bits)
+// | row, lane l row r0 + l: one contiguous store a warp.
+__global__ void __launch_bounds__(kThreads)
+pack_kernel(const int64_t* __restrict__ keys, int B, int nk, const bool* __restrict__ valid,
+            int row_bits, int64_t* __restrict__ packed) {
+  extern __shared__ __align__(16) int64_t pack_smem[];
+  const int kp = nk | 1;
+  const long long r0 = static_cast<long long>(blockIdx.x) * kKeyRows;
+  const int nr = static_cast<int>(B - r0 < kKeyRows ? B - r0 : kKeyRows);
+  const int64_t* src = keys + r0 * nk;
+  const int n = nr * nk;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    for (int e = 2 * threadIdx.x; e < n; e += 2 * kThreads) {
+      int r = e / nk, c = e - r * nk;
+      if (e + 1 == n) {
+        pack_smem[r * kp + c] = __ldg(src + e);
+        break;
+      }
+      const longlong2 v = __ldg(reinterpret_cast<const longlong2*>(src + e));
+      pack_smem[r * kp + c] = v.x;
+      if (++c == nk) {
+        c = 0;
+        ++r;
+      }
+      pack_smem[r * kp + c] = v.y;
+    }
+  } else {
+    for (int e = threadIdx.x; e < n; e += kThreads) {
+      const int r = e / nk;
+      pack_smem[r * kp + e - r * nk] = __ldg(src + e);
+    }
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane >= nr) return;  // no barrier below
+  const long long b = r0 + lane;
+  const bool vb = valid[b];
+  for (int j = warp; j < nk; j += kWarps) {
+    const int64_t k = vb ? pack_smem[lane * kp + j] : kU32Max;
     packed[static_cast<size_t>(j) * B + b] = (k << row_bits) | b;
   }
 }
 
-// The packing alone, from keys already made: packed[j, b] as above.
-__global__ void pack_kernel(const int64_t* __restrict__ keys, int B, int nk,
-                            const bool* __restrict__ valid, int row_bits,
-                            int64_t* __restrict__ packed) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<long long>(B) * nk) return;
-  const int b = static_cast<int>(t / nk);
-  const int j = static_cast<int>(t - static_cast<long long>(b) * nk);
-  const int64_t k = valid[b] ? keys[t] : kU32Max;
-  packed[static_cast<size_t>(j) * B + b] = (k << row_bits) | b;
+// The keys kernel a shape takes, its pitch and its shared memory.
+struct KeysPlan {
+  int load;
+  int pitch;
+  size_t smem;
+};
+
+inline KeysPlan keys_plan(const void* sig, int P, int nb, int nf, int wide) {
+  const size_t stage = sizeof(uint32_t) * key_stage_words(wide ? 2 * nb : nb + nf);
+  const bool vec = reinterpret_cast<uintptr_t>(sig) % 16 == 0 && P % 4 == 0 &&
+                   (P / nb) % 4 == 0 && (nf == 0 || (P / nf) % 4 == 0);
+  if (vec) {
+    const int pitch = 4 * ((P / 4) | 1);
+    const size_t smem = stage + sizeof(uint32_t) * kKeyRows * pitch;
+    if (smem <= kMaxBlockSmem) return {kLoadVec, pitch, smem};
+  }
+  const int pitch = P | 1;
+  const size_t smem = stage + sizeof(uint32_t) * kKeyRows * pitch;
+  if (smem <= kMaxBlockSmem) return {kLoadWords, pitch, smem};
+  return {kLoadGlobal, 0, stage};
+}
+
+template <int Load>
+cudaError_t launch_keys(const uint32_t* sig, int B, int P, int nb, int nf, const Salts& salts,
+                        int wide, int pitch, size_t smem, int64_t* keys, const bool* valid,
+                        int row_bits, int64_t* packed, cudaStream_t s) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      keys_kernel<Load>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  keys_kernel<Load><<<(B + kKeyRows - 1) / kKeyRows, kThreads, smem, s>>>(
+      sig, B, P, nb, nf, salts, wide, pitch, keys, valid, row_bits, packed);
+  return cudaGetLastError();
 }
 
 // ---- lsh_sort ---------------------------------------------------------
@@ -744,53 +921,99 @@ inline int verify_rounds(const void* sig, int P) {
   return r == 1 || r == 2 || r == 4 || r == 8 ? r : 0;
 }
 
-// x = z0 = out = arange(B); the round flags cleared.
-__global__ void label_init_kernel(int B, int rounds, int32_t* x, int32_t* z0, int32_t* out,
-                                  int32_t* changed) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b < rounds) changed[b] = 0;
-  if (b >= B) return;
-  x[b] = z0[b] = out[b] = b;
-}
+// ---- lsh_label ---------------------------------------------------------
 
-// A warp a row: l1 = min(x[b], x[c] over ok candidates c), then
-// atomicMin(z[b], l1) and atomicMin(z[c], l1) for every ok candidate c.
+// A warp a row b: its distinct ok candidates c in [0, B), c != b, into
+// edges[b * nc, + deg[b]) (kLabelGroups groups of 32 columns loaded at
+// once, a group matched with match_any, each new c checked against the
+// row's earlier ones); x[b] = z0[b] = b; the round stamp cleared.
 __global__ void __launch_bounds__(kThreads)
-label_pull_kernel(const int32_t* __restrict__ rep, const bool* __restrict__ ok, int B, int nc,
-                  int round, const int32_t* __restrict__ x, int32_t* z,
-                  const int32_t* __restrict__ changed) {
-  if (round > 0 && changed[round - 1] == 0) return;
+label_edges_kernel(const int32_t* __restrict__ rep, const bool* __restrict__ ok, int B, int nc,
+                   int32_t* edges, int32_t* __restrict__ deg, int32_t* __restrict__ x,
+                   int32_t* __restrict__ z0, int32_t* __restrict__ stamp) {
   const int b = static_cast<int>((static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5);
-  if (b >= B) return;
+  if (b >= B) return;  // no block-wide barrier below
   const int lane = threadIdx.x & 31;
+  const unsigned lt = (1u << lane) - 1u;
   const int32_t* rb = rep + static_cast<size_t>(b) * nc;
   const bool* ob = ok + static_cast<size_t>(b) * nc;
-  int m = x[b];
-  for (int c = lane; c < nc; c += 32) {
-    const int j = rb[c];
-    if (ob[c] && j >= 0 && j < B) m = min(m, x[j]);
+  int32_t* list = edges + static_cast<size_t>(b) * nc;
+  int n = 0;
+  for (int c0 = 0; c0 < nc; c0 += 32 * kLabelGroups) {
+    int jr[kLabelGroups];
+    bool cr[kLabelGroups];
+#pragma unroll
+    for (int g = 0; g < kLabelGroups; ++g) {  // every load of the chunk in flight at once
+      const int c = c0 + 32 * g + lane;
+      jr[g] = c < nc ? rb[c] : b;
+      cr[g] = c < nc && ob[c];
+    }
+#pragma unroll
+    for (int g = 0; g < kLabelGroups; ++g) {
+      const int j = jr[g];
+      const bool cand = cr[g] && j != b && j >= 0 && j < B;
+      if (__ballot_sync(kFull, cand) == 0) continue;
+      const unsigned peers = __match_any_sync(kFull, cand ? j : B);  // B: no candidate
+      bool fresh = cand && lane == __ffs(peers) - 1;
+      for (int u = 0; fresh && u < n; ++u) fresh = list[u] != j;
+      const unsigned fm = __ballot_sync(kFull, fresh);
+      if (fresh) list[n + __popc(fm & lt)] = j;
+      n += __popc(fm);
+      __syncwarp();  // the list's new entries seen by the next group's lanes
+    }
   }
-  m = __reduce_min_sync(kFull, m);
-  if (lane == 0) atomicMin(z + b, m);
-  for (int c = lane; c < nc; c += 32) {
-    const int j = rb[c];
-    if (ob[c] && j >= 0 && j < B && j != b) atomicMin(z + j, m);
+  if (lane == 0) {
+    deg[b] = n;
+    x[b] = z0[b] = b;
+    if (b == 0) *stamp = 0;
   }
 }
 
-// A thread a row: n = z[z[b]]; x[b] = z_next[b] = n; out[b] = valid ? n : b;
-// the round's flag set where n differs from x[b].
-__global__ void label_jump_kernel(const bool* __restrict__ valid, int B, int round, int32_t* x,
-                                  const int32_t* __restrict__ z, int32_t* __restrict__ z_next,
-                                  int32_t* __restrict__ out, int32_t* changed) {
-  if (round > 0 && changed[round - 1] == 0) return;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int n = z[z[b]];
-  if (n != x[b]) changed[round] = 1;
-  x[b] = n;
-  z_next[b] = n;
-  out[b] = valid[b] ? n : b;
+// One cooperative launch, every round; rows grid-strided, a thread a row.
+// Round r: the pull (m = min(x[b], x[c] over b's edges), atomicMin of m
+// into z[b] and each z[c]; z = z[r & 1], which is x), a grid sync, the jump
+// (n = z[z[b]]; x[b] = z[(r + 1) & 1][b] = n; the stamp set to r + 1 where
+// n differs from x[b]), a grid sync, then every thread reads the stamp and
+// stops if round r changed nothing.  Last, out[b] = valid ? x[b] : b.
+__global__ void __launch_bounds__(kThreads)
+label_rounds_kernel(const int32_t* __restrict__ edges, const int32_t* __restrict__ deg,
+                    const bool* __restrict__ valid, int B, int nc, int rounds, int32_t* x,
+                    int32_t* z0, int32_t* z1, int32_t* stamp, int32_t* __restrict__ out) {
+  namespace cg = cooperative_groups;
+  cg::grid_group grid = cg::this_grid();
+  const int t0 = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
+  for (int round = 0; round < rounds; ++round) {
+    int32_t* z = round & 1 ? z1 : z0;
+    int32_t* zn = round & 1 ? z0 : z1;
+    for (int b = t0; b < B; b += stride) {
+      const int n = __ldg(deg + b);
+      if (n == 0) continue;
+      const int32_t* e = edges + static_cast<size_t>(b) * nc;
+      int m = __ldcg(x + b);
+      for (int u = 0; u < n; ++u) m = min(m, __ldcg(x + __ldg(e + u)));
+      atomicMin(z + b, m);
+      for (int u = 0; u < n; ++u) atomicMin(z + __ldg(e + u), m);
+    }
+    grid.sync();
+    bool moved = false;
+    for (int b = t0; b < B; b += stride) {
+      const int nx = __ldcg(z + __ldcg(z + b));
+      moved |= nx != __ldcg(x + b);
+      x[b] = nx;
+      zn[b] = nx;
+    }
+    if (__any_sync(kFull, moved) && (threadIdx.x & 31) == 0) __stcg(stamp, round + 1);
+    grid.sync();
+    if (__ldcg(stamp) != round + 1) break;  // the same value for every thread
+  }
+  for (int b = t0; b < B; b += stride) out[b] = valid[b] ? __ldcg(x + b) : b;
+}
+
+// int32 words of astt_lsh_label's scratch: the edge lists [B, nc], deg,
+// x, z0, z1 [B] each, the round stamp.
+inline long long label_scratch_words(int B, int nc) {
+  return static_cast<long long>(B) * (nc + 4) + 1;
 }
 
 template <bool Pack>
@@ -833,25 +1056,56 @@ int astt_lsh_keys(const void* sig, int B, int P, int nb, int nf, const void* sal
       (nf > 0 && P % nf != 0) || (wide && nf != 0) || row_bits < 0 || row_bits > 31) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (reinterpret_cast<uintptr_t>(keys) % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
   if (B == 0) return 0;
   Salts s{};
   const auto* src = static_cast<const uint32_t*>(salts);
   for (int i = 0; i < nk; ++i) s.v[i] = src[i];
-  keys_kernel<<<blocks_for(static_cast<long long>(B) * nk), kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(sig), B, P, nb, nf, s, wide, static_cast<int64_t*>(keys),
-      static_cast<const bool*>(valid), row_bits, static_cast<int64_t*>(packed));
-  return static_cast<int>(cudaGetLastError());
+  const KeysPlan plan = keys_plan(sig, P, nb, nf, wide);
+  auto* g = static_cast<const uint32_t*>(sig);
+  auto* k = static_cast<int64_t*>(keys);
+  auto* v = static_cast<const bool*>(valid);
+  auto* pk = static_cast<int64_t*>(packed);
+  auto* st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (plan.load) {
+    case kLoadVec:
+      err = launch_keys<kLoadVec>(g, B, P, nb, nf, s, wide, plan.pitch, plan.smem, k, v,
+                                  row_bits, pk, st);
+      break;
+    case kLoadWords:
+      err = launch_keys<kLoadWords>(g, B, P, nb, nf, s, wide, plan.pitch, plan.smem, k, v,
+                                    row_bits, pk, st);
+      break;
+    default:
+      err = launch_keys<kLoadGlobal>(g, B, P, nb, nf, s, wide, plan.pitch, plan.smem, k, v,
+                                     row_bits, pk, st);
+      break;
+  }
+  return static_cast<int>(err);
+}
+
+// Which load astt_lsh_keys takes for this shape (KeysLoad: 2 16-byte words
+// in shared memory, 1 4-byte words, 0 global memory).
+int astt_lsh_keys_load(const void* sig, int P, int nb, int nf, int wide) {
+  if (P < 1 || nb < 1 || nf < 0) return -1;
+  return keys_plan(sig, P, nb, nf, wide).load;
 }
 
 // keys int64[B, nk], valid bool[B] -> packed int64[nk, B].
 int astt_lsh_pack(const void* keys, int B, int nk, const void* valid, int row_bits, void* packed,
                   void* stream) {
-  if (B < 0 || nk < 1 || row_bits < 0 || row_bits > 31) {
+  if (B < 0 || nk < 1 || nk > kMaxSalts || row_bits < 0 || row_bits > 31) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0) return 0;
-  pack_kernel<<<blocks_for(static_cast<long long>(B) * nk), kThreads, 0,
+  const size_t smem = sizeof(int64_t) * kKeyRows * (nk | 1);
+  cudaError_t err = cudaFuncSetAttribute(pack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pack_kernel<<<(B + kKeyRows - 1) / kKeyRows, kThreads, smem,
                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(keys), B, nk, static_cast<const bool*>(valid), row_bits,
       static_cast<int64_t*>(packed));
@@ -965,31 +1219,47 @@ int astt_lsh_verify(const void* sig, int P, const void* rep, int B, int nc, cons
   return static_cast<int>(cudaGetLastError());
 }
 
-// rep int32[B, nc], ok bool[B, nc], valid bool[B] -> out int32[B] after
-// `rounds` rounds; work int32[3 B + rounds].  1 + 2 rounds launches.
+int astt_lsh_label_launches() { return kLabelLaunches; }
+
+// The bytes of astt_lsh_label's scratch.
+long long astt_lsh_label_scratch(int B, int nc) { return 4 * label_scratch_words(B, nc); }
+
+// rep int32[B, nc], ok bool[B, nc], valid bool[B] -> out int32[B] after at
+// most `rounds` rounds; work: astt_lsh_label_scratch bytes.  kLabelLaunches
+// launches whatever the rounds: the edge lists, then one cooperative launch
+// of every round (raises, with CUDA's error, where the card refuses it).
 int astt_lsh_label(const void* rep, const void* ok, const void* valid, int B, int nc, int rounds,
                    void* work, void* out, void* stream) {
   if (B < 0 || nc < 0 || rounds < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   auto* s = static_cast<cudaStream_t>(stream);
   auto* w = static_cast<int32_t*>(work);
-  int32_t* x = w;
-  int32_t* z[2] = {w + B, w + 2LL * B};
-  int32_t* changed = w + 3LL * B;
-  auto* o = static_cast<int32_t*>(out);
+  int32_t* edges = w;
+  int32_t* deg = w + static_cast<size_t>(B) * nc;
+  int32_t* x = deg + B;
+  int32_t* z0 = x + B;
+  int32_t* z1 = z0 + B;
+  int32_t* stamp = z1 + B;
   const auto* r = static_cast<const int32_t*>(rep);
   const auto* k = static_cast<const bool*>(ok);
   const auto* v = static_cast<const bool*>(valid);
-  label_init_kernel<<<blocks_for(B > rounds ? B : rounds), kThreads, 0, s>>>(
-      B, rounds, x, z[0], o, changed);
+  auto* o = static_cast<int32_t*>(out);
+  label_edges_kernel<<<blocks_for(32LL * B), kThreads, 0, s>>>(r, k, B, nc, edges, deg, x, z0,
+                                                               stamp);
   cudaError_t err = cudaGetLastError();
-  for (int round = 0; round < rounds && err == cudaSuccess; ++round) {
-    label_pull_kernel<<<blocks_for(32LL * B), kThreads, 0, s>>>(r, k, B, nc, round, x,
-                                                                z[round & 1], changed);
-    label_jump_kernel<<<blocks_for(B), kThreads, 0, s>>>(v, B, round, x, z[round & 1],
-                                                         z[(round + 1) & 1], o, changed);
-    err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, label_rounds_kernel, kThreads, 0);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned want = blocks_for(B);
+  const unsigned fit = static_cast<unsigned>(per_sm) * static_cast<unsigned>(sms);
+  const dim3 grid(want < fit ? want : fit);
+  void* args[] = {&edges, &deg, &v, &B, &nc, &rounds, &x, &z0, &z1, &stamp, &o};
+  err = cudaLaunchCooperativeKernel((void*)label_rounds_kernel, grid, dim3(kThreads), args, 0, s);
   return static_cast<int>(err);
 }
 

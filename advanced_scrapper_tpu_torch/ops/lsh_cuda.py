@@ -5,8 +5,10 @@ Five kernels replace the jnp device code of the reference's
 
 - :func:`lsh_keys`: the band keys of every key set of a signature row in
   one launch (coarse then fine, or the two wide lanes), and, from the same
-  launch, the packed per-band sort keys of :func:`lsh_sort`;
-  :func:`pack_keys` packs keys already made (counted as ``lsh_keys``);
+  launch, the packed per-band sort keys of :func:`lsh_sort`, a tile of
+  rows through shared memory a block (:func:`keys_load` says how the tile
+  is read); :func:`pack_keys` packs keys already made (counted as
+  ``lsh_keys``);
 - :func:`lsh_sort`: each band's packed keys, whose rows enter ascending,
   sorted by a stable LSD radix sort of their 32 key bits (a digit count,
   then a scatter a pass, all counted);
@@ -17,8 +19,10 @@ Five kernels replace the jnp device code of the reference's
 - :func:`lsh_verify`: the agreement of every (row, candidate) edge against
   a scalar, per-column, per-edge or fine-only bar, the exact-verify
   ``need`` mask, or the fine-only bars alone;
-- :func:`lsh_label`: the component-minimum label rounds (1 + 2 rounds
-  launches, all counted).
+- :func:`lsh_label`: the component-minimum label rounds over each row's
+  distinct ok edges, :data:`LABEL_LAUNCHES` launches whatever the rounds
+  (the edge lists, then one cooperative launch of every round; both
+  counted).
 
 Each checks device, dtype, shape and contiguity before anything is built,
 launches on PyTorch's current stream, raises if a launch returns a CUDA
@@ -49,6 +53,13 @@ MAX_SALTS = 512
 MAX_HEAD_BANDS = 4095
 #: kernel launches of one :func:`lsh_run_heads` call
 RUN_HEADS_LAUNCHES = 2
+#: kernel launches of one :func:`lsh_label` call, whatever its rounds
+#: (``kLabelLaunches``: the edge lists, then every round in one launch)
+LABEL_LAUNCHES = 2
+#: how :func:`lsh_keys` reads a tile's signatures (``KeysLoad``): straight
+#: from global memory (the tile does not fit a block), 4-byte words or
+#: 16-byte words through shared memory
+KEYS_LOAD_GLOBAL, KEYS_LOAD_WORDS, KEYS_LOAD_VEC = 0, 1, 2
 #: ``thr_mode`` of ``astt_lsh_verify``
 THR_SCALAR, THR_COLUMN, THR_EDGE, THR_FINE = 0, 1, 2, 3
 
@@ -61,6 +72,8 @@ def _lib() -> ctypes.CDLL:
     lib.astt_lsh_keys.argtypes = [
         _ptr, _int, _int, _int, _int, _ptr, _int, _ptr, _ptr, _int, _ptr, _ptr,
     ]
+    lib.astt_lsh_keys_load.argtypes = [_ptr, _int, _int, _int, _int]
+    lib.astt_lsh_keys_load.restype = ctypes.c_int
     lib.astt_lsh_pack.argtypes = [_ptr, _int, _int, _ptr, _int, _ptr, _ptr]
     lib.astt_lsh_sort.argtypes = [_ptr, _int, _int, _int, _ptr, _ptr, _ptr, _ptr]
     lib.astt_lsh_sort_scratch.argtypes = [_int, _int]
@@ -76,6 +89,9 @@ def _lib() -> ctypes.CDLL:
         _float, _ptr, _ptr, _ptr, _ptr,
     ]
     lib.astt_lsh_label.argtypes = [_ptr, _ptr, _ptr, _int, _int, _int, _ptr, _ptr, _ptr]
+    lib.astt_lsh_label_scratch.argtypes = [_int, _int]
+    lib.astt_lsh_label_scratch.restype = ctypes.c_longlong
+    lib.astt_lsh_label_launches.restype = ctypes.c_int
     for fn in ("keys", "pack", "sort", "run_heads", "verify", "label"):
         getattr(lib, f"astt_lsh_{fn}").restype = ctypes.c_int
     lib.astt_lsh_max_salts.restype = ctypes.c_int
@@ -92,6 +108,11 @@ def max_salts() -> int:
 def max_head_bands() -> int:
     """The kernel's ``kMaxHeadBands`` (builds the library if needed)."""
     return _lib().astt_lsh_max_head_bands()
+
+
+def label_launches() -> int:
+    """The kernel's ``kLabelLaunches`` (builds the library if needed)."""
+    return _lib().astt_lsh_label_launches()
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -152,7 +173,8 @@ def lsh_keys(
     ``int64[B, nb, 2]`` (lane 1 ``WIDE_OFFSET``/``WIDE_PRIME`` and the salt
     rotated left by 13; ``fine_salt`` must be empty).  With ``valid``,
     ``packed`` is the sort keys ``int64[nb + nf, B]``: ``((valid ? key :
-    U32_MAX) << bits) | row``; else ``None``."""
+    U32_MAX) << bits) | row``; else ``None``.  A block takes 32 rows;
+    :func:`keys_load` says how it reads them."""
     _on_card(sig, "sig")
     dev = sig.device
     _check(sig, "sig", (torch.uint32, torch.int32), 2, dev)
@@ -190,16 +212,27 @@ def lsh_keys(
 lsh_keys.launches = 0
 
 
+def keys_load(sig: torch.Tensor, nb: int, nf: int = 0, *, wide: bool = False) -> int:
+    """How :func:`lsh_keys` reads ``sig``'s tiles at ``nb`` + ``nf`` key
+    sets: :data:`KEYS_LOAD_VEC` (16-byte words through shared memory: the
+    rows 16-byte aligned, ``P`` and each band width a multiple of 4),
+    :data:`KEYS_LOAD_WORDS` (4-byte words through shared memory) or
+    :data:`KEYS_LOAD_GLOBAL` (the tile does not fit a block's shared
+    memory).  Builds the library if needed."""
+    return _lib().astt_lsh_keys_load(sig.data_ptr(), sig.shape[1], nb, nf, int(wide))
+
+
 def pack_keys(keys: torch.Tensor, valid: torch.Tensor, bits: int) -> torch.Tensor:
     """The sort keys ``int64[nk, B]`` of ``keys int64[B, nk]`` already made
-    (see :func:`lsh_keys`); one launch, counted as ``lsh_keys``."""
+    (see :func:`lsh_keys`), 32 rows' keys through shared memory a block;
+    one launch, counted as ``lsh_keys``."""
     _on_card(keys, "keys")
     dev = keys.device
     _check(keys, "keys", (torch.int64,), 2, dev)
     B, nk = keys.shape
     _check_valid(valid, B, dev)
-    if nk < 1:
-        raise ValueError("keys need at least one column")
+    if not 1 <= nk <= MAX_SALTS:
+        raise ValueError(f"keys need 1 to {MAX_SALTS} columns, got {nk}")
     if not 0 <= bits <= 31 or (B > 1 and (B - 1) >> bits):
         raise ValueError(f"{B} rows do not fit {bits} row bits (at most 31)")
     packed = torch.empty((nk, B), dtype=torch.int64, device=dev)
@@ -380,19 +413,18 @@ def lsh_verify(
 lsh_verify.launches = 0
 
 
-def label_launches(jump_rounds: int) -> int:
-    """Kernel launches of one :func:`lsh_label` call: an init, then a pull
-    and a jump a round."""
-    return 1 + 2 * jump_rounds
-
-
 def lsh_label(
     rep_bands: torch.Tensor, ok: torch.Tensor, valid: torch.Tensor, jump_rounds: int
 ) -> torch.Tensor:
     """``int32[B]`` component-minimum labels over the ``ok`` edges of
     ``rep_bands int32[B, nc]`` after ``jump_rounds`` rounds (invalid rows
     self), the reference's ``_label_components``; a candidate outside
-    ``[0, B)`` is no edge.  ``1 + 2·jump_rounds`` launches."""
+    ``[0, B)`` is no edge.  :data:`LABEL_LAUNCHES` launches whatever
+    ``jump_rounds`` is: each row's distinct ok candidates compacted into
+    scratch sized for every column distinct, then one cooperative launch
+    that runs the rounds with a grid sync between pull and jump and stops
+    after the first round that changed nothing.  A card that refuses the
+    cooperative launch raises with CUDA's error."""
     _on_card(rep_bands, "rep_bands")
     dev = rep_bands.device
     _check(rep_bands, "rep_bands", (torch.int32,), 2, dev)
@@ -405,11 +437,12 @@ def lsh_label(
         raise ValueError(f"jump_rounds must be an int >= 0, got {jump_rounds!r}")
     out = torch.empty((B,), dtype=torch.int32, device=dev)
     if B:
-        work = torch.empty((3 * B + jump_rounds,), dtype=torch.int32, device=dev)
-        err = _lib().astt_lsh_label(rep_bands.data_ptr(), ok.data_ptr(), valid.data_ptr(), B, nc,
-                                    jump_rounds, work.data_ptr(), out.data_ptr(), _stream(dev))
+        lib = _lib()
+        work = torch.empty((lib.astt_lsh_label_scratch(B, nc),), dtype=torch.uint8, device=dev)
+        err = lib.astt_lsh_label(rep_bands.data_ptr(), ok.data_ptr(), valid.data_ptr(), B, nc,
+                                 jump_rounds, work.data_ptr(), out.data_ptr(), _stream(dev))
         _raise_on(err, "lsh_label")
-        lsh_label.launches += label_launches(jump_rounds)
+        lsh_label.launches += LABEL_LAUNCHES
     return out
 
 

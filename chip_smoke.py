@@ -939,8 +939,8 @@ def entry_path(card: str) -> None:
     assert int(out[128]) == 0, "entry(): the planted copy is not resolved"
     assert launches["minhash_sig"] == 1 and sum(launches.values()) == 1, launches
     # candidate_keys, then duplicate_rep_bands' packing pass; 16 + 32
-    # bands; its jump_rounds 8
-    assert lsh_launches == lsh_path_launches(8, keys=2), lsh_launches
+    # bands
+    assert lsh_launches == lsh_path_launches(keys=2), lsh_launches
     assert sorts == [], f"a library sort ran on the card: {sorts}"
 
 
@@ -4671,14 +4671,15 @@ def read_lsh_launches() -> dict[str, int]:
     return {name: f.launches for name, f in lsh_counters().items()}
 
 
-def lsh_path_launches(jump_rounds: int, keys: int = 1) -> dict[str, int]:
+def lsh_path_launches(keys: int = 1) -> dict[str, int]:
     """The LSH launches of one resolve epilogue: ``keys`` ``lsh_keys``
-    calls, then one call of each other kernel."""
+    calls, then one call of each other kernel (the label's launches do not
+    depend on its rounds)."""
     from advanced_scrapper_tpu_torch.ops import lsh_cuda
 
     return {"lsh_keys": keys, "lsh_sort": lsh_cuda.sort_launches(),
             "lsh_run_heads": lsh_cuda.RUN_HEADS_LAUNCHES, "lsh_verify": 1,
-            "lsh_label": lsh_cuda.label_launches(jump_rounds)}
+            "lsh_label": lsh_cuda.LABEL_LAUNCHES}
 
 
 @contextlib.contextmanager
@@ -4721,6 +4722,18 @@ def lsh_sigs(rng: np.random.RandomState, B: int, P: int = 128) -> tuple[np.ndarr
     valid = rng.rand(B) > 0.02
     valid[B - B // 16:] = False
     return sig, valid
+
+
+#: (B, P, coarse, fine key sets, wide, words off 16-byte alignment): the
+#: keys' tiles of 32 rows one below, at and one past a tile, and their
+#: general paths: odd band widths (4-byte words), 9 bands of P = 36
+#: (16-byte words, 9 a row), a signature one word off 16-byte alignment, a
+#: tile too large for a block's shared memory (global memory)
+LSH_KEY_SHAPES = ((31, 128, 16, 32, False, 0), (32, 128, 16, 32, False, 0),
+                  (33, 128, 16, 32, False, 0), (33, 128, 16, 0, True, 0),
+                  (1000, 36, 12, 18, False, 0), (1000, 36, 12, 0, True, 0),
+                  (1000, 36, 9, 0, False, 0), (999, 128, 16, 32, False, 1),
+                  (999, 128, 16, 0, True, 1), (100, 2048, 16, 32, False, 0))
 
 
 def lsh_key_cases(rng: np.random.RandomState) -> dict[str, tuple[np.ndarray, np.ndarray]]:
@@ -4767,8 +4780,12 @@ def lsh_boundary(rng: np.random.RandomState) -> tuple[np.ndarray, np.ndarray, np
 
 
 def lsh_graphs(rng: np.random.RandomState) -> dict[str, tuple[np.ndarray, np.ndarray, np.ndarray]]:
-    """``(rep int32[B, nc], ok bool[B, nc], valid bool[B])``: a 64-node
-    forward chain and random graphs, the label rounds' edge cases."""
+    """``(rep int32[B, nc], ok bool[B, nc], valid bool[B])``: the label
+    rounds' edge cases.  A 64-node forward chain; random graphs; rows whose
+    144 columns repeat one or two candidates among self columns (the main
+    corpus's pattern); every column distinct and ok (the edge lists' worst
+    case); a path through 65,536 rows in a shuffled order, which needs
+    every round."""
     rep = np.tile(np.arange(64, dtype=np.int32)[:, None], (1, 3))
     rep[:-1, 0] = np.arange(1, 64)
     out = {"chain64": (rep, rep != np.arange(64)[:, None], np.ones(64, bool))}
@@ -4776,6 +4793,21 @@ def lsh_graphs(rng: np.random.RandomState) -> dict[str, tuple[np.ndarray, np.nda
                              "random_dense": (65536, 48, 0.02)}.items():
         out[name] = (rng.randint(0, B, size=(B, nc)).astype(np.int32), rng.rand(B, nc) < p,
                      rng.rand(B) > 0.05)
+    B, nc = 8192, 144
+    idx = np.arange(B, dtype=np.int32)
+    rep = np.tile(idx[:, None], (1, nc))
+    pick = rng.randint(0, 3, size=(B, nc))  # 0: self, 1 and 2: the row's two candidates
+    two = rng.randint(0, B, size=(B, 2)).astype(np.int32)
+    rep = np.where(pick == 1, two[:, :1], np.where(pick == 2, two[:, 1:], rep))
+    out["repeat_pairs"] = (rep, rng.rand(B, nc) < 0.9, rng.rand(B) > 0.02)
+    B = 2048
+    rep = (np.arange(B)[:, None] + 1 + 7 * np.arange(nc)[None, :]) % B
+    out["all_distinct"] = (rep.astype(np.int32), np.ones((B, nc), bool), np.ones(B, bool))
+    B = 65536
+    order = rng.permutation(B).astype(np.int32)
+    rep = np.tile(np.arange(B, dtype=np.int32)[:, None], (1, 2))
+    rep[order[:-1], 0] = order[1:]
+    out["chain_shuffled"] = (rep, rep != np.arange(B)[:, None], np.ones(B, bool))
     return out
 
 
@@ -4784,20 +4816,26 @@ def check_lsh_vs_plain(params, dev) -> dict:
     version in ``ops/lsh.py`` on the card: ``lsh_keys`` (and its packing
     pass) at B = 1, 2, 3, 37, 999, 2,049 and 4,097 (one past a run-head
     and a sort tile) and 65,536 with 32, 0 and 64 fine key sets, the wide
-    lanes, an OPH-densified input; ``lsh_sort`` (``torch.sort``) and
-    ``lsh_run_heads`` on those keys, on their first band alone and on the
-    CPU tests' edge cases (ties, all invalid, a padding run of 65,136 rows,
-    valid rows at ``U32_MAX``) and on one band of 2²¹ + 1 rows (22 row
-    bits: the run heads' 16-byte records); ``lsh_verify`` on the 65,536 rows'
-    candidates in every mode (a scalar, per-column, per-edge and fine bar,
-    ``need``, the bars alone), at P = 64 (its fast path) and 36 (its
-    general path) and at the exact bars; ``lsh_label`` at ``jump_rounds``
-    0, 1, 2 and 16 on those edges, a 64-node chain and random graphs."""
+    lanes, an OPH-densified input; the keys' tiles of 32 rows at B = 31, 32
+    and 33, and their general paths (P = 36 with odd band widths, P = 36 at
+    9 bands, a signature one word off 16-byte alignment, P = 2,048 whose
+    tile does not fit a block), each load of ``keys_load`` driven at least
+    once; ``pack_keys`` from keys off 16-byte alignment; ``lsh_sort``
+    (``torch.sort``) and ``lsh_run_heads`` on those keys, on their first
+    band alone and on the CPU tests' edge cases (ties, all invalid, a
+    padding run of 65,136 rows, valid rows at ``U32_MAX``) and on one band
+    of 2²¹ + 1 rows (22 row bits: the run heads' 16-byte records);
+    ``lsh_verify`` on the 65,536 rows' candidates in every mode (a scalar,
+    per-column, per-edge and fine bar, ``need``, the bars alone), at P = 64
+    (its fast path) and 36 (its general path) and at the exact bars;
+    ``lsh_label`` at ``jump_rounds`` 0, 1, 2, 16 and 31 on those edges and
+    on :func:`lsh_graphs`."""
     from advanced_scrapper_tpu_torch.ops import lsh, lsh_cuda
     from advanced_scrapper_tpu_torch.ops.oph import densify
 
     assert lsh_cuda.max_salts() == lsh_cuda.MAX_SALTS, "kMaxSalts and MAX_SALTS differ"
     assert lsh_cuda.max_head_bands() == lsh_cuda.MAX_HEAD_BANDS, "kMaxHeadBands differs"
+    assert lsh_cuda.label_launches() == lsh_cuda.LABEL_LAUNCHES, "kLabelLaunches differs"
     rng = np.random.RandomState(29)
     salt = params.band_salt
     counts = dict.fromkeys(LSH_KERNELS, 0)
@@ -4852,11 +4890,38 @@ def check_lsh_vs_plain(params, dev) -> dict:
         sorted_heads(packed[:1].contiguous(), valid, bits, dict(case, bands=1))
         if B == 65536 and cs == 32 and not oph:
             main = (sig, valid, got, rep)
+    loads = set()  # each load of the keys' tiles driven at least once
+    for B, P, nb, nf, wide, off in LSH_KEY_SHAPES:
+        sig_np, valid_np = lsh_sigs(rng, B, P)
+        buf = card(np.concatenate([np.zeros(off, np.uint32), sig_np.reshape(-1)]))
+        sig, valid = buf[off:].view(B, P), card(valid_np)
+        bsalt, fine = salt[:nb], lsh.subband_salt(nf) if nf else np.zeros((0,), np.uint32)
+        load = lsh_cuda.keys_load(sig, nb, nf, wide=wide)
+        loads.add(load)
+        case = dict(B=B, P=P, bands=nb, fine=nf, wide=wide, offset_words=off, load=load)
+        if wide:
+            got = lsh_cuda.lsh_keys(sig, bsalt, wide=True)[0]
+            same("lsh_keys", got, lsh.keys_plain(sig, bsalt, wide=True), case)
+            continue
+        bits = lsh.row_bits(B)
+        got, packed = lsh_cuda.lsh_keys(sig, bsalt, fine, valid=valid, bits=bits)
+        want = lsh.keys_plain(sig, bsalt, fine)
+        same("lsh_keys", got, want, case)
+        want_packed = lsh.pack_keys_plain(want, valid, bits)
+        same("lsh_keys", packed, want_packed, dict(case, packed=True))
+        same("lsh_keys", lsh_cuda.pack_keys(got, valid, bits), want_packed, dict(case, pack=True))
+    assert loads == {lsh_cuda.KEYS_LOAD_GLOBAL, lsh_cuda.KEYS_LOAD_WORDS,
+                     lsh_cuda.KEYS_LOAD_VEC}, loads
     for name, (keys_np, valid_np) in lsh_key_cases(rng).items():
         keys, valid = card(keys_np), card(valid_np)
         bits = lsh.row_bits(keys.shape[0])
         packed = lsh_cuda.pack_keys(keys, valid, bits)
         same("lsh_keys", packed, lsh.pack_keys_plain(keys, valid, bits), name)
+        if keys.shape[1] % 2:  # keys one row in: 8 B x an odd count off 16-byte alignment
+            k1, v1 = keys[1:], valid[1:]
+            b1 = lsh.row_bits(k1.shape[0])
+            same("lsh_keys", lsh_cuda.pack_keys(k1, v1, b1), lsh.pack_keys_plain(k1, v1, b1),
+                 dict(case=name, offset_rows=1))
         sorted_heads(packed, valid, bits, name)
     # past 2^21 rows a run-head record takes 16 bytes; 513 sort tiles a band
     B = (1 << 21) + 1
@@ -4909,7 +4974,7 @@ def check_lsh_vs_plain(params, dev) -> dict:
     graphs = {f"main_{k}": (rep, ok, valid) for k, ok in oks.items() if k in ("scalar", "fine")}
     graphs.update({k: tuple(card(a) for a in v) for k, v in lsh_graphs(rng).items()})
     for name, (grep, gok, gvalid) in graphs.items():
-        for rounds in (0, 1, 2, 16):
+        for rounds in (0, 1, 2, 16, 31):
             same("lsh_label", lsh_cuda.lsh_label(grep, gok, gvalid, rounds),
                  lsh.label_plain(grep, gok, gvalid, rounds), dict(graph=name, rounds=rounds))
     after = read_lsh_launches()
@@ -4933,14 +4998,20 @@ def lsh_epilogue_plain(sig, valid, band_salt, fine_salt, base, fine_margin, *, n
     return lsh.label_plain(rep, ok, valid, jump_rounds)
 
 
-def lsh_bounds(sig, rep, nk: int, clock_mhz: float) -> dict[str, dict]:
-    """The bounds of Kernel B (``kernel_b``: the sort and the run heads
-    together), ``sort``, ``run_heads`` and ``verify`` at the main path's
-    inputs: each input read once and each output written once (Kernel B's
-    sorted keys are its own intermediate); the operations these inputs
-    need (a digit and a rank a key a pass; a run-start test, the scan and
-    three picks a position; a compare and an add a word of each non-self
-    edge)."""
+def lsh_bounds(sig, rep, nk: int, clock_mhz: float, *, fine: int = 0,
+               rounds_run: int = 0) -> dict[str, dict]:
+    """The bounds of the LSH stages at the main path's inputs (``nk`` key
+    sets, ``fine`` of them fine; ``rounds_run`` label rounds): each input
+    read once and each output written once (Kernel B's sorted keys are its
+    own intermediate), and the operations these inputs need.  ``keys``: a
+    fold step (xor, multiply) a word for each of the two key set groups,
+    fmix32 and the salt (8) and the packed key (3) a key; ``pack``: the
+    packed key a key; ``sort``: a digit and a rank a key a pass;
+    ``run_heads``: a run-start test, the scan and three picks a position;
+    ``kernel_b``: the two; ``verify``: a compare and an add a word of each
+    non-self edge; ``label``: a min and an atomic min an edge and a jump a
+    row, each round run; ``epilogue``: keys, Kernel B, verify and label,
+    the sum of their bounds."""
     from advanced_scrapper_tpu_torch.ops import lsh_cuda
 
     B, P = sig.shape
@@ -4949,10 +5020,14 @@ def lsh_bounds(sig, rep, nk: int, clock_mhz: float) -> dict[str, dict]:
     edges = int((rep != idx[:, None]).sum())
     passes = lsh_cuda.sort_passes()
     work = {
+        # signatures and valid read; keys and packed keys written
+        "keys": (B * P * 4 + B + 2 * B * nk * 8, B * (2 * P * (1 + (fine > 0)) + 11 * nk)),
+        "pack": (B * nk * 8 + B + nk * B * 8, 3 * nk * B),
         "sort": (2 * nk * B * 8, 2 * passes * nk * B),
         "run_heads": (nk * B * 8 + B + B * nc * 4, nk * B * 8),
         "kernel_b": (nk * B * 8 + B + B * nc * 4, (2 * passes + 8) * nk * B),
         "verify": (B * P * 4 + B * nc * 4 + B + B * nc, 2 * edges * P),
+        "label": (B * nc * 4 + B * nc + B + B * 4, rounds_run * (2 * B * nc + B)),
     }
     out = {}
     for stage, (moved, ops) in work.items():
@@ -4960,6 +5035,10 @@ def lsh_bounds(sig, rep, nk: int, clock_mhz: float) -> dict[str, dict]:
         out[stage] = dict(moved=moved, ops=ops, ops_ms=ops_ms, bytes_ms=bytes_ms,
                           bound_ms=max(ops_ms, bytes_ms), bound_by=bound_by(ops_ms, bytes_ms),
                           edges=edges)
+    parts = ("keys", "kernel_b", "verify", "label")
+    out["epilogue"] = dict(bound_ms=sum(out[k]["bound_ms"] for k in parts), bound_by="bytes"
+                           if all(out[k]["bound_by"] == "bytes" for k in parts) else "operations",
+                           parts=parts, edges=edges)
     return out
 
 
@@ -5019,7 +5098,7 @@ def lsh_kernel_timing(engine, running, valid, jump_rounds: int, clock_mhz: float
 
     cfg = engine.cfg
     salt, fine = engine.params.band_salt, engine._fine_salt()
-    B, P = running.shape
+    B = running.shape[0]
     nk = len(salt) + len(fine)
     bits = lsh.row_bits(B)
     keys, packed = lsh_cuda.lsh_keys(running, salt, fine, valid=valid, bits=bits)
@@ -5028,18 +5107,14 @@ def lsh_kernel_timing(engine, running, valid, jump_rounds: int, clock_mhz: float
     nc = rep.shape[1]
     ok = lsh_cuda.lsh_verify(rep, valid, running, base=cfg.sim_threshold)[0]
     rounds_run = label_rounds_run(rep, ok, valid, jump_rounds)
-    bounds = lsh_bounds(running, rep, nk, clock_mhz)
+    bounds = lsh_bounds(running, rep, nk, clock_mhz, fine=len(fine), rounds_run=rounds_run)
     sort_passes = lsh_cuda.sort_passes()
     stages = {
         "lsh_keys": dict(
             fn=lambda: lsh_cuda.lsh_keys(running, salt, fine, valid=valid, bits=bits),
             plain=lambda: lsh.pack_keys_plain(lsh.keys_plain(running, salt, fine), valid, bits),
             kernels={"keys_kernel": 1},
-            # signatures and valid read; keys and packed keys written
-            moved=B * P * 4 + B + 2 * B * nk * 8,
-            # a fold step (xor, multiply) a word for each of the two key set
-            # groups; fmix32 and the salt (8) and the packed key (3) a key
-            ops=B * (2 * P * (1 + (len(fine) > 0)) + 11 * nk)),
+            moved=bounds["keys"]["moved"], ops=bounds["keys"]["ops"]),
         "lsh_sort": dict(
             fn=lambda: lsh_cuda.lsh_sort(packed, bits),
             plain=lambda: lsh.sort_plain(packed),
@@ -5059,11 +5134,8 @@ def lsh_kernel_timing(engine, running, valid, jump_rounds: int, clock_mhz: float
         "lsh_label": dict(
             fn=lambda: lsh_cuda.lsh_label(rep, ok, valid, jump_rounds),
             plain=lambda: lsh.label_plain(rep, ok, valid, jump_rounds),
-            kernels={"label_init_kernel": 1, "label_pull_kernel": jump_rounds,
-                     "label_jump_kernel": jump_rounds},
-            moved=B * nc * 4 + B * nc + B + B * 4,
-            # a min and an atomic min an edge and a jump a row, each round run
-            ops=rounds_run * (2 * B * nc + B)),
+            kernels={"label_edges_kernel": 1, "label_rounds_kernel": 1},
+            moved=bounds["label"]["moved"], ops=bounds["label"]["ops"]),
     }
     rows = []
     for name, st in stages.items():
@@ -5087,7 +5159,9 @@ def lsh_kernel_timing(engine, running, valid, jump_rounds: int, clock_mhz: float
             extra["passes"] = sort_passes
         if name == "lsh_label":
             extra.update(jump_rounds=jump_rounds, rounds_run=rounds_run,
-                         launches_per_call=lsh_cuda.label_launches(jump_rounds))
+                         launches_per_call=lsh_cuda.LABEL_LAUNCHES)
+        if name == "lsh_keys":
+            extra["load"] = lsh_cuda.keys_load(running, len(salt), len(fine))
         if name == "lsh_verify":
             extra.update(verify_gather_floor(running, rep))
         log("kernel_timing", name=name, rows=B, columns=nc, key_sets=nk, ms=ms,
@@ -5198,8 +5272,7 @@ def main() -> int:
     chunks, h2d = engine.last_chunks, engine.last_h2d_bytes
     assert seg_launches == chunks > 0, f"{seg_launches} kernel launches for {chunks} chunks"
     assert minhash_cuda.minhash_fold.launches == minhash_cuda.minhash_sig.launches == 0
-    n_main = bucket_len(MAIN_ARTICLES, min_bucket=64)  # the accumulator's rows
-    want_lsh = lsh_path_launches(_jump_rounds(n_main))
+    want_lsh = lsh_path_launches()
     assert main_lsh == want_lsh, (main_lsh, want_lsh)  # one epilogue, on its kernels
     assert main_sorts == [], f"a library sort ran on the card: {main_sorts}"
     assert reps.shape == (MAIN_ARTICLES,)

@@ -1,5 +1,4 @@
-"""Variants of Kernel B (``lsh_sort`` + ``lsh_run_heads``) and of
-``lsh_verify`` on the card: a design probe.
+"""Variants of the LSH epilogue kernels on the card: a design probe.
 
     python3 lsh_probe.py [--parent DIR]
 
@@ -10,27 +9,34 @@ launches a pass, its items a thread, its lane match by ``match.any``, its
 registers; the run-head tiles, the records written for every row, the run
 heads written straight into the rows or through 16-byte records; lanes a
 candidate, rounds of candidates in flight, registers and the repeated
-candidates counted each time in ``lsh_verify``), applied by text
-substitution (the forms the shipped source no longer has are carried here
-as source text), and, with ``--parent``, the ``lsh.cu`` of another checkout
-(the parent commit unpacked with ``git archive``: there ``torch.sort`` and
-that checkout's ``lsh_run_heads`` and ``lsh_verify``), and the L2 read
-kernel (:data:`L2_READ_SOURCE`), into ``build/kernels/probe/``, all at
-once, one nvcc each.
+candidates counted each time in ``lsh_verify``; the keys' tiles read as
+4-byte words or folded from global memory, their keys written 8 bytes a
+store; the label's edge lists with every ok column, its rounds on every
+co-resident block), applied by text substitution (the forms the shipped
+source no longer has are carried here as source text), and, with
+``--parent``, the ``lsh.cu`` of another checkout (the parent commit
+unpacked with ``git archive``; its ``lsh_label`` takes ``3 B + rounds``
+int32 of scratch), and the L2 read kernel (:data:`L2_READ_SOURCE`), into
+``build/kernels/probe/``, all at once, one nvcc each.
 
 Each one, except the cuts (:data:`CUTS`: the sort's scatter writes, the
 run heads' scattered record writes and the verify gathers left out, to
 show what each costs), is held bit-equal to the plain versions
-(``torch.sort``, ``ops.lsh.run_heads_plain``, ``ops.lsh.verify_plain``)
-on the main path's inputs (the accumulator of ``chip_smoke.py``'s 65,536
-ragged articles, 16 + 32 key sets, 144 candidate columns) and on the edge
-cases of ``chip_smoke.lsh_key_cases``.  Then the stages of each library
-(Kernel B, the sort, the run heads, the verify at the main path's scalar
-bar) are timed over those inputs by CUDA events, 5 calls queued behind a
-spin of the card, in turns (the parent, the shipped kernels, the variants,
-the cuts, then the same in reverse), and the parent's, the shipped and the
-cluster sort's kernels by the profiler, kernel by kernel.  One JSON line a (library,
-stage), with its bound (``chip_smoke.lsh_bounds``).
+(``ops.lsh.keys_plain`` and ``pack_keys_plain``, ``torch.sort``,
+``run_heads_plain``, ``verify_plain``, ``label_plain``) on the main path's
+inputs (the accumulator of ``chip_smoke.py``'s 65,536 ragged articles, 16
++ 32 key sets, 144 candidate columns), on the edge cases of
+``chip_smoke.lsh_key_cases``, on the keys' tile edges and general paths
+(``chip_smoke.LSH_KEY_SHAPES``) and on ``chip_smoke.lsh_graphs`` at 0, 1,
+2, 16 and 31 rounds.  Then the stages of each library (the keys, the packing pass,
+Kernel B, the sort, the run heads, the verify at the main path's scalar
+bar, the label at the main path's ``jump_rounds``, and the whole
+estimator-only epilogue) are timed over those inputs by CUDA events, 5
+calls queued behind a spin of the card, in turns (the parent, the shipped
+kernels, the variants, the cuts, then the same in reverse), and the
+parent's, the shipped and the cluster sort's kernels by the profiler,
+kernel by kernel.  One JSON line a (library, stage), with its bound
+(``chip_smoke.lsh_bounds``).
 
 Beside them: the sort's launches and bytes a pass, the share of verify's
 candidates that repeat within a row, and the L2 read rate (a read of a 32
@@ -390,6 +396,56 @@ CLUSTER = [
      CLUSTER_HOST + "const char* astt_lsh_error_string(int err) {"),
 ]
 
+#: The keys' write-out of the staged tile as 16-byte stores of two keys
+KEYS_PAIRS = """  for (int e = 2 * threadIdx.x; e < n; e += 2 * kThreads) {
+    int r = e / ncol, c = e - r * ncol;
+    const int64_t v0 = stage[r * kp + c];
+    if (e + 1 == n) {
+      out[e] = v0;
+      break;
+    }
+    if (++c == ncol) {
+      c = 0;
+      ++r;
+    }
+    *reinterpret_cast<longlong2*>(out + e) = make_longlong2(v0, stage[r * kp + c]);
+  }
+"""
+#: ... as 8-byte stores, a key a store
+KEYS_SINGLE = """  for (int e = threadIdx.x; e < n; e += kThreads) {
+    const int r = e / ncol;
+    out[e] = stage[r * kp + e - r * ncol];
+  }
+"""
+VEC_PLAN = "  if (vec) {\n"
+WORDS_PLAN = "  if (smem <= kMaxBlockSmem) return {kLoadWords, pitch, smem};\n"
+LABEL_MATCH = """      const unsigned peers = __match_any_sync(kFull, cand ? j : B);  // B: no candidate
+      bool fresh = cand && lane == __ffs(peers) - 1;
+      for (int u = 0; fresh && u < n; ++u) fresh = list[u] != j;"""
+#: The label's edge lists a group of 32 columns at a time, each group's
+#: loads after the previous group's match (the first form), and the shipped
+#: chunk of kLabelGroups groups whose loads issue together
+LABEL_GROUPS = """  for (int c0 = 0; c0 < nc; c0 += 32 * kLabelGroups) {
+    int jr[kLabelGroups];
+    bool cr[kLabelGroups];
+#pragma unroll
+    for (int g = 0; g < kLabelGroups; ++g) {  // every load of the chunk in flight at once
+      const int c = c0 + 32 * g + lane;
+      jr[g] = c < nc ? rb[c] : b;
+      cr[g] = c < nc && ob[c];
+    }
+#pragma unroll
+    for (int g = 0; g < kLabelGroups; ++g) {
+      const int j = jr[g];
+      const bool cand = cr[g] && j != b && j >= 0 && j < B;
+"""
+LABEL_SERIAL = """  for (int c0 = 0; c0 < nc; c0 += 32) {
+    {
+      const int c = c0 + lane;
+      const int j = c < nc ? rb[c] : b;
+      const bool cand = c < nc && ob[c] && j != b && j >= 0 && j < B;
+"""
+
 #: lsh.cu variants: name -> [(text in the source, its replacement)]; the
 #: sort held in a cluster's shared memory (:data:`CLUSTER_KERNEL`), or as
 #: a histogram, a scan and a scatter launch a pass (:data:`RTS`: no
@@ -401,7 +457,13 @@ CLUSTER = [
 #: three columns (:data:`DIRECT`, the earlier design's writes) or as
 #: 16-byte records at every size; verify at 8 lanes a candidate, 2 rounds
 #: of candidates in flight (:data:`FLIGHT2`), held to 64 or 40 registers
-#: (4 or 6 blocks an SM), every column's candidate counted (no dedupe)
+#: (4 or 6 blocks an SM), every column's candidate counted (no dedupe);
+#: the keys' tiles read as 4-byte words (no 16-byte loads) or folded
+#: straight from global memory (no signature tile), the staged keys written
+#: a key a store (:data:`KEYS_SINGLE`); the label's edge lists with every ok
+#: column (no dedupe), a group of 32 columns' loads at a time (the first
+#: form, :data:`LABEL_SERIAL`) or 3 groups' at once, its rounds on every
+#: co-resident block in place of one a 256 rows
 VARIANTS = {
     "shipped": [],
     "rts": RTS,
@@ -422,6 +484,14 @@ VARIANTS = {
     "verify6": [(VERIFY, VERIFY.replace("(kThreads, 8)", "(kThreads, 6)"))],
     "nodedupe": [("__match_any_sync(kFull, cand ? j : -1);", "1u << lane;"),
                  ("      if (fresh) {\n        // a j of an earlier group", "      if (false) {\n        // a j of an earlier group")],
+    "keys_words": [(VEC_PLAN, "  if (false) {\n")],
+    "keys_global": [(VEC_PLAN, "  if (false) {\n"), (WORDS_PLAN, "")],
+    "keys_store8": [(KEYS_PAIRS, KEYS_SINGLE)],
+    "label_nodedupe": [(LABEL_MATCH, "      const bool fresh = cand;")],
+    "label_serial": [(LABEL_GROUPS, LABEL_SERIAL)],
+    "label_groups3": [("constexpr int kLabelGroups = 6;", "constexpr int kLabelGroups = 3;")],
+    "label_fullgrid": [("  const dim3 grid(want < fit ? want : fit);",
+                        "  const dim3 grid(fit);")],
 }
 
 #: lsh.cu with one step cut out, timed only (their outputs are not the
@@ -467,31 +537,38 @@ extern "C" int astt_l2_read(const void* buf, long long n16, void* sink, void* st
 AHEAD_CYCLES = 20_000_000
 
 
+#: ``jump_rounds`` of the label graphs
+LABEL_ROUNDS = (0, 1, 2, 16, 31)
+
+
 class Lib:
-    """The sort, run-head and verify entry points of one built ``lsh.cu``,
-    called as ``ops/lsh_cuda.py`` calls them (the inputs are the ones the
-    shipped wrappers check).  ``parent``: the earlier interface, no sort (its
-    stage is ``torch.sort``) and run heads without scratch."""
+    """The entry points of one built ``lsh.cu``, called as
+    ``ops/lsh_cuda.py`` calls them (the inputs are the ones the shipped
+    wrappers check).  ``parent``: the earlier interface, whose
+    ``lsh_label`` takes ``3 B + rounds`` int32 of scratch."""
 
     def __init__(self, path: Path, parent: bool, cluster: bool = False):
         self.lib = lib = ctypes.CDLL(str(path))
         self.parent, self.cluster = parent, cluster
         p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+        lib.astt_lsh_keys.argtypes = [p, i, i, i, i, p, i, p, p, i, p, p]
+        lib.astt_lsh_pack.argtypes = [p, i, i, p, i, p, p]
         lib.astt_lsh_verify.argtypes = [p, i, p, i, i, p, p, i, i, p, i, f, f, f, p, p, p, p]
-        if parent:
-            lib.astt_lsh_run_heads.argtypes = [p, p, i, i, i, p, p]
-        else:
-            lib.astt_lsh_run_heads.argtypes = [p, p, i, i, i, p, p, p]
-            lib.astt_lsh_run_heads_scratch.argtypes = [i, i, i]
-            lib.astt_lsh_run_heads_scratch.restype = ll
-            lib.astt_lsh_sort.argtypes = [p, i, i, i, p, p, p, p]
-            lib.astt_lsh_sort_scratch.argtypes = [i, i]
-            lib.astt_lsh_sort_scratch.restype = ll
-            lib.astt_lsh_sort.restype = i
+        lib.astt_lsh_run_heads.argtypes = [p, p, i, i, i, p, p, p]
+        lib.astt_lsh_run_heads_scratch.argtypes = [i, i, i]
+        lib.astt_lsh_run_heads_scratch.restype = ll
+        lib.astt_lsh_sort.argtypes = [p, i, i, i, p, p, p, p]
+        lib.astt_lsh_sort_scratch.argtypes = [i, i]
+        lib.astt_lsh_sort_scratch.restype = ll
+        lib.astt_lsh_label.argtypes = [p, p, p, i, i, i, p, p, p]
+        if not parent:
+            lib.astt_lsh_label_scratch.argtypes = [i, i]
+            lib.astt_lsh_label_scratch.restype = ll
         if cluster:
             lib.astt_lsh_sort_cluster.argtypes = [p, i, i, i, p, p]
             lib.astt_lsh_sort_cluster.restype = i
-        lib.astt_lsh_run_heads.restype = lib.astt_lsh_verify.restype = i
+        for fn in ("keys", "pack", "sort", "run_heads", "verify", "label"):
+            getattr(lib, f"astt_lsh_{fn}").restype = i
 
     @staticmethod
     def _raise_on(err: int, what: str) -> None:
@@ -502,9 +579,29 @@ class Lib:
     def _stream() -> int:
         return torch.cuda.current_stream().cuda_stream
 
+    def keys(self, sig: torch.Tensor, salts: np.ndarray, nb: int, *, wide: bool = False,
+             valid: torch.Tensor | None = None, bits: int = 0):
+        """``(keys, packed)`` as ``lsh_cuda.lsh_keys``: ``salts`` the
+        ``nb`` coarse then the fine salts, ``uint32`` on the host."""
+        B, P = sig.shape
+        nk = salts.size
+        keys = torch.empty((B, nb, 2) if wide else (B, nk), dtype=torch.int64, device=sig.device)
+        packed = (torch.empty((nk, B), dtype=torch.int64, device=sig.device)
+                  if valid is not None else None)
+        self._raise_on(self.lib.astt_lsh_keys(
+            sig.data_ptr(), B, P, nb, nk - nb, salts.ctypes.data, int(wide), keys.data_ptr(),
+            None if valid is None else valid.data_ptr(), bits,
+            None if packed is None else packed.data_ptr(), self._stream()), "lsh_keys")
+        return keys, packed
+
+    def pack(self, keys: torch.Tensor, valid: torch.Tensor, bits: int) -> torch.Tensor:
+        B, nk = keys.shape
+        packed = torch.empty((nk, B), dtype=torch.int64, device=keys.device)
+        self._raise_on(self.lib.astt_lsh_pack(keys.data_ptr(), B, nk, valid.data_ptr(), bits,
+                                              packed.data_ptr(), self._stream()), "pack_keys")
+        return packed
+
     def sort(self, packed: torch.Tensor, bits: int) -> torch.Tensor:
-        if self.parent:
-            return torch.sort(packed, dim=1).values
         nbt, B = packed.shape
         if self.cluster:
             out = torch.empty_like(packed)
@@ -523,12 +620,11 @@ class Lib:
     def run_heads(self, srt: torch.Tensor, valid: torch.Tensor, bits: int) -> torch.Tensor:
         nbt, B = srt.shape
         out = torch.empty((B, 3 * nbt), dtype=torch.int32, device=srt.device)
-        args = [srt.data_ptr(), valid.data_ptr(), B, nbt, bits, out.data_ptr()]
-        if not self.parent:
-            rec = torch.empty((self.lib.astt_lsh_run_heads_scratch(B, nbt, bits),),
-                              dtype=torch.uint8, device=srt.device)
-            args.append(rec.data_ptr())
-        self._raise_on(self.lib.astt_lsh_run_heads(*args, self._stream()), "lsh_run_heads")
+        rec = torch.empty((self.lib.astt_lsh_run_heads_scratch(B, nbt, bits),),
+                          dtype=torch.uint8, device=srt.device)
+        self._raise_on(self.lib.astt_lsh_run_heads(srt.data_ptr(), valid.data_ptr(), B, nbt,
+                                                   bits, out.data_ptr(), rec.data_ptr(),
+                                                   self._stream()), "lsh_run_heads")
         return out
 
     def verify(self, rep: torch.Tensor, valid: torch.Tensor, sig: torch.Tensor,
@@ -541,62 +637,128 @@ class Lib:
             None, 0, b32, b32, 0.0, ok.data_ptr(), None, None, self._stream()), "lsh_verify")
         return ok
 
+    def label(self, rep: torch.Tensor, ok: torch.Tensor, valid: torch.Tensor,
+              rounds: int) -> torch.Tensor:
+        B, nc = rep.shape
+        out = torch.empty((B,), dtype=torch.int32, device=rep.device)
+        words = 3 * B + rounds if self.parent else -(-self.lib.astt_lsh_label_scratch(B, nc) // 4)
+        work = torch.empty((words,), dtype=torch.int32, device=rep.device)
+        self._raise_on(self.lib.astt_lsh_label(rep.data_ptr(), ok.data_ptr(), valid.data_ptr(),
+                                               B, nc, rounds, work.data_ptr(), out.data_ptr(),
+                                               self._stream()), "lsh_label")
+        return out
+
 
 def main_inputs(dev: torch.device) -> dict:
     """The main path's epilogue inputs: the 65,536 ragged articles'
-    accumulator and valid rows, their keys and packed sort keys (shipped
-    ``lsh_keys``), and the plain versions' sorted keys, candidates and
-    ok edges."""
+    accumulator and valid rows, the key salts, and the plain versions'
+    keys, packed sort keys, sorted keys, candidates, ok edges and labels
+    at the engine's ``jump_rounds``; the keys' tile cases
+    (``chip_smoke.LSH_KEY_SHAPES``) and the label graphs with their plain
+    results."""
     import chip_smoke as cs
 
     from advanced_scrapper_tpu_torch.config import DedupConfig
-    from advanced_scrapper_tpu_torch.ops import lsh, lsh_cuda
-    from advanced_scrapper_tpu_torch.pipeline.dedup import NearDupEngine
+    from advanced_scrapper_tpu_torch.ops import lsh
+    from advanced_scrapper_tpu_torch.pipeline.dedup import NearDupEngine, _jump_rounds
 
     docs, _planted = cs.ragged_corpus(np.random.RandomState(7), cs.MAIN_ARTICLES)
     eng = NearDupEngine(DedupConfig(rerank=False, exact_verify_band=0.0), device=dev)
     sig, n_bucket = eng._accumulate_device(docs)
     valid = eng._valid_device(docs, n_bucket).contiguous()
     bits = lsh.row_bits(n_bucket)
-    keys, packed = lsh_cuda.lsh_keys(sig, eng.params.band_salt, eng._fine_salt(), valid=valid,
-                                     bits=bits)
+    salt, fine = np.asarray(eng.params.band_salt), np.asarray(eng._fine_salt())
+    keys = lsh.keys_plain(sig, salt, fine)
+    packed = lsh.pack_keys_plain(keys, valid, bits)
     srt = lsh.sort_plain(packed)
     rep = lsh.run_heads_plain(srt, valid, bits)
     ok = lsh.verify_plain(rep, valid, sig, base=eng.cfg.sim_threshold)[0]
+    rounds = _jump_rounds(n_bucket)
+    rng = np.random.RandomState(31)
+    tiles = []
+    for B, P, nb, nf, wide, off in cs.LSH_KEY_SHAPES:
+        sig_np, valid_np = cs.lsh_sigs(rng, B, P)
+        buf = torch.from_numpy(np.concatenate([np.zeros(off, np.uint32), sig_np.reshape(-1)])
+                               .view(np.int32)).to(dev).view(torch.uint32)
+        tsig, tvalid = buf[off:].view(B, P), torch.from_numpy(valid_np).to(dev)
+        tsalt = np.concatenate([salt[:nb], lsh.subband_salt(nf)]).astype(np.uint32)
+        tkeys = lsh.keys_plain(tsig, salt[:nb], tsalt[nb:], wide=wide)
+        tbits = lsh.row_bits(B)
+        tiles.append(dict(sig=tsig, valid=tvalid, salts=tsalt, nb=nb, wide=wide, bits=tbits,
+                          keys=tkeys, packed=None if wide else
+                          lsh.pack_keys_plain(tkeys, tvalid, tbits)))
+    graphs = []
+    for name, arrays in cs.lsh_graphs(np.random.RandomState(37)).items():
+        grep, gok, gvalid = (torch.from_numpy(a).to(dev) for a in arrays)
+        graphs.append(dict(name=name, rep=grep, ok=gok, valid=gvalid,
+                           want={r: lsh.label_plain(grep, gok, gvalid, r) for r in LABEL_ROUNDS}))
     torch.cuda.synchronize()
-    return dict(sig=sig, valid=valid, bits=bits, keys=keys, packed=packed, srt=srt, rep=rep,
-                ok=ok, base=eng.cfg.sim_threshold)
+    return dict(sig=sig, valid=valid, bits=bits, salts=np.concatenate([salt, fine]).astype(
+        np.uint32), nb=salt.size, keys=keys, packed=packed, srt=srt, rep=rep, ok=ok,
+        base=eng.cfg.sim_threshold, rounds=rounds,
+        labels=lsh.label_plain(rep, ok, valid, rounds), tiles=tiles, graphs=graphs)
 
 
 def stage_runs(lib: Lib, c: dict) -> dict:
-    """``stage -> fn``: each stage of ``lib`` on the main inputs."""
+    """``stage -> fn``: each stage of ``lib`` on the main inputs, and the
+    whole estimator-only epilogue (keys and packed keys, sort, run heads,
+    verify at the scalar bar, label)."""
     packed, srt, valid, bits = c["packed"], c["srt"], c["valid"], c["bits"]
+
+    def epilogue():
+        _keys, pk = lib.keys(c["sig"], c["salts"], c["nb"], valid=valid, bits=bits)
+        rep = lib.run_heads(lib.sort(pk, bits), valid, bits)
+        return lib.label(rep, lib.verify(rep, valid, c["sig"], c["base"]), valid, c["rounds"])
+
     return {
+        "keys": lambda: lib.keys(c["sig"], c["salts"], c["nb"], valid=valid, bits=bits),
+        "pack": lambda: lib.pack(c["keys"], valid, bits),
         "kernel_b": lambda: lib.run_heads(lib.sort(packed, bits), valid, bits),
         "sort": lambda: lib.sort(packed, bits),
         "run_heads": lambda: lib.run_heads(srt, valid, bits),
         "verify": lambda: lib.verify(c["rep"], valid, c["sig"], c["base"]),
+        "label": lambda: lib.label(c["rep"], c["ok"], valid, c["rounds"]),
+        "epilogue": epilogue,
     }
 
 
 def equal_to_plain(lib: Lib, c: dict, dev: torch.device) -> dict:
-    """Each stage of ``lib`` against the plain versions on the main inputs
-    and on ``chip_smoke.lsh_key_cases``."""
+    """Each stage of ``lib`` against the plain versions on the main inputs,
+    on ``chip_smoke.lsh_key_cases``, the keys' tile cases and the label
+    graphs."""
     import chip_smoke as cs
 
-    from advanced_scrapper_tpu_torch.ops import lsh, lsh_cuda
+    from advanced_scrapper_tpu_torch.ops import lsh
 
+    valid, bits = c["valid"], c["bits"]
+    keys, packed = lib.keys(c["sig"], c["salts"], c["nb"], valid=valid, bits=bits)
     out = {
-        "sort": bool(torch.equal(lib.sort(c["packed"], c["bits"]), c["srt"])),
-        "run_heads": bool(torch.equal(lib.run_heads(c["srt"], c["valid"], c["bits"]), c["rep"])),
-        "verify": bool(torch.equal(lib.verify(c["rep"], c["valid"], c["sig"], c["base"]),
-                                   c["ok"])),
+        "keys": bool(torch.equal(keys, c["keys"]) and torch.equal(packed, c["packed"])),
+        "pack": bool(torch.equal(lib.pack(c["keys"], valid, bits), c["packed"])),
+        "sort": bool(torch.equal(lib.sort(c["packed"], bits), c["srt"])),
+        "run_heads": bool(torch.equal(lib.run_heads(c["srt"], valid, bits), c["rep"])),
+        "verify": bool(torch.equal(lib.verify(c["rep"], valid, c["sig"], c["base"]), c["ok"])),
+        "label": bool(torch.equal(lib.label(c["rep"], c["ok"], valid, c["rounds"]),
+                                  c["labels"])),
+        "epilogue": bool(torch.equal(stage_runs(lib, c)["epilogue"](), c["labels"])),
     }
+    for t in c["tiles"]:
+        if t["wide"]:
+            got = lib.keys(t["sig"], t["salts"], t["nb"], wide=True)[0]
+            out["keys"] &= bool(torch.equal(got, t["keys"]))
+            continue
+        got, pk = lib.keys(t["sig"], t["salts"], t["nb"], valid=t["valid"], bits=t["bits"])
+        out["keys"] &= bool(torch.equal(got, t["keys"]) and torch.equal(pk, t["packed"]))
+        out["pack"] &= bool(torch.equal(lib.pack(got, t["valid"], t["bits"]), t["packed"]))
+    for g in c["graphs"]:
+        for r, want in g["want"].items():
+            out["label"] &= bool(torch.equal(lib.label(g["rep"], g["ok"], g["valid"], r), want))
     cases = 0
     for name, (k, v) in cs.lsh_key_cases(np.random.RandomState(29)).items():
         keys, valid = torch.from_numpy(k).to(dev), torch.from_numpy(v).to(dev)
         bits = lsh.row_bits(keys.shape[0])
-        packed = lsh_cuda.pack_keys(keys, valid, bits)
+        packed = lsh.pack_keys_plain(keys, valid, bits)
+        out["pack"] &= bool(torch.equal(lib.pack(keys, valid, bits), packed))
         srt = lsh.sort_plain(packed)
         got = lib.run_heads(lib.sort(packed, bits), valid, bits)
         assert torch.equal(got, lsh.run_heads_plain(srt, valid, bits)), name
@@ -698,7 +860,9 @@ def main() -> int:
             runs[name, stage] = fn
     torch.cuda.synchronize()
     times = mp.timed_twice(cs, runs, ahead=AHEAD_CYCLES)
-    bounds = cs.lsh_bounds(c["sig"], c["rep"], c["packed"].shape[0], clock_mhz)
+    rounds_run = cs.label_rounds_run(c["rep"], c["ok"], c["valid"], c["rounds"])
+    bounds = cs.lsh_bounds(c["sig"], c["rep"], c["packed"].shape[0], clock_mhz,
+                           fine=c["salts"].size - c["nb"], rounds_run=rounds_run)
     for (name, stage), t in times.items():
         ms = [x[0] for x in t]
         mean = sum(ms) / len(ms)
@@ -717,6 +881,21 @@ def main() -> int:
                           "per_launch_ms": {k: v[0] / v[1] for k, v in seen.items()},
                           "recorded": {k: v[1] for k, v in seen.items()}, "card": card}),
               flush=True)
+    # the redesigned stages, kernel by kernel: every kernel of a call, summed
+    # over the profiler's 5 calls (per_call_ms counts every recorded launch)
+    for name in ("parent", "shipped"):
+        for stage, want in (("keys", ("keys_kernel",)), ("pack", ("pack_kernel",)),
+                            ("label", ("label_",))):
+            if (name, stage) not in runs:
+                continue
+            seen = cs.profiler_device_ms(runs[name, stage], want)
+            print(json.dumps({"profile": name, "stage": stage,
+                              "per_call_ms": sum(v[0] for v in seen.values()) / 5,
+                              "per_launch_ms": {k: v[0] / v[1] for k, v in seen.items()},
+                              "recorded": {k: v[1] for k, v in seen.items()}, "card": card}),
+                  flush=True)
+    print(json.dumps({"label": {"jump_rounds": c["rounds"], "rounds_run": rounds_run},
+                      "card": card}), flush=True)
     share = repeat_share(c["rep"])
     rate = l2_read_rate(cs.cuda_ms)
     gathered = share["non_self_edges"] * c["sig"].shape[1] * 4

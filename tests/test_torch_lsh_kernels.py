@@ -12,14 +12,23 @@ package's ``ops.lsh``:
   small tiles and other digit widths, over bands of many lengths; a model
   of the run-head kernels (a many-way search for a tile's run start, a
   max-scan of run starts, records a (band, row) transposed into the rows);
-- the label rounds, double-buffered as the kernel runs them (three
-  buffers, a flag a round), at ``jump_rounds`` 1, 2 and full on a 64-node
-  chain and on random graphs;
+- the label: each row's distinct ok edges compacted as the first launch
+  does it, then every round as the one cooperative launch runs them (``x``
+  and two ``z`` buffers, grid syncs, a round stamp, atomics in a shuffled
+  order, the early stop), at ``jump_rounds`` 0, 1, 2 and full on a 64-node
+  chain, random graphs, rows whose 144 columns repeat one or two
+  candidates, every column distinct and ok, and a shuffled chain that
+  needs every round;
 - the agreement pass at bars where ``count/P`` meets the bar exactly and at
   ``base + fine_margin`` boundaries, a model of the per-edge logic and one
   of the kernel's compaction (each distinct candidate of a chunk once) and
   grouping (lanes a candidate, words a lane), at P = 30, 36, 64 and 128;
-- the keys, a thread a (row, key set), as the kernel folds them;
+- the keys, as each (row, key set) folds them, and the tiles of 32 rows
+  (the load and pitch a shape takes, the staged keys written out in pairs,
+  the packed keys of valid and invalid rows) at B = 1, 31, 32 and 33, P =
+  36 with odd band widths, a signature off 16-byte alignment and a tile
+  too large for a block; the packing pass's tiles from keys on and off
+  16-byte alignment;
 - the wrappers' argument checks, which raise before anything is built.
 """
 
@@ -366,35 +375,62 @@ def test_row_bits_bound():
 # -- the label rounds --------------------------------------------------------
 
 
-def label_walk(rep: np.ndarray, ok: np.ndarray, valid: np.ndarray, rounds: int) -> np.ndarray:
-    """numpy model of ``astt_lsh_label``: ``x``, ``z[0]``, ``z[1]`` and a
-    flag a round; the pull reads ``x`` and min-scatters into ``z[r & 1]``
-    (rows in a shuffled order: atomics land in any order), the jump reads
-    ``z[r & 1]`` and writes ``x``, ``z[(r + 1) & 1]`` and ``out``; a round
-    whose predecessor changed nothing returns at once."""
+def label_edge_lists(rep: np.ndarray, ok: np.ndarray) -> list[list[int]]:
+    """numpy model of ``label_edges_kernel``: a warp a row, its columns in
+    groups of 32 lanes; a lane's candidate counts when ok, in ``[0, B)``
+    and not the row; ``match_any`` leaves the group's first lane of each
+    value, which is dropped if the row's list already holds it; the fresh
+    ones are appended in lane order (a ballot's prefix)."""
     B, nc = rep.shape
+    lists = []
+    for b in range(B):
+        lst: list[int] = []
+        for c0 in range(0, nc, 32):
+            first: dict[int, int] = {}
+            for c in range(c0, min(nc, c0 + 32)):
+                j = int(rep[b, c])
+                if ok[b, c] and j != b and 0 <= j < B:
+                    first.setdefault(j, c)
+            lst += [j for j, _c in sorted(first.items(), key=lambda t: t[1]) if j not in lst]
+        assert len(lst) == len(set(lst)) <= nc  # the scratch's [B, nc] holds every list
+        lists.append(lst)
+    return lists
+
+
+def label_walk(rep: np.ndarray, ok: np.ndarray, valid: np.ndarray,
+               rounds: int) -> tuple[np.ndarray, int]:
+    """numpy model of ``astt_lsh_label``: the edge lists
+    (:func:`label_edge_lists`; ``x = z0 = arange(B)``, the stamp 0), then
+    ``label_rounds_kernel``'s rounds: the pull over the lists, rows in a
+    shuffled order (atomics land in any order), into ``z[r & 1]`` (which
+    equals ``x``); a grid sync; the jump ``n = z[z]`` into ``x`` and
+    ``z[(r + 1) & 1]``, the stamp set to ``r + 1`` where ``n`` differs from
+    ``x``; a grid sync; stop unless the stamp reads ``r + 1``.  Then ``out
+    = valid ? x : row``.  Returns ``(out, rounds run)``."""
+    B = rep.shape[0]
+    lists = label_edge_lists(rep, ok)
     x = np.arange(B)
-    z = [np.arange(B), np.zeros(B, np.int64)]
-    out = np.arange(B)
-    changed = np.zeros(rounds, np.int64)
-    order = np.random.RandomState(B + rounds).permutation(B)
+    z = [np.arange(B), np.full(B, -7)]  # z1 is written before it is read
+    stamp, ran = 0, 0
+    rng = np.random.RandomState(B + rounds)
     for r in range(rounds):
-        if r > 0 and changed[r - 1] == 0:
-            continue
-        zr = z[r & 1]
-        for b in order:
-            js = [int(j) for j, k in zip(rep[b], ok[b]) if k and 0 <= j < B]
-            m = min([x[b], *(x[j] for j in js)])
-            zr[b] = min(zr[b], m)
-            for j in js:
-                if j != b:
+        zr, zn = z[r & 1], z[(r + 1) & 1]
+        assert np.array_equal(zr, x)
+        for b in rng.permutation(B):
+            if lists[b]:
+                m = min(x[b], *(x[j] for j in lists[b]))
+                zr[b] = min(zr[b], m)
+                for j in lists[b]:
                     zr[j] = min(zr[j], m)
         n = zr[zr]
-        changed[r] = int((n != x).any())
+        if (n != x).any():
+            stamp = r + 1
         x = n.copy()
-        z[(r + 1) & 1] = n.copy()
-        out = np.where(valid, n, np.arange(B))
-    return out.astype(np.int32)
+        zn[:] = n
+        ran += 1
+        if stamp != r + 1:
+            break
+    return np.where(valid, x, np.arange(B)).astype(np.int32), ran
 
 
 def _graph(name: str):
@@ -408,6 +444,29 @@ def _graph(name: str):
         rep[:-1, 0] = np.arange(1, B)
         ok = rep != np.arange(B)[:, None]
         return rep, ok, np.ones(B, bool)
+    if name == "repeat_pairs":
+        # the main corpus's pattern: 144 columns of self and one or two
+        # candidates repeated, in and across groups of 32 columns
+        B, nc = 300, 144
+        pick = rng.randint(0, 3, size=(B, nc))
+        two = rng.randint(0, B, size=(B, 2))
+        rep = np.where(pick == 1, two[:, :1], np.where(pick == 2, two[:, 1:], np.arange(B)[:, None]))
+        return rep.astype(np.int32), rng.rand(B, nc) < 0.9, rng.rand(B) > 0.05
+    if name == "all_distinct":
+        # every column distinct and ok: the edge lists fill their scratch
+        B, nc = 160, 144
+        rep = (np.arange(B)[:, None] + 1 + np.arange(nc)[None, :]) % B
+        return rep.astype(np.int32), np.ones((B, nc), bool), np.ones(B, bool)
+    if name == "chain_shuffled":
+        # a path through every row in a shuffled order, backward edges and
+        # out-of-range candidates beside it: no round before the last is a
+        # fixed point
+        B, nc = 512, 3
+        order = rng.permutation(B)
+        rep = np.tile(np.arange(B, dtype=np.int32)[:, None], (1, nc))
+        rep[order[1:], 0] = order[:-1]
+        rep[:, 2] = rng.choice([-1, B, B + 5], size=B)
+        return rep, np.ones((B, nc), bool), np.ones(B, bool)
     B, nc = {"random_sparse": (500, 6), "random_dense": (257, 12)}[name]
     rep = rng.randint(0, B, size=(B, nc)).astype(np.int32)
     ok = rng.rand(B, nc) < (0.2 if name == "random_sparse" else 0.5)
@@ -415,21 +474,28 @@ def _graph(name: str):
     return rep, ok, valid
 
 
-@pytest.mark.parametrize("name", ["chain64", "random_sparse", "random_dense"])
+@pytest.mark.parametrize("name", ["chain64", "random_sparse", "random_dense", "repeat_pairs",
+                                  "all_distinct", "chain_shuffled"])
 @pytest.mark.parametrize("rounds", [0, 1, 2, "full"])
 def test_label_rounds_match_the_reference(name, rounds):
     rep, ok, valid = _graph(name)
     B = rep.shape[0]
     n = int(np.ceil(np.log2(B))) if rounds == "full" else rounds
+    ref_ok = ok & (rep >= 0) & (rep < B)  # the reference takes candidates in range
     want = np.asarray(ref_lsh.resolve_rep_bands_from_ok(
-        jnp.asarray(rep), jnp.asarray(ok), jnp.asarray(valid), jump_rounds=n))
+        jnp.asarray(rep), jnp.asarray(ref_ok), jnp.asarray(valid), jump_rounds=n))
     got = lsh.resolve_rep_bands_from_ok(
-        torch.from_numpy(rep), torch.from_numpy(ok), torch.from_numpy(valid), jump_rounds=n)
+        torch.from_numpy(rep), torch.from_numpy(ref_ok), torch.from_numpy(valid), jump_rounds=n)
     assert got.dtype == torch.int32
     assert np.array_equal(got.numpy(), want)
-    assert np.array_equal(label_walk(rep, ok, valid, n), want)
-    if name == "chain64" and rounds in (1, 2):
+    walk, ran = label_walk(rep, ok, valid, n)
+    assert np.array_equal(walk, want)
+    if name.startswith("chain") and rounds in (1, 2):
         assert (want != 0).any()  # truncated: the far end has not heard of row 0
+    if name == "chain_shuffled":
+        assert ran == n and (want != 0).any()  # every round ran, and was not enough
+    if name == "all_distinct" and rounds == "full":
+        assert ran < n and not want.any()  # one component: the rounds stop early
 
 
 # -- the agreement pass at its bars -------------------------------------------
@@ -729,8 +795,9 @@ def test_verify_compaction_any_width(P, shape):
 
 
 def keys_walk(sig: np.ndarray, salts: np.ndarray, nb: int, nf: int, wide: bool) -> np.ndarray:
-    """numpy model of ``keys_kernel``: a thread (b, j) folds ``P/nb`` (or
-    ``P/nf``) words from ``j·r`` in uint32, XORs ``salts[j]``, fmix32."""
+    """numpy model of the fold each (row, key set) of ``keys_kernel``
+    runs: ``P/nb`` (or ``P/nf``) words from ``j·r`` in uint32, XOR
+    ``salts[j]``, fmix32 (:func:`keys_tile_walk` models the tiles)."""
     B, P = sig.shape
 
     def fmix(h):
@@ -780,6 +847,216 @@ def test_keys_walk_matches_the_reference(cs, wide):
         assert np.array_equal(packed, ((k << bits) | np.arange(333)[:, None]).T)
 
 
+#: rows a keys tile (``kKeyRows``), threads and warps a block, shared
+#: memory a block may opt in to (``kMaxBlockSmem``), KeysLoad
+KEY_ROWS, THREADS, WARPS, MAX_BLOCK_SMEM = 32, 256, 8, 232448
+LOAD_GLOBAL, LOAD_WORDS, LOAD_VEC = 0, 1, 2
+
+
+def key_stage_words(ncol: int) -> int:
+    return (KEY_ROWS * (ncol | 1) + 3) & ~3
+
+
+def keys_plan(aligned: bool, P: int, nb: int, nf: int, wide: bool) -> tuple[int, int, int]:
+    """``keys_plan`` of ``csrc/lsh.cu``: ``(load, pitch, shared bytes)``."""
+    stage = 4 * key_stage_words(2 * nb if wide else nb + nf)
+    if aligned and P % 4 == 0 and (P // nb) % 4 == 0 and (nf == 0 or (P // nf) % 4 == 0):
+        pitch = 4 * ((P // 4) | 1)
+        if stage + 4 * KEY_ROWS * pitch <= MAX_BLOCK_SMEM:
+            return LOAD_VEC, pitch, stage + 4 * KEY_ROWS * pitch
+    pitch = P | 1
+    if stage + 4 * KEY_ROWS * pitch <= MAX_BLOCK_SMEM:
+        return LOAD_WORDS, pitch, stage + 4 * KEY_ROWS * pitch
+    return LOAD_GLOBAL, 0, stage
+
+
+def keys_tile_walk(sig: np.ndarray, salts: np.ndarray, nb: int, nf: int, wide: bool,
+                   valid: np.ndarray | None = None, bits: int = 0,
+                   aligned: bool = True) -> tuple[np.ndarray, np.ndarray | None, int]:
+    """numpy model of ``astt_lsh_keys``'s ``keys_kernel<load>``: a block
+    takes rows ``[r0, r0 + KEY_ROWS)``; its flat shared memory (words, set
+    to a marker a read of an unwritten word would show) holds the staged
+    keys (``KEY_ROWS × (ncol | 1)``, rounded to 4 words), then the tile:
+    16-byte words at ``pitch / 4`` a row (``i → r·p4 + i − r·c4``) or
+    words at ``pitch`` (``i → r·pitch + i − r·P``); warp w folds sets w, w
+    + WARPS, ... with lane l over row r0 + l (4 words at a time from the
+    16-byte tile) and stores ``lane·kp + j`` (wide: ``2j``, ``2j + 1``) and
+    the packed key ``j·B + b``; the tile's keys leave in pairs ``(e, e +
+    1)``, the second one's (row, column) carried past the row's end.
+    Returns ``(keys, packed, load)``."""
+    B, P = sig.shape
+    nk, ncol = nb + nf, 2 * nb if wide else nb + nf
+    kp = ncol | 1
+    load, pitch, smem = keys_plan(aligned, P, nb, nf, wide)
+    flat = sig.reshape(-1)
+    keys = np.full(B * ncol, -3, np.int64)
+    packed = np.full((nk, B), -3, np.int64) if valid is not None else None
+    marker = np.uint32(0xA5A5A5A5)
+    for r0 in range(0, B, KEY_ROWS):
+        nr = min(KEY_ROWS, B - r0)
+        sm = np.full(smem // 4, marker, np.uint32)
+        written = np.zeros(smem // 4, bool)
+        base = key_stage_words(ncol)
+        rows = flat[r0 * P:]
+        if load == LOAD_VEC:
+            c4, p4 = P // 4, pitch // 4
+            i = np.arange(nr * c4)
+            r = i // c4
+            dst = base + 4 * (r * p4 + i - r * c4)
+            for k in range(4):
+                sm[dst + k] = rows[4 * i + k]
+                written[dst + k] = True
+        elif load == LOAD_WORDS:
+            i = np.arange(nr * P)
+            r = i // P
+            sm[base + r * pitch + i - r * P] = rows[i]
+            written[base + r * pitch + i - r * P] = True
+        lanes = np.arange(nr)
+        for warp in range(WARPS):
+            for j in range(warp, nk, WARPS):
+                width = P // nb if j < nb else P // nf
+                start = (j if j < nb else j - nb) * width
+                if load == LOAD_GLOBAL:
+                    words = np.stack([flat[(r0 + lanes) * P + start + i] for i in range(width)], 1)
+                else:
+                    at = base + lanes[:, None] * pitch + start + np.arange(width)[None, :]
+                    assert written[at].all()
+                    words = sm[at]
+                if load == LOAD_VEC:
+                    assert width % 4 == 0 and (base + start) % 4 == 0 and pitch % 4 == 0
+                lanes_out = []
+                for off, prime in ((0x811C9DC5, 0x01000193), (lsh.WIDE_OFFSET, lsh.WIDE_PRIME)):
+                    k = np.full(nr, off, np.uint32)
+                    with np.errstate(over="ignore"):
+                        for i in range(width):
+                            k = (k ^ words[:, i]) * np.uint32(prime)
+                    lanes_out.append(k)
+                    if not wide:
+                        break
+                salt = int(salts[j])
+                lo = _fmix(lanes_out[0] ^ np.uint32(salt))
+                if wide:
+                    rot = np.uint32(((salt << 13) | (salt >> 19)) & U32)
+                    sm[lanes * kp + 2 * j] = lo
+                    sm[lanes * kp + 2 * j + 1] = _fmix(lanes_out[1] ^ rot)
+                    written[lanes * kp + 2 * j] = written[lanes * kp + 2 * j + 1] = True
+                    continue
+                sm[lanes * kp + j] = lo
+                written[lanes * kp + j] = True
+                if packed is not None:
+                    k = np.where(valid[r0 + lanes], lo.astype(np.int64), U32)
+                    packed[j, r0 + lanes] = (k << bits) | (r0 + lanes)
+        n = nr * ncol
+        for t in range(THREADS):
+            for e in range(2 * t, n, 2 * THREADS):
+                r, c = divmod(e, ncol)
+                assert written[r * kp + c]
+                keys[r0 * ncol + e] = sm[r * kp + c]
+                if e + 1 == n:
+                    break
+                c += 1
+                if c == ncol:
+                    r, c = r + 1, 0
+                assert written[r * kp + c] and (r0 * ncol + e) % 2 == 0
+                keys[r0 * ncol + e + 1] = sm[r * kp + c]
+    shape = (B, nb, 2) if wide else (B, nk)
+    return keys.reshape(shape), packed, load
+
+
+def _fmix(h: np.ndarray) -> np.ndarray:
+    with np.errstate(over="ignore"):
+        h = h ^ (h >> np.uint32(16))
+        h = h * np.uint32(0x85EBCA6B)
+        h = h ^ (h >> np.uint32(13))
+        h = h * np.uint32(0xC2B2AE35)
+        return h ^ (h >> np.uint32(16))
+
+
+#: (B, P, coarse, fine, wide, aligned, the load it takes): a tile at, one
+#: below and one past 32 rows and one row; P = 36 with odd band widths, at
+#: 9 bands (16-byte words, 9 a row), wide; a signature off 16-byte
+#: alignment; a tile too large for a block
+KEY_TILE_CASES = [
+    (1, 128, 16, 32, False, True, LOAD_VEC), (31, 128, 16, 32, False, True, LOAD_VEC),
+    (32, 128, 16, 32, False, True, LOAD_VEC), (33, 128, 16, 32, False, True, LOAD_VEC),
+    (65, 128, 16, 0, True, True, LOAD_VEC), (70, 36, 12, 18, False, True, LOAD_WORDS),
+    (70, 36, 12, 0, True, True, LOAD_WORDS), (70, 36, 9, 0, False, True, LOAD_VEC),
+    (45, 128, 16, 32, False, False, LOAD_WORDS), (40, 2048, 16, 32, False, True, LOAD_GLOBAL),
+]
+
+
+@pytest.mark.parametrize("case", KEY_TILE_CASES, ids=lambda c: "-".join(map(str, c[:6])))
+def test_keys_tile_walk_matches_the_reference(case):
+    B, P, nb, nf, wide, aligned, load = case
+    rng = np.random.RandomState(B + P + nb + nf)
+    sig = rng.randint(0, 1 << 32, size=(B, P), dtype=np.uint64).astype(np.uint32)
+    sig[::5] = U32
+    salt = make_params().band_salt[:nb]
+    fine = lsh.subband_salt(nf) if nf else np.zeros((0,), np.uint32)
+    valid = rng.rand(B) > 0.25
+    bits = lsh.row_bits(B)
+    keys, packed, got_load = keys_tile_walk(sig, np.concatenate([salt, fine]), nb, nf, wide,
+                                            None if wide else valid, bits, aligned)
+    assert got_load == load
+    if wide:
+        want = np.asarray(ref_lsh.band_keys_wide(jnp.asarray(sig), jnp.asarray(salt)))
+    elif nf:
+        want = np.asarray(ref_lsh._coarse_fine_keys(jnp.asarray(sig), salt, fine))
+    else:
+        want = np.asarray(ref_lsh.band_keys(jnp.asarray(sig), jnp.asarray(salt)))
+    assert np.array_equal(keys, want.astype(np.int64))
+    assert np.array_equal(keys, lsh.keys_plain(_t(sig), salt, fine, wide=wide).numpy())
+    if not wide:
+        plain = lsh.pack_keys_plain(torch.from_numpy(keys), torch.from_numpy(valid), bits)
+        assert np.array_equal(packed, plain.numpy())
+        assert (packed[:, ~valid] >> bits == U32).all()
+
+
+def pack_tile_walk(keys: np.ndarray, valid: np.ndarray, bits: int, offset: int) -> np.ndarray:
+    """numpy model of ``pack_kernel``: a block's ``KEY_ROWS`` rows of keys,
+    one contiguous span that starts ``offset`` int64 into a 16-byte
+    aligned buffer, into shared memory at a pitch of ``nk | 1`` (in pairs
+    of 16-byte loads where the span is aligned, else one key a load), then
+    warp w writes sets w, w + WARPS, ... lane l row r0 + l."""
+    B, nk = keys.shape
+    kp = nk | 1
+    packed = np.full((nk, B), -3, np.int64)
+    flat = keys.reshape(-1)
+    for r0 in range(0, B, KEY_ROWS):
+        nr = min(KEY_ROWS, B - r0)
+        sm = np.full(KEY_ROWS * kp, -9, np.int64)
+        n = nr * nk
+        if (offset + r0 * nk) % 2 == 0:
+            for e in range(0, n, 2):
+                r, c = divmod(e, nk)
+                sm[r * kp + c] = flat[r0 * nk + e]
+                if e + 1 == n:
+                    break
+                c += 1
+                if c == nk:
+                    r, c = r + 1, 0
+                sm[r * kp + c] = flat[r0 * nk + e + 1]
+        else:
+            for e in range(n):
+                r, c = divmod(e, nk)
+                sm[r * kp + c] = flat[r0 * nk + e]
+        lanes = np.arange(nr)
+        for warp in range(WARPS):
+            for j in range(warp, nk, WARPS):
+                k = np.where(valid[r0 + lanes], sm[lanes * kp + j], U32)
+                packed[j, r0 + lanes] = (k << bits) | (r0 + lanes)
+    return packed
+
+
+@pytest.mark.parametrize("case", [*KEY_CASES[:4], "heavy_ties", "valid_u32_max", "random_wide"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_pack_tile_walk_matches_the_plain_version(case, offset):
+    keys, valid = _keys_case(case)
+    bits = lsh.row_bits(keys.shape[0])
+    plain = lsh.pack_keys_plain(torch.from_numpy(keys), torch.from_numpy(valid), bits).numpy()
+    assert np.array_equal(pack_tile_walk(keys, valid, bits, offset), plain)
+
+
 # -- the wrappers raise before any build ------------------------------------
 
 
@@ -815,6 +1092,8 @@ def _calls():
         "keys_strided": (ValueError, lambda: lsh_cuda.lsh_keys(sig[:, ::2], salt)),
         "pack_dtype": (TypeError, lambda: lsh_cuda.pack_keys(keys.int(), valid, 3)),
         "pack_valid": (TypeError, lambda: lsh_cuda.pack_keys(keys, valid.int(), 3)),
+        "pack_cols": (ValueError, lambda: lsh_cuda.pack_keys(
+            torch.zeros((8, lsh_cuda.MAX_SALTS + 1), dtype=torch.int64), valid, 3)),
         "sort_dtype": (TypeError, lambda: lsh_cuda.lsh_sort(srt.int(), 3)),
         "sort_ndim": (ValueError, lambda: lsh_cuda.lsh_sort(srt[0], 3)),
         "sort_no_bands": (ValueError, lambda: lsh_cuda.lsh_sort(srt[:0], 3)),
@@ -874,6 +1153,22 @@ def test_wrapper_limits_match_the_kernel_source():
     assert "kMaxHeadBands = (kStageInts - 1) / 3;" in src
     assert lsh_cuda.MAX_HEAD_BANDS == (ints - 1) // 3 == 4095
     assert f"constexpr int kMaxSalts = {lsh_cuda.MAX_SALTS};" in src
+    # the label's launches, whatever its rounds: the edge lists, then one
+    # cooperative launch; the keys' tiles and their loads as modelled here
+    assert f"constexpr int kLabelLaunches = {lsh_cuda.LABEL_LAUNCHES};" in src
+    label = src[src.index("int astt_lsh_label(const void* rep"):]
+    label = label[:label.index("\n}\n")]
+    assert label.count("<<<") + label.count("cudaLaunchCooperativeKernel(") == \
+        lsh_cuda.LABEL_LAUNCHES == 2
+    assert "grid.sync();" in src and "for (int round = 0; round < rounds; ++round)" not in label
+    assert f"constexpr int kKeyRows = {KEY_ROWS};" in src
+    assert f"constexpr size_t kMaxBlockSmem = {MAX_BLOCK_SMEM};" in src
+    assert f"constexpr int kThreads = {THREADS};" in src
+    assert "enum KeysLoad { kLoadGlobal = 0, kLoadWords = 1, kLoadVec = 2 };" in src
+    assert (lsh_cuda.KEYS_LOAD_GLOBAL, lsh_cuda.KEYS_LOAD_WORDS, lsh_cuda.KEYS_LOAD_VEC) == (
+        LOAD_GLOBAL, LOAD_WORDS, LOAD_VEC)
+    assert "return (kKeyRows * (ncol | 1) + 3) & ~3;" in src  # key_stage_words
+    assert "const int pitch = 4 * ((P / 4) | 1);" in src and "const int pitch = P | 1;" in src
 
 
 @pytest.mark.parametrize("name", [*lsh_probe.VARIANTS, *lsh_probe.CUTS])
