@@ -4,16 +4,18 @@ at the local batch's size.
 Counterpart of the reference's ``parallel/ring.py``.  Each data shard
 keeps its own block and a same-sized transit block that rotates one step
 along the data axis per hop (``ppermute``); after ``n`` hops every pair of
-blocks has met.  Each block is sorted once, per band by (key, global row)
-as one ``int64`` key, as ``ops.lsh`` sorts; what rotates is the sorted
-keys (in sign-flip ``int32`` order, ``ops.lsh``'s ``uint32`` values less
-2³¹), each sorted position's row, the block's global rows and its
-signatures.  A hop joins with ``searchsorted`` one band at a time, so its
-transient stays ``O(Bl·P)``: a local row takes the smallest transit
-global row that shares a band key with it, agrees on at least
-``threshold`` of the signature (``count/P`` in float32) and comes before
-it.  Only the 4-byte representatives are gathered, and pointer jumping
-resolves chains on them.
+blocks has met.  Each block is sorted once, per band, in the reference's
+``(key, global row)`` order: its rows are put valid first (each group
+ascending, so that within a key the order is the global rows'), and each
+band's packed keys ``(key << bits) | i``, ``i`` the position in that
+order, are sorted by key stably (``lsh_sort`` on the card).  What rotates
+is the sorted packed keys, that order (``perm``), the block's global rows
+and its signatures.  A hop joins each shard's rows against the transit
+block (``ring_join`` on the card, one launch for every band): a local row
+takes the smallest transit global row that heads its key's run in some
+band, agrees on at least ``threshold`` of the signature (``count/P`` in
+float32) and comes before it.  Only the 4-byte representatives are
+gathered, and pointer jumping resolves chains on them.
 
 It equals the reference's ring, not the gather path
 (``parallel.sharded.make_sharded_dedup``): the ring verifies every met
@@ -27,7 +29,8 @@ import torch
 
 from advanced_scrapper_tpu_torch.core.hashing import MinHashParams
 from advanced_scrapper_tpu_torch.core.mesh import Mesh
-from advanced_scrapper_tpu_torch.ops.lsh import band_keys
+from advanced_scrapper_tpu_torch.ops import lsh_cuda, ring_cuda
+from advanced_scrapper_tpu_torch.ops.lsh import band_keys, row_bits
 from advanced_scrapper_tpu_torch.ops.minhash import minhash_signatures
 from advanced_scrapper_tpu_torch.ops.shingle import U32_MAX
 from advanced_scrapper_tpu_torch.parallel import collectives as C
@@ -36,41 +39,90 @@ from advanced_scrapper_tpu_torch.parallel.sharded import as_sharded
 _BIG = (1 << 31) - 1  # int32 max: invalid rows' global index, sorts last
 
 
-def _presort_bands(keys: torch.Tensor, gidx_eff: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-band sort of a block's (key, global row) pairs: ``(sk, sp)``,
-    each ``int32[nb, Bt]``: the keys in order (as ``key − 2³¹``) and the
-    block row at each sorted position.  ``keys`` are ``int64[Bt, nb]``
-    in ``[0, 2³²)`` (invalid rows ``U32_MAX``), ``gidx_eff`` ``int32[Bt]``
-    (invalid rows int32-max): a run's head is its earliest global row."""
-    comb = (keys.T << 31) | gidx_eff.to(torch.int64)[None, :]
-    order = torch.sort(comb, dim=1).indices
-    sk = (keys.T.gather(1, order) - (1 << 31)).to(torch.int32)
-    return sk, order.to(torch.int32)
+def valid_first(valid: torch.Tensor) -> torch.Tensor:
+    """``int32[Bt]``: the block's rows, valid ones first, each group
+    ascending (a scan and a scatter, no sort).  Global rows ascend with
+    block rows and invalid rows share ``gidx_eff`` int32-max, so within a
+    key this is the reference's ``(key, gidx_eff, row)`` order."""
+    Bt = valid.shape[0]
+    v = valid.to(torch.int64)
+    before = torch.cumsum(v, 0)
+    rows = torch.arange(Bt, device=valid.device)
+    pos = torch.where(valid, before - 1, before[-1:] + rows - before) if Bt else rows
+    return torch.empty_like(rows).scatter_(0, pos, rows).to(torch.int32)
 
 
-def _best_match_against_sorted(keys_l, sig_l, gidx_l, sk, sp, gidx_eff, sig_b, threshold):
-    """``int32[Bl]``: the smallest transit global row that band-collides
-    with each local row and verifies by signature agreement, the row's
-    own index otherwise; one band at a time."""
-    Bt = sk.shape[1]
+def _packed(keys: torch.Tensor, perm: torch.Tensor, bits: int) -> torch.Tensor:
+    """``int64[nb, Bt]``: band b's ``(keys[perm[i], b] << bits) | i``."""
+    i = torch.arange(keys.shape[0], device=keys.device)
+    return ((keys[perm.to(torch.int64)].T << bits) | i[None, :]).contiguous()
+
+
+def presort_plain(keys: torch.Tensor, valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the presort on ``lsh_sort``: ``(sorted_keys
+    int64[nb, Bt], perm int32[Bt])`` from ``keys int64[Bt, nb]`` in ``[0,
+    2³²)`` (invalid rows ``U32_MAX``): :func:`valid_first`'s order, each
+    band's packed keys sorted by ``torch.sort(stable=True)``."""
+    perm = valid_first(valid)
+    packed = _packed(keys, perm, row_bits(keys.shape[0]))
+    return torch.sort(packed, dim=1, stable=True).values, perm
+
+
+def _presort_bands(keys: torch.Tensor, valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-band sort of a block's keys in the reference's ``(key, global
+    row)`` order (:func:`presort_plain`): on the card ``lsh_sort``, a
+    stable sort by key of rows that enter ascending; on the CPU its plain
+    version.  The run head at a searchsorted position is the earliest
+    global row with that band key; the block row at sorted position ``j``
+    of band ``b`` is ``perm[sorted_keys[b, j] & (2**bits - 1)]``."""
+    if keys.device.type != "cuda":
+        return presort_plain(keys, valid)
+    bits = row_bits(keys.shape[0])
+    perm = valid_first(valid)
+    return lsh_cuda.lsh_sort(_packed(keys, perm, bits), bits), perm
+
+
+def join_plain(keys_l, sig_l, gidx_l, sorted_keys, perm, gidx_eff, sig_b, rep, threshold,
+               bits) -> torch.Tensor:
+    """Plain version of the ``ring_join`` kernel: ``min(rep, cand)`` as a
+    new ``int32[Bl]``, where ``cand`` is the smallest transit global row
+    that band-collides with each local row (the run head at the band's
+    ``searchsorted`` position), verifies by signature agreement and comes
+    before it, the row's own index otherwise; one band at a time."""
+    Bt = sorted_keys.shape[1]
     P = sig_l.shape[1]
     dev = sig_l.device
     thr = torch.tensor(threshold, dtype=torch.float32, device=dev)
-    kl = (keys_l - (1 << 31)).to(torch.int32)
     s_l = sig_l.view(torch.int32)
     s_b = sig_b.view(torch.int32)
     gl = gidx_l.to(torch.int64)
+    order, gidx_b = perm.to(torch.int64), gidx_eff.to(torch.int64)
+    mask = (1 << bits) - 1
     best = torch.full_like(gl, _BIG)
-    for b in range(sk.shape[0]):
-        skb, klb = sk[b].contiguous(), kl[:, b].contiguous()
-        pos = torch.searchsorted(skb, klb, side="left").clamp(0, Bt - 1)
-        hit = skb[pos] == klb
-        row = sp[b].to(torch.int64)[pos]
-        cand_gidx = gidx_eff.to(torch.int64)[row]
+    for b in range(sorted_keys.shape[0]):
+        skb, klb = sorted_keys[b].contiguous(), keys_l[:, b].contiguous()
+        pos = torch.searchsorted(skb, klb << bits, side="left").clamp(0, Bt - 1)
+        v = skb[pos]
+        hit = (v >> bits) == klb
+        row = order[v & mask]
+        cand_gidx = gidx_b[row]
         agree = (s_l == s_b[row]).sum(dim=1).to(torch.float32) / P
         ok = hit & (agree >= thr) & (cand_gidx < gl)
         best = torch.minimum(best, torch.where(ok, cand_gidx, _BIG))
-    return torch.where(best == _BIG, gl, best).to(torch.int32)
+    cand = torch.where(best == _BIG, gl, best).to(torch.int32)
+    return torch.minimum(rep, cand)
+
+
+def _best_match_against_sorted(keys_l, sig_l, gidx_l, sorted_keys, perm, gidx_eff, sig_b, rep,
+                               threshold, bits) -> torch.Tensor:
+    """One hop's join for one shard: ``min(rep, cand)`` (see
+    :func:`join_plain`); on the card one ``ring_join`` launch over every
+    band, updating ``rep`` in place, on the CPU the plain version."""
+    if keys_l.device.type == "cuda":
+        return ring_cuda.ring_join(keys_l, sig_l, gidx_l, sorted_keys, perm, gidx_eff, sig_b, rep,
+                                   threshold=threshold, bits=bits)
+    return join_plain(keys_l, sig_l, gidx_l, sorted_keys, perm, gidx_eff, sig_b, rep, threshold,
+                      bits)
 
 
 def make_ring_dedup(
@@ -100,14 +152,14 @@ def make_ring_dedup(
             keys = torch.where(valid[:, None], band_keys(sig, salt), U32_MAX)
             gidx = (s * Bl + torch.arange(Bl, device=t.device)).to(torch.int32)
             gidx_eff = torch.where(valid, gidx, _BIG).to(torch.int32)
-            sk, sp = _presort_bands(keys, gidx_eff)
-            local.append({"keys": keys, "sig": sig, "gidx": gidx, "rep": gidx,
-                          "blk": [sk, sp, gidx_eff, sig]})
+            sorted_keys, order = _presort_bands(keys, valid)
+            local.append({"keys": keys, "sig": sig, "gidx": gidx, "rep": gidx.clone(),
+                          "bits": row_bits(Bl), "blk": [sorted_keys, order, gidx_eff, sig]})
         for hop in range(n):
             for sh in local:
-                cand = _best_match_against_sorted(sh["keys"], sh["sig"], sh["gidx"],
-                                                  *sh["blk"], threshold)
-                sh["rep"] = torch.minimum(sh["rep"], cand)
+                sh["rep"] = _best_match_against_sorted(sh["keys"], sh["sig"], sh["gidx"],
+                                                       *sh["blk"], sh["rep"], threshold,
+                                                       sh["bits"])
             if hop == n - 1:
                 break  # every pair of blocks has met
             moved = [C.ppermute(mesh, [sh["blk"][i] for sh in local], data, perm)

@@ -95,10 +95,25 @@ session 2 and healed by ``repair_once`` (its shard's nodes then give equal
 equal on 2,048 records (annotations, postings), ``dedup_against_index``
 over a fleet equal to the local index's; records/s beside
 ``persist_path``'s, the clients' RPC latency by method, ``fleet_status()``
-and the fan-out's share of each batch.  And ``ExactDedup`` over ``bench.py``'s 262,144 urls
-(``exact_path``): the default tier (which one served), the blob tier and
-the grouping path with its hash on the card, best of 5, each equal to a
-first-seen dict.  Then ``cross_source_dedup`` (``cross_source_path``)
+and the fan-out's share of each batch.  The mesh's ring step
+(``ring_path``): ``make_ring_dedup`` over the 65,536 ragged articles cut
+to 1,024-byte rows on 8 shards of the card (8 × 1), one ``minhash_sig``
+and one ``lsh_keys`` a shard, one ``lsh_sort`` call a shard's presort and
+one ``ring_join`` a (hop, shard) and no other launch or library sort;
+every presort and every join bit-equal to its plain version on the card
+(an edge block too: invalid rows before valid rows whose band key is
+``U32_MAX``, an agreement of exactly 96/128 at a bar of 0.75), their
+representatives equal to the step's; the step timed, the join and the
+presort's sort by the profiler beside the plain join and ``torch.sort``.
+And ``ExactDedup`` over ``bench.py``'s 262,144 urls (``exact_path``): first
+``exact_hash`` (``csrc/exact.cu``) bit-equal to ``exact_hash_plain`` on
+the card (``exact_vs_plain``: 65,536 urls, documents of 0 bytes to 4 MiB,
+only empty documents, scattered documents at every start residue, the
+row form with non-zero bytes past ``lengths``); then the default tier
+(which one served), the blob tier and the grouping path with its hash on
+``exact_hash`` (one launch a call), best of 5, each equal to a first-seen
+dict, and the kernel timed on the tier's inputs.  Then
+``cross_source_dedup`` (``cross_source_path``)
 over three sources made from the ragged corpus: a success CSV of 32,768
 articles, a second CSV and a sqlite store of 16,384 each, 10% of the last
 two copies of first-source articles under other urls: every planted copy
@@ -191,12 +206,14 @@ shard's ledger tiles + 1 copies and tiles + 1 dispatches with put skew 0,
 the fold once a shard a tile group, one ``oph_densify`` a corpus);
 ``dedup_against_index(mesh=...)`` on 4,096 articles (keys, attributions
 and postings equal to the one-device call's); the batch, block, sequence
-and ring steps on 2,048 × 1,024 bytes, card equal to CPU shards; then a
-gloo world of 2 ranks sharing the card and an NCCL world of 1
+and ring steps on 2,048 × 1,024 bytes, card equal to CPU shards (the
+ring: one ``ring_join`` a (hop, shard), one ``lsh_sort`` call a shard);
+then a gloo world of 2 ranks sharing the card and an NCCL world of 1
 (``chip_smoke.py --mesh-worker``, a process a rank), whose
 ``multihost_dedup`` and ``dedup_reps_sharded`` equal the one-process
 results on every rank, with the collectives' bytes, ms and staging
-copies.
+copies; then the ring step at 65,536 articles (``ring_path``, as in the
+default run).
 
 Then the card engines and the CPU engines (estimator-only, default,
 ``rerank=False``) must agree on 2,048 articles.  ``quality_path`` runs the
@@ -1828,17 +1845,20 @@ TIER_KEYS = (
 def launch_counters() -> dict:
     from advanced_scrapper_tpu_torch.ops import (
         editdist_cuda,
+        exact_cuda,
         match_cuda,
         minhash_cuda,
         oph_cuda,
         rerank_cuda,
+        ring_cuda,
     )
 
     return {f.__name__: f for f in (
         minhash_cuda.minhash_fold_segments, minhash_cuda.minhash_fold,
         minhash_cuda.minhash_sig, rerank_cuda.rerank_settle, match_cuda.match_screen,
         editdist_cuda.myers_bound, editdist_cuda.myers_pairs, oph_cuda.oph_fold_segments,
-        oph_cuda.oph_fold, oph_cuda.oph_sig, oph_cuda.oph_densify)}
+        oph_cuda.oph_fold, oph_cuda.oph_sig, oph_cuda.oph_densify, exact_cuda.exact_hash,
+        ring_cuda.ring_join)}
 
 
 def reset_launches() -> None:
@@ -2482,20 +2502,85 @@ def best_of(fn, reps: int = 5) -> tuple[float, object]:
     return best, out
 
 
-def exact_path(card: str) -> None:
+EXACT_SOURCE = "advanced_scrapper_tpu_torch/csrc/exact.cu"
+EXACT_REPLACES = ("advanced_scrapper_tpu/ops/exact.py:126 (_block_hash_impl under hash_docs :61; "
+                  "_row_hash_impl :147 under __call__ :57, jnp)")
+
+
+def check_exact_vs_plain(dev) -> dict:
+    """``exact_hash`` bit-equal to ``exact_hash_plain`` on the card: 65,536
+    urls of the exact recipe through ``doc_inputs`` (as the grouping tier
+    hashes them); documents of 0 bytes to ``MAX_DOC_LEN`` (several blocks,
+    past the shared prefix, up to 4 MiB, empty ones among them); only
+    empty documents; 4,096 documents scattered out of order with gaps, at
+    every start residue mod 16; the row form, spans of 96 bytes with
+    non-zero bytes past ``lengths``, and through ``ExactHasher.__call__``."""
+    from advanced_scrapper_tpu_torch.ops import exact_cuda
+    from advanced_scrapper_tpu_torch.ops.exact import MAX_DOC_LEN, ExactHasher, exact_hash_plain
+
+    hasher = ExactHasher(device=dev)
+    rng = np.random.RandomState(31)
+    cases: dict[str, int] = {}
+
+    def same(name, text, starts, span, mixlen, coef, max_span) -> None:
+        got = exact_cuda.exact_hash(text, starts, span, mixlen, coef, max_span=max_span)
+        torch.cuda.synchronize()
+        want = exact_hash_plain(text, starts, span, mixlen, coef)
+        assert torch.equal(got, want), f"exact_hash differs from its plain version: {name}"
+        cases[name] = int(starts.shape[0])
+
+    same("urls", *hasher.doc_inputs([u.encode() for u in exact_urls(3, 65536)]))
+    lens = [0, 1, 15, 16, 17, 1023, 1024, 1025, 4096, 4097, 65537, 1 << 20, 3 << 20,
+            MAX_DOC_LEN, 0, 33]
+    same("long", *hasher.doc_inputs(
+        [rng.randint(0, 256, size=n, dtype=np.uint8).tobytes() for n in lens]))
+    same("empty", *hasher.doc_inputs([b""] * 100))
+    sizes = rng.randint(0, 300, size=4096)
+    gaps = rng.randint(0, 32, size=4096)
+    ends = np.cumsum(gaps + sizes)
+    starts = (ends - sizes).astype(np.int64)
+    order = rng.permutation(4096)
+    text = torch.from_numpy(rng.randint(0, 256, size=int(ends[-1]) + 5, dtype=np.uint8)).to(dev)
+    assert len(set((starts % 16).tolist())) == 16
+    span = torch.from_numpy(sizes[order].astype(np.int32)).to(dev)
+    mixlen = torch.from_numpy(rng.randint(-(1 << 31), 1 << 31, size=4096).astype(np.int32)).to(dev)
+    same("ragged", text, torch.from_numpy(starts[order]).to(dev), span, mixlen,
+         hasher._coef_tensor(300), int(sizes.max()))
+    tok = torch.from_numpy(rng.randint(0, 256, size=(4096, 96), dtype=np.uint8)).to(dev)
+    rows = torch.from_numpy(rng.randint(0, 97, size=4096).astype(np.int32)).to(dev)
+    row_starts = torch.arange(4096, dtype=torch.int64, device=dev) * 96
+    same("rows", tok.view(-1), row_starts, torch.full((4096,), 96, dtype=torch.int32,
+                                                      device=dev), rows,
+         hasher._coef_tensor(96), 96)
+    got = hasher(tok, rows)
+    want = exact_hash_plain(tok.view(-1), row_starts, torch.full_like(rows, 96), rows,
+                            hasher._coef_tensor(96))
+    assert torch.equal(got.view(torch.int32), want), "ExactHasher's row form differs"
+    tail = (torch.arange(96, device=dev)[None, :] >= rows[:, None]) & (tok != 0)
+    assert tail.any(), "no non-zero byte past a row's length"
+    return {"cases": cases, "longest": MAX_DOC_LEN, "row_tail_bytes": int(tail.sum())}
+
+
+def exact_path(card: str, clock_mhz: float) -> dict:
     """``ExactDedup`` over 262,144 urls (warmed on seed 1, timed on seed
     2, best of 5): the default tier, the blob tier alone and the grouping
-    path with its hash on the card; every tier's kept indices equal a
-    first-seen dict."""
+    path with its hash on the card (``exact_hash``, one launch a call,
+    with the launch counters set to 0 just before the grouping path's
+    calls and read just after); every tier's kept indices equal a
+    first-seen dict.  Then the kernel on the grouping tier's inputs, by
+    the profiler, beside its bound and its plain version.  Returns the
+    ``exact_hash`` row of the ``kernels`` line."""
     import sysconfig
 
     from advanced_scrapper_tpu_torch.core.tokenizer import bucket_len, to_bytes
     from advanced_scrapper_tpu_torch.cpu import exactdedup
     from advanced_scrapper_tpu_torch.cpu.hostbatch import exact_keep_first_native
-    from advanced_scrapper_tpu_torch.ops.exact import ExactHasher
+    from advanced_scrapper_tpu_torch.ops import exact_cuda
+    from advanced_scrapper_tpu_torch.ops.exact import ExactHasher, exact_hash_plain
     from advanced_scrapper_tpu_torch.pipeline.dedup import ExactDedup
 
     dev = torch.device("cuda")
+    log("exact_vs_plain", **check_exact_vs_plain(dev))
     warm, urls = exact_urls(1), exact_urls(2)
     seen: set = set()
     want = [i for i, u in enumerate(urls) if u not in seen and not seen.add(u)]
@@ -2511,8 +2596,11 @@ def exact_path(card: str) -> None:
     tiers["blob"] = dict(seconds=s, urls_per_s=len(urls) / s)
     grouping = ExactDedup(hasher=ExactHasher(device=dev))
     grouping.keep_indices(warm)
+    reset_launches()
     s, kept = best_of(lambda: grouping.keep_indices(urls))
+    got = read_launches()
     assert kept == want and grouping.last_path == "grouping", "the grouping path differs"
+    assert got["exact_hash"] == 5 == sum(got.values()), got  # one launch a call
     raw = [to_bytes(u) for u in urls]
     block = bucket_len(max(len(r) for r in raw))
     hasher = grouping.hasher
@@ -2528,13 +2616,41 @@ def exact_path(card: str) -> None:
         hash_docs_event_ms=hash_ms,
         hash_docs_device_ms=sum(v[0] for v in seen.values()) / 3,
         hash_docs_device_top={k: v for k, v in sorted(
-            seen.items(), key=lambda kv: -kv[1][0])[:6]})
+            seen.items(), key=lambda kv: -kv[1][0])[:6]}, launches=got["exact_hash"])
     include = sysconfig.get_paths().get("include")
     log("exact_path", urls=len(urls), kept=len(want), tiers=tiers,
         zero_copy_backend=exactdedup.exactdedup_backend(),
         zero_copy_reason=exactdedup.backend_reason(), python_include=include,
         python_h=bool(include and os.path.exists(os.path.join(include, "Python.h"))),
         card=card)
+
+    # the kernel alone on the grouping tier's inputs
+    text, starts, span, mixlen, coef, longest = hasher.doc_inputs(raw)
+
+    def kernel():
+        return exact_cuda.exact_hash(text, starts, span, mixlen, coef, max_span=longest)
+
+    assert torch.equal(kernel(), exact_hash_plain(text, starts, span, mixlen, coef)), \
+        "exact_hash differs from its plain version on the grouping tier's urls"
+    event_ms, ms = timed(kernel, "exact_hash_kernel")
+    # the launches queued behind a spin, back to back: the kernel's device
+    # time without the wrapper's host time between launches
+    queued_ms = cuda_ms(kernel, reps=20, queued=True)
+    plain_ms = cuda_ms(lambda: exact_hash_plain(text, starts, span, mixlen, coef))
+    n, T = len(raw), text.numel()
+    # each byte once, 16 bytes of descriptors and 16 of hash a url, the
+    # stream's 16 bytes a position up to the longest url; a multiply and an
+    # add a lane a byte
+    moved = T + 16 * n + 16 * longest + 16 * n
+    ops = 8 * T
+    ops_ms, bytes_ms = bound_ms(ops, moved, clock_mhz)
+    log("kernel_timing", name="exact_hash", documents=n, text_bytes=T, longest=longest, ms=ms,
+        event_ms=event_ms, queued_ms=queued_ms, plain_ms=plain_ms, ops=ops, bytes=moved, ops_bound_ms=ops_ms,
+        bytes_bound_ms=bytes_ms, share_of_bound=max(ops_ms, bytes_ms) / ms,
+        launches=got["exact_hash"], card=card)
+    return kernel_entry("exact_hash", got["exact_hash"], ms, plain_ms, ops_ms, bytes_ms,
+                        source=EXACT_SOURCE, replaces=EXACT_REPLACES, event_ms=event_ms,
+                        queued_ms=queued_ms, documents=n, text_bytes=T, launches_per_call=1)
 
 
 SCRAPE_PAGES = 8192      # --scrape: the scrape plane alone at full depth
@@ -4420,6 +4536,7 @@ def mesh_functions(dev) -> tuple[list[dict], dict, np.ndarray]:
     one-process result the worlds are held to)."""
     from advanced_scrapper_tpu_torch.core.hashing import make_params
     from advanced_scrapper_tpu_torch.core.mesh import build_mesh, host_numpy
+    from advanced_scrapper_tpu_torch.ops import lsh_cuda
     from advanced_scrapper_tpu_torch.parallel.ring import make_ring_dedup
     from advanced_scrapper_tpu_torch.parallel.sharded import (
         make_seq_sharded_signatures,
@@ -4454,19 +4571,27 @@ def mesh_functions(dev) -> tuple[list[dict], dict, np.ndarray]:
             t0 = time.perf_counter()
             out = host(step(*args))  # the readback waits for the card
             card_s = time.perf_counter() - t0
-            got = read_launches()
+            got, lsh_got = read_launches(), read_lsh_launches()
             t0 = time.perf_counter()
             want = host(make(cpu_mesh)(*args))
             cpu_s = time.perf_counter() - t0
             equal = all(np.array_equal(a, b) for a, b in zip(out, want))
             assert equal, f"{name} on {shape}: card and CPU differ"
-            assert got["minhash_sig"] == MESH_SHARDS and sum(got.values()) == MESH_SHARDS, got
+            # one signature launch a shard; the ring: one join a (hop,
+            # shard) and one lsh_sort call a shard's presort
+            wanted = {"minhash_sig": MESH_SHARDS}
+            if name == "ring_dedup":
+                wanted["ring_join"] = shape[0] * MESH_SHARDS
+                assert lsh_got["lsh_sort"] == MESH_SHARDS * lsh_cuda.sort_launches(), lsh_got
+            assert {k: v for k, v in got.items() if v} == wanted, got
             launches = {k: launches[k] + v for k, v in got.items()}
             if name == "sharded_dedup" and shape == (8, 1):
                 one_process = out[0]
             records.append({"function": name, "mesh": f"{shape[0]}x{shape[1]}",
                             "card_s": card_s, "cpu_s": cpu_s, "equal": True,
                             "minhash_sig_launches": got["minhash_sig"],
+                            "ring_join_launches": got["ring_join"],
+                            "lsh_sort_launches": lsh_got["lsh_sort"],
                             "dups": int((out[0] != np.arange(len(out[0]))).sum())
                             if out[0].ndim == 1 else None})
     return records, launches, one_process
@@ -4642,6 +4767,262 @@ def mesh_path(docs: list[bytes], main_reps: np.ndarray, engine, card: str, dev="
     log("mesh_path", seconds=seconds, launches={k: v for k, v in launches.items() if v},
         card=card)
     return launches
+
+
+RING_SOURCE = "advanced_scrapper_tpu_torch/csrc/ring.cu"
+RING_REPLACES = ("advanced_scrapper_tpu/parallel/ring.py:59 (_best_match_against_sorted, its "
+                 "band_body :82 under lax.scan, and the hop's min :139, jnp)")
+RING_ARTICLES = 65536  # the mesh plane's corpus
+RING_BLOCK = 1024
+RING_THRESHOLD = 0.7  # make_ring_dedup's default
+RING_EDGE_ROWS = 64
+
+
+def ring_join_work(args: tuple, threshold: float, bits: int) -> dict:
+    """What one ``ring_join`` launch must do on these inputs: the local
+    keys, ``gidx_l`` and the transit keys read once and ``rep`` read and
+    written; ``perm`` at the distinct positions that hit and ``gidx_eff``
+    at the distinct rows they name; the signatures of the local rows that
+    verify a candidate and of the distinct transit rows verified.  The
+    operations of its binary searches (a compare and a select a step) and
+    of the verifications the data needs (a compare and an add a word):
+    each row's distinct candidates (a hit that comes before the row) in
+    ascending order up to the first that verifies."""
+    from advanced_scrapper_tpu_torch.parallel.ring import _BIG
+
+    keys_l, sig_l, gidx_l, sorted_keys, perm, gidx_eff, sig_b = args
+    (Bl, nb), P, Bt = keys_l.shape, sig_l.shape[1], sorted_keys.shape[1]
+    gl = gidx_l.to(torch.int64)
+    thr = torch.tensor(threshold, dtype=torch.float32, device=keys_l.device)
+    mask = (1 << bits) - 1
+    cands, oks, hit_pos, hit_rows = [], [], [], []
+    for b in range(nb):
+        kl = keys_l[:, b].contiguous()
+        pos = torch.searchsorted(sorted_keys[b].contiguous(), kl << bits).clamp(0, Bt - 1)
+        v = sorted_keys[b][pos]
+        row = perm.to(torch.int64)[v & mask]
+        cg = gidx_eff.to(torch.int64)[row]
+        hit = (v >> bits) == kl
+        hit_pos.append((v & mask)[hit])
+        hit_rows.append(row[hit])
+        eligible = hit & (cg < gl)
+        agree = (sig_l.view(torch.int32) == sig_b.view(torch.int32)[row]).sum(1).float() / P
+        cands.append(torch.where(eligible, cg, _BIG))
+        oks.append(eligible & (agree >= thr))
+    cand = torch.stack(cands, 1)
+    best = torch.where(torch.stack(oks, 1), cand, _BIG).min(1).values
+    srt = cand.sort(1).values
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    needed = first & (srt < _BIG) & (srt <= best[:, None])
+    verifies = int(needed.sum())
+    rows_read = int(torch.unique(srt[needed]).numel())
+    own_read = int(needed.any(1).sum())
+    perm_read = int(torch.unique(torch.cat(hit_pos)).numel())
+    geff_read = int(torch.unique(torch.cat(hit_rows)).numel())
+    steps = max(Bt, 1).bit_length()
+    moved = (Bl * nb * 8 + Bl * 4 + nb * Bt * 8 + 8 * Bl + 4 * perm_read + 4 * geff_read
+             + (own_read + rows_read) * P * 4)
+    ops = 2 * Bl * nb * steps + 2 * verifies * P
+    return {"bytes": moved, "ops": ops, "verifies": verifies, "rows_read": rows_read,
+            "own_rows_read": own_read, "joined": int((best < _BIG).sum())}
+
+
+def ring_path(docs: list[bytes], card: str, clock_mhz: float, dev="cuda") -> dict:
+    """``make_ring_dedup`` at the mesh plane's size: the 65,536 ragged
+    articles cut to 1,024-byte rows on 8 shards of the card (8 × 1), warm,
+    then with the launch counters set to 0 just before the step and read
+    just after: one ``minhash_sig`` and one ``lsh_keys`` a shard, one
+    ``lsh_sort`` call a shard's presort, one ``ring_join`` a (hop, shard),
+    no other launch and no library sort on the card.  Then the same
+    functions composed by hand on the card: every shard's presort on
+    ``lsh_sort`` bit-equal (sorted keys and order) to ``presort_plain``
+    (``torch.sort``), every (hop, shard) ``ring_join`` bit-equal to
+    ``join_plain``, and their representatives after pointer jumping equal
+    the step's; an edge block (invalid rows before valid rows whose band
+    key is ``U32_MAX``, rows agreeing on exactly 96 of 128 words with a bar
+    of 0.75) too, and the kernel's scalar loads: signatures of 30 words, or
+    one word off 16-byte alignment.  The step by the host clock (best of
+    3), the join and the presort's sort by the profiler beside the plain
+    join, ``presort_plain`` and ``torch.sort``.  Returns the ``ring_join`` row of the ``kernels``
+    line."""
+    from advanced_scrapper_tpu_torch.core.hashing import make_params
+    from advanced_scrapper_tpu_torch.core.mesh import build_mesh
+    from advanced_scrapper_tpu_torch.core.tokenizer import encode_batch
+    from advanced_scrapper_tpu_torch.ops import lsh_cuda, ring_cuda
+    from advanced_scrapper_tpu_torch.ops.lsh import band_keys, row_bits
+    from advanced_scrapper_tpu_torch.ops.minhash import minhash_signatures
+    from advanced_scrapper_tpu_torch.ops.shingle import U32_MAX
+    from advanced_scrapper_tpu_torch.parallel import ring
+
+    t_phase = time.perf_counter()
+    dev = torch.device(dev)
+    n = MESH_SHARDS
+    params = make_params()
+    tok, lens = encode_batch(docs[:RING_ARTICLES], block_len=RING_BLOCK)
+    mesh = build_mesh(n, 1, devices=[dev] * n)
+    step = ring.make_ring_dedup(mesh, params, threshold=RING_THRESHOLD)
+    step(tok, lens).cpu()
+    reset_launches()
+    t0 = time.perf_counter()
+    with card_sorts() as sorts:
+        rep = step(tok, lens).cpu().numpy()
+    first_s = time.perf_counter() - t0
+    got, lsh_got = read_launches(), read_lsh_launches()
+    assert sorts == [], f"a library sort ran on the card: {sorts}"
+    assert {k: v for k, v in got.items() if v} == {"minhash_sig": n, "ring_join": n * n}, got
+    assert {k: v for k, v in lsh_got.items() if v} == {
+        "lsh_keys": n, "lsh_sort": n * lsh_cuda.sort_launches()}, lsh_got
+    check_roots(rep, RING_ARTICLES)
+    step_s, _ = best_of(lambda: step(tok, lens).cpu(), reps=3)
+
+    # the same functions by hand: presorts and joins against their plain versions
+    Bl = RING_ARTICLES // n
+    bits = row_bits(Bl)
+    ptok, plens = torch.from_numpy(tok).to(dev), torch.from_numpy(lens).to(dev)
+    shards = []
+    for s in range(n):
+        sig = minhash_signatures(ptok[s * Bl:(s + 1) * Bl], plens[s * Bl:(s + 1) * Bl], params)
+        valid = plens[s * Bl:(s + 1) * Bl] >= params.shingle_k
+        keys = torch.where(valid[:, None], band_keys(sig, params.band_salt), U32_MAX)
+        gidx = (s * Bl + torch.arange(Bl, device=dev)).to(torch.int32)
+        sk, order = ring._presort_bands(keys, valid)
+        sk_p, order_p = ring.presort_plain(keys, valid)
+        assert torch.equal(sk, sk_p) and torch.equal(order, order_p), f"presort {s} differs"
+        shards.append({"keys": keys, "sig": sig, "gidx": gidx, "valid": valid, "sk": sk,
+                       "order": order, "geff": torch.where(valid, gidx, ring._BIG).int()})
+
+    def join_args(s: int, h: int) -> tuple:
+        mine, blk = shards[s], shards[(s - h) % n]  # hop h: shard s holds block s - h
+        return (mine["keys"], mine["sig"], mine["gidx"], blk["sk"], blk["order"], blk["geff"],
+                blk["sig"])
+
+    reps_k = [sh["gidx"].clone() for sh in shards]
+    reps_p = [sh["gidx"].clone() for sh in shards]
+    work = []
+    for h in range(n):
+        for s in range(n):
+            args = join_args(s, h)
+            work.append(ring_join_work(args, RING_THRESHOLD, bits))
+            ring_cuda.ring_join(*args, reps_k[s], threshold=RING_THRESHOLD, bits=bits)
+            reps_p[s] = ring.join_plain(*args, reps_p[s], RING_THRESHOLD, bits)
+            assert torch.equal(reps_k[s], reps_p[s]), f"ring_join differs at hop {h}, shard {s}"
+    g = torch.cat(reps_p).to(torch.int64)
+    for _ in range(20):  # make_ring_dedup's jump_rounds
+        g = g[g]
+    assert np.array_equal(g.cpu().numpy(), rep), "the step differs from its functions by hand"
+
+    # an edge block: rows 0-63 invalid, then valid rows whose band 0 key is
+    # U32_MAX; local rows of shard 1 with those keys, agreeing on 96/128
+    edge = dict(shards[0])
+    keys, valid = edge["keys"].clone(), edge["valid"].clone()
+    e = RING_EDGE_ROWS
+    valid[:e] = False
+    keys[:e] = U32_MAX
+    keys[e:2 * e, 0] = U32_MAX
+    sk, order = ring._presort_bands(keys, valid)
+    sk_p, order_p = ring.presort_plain(keys, valid)
+    assert torch.equal(sk, sk_p) and torch.equal(order, order_p), "the edge presort differs"
+    assert torch.equal(order[:e], torch.arange(e, 2 * e, device=dev, dtype=torch.int32)), \
+        "valid rows come first"
+    geff = torch.where(valid, edge["gidx"], ring._BIG).int()
+    mine = dict(shards[1])
+    lkeys, lsig = mine["keys"].clone(), mine["sig"].clone()
+    lkeys[:e, 0] = U32_MAX
+    l32 = lsig.view(torch.int32)
+    l32[:e] = edge["sig"].view(torch.int32)[e:2 * e]
+    l32[:e, :32] ^= 1  # 96 of 128 words agree
+    args = (lkeys, lsig, mine["gidx"], sk, order, geff, edge["sig"])
+    edge_k = ring_cuda.ring_join(*args, mine["gidx"].clone(), threshold=0.75, bits=bits)
+    edge_p = ring.join_plain(*args, mine["gidx"].clone(), 0.75, bits)
+    assert torch.equal(edge_k, edge_p), "the edge join differs"
+    assert int((edge_k[:e] == e).sum()) >= 1, "no row joined the U32_MAX run's head at 0.75"
+
+    # the kernel's scalar loads (P % 4 != 0, or a signature off 16-byte
+    # alignment): the busiest (hop, shard) with its signatures cut to 30
+    # words, the same with both signature blocks one word off alignment, and
+    # the edge block off alignment
+    def words(t: torch.Tensor, P: int, off: int) -> torch.Tensor:
+        buf = torch.empty(t.shape[0] * P + off, dtype=torch.int32, device=dev)
+        out = buf[off:].view(t.shape[0], P)
+        out.copy_(t.view(torch.int32)[:, :P])
+        return out
+
+    busy = max(range(len(work)), key=lambda i: work[i]["verifies"])
+    k_l, s_l, g_l, skb, pmb, geb, s_b = join_args(busy % n, busy // n)
+    scalar = {
+        "p30": ((k_l, words(s_l, 30, 0), g_l, skb, pmb, geb, words(s_b, 30, 0)), RING_THRESHOLD),
+        "unaligned": ((k_l, words(s_l, 128, 1), g_l, skb, pmb, geb, words(s_b, 128, 1)),
+                      RING_THRESHOLD),
+        "edge_unaligned": ((lkeys, words(lsig, 128, 1), mine["gidx"], sk, order, geff,
+                            words(edge["sig"], 128, 1)), 0.75),
+    }
+    scalar_verifies = {}
+    for name, (a, thr) in scalar.items():
+        assert a[1].data_ptr() % 16 or a[1].shape[1] % 4, f"{name} takes the vector loads"
+        got_k = ring_cuda.ring_join(*a, a[2].clone(), threshold=thr, bits=bits)
+        got_p = ring.join_plain(*a, a[2].clone(), thr, bits)
+        assert torch.equal(got_k, got_p), f"ring_join's scalar path differs: {name}"
+        scalar_verifies[name] = ring_join_work(a, thr, bits)["verifies"]
+        assert scalar_verifies[name] > 0, f"{name} verified nothing"
+
+    # timing: the step's 64 joins, the presort's sort, their plain versions
+    every = [join_args(s, h) for h in range(n) for s in range(n)]
+    scratch = [sh["gidx"].clone() for sh in shards]
+
+    def joins():
+        for i, a in enumerate(every):
+            ring_cuda.ring_join(*a, scratch[i % n], threshold=RING_THRESHOLD, bits=bits)
+
+    def joins_plain():
+        for i, a in enumerate(every):
+            ring.join_plain(*a, scratch[i % n], RING_THRESHOLD, bits)
+
+    event_ms, step_join_ms = timed(joins, "ring_join_kernel", reps=3, launches=len(every))
+    queued_ms = cuda_ms(joins, reps=3, queued=True) / len(every)
+    plain_ms = cuda_ms(joins_plain) / len(every)
+    ms = step_join_ms / len(every)
+    packed = ring._packed(shards[0]["keys"], shards[0]["order"], bits)
+    sort_kernels = {"sort_digits_kernel": 1, "sort_scatter_kernel": lsh_cuda.sort_passes()}
+    seen = profiler_device_ms(lambda: lsh_cuda.lsh_sort(packed, bits), tuple(sort_kernels))
+    sort_ms = 0.0
+    for kern, count in sort_kernels.items():
+        per, _rec = per_launch_ms(seen, kern)
+        assert per > 0, f"the profiler saw no {kern}, only {sorted(seen)}"
+        sort_ms += per * count
+    torch.sort(packed, dim=1)
+    torch_sort_ms = cuda_ms(lambda: torch.sort(packed, dim=1), reps=5)
+    presort_plain_ms = cuda_ms(lambda: ring.presort_plain(shards[0]["keys"],
+                                                          shards[0]["valid"]), reps=3)
+    moved = sum(w["bytes"] for w in work) / len(work)
+    ops = sum(w["ops"] for w in work) / len(work)
+    ops_ms, bytes_ms = bound_ms(ops, moved, clock_mhz)
+    presort = {"lsh_sort_ms": sort_ms, "torch_sort_ms": torch_sort_ms,
+               "presort_plain_ms": presort_plain_ms, "bands": int(packed.shape[0]), "rows": Bl,
+               "lsh_sort_launches": lsh_got["lsh_sort"]}
+    record = dict(articles=RING_ARTICLES, block=RING_BLOCK, shards=n, hops=n,
+                  threshold=RING_THRESHOLD, step_s=step_s, first_step_s=first_s,
+                  articles_per_s=RING_ARTICLES / step_s, launches=got,
+                  lsh_launches={k: v for k, v in lsh_got.items() if v},
+                  dups=int((rep != np.arange(RING_ARTICLES)).sum()),
+                  joined_a_launch=sum(w["joined"] for w in work) / len(work),
+                  verifies_a_launch=sum(w["verifies"] for w in work) / len(work),
+                  own_rows_read_a_launch=sum(w["own_rows_read"] for w in work) / len(work),
+                  rows_read_a_launch=sum(w["rows_read"] for w in work) / len(work),
+                  scalar_verifies=scalar_verifies,
+                  step_join_ms=step_join_ms, presort=presort,
+                  seconds=time.perf_counter() - t_phase)
+    log("ring_path", **record, card=card)
+    log("kernel_timing", name="ring_join", ms=ms, event_ms=event_ms / len(every),
+        queued_ms=queued_ms, plain_ms=plain_ms, ops=ops, bytes=moved, ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms,
+        share_of_bound=max(ops_ms, bytes_ms) / ms, launches=got["ring_join"], presort=presort,
+        card=card)
+    return kernel_entry("ring_join", got["ring_join"], ms, plain_ms, ops_ms, bytes_ms,
+                        source=RING_SOURCE, replaces=RING_REPLACES,
+                        event_ms=event_ms / len(every), queued_ms=queued_ms,
+                        step_join_ms=step_join_ms,
+                        launches_per_step=n * n, presort=presort,
+                        ring_path={k: record[k] for k in ("step_s", "articles_per_s", "dups")})
 
 
 LSH_SOURCE = "advanced_scrapper_tpu_torch/csrc/lsh.cu"
@@ -5233,7 +5614,7 @@ def main() -> int:
         numpy=np.__version__, host_cpu=host_cpu(), host_cores=os.cpu_count())
 
     t0 = time.perf_counter()
-    sources = ("minhash", "rerank", "match", "editdist", "oph", "lsh")
+    sources = ("minhash", "rerank", "match", "editdist", "oph", "lsh", "exact", "ring")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
         outs = dict(zip(sources, pool.map(_build.build, sources)))
     log("build", seconds=time.perf_counter() - t0, built=[k for k, v in outs.items() if v],
@@ -5526,13 +5907,17 @@ def main() -> int:
         tier_device_ms=default.rerank_tier.last_clock.device_ms(),
         planted=len(planted), dups=int((reps != np.arange(MAIN_ARTICLES)).sum()), card=card)
     del reps
-    # -- the stream backend and the exact dedup ---------------------------------
+    # -- the ring join and the exact hash, profiled before the stream, persist
+    # and fleet planes: behind them the profiler once saw no device event in
+    # six windows of exact_path (PERF.md §7)
+    ring_row = ring_path(docs, card, clock_mhz)
+    exact_row = exact_path(card, clock_mhz)
+    # -- the stream backend -------------------------------------------------------
     stream_launches, stream_batches, stream_lsh = stream_path(docs, planted, card)
     persist_launches, persist_batches, local = persist_path(docs, planted, card)
     fleet_launches, fleet_batches = fleet_path(docs, card, local)
     shutil.rmtree(local["session1"], ignore_errors=True)  # reshard_path's copy: --fleet
     del docs, local
-    exact_path(card)
     cross_launches, cross_batches = cross_source_path(card)
     scrape_launches, scrape_batches = scrape_path(card)
     kernels[0]["stream_path"] = {"launches": stream_launches, "batches": stream_batches}
@@ -5616,7 +6001,8 @@ def main() -> int:
         share_of_floor=legacy["share_of_floor"], per=legacy["per"]))
     kernels.extend(oph_kernels)
     kernels.extend(lsh_rows)
-    assert len(kernels) == 16, [k["name"] for k in kernels]
+    kernels.extend([exact_row, ring_row])
+    assert len(kernels) == 18, [k["name"] for k in kernels]
 
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi("name,power.limit"))
@@ -6687,7 +7073,7 @@ def mesh_main() -> int:
     former depth, on the 65,536 ragged articles (seed 7) and their
     estimator-only representatives on one device, made as the default run
     makes them; kept out of the default run for the run's time."""
-    card = card_start(("minhash", "oph", "lsh"))
+    card = card_start(("minhash", "oph", "lsh", "ring"))
     if card is None:
         return 2
     from advanced_scrapper_tpu_torch.config import DedupConfig
@@ -6699,8 +7085,9 @@ def mesh_main() -> int:
                            device=torch.device("cuda"))
     main_reps = engine.dedup_reps_async(docs)[:MAIN_ARTICLES].cpu().numpy()
     meshed = mesh_path(docs, main_reps, engine, card)
+    ring_row = ring_path(docs, card, float(nvidia_smi("clocks.max.sm").split()[0]))
     log("mesh_launches", launches={k: v for k, v in meshed.items() if v},
-        seconds=time.perf_counter() - t0, card=card)
+        ring_join=ring_row["launches"], seconds=time.perf_counter() - t0, card=card)
     return card_end(card)
 
 

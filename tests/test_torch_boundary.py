@@ -84,7 +84,8 @@ def test_port_files_found():
                 "pipeline/harvest_async.py", "utils/setops.py", "net/lease.py",
                 "net/control.py", "net/pipe_pool.py", "net/pipe_worker.py", "net/chaos.py",
                 "storage/progress.py", "storage/pgfake.py", "pipeline/enrich.py",
-                "pipeline/poller.py", "obs/collector.py"):
+                "pipeline/poller.py", "obs/collector.py", "ops/exact_cuda.py",
+                "ops/ring_cuda.py"):
         assert f"advanced_scrapper_tpu_torch/{rel}" in FILES, rel
     for name in NATIVE:
         assert (PORT / "native" / name).exists(), name

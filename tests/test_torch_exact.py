@@ -60,17 +60,22 @@ def hashers():
     return RefHasher(), ExactHasher(device="cpu")
 
 
-@pytest.mark.parametrize("block_len", [8, 16, 64, 128, 1024, 4096])
+@pytest.mark.parametrize("block_len", [8, 16, 64, 128, 1024, 4096, 17, 32, 256, 512, 2048, 8192])
 def test_hash_docs_equals_reference(hashers, block_len):
-    """Documents of 0 to 9,000 bytes, many spanning several blocks."""
+    """Documents of 0 to 9,000 bytes, many spanning several blocks, and
+    lengths on and beside the block edges; the port's hash does not depend
+    on ``block_len``."""
     rng = np.random.RandomState(block_len)
     raw = [rng.randint(0, 256, size=int(rng.choice([0, 1, 5, 63, 64, 65, 700, 9000])),
                        dtype=np.uint8).tobytes() for _ in range(60)]
-    raw += [b"", b"\x00", b"ab", b"ab\x00", b"x" * 5000]
+    raw += [b"", b"\x00", b"ab", b"ab\x00", b"x" * 5000, b"\x00" * 40]
+    edges = [15, 16, 17, block_len - 1, block_len, block_len + 1, 3 * block_len + 5]
+    raw += [rng.randint(0, 256, size=e, dtype=np.uint8).tobytes() for e in edges]
     ref, port = hashers
     got = port.hash_docs(raw, block_len=block_len)
     assert got.dtype == np.uint32 and got.shape == (len(raw), 4)
     assert np.array_equal(got, ref.hash_docs(raw, block_len=block_len))
+    assert np.array_equal(got, port.hash_docs(raw, block_len=7))
 
 
 def test_hash_docs_does_not_depend_on_the_block_length(hashers):
