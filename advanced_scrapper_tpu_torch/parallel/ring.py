@@ -11,10 +11,11 @@ band's packed keys ``(key << bits) | i``, ``i`` the position in that
 order, are sorted by key stably (``lsh_sort`` on the card).  What rotates
 is the sorted packed keys, that order (``perm``), the block's global rows
 and its signatures.  A hop joins each shard's rows against the transit
-block (``ring_join`` on the card, one launch for every band): a local row
-takes the smallest transit global row that heads its key's run in some
-band, agrees on at least ``threshold`` of the signature (``count/P`` in
-float32) and comes before it.  Only the 4-byte representatives are
+block (``ring_join`` on the card, a merge of the shard's own presorted keys
+with the transit block's, every band in one call): a local row takes the
+smallest transit global row that heads its key's run in some band, agrees
+on at least ``threshold`` of the signature (``count/P`` in float32) and
+comes before it.  Only the 4-byte representatives are
 gathered, and pointer jumping resolves chains on them.
 
 It equals the reference's ring, not the gather path
@@ -114,13 +115,16 @@ def join_plain(keys_l, sig_l, gidx_l, sorted_keys, perm, gidx_eff, sig_b, rep, t
 
 
 def _best_match_against_sorted(keys_l, sig_l, gidx_l, sorted_keys, perm, gidx_eff, sig_b, rep,
-                               threshold, bits) -> torch.Tensor:
+                               threshold, bits, sorted_l, order_l) -> torch.Tensor:
     """One hop's join for one shard: ``min(rep, cand)`` (see
-    :func:`join_plain`); on the card one ``ring_join`` launch over every
-    band, updating ``rep`` in place, on the CPU the plain version."""
+    :func:`join_plain`); on the card ``ring_join`` over every band, which
+    reads the local keys through the shard's own presort (``sorted_l``,
+    ``order_l``) and updates ``rep`` in place; on the CPU the plain
+    version."""
     if keys_l.device.type == "cuda":
         return ring_cuda.ring_join(keys_l, sig_l, gidx_l, sorted_keys, perm, gidx_eff, sig_b, rep,
-                                   threshold=threshold, bits=bits)
+                                   threshold=threshold, bits=bits, sorted_l=sorted_l,
+                                   order_l=order_l)
     return join_plain(keys_l, sig_l, gidx_l, sorted_keys, perm, gidx_eff, sig_b, rep, threshold,
                       bits)
 
@@ -153,13 +157,15 @@ def make_ring_dedup(
             gidx = (s * Bl + torch.arange(Bl, device=t.device)).to(torch.int32)
             gidx_eff = torch.where(valid, gidx, _BIG).to(torch.int32)
             sorted_keys, order = _presort_bands(keys, valid)
+            # the shard keeps its own presort for every hop; a copy of it rotates
             local.append({"keys": keys, "sig": sig, "gidx": gidx, "rep": gidx.clone(),
-                          "bits": row_bits(Bl), "blk": [sorted_keys, order, gidx_eff, sig]})
+                          "bits": row_bits(Bl), "own": (sorted_keys, order),
+                          "blk": [sorted_keys, order, gidx_eff, sig]})
         for hop in range(n):
             for sh in local:
                 sh["rep"] = _best_match_against_sorted(sh["keys"], sh["sig"], sh["gidx"],
                                                        *sh["blk"], sh["rep"], threshold,
-                                                       sh["bits"])
+                                                       sh["bits"], *sh["own"])
             if hop == n - 1:
                 break  # every pair of blocks has met
             moved = [C.ppermute(mesh, [sh["blk"][i] for sh in local], data, perm)

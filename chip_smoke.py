@@ -99,7 +99,8 @@ and the fan-out's share of each batch.  The mesh's ring step
 (``ring_path``): ``make_ring_dedup`` over the 65,536 ragged articles cut
 to 1,024-byte rows on 8 shards of the card (8 × 1), one ``minhash_sig``
 and one ``lsh_keys`` a shard, one ``lsh_sort`` call a shard's presort and
-one ``ring_join`` a (hop, shard) and no other launch or library sort;
+one ``ring_join`` call (two launches) a (hop, shard) and no other launch
+or library sort;
 every presort and every join bit-equal to its plain version on the card
 (an edge block too: invalid rows before valid rows whose band key is
 ``U32_MAX``, an agreement of exactly 96/128 at a bar of 0.75), their
@@ -207,7 +208,8 @@ the fold once a shard a tile group, one ``oph_densify`` a corpus);
 ``dedup_against_index(mesh=...)`` on 4,096 articles (keys, attributions
 and postings equal to the one-device call's); the batch, block, sequence
 and ring steps on 2,048 × 1,024 bytes, card equal to CPU shards (the
-ring: one ``ring_join`` a (hop, shard), one ``lsh_sort`` call a shard);
+ring: one ``ring_join`` call a (hop, shard), one ``lsh_sort`` call a
+shard);
 then a gloo world of 2 ranks sharing the card and an NCCL world of 1
 (``chip_smoke.py --mesh-worker``, a process a rank), whose
 ``multihost_dedup`` and ``dedup_reps_sharded`` equal the one-process
@@ -2507,34 +2509,79 @@ EXACT_REPLACES = ("advanced_scrapper_tpu/ops/exact.py:126 (_block_hash_impl unde
                   "_row_hash_impl :147 under __call__ :57, jnp)")
 
 
-def check_exact_vs_plain(dev) -> dict:
-    """``exact_hash`` bit-equal to ``exact_hash_plain`` on the card: 65,536
-    urls of the exact recipe through ``doc_inputs`` (as the grouping tier
-    hashes them); documents of 0 bytes to ``MAX_DOC_LEN`` (several blocks,
-    past the shared prefix, up to 4 MiB, empty ones among them); only
-    empty documents; 4,096 documents scattered out of order with gaps, at
-    every start residue mod 16; the row form, spans of 96 bytes with
-    non-zero bytes past ``lengths``, and through ``ExactHasher.__call__``."""
-    from advanced_scrapper_tpu_torch.ops import exact_cuda
-    from advanced_scrapper_tpu_torch.ops.exact import MAX_DOC_LEN, ExactHasher, exact_hash_plain
+def exact_consts() -> dict[str, int]:
+    """``csrc/exact.cu``'s tile sizes, read from the source."""
+    from advanced_scrapper_tpu_torch.ops import _build
 
-    hasher = ExactHasher(device=dev)
+    src = (_build.CSRC_DIR / "exact.cu").read_text()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+            for name in ("kThreads", "kBufBytes", "kReachSteps", "kPrefixMax")}
+
+
+def exact_tile_paths(text, starts, span, coef, max_span: int) -> dict[str, int]:
+    """How ``exact_hash`` walks these inputs, by its plan: the tiles of
+    back-to-back documents inside text and the stream whose bytes fit the
+    buffer are staged, the rest a warp a document; in a staged tile a
+    document past the group's reach or the stream's shared prefix takes a
+    warp (``long``)."""
+    c = exact_consts()
+    st, sp = starts.cpu().numpy(), span.cpu().numpy().astype(np.int64)
+    T, cols = text.numel(), coef.shape[0]
+    need = min(max_span, cols)
+    pre = min(c["kPrefixMax"], (need + 15) // 16 * 16)
+    reach = min((8 if need <= 64 else 16 if need <= 128 else 32) * c["kReachSteps"], pre)
+    paths = {"staged": 0, "per_doc": 0, "long": 0}
+    for d0 in range(0, len(st), c["kThreads"]):
+        x, y = st[d0:d0 + c["kThreads"]], sp[d0:d0 + c["kThreads"]]
+        ok = ((x >= 0) & (y >= 0) & (y <= cols) & (x <= T - y)).all()
+        ok = ok and (x[1:] == x[:-1] + y[:-1]).all() and x[-1] + y[-1] - x[0] <= c["kBufBytes"]
+        paths["staged" if ok else "per_doc"] += 1
+        paths["long"] += int((y > reach).sum()) if ok else 0
+    return paths
+
+
+def exact_cases(hasher, dev) -> dict[str, tuple]:
+    """The exact hash's edge cases, each the kernel's arguments ``(text,
+    starts, span, mixlen, coef, max_span)``: 65,536 urls of the exact recipe
+    through ``doc_inputs`` (as the grouping tier hashes them: every tile
+    staged) and the same urls with text 5 bytes off 16-byte alignment; a 4
+    KiB document among urls (staged, the long one a warp); a one-byte gap
+    between two urls (that tile a warp a document); urls with a longest
+    span stated at 20 bytes (staged, each a warp past the stream's shared
+    prefix); empty documents at
+    tiles' edges; documents of 0 bytes to ``MAX_DOC_LEN`` (several blocks,
+    past the shared prefix, up to 4 MiB, empty ones among them); only empty
+    documents; 4,096 documents scattered out of order with gaps, at every
+    start residue mod 16; the row form, spans of 96 and of 37 bytes at
+    ``b * L`` with non-zero bytes past ``lengths`` (``rows96``,
+    ``rows37``)."""
+    from advanced_scrapper_tpu_torch.ops.exact import MAX_DOC_LEN
+
     rng = np.random.RandomState(31)
-    cases: dict[str, int] = {}
-
-    def same(name, text, starts, span, mixlen, coef, max_span) -> None:
-        got = exact_cuda.exact_hash(text, starts, span, mixlen, coef, max_span=max_span)
-        torch.cuda.synchronize()
-        want = exact_hash_plain(text, starts, span, mixlen, coef)
-        assert torch.equal(got, want), f"exact_hash differs from its plain version: {name}"
-        cases[name] = int(starts.shape[0])
-
-    same("urls", *hasher.doc_inputs([u.encode() for u in exact_urls(3, 65536)]))
+    cases: dict[str, tuple] = {}
+    urls = [u.encode() for u in exact_urls(3, 65536)]
+    cases["urls"] = hasher.doc_inputs(urls)
+    text, starts, span, mixlen, coef, longest = cases["urls"]
+    shifted = torch.empty(text.numel() + 5, dtype=torch.uint8, device=dev)[5:]
+    shifted.copy_(text)
+    assert shifted.data_ptr() % 16 == (text.data_ptr() + 5) % 16
+    cases["urls_text_off_16"] = (shifted, starts, span, mixlen, coef, longest)
+    long_doc = list(urls[:900])  # the 4 KiB document in the last tile, 132 documents
+    long_doc[800] = rng.randint(0, 256, size=4096, dtype=np.uint8).tobytes()
+    cases["long_among_urls"] = hasher.doc_inputs(long_doc)
+    gap_starts = starts[:2000] + (torch.arange(2000, device=dev) >= 40)
+    cases["gap"] = (text, gap_starts, span[:2000], mixlen[:2000], coef, longest)
+    # a longest span stated below the urls' own: the shared prefix stops short
+    cases["stated_short"] = (text, starts[:3000], span[:3000], mixlen[:3000], coef, 20)
+    edges = list(urls[:1024])
+    for i in (0, 255, 256, 511, 767, 1023):
+        edges[i] = b""
+    cases["empty_edges"] = hasher.doc_inputs(edges)
     lens = [0, 1, 15, 16, 17, 1023, 1024, 1025, 4096, 4097, 65537, 1 << 20, 3 << 20,
             MAX_DOC_LEN, 0, 33]
-    same("long", *hasher.doc_inputs(
-        [rng.randint(0, 256, size=n, dtype=np.uint8).tobytes() for n in lens]))
-    same("empty", *hasher.doc_inputs([b""] * 100))
+    cases["long"] = hasher.doc_inputs(
+        [rng.randint(0, 256, size=n, dtype=np.uint8).tobytes() for n in lens])
+    cases["empty"] = hasher.doc_inputs([b""] * 100)
     sizes = rng.randint(0, 300, size=4096)
     gaps = rng.randint(0, 32, size=4096)
     ends = np.cumsum(gaps + sizes)
@@ -2544,21 +2591,64 @@ def check_exact_vs_plain(dev) -> dict:
     assert len(set((starts % 16).tolist())) == 16
     span = torch.from_numpy(sizes[order].astype(np.int32)).to(dev)
     mixlen = torch.from_numpy(rng.randint(-(1 << 31), 1 << 31, size=4096).astype(np.int32)).to(dev)
-    same("ragged", text, torch.from_numpy(starts[order]).to(dev), span, mixlen,
-         hasher._coef_tensor(300), int(sizes.max()))
-    tok = torch.from_numpy(rng.randint(0, 256, size=(4096, 96), dtype=np.uint8)).to(dev)
-    rows = torch.from_numpy(rng.randint(0, 97, size=4096).astype(np.int32)).to(dev)
-    row_starts = torch.arange(4096, dtype=torch.int64, device=dev) * 96
-    same("rows", tok.view(-1), row_starts, torch.full((4096,), 96, dtype=torch.int32,
-                                                      device=dev), rows,
-         hasher._coef_tensor(96), 96)
-    got = hasher(tok, rows)
-    want = exact_hash_plain(tok.view(-1), row_starts, torch.full_like(rows, 96), rows,
-                            hasher._coef_tensor(96))
-    assert torch.equal(got.view(torch.int32), want), "ExactHasher's row form differs"
-    tail = (torch.arange(96, device=dev)[None, :] >= rows[:, None]) & (tok != 0)
-    assert tail.any(), "no non-zero byte past a row's length"
-    return {"cases": cases, "longest": MAX_DOC_LEN, "row_tail_bytes": int(tail.sum())}
+    cases["ragged"] = (text, torch.from_numpy(starts[order]).to(dev), span, mixlen,
+                       hasher._coef_tensor(300), int(sizes.max()))
+    for width in (96, 37):
+        tok = torch.from_numpy(rng.randint(0, 256, size=(4096, width), dtype=np.uint8)).to(dev)
+        rows = torch.from_numpy(rng.randint(0, width + 1, size=4096).astype(np.int32)).to(dev)
+        row_starts = torch.arange(4096, dtype=torch.int64, device=dev) * width
+        full = torch.full((4096,), width, dtype=torch.int32, device=dev)
+        cases[f"rows{width}"] = (tok.view(-1), row_starts, full, rows, hasher._coef_tensor(width),
+                                 width)
+    return cases
+
+
+def check_exact_vs_plain(dev) -> dict:
+    """``exact_hash`` bit-equal to ``exact_hash_plain`` on the card on each
+    of :func:`exact_cases`, and ``ExactHasher.__call__`` on the row form's
+    rows; each case's tile paths (by the kernel's plan) beside it: the tile
+    path, its long documents and the per-document path must each run."""
+    from advanced_scrapper_tpu_torch.ops import exact_cuda
+    from advanced_scrapper_tpu_torch.ops.exact import MAX_DOC_LEN, ExactHasher, exact_hash_plain
+
+    hasher = ExactHasher(device=dev)
+    cases: dict[str, dict] = {}
+    all_cases = exact_cases(hasher, dev)
+    for name, (text, starts, span, mixlen, coef, max_span) in all_cases.items():
+        got = exact_cuda.exact_hash(text, starts, span, mixlen, coef, max_span=max_span)
+        torch.cuda.synchronize()
+        want = exact_hash_plain(text, starts, span, mixlen, coef)
+        assert torch.equal(got, want), f"exact_hash differs from its plain version: {name}"
+        cases[name] = {"documents": int(starts.shape[0]),
+                       **exact_tile_paths(text, starts, span, coef, max_span)}
+    tail_bytes = 0
+    for width in (96, 37):
+        text, row_starts, full, rows, coef, _w = all_cases[f"rows{width}"]
+        tok = text.view(-1, width)
+        got = hasher(tok, rows)
+        want = exact_hash_plain(text, row_starts, full, rows, coef)
+        assert torch.equal(got.view(torch.int32), want), "ExactHasher's row form differs"
+        tail = (torch.arange(width, device=dev)[None, :] >= rows[:, None]) & (tok != 0)
+        assert tail.any(), "no non-zero byte past a row's length"
+        tail_bytes += int(tail.sum())
+    assert all(cases[k]["per_doc"] == 0 for k in ("urls", "urls_text_off_16", "long_among_urls",
+                                                  "empty_edges", "rows37")), cases
+    assert cases["long_among_urls"]["long"] == 1 and cases["gap"]["per_doc"] == 1, cases
+    assert cases["stated_short"]["long"] == 3000, cases
+    assert cases["ragged"]["staged"] == 0 and cases["rows96"]["staged"] == 0, cases
+    return {"cases": cases, "longest": MAX_DOC_LEN, "row_tail_bytes": tail_bytes}
+
+
+def exact_bound(n: int, T: int, longest: int, clock_mhz: float) -> dict:
+    """``exact_hash``'s bound on ``n`` documents of ``T`` bytes in all: each
+    byte once, 16 bytes of descriptors and 16 of hash a document, the
+    stream's 16 bytes a position up to the longest; a multiply and an add
+    a lane a byte."""
+    moved = T + 16 * n + 16 * longest + 16 * n
+    ops = 8 * T
+    ops_ms, bytes_ms = bound_ms(ops, moved, clock_mhz)
+    return {"ops": ops, "bytes": moved, "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms), "bound_by": bound_by(ops_ms, bytes_ms)}
 
 
 def exact_path(card: str, clock_mhz: float) -> dict:
@@ -2638,16 +2728,13 @@ def exact_path(card: str, clock_mhz: float) -> dict:
     queued_ms = cuda_ms(kernel, reps=20, queued=True)
     plain_ms = cuda_ms(lambda: exact_hash_plain(text, starts, span, mixlen, coef))
     n, T = len(raw), text.numel()
-    # each byte once, 16 bytes of descriptors and 16 of hash a url, the
-    # stream's 16 bytes a position up to the longest url; a multiply and an
-    # add a lane a byte
-    moved = T + 16 * n + 16 * longest + 16 * n
-    ops = 8 * T
-    ops_ms, bytes_ms = bound_ms(ops, moved, clock_mhz)
+    bound = exact_bound(n, T, longest, clock_mhz)
+    ops_ms, bytes_ms = bound["ops_bound_ms"], bound["bytes_bound_ms"]
     log("kernel_timing", name="exact_hash", documents=n, text_bytes=T, longest=longest, ms=ms,
-        event_ms=event_ms, queued_ms=queued_ms, plain_ms=plain_ms, ops=ops, bytes=moved, ops_bound_ms=ops_ms,
-        bytes_bound_ms=bytes_ms, share_of_bound=max(ops_ms, bytes_ms) / ms,
-        launches=got["exact_hash"], card=card)
+        event_ms=event_ms, queued_ms=queued_ms, plain_ms=plain_ms, ops=bound["ops"],
+        bytes=bound["bytes"], ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms,
+        share_of_bound=bound["bound_ms"] / ms, tile_paths=exact_tile_paths(
+            text, starts, span, coef, longest), launches=got["exact_hash"], card=card)
     return kernel_entry("exact_hash", got["exact_hash"], ms, plain_ms, ops_ms, bytes_ms,
                         source=EXACT_SOURCE, replaces=EXACT_REPLACES, event_ms=event_ms,
                         queued_ms=queued_ms, documents=n, text_bytes=T, launches_per_call=1)
@@ -4536,7 +4623,7 @@ def mesh_functions(dev) -> tuple[list[dict], dict, np.ndarray]:
     one-process result the worlds are held to)."""
     from advanced_scrapper_tpu_torch.core.hashing import make_params
     from advanced_scrapper_tpu_torch.core.mesh import build_mesh, host_numpy
-    from advanced_scrapper_tpu_torch.ops import lsh_cuda
+    from advanced_scrapper_tpu_torch.ops import lsh_cuda, ring_cuda
     from advanced_scrapper_tpu_torch.parallel.ring import make_ring_dedup
     from advanced_scrapper_tpu_torch.parallel.sharded import (
         make_seq_sharded_signatures,
@@ -4581,7 +4668,7 @@ def mesh_functions(dev) -> tuple[list[dict], dict, np.ndarray]:
             # shard) and one lsh_sort call a shard's presort
             wanted = {"minhash_sig": MESH_SHARDS}
             if name == "ring_dedup":
-                wanted["ring_join"] = shape[0] * MESH_SHARDS
+                wanted["ring_join"] = shape[0] * MESH_SHARDS * ring_cuda.join_launches()
                 assert lsh_got["lsh_sort"] == MESH_SHARDS * lsh_cuda.sort_launches(), lsh_got
             assert {k: v for k, v in got.items() if v} == wanted, got
             launches = {k: launches[k] + v for k, v in got.items()}
@@ -4776,10 +4863,11 @@ RING_ARTICLES = 65536  # the mesh plane's corpus
 RING_BLOCK = 1024
 RING_THRESHOLD = 0.7  # make_ring_dedup's default
 RING_EDGE_ROWS = 64
+RING_RUN_ROWS = 4000  # the long run of one key: past ring.cu's shared span (kSpanMax)
 
 
 def ring_join_work(args: tuple, threshold: float, bits: int) -> dict:
-    """What one ``ring_join`` launch must do on these inputs: the local
+    """What one ``ring_join`` call must do on these inputs: the local
     keys, ``gidx_l`` and the transit keys read once and ``rep`` read and
     written; ``perm`` at the distinct positions that hit and ``gidx_eff``
     at the distinct rows they name; the signatures of the local rows that
@@ -4828,30 +4916,144 @@ def ring_join_work(args: tuple, threshold: float, bits: int) -> dict:
             "own_rows_read": own_read, "joined": int((best < _BIG).sum())}
 
 
+def ring_brackets(lb: torch.Tensor, Bt: int, lanes: int, slack: int) -> tuple:
+    """``csrc/ring.cu``'s ``block_bracket`` from the run heads ``lb`` it
+    brackets: the keys loaded in a round below the target are those before
+    ``lb``, so each round's count follows from ``lb``; ``(L, R)``."""
+    L, R = torch.zeros_like(lb), torch.full_like(lb, Bt)
+    while bool(((R - L) > slack).any()):
+        n = R - L
+        opened = n > slack
+        stride = torch.where(opened, (n + lanes - 1) // lanes, torch.ones_like(n))
+        m = (n + stride - 1) // stride
+        c = torch.minimum(m, (lb - L + stride - 1) // stride)
+        hit = opened & (c > 0)
+        R = torch.where(opened, torch.where(c > 0, torch.where(c < m, L + c * stride, R), L), R)
+        L = torch.where(hit, L + (c - 1) * stride + 1, L)
+    return L, R
+
+
+def ring_tile_paths(sorted_l: torch.Tensor, sorted_t: torch.Tensor, bits: int) -> dict:
+    """How ``ring_join``'s phase 1 walks these blocks, by its plan: each
+    (band, tile of local sorted positions) staged from the guessed window
+    (``guessed``: the tile's share of the transit band and ``kGuard``
+    positions each side, kept when it holds the tile's run heads), else
+    from the bracket of its first key's run head to that of its last key's
+    (``staged``) where that fits the shared buffer, else searched in global
+    memory (``global``); ``kTile``, ``kSpanMax``, ``kGuard``, ``kSlack``
+    from ``csrc/ring.cu``."""
+    from advanced_scrapper_tpu_torch.ops import _build
+
+    src = (_build.CSRC_DIR / "ring.cu").read_text()
+    items, threads, slack, guard = (
+        int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+        for k in ("kItems", "kThreads", "kSlack", "kGuard"))
+    tile, span_max = threads * items, 4 * threads * items
+    (nb, Bl), Bt = sorted_l.shape, sorted_t.shape[1]
+    j0 = torch.arange(0, Bl, tile, device=sorted_l.device)
+    first = sorted_l[:, j0] >> bits
+    last = sorted_l[:, (j0 + tile - 1).clamp(max=Bl - 1)] >> bits
+    scale = torch.tensor(Bt, dtype=torch.float32) / Bl  # the kernel's float32 guess
+    g0 = ((j0.float() * scale).floor().long() - guard).clamp(min=0).expand(nb, -1)
+    g1 = (((j0 + tile).clamp(max=Bl).float() * scale).floor().long() + guard).clamp(
+        max=Bt - 1).expand(nb, -1)
+    guessed = ((g1 - g0 + 1 <= span_max)
+               & ((g0 == 0) | (sorted_t.gather(1, g0) < first << bits))
+               & ((g1 == Bt - 1) | (sorted_t.gather(1, g1) >= last << bits)))
+    lo = ring_brackets(torch.searchsorted(sorted_t, first << bits), Bt, threads // 2, slack)[0]
+    hi = ring_brackets(torch.searchsorted(sorted_t, last << bits), Bt, threads // 2, slack)[1]
+    span = hi.clamp(max=Bt - 1) - lo.clamp(max=Bt - 1) + 1
+    staged = ~guessed & (span <= span_max)
+    return {"guessed": int(guessed.sum()), "staged": int(staged.sum()),
+            "global": int((~guessed & ~staged).sum()),
+            "longest_span": int(span[~guessed].max()) if bool((~guessed).any()) else 0}
+
+
+#: the ring join's kernels: phase 1, phase 2
+RING_KERNELS = ("ring_tiles_kernel", "ring_rows_kernel")
+
+
+def ring_phase_ms(seen: dict[str, tuple[float, int]]) -> dict[str, float]:
+    """The device ms a ``ring_join`` call of each of its kernels (each
+    launched once a call), per recorded launch of :func:`profiler_device_ms`'s
+    ``seen``."""
+    out = {}
+    for kern in RING_KERNELS:
+        per, recorded = per_launch_ms(seen, kern)
+        if recorded:
+            out[kern] = per
+    assert out, f"the profiler saw no ring join kernel, only {sorted(seen)}"
+    return out
+
+
+def ring_shards(tok: np.ndarray, lens: np.ndarray, dev) -> list[dict]:
+    """``make_ring_dedup``'s per-shard state on ``MESH_SHARDS`` shards of
+    ``dev``, composed by hand: each shard's signatures, valid rows, band
+    keys, global rows and presort (``lsh_sort`` on the card), the presort
+    held bit-equal to ``presort_plain``."""
+    from advanced_scrapper_tpu_torch.core.hashing import make_params
+    from advanced_scrapper_tpu_torch.ops.lsh import band_keys
+    from advanced_scrapper_tpu_torch.ops.minhash import minhash_signatures
+    from advanced_scrapper_tpu_torch.ops.shingle import U32_MAX
+    from advanced_scrapper_tpu_torch.parallel import ring
+
+    params = make_params()
+    n = MESH_SHARDS
+    Bl = tok.shape[0] // n
+    ptok, plens = torch.from_numpy(tok).to(dev), torch.from_numpy(lens).to(dev)
+    shards = []
+    for s in range(n):
+        sig = minhash_signatures(ptok[s * Bl:(s + 1) * Bl], plens[s * Bl:(s + 1) * Bl], params)
+        valid = plens[s * Bl:(s + 1) * Bl] >= params.shingle_k
+        keys = torch.where(valid[:, None], band_keys(sig, params.band_salt), U32_MAX)
+        gidx = (s * Bl + torch.arange(Bl, device=dev)).to(torch.int32)
+        sk, order = ring._presort_bands(keys, valid)
+        sk_p, order_p = ring.presort_plain(keys, valid)
+        assert torch.equal(sk, sk_p) and torch.equal(order, order_p), f"presort {s} differs"
+        shards.append({"keys": keys, "sig": sig, "gidx": gidx, "valid": valid, "sk": sk,
+                       "order": order, "geff": torch.where(valid, gidx, ring._BIG).int()})
+    return shards
+
+
+def ring_join_args(shards: list[dict], s: int, h: int) -> tuple:
+    """The join's arguments at hop ``h`` for shard ``s``, which then holds
+    block ``s - h``: the plain join's first seven."""
+    mine, blk = shards[s], shards[(s - h) % len(shards)]
+    return (mine["keys"], mine["sig"], mine["gidx"], blk["sk"], blk["order"], blk["geff"],
+            blk["sig"])
+
+
+def ring_own(shards: list[dict], s: int) -> dict:
+    """Shard ``s``'s own presort, which ``ring_join`` takes at every hop."""
+    return {"sorted_l": shards[s]["sk"], "order_l": shards[s]["order"]}
+
+
 def ring_path(docs: list[bytes], card: str, clock_mhz: float, dev="cuda") -> dict:
     """``make_ring_dedup`` at the mesh plane's size: the 65,536 ragged
     articles cut to 1,024-byte rows on 8 shards of the card (8 × 1), warm,
     then with the launch counters set to 0 just before the step and read
     just after: one ``minhash_sig`` and one ``lsh_keys`` a shard, one
-    ``lsh_sort`` call a shard's presort, one ``ring_join`` a (hop, shard),
-    no other launch and no library sort on the card.  Then the same
-    functions composed by hand on the card: every shard's presort on
-    ``lsh_sort`` bit-equal (sorted keys and order) to ``presort_plain``
-    (``torch.sort``), every (hop, shard) ``ring_join`` bit-equal to
-    ``join_plain``, and their representatives after pointer jumping equal
-    the step's; an edge block (invalid rows before valid rows whose band
-    key is ``U32_MAX``, rows agreeing on exactly 96 of 128 words with a bar
-    of 0.75) too, and the kernel's scalar loads: signatures of 30 words, or
-    one word off 16-byte alignment.  The step by the host clock (best of
-    3), the join and the presort's sort by the profiler beside the plain
-    join, ``presort_plain`` and ``torch.sort``.  Returns the ``ring_join`` row of the ``kernels``
-    line."""
+    ``lsh_sort`` call a shard's presort, one ``ring_join`` call (its two
+    launches, ``ring_cuda.join_launches``) a (hop, shard), no other launch
+    and no library sort on the card.  Then the same functions composed by
+    hand on the card: every shard's presort on ``lsh_sort`` bit-equal
+    (sorted keys and order) to ``presort_plain`` (``torch.sort``), every
+    (hop, shard) ``ring_join`` bit-equal to ``join_plain``, and their
+    representatives after pointer jumping equal the step's; an edge block
+    (invalid rows before valid rows whose band key is ``U32_MAX``, rows
+    agreeing on exactly 96 of 128 words with a bar of 0.75) too; a long run
+    of one valid key on ``RING_RUN_ROWS`` transit rows, so a tile of phase 1
+    takes its global branch (:func:`ring_tile_paths`); and the kernel's
+    scalar loads: signatures of 30 words, or one word off 16-byte
+    alignment.  The step by the host clock (best of 3), the join (both
+    phases) and the presort's sort by the profiler beside the plain join,
+    ``presort_plain`` and ``torch.sort``, the presort's bytes bound beside
+    it.  Returns the ``ring_join`` row of the ``kernels`` line."""
     from advanced_scrapper_tpu_torch.core.hashing import make_params
     from advanced_scrapper_tpu_torch.core.mesh import build_mesh
     from advanced_scrapper_tpu_torch.core.tokenizer import encode_batch
     from advanced_scrapper_tpu_torch.ops import lsh_cuda, ring_cuda
-    from advanced_scrapper_tpu_torch.ops.lsh import band_keys, row_bits
-    from advanced_scrapper_tpu_torch.ops.minhash import minhash_signatures
+    from advanced_scrapper_tpu_torch.ops.lsh import row_bits
     from advanced_scrapper_tpu_torch.ops.shingle import U32_MAX
     from advanced_scrapper_tpu_torch.parallel import ring
 
@@ -4870,7 +5072,8 @@ def ring_path(docs: list[bytes], card: str, clock_mhz: float, dev="cuda") -> dic
     first_s = time.perf_counter() - t0
     got, lsh_got = read_launches(), read_lsh_launches()
     assert sorts == [], f"a library sort ran on the card: {sorts}"
-    assert {k: v for k, v in got.items() if v} == {"minhash_sig": n, "ring_join": n * n}, got
+    assert {k: v for k, v in got.items() if v} == {
+        "minhash_sig": n, "ring_join": n * n * ring_cuda.join_launches()}, got
     assert {k: v for k, v in lsh_got.items() if v} == {
         "lsh_keys": n, "lsh_sort": n * lsh_cuda.sort_launches()}, lsh_got
     check_roots(rep, RING_ARTICLES)
@@ -4879,32 +5082,25 @@ def ring_path(docs: list[bytes], card: str, clock_mhz: float, dev="cuda") -> dic
     # the same functions by hand: presorts and joins against their plain versions
     Bl = RING_ARTICLES // n
     bits = row_bits(Bl)
-    ptok, plens = torch.from_numpy(tok).to(dev), torch.from_numpy(lens).to(dev)
-    shards = []
-    for s in range(n):
-        sig = minhash_signatures(ptok[s * Bl:(s + 1) * Bl], plens[s * Bl:(s + 1) * Bl], params)
-        valid = plens[s * Bl:(s + 1) * Bl] >= params.shingle_k
-        keys = torch.where(valid[:, None], band_keys(sig, params.band_salt), U32_MAX)
-        gidx = (s * Bl + torch.arange(Bl, device=dev)).to(torch.int32)
-        sk, order = ring._presort_bands(keys, valid)
-        sk_p, order_p = ring.presort_plain(keys, valid)
-        assert torch.equal(sk, sk_p) and torch.equal(order, order_p), f"presort {s} differs"
-        shards.append({"keys": keys, "sig": sig, "gidx": gidx, "valid": valid, "sk": sk,
-                       "order": order, "geff": torch.where(valid, gidx, ring._BIG).int()})
+    shards = ring_shards(tok, lens, dev)
 
     def join_args(s: int, h: int) -> tuple:
-        mine, blk = shards[s], shards[(s - h) % n]  # hop h: shard s holds block s - h
-        return (mine["keys"], mine["sig"], mine["gidx"], blk["sk"], blk["order"], blk["geff"],
-                blk["sig"])
+        return ring_join_args(shards, s, h)
+
+    def own(s: int) -> dict:
+        return ring_own(shards, s)
 
     reps_k = [sh["gidx"].clone() for sh in shards]
     reps_p = [sh["gidx"].clone() for sh in shards]
-    work = []
+    work, tile_paths = [], {"guessed": 0, "staged": 0, "global": 0}
     for h in range(n):
         for s in range(n):
             args = join_args(s, h)
             work.append(ring_join_work(args, RING_THRESHOLD, bits))
-            ring_cuda.ring_join(*args, reps_k[s], threshold=RING_THRESHOLD, bits=bits)
+            for k, v in ring_tile_paths(shards[s]["sk"], args[3], bits).items():
+                tile_paths[k] = max(tile_paths.get(k, 0), v) if k == "longest_span" else (
+                    tile_paths[k] + v)
+            ring_cuda.ring_join(*args, reps_k[s], threshold=RING_THRESHOLD, bits=bits, **own(s))
             reps_p[s] = ring.join_plain(*args, reps_p[s], RING_THRESHOLD, bits)
             assert torch.equal(reps_k[s], reps_p[s]), f"ring_join differs at hop {h}, shard {s}"
     g = torch.cat(reps_p).to(torch.int64)
@@ -4933,10 +5129,39 @@ def ring_path(docs: list[bytes], card: str, clock_mhz: float, dev="cuda") -> dic
     l32[:e] = edge["sig"].view(torch.int32)[e:2 * e]
     l32[:e, :32] ^= 1  # 96 of 128 words agree
     args = (lkeys, lsig, mine["gidx"], sk, order, geff, edge["sig"])
-    edge_k = ring_cuda.ring_join(*args, mine["gidx"].clone(), threshold=0.75, bits=bits)
+    lsk, lorder = ring._presort_bands(lkeys, mine["valid"])
+    edge_own = {"sorted_l": lsk, "order_l": lorder}
+    edge_k = ring_cuda.ring_join(*args, mine["gidx"].clone(), threshold=0.75, bits=bits,
+                                 **edge_own)
     edge_p = ring.join_plain(*args, mine["gidx"].clone(), 0.75, bits)
     assert torch.equal(edge_k, edge_p), "the edge join differs"
     assert int((edge_k[:e] == e).sum()) >= 1, "no row joined the U32_MAX run's head at 0.75"
+
+    # phase 1's global branch: a long run of one valid key K (shard 1's
+    # band-0 key at sorted position Bl / 2 + 512, inside a tile) on
+    # RING_RUN_ROWS rows of shard 0's band 0, and shard 1's rows 0-63 at K,
+    # agreeing with the run's rows on 96/128: the tile across K spans the
+    # run, which passes the shared buffer
+    run = dict(shards[0])
+    rkeys = run["keys"].clone()
+    K = int(shards[1]["sk"][0, min(Bl - 1, Bl // 2 + 512)] >> bits)
+    rkeys[:RING_RUN_ROWS, 0] = K
+    rsk, rorder = ring._presort_bands(rkeys, run["valid"])
+    lkeys2, lsig2 = shards[1]["keys"].clone(), shards[1]["sig"].clone()
+    lkeys2[:e, 0] = K
+    l2 = lsig2.view(torch.int32)
+    l2[:e] = run["sig"].view(torch.int32)[:e]
+    l2[:e, :32] ^= 1
+    lsk2, lorder2 = ring._presort_bands(lkeys2, shards[1]["valid"])
+    run_paths = ring_tile_paths(lsk2, rsk, bits)
+    assert run_paths["global"] >= 1, f"no tile took the global branch: {run_paths}"
+    run_args = (lkeys2, lsig2, shards[1]["gidx"], rsk, rorder, run["geff"], run["sig"])
+    for thr in (0.75, RING_THRESHOLD):
+        got_k = ring_cuda.ring_join(*run_args, shards[1]["gidx"].clone(), threshold=thr,
+                                    bits=bits, sorted_l=lsk2, order_l=lorder2)
+        got_p = ring.join_plain(*run_args, shards[1]["gidx"].clone(), thr, bits)
+        assert torch.equal(got_k, got_p), f"the long-run join differs at {thr}"
+    run_joined = int((got_k[:e] < shards[1]["gidx"][:e]).sum())
 
     # the kernel's scalar loads (P % 4 != 0, or a signature off 16-byte
     # alignment): the busiest (hop, shard) with its signatures cut to 30
@@ -4951,16 +5176,20 @@ def ring_path(docs: list[bytes], card: str, clock_mhz: float, dev="cuda") -> dic
     busy = max(range(len(work)), key=lambda i: work[i]["verifies"])
     k_l, s_l, g_l, skb, pmb, geb, s_b = join_args(busy % n, busy // n)
     scalar = {
-        "p30": ((k_l, words(s_l, 30, 0), g_l, skb, pmb, geb, words(s_b, 30, 0)), RING_THRESHOLD),
+        "p30": ((k_l, words(s_l, 30, 0), g_l, skb, pmb, geb, words(s_b, 30, 0)), RING_THRESHOLD,
+                own(busy % n)),
         "unaligned": ((k_l, words(s_l, 128, 1), g_l, skb, pmb, geb, words(s_b, 128, 1)),
-                      RING_THRESHOLD),
+                      RING_THRESHOLD, own(busy % n)),
         "edge_unaligned": ((lkeys, words(lsig, 128, 1), mine["gidx"], sk, order, geff,
-                            words(edge["sig"], 128, 1)), 0.75),
+                            words(edge["sig"], 128, 1)), 0.75, edge_own),
+        "run_p30": ((lkeys2, words(lsig2, 30, 0), shards[1]["gidx"], rsk, rorder, run["geff"],
+                     words(run["sig"], 30, 0)), 0.75,
+                    {"sorted_l": lsk2, "order_l": lorder2}),
     }
     scalar_verifies = {}
-    for name, (a, thr) in scalar.items():
+    for name, (a, thr, mine_own) in scalar.items():
         assert a[1].data_ptr() % 16 or a[1].shape[1] % 4, f"{name} takes the vector loads"
-        got_k = ring_cuda.ring_join(*a, a[2].clone(), threshold=thr, bits=bits)
+        got_k = ring_cuda.ring_join(*a, a[2].clone(), threshold=thr, bits=bits, **mine_own)
         got_p = ring.join_plain(*a, a[2].clone(), thr, bits)
         assert torch.equal(got_k, got_p), f"ring_join's scalar path differs: {name}"
         scalar_verifies[name] = ring_join_work(a, thr, bits)["verifies"]
@@ -4972,16 +5201,20 @@ def ring_path(docs: list[bytes], card: str, clock_mhz: float, dev="cuda") -> dic
 
     def joins():
         for i, a in enumerate(every):
-            ring_cuda.ring_join(*a, scratch[i % n], threshold=RING_THRESHOLD, bits=bits)
+            ring_cuda.ring_join(*a, scratch[i % n], threshold=RING_THRESHOLD, bits=bits,
+                                **own(i % n))
 
     def joins_plain():
         for i, a in enumerate(every):
             ring.join_plain(*a, scratch[i % n], RING_THRESHOLD, bits)
 
-    event_ms, step_join_ms = timed(joins, "ring_join_kernel", reps=3, launches=len(every))
+    joins()
+    event_ms = cuda_ms(joins, reps=3)
+    phase_ms = ring_phase_ms(profiler_device_ms(joins, ("ring_",), reps=3))
+    ms = sum(phase_ms.values())
+    step_join_ms = ms * len(every)
     queued_ms = cuda_ms(joins, reps=3, queued=True) / len(every)
     plain_ms = cuda_ms(joins_plain) / len(every)
-    ms = step_join_ms / len(every)
     packed = ring._packed(shards[0]["keys"], shards[0]["order"], bits)
     sort_kernels = {"sort_digits_kernel": 1, "sort_scatter_kernel": lsh_cuda.sort_passes()}
     seen = profiler_device_ms(lambda: lsh_cuda.lsh_sort(packed, bits), tuple(sort_kernels))
@@ -4997,9 +5230,14 @@ def ring_path(docs: list[bytes], card: str, clock_mhz: float, dev="cuda") -> dic
     moved = sum(w["bytes"] for w in work) / len(work)
     ops = sum(w["ops"] for w in work) / len(work)
     ops_ms, bytes_ms = bound_ms(ops, moved, clock_mhz)
+    # the presort's bound: each band's packed keys read once and written once
+    sort_bytes = 2 * packed.numel() * packed.element_size()
+    sort_bound_ms = sort_bytes / HBM_BYTES_PER_S * 1e3
     presort = {"lsh_sort_ms": sort_ms, "torch_sort_ms": torch_sort_ms,
                "presort_plain_ms": presort_plain_ms, "bands": int(packed.shape[0]), "rows": Bl,
-               "lsh_sort_launches": lsh_got["lsh_sort"]}
+               "lsh_sort_launches": lsh_got["lsh_sort"], "bytes": sort_bytes,
+               "bound_ms": sort_bound_ms, "bound_by": "bytes",
+               "share_of_bound": sort_bound_ms / sort_ms}
     record = dict(articles=RING_ARTICLES, block=RING_BLOCK, shards=n, hops=n,
                   threshold=RING_THRESHOLD, step_s=step_s, first_step_s=first_s,
                   articles_per_s=RING_ARTICLES / step_s, launches=got,
@@ -5009,19 +5247,22 @@ def ring_path(docs: list[bytes], card: str, clock_mhz: float, dev="cuda") -> dic
                   verifies_a_launch=sum(w["verifies"] for w in work) / len(work),
                   own_rows_read_a_launch=sum(w["own_rows_read"] for w in work) / len(work),
                   rows_read_a_launch=sum(w["rows_read"] for w in work) / len(work),
-                  scalar_verifies=scalar_verifies,
+                  scalar_verifies=scalar_verifies, tile_paths=tile_paths,
+                  long_run={"rows": RING_RUN_ROWS, **run_paths, "joined": run_joined},
                   step_join_ms=step_join_ms, presort=presort,
                   seconds=time.perf_counter() - t_phase)
     log("ring_path", **record, card=card)
-    log("kernel_timing", name="ring_join", ms=ms, event_ms=event_ms / len(every),
+    log("kernel_timing", name="ring_join", ms=ms, phase_ms=phase_ms,
+        event_ms=event_ms / len(every),
         queued_ms=queued_ms, plain_ms=plain_ms, ops=ops, bytes=moved, ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms,
         share_of_bound=max(ops_ms, bytes_ms) / ms, launches=got["ring_join"], presort=presort,
         card=card)
     return kernel_entry("ring_join", got["ring_join"], ms, plain_ms, ops_ms, bytes_ms,
                         source=RING_SOURCE, replaces=RING_REPLACES,
                         event_ms=event_ms / len(every), queued_ms=queued_ms,
-                        step_join_ms=step_join_ms,
-                        launches_per_step=n * n, presort=presort,
+                        step_join_ms=step_join_ms, phase_ms=phase_ms,
+                        launches_per_step=n * n * ring_cuda.join_launches(),
+                        launches_per_call=ring_cuda.join_launches(), presort=presort,
                         ring_path={k: record[k] for k in ("step_s", "articles_per_s", "dups")})
 
 

@@ -23,7 +23,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "advanced_scrapper_tpu_torch"
 #: the card scripts beside the package: the smoke run and the probes
 SCRIPTS = ("chip_smoke.py", "myers_probe.py", "stream_probe.py", "oph_probe.py", "quality_probe.py",
-           "lsh_probe.py")
+           "lsh_probe.py", "join_probe.py")
 FILES = sorted(
     str(p.relative_to(ROOT)) for p in [*PORT.rglob("*.py"), *(ROOT / s for s in SCRIPTS)]
 )

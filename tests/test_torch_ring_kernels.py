@@ -15,9 +15,14 @@ The kernels run only on the card; here the ring's plain versions in
   every hop of a ring of blocks: candidates repeated across bands, an
   agreement exactly at the bar (96/128 at 0.75) and one word under it,
   candidates after the row, invalid transit rows; and a model of the
-  kernel's warp (a lane a band in rounds of 32, the smallest candidate
-  left verified first, a failed one dropped from every lane, the first
-  that verifies kept) against it, at 16, 40 and 3 bands and P = 128, 36;
+  kernel's two phases (by band: tiles of the local presort's positions,
+  the guessed transit window or the bracket of the tile's bounds staged,
+  else a search in the band; by row: 16 or 32 lanes, the smallest
+  candidate left verified first, a failed one dropped from every lane, the
+  first that verifies kept) against it, at 16, 40, 33 and 3 bands and P =
+  128, 36, 30, at the source's tile sizes and at small ones, and across
+  long runs of equal keys (invalid rows, valid ``U32_MAX`` keys);
+- ``join_probe.py``'s edits of the shipped sources, each found once;
 - ``make_ring_dedup`` as a whole on two meshes at two thresholds, near
   copies around the bars across shards;
 - the wrapper's refusal of a CPU tensor.
@@ -26,6 +31,7 @@ The kernels run only on the card; here the ring's plain versions in
 from __future__ import annotations
 
 import bisect
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -39,9 +45,12 @@ from advanced_scrapper_tpu.parallel import ring as ref_ring
 from advanced_scrapper_tpu.parallel.sharded import shard_batch as ref_shard_batch
 from advanced_scrapper_tpu_torch.core.hashing import make_params
 from advanced_scrapper_tpu_torch.core.mesh import build_mesh
-from advanced_scrapper_tpu_torch.ops import ring_cuda
+from advanced_scrapper_tpu_torch.ops import _build, ring_cuda
 from advanced_scrapper_tpu_torch.ops.lsh import row_bits
 from advanced_scrapper_tpu_torch.parallel import ring
+
+import join_probe
+import myers_probe
 
 U32 = 0xFFFFFFFF
 BIG = (1 << 31) - 1
@@ -228,33 +237,118 @@ def test_join_at_the_bar_exactly():
         assert np.array_equal(got, want) and (got[0] == 0) == joins
 
 
+RING_SRC = (_build.CSRC_DIR / "ring.cu").read_text()
+
+
+def _ring_const(name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", RING_SRC).group(1))
+
+
+#: the kernel's phase-1 sizes, read from its source
+THREADS, ITEMS, SLACK, GUARD = (_ring_const(n) for n in ("kThreads", "kItems", "kSlack",
+                                                          "kGuard"))
+for _formula in ("kTile = kThreads * kItems;", "kSpanMax = 4 * kTile;",
+                 "kSearchLanes = kThreads / 2;"):
+    assert _formula in RING_SRC, _formula
+TILE, SPAN_MAX, SEARCH_LANES = THREADS * ITEMS, 4 * THREADS * ITEMS, THREADS // 2
+
+
+def block_bracket(band, target: int, lanes: int, slack: int) -> tuple[int, int, int]:
+    """``block_bracket``'s walk: while the range is wider than ``slack``,
+    ``lanes`` evenly spaced keys of it, the ones below ``target`` counted,
+    the range cut to the gap after the last of them.  ``(L, R, rounds)``
+    with the first position whose key is >= ``target`` (``len(band)`` if
+    none) in ``[L, R]``."""
+    lo, hi, rounds = 0, len(band), 0
+    while hi - lo > slack:
+        n = hi - lo
+        stride = -(-n // lanes)
+        samples = range(lo, hi, stride)
+        c = sum(1 for s in samples if band[s] < target)
+        if c == 0:
+            hi = lo
+        else:
+            hi = lo + c * stride if c < len(samples) else hi
+            lo = lo + (c - 1) * stride + 1
+        rounds += 1
+    return lo, hi, rounds
+
+
 def _kernel_model(keys_l, sig_l, gidx_l, sorted_keys, perm, gidx_eff, sig_b, rep, threshold,
-                  bits):
-    """``ring_join_kernel``'s warp a row: a lane a band in rounds of 32,
-    a binary search for the run head, the candidates that could lower the
-    best; the smallest left verified first (count / P in float32 against
-    the bar in float32), a failure dropped from every lane holding it, the
-    first success kept."""
-    keys_l, sig_l = keys_l.numpy(), sig_l.view(torch.int32).numpy()
+                  bits, sorted_l, order_l, *, tile=TILE, span_max=SPAN_MAX,
+                  lanes=SEARCH_LANES, slack=SLACK, guard=GUARD):
+    """``ring_join``'s two phases.  Phase 1, a (band, tile of ``tile``
+    local sorted positions): the guessed transit window (the tile's share of
+    the band, ``guard`` positions each side) staged when it fits
+    ``span_max``, kept when its first key is below the tile's first key (or
+    it starts the band) and its last at least the tile's last key (or it
+    ends the band); else brackets of the run heads of the tile's first and
+    last keys by :func:`block_bracket`, the span from the first's low end to
+    the last's high end staged (at most ``span_max`` keys) or, past that,
+    each position searched between them in the band.  The run head's
+    (gidx_eff, transit row) or (int32 max, 0) goes to the table at [the
+    local row's place f in order_l, band], each entry once.
+    Phase 2, a group of 16 lanes an f, for its row order_l[f] (32 above 16
+    bands, bands in rounds of 32): the candidates before the row that could
+    lower its best, the smallest left verified first (count / P in float32
+    against the bar in float32), a failure dropped from every lane holding
+    it, the first success kept.  ``keys_l`` is not read.  Returns ``(rep,
+    verifies, paths)``."""
+    sig_l = sig_l.view(torch.int32).numpy()
     sig_b, perm, g_eff = sig_b.view(torch.int32).numpy(), perm.numpy(), gidx_eff.numpy()
+    sorted_l, order_l = sorted_l.numpy(), order_l.numpy()
     bands = [list(b) for b in sorted_keys.numpy()]
-    (Bl, nb), P, Bt = keys_l.shape, sig_l.shape[1], sorted_keys.shape[1]
+    (nb, Bl), P, Bt = sorted_l.shape, sig_l.shape[1], sorted_keys.shape[1]
     thr, mask = np.float32(threshold), (1 << bits) - 1
+    table = np.zeros((Bl, nb, 2), np.int64)
+    written = np.zeros((Bl, nb), np.int64)
+    paths = {"guessed": 0, "staged": 0, "global": 0, "search_rounds": 0}
+    for b in range(nb):
+        lband, tband = sorted_l[b], bands[b]
+        for j0 in range(0, Bl, tile):
+            n_here = min(tile, Bl - j0)
+            k_first, k_last = int(lband[j0]) >> bits, int(lband[j0 + n_here - 1]) >> bits
+            scale = np.float32(Bt) / np.float32(Bl)
+            s0 = max(int(np.floor(np.float32(j0) * scale)) - guard, 0)
+            s1 = min(int(np.floor(np.float32(j0 + n_here) * scale)) + guard, Bt - 1)
+            span = tband[s0:s1 + 1]
+            staged = (len(span) <= span_max and (s0 == 0 or span[0] < k_first << bits)
+                      and (s1 == Bt - 1 or span[-1] >= k_last << bits))
+            lo = hi = 0
+            if staged:
+                paths["guessed"] += 1
+            else:
+                lo, _h, r0 = block_bracket(tband, k_first << bits, lanes, slack)
+                _l, hi, r1 = block_bracket(tband, k_last << bits, lanes, slack)
+                paths["search_rounds"] = max(paths["search_rounds"], r0, r1)
+                s0, s1 = min(lo, Bt - 1), min(hi, Bt - 1)
+                staged = s1 - s0 + 1 <= span_max
+                span = tband[s0:s1 + 1]
+                paths["staged" if staged else "global"] += 1
+            for j in range(j0, j0 + n_here):
+                v_l = int(lband[j])
+                kl, f = v_l >> bits, v_l & mask
+                if staged:
+                    v = span[min(bisect.bisect_left(span, kl << bits), len(span) - 1)]
+                else:
+                    v = tband[min(bisect.bisect_left(tband, kl << bits, lo, hi), Bt - 1)]
+                e = (BIG, 0)
+                if v >> bits == kl and (v & mask) < Bt:
+                    crow = int(perm[v & mask])
+                    e = (int(g_eff[crow]), crow)
+                table[f, b] = e
+                written[f, b] += 1
+    assert (written == 1).all()
+    group = 16 if nb <= 16 else 32
     out = rep.numpy().copy()
     verifies = 0
-    for r in range(Bl):
+    for f in range(Bl):
+        r = int(order_l[f])
         gl, best = int(gidx_l[r]), BIG
-        for b0 in range(0, nb, 32):
-            cand = {}
-            for b in range(b0, min(nb, b0 + 32)):
-                kl = int(keys_l[r, b])
-                pos = min(bisect.bisect_left(bands[b], kl << bits), Bt - 1)
-                v = bands[b][pos]
-                if v >> bits == kl:
-                    row = int(perm[v & mask])
-                    cg = int(g_eff[row])
-                    if cg < gl and cg < best:
-                        cand[b] = (cg, row)
+        for b0 in range(0, nb, group):
+            cand = {b: (int(table[f, b, 0]), int(table[f, b, 1]))
+                    for b in range(b0, min(nb, b0 + group))
+                    if table[f, b, 0] < gl and table[f, b, 0] < best}
             while cand:
                 m, row = min(cand.values())
                 verifies += 1
@@ -264,27 +358,123 @@ def _kernel_model(keys_l, sig_l, gidx_l, sorted_keys, perm, gidx_eff, sig_b, rep
                     break
                 cand = {b: c for b, c in cand.items() if c[0] != m}
         out[r] = min(out[r], gl if best == BIG else best)
-    return out, verifies
+    return out, verifies, paths
+
+
+def _local_presort(local):
+    keys_l, valid_l = local[0], local[1]
+    return _port_presort(keys_l, valid_l)
+
+
+@pytest.mark.parametrize("lanes", [128, 4, 2])
+@pytest.mark.parametrize("slack", [SLACK, 0])
+def test_block_bracket_holds_the_run_head(lanes, slack):
+    """The bracket holds the first key >= the target and is at most
+    ``slack`` wide (exact at 0), with runs of equal keys, targets below,
+    between and past every key; at 8,192 keys the 128-way walk takes one
+    round to the source's slack and two to the exact position."""
+    rng = np.random.RandomState(lanes + slack)
+    for n in (1, 2, 7, 129, 8192):
+        band = np.sort(rng.choice([3, 5, 5, 5, 9, 1 << 40, (1 << 63) - 1],
+                                  size=n)).tolist()
+        for target in (0, 3, 4, 5, 6, 9, 10, 1 << 40, (1 << 63) - 1):
+            lo, hi, rounds = block_bracket(band, target, lanes, slack)
+            assert lo <= bisect.bisect_left(band, target) <= hi and hi - lo <= slack
+            if lanes == 128 and n == 8192:
+                assert rounds <= (1 if slack == SLACK else 2)
+
+
+_SMALL = {"tile": 8, "span_max": 16, "lanes": 4, "slack": 2, "guard": 3}
 
 
 @pytest.mark.parametrize("nb,P,alphabet,ties", [(16, 128, 6, 0.3), (40, 36, 3, 0.5),
-                                                (3, 128, 2, 1.0)])
-def test_kernel_model_equals_plain(nb, P, alphabet, ties):
-    """More than 32 bands (two rounds), P not a multiple of 4, few distinct
-    keys (every band repeats the same candidates); ``rep`` already below
-    some rows' results."""
+                                                (3, 128, 2, 1.0), (33, 30, 6, 0.3)])
+@pytest.mark.parametrize("sizes", ["source", "small"])
+def test_kernel_model_equals_plain(nb, P, alphabet, ties, sizes):
+    """More than 32 bands (two rounds of a full warp), 3 bands, P not a
+    multiple of 4, few distinct keys (every band repeats the same
+    candidates); ``rep`` already below some rows' results.  At the source's
+    tile and span sizes, and at 8-position tiles with a 16-key span
+    (several tiles a band: the guessed window, the bracket's span and, where
+    ties run long, the global branch)."""
     B = 40
     blocks = _ring_blocks(nb + P, 2, B, nb, P, alphabet=alphabet, ties=ties)
-    total = 0
+    kw = _SMALL if sizes == "small" else {}
+    total, paths = 0, {"guessed": 0, "staged": 0, "global": 0}
     for local, transit in ((blocks[0], blocks[1]), (blocks[1], blocks[0]), (blocks[1], blocks[1])):
         args = _port_args(local, transit)
         rep = args[2].clone()
         rep[::5] = 0
         want = ring.join_plain(*args, rep, 0.75, row_bits(B)).numpy()
-        got, verifies = _kernel_model(*args, rep, 0.75, row_bits(B))
+        got, verifies, p = _kernel_model(*args, rep, 0.75, row_bits(B), *_local_presort(local),
+                                         **kw)
         assert np.array_equal(got, want)
         total += verifies
+        for k in paths:
+            paths[k] += p[k]
     assert total > 0
+    tiles = 3 * nb * (-(-B // (_SMALL["tile"] if sizes == "small" else TILE)))
+    assert sum(paths.values()) == tiles and paths["guessed"] > 0
+    if sizes == "small":  # ties run past the 16-key span: every branch
+        assert paths["staged"] and paths["global"]
+
+
+def test_kernel_model_across_long_runs():
+    """A local tile across long runs of equal transit keys: a valid key
+    ``K`` on 30 transit rows, invalid rows (``U32_MAX``) and valid rows
+    whose key is ``U32_MAX``, in every band; local rows with keys just
+    below, at and just above ``K`` and at ``U32_MAX``, some copies of
+    transit rows.  A tile whose first key is at most ``K`` and whose last
+    is above it spans the whole run, which passes the buffer: the global
+    branch.  Only the run head is a candidate, as in the reference."""
+    rng = np.random.RandomState(77)
+    B, nb, P = 64, 4, 36
+    K = 7 << 20
+    transit = _block(rng, B, nb, P, 0, ties=0.0, invalid=0.0)
+    local = _block(rng, B, nb, P, 1, ties=0.0, invalid=0.0)
+    keys_b, valid_b, sig_b, _ = transit
+    keys_b[:30] = K
+    valid_b[40:50] = False
+    keys_b[40:50] = U32
+    keys_b[50:56] = U32  # valid rows with the key U32_MAX
+    keys_l, valid_l, sig_l, _ = local
+    keys_l[:4] = K - 1
+    keys_l[4:12] = K
+    keys_l[12:16] = K + 1
+    keys_l[24:32] = U32
+    valid_l[60:] = False
+    keys_l[60:] = U32
+    for r, t in ((4, 0), (5, 3), (24, 50), (25, 52)):
+        sig_l[r] = sig_b[t]
+        sig_l[r, :5] ^= 1  # 31 of 36 words agree
+    args = _port_args(local, transit)
+    total_global = 0
+    for kw in ({}, _SMALL, {"tile": 16, "span_max": 20, "lanes": 8, "slack": 0, "guard": 1},
+               {**_SMALL, "guard": 0}):
+        for threshold in (0.7, 0.9):
+            rep = args[2].clone()
+            want = ring.join_plain(*args, rep, threshold, row_bits(B)).numpy()
+            got, _v, paths = _kernel_model(*args, rep, threshold, row_bits(B),
+                                           *_local_presort(local), **kw)
+            assert np.array_equal(got, want)
+            total_global += paths["global"]
+    assert total_global > 0
+    joined = ring.join_plain(*args, args[2].clone(), 0.7, row_bits(B)).numpy()
+    # the run heads, the earliest valid rows of each run: transit rows 0 and 50
+    assert joined[[4, 5, 24, 25]].tolist() == [0, 64 + 5, 50, 64 + 25]
+
+
+@pytest.mark.parametrize("source,name", [
+    (src, name) for src, variants in join_probe.VARIANTS.items()
+    for name in [*variants, *join_probe.CUTS.get(src, {})]])
+def test_probe_variants_patch_the_shipped_source(source, name):
+    """Each of ``join_probe.py``'s edits of ``ring.cu`` and ``exact.cu`` is
+    found exactly once in the shipped source (the probe builds them on the
+    card only)."""
+    src = (_build.CSRC_DIR / f"{source}.cu").read_text()
+    edits = {**join_probe.VARIANTS[source], **join_probe.CUTS.get(source, {})}[name]
+    out = myers_probe.patched(src, edits)
+    assert (out == src) == (name == "shipped")
 
 
 # -- the whole ring -------------------------------------------------------------
@@ -325,4 +515,4 @@ def test_wrapper_raises_on_cpu_tensors():
     one = torch.zeros(2, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensors"):
         ring_cuda.ring_join(keys, sig, one, keys.T.contiguous(), one, one, sig, one.clone(),
-                            threshold=0.7, bits=1)
+                            threshold=0.7, bits=1, sorted_l=keys.T.contiguous(), order_l=one)
